@@ -34,6 +34,8 @@ def grid_world_from_numpy(fields: Mapping[str, Any], device) -> GridWorld:
         origin_idx=np.asarray(fields["origin_idx"]),
         occ=_tensor(fields["occ"], device),
         blocked_cumsum=_tensor(fields["blocked_cumsum"], device).to(torch.int32),
+        cell_ranges=_tensor(fields["cell_ranges"], device).to(torch.int32),
+        n_boxes=int(fields["n_boxes"]),
         radius=float(fields["radius"]),
     )
 

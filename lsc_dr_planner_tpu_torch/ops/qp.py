@@ -282,11 +282,11 @@ def _solver_statics(cfg: QPConfig):
 
 
 @functools.lru_cache(maxsize=None)
-def torch_statics(cfg: QPConfig, device: torch.device):
-    """`_solver_statics` as float32 tensors on `device`, plus N3k [K, MN]
-    (the nullspace basis, k-major), the kernel's LSC operator."""
+def torch_statics(cfg: QPConfig, device: torch.device, dtype: torch.dtype = torch.float32):
+    """`_solver_statics` as `dtype` (float32) tensors on `device`, plus N3k
+    [K, MN] (the nullspace basis, k-major), the kernel's LSC operator."""
     st = _solver_statics(cfg)
-    out = {k: (torch.as_tensor(v, dtype=torch.float32, device=device)
+    out = {k: (torch.as_tensor(v, dtype=dtype, device=device)
                if isinstance(v, np.ndarray) else v) for k, v in st.items()}
     K, MN = st["K"], cfg.M * cfg.N
     out["N3k"] = out["N3"].permute(2, 0, 1).reshape(K, MN).contiguous()
@@ -388,8 +388,10 @@ def admm_loop_plain(cfg: QPConfig, li: LoopInputs, max_iter: int, feas_tol: floa
     loop: exit tests every CHUNK iterations (row-scaled feasibility of
     the actual iterate, relative dual residual, iterate stall, objective
     patience) and a global exit once every agent is done at the same
-    test. Returns (xi, z, y, itdone [B] int32, iters 0-d int32)."""
-    ts = torch_statics(cfg, li.xi.device)
+    test. Runs in the inputs' dtype (float64 gives the reference for
+    float32 rounding). Returns (xi, z, y, itdone [B] int32, iters 0-d
+    int32)."""
+    ts = torch_statics(cfg, li.xi.device, li.xi.dtype)
     normals, Kinv, Pn, qn = li.normals, li.Kinv, li.Pn, li.qn
     ln, un, rho, scale = li.ln, li.un, li.rho, li.scale
     xi, z, y = li.xi, li.z, li.y

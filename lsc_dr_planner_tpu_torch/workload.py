@@ -9,6 +9,10 @@ goals and forest. The evolving step advances the fleet along its own
 solution and walks each waypoint one grid step toward the goal, gated
 as the simulator gates it (goal-LP convergence onto the waypoint and
 comm-range reachability), standing in for the host MAPF layer.
+
+`forest_mission(A, seed)` is the simulator's workload: the repo's
+"scaled forest" configuration (`tools/scale_demo.py::make_forest_mission`,
+same numpy RNG calls in the same order, so the same mission).
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import numpy as np
 import torch
 
 from lsc_dr_planner_tpu_torch.config import GoalMode, Param
+from lsc_dr_planner_tpu_torch.mission import Mission, generate_random_mission
 from lsc_dr_planner_tpu_torch.ops import qp, trajectory
 from lsc_dr_planner_tpu_torch.planner.pipeline import (
     FleetArrays, FleetPlanner, StepInputs,
@@ -51,6 +56,31 @@ def fleet_layout(A: int, seed: int = 0):
             trees.append([c[0], c[1], 0.5, 0.3, 0.3, 1.0])
     boxes = np.asarray(trees) if trees else np.zeros((0, 6))
     return pos2, goal2, boxes, wmin, wmax
+
+
+def forest_mission(n_agents: int, seed: int = 0) -> Mission:
+    """Random starts and goals (1 m apart) in a square of side
+    max(8, 1.55·√A·1.2) m, 2.5 m high, with 0.3 m columns at 0.12
+    trees/m² kept 0.6 m clear of every start and goal."""
+    side = max(8.0, 1.55 * np.sqrt(n_agents) * 1.2)
+    half = side / 2
+    m = generate_random_mission(
+        n_agents, [-half, -half, 0.0], [half, half, 2.5], seed=seed,
+        min_separation=1.0,
+    )
+    rng = np.random.default_rng(seed + 1)
+    s = m.stacked()
+    keep = np.concatenate([s["start"][:, :2], s["goal"][:, :2]], 0)
+    trees = []
+    target = int(0.12 * side * side)
+    for _ in range(target * 4):
+        if len(trees) >= target:
+            break
+        c = rng.uniform(-half + 0.5, half - 0.5, 2)
+        if np.min(np.linalg.norm(keep - c, axis=-1)) > 0.6:
+            trees.append([c[0], c[1], 0.5, 0.3, 0.3, 1.0])
+    m.world_boxes = np.asarray(trees) if trees else np.zeros((0, 6))
+    return m
 
 
 def build_fleet(A: int, seed: int = 0, device="cpu", timing: bool = False):

@@ -3,7 +3,8 @@
 The world is rasterized once on the host (numpy, copied as it is) into
 an occupancy grid, a blocked-lattice mask and its 3-D integral image;
 `GridWorld` holds them as torch tensors on the planner's device, so
-"any blocked lattice point in this box?" is one 8-corner lookup.
+"any blocked lattice point in this box?" is one 8-corner lookup, and
+the rasterized cell range of every box, for point distance queries.
 """
 
 from __future__ import annotations
@@ -24,6 +25,9 @@ class GridWorld:
     occ: torch.Tensor  # [X, Y, Z] bool
     blocked_cumsum: torch.Tensor  # [X+2, Y+2, Z+2] int32 integral image of the
     #                               blocked lattice points [X+1, Y+1, Z+1]
+    cell_ranges: torch.Tensor  # [B, 3, 2] int32: rasterized cell index range
+    #                            per box per axis [lo, hi) in global indices
+    n_boxes: int
     radius: float
 
     def __post_init__(self):
@@ -90,6 +94,31 @@ class GridWorld:
     def box_is_free(self, lo, hi):
         return self.box_blocked_count(lo, hi) == 0
 
+    # ------------------------------------------------------------------
+    def distance_to_obstacle(self, p):
+        """Euclidean distance from point(s) p [..., 3] (float32, on the
+        world's device) to the nearest occupied cell centre, and that
+        centre: (dist [...], centre [..., 3]). With no obstacles, dist =
+        +inf and centre = 0. Float32 as in the JAX package, so a point
+        at a threshold distance falls on the same side in both."""
+        if self.n_boxes == 0:
+            return torch.full(p.shape[:-1], float("inf"), dtype=p.dtype,
+                              device=p.device), torch.zeros_like(p)
+        res = self.resolution
+        # nearest cell of each box to p: the cell containing p, clamped
+        # to the box's cell range
+        pidx = torch.floor(p / res).to(torch.int32)
+        lo = self.cell_ranges[..., 0]  # [B, 3]
+        hi = self.cell_ranges[..., 1] - 1  # inclusive
+        near = torch.minimum(torch.maximum(pidx[..., None, :], lo), hi)  # [..., B, 3]
+        centers = (near.to(p.dtype) + 0.5) * res
+        diff = p[..., None, :] - centers
+        d = torch.sqrt((diff * diff).sum(-1))  # [..., B]
+        best = torch.argmin(d, dim=-1, keepdim=True)
+        dist = torch.take_along_dim(d, best, dim=-1)[..., 0]
+        center = torch.take_along_dim(centers, best[..., None], dim=-2)[..., 0, :]
+        return dist, center
+
 
 # ----------------------------------------------------------------------
 # Construction (host side, numpy; once per mission)
@@ -135,7 +164,8 @@ def build_grid_world(boxes: np.ndarray, world_min, world_max, resolution: float,
                      radius: float, device) -> GridWorld:
     """Rasterize the box list and precompute the static fields on the
     host, then place them on `device`."""
-    occ, _, origin_idx, _ = rasterize_boxes(boxes, world_min, world_max, resolution)
+    occ, cell_ranges, origin_idx, _ = rasterize_boxes(boxes, world_min, world_max,
+                                                      resolution)
     blocked = _blocked_lattice_mask(occ, resolution, radius)
     S = np.zeros(tuple(d + 1 for d in blocked.shape), dtype=np.int32)
     S[1:, 1:, 1:] = np.cumsum(np.cumsum(np.cumsum(blocked, 0), 1), 2)
@@ -146,6 +176,8 @@ def build_grid_world(boxes: np.ndarray, world_min, world_max, resolution: float,
         origin_idx=origin_idx,
         occ=torch.as_tensor(occ, device=device),
         blocked_cumsum=torch.as_tensor(S, device=device),
+        cell_ranges=torch.as_tensor(cell_ranges, device=device),
+        n_boxes=len(np.asarray(boxes).reshape(-1, 6)),
         radius=radius,
     )
 
