@@ -10,13 +10,18 @@ simulator (`sim.simulator.MultiSyncSimulator` with its MAPF waypoint
 layer and audit, and the `sim.run` CLI) flying forest missions:
 
   1. environment: torch/CUDA versions, nvcc, the card's name and power limit;
-  2. build the ADMM kernel (csrc/admm.cu) with nvcc;
+  2. build the ADMM kernel (csrc/admm.cu) with nvcc, printing ptxas's
+     registers and spills;
   3. kernel against the plain loop for one chunk (8 iterations) on the
      main path's QP: iterates within rtol 1e-4 / atol 1e-5, itdone equal
      on ≥ 99.5% of agents; then many chunks on a ragged fleet (A=37) that
      exits before max_iter: the kernel's state is the plain loop's
      iterate after the kernel's exit iteration (rtol 1e-4 / atol 1e-5),
-     and the launches after the exit leave it bitwise unchanged;
+     and the launches after the exit leave it bitwise unchanged; then
+     the loop timings of `admm_timing.py` (A=1024/O=16, the two calls of
+     one A=1024 solve, the A=64/O=16 and A=10/O=9 flight QPs: iterations
+     run, ms, µs per iteration, bound and its share), the agents resident
+     per SM and the fixed cost of one launch;
   4. the full solve (200 iterations + 800 rescue) with the kernel and with
      the plain loop at A=1024 and A=1000: converged share within 0.5
      points, objectives (evaluated in float64) within rtol/atol 2e-2 and
@@ -38,8 +43,8 @@ ratio ≥ 1, no velocity or acceleration excess, finite flight time), use
 the native MAPF backend and launch the ADMM kernel. Each flight is
 checkpointed after the planner steps of CK_STEPS; on the QP of the step
 that follows each checkpoint, the kernel is held against the plain loop
-as in phase 3 (one chunk, and the run to the kernel's own exit, both
-within rtol 1e-4 / atol 1e-5).
+as in phase 3 (every chunk per agent within rtol 1e-4 / atol 1e-5, and
+the run to the kernel's own exit against the float64 plain iterate).
 
 Prints the results of each phase, a JSON line of per-kernel results, the
 card's name and power limit, and as the last line
@@ -59,6 +64,8 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT))
+import admm_timing  # noqa: E402
 A_MAIN = 1024
 WARMUP, TIMED = 3, 20
 # (phase, agents, mission seed, max planner iterations). Seed 0 of the
@@ -80,18 +87,7 @@ def gpu_line():
     return sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
 
 
-def cuda_ms(fn, reps):
-    """Mean device-timeline milliseconds of fn() over reps calls."""
-    fn()
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(reps):
-        fn()
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / reps
+cuda_ms = admm_timing.cuda_ms
 
 
 def run_checkpointed(sim, max_iter, ck_dir):
@@ -137,11 +133,17 @@ def loop_check(qp, cfg, qp_inp, feas_tol, what):
     - The run is bitwise that chain of single chunks (the iterate does
       not depend on the gate state the launches carry), and the launches
       after the exit leave it bitwise unchanged.
-    - The whole run against the plain loop's iterate after as many
-      iterations (feas_tol=0 turns the plain loop's exit off): the
-      chunks' differences add up, so it must be within one tolerance
-      (element by element) per chunk run. Both float32 loops' distances
-      to the float64 plain iterate are reported beside it.
+    - The whole run against the float64 plain loop's iterate after as
+      many iterations (feas_tol=0 turns the plain loop's exit off): the
+      chunks' differences add up, so the kernel must be within one
+      tolerance (element by element) per chunk run of it, beyond the
+      float32 plain loop's own distance to it. Over a long run the
+      float32 plain loop can itself be tens of tolerances from the
+      float64 iterate (a dual of an active row integrates every
+      iteration's rounding), and then no float32 kernel could come
+      within one tolerance per chunk of the float32 plain loop. The
+      kernel's share against the float32 plain iterate is reported
+      beside it.
     Returns the errors."""
     li = qp.prepare(cfg, qp_inp).loop
     got = qp.run_loop(cfg, li, cfg.max_iter, feas_tol)
@@ -174,12 +176,14 @@ def loop_check(qp, cfg, qp_inp, feas_tol, what):
         share_of_tolerance=max(shares(a, b)[0] for a, b in zip(got[:3], want)),
         kernel_vs_f64=max((a.double() - e).abs().max().item() for a, e in zip(got[:3], exact)),
         plain_vs_f64=max((b.double() - e).abs().max().item() for b, e in zip(want[:3], exact)),
+        share_kernel_vs_f64=max(shares(a.double(), e)[0] for a, e in zip(got[:3], exact)),
+        share_plain_vs_f64=max(shares(b.double(), e)[0] for b, e in zip(want[:3], exact)),
         chained_bitwise=chained)
     print(what, json.dumps(rec))
     assert sh["per_agent"] <= 1.0, (what, rec)
     assert chained, f"{what}: the run is not its chain of single chunks"
     assert all(torch.equal(a, b) for a, b in zip(got, again)), "launches after the exit moved"
-    assert rec["share_of_tolerance"] <= stop // 8, (what, rec)
+    assert rec["share_kernel_vs_f64"] <= rec["share_plain_vs_f64"] + stop // 8, (what, rec)
     return rec
 
 
@@ -256,19 +260,9 @@ def step_parity(param, mission, cuda_sim, cks, log_dir):
     return out
 
 
-def evolved_qp(workload, A, dev, steps=3):
-    p, planner, fleet, inp = workload.build_fleet(A, device=dev)
-    step = workload.make_evolve_step(p, planner, fleet)
-    for _ in range(steps):
-        inp, _ = step(inp)
-    d = planner._step_impl(fleet, inp, defer_qp=True)
-    return planner, d.qp_inp
-
-
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script measures the port on a GPU")
-    sys.path.insert(0, str(ROOT))
     from lsc_dr_planner_tpu_torch import workload
     from lsc_dr_planner_tpu_torch.ops import qp, qp_cuda
 
@@ -285,17 +279,14 @@ def main():
 
     # ---- 2. kernel build ---------------------------------------------
     t0 = time.perf_counter()
-    lib = qp_cuda.build(verbose=True)
+    qp_cuda.build(verbose=True)
     build_s = time.perf_counter() - t0
     print(f"build admm.cu: {build_s:.2f} s (nvcc {qp_cuda.build_seconds} s)")
     record["build_s"] = build_s
+    record["ptxas"] = qp_cuda.build_log
 
     # ---- 3. kernel vs plain loop, one chunk ----------------------------
-    planner, qp_inp = evolved_qp(workload, A_MAIN, dev)
-    cfg, feas_tol = planner.qp_cfg, planner.feas_tol
-    ts = qp.torch_statics(cfg, dev)
-    print("smem bytes per block:", lib.admm_smem_bytes(
-        cfg.dim, cfg.n_obs, cfg.M, cfg.N, ts["K"], ts["An_stat"].shape[0]))
+    cfg, qp_inp, feas_tol = admm_timing.bench_qp(workload, A_MAIN, dev)
     li = qp.prepare(cfg, qp_inp).loop
     got = qp.run_loop(cfg, li, 8, feas_tol)
     want = qp.admm_loop_plain(cfg, li, 8, feas_tol)
@@ -313,42 +304,51 @@ def main():
     record["phase3"] = {"max_abs_err": max_abs_err, "itdone_agreement": itd_agree}
 
     # many chunks, global exit before max_iter (A=37: no block multiple)
-    planner37, qp_inp37 = evolved_qp(workload, 37, dev)
-    cfg37 = planner37.qp_cfg
-    rec = loop_check(qp, cfg37, qp_inp37, planner37.feas_tol, "phase3 A=37")
+    cfg37, qp_inp37, tol37 = admm_timing.bench_qp(workload, 37, dev)
+    rec = loop_check(qp, cfg37, qp_inp37, tol37, "phase3 A=37")
     assert rec["kernel_exit"] < cfg37.max_iter, f"A=37 should exit before {cfg37.max_iter}"
     assert rec["share_of_tolerance"] <= 1.0, rec  # the whole run, within one tolerance
     max_abs_err = max(max_abs_err, rec["max_abs_err_chunk"])
     record["phase3"]["A37"] = rec
 
-    # loop-only times at the main path's shapes (A=1024, max_iter=200)
-    ms_kernel = cuda_ms(lambda: qp.run_loop(cfg, li, cfg.max_iter, feas_tol), 5)
+    # loop-only times at the paths' shapes, occupancy, per-launch cost
+    out_dir = ROOT / "chiprun_out"
+    timing = admm_timing.measure(dev, out_dir / "admm_timing")
+    for c in timing["calls"]:
+        print("phase3 timing", json.dumps(c))
+    print("phase3 kernel", json.dumps({k: v for k, v in timing.items() if k != "calls"}))
+    assert timing["blocks_per_sm"] > 0, timing
+    bench = timing["calls"][0]
+    assert bench["call"] == "bench" and bench["A"] == A_MAIN, bench
+    ms_kernel = bench["ms"]
     ms_plain = cuda_ms(lambda: qp.admm_loop_plain(cfg, li, cfg.max_iter, feas_tol), 3)
-    print(f"ADMM loop A={A_MAIN} max_iter={cfg.max_iter}: kernel {ms_kernel:.3f} ms, "
+    print(f"ADMM loop A={A_MAIN} max_iter={cfg.max_iter}: kernel {ms_kernel:.3f} ms "
+          f"({bench['iters']} iterations, bound {bench['bound_ms']:.4f} ms), "
           f"plain {ms_plain:.3f} ms [{gpu}]")
     record["loop_ms"] = {"kernel": ms_kernel, "plain": ms_plain}
+    record["timing"] = timing
 
     # ---- 4. full solve, kernel vs plain --------------------------------
     record["phase4"] = {}
     for A in (A_MAIN, 1000):
         if A != A_MAIN:
-            planner, qp_inp = evolved_qp(workload, A, dev)
-        out = qp.solve(planner.qp_cfg, qp_inp, feas_tol)
-        ref = qp.solve(planner.qp_cfg, qp_inp, feas_tol, plain=True)
+            cfg, qp_inp, feas_tol = admm_timing.bench_qp(workload, A, dev)
+        out = qp.solve(cfg, qp_inp, feas_tol)
+        ref = qp.solve(cfg, qp_inp, feas_tol, plain=True)
         torch.cuda.synchronize()
         ck, cp = out.converged.float().mean().item(), ref.converged.float().mean().item()
         both = out.converged & ref.converged
         # objectives of both solutions evaluated in float64: the float32
         # objective of agents ~20 m from the origin carries ~1e-2 relative
         # cancellation noise even for identical control points
-        pr = qp.prepare(planner.qp_cfg, qp_inp)
-        obj_k = qp.objective(planner.qp_cfg, pr, out.x.double())
-        obj_p = qp.objective(planner.qp_cfg, pr, ref.x.double())
+        pr = qp.prepare(cfg, qp_inp)
+        obj_k = qp.objective(cfg, pr, out.x.double())
+        obj_p = qp.objective(cfg, pr, ref.x.double())
         obj_err = (obj_k - obj_p).abs()[both].max().item()
         obj32_err = (out.objective - ref.objective).abs()[both].max().item()
         dx = (out.x - ref.x).abs()[both].max().item()
-        t_k = cuda_ms(lambda: qp.solve(planner.qp_cfg, qp_inp, feas_tol), 3)
-        t_p = cuda_ms(lambda: qp.solve(planner.qp_cfg, qp_inp, feas_tol, plain=True), 2)
+        t_k = cuda_ms(lambda: qp.solve(cfg, qp_inp, feas_tol), 3)
+        t_p = cuda_ms(lambda: qp.solve(cfg, qp_inp, feas_tol, plain=True), 2)
         print(f"phase4 A={A}: converged kernel {ck:.4f} plain {cp:.4f}; "
               f"max|dobj| {obj_err:.3e} (float32 evaluation: {obj32_err:.3e}), "
               f"max|dx| {dx:.3e}; "
@@ -405,7 +405,6 @@ def main():
     from lsc_dr_planner_tpu_torch.sim import run as sim_run
     from lsc_dr_planner_tpu_torch.sim.simulator import MultiSyncSimulator
 
-    out_dir = ROOT / "chiprun_out"
     work = out_dir / "chip_smoke_sim"
     work.mkdir(parents=True, exist_ok=True)
     for phase, A, seed, max_iter in FLIGHTS:
@@ -479,7 +478,10 @@ def main():
         "source": "lsc_dr_planner_tpu_torch/csrc/admm.cu",
         "replaces": "lsc_dr_planner_tpu/ops/qp_pallas.py:67",
         "launches": launches_all, "max_abs_err": max_abs_err,
-        "ms": ms_kernel, "plain_ms": ms_plain,
+        "ms": ms_kernel, "plain_ms": ms_plain, "iters": bench["iters"],
+        "bound_ms": bench["bound_ms"], "bound_by": bench["bound_by"],
+        "bound_share": bench["bound_ms"] / ms_kernel,
+        "library_ms": None,  # no single PyTorch call computes the loop
     }]
     record["kernels"] = kernels
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))

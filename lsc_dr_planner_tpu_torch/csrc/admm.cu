@@ -4,35 +4,70 @@
 // (pl.pallas_call at :151, body _admm_block_kernel at :218-363). It computes
 // what the plain loop lsc_dr_planner_tpu_torch/ops/qp.py::admm_loop_plain (the
 // port of the XLA loop ops/qp.py::admm_loop) computes, with the same exit gates
-// every 8 iterations: row-scaled feasibility, the relative dual residual (which
-// the Pallas kernel dropped), iterate stall and objective patience, and the
-// same global exit: the loop stops after the first test at which every agent
-// is done. (A per-agent exit was measured on the H100 at A=1024: 0.7% of the
-// agents then stopped up to 3% above the plain loop's objective and 0.18 m away
-// in control points, outside the solver's comparison contract.)
+// every `chunk` iterations: row-scaled feasibility, the relative dual residual
+// (which the Pallas kernel dropped), iterate stall and objective patience, and
+// the same global exit: the loop stops after the first test at which every
+// agent is done. (A per-agent exit was measured on the H100 at A=1024: 0.7% of
+// the agents then stopped up to 3% above the plain loop's objective and 0.18 m
+// away in control points, outside the solver's comparison contract.)
 //
-// Layout: one launch per chunk of iterations, queued back to back with no
-// host synchronisation; one thread block per agent, no padding of the fleet.
-// During a chunk the agent's working set lives in dynamic shared memory: Kinv
-// [dk, dk], the normals [O, M, dim], and z, y, A·xi, l, u, rho and the row
-// cotangent over all R rows, plus a few dk-vectors (about 56 KB in the 2-D
-// bench configuration: dim=2, K=28, dk=56, O=16, M=10, N=6, R=960+410).
-// Between chunks xi, z, y, A·xi and the gate state go to global memory (about
-// 70 MB of traffic per chunk at A=1024, some 25 µs). Each block counts itself
-// into done_count[ck] when its agent passes the test. When that count is the
-// whole fleet, every later launch returns at once and carries the count on to
-// its own done_count entry, so the stop holds to the end of the queue and xi,
-// z and y stay the iterate of the exit test. The shared operators An_stat
-// [R_stat, dk] (92 KB) and N3k [K, M*N] are read from global memory by every
-// block, so they stay in L2.
+// Launches: one per chunk, queued back to back with no host synchronisation.
+// Each block counts itself into done_count[ck] when its agent passes the test;
+// when that count is the whole fleet, every later launch returns at once and
+// carries the count on, so the stop holds to the end of the queue and xi, z and
+// y stay the iterate of the exit test. Between chunks xi, z, y, A·xi and the
+// gate state go to global memory.
 //
-// What bounds it on the H100: one iteration of one agent is about 60 k fp32
-// FMAs, most of them the two passes over An_stat (A·xi and Aᵀw for the static
-// rows) and the LSC products. The 56 KB of shared memory and the register cap
-// of __launch_bounds__(256, 4) let four agents share an SM; the serial dot
-// products (56-long for the Kinv matvec, ~100-long partial sums over An_stat)
-// set the latency of an iteration. Tensor cores, TMA and agent-batched GEMM
-// tiles are not used.
+// The operator. The static rows (velocity, acceleration, comm pairs, bounds)
+// are difference stencils over the control points VU_d = N_null·ξ_d, at most 3
+// nonzeros a row (ops/qp.py::stencil_table, built from _solver_statics's A_dim
+// in its flat row order). The kernel forms VU once per iteration (needed for
+// the LSC rows anyway) and reads each static row off it, and the adjoint adds
+// the transposed stencils (compressed columns) into the same control-point
+// accumulator as the LSC adjoint, so one N3k product brings both back to
+// ξ-space. The dense An_stat [R_stat, dk] (92 KB in the bench shape, read twice
+// per iteration from L2 by every block in the first version) is gone: an
+// iteration of one agent is about 15 k FMAs instead of 60 k, plus ~15 flops
+// per row of elementwise update. A static row is a difference of nearby
+// points, so the float32 rounding of the points would cost it what the dense
+// product does not lose: the points are summed in double and kept as a float
+// pair (hi + lo), and each static row is taken in double from them. Measured
+// on the H100 on one A=37 batch, this halved the kernel's per-chunk distance
+// to the float64 plain loop, to the float32 plain loop's own, for 4.5% of time.
+//
+// The layout. One agent per block of 128 threads (256 when dim·K > 56), so
+// that the small batches of the simulator and the rescue (10–64 agents) run
+// each iteration at one agent's latency, and the A=1024 bench batch runs in
+// one wave when 8 blocks fit on an SM. Per agent, shared memory holds z, y,
+// A·xi and l over all R rows, u over the static rows only (the LSC rows are
+// one-sided: prepare() makes their u +1e20 less an offset, which no iterate
+// reaches, so the kernel takes it as +inf), the normals and a few dk- and
+// dim·MN-vectors: 27.9 KB in the bench shape (dim=2, K=28, dk=56, O=16, M=10,
+// N=6, R=960+410). ρ is one constant for the LSC rows and a shared row vector
+// for the static rows (the per-family ρ of _solver_statics, as the Pallas
+// kernel takes it); `scale` is read at the exit tests only. Kinv lives in
+// registers: thread 2i+h holds half h of row i (28 floats). The shared
+// operators (N3k and its transpose, the stencil tables: 18 KB) are read
+// through L1 by every block; copying them into each block's shared memory would
+// cost the residency they buy.
+//
+// Every phase spreads over the block: the Kinv matvec and the N3k adjoint
+// product run two threads per output, combined with one warp shuffle; the
+// control points and the adjoint accumulator one thread per (d, mn); rows one
+// thread each; the exit test's eight reductions are one warp-shuffle pass and
+// one shared step. No float atomics: an agent's result does not depend on
+// which agents share the launch (the rescue compacts different agents each
+// step).
+//
+// What bounds it on the H100: the float32 FMA pipes and the latency of five
+// barriers per iteration; the bound of the work itself (about 54 k flops per
+// agent-iteration, 67 TFLOP/s) is some 0.16 ms for 200 iterations at A=1024.
+// No tensor cores: the loop must stay float32 (TF32 breaks the ADMM algebra as
+// bf16 did on the TPU, and the exit gates are already noisier than their
+// thresholds in float32), its products are per-agent matvecs, and the FMA
+// bound is far below the kernel's time. A 3xTF32 or agent-batched mma.sync
+// path, and a persistent kernel that keeps the state in shared memory across
+// chunks, are later work (ROADMAP Queue 2).
 //
 // Built by ops/qp_cuda.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
@@ -43,40 +78,47 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // power of two: the block reductions halve it
+constexpr int kWidth = 3;     // stencil nonzeros per static row (qp.STENCIL_WIDTH)
+constexpr int kMaxWarps = 8;  // RED holds 8 values per warp
+constexpr unsigned kFull = 0xffffffffu;
 
 struct Args {
-  const float* normals;  // [A, O, M, dim]
-  const float* Kinv;     // [A, dk, dk]
-  const float* Pn;       // [A, K, K]
-  const float* qn;       // [A, dk]
-  const float* ln;       // [A, R]
-  const float* un;       // [A, R]
-  const float* rho;      // [A, R]
-  const float* scale;    // [A, R]
-  const float* xi0;      // [A, dk]
-  const float* z0;       // [A, R]
-  const float* y0;       // [A, R]
-  const float* An;       // [R_stat, dk] shared static-row operator
-  const float* N3k;      // [K, M*N] shared nullspace basis
-  float* xi;            // [A, dk] state between launches, then the result
-  float* z;             // [A, R]
-  float* y;             // [A, R]
-  float* ax;            // [A, R] A·xi of the iterate (scratch)
-  float* best;          // [A] best feasible objective (scratch)
-  int* noimp;           // [A] chunks without improvement (scratch)
-  int* itdone;          // [A] iteration count at the first exit test passed
-  int* done_count;      // [n_chunks] agents done at each test, zeroed
+  const float* normals;   // [A, O, M, dim]
+  const float* Kinv;      // [A, dk, dk]
+  const float* Pn;        // [A, K, K]
+  const float* qn;        // [A, dk]
+  const float* ln;        // [A, R]
+  const float* un;        // [A, R] (read for the static rows only)
+  const float* scale;     // [A, R] (read at the exit tests only)
+  const float* xi0;       // [A, dk]
+  const float* z0;        // [A, R]
+  const float* y0;        // [A, R]
+  const int* st_idx;      // [R_stat, kWidth] flat control point d*MN + mn
+  const float* st_coef;   // [R_stat, kWidth]
+  const float* rho_stat;  // [R_stat]
+  const int* adj_ptr;     // [dim*MN + 1] compressed columns of the stencils
+  const int* adj_row;     // [nnz] static row
+  const float* adj_coef;  // [nnz]
+  const float* N3k;       // [K, MN] shared nullspace basis
+  const float* N3kT;      // [MN, K] its transpose
+  float* xi;              // [A, dk] state between launches, then the result
+  float* z;               // [A, R]
+  float* y;               // [A, R]
+  float* ax;              // [A, R] A·xi of the iterate (scratch)
+  float* best;            // [A] best feasible objective (scratch)
+  int* noimp;             // [A] chunks without improvement (scratch)
+  int* itdone;            // [A] iteration count at the first exit test passed
+  int* done_count;        // [n_chunks] agents done at each test, zeroed
   int dim, O, M, N, K, R_stat, max_iter, chunk;  // chunk: iterations between tests
-  float stop_tol, sigma, alpha, one_minus_alpha, eps_abs;
+  float rho_lsc, stop_tol, sigma, alpha, one_minus_alpha, eps_abs;
 };
 
 struct Dims {
-  int dim, O, M, N, K, MN, dk, R_lsc, R_stat, R, P;
+  int dim, O, M, N, K, MN, dk, R_lsc, R_stat, R, half, mhalf;
 };
 
 __host__ __device__ inline Dims make_dims(int dim, int O, int M, int N, int K,
-                                          int R_stat, int threads) {
+                                          int R_stat) {
   Dims D;
   D.dim = dim;
   D.O = O;
@@ -88,13 +130,16 @@ __host__ __device__ inline Dims make_dims(int dim, int O, int M, int N, int K,
   D.R_lsc = O * M * N;
   D.R_stat = R_stat;
   D.R = D.R_lsc + R_stat;
-  D.P = threads / D.dk > 0 ? threads / D.dk : 1;  // partial sums per column
+  D.half = (D.dk + 1) / 2;   // Kinv columns per thread
+  D.mhalf = (D.MN + 1) / 2;  // control points per thread in the adjoint product
   return D;
 }
 
-__host__ __device__ inline size_t smem_floats(const Dims& D, int threads) {
-  return (size_t)D.dk * D.dk + (size_t)D.O * D.M * D.dim + 7 * (size_t)D.R +
-         5 * (size_t)D.dk + (size_t)D.dim * D.MN + (size_t)D.P * D.dk + threads;
+// Z, Y, AX, LN [R]; UN [R_stat]; NRM [O*M*dim]; XI, XIP, QN, RHS, XT [dk];
+// VU, VL, VA [dim*MN]; RED [8 per warp]; MOF [MN] (int).
+__host__ __device__ inline size_t smem_floats(const Dims& D) {
+  return 4 * (size_t)D.R + D.R_stat + (size_t)D.O * D.M * D.dim + 5 * (size_t)D.dk +
+         3 * (size_t)D.dim * D.MN + 8 * kMaxWarps + D.MN;
 }
 
 __host__ __device__ inline int admm_n_chunks(int max_iter, int chunk) {
@@ -102,239 +147,285 @@ __host__ __device__ inline int admm_n_chunks(int max_iter, int chunk) {
   return n > 1 ? n : 1;
 }
 
-__device__ float block_max(float v, float* red) {
-  const int t = threadIdx.x;
-  red[t] = v;
-  __syncthreads();
-  for (int s = blockDim.x / 2; s > 0; s >>= 1) {
-    if (t < s) red[t] = fmaxf(red[t], red[t + s]);
-    __syncthreads();
-  }
-  const float r = red[0];
-  __syncthreads();
-  return r;
+// One row's relaxation, projection onto [lo, hi] and dual update, in the
+// plain loop's order of operations.
+__device__ __forceinline__ void update_row(float zt, float& z, float& y, float& ax,
+                                           float lo, float hi, float rho, float alpha,
+                                           float beta) {
+  const float zmix = alpha * zt + beta * z;
+  const float zn = fminf(fmaxf(zmix + y / rho, lo), hi);
+  y = y + rho * (zmix - zn);
+  z = zn;
+  ax = alpha * zt + beta * ax;
 }
 
-__device__ float block_sum(float v, float* red) {
-  const int t = threadIdx.x;
-  red[t] = v;
-  __syncthreads();
-  for (int s = blockDim.x / 2; s > 0; s >>= 1) {
-    if (t < s) red[t] += red[t + s];
-    __syncthreads();
-  }
-  const float r = red[0];
-  __syncthreads();
-  return r;
-}
-
-// out[dk] = Aᵀw for the row cotangent w[R]: the LSC rows through the per-dim
-// normals and N3k, the static rows through An (column sums split into P
-// partial sums). VU [dim*MN] and G [P*dk] are scratch.
-__device__ void adjoint(const Dims& D, const float* w, const float* NRM,
-                        const float* __restrict__ N3k, const float* __restrict__ An,
-                        float* VU, float* G, float* out) {
-  const int t = threadIdx.x, nt = blockDim.x;
-  for (int i = t; i < D.dim * D.MN; i += nt) {
-    const int d = i / D.MN, mn = i % D.MN, m = mn / D.N;
-    float acc = 0.f;
-    for (int o = 0; o < D.O; ++o)
-      acc += NRM[(o * D.M + m) * D.dim + d] * w[o * D.MN + mn];
-    VU[i] = acc;
-  }
-  for (int i = t; i < D.P * D.dk; i += nt) {
-    const int p = i / D.dk, j = i % D.dk;
-    float acc = 0.f;
-    for (int r = p; r < D.R_stat; r += D.P) acc += w[D.R_lsc + r] * An[r * D.dk + j];
-    G[i] = acc;
-  }
-  __syncthreads();
-  for (int j = t; j < D.dk; j += nt) {
-    const int d = j / D.K, k = j % D.K;
-    float acc = 0.f;
-    for (int mn = 0; mn < D.MN; ++mn) acc += N3k[k * D.MN + mn] * VU[d * D.MN + mn];
-    for (int p = 0; p < D.P; ++p) acc += G[p * D.dk + j];
-    out[j] = acc;
-  }
-  __syncthreads();
-}
-
-// VU[d*MN + mn] = Σ_k x[d*K + k]·N3k[k, mn]: the control points of x per dim.
-__device__ void control_points(const Dims& D, const float* x,
-                               const float* __restrict__ N3k, float* VU) {
-  for (int i = threadIdx.x; i < D.dim * D.MN; i += blockDim.x) {
-    const int d = i / D.MN, mn = i % D.MN;
-    float acc = 0.f;
-    for (int k = 0; k < D.K; ++k) acc += x[d * D.K + k] * N3k[k * D.MN + mn];
-    VU[i] = acc;
+// f(r, o, mn) for this thread's LSC rows r = o*MN + mn (no division per row).
+template <int NT, class F>
+__device__ __forceinline__ void for_lsc_rows(const Dims& D, F f) {
+  int o = threadIdx.x / D.MN, mn = threadIdx.x % D.MN;
+  const int step_o = NT / D.MN, step_mn = NT % D.MN;
+  for (int r = threadIdx.x; r < D.R_lsc; r += NT) {
+    f(r, o, mn);
+    o += step_o;
+    mn += step_mn;
+    if (mn >= D.MN) {
+      mn -= D.MN;
+      ++o;
+    }
   }
 }
 
-// Row r of A·x, given VU = control_points(x).
-__device__ float row_value(const Dims& D, int r, const float* NRM, const float* VU,
-                           const float* __restrict__ An, const float* x) {
+// Row value of LSC row (o, mn) and of static row s, given the control points.
+__device__ __forceinline__ float lsc_row(const Dims& D, const float* NRM, const int* MOF,
+                                         const float* VU, int o, int mn) {
+  const float* nr = NRM + (o * D.M + MOF[mn]) * D.dim;
   float acc = 0.f;
-  if (r < D.R_lsc) {
-    const int o = r / D.MN, mn = r % D.MN, m = mn / D.N;
-    for (int d = 0; d < D.dim; ++d)
-      acc += NRM[(o * D.M + m) * D.dim + d] * VU[d * D.MN + mn];
-  } else {
-    const float* arow = An + (size_t)(r - D.R_lsc) * D.dk;
-    for (int j = 0; j < D.dk; ++j) acc += arow[j] * x[j];
-  }
+  for (int d = 0; d < D.dim; ++d) acc += nr[d] * VU[d * D.MN + mn];
   return acc;
 }
 
-// One chunk (a.chunk iterations and the exit tests) of every agent's loop.
-// Launch ck starts from the inputs (ck = 0) or from the state the previous
-// launch stored. When every agent was done at the previous test (the plain
-// loop's global exit) it returns at once and marks its own test done for the
-// whole fleet too, so that no later launch resumes the loop.
-__global__ void __launch_bounds__(kThreads, 4) admm_chunk_kernel(Args a, int ck) {
+// The static row from the double-float control points VU + VL: a difference
+// of nearby points, so it is taken in double and rounded once.
+__device__ __forceinline__ float stat_row(const Args& a, const float* VU, const float* VL,
+                                          int s) {
+  double acc = 0.;
+#pragma unroll
+  for (int e = 0; e < kWidth; ++e) {
+    const int i = __ldg(a.st_idx + s * kWidth + e);
+    acc += (double)__ldg(a.st_coef + s * kWidth + e) * ((double)VU[i] + (double)VL[i]);
+  }
+  return (float)acc;
+}
+
+// VU[d*MN + mn] + VL[d*MN + mn] = Σ_k x[d*K + k]·N3k[k, mn], the control
+// points of x per dim, summed in double and kept as a float pair: the static
+// rows are differences of neighbouring points, and the float32 rounding of the
+// points alone would cost them twice the float32 plain loop's error.
+template <int NT>
+__device__ void control_points(const Dims& D, const float* x,
+                               const float* __restrict__ N3k, float* VU, float* VL) {
+  for (int i = threadIdx.x; i < D.dim * D.MN; i += NT) {
+    const int d = i / D.MN, mn = i - d * D.MN;
+    const float* xd = x + d * D.K;
+    double acc = 0.;
+    for (int k = 0; k < D.K; ++k) acc += (double)xd[k] * (double)__ldg(N3k + k * D.MN + mn);
+    VU[i] = (float)acc;
+    VL[i] = (float)(acc - (double)VU[i]);
+  }
+}
+
+// Aᵀw for the row cotangent w = ρz − y (DUAL: w = y). The LSC rows through
+// the normals and the static rows through the transposed stencils go into one
+// control-point accumulator VA [dim*MN]; one N3k product then gives ξ-space.
+// Returns output ki (= threadIdx.x / 2) on both threads of the pair, 0 beyond
+// dk.
+template <int NT, bool DUAL>
+__device__ float adjoint(const Dims& D, const Args& a, const float* Z, const float* Y,
+                         const float* NRM, const int* MOF, float* VA, int ki, int kh) {
+  const float* Zs = Z + D.R_lsc;
+  const float* Ys = Y + D.R_lsc;
+  for (int i = threadIdx.x; i < D.dim * D.MN; i += NT) {
+    const int d = i / D.MN, mn = i - d * D.MN, m = MOF[mn];
+    float acc = 0.f;
+    for (int o = 0; o < D.O; ++o) {
+      const int r = o * D.MN + mn;
+      const float w = DUAL ? Y[r] : a.rho_lsc * Z[r] - Y[r];
+      acc += NRM[(o * D.M + m) * D.dim + d] * w;
+    }
+    const int e1 = __ldg(a.adj_ptr + i + 1);
+    for (int e = __ldg(a.adj_ptr + i); e < e1; ++e) {
+      const int s = __ldg(a.adj_row + e);
+      const float w = DUAL ? Ys[s] : __ldg(a.rho_stat + s) * Zs[s] - Ys[s];
+      acc += __ldg(a.adj_coef + e) * w;
+    }
+    VA[i] = acc;
+  }
+  __syncthreads();
+  float acc = 0.f;
+  if (ki < D.dk) {
+    const int d = ki / D.K, k = ki - d * D.K;
+    const int lo = kh * D.mhalf, hi = min(D.MN, lo + D.mhalf);
+    const float* va = VA + d * D.MN;
+    for (int mn = lo; mn < hi; ++mn) acc += __ldg(a.N3kT + mn * D.K + k) * va[mn];
+  }
+  return acc + __shfl_xor_sync(kFull, acc, 1);
+}
+
+// v[0..6] maxima, v[7] a sum, over the block; every thread gets the result,
+// combined in a fixed order (deterministic).
+template <int NT>
+__device__ void block_reduce8(float (&v)[8], float* RED) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+    for (int i = 0; i < 7; ++i) v[i] = fmaxf(v[i], __shfl_xor_sync(kFull, v[i], off));
+    v[7] += __shfl_xor_sync(kFull, v[7], off);
+  }
+  const int w = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) RED[w * 8 + i] = v[i];
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float r = RED[i];
+    for (int u = 1; u < NT / 32; ++u) r = i < 7 ? fmaxf(r, RED[u * 8 + i]) : r + RED[u * 8 + i];
+    v[i] = r;
+  }
+}
+
+// One chunk (a.chunk iterations and the exit tests) of every agent's loop,
+// one agent per block of NT threads; KC >= ceil(dk / 2) Kinv columns per
+// thread in registers. Launch ck starts from the inputs (ck = 0) or from the
+// state the previous launch stored. When every agent was done at the previous
+// test (the plain loop's global exit) it returns at once and marks its own
+// test done for the whole fleet too, so that no later launch resumes the loop.
+template <int NT, int KC>
+__global__ void __launch_bounds__(NT, NT == 128 ? 8 : 2) admm_chunk_kernel(Args a, int ck) {
   if (ck > 0 && a.done_count[ck - 1] == (int)gridDim.x) {
     if (threadIdx.x == 0 && blockIdx.x == 0) a.done_count[ck] = gridDim.x;
     return;
   }
   extern __shared__ float smem[];
-  const Dims D = make_dims(a.dim, a.O, a.M, a.N, a.K, a.R_stat, blockDim.x);
-  const int t = threadIdx.x, nt = blockDim.x;
+  const Dims D = make_dims(a.dim, a.O, a.M, a.N, a.K, a.R_stat);
+  const int t = threadIdx.x;
   const size_t agent = blockIdx.x;
 
-  float* KINV = smem;
-  float* NRM = KINV + D.dk * D.dk;
-  float* Z = NRM + D.O * D.M * D.dim;
+  float* Z = smem;
   float* Y = Z + D.R;
   float* AX = Y + D.R;
   float* LN = AX + D.R;
-  float* UN = LN + D.R;
-  float* RHO = UN + D.R;
-  float* W = RHO + D.R;
-  float* XI = W + D.R;
+  float* UN = LN + D.R;  // static rows only
+  float* NRM = UN + D.R_stat;
+  float* XI = NRM + D.O * D.M * D.dim;
   float* XIP = XI + D.dk;
-  float* RHS = XIP + D.dk;
+  float* QN = XIP + D.dk;
+  float* RHS = QN + D.dk;
   float* XT = RHS + D.dk;
-  float* QN = XT + D.dk;
-  float* VU = QN + D.dk;
-  float* G = VU + D.dim * D.MN;
-  float* RED = G + D.P * D.dk;
+  float* VU = XT + D.dk;
+  float* VL = VU + D.dim * D.MN;
+  float* VA = VL + D.dim * D.MN;
+  float* RED = VA + D.dim * D.MN;
+  int* MOF = reinterpret_cast<int*>(RED + 8 * kMaxWarps);
 
-  const float* kinv_g = a.Kinv + agent * D.dk * D.dk;
-  const float* nrm_g = a.normals + agent * D.O * D.M * D.dim;
-  const float* pn_g = a.Pn + agent * D.K * D.K;
-  const float* scale_g = a.scale + agent * D.R;
   const float* xi_in = ck == 0 ? a.xi0 : a.xi;
   const float* z_in = ck == 0 ? a.z0 : a.z;
   const float* y_in = ck == 0 ? a.y0 : a.y;
-  for (int i = t; i < D.dk * D.dk; i += nt) KINV[i] = kinv_g[i];
-  for (int i = t; i < D.O * D.M * D.dim; i += nt) NRM[i] = nrm_g[i];
-  for (int r = t; r < D.R; r += nt) {
+  const float* nrm_g = a.normals + agent * D.O * D.M * D.dim;
+  for (int i = t; i < D.O * D.M * D.dim; i += NT) NRM[i] = nrm_g[i];
+  for (int r = t; r < D.R; r += NT) {
     const size_t g = agent * D.R + r;
     Z[r] = z_in[g];
     Y[r] = y_in[g];
     LN[r] = a.ln[g];
-    UN[r] = a.un[g];
-    RHO[r] = a.rho[g];
     if (ck > 0) AX[r] = a.ax[g];
+    if (r >= D.R_lsc) UN[r - D.R_lsc] = a.un[g];
   }
-  for (int j = t; j < D.dk; j += nt) {
+  for (int j = t; j < D.dk; j += NT) {
     XI[j] = xi_in[agent * D.dk + j];
     XIP[j] = XI[j];
     QN[j] = a.qn[agent * D.dk + j];
   }
+  for (int mn = t; mn < D.MN; mn += NT) MOF[mn] = mn / D.N;
+  // Kinv row ki, columns [c0, c0 + ncols), in registers
+  const int ki = t >> 1, kh = t & 1, c0 = kh * D.half;
+  const int ncols = ki < D.dk ? min(D.half, D.dk - c0) : 0;
+  const float* kinv_g = a.Kinv + agent * D.dk * D.dk + (size_t)ki * D.dk + c0;
+  float kin[KC];
+#pragma unroll
+  for (int c = 0; c < KC; ++c) kin[c] = c < ncols ? kinv_g[c] : 0.f;
   __syncthreads();
   if (ck == 0) {  // A·xi of the warm start
-    control_points(D, XI, a.N3k, VU);
+    control_points<NT>(D, XI, a.N3k, VU, VL);
     __syncthreads();
-    for (int r = t; r < D.R; r += nt) AX[r] = row_value(D, r, NRM, VU, a.An, XI);
+    for_lsc_rows<NT>(D, [&](int r, int o, int mn) { AX[r] = lsc_row(D, NRM, MOF, VU, o, mn); });
+    for (int s = t; s < D.R_stat; s += NT) AX[D.R_lsc + s] = stat_row(a, VU, VL, s);
     __syncthreads();
   }
 
   const float alpha = a.alpha, beta = a.one_minus_alpha;
-  for (int s = 0; s < a.chunk; ++s) {
+  for (int it = 0; it < a.chunk; ++it) {
     // rhs = σξ − q + Aᵀ(ρz − y)
-    for (int r = t; r < D.R; r += nt) W[r] = RHO[r] * Z[r] - Y[r];
-    __syncthreads();
-    adjoint(D, W, NRM, a.N3k, a.An, VU, G, RHS);
-    for (int j = t; j < D.dk; j += nt) RHS[j] = (a.sigma * XI[j] - QN[j]) + RHS[j];
+    const float g = adjoint<NT, false>(D, a, Z, Y, NRM, MOF, VA, ki, kh);
+    if (kh == 0 && ki < D.dk) RHS[ki] = (a.sigma * XI[ki] - QN[ki]) + g;
     __syncthreads();
     // ξ̃ = Kinv·rhs
-    for (int i = t; i < D.dk; i += nt) {
-      float acc = 0.f;
-      for (int j = 0; j < D.dk; ++j) acc += KINV[i * D.dk + j] * RHS[j];
-      XT[i] = acc;
-    }
+    float acc = 0.f;
+#pragma unroll
+    for (int c = 0; c < KC; ++c)
+      if (c < ncols) acc += kin[c] * RHS[c0 + c];
+    acc += __shfl_xor_sync(kFull, acc, 1);
+    if (kh == 0 && ki < D.dk) XT[ki] = acc;
     __syncthreads();
-    control_points(D, XT, a.N3k, VU);
-    for (int j = t; j < D.dk; j += nt) XI[j] = alpha * XT[j] + beta * XI[j];
+    // control points of ξ̃; ξ ← αξ̃ + (1 − α)ξ
+    control_points<NT>(D, XT, a.N3k, VU, VL);
+    for (int j = t; j < D.dk; j += NT) XI[j] = alpha * XT[j] + beta * XI[j];
     __syncthreads();
     // z̃ = A·ξ̃, over-relaxation, projection onto [l, u], dual update
-    for (int r = t; r < D.R; r += nt) {
-      const float zt = row_value(D, r, NRM, VU, a.An, XT);
-      const float zmix = alpha * zt + beta * Z[r];
-      const float zn = fminf(fmaxf(zmix + Y[r] / RHO[r], LN[r]), UN[r]);
-      Y[r] = Y[r] + RHO[r] * (zmix - zn);
-      Z[r] = zn;
-      AX[r] = alpha * zt + beta * AX[r];
+    for_lsc_rows<NT>(D, [&](int r, int o, int mn) {
+      update_row(lsc_row(D, NRM, MOF, VU, o, mn), Z[r], Y[r], AX[r], LN[r], INFINITY,
+                 a.rho_lsc, alpha, beta);
+    });
+    for (int s = t; s < D.R_stat; s += NT) {
+      const int r = D.R_lsc + s;
+      update_row(stat_row(a, VU, VL, s), Z[r], Y[r], AX[r], LN[r], UN[s], __ldg(a.rho_stat + s),
+                 alpha, beta);
     }
     __syncthreads();
   }
 
   // ---- exit tests on the actual iterate ----
-  float v = 0.f;
-  for (int r = t; r < D.R; r += nt) {
-    const float ax = AX[r];
-    const float vr = fmaxf(fmaxf(LN[r] - ax, ax - UN[r]), 0.f);
-    v = fmaxf(v, vr / scale_g[r]);
+  const float* scale_g = a.scale + agent * D.R;
+  float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int r = t; r < D.R; r += NT) {
+    const float axr = AX[r];
+    const float hi = r < D.R_lsc ? INFINITY : UN[r - D.R_lsc];
+    const float vr = fmaxf(fmaxf(LN[r] - axr, axr - hi), 0.f);
+    v[0] = fmaxf(v[0], vr / scale_g[r]);
   }
-  const bool feas = block_max(v, RED) < a.stop_tol;
-
-  adjoint(D, Y, NRM, a.N3k, a.An, VU, G, RHS);  // Aᵀy
-  for (int j = t; j < D.dk; j += nt) {           // P·ξ
-    const int d = j / D.K, k = j % D.K;
+  const float aty_k = adjoint<NT, true>(D, a, Z, Y, NRM, MOF, VA, ki, kh);  // Aᵀy
+  if (kh == 0 && ki < D.dk) RHS[ki] = aty_k;
+  const float* pn_g = a.Pn + agent * D.K * D.K;
+  for (int j = t; j < D.dk; j += NT) {  // P·ξ
+    const int d = j / D.K, k = j - d * D.K;
     float acc = 0.f;
     for (int l = 0; l < D.K; ++l) acc += pn_g[k * D.K + l] * XI[d * D.K + l];
     XT[j] = acc;
   }
   __syncthreads();
-  float rd = 0.f, pxm = 0.f, atym = 0.f, qnm = 0.f, dxi = 0.f, xim = 0.f, obj = 0.f;
-  for (int j = t; j < D.dk; j += nt) {
+  for (int j = t; j < D.dk; j += NT) {
     const float px = XT[j], aty = RHS[j], q = QN[j], x = XI[j];
-    rd = fmaxf(rd, fabsf(px + q + aty));
-    pxm = fmaxf(pxm, fabsf(px));
-    atym = fmaxf(atym, fabsf(aty));
-    qnm = fmaxf(qnm, fabsf(q));
-    dxi = fmaxf(dxi, fabsf(x - XIP[j]));
-    xim = fmaxf(xim, fabsf(x));
-    obj += (0.5f * px + q) * x;
+    v[1] = fmaxf(v[1], fabsf(px + q + aty));  // dual residual
+    v[2] = fmaxf(v[2], fabsf(px));
+    v[3] = fmaxf(v[3], fabsf(aty));
+    v[4] = fmaxf(v[4], fabsf(q));
+    v[5] = fmaxf(v[5], fabsf(x - XIP[j]));  // iterate change over the chunk
+    v[6] = fmaxf(v[6], fabsf(x));
+    v[7] += (0.5f * px + q) * x;  // objective
   }
-  rd = block_max(rd, RED);
-  pxm = block_max(pxm, RED);
-  atym = block_max(atym, RED);
-  qnm = block_max(qnm, RED);
-  dxi = block_max(dxi, RED);
-  xim = block_max(xim, RED);
-  obj = block_sum(obj, RED);
+  block_reduce8<NT>(v, RED);
+  const bool feas = v[0] < a.stop_tol;
+  const float rd = v[1], dmag = fmaxf(v[2], fmaxf(v[3], v[4]));
+  const float dxi = v[5], xim = v[6], obj = v[7];
 
-  float best = ck == 0 ? INFINITY : a.best[agent];
-  int noimp = ck == 0 ? 0 : a.noimp[agent];
-  int itdone = ck == 0 ? a.max_iter : a.itdone[agent];
-  const float dmag = fmaxf(pxm, fmaxf(atym, qnm));
-  const bool opt = rd < a.eps_abs + 1e-3f * dmag;
-  const bool stalled = dxi < 1e-4f * fmaxf(1.f, xim);
-  const bool improved = obj < best - 2e-4f * fmaxf(1.f, fabsf(obj));
-  if (feas && improved) best = obj;
-  noimp = (feas && !improved) ? noimp + 1 : 0;
-  const bool done = feas && (opt || stalled || noimp >= 2);
-  if (done && itdone == a.max_iter) itdone = (ck + 1) * a.chunk;
-
-  for (int j = t; j < D.dk; j += nt) a.xi[agent * D.dk + j] = XI[j];
-  for (int r = t; r < D.R; r += nt) {
+  for (int j = t; j < D.dk; j += NT) a.xi[agent * D.dk + j] = XI[j];
+  for (int r = t; r < D.R; r += NT) {
     const size_t g = agent * D.R + r;
     a.z[g] = Z[r];
     a.y[g] = Y[r];
     a.ax[g] = AX[r];
   }
   if (t == 0) {
+    float best = ck == 0 ? INFINITY : a.best[agent];
+    int noimp = ck == 0 ? 0 : a.noimp[agent];
+    int itdone = ck == 0 ? a.max_iter : a.itdone[agent];
+    const bool opt = rd < a.eps_abs + 1e-3f * dmag;
+    const bool stalled = dxi < 1e-4f * fmaxf(1.f, xim);
+    const bool improved = obj < best - 2e-4f * fmaxf(1.f, fabsf(obj));
+    if (feas && improved) best = obj;
+    noimp = (feas && !improved) ? noimp + 1 : 0;
+    const bool done = feas && (opt || stalled || noimp >= 2);
+    if (done && itdone == a.max_iter) itdone = (ck + 1) * a.chunk;
     a.best[agent] = best;
     a.noimp[agent] = noimp;
     a.itdone[agent] = itdone;
@@ -342,42 +433,92 @@ __global__ void __launch_bounds__(kThreads, 4) admm_chunk_kernel(Args a, int ck)
   }
 }
 
-}  // namespace
+// The two builds: 128 threads and 28 Kinv columns each for dk <= 56 (the
+// 2-D configurations), 256 threads and 48 columns for dk <= 96 (3-D).
+constexpr int kMaxDk = 96;
 
-// Queues the whole loop on `stream`: one launch per chunk of `chunk` iterations,
-// one block per agent.
-// Returns the CUDA error code (0 on success). No synchronisation.
-extern "C" int admm_launch(const float* normals, const float* Kinv, const float* Pn,
-                           const float* qn, const float* ln, const float* un,
-                           const float* rho, const float* scale, const float* xi0,
-                           const float* z0, const float* y0, const float* An,
-                           const float* N3k, float* xi, float* z, float* y, float* ax,
-                           float* best, int* noimp, int* itdone, int* done_count, int A,
-                           int dim, int O, int M, int N, int K, int R_stat, int max_iter,
-                           int chunk, float stop_tol, float sigma, float alpha,
-                           float one_minus_alpha, float eps_abs, void* stream) {
-  Args a{normals, Kinv, Pn,   qn,     ln,   un,    rho,    scale,      xi0,
-         z0,      y0,   An,   N3k,    xi,   z,     y,      ax,         best,
-         noimp,   itdone, done_count, dim, O, M, N, K, R_stat, max_iter,
-         chunk,   stop_tol, sigma, alpha, one_minus_alpha, eps_abs};
-  const Dims D = make_dims(dim, O, M, N, K, R_stat, kThreads);
-  const size_t smem = sizeof(float) * smem_floats(D, kThreads);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        admm_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int n_chunks = admm_n_chunks(max_iter, chunk);
+template <int NT, int KC>
+cudaError_t prepare_kernel(size_t smem) {
+  const auto kern = admm_chunk_kernel<NT, KC>;
+  cudaError_t err = cudaSuccess;
+  if (smem > 48 * 1024)
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  return err;
+}
+
+template <int NT, int KC>
+int launch_all(const Args& a, int A, size_t smem, cudaStream_t stream) {
+  cudaError_t err = prepare_kernel<NT, KC>(smem);
+  if (err != cudaSuccess) return (int)err;
+  const int n_chunks = admm_n_chunks(a.max_iter, a.chunk);
   for (int ck = 0; ck < n_chunks; ++ck) {
-    admm_chunk_kernel<<<A, kThreads, smem, (cudaStream_t)stream>>>(a, ck);
-    const cudaError_t err = cudaGetLastError();
+    admm_chunk_kernel<NT, KC><<<A, NT, smem, stream>>>(a, ck);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   return 0;
 }
 
+template <int NT, int KC>
+int blocks_per_sm(size_t smem) {
+  cudaError_t err = prepare_kernel<NT, KC>(smem);
+  int n = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, admm_chunk_kernel<NT, KC>, NT, smem);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
+}  // namespace
+
+// Threads per block for dk = dim*K, or 0 if the kernel does not take it.
+extern "C" int admm_threads(int dk) { return dk <= 56 ? 128 : dk <= kMaxDk ? 256 : 0; }
+
+// Queues the whole loop on `stream`: one launch per chunk of `chunk` iterations,
+// one block per agent.
+// Returns the CUDA error code (0 on success, -1 for a dk the kernel does not
+// take). No synchronisation.
+extern "C" int admm_launch(const float* normals, const float* Kinv, const float* Pn,
+                           const float* qn, const float* ln, const float* un,
+                           const float* scale, const float* xi0, const float* z0,
+                           const float* y0, const int* st_idx, const float* st_coef,
+                           const float* rho_stat, const int* adj_ptr, const int* adj_row,
+                           const float* adj_coef, const float* N3k, const float* N3kT,
+                           float* xi, float* z, float* y, float* ax, float* best, int* noimp,
+                           int* itdone, int* done_count, int A, int dim, int O, int M, int N,
+                           int K, int R_stat, int max_iter, int chunk, float rho_lsc,
+                           float stop_tol, float sigma, float alpha, float one_minus_alpha,
+                           float eps_abs, void* stream) {
+  Args a{normals, Kinv,    Pn,       qn,      ln,      un,   scale,      xi0,
+         z0,      y0,      st_idx,   st_coef, rho_stat, adj_ptr, adj_row, adj_coef,
+         N3k,     N3kT,    xi,       z,       y,       ax,   best,       noimp,
+         itdone,  done_count, dim,   O,       M,       N,    K,          R_stat,
+         max_iter, chunk,  rho_lsc,  stop_tol, sigma,  alpha, one_minus_alpha, eps_abs};
+  const Dims D = make_dims(dim, O, M, N, K, R_stat);
+  const size_t smem = sizeof(float) * smem_floats(D);
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (admm_threads(D.dk)) {
+    case 128: return launch_all<128, 28>(a, A, smem, st);
+    case 256: return launch_all<256, 48>(a, A, smem, st);
+    default: return -1;
+  }
+}
+
 // Dynamic shared memory one block needs, in bytes (for reports and checks).
 extern "C" long long admm_smem_bytes(int dim, int O, int M, int N, int K, int R_stat) {
-  const Dims D = make_dims(dim, O, M, N, K, R_stat, kThreads);
-  return (long long)(sizeof(float) * smem_floats(D, kThreads));
+  return (long long)(sizeof(float) * smem_floats(make_dims(dim, O, M, N, K, R_stat)));
+}
+
+// Resident blocks (agents) per SM for this shape, from
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor; negative: minus the CUDA error.
+extern "C" int admm_blocks_per_sm(int dim, int O, int M, int N, int K, int R_stat) {
+  const Dims D = make_dims(dim, O, M, N, K, R_stat);
+  const size_t smem = sizeof(float) * smem_floats(D);
+  switch (admm_threads(D.dk)) {
+    case 128: return blocks_per_sm<128, 28>(smem);
+    case 256: return blocks_per_sm<256, 48>(smem);
+    default: return -1;
+  }
 }

@@ -262,34 +262,80 @@ def _solver_statics(cfg: QPConfig):
     G_stat = (An_sd.T * rho_dim) @ An_sd
 
     # static families in reduced coords, family-major with dim-major rows
-    # inside each family (constraint_bounds's flat layout)
+    # inside each family (constraint_bounds's flat layout): flat static
+    # row s is row stat_rr[s] of A_dim in dimension stat_d[s]
     n_vel, n_acc = M * n, M * (n - 1)
     n_comm = M * (M + 1) // 2 if cfg.use_comm else 0
-    eye_d = np.eye(cfg.dim)
-    blocks = []
+    stat_d, stat_rr = [], []
     off = 0
     for cnt in (n_vel, n_acc, n_comm, MN):
-        if cnt:
-            blocks.append(np.kron(eye_d, An_sd[off:off + cnt]))
+        for d in range(cfg.dim):
+            stat_d.extend([d] * cnt)
+            stat_rr.extend(range(off, off + cnt))
         off += cnt
-    An_stat = np.vstack(blocks)  # [dim·R_dim, dim·K]
+    stat_d, stat_rr = np.asarray(stat_d), np.asarray(stat_rr)
+    An_stat = np.zeros((len(stat_rr), cfg.dim * K))  # [dim·R_dim, dim·K]
+    for s, (d, rr) in enumerate(zip(stat_d, stat_rr)):
+        An_stat[s, d * K:(d + 1) * K] = An_sd[rr]
 
     return {
         "N_null": N_null, "X_pin": X_pin, "N3": N3, "K": K,
         "P_base": P_base, "Pn_base": Pn_base, "T_term": T_term,
         "T_lsc": T_lsc, "G_stat": G_stat, "An_stat": An_stat,
+        "A_dim": A_dim, "rho_dim": rho_dim, "stat_d": stat_d, "stat_rr": stat_rr,
     }
 
 
 @functools.lru_cache(maxsize=None)
+def stencil_table(cfg: QPConfig):
+    """The static rows as stencils over the control points, the CUDA
+    kernel's operator in place of An_stat, in numpy, from
+    `_solver_statics`'s own A_dim and flat row order.
+
+    Static row s = Σ_e coef[s, e]·VU[idx[s, e]], where VU [dim·MN] holds
+    the control points N_null·ξ_d of every dimension d (flat d·MN + mn);
+    unused slots have coefficient 0. `rho` [R_stat] is each row's ρ. The
+    adjoint reads the transpose as compressed columns: the rows of
+    control point c are adj_row[adj_ptr[c]:adj_ptr[c+1]], with
+    coefficients adj_coef."""
+    st = _solver_statics(cfg)
+    A_dim, MN = st["A_dim"], cfg.M * cfg.N
+    stat_d, stat_rr = st["stat_d"], st["stat_rr"]
+    R_stat = len(stat_rr)
+    idx = np.zeros((R_stat, qp_cuda.STENCIL_WIDTH), np.int32)
+    coef = np.zeros((R_stat, qp_cuda.STENCIL_WIDTH))
+    cols = [[] for _ in range(cfg.dim * MN)]
+    for s, (d, rr) in enumerate(zip(stat_d, stat_rr)):
+        nz = np.flatnonzero(A_dim[rr])
+        if len(nz) > qp_cuda.STENCIL_WIDTH:
+            raise ValueError(f"A_dim row {rr} has {len(nz)} nonzeros > {qp_cuda.STENCIL_WIDTH}")
+        idx[s, :len(nz)] = d * MN + nz
+        coef[s, :len(nz)] = A_dim[rr, nz]
+        for c in nz:
+            cols[d * MN + c].append((s, A_dim[rr, c]))
+    adj_ptr = np.cumsum([0] + [len(c) for c in cols]).astype(np.int32)
+    adj_row = np.asarray([s for c in cols for s, _ in c], np.int32)
+    adj_coef = np.asarray([v for c in cols for _, v in c])
+    return {"idx": idx, "coef": coef, "rho": st["rho_dim"][stat_rr],
+            "adj_ptr": adj_ptr, "adj_row": adj_row, "adj_coef": adj_coef}
+
+
+@functools.lru_cache(maxsize=None)
 def torch_statics(cfg: QPConfig, device: torch.device, dtype: torch.dtype = torch.float32):
-    """`_solver_statics` as `dtype` (float32) tensors on `device`, plus N3k
-    [K, MN] (the nullspace basis, k-major), the kernel's LSC operator."""
+    """`_solver_statics` as `dtype` (float32) tensors on `device` (its
+    integer arrays stay numpy), plus the CUDA kernel's operators: N3k
+    [K, MN] (the nullspace basis, k-major) and its transpose N3kT, and
+    `stencil`, `stencil_table` as tensors."""
     st = _solver_statics(cfg)
     out = {k: (torch.as_tensor(v, dtype=dtype, device=device)
-               if isinstance(v, np.ndarray) else v) for k, v in st.items()}
+               if isinstance(v, np.ndarray) and v.dtype.kind == "f" else v)
+           for k, v in st.items()}
     K, MN = st["K"], cfg.M * cfg.N
     out["N3k"] = out["N3"].permute(2, 0, 1).reshape(K, MN).contiguous()
+    out["N3kT"] = out["N3k"].T.contiguous()
+    out["stencil"] = {k: torch.as_tensor(v, dtype=torch.int32 if v.dtype.kind == "i" else dtype,
+                                         device=device)
+                      for k, v in stencil_table(cfg).items()}
     out["comm_pairs"] = tuple(torch.as_tensor(v, device=device) for v in _comm_pairs(cfg.M))
     out["P_base64"] = torch.as_tensor(st["P_base"], dtype=torch.float64, device=device)
     return out
@@ -455,7 +501,8 @@ def run_loop(cfg: QPConfig, li: LoopInputs, max_iter: int, feas_tol: float,
     if dev.type != "cuda":
         raise ValueError(f"no ADMM loop for device {dev}")
     ts = torch_statics(cfg, dev)
-    return qp_cuda.admm_loop_cuda(li, ts["An_stat"], ts["N3k"], max_iter, CHUNK,
+    return qp_cuda.admm_loop_cuda(li, ts["stencil"], ts["N3k"], ts["N3kT"],
+                                  cfg.rho * _RHO_SCALE["lsc"], max_iter, CHUNK,
                                   0.6 * feas_tol, cfg.sigma, cfg.alpha, cfg.eps_abs)
 
 

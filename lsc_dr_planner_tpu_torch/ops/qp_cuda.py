@@ -2,9 +2,11 @@
 
 The kernel replaces the TPU kernel
 lsc_dr_planner_tpu/ops/qp_pallas.py::admm_loop_pallas: one launch per
-chunk of 8 ADMM iterations, one thread block per agent with the agent's
-working set in shared memory, and the plain loop's exit tests and global
-exit (see the note at the top of the source for what bounds it).
+chunk of 8 ADMM iterations, one agent per block of 128 threads (256 for
+3-D shapes) with the agent's rows in shared memory and its Kinv in
+registers, the static rows as stencils over the control points, and the
+plain loop's exit tests and global exit (see the note at the top of the
+source for what bounds it).
 
 The source is compiled at first use by `nvcc` for sm_90a into a shared
 library with a plain C entry point under `build/` at the checkout root,
@@ -31,8 +33,11 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
+STENCIL_WIDTH = 3  # nonzeros per static row at most (the acceleration stencil)
+
 launches = 0  # kernel launches (one per chunk) since the last reset
 build_seconds = None  # wall time of the last nvcc run in this process
+build_log = ""  # nvcc's output of that run (with -Xptxas -v: registers, spills)
 _lib = None
 
 
@@ -49,7 +54,7 @@ def nvcc_path() -> str:
 
 def build(verbose: bool = False) -> ctypes.CDLL:
     """Compile (if needed) and load the kernel library."""
-    global _lib, build_seconds
+    global _lib, build_seconds, build_log
     if _lib is not None:
         return _lib
     src = SOURCE.read_bytes()
@@ -64,24 +69,37 @@ def build(verbose: bool = False) -> ctypes.CDLL:
         build_seconds = time.perf_counter() - t0
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+        build_log = res.stdout + res.stderr
         if verbose:
-            print(res.stdout + res.stderr)
+            print(build_log)
         tmp.replace(lib_path)
     lib = ctypes.CDLL(str(lib_path))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.admm_launch.argtypes = [P] * 21 + [I] * 9 + [F] * 5 + [P]
+    lib.admm_launch.argtypes = [P] * 26 + [I] * 9 + [F] * 6 + [P]
     lib.admm_launch.restype = I
     lib.admm_smem_bytes.argtypes = [I] * 6
     lib.admm_smem_bytes.restype = ctypes.c_longlong
+    lib.admm_blocks_per_sm.argtypes = [I] * 6
+    lib.admm_blocks_per_sm.restype = I
+    lib.admm_threads.argtypes = [I]
+    lib.admm_threads.restype = I
     _lib = lib
     return lib
 
 
-def admm_loop_cuda(li, An_stat, N3k, max_iter: int, chunk: int, stop_tol: float,
-                   sigma: float, alpha: float, eps_abs: float):
+def admm_loop_cuda(li, stencil, N3k, N3kT, rho_lsc: float, max_iter: int, chunk: int,
+                   stop_tol: float, sigma: float, alpha: float, eps_abs: float):
     """Queue the kernel on the current stream, one launch per chunk of
-    `chunk` iterations (no synchronisation). `li` is a qp.LoopInputs,
-    `An_stat` [R_stat, dim*K] and `N3k` [K, M*N] the shared operators.
+    `chunk` iterations (no synchronisation). `li` is a qp.LoopInputs;
+    `stencil` the static rows as `qp.stencil_table` tensors (idx, coef,
+    rho, adj_ptr, adj_row, adj_coef), `N3k` [K, M*N] and `N3kT` its
+    transpose, shared by the fleet.
+
+    ρ is the solver's per-family ρ: `rho_lsc` for every LSC row and
+    stencil["rho"] for the static rows, which is what `qp.prepare` puts
+    in li.rho (li.rho itself is not read). The LSC rows are one-sided:
+    their u (prepare: +1e20 less an offset) is taken as +inf.
+
     Returns what the plain loop returns: (xi, z, y, itdone, iters), where
     itdone is the iteration count of each agent's first passed exit test
     (max_iter if none) and iters the iterations run before the global
@@ -94,31 +112,39 @@ def admm_loop_cuda(li, An_stat, N3k, max_iter: int, chunk: int, stop_tol: float,
         raise ValueError(f"chunk must be positive, got {chunk}")
     A, O, M, dim = li.normals.shape
     K, MN = N3k.shape
-    R_stat, dk = An_stat.shape
     N = MN // M
-    if MN != M * N or dk != dim * K:
-        raise ValueError(f"An_stat {tuple(An_stat.shape)} / N3k {tuple(N3k.shape)} "
-                         f"do not fit normals {tuple(li.normals.shape)}")
-    R = O * MN + R_stat
+    dk = dim * K
+    R = li.ln.shape[-1]
+    R_stat = R - O * MN
+    nnz = stencil["adj_row"].shape[0]
+    if MN != M * N:
+        raise ValueError(f"N3k {tuple(N3k.shape)} does not fit normals {tuple(li.normals.shape)}")
     expect = {
         "normals": (A, O, M, dim), "Kinv": (A, dk, dk), "Pn": (A, K, K),
-        "qn": (A, dim, K), "ln": (A, R), "un": (A, R), "rho": (A, R),
-        "scale": (A, R), "xi": (A, dim, K), "z": (A, R), "y": (A, R),
+        "qn": (A, dim, K), "ln": (A, R), "un": (A, R), "scale": (A, R),
+        "xi": (A, dim, K), "z": (A, R), "y": (A, R),
     }
-    tensors = {name: getattr(li, name) for name in expect}
-    tensors.update(An_stat=An_stat, N3k=N3k)
-    expect.update(An_stat=(R_stat, dk), N3k=(K, MN))
-    for name, t in tensors.items():
-        if t.device != dev or t.dtype != torch.float32:
-            raise ValueError(f"{name}: need float32 on {dev}, got {t.dtype} on {t.device}")
+    tensors = {name: (getattr(li, name), torch.float32) for name in expect}
+    expect.update(N3k=(K, MN), N3kT=(MN, K), idx=(R_stat, STENCIL_WIDTH),
+                  coef=(R_stat, STENCIL_WIDTH), rho=(R_stat,), adj_ptr=(dim * MN + 1,),
+                  adj_row=(nnz,), adj_coef=(nnz,))
+    tensors.update(N3k=(N3k, torch.float32), N3kT=(N3kT, torch.float32))
+    tensors.update({k: (v, torch.int32 if k in ("idx", "adj_ptr", "adj_row") else torch.float32)
+                    for k, v in stencil.items()})
+    for name, (t, dtype) in tensors.items():
+        if t.device != dev or t.dtype != dtype:
+            raise ValueError(f"{name}: need {dtype} on {dev}, got {t.dtype} on {t.device}")
         if tuple(t.shape) != expect[name]:
-            raise ValueError(f"{name}: shape {tuple(t.shape)} != {expect[name]}")
+            raise ValueError(f"{name}: shape {tuple(t.shape)} != {expect[name]} "
+                             f"(R_stat = {R_stat} static rows)")
         if not t.is_contiguous():
             raise ValueError(f"{name}: not contiguous")
     if A < 1:
         raise ValueError("empty batch")
 
     lib = build()
+    if lib.admm_threads(dk) == 0:
+        raise ValueError(f"the kernel does not take dim*K = {dk} (Kinv rows in registers)")
     n_chunks = max(1, -(-max_iter // chunk))
     xi = torch.empty_like(li.xi)
     z = torch.empty_like(li.z)
@@ -128,6 +154,7 @@ def admm_loop_cuda(li, An_stat, N3k, max_iter: int, chunk: int, stop_tol: float,
     noimp = torch.empty(A, dtype=torch.int32, device=dev)
     itdone = torch.empty(A, dtype=torch.int32, device=dev)
     done_count = torch.zeros(n_chunks, dtype=torch.int32, device=dev)
+    st = stencil
     # the scratch tensors may be freed while the launches are in flight:
     # the caching allocator only reuses their memory for later work on
     # this stream, which runs after them
@@ -135,12 +162,14 @@ def admm_loop_cuda(li, An_stat, N3k, max_iter: int, chunk: int, stop_tol: float,
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.admm_launch(
             li.normals.data_ptr(), li.Kinv.data_ptr(), li.Pn.data_ptr(), li.qn.data_ptr(),
-            li.ln.data_ptr(), li.un.data_ptr(), li.rho.data_ptr(), li.scale.data_ptr(),
-            li.xi.data_ptr(), li.z.data_ptr(), li.y.data_ptr(), An_stat.data_ptr(),
-            N3k.data_ptr(), xi.data_ptr(), z.data_ptr(), y.data_ptr(), ax.data_ptr(),
+            li.ln.data_ptr(), li.un.data_ptr(), li.scale.data_ptr(), li.xi.data_ptr(),
+            li.z.data_ptr(), li.y.data_ptr(), st["idx"].data_ptr(), st["coef"].data_ptr(),
+            st["rho"].data_ptr(), st["adj_ptr"].data_ptr(), st["adj_row"].data_ptr(),
+            st["adj_coef"].data_ptr(), N3k.data_ptr(), N3kT.data_ptr(),
+            xi.data_ptr(), z.data_ptr(), y.data_ptr(), ax.data_ptr(),
             best.data_ptr(), noimp.data_ptr(), itdone.data_ptr(), done_count.data_ptr(),
             A, dim, O, M, N, K, R_stat, max_iter, chunk,
-            stop_tol, sigma, alpha, 1 - alpha, eps_abs, stream)
+            rho_lsc, stop_tol, sigma, alpha, 1 - alpha, eps_abs, stream)
     if rc != 0:
         raise RuntimeError(f"admm_launch failed: CUDA error {rc}")
     launches += n_chunks

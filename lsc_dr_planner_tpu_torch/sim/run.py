@@ -5,7 +5,8 @@ test_all_* launch files (reference: src/multi_sync_simulator_node.cpp,
 launch/simulation.launch, launch/test_all_forest.launch).
 
 Port of lsc_dr_planner_tpu/sim/run.py: `--device {cpu,cuda}` replaces
-`--platform`, and `--device cuda` without a CUDA device raises.
+`--platform`. The default is `--device cuda`, which raises without a
+CUDA device; `--device cpu` runs the plain torch paths.
 
     python -m lsc_dr_planner_tpu_torch.sim.run --device cuda \
         --mission m.json --world w.csv
@@ -20,6 +21,7 @@ import os
 import numpy as np
 
 from lsc_dr_planner_tpu_torch.config import GoalMode, MAPFMode, Param, PlannerMode
+from lsc_dr_planner_tpu_torch.device import DEFAULT as DEFAULT_DEVICE
 from lsc_dr_planner_tpu_torch.mission import Mission, enumerate_mission_set_natural
 from lsc_dr_planner_tpu_torch.sim.simulator import MultiSyncSimulator
 
@@ -45,7 +47,7 @@ def build_param(args) -> Param:
 
 def run_one(mission_file, world_file, param, log_dir, seed, verbose,
             checkpoint=None, checkpoint_every=0, resume=None,
-            frame_every=0, device="cpu"):
+            frame_every=0, device=DEFAULT_DEVICE):
     mission = Mission.load(
         mission_file,
         world_file=world_file if param.world_use_octomap else None,
@@ -106,9 +108,10 @@ def main(argv=None):
     ap.add_argument("--log-dir", default="log")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--verbose", action="store_true")
-    ap.add_argument("--device", default="cpu", choices=["cpu", "cuda"],
-                    help="where the planning step runs (cuda: the ADMM "
-                         "loop as the CUDA kernel; raises without a GPU)")
+    ap.add_argument("--device", default=DEFAULT_DEVICE, choices=["cpu", "cuda"],
+                    help="where the planning step runs (default cuda: the "
+                         "ADMM loop as the CUDA kernel, raises without a "
+                         "GPU; cpu: the plain torch paths)")
     args = ap.parse_args(argv)
 
     param = build_param(args)

@@ -13,9 +13,9 @@ waypoint layer run host-side (sequential, tiny); everything else is the
 single fused pipeline step for the whole fleet.
 
 Port of lsc_dr_planner_tpu/sim/simulator.py: the host code is the same
-numpy; only the device touchpoints are torch. The device is an explicit
-argument (`device="cpu"` runs the plain torch paths, `device="cuda"` the
-ADMM loop as the CUDA kernel). Local sensing, the priority-based goal
+numpy; only the device touchpoints are torch. The device is an argument:
+"cuda", the default, runs the ADMM loop as the CUDA kernel, and "cpu"
+the plain torch paths. Local sensing, the priority-based goal
 mode and debug frames are not ported yet and raise NotImplementedError
 naming their ROADMAP item.
 """
@@ -31,6 +31,8 @@ import numpy as np
 import torch
 
 from lsc_dr_planner_tpu_torch.config import GoalMode, MAPFMode, Param
+from lsc_dr_planner_tpu_torch.device import DEFAULT as DEFAULT_DEVICE
+from lsc_dr_planner_tpu_torch.device import resolve as resolve_device
 from lsc_dr_planner_tpu_torch.mapf import native as pibtmod
 from lsc_dr_planner_tpu_torch.mapf.grid import build_coarse_grid
 from lsc_dr_planner_tpu_torch.mission import Mission
@@ -50,13 +52,6 @@ from lsc_dr_planner_tpu_torch.utils.timing import (
 )
 from lsc_dr_planner_tpu_torch.world.grid import build_grid_world
 from lsc_dr_planner_tpu_torch.world.obstacles import ObstacleGenerator
-
-
-def _resolve_device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' requested, but torch sees no CUDA device")
-    return dev
 
 
 def _on_device(x, device: torch.device, dtype=None) -> torch.Tensor:
@@ -118,15 +113,15 @@ class MultiSyncSimulator:
     def __init__(self, param: Param, mission: Mission, log_dir: str = "log",
                  seed: int = 0, save_result: Optional[bool] = None,
                  share_static_from: "Optional[MultiSyncSimulator]" = None,
-                 device="cpu"):
+                 device=DEFAULT_DEVICE):
         """`share_static_from`: reuse another simulator's immutable
         preprocessed state (rasterized world, coarse MAPF grids, fleet
         planner) instead of rebuilding it — the Monte-Carlo scenario
         axis spawns S replicas over ONE world. Only per-scenario mutable
         state is fresh; the device is the base's.
 
-        `device`: where the planning step runs ("cpu" or "cuda"); "cuda"
-        without a CUDA device raises."""
+        `device`: where the planning step runs, the card by default
+        ("cuda", which raises without a CUDA device) or "cpu"."""
         self.param = param
         self.mission = mission
         self.log_dir = log_dir
@@ -154,7 +149,7 @@ class MultiSyncSimulator:
             self._init_mutable_state(seed, save_result)
             return
 
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         # world preprocessing
         if p.world_use_octomap:
             self.world = build_grid_world(

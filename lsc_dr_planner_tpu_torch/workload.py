@@ -23,6 +23,8 @@ import numpy as np
 import torch
 
 from lsc_dr_planner_tpu_torch.config import GoalMode, Param
+from lsc_dr_planner_tpu_torch.device import DEFAULT as DEFAULT_DEVICE
+from lsc_dr_planner_tpu_torch.device import resolve as resolve_device
 from lsc_dr_planner_tpu_torch.mission import Mission, generate_random_mission
 from lsc_dr_planner_tpu_torch.ops import qp, trajectory
 from lsc_dr_planner_tpu_torch.planner.pipeline import (
@@ -83,10 +85,11 @@ def forest_mission(n_agents: int, seed: int = 0) -> Mission:
     return m
 
 
-def build_fleet(A: int, seed: int = 0, device="cpu", timing: bool = False):
-    """Agent lattice + forest world + planner on `device`:
-    (param, planner, fleet, inputs)."""
-    device = torch.device(device)
+def build_fleet(A: int, seed: int = 0, device=DEFAULT_DEVICE, timing: bool = False):
+    """Agent lattice + forest world + planner on `device` (the card by
+    default; "cuda" without a CUDA device raises): (param, planner,
+    fleet, inputs)."""
+    device = resolve_device(device)
     pos2, goal2, boxes, wmin, wmax = fleet_layout(A, seed)
     p = Param(
         goal_mode=GoalMode.GRID_BASED_PLANNER,

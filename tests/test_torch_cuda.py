@@ -11,6 +11,7 @@ import dataclasses
 import pytest
 import torch
 
+import admm_timing
 from lsc_dr_planner_tpu_torch import workload
 from lsc_dr_planner_tpu_torch.ops import qp, qp_cuda
 
@@ -97,6 +98,12 @@ def test_wrapper_rejects_bad_inputs(fleet_qp):
     bad.ln = li.ln[:, :-1]
     with pytest.raises(ValueError):
         qp.run_loop(cfg, bad, 8, feas_tol)
+    # a stencil table of another row count than the rows' static block
+    ts = qp.torch_statics(cfg, li.xi.device)
+    short = {k: (v[:-1] if k in ("idx", "coef", "rho") else v) for k, v in ts["stencil"].items()}
+    with pytest.raises(ValueError, match="R_stat"):
+        qp_cuda.admm_loop_cuda(li, short, ts["N3k"], ts["N3kT"], cfg.rho * qp._RHO_SCALE["lsc"],
+                               8, qp.CHUNK, 0.0, cfg.sigma, cfg.alpha, cfg.eps_abs)
 
 
 @pytest.fixture(scope="module")
@@ -172,3 +179,57 @@ def test_simulator_qp_in_place_rescue_contract(sim_qp):
     assert out.converged.float().mean() >= ref.converged.float().mean()
     both = out.converged & ref.converged
     assert (out.x - ref.x).abs()[both].max() < 0.1
+
+
+def _per_agent_close(a, b):
+    """|a − b| within rtol 1e-4 of the agent's largest |b| / atol 1e-5."""
+    d, m = (a - b).abs().flatten(1), b.abs().flatten(1)
+    return bool((d.amax(1) <= 1e-5 + 1e-4 * m.amax(1)).all())
+
+
+@pytest.fixture(scope="module")
+def rescue_qp():
+    """The compacted rescue batch (RESCUE = 64 agents, 800 iterations) of
+    one bench step at A=128: the loop inputs of the second loop call in
+    qp.solve."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    p, planner, fleet, inp = workload.build_fleet(128, device="cuda")
+    step = workload.make_evolve_step(p, planner, fleet)
+    for _ in range(3):
+        inp, _ = step(inp)
+    cfg, feas_tol = planner.qp_cfg, planner.feas_tol
+    qp_inp = planner._step_impl(fleet, inp, defer_qp=True).qp_inp
+    li, max_iter = admm_timing.solve_calls(qp, cfg, qp_inp, feas_tol)[1]
+    assert li.xi.shape[0] == qp.RESCUE and max_iter == cfg.rescue_iter
+    return cfg, li, max_iter, feas_tol
+
+
+def test_rescue_batch_one_chunk_matches_plain_loop(rescue_qp):
+    cfg, li, _, feas_tol = rescue_qp
+    got = qp.run_loop(cfg, li, 8, feas_tol)
+    want = qp.admm_loop_plain(cfg, li, 8, feas_tol)
+    for a, b in zip(got[:3], want[:3]):
+        assert torch.isfinite(a).all()
+        assert _per_agent_close(a, b)
+
+
+def test_rescue_batch_run_to_exit_is_its_chain_of_chunks(rescue_qp):
+    """The rescue loop to the kernel's own exit: bitwise the chain of
+    single-chunk launches, every chunk per agent within the tolerance of
+    the plain chunk from the same state, and no change from the launches
+    after the exit."""
+    cfg, li, max_iter, feas_tol = rescue_qp
+    got = qp.run_loop(cfg, li, max_iter, feas_tol)
+    stop = int(got[4])
+    again = qp.run_loop(cfg, li, stop, feas_tol)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    state = li
+    for _ in range(stop // 8):
+        k = qp.run_loop(cfg, state, 8, feas_tol)
+        p = qp.admm_loop_plain(cfg, state, 8, feas_tol)
+        assert all(_per_agent_close(a, b) for a, b in zip(k[:3], p[:3]))
+        state = dataclasses.replace(state, xi=k[0], z=k[1], y=k[2])
+    for a, b in zip(got[:3], (state.xi, state.z, state.y)):
+        assert torch.equal(a, b)

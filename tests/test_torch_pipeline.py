@@ -26,7 +26,7 @@ def _fields(obj):
 def test_teacher_forced_steps_match_jax(A):
     pj, plan_j, fleet_j, inp_j = bench.build_fleet(A)
     step_j = bench.make_evolve_step(pj, plan_j, fleet_j)
-    _, plan_t, fleet_t, inp_t = workload.build_fleet(A)
+    _, plan_t, fleet_t, inp_t = workload.build_fleet(A, device="cpu")
     # same RNG calls in the same order: same world, fleet and start state
     world = convert.grid_world_from_numpy(_fields(plan_j.world), "cpu")
     assert torch.equal(world.blocked_cumsum, plan_t.world.blocked_cumsum)
@@ -58,7 +58,7 @@ def test_teacher_forced_steps_match_jax(A):
 
 def test_free_running_port():
     A = 24
-    p, planner, fleet, inp = workload.build_fleet(A)
+    p, planner, fleet, inp = workload.build_fleet(A, device="cpu")
     step = workload.make_evolve_step(p, planner, fleet)
     start = inp.pos.clone()
     conv = []

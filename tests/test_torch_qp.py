@@ -172,7 +172,8 @@ def test_kernel_wrapper_rejects_cpu_tensors():
     ts = tqp.torch_statics(pcfg, li.xi.device)
     before = qp_cuda.launches
     with pytest.raises(ValueError, match="CUDA"):
-        qp_cuda.admm_loop_cuda(li, ts["An_stat"], ts["N3k"], 40, tqp.CHUNK,
+        qp_cuda.admm_loop_cuda(li, ts["stencil"], ts["N3k"], ts["N3kT"],
+                               pcfg.rho * tqp._RHO_SCALE["lsc"], 40, tqp.CHUNK,
                                0.6 * feas_tol, pcfg.sigma, pcfg.alpha, pcfg.eps_abs)
     assert qp_cuda.launches == before
 

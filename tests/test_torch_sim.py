@@ -168,7 +168,8 @@ def test_jax_checkpoint_loads_without_jax(tmp_path):
         "from lsc_dr_planner_tpu_torch.config import Param\n"
         "from lsc_dr_planner_tpu_torch.sim.simulator import MultiSyncSimulator\n"
         "m = workload.forest_mission(4, 1)\n"
-        f"sim = MultiSyncSimulator(Param(multisim_save_result=False), m, log_dir={str(tmp_path)!r})\n"
+        f"sim = MultiSyncSimulator(Param(multisim_save_result=False), m, log_dir={str(tmp_path)!r},\n"
+        "                         device='cpu')\n"
         f"sim.load_checkpoint({ck!r})\n"
         "sim.do_step(); sim.decentralized_mapp(); assert sim.plan()\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'lsc_dr_planner_tpu')]\n"
