@@ -10,11 +10,15 @@ earlier commit unpacked under `build/`. The shapes:
 
 - `bench`: `workload.build_fleet(1024)` after 3 evolving steps (A=1024,
   O=16), the main path's batch;
+- `rescue`: the second ADMM call of one `qp.solve` of that batch, the
+  64 most infeasible agents compacted from the main loop's iterate
+  (`qp.rescue_batch`; a tree whose `qp` lacks it skips this call);
 - `flight64` and `flight10`: the QP of the 4th planner step of
   `forest_mission(64, seed=1)` (A=64, O=16) and `forest_mission(10)`
-  (A=10, O=9) on `MultiSyncSimulator`;
-- `solve_main` and `solve_rescue`: the two ADMM calls inside one
-  `qp.solve` of the bench batch (the main loop and the 64-agent rescue).
+  (A=10, O=9) on `MultiSyncSimulator`.
+
+`chip_smoke.py` calls `bench_calls`, `timed_call` and `kernel_report` on
+the batches it checks, so that one object is compared and timed.
 
 For each call: the iterations it ran (the global exit), its mean time
 from CUDA events, µs per iteration, and the least time the card could
@@ -129,19 +133,16 @@ def flight_qp(workload, A, seed, dev, log_dir, steps=3):
     return sim.planner.qp_cfg, d.qp_inp, sim.planner.feas_tol
 
 
-def solve_calls(qp, cfg, qp_inp, feas_tol):
-    """The (loop inputs, max_iter) of every loop call in one qp.solve."""
-    calls, orig = [], qp.run_loop
-
-    def record(cfg_, li, max_iter, feas_tol_, plain=False):
-        calls.append((li, max_iter))
-        return orig(cfg_, li, max_iter, feas_tol_, plain)
-
-    qp.run_loop = record
-    try:
-        qp.solve(cfg, qp_inp, feas_tol)
-    finally:
-        qp.run_loop = orig
+def bench_calls(qp, cfg, li, feas_tol, reps=10):
+    """The two loop calls of one `qp.solve` of a batch of more than
+    RESCUE agents, timed: the main loop from `li` (`bench`) and the
+    compacted rescue from its iterate (`rescue`, where the package has
+    `qp.rescue_batch`)."""
+    calls = [timed_call(qp, cfg, li, cfg.max_iter, feas_tol, "bench", reps)]
+    if hasattr(qp, "rescue_batch"):
+        xi, z, y = qp.run_loop(cfg, li, cfg.max_iter, feas_tol)[:3]
+        sub = qp.rescue_batch(cfg, li, xi, z, y, feas_tol)[2]
+        calls.append(timed_call(qp, cfg, sub, cfg.rescue_iter, feas_tol, "rescue", reps))
     return calls
 
 
@@ -163,32 +164,37 @@ def chunk_overhead(qp, qp_cuda, cfg, li):
             "ms_per_launch": per_launch, "share_of_chunk8": per_launch * n8 / t8}
 
 
+def kernel_report(qp, qp_cuda, cfg, li):
+    """The kernel at li's shape: shared memory per block, threads per
+    block, agents resident per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+    and the fixed cost of one launch. Empty for a tree whose kernel has no
+    such queries (the dense-An_stat kernel)."""
+    lib = qp_cuda.build()
+    if not hasattr(lib, "admm_blocks_per_sm"):
+        return {}
+    ts = qp.torch_statics(cfg, li.xi.device)
+    shape = (cfg.dim, cfg.n_obs, cfg.M, cfg.N, ts["K"], ts["stencil"]["idx"].shape[0])
+    return {"smem_bytes": lib.admm_smem_bytes(*shape),
+            "threads": lib.admm_threads(cfg.dim * ts["K"]),
+            "blocks_per_sm": lib.admm_blocks_per_sm(*shape),
+            "chunk_overhead": chunk_overhead(qp, qp_cuda, cfg, li)}
+
+
 def measure(dev, log_dir):
     """Every timing of this file, for the package on sys.path."""
     workload = importlib.import_module("lsc_dr_planner_tpu_torch.workload")
     qp = importlib.import_module("lsc_dr_planner_tpu_torch.ops.qp")
     qp_cuda = importlib.import_module("lsc_dr_planner_tpu_torch.ops.qp_cuda")
     log_dir.mkdir(parents=True, exist_ok=True)
-    rec = {"package": str(Path(qp.__file__).resolve().parents[2]), "gpu": gpu_line(),
-           "calls": []}
+    rec = {"package": str(Path(qp.__file__).resolve().parents[2]), "gpu": gpu_line()}
     cfg, qp_inp, feas_tol = bench_qp(workload, 1024, dev)
     li = qp.prepare(cfg, qp_inp).loop
-    rec["calls"].append(timed_call(qp, cfg, li, cfg.max_iter, feas_tol, "bench", 10))
-    for name, (li_s, max_iter) in zip(("solve_main", "solve_rescue"),
-                                      solve_calls(qp, cfg, qp_inp, feas_tol)):
-        rec["calls"].append(timed_call(qp, cfg, li_s, max_iter, feas_tol, name, 10))
+    rec["calls"] = bench_calls(qp, cfg, li, feas_tol)
     for name, A, seed in (("flight64", 64, 1), ("flight10", 10, 0)):
         cfg_f, qp_f, tol_f = flight_qp(workload, A, seed, dev, log_dir)
         li_f = qp.prepare(cfg_f, qp_f).loop
         rec["calls"].append(timed_call(qp, cfg_f, li_f, cfg_f.max_iter, tol_f, name, 20))
-    lib = qp_cuda.build()
-    if hasattr(lib, "admm_blocks_per_sm"):  # the stencil kernel
-        ts = qp.torch_statics(cfg, dev)
-        shape = (cfg.dim, cfg.n_obs, cfg.M, cfg.N, ts["K"], ts["stencil"]["idx"].shape[0])
-        rec["smem_bytes"] = lib.admm_smem_bytes(*shape)
-        rec["threads"] = lib.admm_threads(cfg.dim * ts["K"])
-        rec["blocks_per_sm"] = lib.admm_blocks_per_sm(*shape)
-        rec["chunk_overhead"] = chunk_overhead(qp, qp_cuda, cfg, li)
+    rec.update(kernel_report(qp, qp_cuda, cfg, li))
     return rec
 
 

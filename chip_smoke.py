@@ -18,10 +18,10 @@ layer and audit, and the `sim.run` CLI) flying forest missions:
      exits before max_iter: the kernel's state is the plain loop's
      iterate after the kernel's exit iteration (rtol 1e-4 / atol 1e-5),
      and the launches after the exit leave it bitwise unchanged; then
-     the loop timings of `admm_timing.py` (A=1024/O=16, the two calls of
-     one A=1024 solve, the A=64/O=16 and A=10/O=9 flight QPs: iterations
-     run, ms, µs per iteration, bound and its share), the agents resident
-     per SM and the fixed cost of one launch;
+     the loop timings of `admm_timing.py` on this phase's A=1024/O=16
+     batch and on the 64-agent rescue compacted from its iterate
+     (iterations run, ms, µs per iteration, bound and its share), the
+     agents resident per SM and the fixed cost of one launch;
   4. the full solve (200 iterations + 800 rescue) with the kernel and with
      the plain loop at A=1024 and A=1000: converged share within 0.5
      points, objectives (evaluated in float64) within rtol/atol 2e-2 and
@@ -44,7 +44,8 @@ the native MAPF backend and launch the ADMM kernel. Each flight is
 checkpointed after the planner steps of CK_STEPS; on the QP of the step
 that follows each checkpoint, the kernel is held against the plain loop
 as in phase 3 (every chunk per agent within rtol 1e-4 / atol 1e-5, and
-the run to the kernel's own exit against the float64 plain iterate).
+the run to the kernel's own exit), and the loop is timed on the QP of
+planner step 4 (A=64/O=16 and A=10/O=9).
 
 Prints the results of each phase, a JSON line of per-kernel results, the
 card's name and power limit, and as the last line
@@ -77,6 +78,7 @@ FLIGHTS = ((6, 10, 0, 300), (7, 64, 1, 400))
 # the step after each of the first PARITY_STEPS on the CPU
 CK_STEPS = (1, 2, 3, 4, 5, 30)
 PARITY_STEPS = 5
+TIMED_CK = 2  # the loop is timed on the QP of the step after CK_STEPS[2]
 
 
 def sh(cmd):
@@ -117,8 +119,8 @@ def as_f64(qp, li):
     return qp.LoopInputs(*(getattr(li, f.name).double() for f in dataclasses.fields(li)))
 
 
-def loop_check(qp, cfg, qp_inp, feas_tol, what):
-    """The kernel against the plain loop on one QP batch.
+def loop_check(qp, cfg, li, feas_tol, what):
+    """The kernel against the plain loop on one QP batch (qp.LoopInputs).
 
     - Every 8-iteration chunk of the kernel's run up to its own exit,
       launched alone from the kernel's state at the chunk's start (the
@@ -133,19 +135,19 @@ def loop_check(qp, cfg, qp_inp, feas_tol, what):
     - The run is bitwise that chain of single chunks (the iterate does
       not depend on the gate state the launches carry), and the launches
       after the exit leave it bitwise unchanged.
-    - The whole run against the float64 plain loop's iterate after as
-      many iterations (feas_tol=0 turns the plain loop's exit off): the
-      chunks' differences add up, so the kernel must be within one
-      tolerance (element by element) per chunk run of it, beyond the
-      float32 plain loop's own distance to it. Over a long run the
-      float32 plain loop can itself be tens of tolerances from the
-      float64 iterate (a dual of an active row integrates every
-      iteration's rounding), and then no float32 kernel could come
-      within one tolerance per chunk of the float32 plain loop. The
-      kernel's share against the float32 plain iterate is reported
-      beside it.
+    - The whole run against the plain loop's iterate after as many
+      iterations (feas_tol=0 turns the plain loop's exit off): the
+      chunks' differences add up, so it must be within one tolerance
+      (element by element) per chunk run, or else no farther from the
+      float64 plain iterate than the float32 plain loop is. Over 200
+      iterations from large warm-started duals the float32 plain loop
+      can itself drift tens of tolerances from the float64 iterate (a
+      dual of an active row integrates every iteration's rounding); two
+      float32 loops that sum in different orders then drift apart by as
+      much, and the second clause asks the kernel to be at least as
+      accurate as its oracle. Both float32 loops' distances to the
+      float64 plain iterate are reported beside it.
     Returns the errors."""
-    li = qp.prepare(cfg, qp_inp).loop
     got = qp.run_loop(cfg, li, cfg.max_iter, feas_tol)
     stop = int(got[4])
     again = qp.run_loop(cfg, li, stop, feas_tol)
@@ -179,11 +181,14 @@ def loop_check(qp, cfg, qp_inp, feas_tol, what):
         share_kernel_vs_f64=max(shares(a.double(), e)[0] for a, e in zip(got[:3], exact)),
         share_plain_vs_f64=max(shares(b.double(), e)[0] for b, e in zip(want[:3], exact)),
         chained_bitwise=chained)
+    rec["whole_run_held_by"] = (
+        "chunks" if rec["share_of_tolerance"] <= stop // 8
+        else "float64" if rec["share_kernel_vs_f64"] <= rec["share_plain_vs_f64"] else None)
     print(what, json.dumps(rec))
     assert sh["per_agent"] <= 1.0, (what, rec)
     assert chained, f"{what}: the run is not its chain of single chunks"
     assert all(torch.equal(a, b) for a, b in zip(got, again)), "launches after the exit moved"
-    assert rec["share_kernel_vs_f64"] <= rec["share_plain_vs_f64"] + stop // 8, (what, rec)
+    assert rec["whole_run_held_by"] is not None, (what, rec)
     return rec
 
 
@@ -305,21 +310,23 @@ def main():
 
     # many chunks, global exit before max_iter (A=37: no block multiple)
     cfg37, qp_inp37, tol37 = admm_timing.bench_qp(workload, 37, dev)
-    rec = loop_check(qp, cfg37, qp_inp37, tol37, "phase3 A=37")
+    rec = loop_check(qp, cfg37, qp.prepare(cfg37, qp_inp37).loop, tol37, "phase3 A=37")
     assert rec["kernel_exit"] < cfg37.max_iter, f"A=37 should exit before {cfg37.max_iter}"
     assert rec["share_of_tolerance"] <= 1.0, rec  # the whole run, within one tolerance
     max_abs_err = max(max_abs_err, rec["max_abs_err_chunk"])
     record["phase3"]["A37"] = rec
 
-    # loop-only times at the paths' shapes, occupancy, per-launch cost
+    # loop-only times of this batch and of its rescue, occupancy,
+    # per-launch cost
     out_dir = ROOT / "chiprun_out"
-    timing = admm_timing.measure(dev, out_dir / "admm_timing")
+    timing = {"calls": admm_timing.bench_calls(qp, cfg, li, feas_tol)}
+    timing.update(admm_timing.kernel_report(qp, qp_cuda, cfg, li))
     for c in timing["calls"]:
         print("phase3 timing", json.dumps(c))
     print("phase3 kernel", json.dumps({k: v for k, v in timing.items() if k != "calls"}))
     assert timing["blocks_per_sm"] > 0, timing
-    bench = timing["calls"][0]
-    assert bench["call"] == "bench" and bench["A"] == A_MAIN, bench
+    bench, rescue = timing["calls"]
+    assert rescue["A"] == qp.RESCUE and rescue["max_iter"] == cfg.rescue_iter, rescue
     ms_kernel = bench["ms"]
     ms_plain = cuda_ms(lambda: qp.admm_loop_plain(cfg, li, cfg.max_iter, feas_tol), 3)
     print(f"ADMM loop A={A_MAIN} max_iter={cfg.max_iter}: kernel {ms_kernel:.3f} ms "
@@ -450,10 +457,16 @@ def main():
         res["kernel_checks"] = []
         for ck in cks:
             planner_k, qp_inp_k = step_qp(param, mission, sim, ck, str(work))
-            rec = loop_check(qp, planner_k.qp_cfg, qp_inp_k, planner_k.feas_tol,
+            cfg_k, tol_k = planner_k.qp_cfg, planner_k.feas_tol
+            li_k = qp.prepare(cfg_k, qp_inp_k).loop
+            rec = loop_check(qp, cfg_k, li_k, tol_k,
                              f"phase{phase} kernel, step after {Path(ck).stem}")
             max_abs_err = max(max_abs_err, rec["max_abs_err_chunk"])
             res["kernel_checks"].append(rec)
+            if ck == cks[TIMED_CK]:  # the loop's time on this flight's QP
+                res["loop_timing"] = admm_timing.timed_call(
+                    qp, cfg_k, li_k, cfg_k.max_iter, tol_k, f"flight{A}", 20)
+                print(f"phase{phase} timing", json.dumps(res["loop_timing"]))
 
         if phase == 6:
             # the same mission through the CLI, as a user runs it

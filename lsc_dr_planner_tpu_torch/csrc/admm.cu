@@ -35,10 +35,12 @@
 // on the H100 on one A=37 batch, this halved the kernel's per-chunk distance
 // to the float64 plain loop, to the float32 plain loop's own, for 4.5% of time.
 //
-// The layout. One agent per block of 128 threads (256 when dim·K > 56), so
-// that the small batches of the simulator and the rescue (10–64 agents) run
-// each iteration at one agent's latency, and the A=1024 bench batch runs in
-// one wave when 8 blocks fit on an SM. Per agent, shared memory holds z, y,
+// The layout. One agent per block of 128 threads, so that the small batches
+// of the simulator and the rescue (10–64 agents) run each iteration at one
+// agent's latency, and the A=1024 bench batch runs in one wave when 8 blocks
+// fit on an SM. Kinv in registers limits dim·K to 56, the 2-D configurations:
+// the port's pipeline has no 3-D mode yet, and a 3-D build comes with it
+// (ROADMAP Queue 1 item 12). Per agent, shared memory holds z, y,
 // A·xi and l over all R rows, u over the static rows only (the LSC rows are
 // one-sided: prepare() makes their u +1e20 less an offset, which no iterate
 // reaches, so the kernel takes it as +inf), the normals and a few dk- and
@@ -78,8 +80,10 @@
 
 namespace {
 
-constexpr int kWidth = 3;     // stencil nonzeros per static row (qp.STENCIL_WIDTH)
-constexpr int kMaxWarps = 8;  // RED holds 8 values per warp
+constexpr int kWidth = 3;  // stencil nonzeros per static row (qp.STENCIL_WIDTH)
+// The one build: 128 threads and 28 Kinv columns each, for dk <= 56.
+constexpr int kThreads = 128, kCols = 28;
+constexpr int kWarps = kThreads / 32;  // RED holds 8 values per warp
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Args {
@@ -139,7 +143,7 @@ __host__ __device__ inline Dims make_dims(int dim, int O, int M, int N, int K,
 // VU, VL, VA [dim*MN]; RED [8 per warp]; MOF [MN] (int).
 __host__ __device__ inline size_t smem_floats(const Dims& D) {
   return 4 * (size_t)D.R + D.R_stat + (size_t)D.O * D.M * D.dim + 5 * (size_t)D.dk +
-         3 * (size_t)D.dim * D.MN + 8 * kMaxWarps + D.MN;
+         3 * (size_t)D.dim * D.MN + 8 * kWarps + D.MN;
 }
 
 __host__ __device__ inline int admm_n_chunks(int max_iter, int chunk) {
@@ -281,7 +285,7 @@ __device__ void block_reduce8(float (&v)[8], float* RED) {
 // test (the plain loop's global exit) it returns at once and marks its own
 // test done for the whole fleet too, so that no later launch resumes the loop.
 template <int NT, int KC>
-__global__ void __launch_bounds__(NT, NT == 128 ? 8 : 2) admm_chunk_kernel(Args a, int ck) {
+__global__ void __launch_bounds__(NT, 8) admm_chunk_kernel(Args a, int ck) {
   if (ck > 0 && a.done_count[ck - 1] == (int)gridDim.x) {
     if (threadIdx.x == 0 && blockIdx.x == 0) a.done_count[ck] = gridDim.x;
     return;
@@ -306,7 +310,7 @@ __global__ void __launch_bounds__(NT, NT == 128 ? 8 : 2) admm_chunk_kernel(Args 
   float* VL = VU + D.dim * D.MN;
   float* VA = VL + D.dim * D.MN;
   float* RED = VA + D.dim * D.MN;
-  int* MOF = reinterpret_cast<int*>(RED + 8 * kMaxWarps);
+  int* MOF = reinterpret_cast<int*>(RED + 8 * kWarps);
 
   const float* xi_in = ck == 0 ? a.xi0 : a.xi;
   const float* z_in = ck == 0 ? a.z0 : a.z;
@@ -433,10 +437,6 @@ __global__ void __launch_bounds__(NT, NT == 128 ? 8 : 2) admm_chunk_kernel(Args 
   }
 }
 
-// The two builds: 128 threads and 28 Kinv columns each for dk <= 56 (the
-// 2-D configurations), 256 threads and 48 columns for dk <= 96 (3-D).
-constexpr int kMaxDk = 96;
-
 template <int NT, int KC>
 cudaError_t prepare_kernel(size_t smem) {
   const auto kern = admm_chunk_kernel<NT, KC>;
@@ -474,7 +474,7 @@ int blocks_per_sm(size_t smem) {
 }  // namespace
 
 // Threads per block for dk = dim*K, or 0 if the kernel does not take it.
-extern "C" int admm_threads(int dk) { return dk <= 56 ? 128 : dk <= kMaxDk ? 256 : 0; }
+extern "C" int admm_threads(int dk) { return dk <= 2 * kCols ? kThreads : 0; }
 
 // Queues the whole loop on `stream`: one launch per chunk of `chunk` iterations,
 // one block per agent.
@@ -499,11 +499,8 @@ extern "C" int admm_launch(const float* normals, const float* Kinv, const float*
   const Dims D = make_dims(dim, O, M, N, K, R_stat);
   const size_t smem = sizeof(float) * smem_floats(D);
   const cudaStream_t st = (cudaStream_t)stream;
-  switch (admm_threads(D.dk)) {
-    case 128: return launch_all<128, 28>(a, A, smem, st);
-    case 256: return launch_all<256, 48>(a, A, smem, st);
-    default: return -1;
-  }
+  if (admm_threads(D.dk) == 0) return -1;
+  return launch_all<kThreads, kCols>(a, A, smem, st);
 }
 
 // Dynamic shared memory one block needs, in bytes (for reports and checks).
@@ -516,9 +513,6 @@ extern "C" long long admm_smem_bytes(int dim, int O, int M, int N, int K, int R_
 extern "C" int admm_blocks_per_sm(int dim, int O, int M, int N, int K, int R_stat) {
   const Dims D = make_dims(dim, O, M, N, K, R_stat);
   const size_t smem = sizeof(float) * smem_floats(D);
-  switch (admm_threads(D.dk)) {
-    case 128: return blocks_per_sm<128, 28>(smem);
-    case 256: return blocks_per_sm<256, 48>(smem);
-    default: return -1;
-  }
+  if (admm_threads(D.dk) == 0) return -1;
+  return blocks_per_sm<kThreads, kCols>(smem);
 }

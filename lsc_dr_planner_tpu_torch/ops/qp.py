@@ -324,8 +324,10 @@ def stencil_table(cfg: QPConfig):
 def torch_statics(cfg: QPConfig, device: torch.device, dtype: torch.dtype = torch.float32):
     """`_solver_statics` as `dtype` (float32) tensors on `device` (its
     integer arrays stay numpy), plus the CUDA kernel's operators: N3k
-    [K, MN] (the nullspace basis, k-major) and its transpose N3kT, and
-    `stencil`, `stencil_table` as tensors."""
+    [K, MN] (the nullspace basis, k-major) and its transpose N3kT,
+    `stencil`, `stencil_table` as tensors, and `kernel_rho` [R], the ρ of
+    every row as the kernel takes it (ρ_lsc on the LSC rows, the table's
+    on the static rows)."""
     st = _solver_statics(cfg)
     out = {k: (torch.as_tensor(v, dtype=dtype, device=device)
                if isinstance(v, np.ndarray) and v.dtype.kind == "f" else v)
@@ -336,6 +338,10 @@ def torch_statics(cfg: QPConfig, device: torch.device, dtype: torch.dtype = torc
     out["stencil"] = {k: torch.as_tensor(v, dtype=torch.int32 if v.dtype.kind == "i" else dtype,
                                          device=device)
                       for k, v in stencil_table(cfg).items()}
+    R_lsc = cfg.n_obs * cfg.M * cfg.N
+    out["kernel_rho"] = torch.cat([
+        torch.full((R_lsc,), cfg.rho * _RHO_SCALE["lsc"], dtype=dtype, device=device),
+        out["stencil"]["rho"]])
     out["comm_pairs"] = tuple(torch.as_tensor(v, device=device) for v in _comm_pairs(cfg.M))
     out["P_base64"] = torch.as_tensor(st["P_base"], dtype=torch.float64, device=device)
     return out
@@ -500,10 +506,54 @@ def run_loop(cfg: QPConfig, li: LoopInputs, max_iter: int, feas_tol: float,
         return admm_loop_plain(cfg, li, max_iter, feas_tol)
     if dev.type != "cuda":
         raise ValueError(f"no ADMM loop for device {dev}")
+    check_kernel_rows(cfg, li)
     ts = torch_statics(cfg, dev)
     return qp_cuda.admm_loop_cuda(li, ts["stencil"], ts["N3k"], ts["N3kT"],
                                   cfg.rho * _RHO_SCALE["lsc"], max_iter, CHUNK,
                                   0.6 * feas_tol, cfg.sigma, cfg.alpha, cfg.eps_abs)
+
+
+def check_kernel_rows(cfg: QPConfig, li: LoopInputs):
+    """Raise ValueError unless li's ρ and LSC upper bounds are what the
+    CUDA kernel takes in their place: ρ per family (`kernel_rho`) and
+    one-sided LSC rows (u ≥ 1e19; `prepare` makes it 1e20 less the pin
+    offset). The kernel reads neither li.rho nor the LSC rows of li.un,
+    so inputs of another kind (another ρ, a finite LSC bound) would
+    otherwise leave the plain loop's answer without a word. One host
+    synchronisation, once per LoopInputs and state of its ρ and u
+    tensors (their version counters see in-place edits), so repeated
+    calls on one batch queue without a stall."""
+    seen = (li.rho.data_ptr(), li.rho._version, li.un.data_ptr(), li.un._version)
+    if li.__dict__.get("_kernel_rows_checked") == seen:
+        return
+    ts = torch_statics(cfg, li.xi.device, li.rho.dtype)
+    R_lsc = cfg.n_obs * cfg.M * cfg.N
+    want = ts["kernel_rho"]
+    if li.rho.shape[1:] != want.shape or li.un.shape != li.rho.shape:
+        raise ValueError(f"rho {tuple(li.rho.shape)} / un {tuple(li.un.shape)}: "
+                         f"need [A, {want.shape[0]}]")
+    if bool(((li.rho != want).any() | (li.un[:, :R_lsc] < 0.1 * _INF).any()).item()):
+        raise ValueError("the CUDA kernel takes ρ per family and one-sided LSC rows; "
+                         "these loop inputs differ (use plain=True)")
+    li._kernel_rows_checked = seen
+
+
+def rescue_batch(cfg: QPConfig, li: LoopInputs, xi, z, y, feas_tol: float):
+    """The compacted rescue of a batch of more than RESCUE agents after
+    the main loop left it at (xi, z, y): the RESCUE agents whose iterate
+    is the most infeasible (row-scaled), worst first; a stable sort keeps
+    the lower index first among ties, as lax.top_k does. Returns (idx
+    [RESCUE], take [RESCUE] bool: the agent is still infeasible, the
+    rescue's LoopInputs, starting from the iterate)."""
+    ts = torch_statics(cfg, li.xi.device)
+    Axc = _fwd(cfg, ts, li.normals, xi)
+    violc = torch.clamp(torch.maximum(li.ln - Axc, Axc - li.un), min=0.0)
+    resc = (violc / li.scale).amax(dim=-1)
+    bad = resc >= 0.6 * feas_tol
+    key = torch.where(bad, resc, -1.0)
+    idx = torch.sort(key, descending=True, stable=True).indices[:RESCUE]
+    sub = dataclasses.replace(li.take(idx), xi=xi[idx], z=z[idx], y=y[idx])
+    return idx, bad[idx], sub
 
 
 # ----------------------------------------------------------------------
@@ -601,16 +651,7 @@ def solve(cfg: QPConfig, inputs: QPInputs, feas_tol: float = 5e-3,
                   + torch.minimum(itdone2, iters2)).to(torch.int32)
         iters = iters + iters2
     elif cfg.rescue_iter > 0:
-        Axc = _fwd(cfg, ts, li.normals, xi)
-        violc = torch.clamp(torch.maximum(li.ln - Axc, Axc - li.un), min=0.0)
-        resc = (violc / li.scale).amax(dim=-1)
-        bad = resc >= 0.6 * feas_tol
-        # worst-first compaction; a stable sort keeps the lower index first
-        # among ties, as lax.top_k does
-        key = torch.where(bad, resc, -1.0)
-        idx = torch.sort(key, descending=True, stable=True).indices[:RESCUE]
-        take = bad[idx]
-        sub = dataclasses.replace(li.take(idx), xi=xi[idx], z=z[idx], y=y[idx])
+        idx, take, sub = rescue_batch(cfg, li, xi, z, y, feas_tol)
         xi_r, z_r, y_r, it_r, iters2 = run_loop(cfg, sub, cfg.rescue_iter, feas_tol,
                                                 plain)
         xi = xi.clone()

@@ -2,11 +2,11 @@
 
 The kernel replaces the TPU kernel
 lsc_dr_planner_tpu/ops/qp_pallas.py::admm_loop_pallas: one launch per
-chunk of 8 ADMM iterations, one agent per block of 128 threads (256 for
-3-D shapes) with the agent's rows in shared memory and its Kinv in
-registers, the static rows as stencils over the control points, and the
-plain loop's exit tests and global exit (see the note at the top of the
-source for what bounds it).
+chunk of 8 ADMM iterations, one agent per block of 128 threads with the
+agent's rows in shared memory and its Kinv in registers (dim·K ≤ 56: the
+2-D configurations), the static rows as stencils over the control points,
+and the plain loop's exit tests and global exit (see the note at the top
+of the source for what bounds it).
 
 The source is compiled at first use by `nvcc` for sm_90a into a shared
 library with a plain C entry point under `build/` at the checkout root,
@@ -96,9 +96,10 @@ def admm_loop_cuda(li, stencil, N3k, N3kT, rho_lsc: float, max_iter: int, chunk:
     transpose, shared by the fleet.
 
     ρ is the solver's per-family ρ: `rho_lsc` for every LSC row and
-    stencil["rho"] for the static rows, which is what `qp.prepare` puts
-    in li.rho (li.rho itself is not read). The LSC rows are one-sided:
-    their u (prepare: +1e20 less an offset) is taken as +inf.
+    stencil["rho"] for the static rows (li.rho itself is not read). The
+    LSC rows are one-sided: their u is taken as +inf (li.un is read for
+    the static rows only). `qp.run_loop` checks that li holds just
+    that (`qp.check_kernel_rows`) before it calls this function.
 
     Returns what the plain loop returns: (xi, z, y, itdone, iters), where
     itdone is the iteration count of each agent's first passed exit test
@@ -144,7 +145,8 @@ def admm_loop_cuda(li, stencil, N3k, N3kT, rho_lsc: float, max_iter: int, chunk:
 
     lib = build()
     if lib.admm_threads(dk) == 0:
-        raise ValueError(f"the kernel does not take dim*K = {dk} (Kinv rows in registers)")
+        raise ValueError(f"the kernel takes dim*K <= 56 (2-D), got {dk}: a 3-D build "
+                         "comes with the 3-D pipeline mode (ROADMAP Queue 1 item 12)")
     n_chunks = max(1, -(-max_iter // chunk))
     xi = torch.empty_like(li.xi)
     z = torch.empty_like(li.z)

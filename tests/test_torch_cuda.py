@@ -11,7 +11,6 @@ import dataclasses
 import pytest
 import torch
 
-import admm_timing
 from lsc_dr_planner_tpu_torch import workload
 from lsc_dr_planner_tpu_torch.ops import qp, qp_cuda
 
@@ -104,6 +103,37 @@ def test_wrapper_rejects_bad_inputs(fleet_qp):
     with pytest.raises(ValueError, match="R_stat"):
         qp_cuda.admm_loop_cuda(li, short, ts["N3k"], ts["N3kT"], cfg.rho * qp._RHO_SCALE["lsc"],
                                8, qp.CHUNK, 0.0, cfg.sigma, cfg.alpha, cfg.eps_abs)
+    # a ρ or an LSC upper bound other than the ones the kernel assumes
+    bad = dataclasses.replace(li, rho=li.rho * 2)
+    with pytest.raises(ValueError, match="per family"):
+        qp.run_loop(cfg, bad, 8, feas_tol)
+    un = li.un.clone()
+    un[:, 0] = 1.0
+    with pytest.raises(ValueError, match="per family"):
+        qp.run_loop(cfg, dataclasses.replace(li, un=un), 8, feas_tol)
+
+
+def test_3d_shapes_raise():
+    """dim·K > 56 (3-D) is not taken by the kernel's one build: a clear
+    error, no launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    cfg = qp.QPConfig(dim=3, M=10, n=5, phi=3, n_obs=4, use_comm=True, stop_at_horizon=True,
+                      dt=0.2, control_input_weight=0.01, terminal_weight=1.0, rho=1.0,
+                      sigma=1e-6, alpha=1.6, max_iter=16, eps_abs=1e-3)
+    ts = qp.torch_statics(cfg, torch.device("cuda"))
+    A, K, R = 2, ts["K"], qp.n_rows(cfg)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    rnd = lambda *shape: torch.randn(*shape, device="cuda", generator=g)  # noqa: E731
+    li = qp.LoopInputs(normals=rnd(A, cfg.n_obs, cfg.M, 3), Kinv=rnd(A, 3 * K, 3 * K),
+                       Pn=rnd(A, K, K), qn=rnd(A, 3, K), ln=rnd(A, R),
+                       un=torch.full((A, R), 1e20, device="cuda"),
+                       rho=ts["kernel_rho"].expand(A, R), scale=torch.ones(A, R, device="cuda"),
+                       xi=rnd(A, 3, K), z=rnd(A, R), y=rnd(A, R))
+    before = qp_cuda.launches
+    with pytest.raises(ValueError, match="2-D"):
+        qp.run_loop(cfg, li, cfg.max_iter, 5e-3)
+    assert qp_cuda.launches == before
 
 
 @pytest.fixture(scope="module")
@@ -200,9 +230,11 @@ def rescue_qp():
         inp, _ = step(inp)
     cfg, feas_tol = planner.qp_cfg, planner.feas_tol
     qp_inp = planner._step_impl(fleet, inp, defer_qp=True).qp_inp
-    li, max_iter = admm_timing.solve_calls(qp, cfg, qp_inp, feas_tol)[1]
-    assert li.xi.shape[0] == qp.RESCUE and max_iter == cfg.rescue_iter
-    return cfg, li, max_iter, feas_tol
+    main = qp.prepare(cfg, qp_inp).loop
+    xi, z, y = qp.run_loop(cfg, main, cfg.max_iter, feas_tol)[:3]
+    li = qp.rescue_batch(cfg, main, xi, z, y, feas_tol)[2]
+    assert li.xi.shape[0] == qp.RESCUE
+    return cfg, li, cfg.rescue_iter, feas_tol
 
 
 def test_rescue_batch_one_chunk_matches_plain_loop(rescue_qp):

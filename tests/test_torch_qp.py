@@ -19,6 +19,7 @@ import torch
 import bench
 from lsc_dr_planner_tpu.ops import qp as jqp
 from lsc_dr_planner_tpu.ops import qp_pallas
+from lsc_dr_planner_tpu_torch import workload
 from lsc_dr_planner_tpu_torch.ops import qp as tqp
 from lsc_dr_planner_tpu_torch.ops import qp_cuda
 from tests.test_qp_pallas import _mini_qp
@@ -149,6 +150,39 @@ def test_solve_cold_duals_and_short_budget():
     out = tqp.solve(port_cfg(cfg), port_inputs(qp_inp), feas_tol=feas_tol)
     assert out.iterations.numpy().max() <= 64
     check_contract(out, ref, feas_tol, full_convergence=False)
+
+
+def test_rescue_batch_takes_the_worst_agents_first():
+    """`rescue_batch` (the compacted rescue of `solve`): the RESCUE most
+    infeasible agents of the iterate, worst first, and the rescue's loop
+    inputs start from their iterate."""
+    p, planner, fleet, inp = workload.build_fleet(72, device="cpu")
+    pcfg, feas_tol = planner.qp_cfg, planner.feas_tol
+    li = tqp.prepare(pcfg, planner._step_impl(fleet, inp, defer_qp=True).qp_inp).loop
+    xi, z, y = tqp.admm_loop_plain(pcfg, li, 16, feas_tol)[:3]
+    # push every other agent off its iterate by a seeded amount, so that
+    # the infeasible ones differ in how far they are out
+    rng = np.random.default_rng(0)
+    A = xi.shape[0]
+    amp = rng.uniform(0.0, 0.05, (A, 1, 1)) * (np.arange(A) % 2)[:, None, None]
+    xi = xi + torch.as_tensor(rng.standard_normal(xi.shape) * amp, dtype=xi.dtype)
+    idx, take, sub = tqp.rescue_batch(pcfg, li, xi, z, y, feas_tol)
+    ts = tqp.torch_statics(pcfg, li.xi.device)
+    Ax = tqp._fwd(pcfg, ts, li.normals, xi)
+    resc = (torch.clamp(torch.maximum(li.ln - Ax, Ax - li.un), min=0.0) / li.scale).amax(-1)
+    bad = resc >= 0.6 * feas_tol
+    assert idx.shape == (tqp.RESCUE,) and len(set(idx.tolist())) == tqp.RESCUE
+    assert torch.equal(take, bad[idx])
+    assert 0 < int(bad.sum()) < li.xi.shape[0]
+    # every agent left out is no worse than every infeasible agent taken
+    left = torch.ones(li.xi.shape[0], dtype=torch.bool)
+    left[idx] = False
+    key = torch.where(bad, resc, -1.0)
+    assert (key[idx][:-1] >= key[idx][1:]).all()
+    assert key[left].max() <= key[idx][take].min()
+    for name in ("normals", "Kinv", "ln", "un", "rho", "scale"):
+        assert torch.equal(getattr(sub, name), getattr(li, name)[idx])
+    assert torch.equal(sub.xi, xi[idx]) and torch.equal(sub.y, y[idx])
 
 
 def test_wrapper_takes_plain_loop_on_cpu():

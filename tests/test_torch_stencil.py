@@ -19,8 +19,8 @@ import torch
 
 from lsc_dr_planner_tpu.ops import qp as jqp
 from lsc_dr_planner_tpu.ops import qp_pallas
+from lsc_dr_planner_tpu_torch import workload
 from lsc_dr_planner_tpu_torch.ops import qp, qp_cuda
-from tests.test_torch_qp import bench32, port_cfg, port_inputs  # noqa: F401
 
 # One intra-op thread: the suite runs in several worker processes on a
 # shared CPU, and torch's spinning thread pool would starve the JAX
@@ -149,15 +149,53 @@ def test_stencil_table_shape_and_rho(dim, use_comm):
     np.testing.assert_array_equal(tab["rho"], qp_pallas._rho_stat(jax_cfg(cfg)))
 
 
-def test_loop_inputs_fit_the_kernel(bench32):  # noqa: F811
+@pytest.fixture(scope="module")
+def fleet32():
+    """The port's bench fleet (A=32) and the loop inputs of its first
+    step's QP, on the CPU."""
+    p, planner, fleet, inp = workload.build_fleet(32, device="cpu")
+    qp_inp = planner._step_impl(fleet, inp, defer_qp=True).qp_inp
+    return planner.qp_cfg, qp.prepare(planner.qp_cfg, qp_inp).loop
+
+
+def test_loop_inputs_fit_the_kernel(fleet32):
     """What the kernel takes in place of LoopInputs fields, on the bench
     fleet's QP: li.rho is ρ_lsc on the LSC rows and the table's ρ on the
     static rows for every agent, and every LSC row's u is vacuous."""
-    cfg, qp_inp, _ = bench32
-    pcfg = port_cfg(cfg)
-    li = qp.prepare(pcfg, port_inputs(qp_inp)).loop
-    R_lsc = pcfg.n_obs * pcfg.M * pcfg.N
-    rho_stat = qp.torch_statics(pcfg, CPU)["stencil"]["rho"]
-    assert (li.rho[:, :R_lsc] == torch.tensor(pcfg.rho * qp._RHO_SCALE["lsc"])).all()
-    assert torch.equal(li.rho[:, R_lsc:], rho_stat.expand(li.rho.shape[0], -1))
+    cfg, li = fleet32
+    R_lsc = cfg.n_obs * cfg.M * cfg.N
+    ts = qp.torch_statics(cfg, CPU)
+    assert (li.rho[:, :R_lsc] == torch.tensor(cfg.rho * qp._RHO_SCALE["lsc"])).all()
+    assert torch.equal(li.rho[:, R_lsc:], ts["stencil"]["rho"].expand(li.rho.shape[0], -1))
+    assert torch.equal(li.rho, ts["kernel_rho"].expand_as(li.rho))
     assert (li.un[:, :R_lsc] >= 1e19).all()
+    qp.check_kernel_rows(cfg, li)
+
+
+@pytest.mark.parametrize("change", ["rho_lsc", "rho_static", "finite_lsc_bound", "rows",
+                                    "in_place_after_check"])
+def test_kernel_rows_check_rejects_other_inputs(fleet32, change):
+    """`run_loop` hands the kernel only loop inputs whose ρ and LSC upper
+    bounds are the ones the kernel assumes (it reads neither); an edit
+    in place after a passed check is seen too."""
+    cfg, li = fleet32
+    R_lsc = cfg.n_obs * cfg.M * cfg.N
+    rho, un = li.rho.clone(), li.un.clone()
+    if change == "in_place_after_check":
+        checked = dataclasses.replace(li, rho=rho, un=un)
+        qp.check_kernel_rows(cfg, checked)
+        qp.check_kernel_rows(cfg, checked)
+        un[0, 0] = 1.0
+        with pytest.raises(ValueError):
+            qp.check_kernel_rows(cfg, checked)
+        return
+    if change == "rho_lsc":
+        rho[3, 7] *= 2
+    elif change == "rho_static":
+        rho[0, R_lsc + 5] = 1.0
+    elif change == "finite_lsc_bound":
+        un[1, 2] = 4.0
+    else:
+        rho, un = rho[:, :-1], un[:, :-1]
+    with pytest.raises(ValueError):
+        qp.check_kernel_rows(cfg, dataclasses.replace(li, rho=rho, un=un))
