@@ -22,7 +22,10 @@ the batches it checks, so that one object is compared and timed.
 
 For each call: the iterations it ran (the global exit), its mean time
 from CUDA events, µs per iteration, and the least time the card could
-take for that work (`loop_bound`). Prints one JSON object on its last
+take for that work (`loop_bound`). Beside the loop, the main path's
+per-stage device times (`step_stages`: `build_fleet(1024)`, 3 warm-up
+and 20 evolving steps, CUDA events at the stage boundaries), so that
+two trees' steps compare in one run. Prints one JSON object on its last
 line. Exits non-zero without a CUDA device.
 """
 
@@ -31,6 +34,7 @@ import importlib
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import torch
@@ -180,6 +184,39 @@ def kernel_report(qp, qp_cuda, cfg, li):
             "chunk_overhead": chunk_overhead(qp, qp_cuda, cfg, li)}
 
 
+def timed_steps(step, planner, inp, steps, each=None):
+    """`steps` evolving steps from `inp`: each step's wall seconds (the
+    card synchronised), the planner's per-stage device ms
+    (FleetPlanner(timing=True) events) and mean QP convergence; `each(inp)`
+    runs after every step. Returns (inp, seconds, stage ms, convergence),
+    one list entry per step."""
+    lat, stages, convs = [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        inp, conv = step(inp)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+        stages.append(planner.stage_times_ms())
+        convs.append(conv.float().mean().item())
+        if each is not None:
+            each(inp)
+    return inp, lat, stages, convs
+
+
+def mean_stages(stages):
+    return {k: sum(st[k] for st in stages) / len(stages) for k in stages[0]}
+
+
+def step_stages(workload, dev, A=1024, warmup=3, steps=20):
+    """Mean per-stage device ms over `steps` evolving steps of
+    build_fleet(A) after `warmup`."""
+    p, planner, fleet, inp = workload.build_fleet(A, device=dev, timing=True)
+    step = workload.make_evolve_step(p, planner, fleet)
+    for _ in range(warmup):
+        inp, _ = step(inp)
+    return mean_stages(timed_steps(step, planner, inp, steps)[2])
+
+
 def measure(dev, log_dir):
     """Every timing of this file, for the package on sys.path."""
     workload = importlib.import_module("lsc_dr_planner_tpu_torch.workload")
@@ -195,6 +232,7 @@ def measure(dev, log_dir):
         li_f = qp.prepare(cfg_f, qp_f).loop
         rec["calls"].append(timed_call(qp, cfg_f, li_f, cfg_f.max_iter, tol_f, name, 20))
     rec.update(kernel_report(qp, qp_cuda, cfg, li))
+    rec["main_path_stage_ms"] = step_stages(workload, dev)
     return rec
 
 

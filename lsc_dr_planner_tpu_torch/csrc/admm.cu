@@ -35,23 +35,31 @@
 // on the H100 on one A=37 batch, this halved the kernel's per-chunk distance
 // to the float64 plain loop, to the float32 plain loop's own, for 4.5% of time.
 //
-// The layout. One agent per block of 128 threads, so that the small batches
-// of the simulator and the rescue (10–64 agents) run each iteration at one
-// agent's latency, and the A=1024 bench batch runs in one wave when 8 blocks
-// fit on an SM. Kinv in registers limits dim·K to 56, the 2-D configurations:
-// the port's pipeline has no 3-D mode yet, and a 3-D build comes with it
-// (ROADMAP Queue 1 item 12). Per agent, shared memory holds z, y,
-// A·xi and l over all R rows, u over the static rows only (the LSC rows are
-// one-sided: prepare() makes their u +1e20 less an offset, which no iterate
-// reaches, so the kernel takes it as +inf), the normals and a few dk- and
-// dim·MN-vectors: 27.9 KB in the bench shape (dim=2, K=28, dk=56, O=16, M=10,
-// N=6, R=960+410). ρ is one constant for the LSC rows and a shared row vector
-// for the static rows (the per-family ρ of _solver_statics, as the Pallas
-// kernel takes it); `scale` is read at the exit tests only. Kinv lives in
-// registers: thread 2i+h holds half h of row i (28 floats). The shared
-// operators (N3k and its transpose, the stencil tables: 18 KB) are read
-// through L1 by every block; copying them into each block's shared memory would
-// cost the residency they buy.
+// The layout. One agent per block, so that the small batches of the simulator
+// and the rescue (10–64 agents) run each iteration at one agent's latency, and
+// the A=1024 bench batch runs in one wave when 8 blocks fit on an SM. Kinv
+// lives in registers: thread 2i+h holds half h of row i, so a block of NT
+// threads takes dim·K ≤ NT/2 rows of up to KC columns each. Two builds:
+//   <128, 30>  dim·K ≤ 60: 2-D, 56 for LSC (K = 28, the terminal derivatives
+//              pinned) and 60 for DLSC, BVC and RSFC (K = 30); the Kinv loop
+//              stops at the row's own columns, so dim·K 56 runs the additions
+//              of a 28-column build in the same order;
+//   <256, 48>  dim·K ≤ 96: 3-D (84 for LSC, 90 for the other modes), 256
+//              threads with up to 48 Kinv registers each; __launch_bounds__
+//              asks for three blocks per SM, which caps a thread at 85
+//              registers (the 128-thread build asks for eight: 64).
+// A larger dim·K is refused (admm_threads returns 0). Per agent, shared
+// memory holds z, y, A·xi and l over all R rows, u over the static rows only
+// (the LSC rows are one-sided: prepare() makes their u +1e20 less an offset,
+// which no iterate reaches, so the kernel takes it as +inf), the normals and a
+// few dk- and dim·MN-vectors: 27.8 KB in the 2-D bench shape (dim=2, K=28,
+// dk=56, O=16, M=10, N=6, R=960+410), 34.0 KB in 3-D (dk=90, R=960+615). ρ is
+// one constant for the LSC rows and a shared row vector for the static rows
+// (the per-family ρ of _solver_statics, as the Pallas kernel takes it);
+// `scale` is read at the exit tests only. The shared operators (N3k and its
+// transpose, the stencil tables: 18 KB in 2-D) are read through L1 by every
+// block; copying them into each block's shared memory would cost the
+// residency they buy. The 3-D z stencils are rows of the same tables.
 //
 // Every phase spreads over the block: the Kinv matvec and the N3k adjoint
 // product run two threads per output, combined with one warp shuffle; the
@@ -81,9 +89,7 @@
 namespace {
 
 constexpr int kWidth = 3;  // stencil nonzeros per static row (qp.STENCIL_WIDTH)
-// The one build: 128 threads and 28 Kinv columns each, for dk <= 56.
-constexpr int kThreads = 128, kCols = 28;
-constexpr int kWarps = kThreads / 32;  // RED holds 8 values per warp
+constexpr int kMaxDk = 96;  // the largest dim·K of any build
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Args {
@@ -141,9 +147,9 @@ __host__ __device__ inline Dims make_dims(int dim, int O, int M, int N, int K,
 
 // Z, Y, AX, LN [R]; UN [R_stat]; NRM [O*M*dim]; XI, XIP, QN, RHS, XT [dk];
 // VU, VL, VA [dim*MN]; RED [8 per warp]; MOF [MN] (int).
-__host__ __device__ inline size_t smem_floats(const Dims& D) {
+__host__ __device__ inline size_t smem_floats(const Dims& D, int threads) {
   return 4 * (size_t)D.R + D.R_stat + (size_t)D.O * D.M * D.dim + 5 * (size_t)D.dk +
-         3 * (size_t)D.dim * D.MN + 8 * kWarps + D.MN;
+         3 * (size_t)D.dim * D.MN + 8 * (threads / 32) + D.MN;
 }
 
 __host__ __device__ inline int admm_n_chunks(int max_iter, int chunk) {
@@ -280,12 +286,12 @@ __device__ void block_reduce8(float (&v)[8], float* RED) {
 
 // One chunk (a.chunk iterations and the exit tests) of every agent's loop,
 // one agent per block of NT threads; KC >= ceil(dk / 2) Kinv columns per
-// thread in registers. Launch ck starts from the inputs (ck = 0) or from the
+// thread in registers (dk <= NT/2 and ceil(dk/2) <= KC). Launch ck starts from the inputs (ck = 0) or from the
 // state the previous launch stored. When every agent was done at the previous
 // test (the plain loop's global exit) it returns at once and marks its own
 // test done for the whole fleet too, so that no later launch resumes the loop.
 template <int NT, int KC>
-__global__ void __launch_bounds__(NT, 8) admm_chunk_kernel(Args a, int ck) {
+__global__ void __launch_bounds__(NT, NT == 128 ? 8 : 3) admm_chunk_kernel(Args a, int ck) {
   if (ck > 0 && a.done_count[ck - 1] == (int)gridDim.x) {
     if (threadIdx.x == 0 && blockIdx.x == 0) a.done_count[ck] = gridDim.x;
     return;
@@ -310,7 +316,7 @@ __global__ void __launch_bounds__(NT, 8) admm_chunk_kernel(Args a, int ck) {
   float* VL = VU + D.dim * D.MN;
   float* VA = VL + D.dim * D.MN;
   float* RED = VA + D.dim * D.MN;
-  int* MOF = reinterpret_cast<int*>(RED + 8 * kWarps);
+  int* MOF = reinterpret_cast<int*>(RED + 8 * (NT / 32));
 
   const float* xi_in = ck == 0 ? a.xi0 : a.xi;
   const float* z_in = ck == 0 ? a.z0 : a.z;
@@ -473,8 +479,19 @@ int blocks_per_sm(size_t smem) {
 
 }  // namespace
 
-// Threads per block for dk = dim*K, or 0 if the kernel does not take it.
-extern "C" int admm_threads(int dk) { return dk <= 2 * kCols ? kThreads : 0; }
+// Threads per block of the build that takes dk = dim*K (see "The layout"),
+// or 0 if no build takes it.
+extern "C" int admm_threads(int dk) {
+  return dk < 1 ? 0 : dk <= 60 ? 128 : dk <= kMaxDk ? 256 : 0;
+}
+
+// Kinv columns per thread (registers) of that build, or 0.
+extern "C" int admm_columns(int dk) {
+  return dk < 1 ? 0 : dk <= 60 ? 30 : dk <= kMaxDk ? 48 : 0;
+}
+
+// The largest dim*K any build takes.
+extern "C" int admm_max_dk() { return kMaxDk; }
 
 // Queues the whole loop on `stream`: one launch per chunk of `chunk` iterations,
 // one block per agent.
@@ -497,22 +514,30 @@ extern "C" int admm_launch(const float* normals, const float* Kinv, const float*
          itdone,  done_count, dim,   O,       M,       N,    K,          R_stat,
          max_iter, chunk,  rho_lsc,  stop_tol, sigma,  alpha, one_minus_alpha, eps_abs};
   const Dims D = make_dims(dim, O, M, N, K, R_stat);
-  const size_t smem = sizeof(float) * smem_floats(D);
+  const int threads = admm_threads(D.dk);
+  const size_t smem = sizeof(float) * smem_floats(D, threads);
   const cudaStream_t st = (cudaStream_t)stream;
-  if (admm_threads(D.dk) == 0) return -1;
-  return launch_all<kThreads, kCols>(a, A, smem, st);
+  switch (admm_columns(D.dk)) {
+    case 30: return launch_all<128, 30>(a, A, smem, st);
+    case 48: return launch_all<256, 48>(a, A, smem, st);
+    default: return -1;
+  }
 }
 
 // Dynamic shared memory one block needs, in bytes (for reports and checks).
 extern "C" long long admm_smem_bytes(int dim, int O, int M, int N, int K, int R_stat) {
-  return (long long)(sizeof(float) * smem_floats(make_dims(dim, O, M, N, K, R_stat)));
+  const Dims D = make_dims(dim, O, M, N, K, R_stat);
+  return (long long)(sizeof(float) * smem_floats(D, admm_threads(D.dk)));
 }
 
 // Resident blocks (agents) per SM for this shape, from
 // cudaOccupancyMaxActiveBlocksPerMultiprocessor; negative: minus the CUDA error.
 extern "C" int admm_blocks_per_sm(int dim, int O, int M, int N, int K, int R_stat) {
   const Dims D = make_dims(dim, O, M, N, K, R_stat);
-  const size_t smem = sizeof(float) * smem_floats(D);
-  if (admm_threads(D.dk) == 0) return -1;
-  return blocks_per_sm<kThreads, kCols>(smem);
+  const size_t smem = sizeof(float) * smem_floats(D, admm_threads(D.dk));
+  switch (admm_columns(D.dk)) {
+    case 30: return blocks_per_sm<128, 30>(smem);
+    case 48: return blocks_per_sm<256, 48>(smem);
+    default: return -1;
+  }
 }

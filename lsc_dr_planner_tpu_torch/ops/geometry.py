@@ -32,6 +32,20 @@ def closest_point_on_segment(p, a, b):
     return a + t * ab
 
 
+def closest_between_line_paths(p1, p2, q1, q2):
+    """Closest approach of two simultaneously parameterized line paths
+    P(t) = p1 + t(p2−p1), Q(t) = q1 + t(q2−q1), t ∈ [0, 1]; all [..., D].
+    Returns (point_on_P, point_on_Q, dist)."""
+    d0 = q1 - p1
+    dv = (q2 - q1) - (p2 - p1)
+    denom = _dot(dv, dv)[..., None]
+    t = -_dot(d0, dv)[..., None] / torch.clamp(denom, min=_EPS)
+    t = torch.where(denom <= _EPS, 0.0, torch.clamp(t, 0.0, 1.0))
+    cp = p1 + t * (p2 - p1)
+    cq = q1 + t * (q2 - q1)
+    return cp, cq, torch.linalg.vector_norm(cq - cp, dim=-1)
+
+
 def closest_between_segments(p1, p2, q1, q2):
     """Closest points between segments [p1,p2] and [q1,q2]; all [..., D].
     Returns (point_on_P, point_on_Q, dist)."""

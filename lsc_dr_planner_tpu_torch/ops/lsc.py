@@ -3,8 +3,11 @@ batched over (agent × obstacle × segment).
 
 An LSC row means (x_{m,i} − anchor_{o,m,i})·normal_{o,m} ≥ margin_{o,m,i};
 masked neighbour slots get zero normals, which the QP assembly turns
-into vacuous rows. Only the communication-aware CLSC of the DR goal
-mode is ported; plain LSC, BVC and RSFC are later slices.
+into vacuous rows. Four constructions, one per planner mode: plain LSC
+(LSC and DLSC without the DR goal layer), the communication-aware CLSC
+(the DR goal mode), the Buffered Voronoi Cell and Reciprocal RSFC. Each
+works in downwash-scaled coordinates (z divided by the pairwise downwash
+coefficient) and scales the normal's z back.
 """
 
 from __future__ import annotations
@@ -38,6 +41,57 @@ def downwash_between(agent_radius, agent_downwash, obs_radius, obs_downwash,
 def _z_scale(x, dw):
     """Divide the z component by dw (broadcast over trailing dims)."""
     return torch.cat([x[..., :2], (x[..., 2] / dw)[..., None]], dim=-1)
+
+
+def _to_world_normal(normal, dw):
+    """Normals from downwash-scaled back to world coordinates: n_z /= dw
+    (dw broadcasts against normal[..., 2])."""
+    return torch.cat([normal[..., :2], (normal[..., 2] / dw)[..., None]], dim=-1)
+
+
+def build_lsc(
+    initial_ctrl,  # [A, M, N, 3]
+    obs_ctrl,  # [A, O, M, N, 3]
+    obs_pred_sizes,  # [A, O, M, N] (radius + uncertainty inflation)
+    agent_radius,  # [A]
+    agent_downwash,  # [A]
+    obs_radius,  # [A, O]
+    obs_downwash,  # [A, O]
+    obs_is_agent,  # [A, O] bool
+    obs_position,  # [A, O, 3] current obstacle positions (normal fallback)
+    current_goal,  # [A, 3]
+    obs_mask,  # [A, O] bool
+) -> LSCSet:
+    """Plain LSC: the normal from the closest point between the origin and
+    the hull of relative control points; margin ½(r_i + r_j + rel·n) for
+    agents, predicted size + radius for dynamic obstacles. Where the hull
+    holds the origin (degenerate), the normal points from the obstacle
+    toward the agent's goal."""
+    A, O, M, N, _ = obs_ctrl.shape
+    dw = downwash_between(agent_radius[:, None], agent_downwash[:, None],
+                          obs_radius, obs_downwash, obs_is_agent)
+    dwb = dw[..., None, None]
+    init_t = _z_scale(initial_ctrl[:, None].expand(obs_ctrl.shape), dwb)
+    obs_t = _z_scale(obs_ctrl, dwb)
+    rel = init_t - obs_t
+
+    closest, dist = geometry.closest_point_origin_to_hull(rel)
+    normal = closest / torch.clamp(dist[..., None], min=_EPS_F)
+
+    fallback_dir = _z_scale(current_goal[:, None, :] - obs_position, dw)
+    fallback = fallback_dir / torch.clamp(
+        torch.linalg.vector_norm(fallback_dir, dim=-1, keepdim=True), min=_EPS_F)
+    normal = torch.where(dist[..., None] < _EPS_F, fallback[:, :, None, :], normal)
+
+    collision_dist = (agent_radius[:, None] + obs_radius)[..., None, None]
+    proj = torch.einsum("aomnd,aomd->aomn", rel, normal)
+    d_agent = 0.5 * (collision_dist + proj)
+    d_dyn = obs_pred_sizes + agent_radius[:, None, None, None]
+    margins = torch.where(obs_is_agent[..., None, None], d_agent, d_dyn)
+
+    normal = torch.where(obs_mask[..., None, None], _to_world_normal(normal, dw[..., None]),
+                         0.0)
+    return LSCSet(normals=normal, anchors=obs_ctrl, margins=margins)
 
 
 def build_clsc(
@@ -106,8 +160,67 @@ def build_clsc(
     anchors = torch.cat([obs_ctrl[..., :M - 1, :, :], anchors_m1[..., None, :, :]],
                         dim=-3)
 
-    # back to world coordinates
-    normal = torch.cat([normal[..., :2], (normal[..., 2] / dw[..., None])[..., None]],
-                       dim=-1)
-    normal = torch.where(obs_mask[..., None, None], normal, 0.0)
+    normal = torch.where(obs_mask[..., None, None], _to_world_normal(normal, dw[..., None]),
+                         0.0)
     return LSCSet(normals=normal, anchors=anchors, margins=margins)
+
+
+def build_bvc(
+    initial_ctrl,  # [A, M, N, 3]
+    obs_ctrl,  # [A, O, M, N, 3]
+    agent_radius,
+    agent_downwash,
+    obs_radius,
+    obs_downwash,
+    obs_is_agent,
+    obs_mask,
+) -> LSCSet:
+    """Buffered Voronoi Cell: one plane per neighbour from the current
+    positions only, the same for every segment and control point."""
+    A, O, M, N, _ = obs_ctrl.shape
+    dw = downwash_between(agent_radius[:, None], agent_downwash[:, None],
+                          obs_radius, obs_downwash, obs_is_agent)
+    pa = _z_scale(initial_ctrl[:, None, 0, 0, :].expand(A, O, 3), dw)
+    po = _z_scale(obs_ctrl[..., 0, 0, :], dw)
+    rel = pa - po
+    dist = torch.linalg.vector_norm(rel, dim=-1, keepdim=True)
+    normal = rel / torch.clamp(dist, min=_EPS_F)
+    collision_dist = (agent_radius[:, None] + obs_radius)[..., None]
+    d = 0.5 * (collision_dist + torch.sum(rel * normal, dim=-1, keepdim=True))
+
+    normal = _to_world_normal(normal, dw)[..., None, :].expand(A, O, M, 3)
+    margins = d[..., None].expand(A, O, M, N)
+    normal = torch.where(obs_mask[..., None, None], normal, 0.0)
+    return LSCSet(normals=normal, anchors=obs_ctrl, margins=margins)
+
+
+def build_reciprocal_rsfc(
+    initial_ctrl,  # [A, M, N, 3]
+    obs_ctrl,  # [A, O, M, N, 3]
+    obs_pred_sizes,  # [A, O, M, N]
+    agent_radius,
+    agent_downwash,
+    obs_radius,
+    obs_downwash,
+    obs_is_agent,
+    obs_mask,
+) -> LSCSet:
+    """Reciprocal RSFC: per segment, the normal from the closest approach of
+    the two simultaneously parameterized straight paths (segment start →
+    end); margins from the predicted sizes, split in half where two agents'
+    paths are already in conflict. The reference scales n_z by 1/dw² here."""
+    A, O, M, N, _ = obs_ctrl.shape
+    ag = initial_ctrl[:, None].expand(A, O, M, N, 3)
+    cp_obs, cp_agent, dist = geometry.closest_between_line_paths(
+        obs_ctrl[..., 0, :], obs_ctrl[..., N - 1, :], ag[..., 0, :], ag[..., N - 1, :])
+    normal = (cp_agent - cp_obs) / torch.clamp(dist[..., None], min=_EPS_F)
+
+    size_sum = obs_pred_sizes + agent_radius[:, None, None, None]
+    in_conflict = obs_is_agent[..., None, None] & (dist[..., None] < size_sum)
+    d = torch.where(in_conflict, 0.5 * (size_sum + dist[..., None]), size_sum)
+
+    dw = downwash_between(agent_radius[:, None], agent_downwash[:, None],
+                          obs_radius, obs_downwash, obs_is_agent)
+    normal = _to_world_normal(normal, dw[..., None] ** 2)
+    normal = torch.where(obs_mask[..., None, None], normal, 0.0)
+    return LSCSet(normals=normal, anchors=obs_ctrl, margins=d)

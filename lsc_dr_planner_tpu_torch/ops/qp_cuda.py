@@ -2,18 +2,21 @@
 
 The kernel replaces the TPU kernel
 lsc_dr_planner_tpu/ops/qp_pallas.py::admm_loop_pallas: one launch per
-chunk of 8 ADMM iterations, one agent per block of 128 threads with the
-agent's rows in shared memory and its Kinv in registers (dim·K ≤ 56: the
-2-D configurations), the static rows as stencils over the control points,
-and the plain loop's exit tests and global exit (see the note at the top
-of the source for what bounds it).
+chunk of 8 ADMM iterations, one agent per block with the agent's rows in
+shared memory and its Kinv in registers, the static rows as stencils over
+the control points, and the plain loop's exit tests and global exit (see
+the note at the top of the source for what bounds it). Two template
+builds take every planner mode's QP: 128 threads for dim·K ≤ 60 (2-D:
+56 for LSC, 60 for DLSC, BVC and RSFC), 256 threads for dim·K ≤ 96
+(3-D: 84 and 90); a larger dim·K raises ValueError.
 
 The source is compiled at first use by `nvcc` for sm_90a into a shared
 library with a plain C entry point under `build/` at the checkout root,
 and loaded with ctypes; the library's name carries a hash of the source,
 so an edited source is rebuilt. `admm_loop_cuda` takes CUDA tensors
 only and raises on anything else; `qp.run_loop` gives it CUDA tensors
-and CPU tensors to the plain loop. `launches` counts kernel launches.
+and CPU tensors to the plain loop. `launches` counts kernel launches,
+`build_launches` the launches of each build, keyed by `build_name`.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 STENCIL_WIDTH = 3  # nonzeros per static row at most (the acceleration stencil)
 
 launches = 0  # kernel launches (one per chunk) since the last reset
+build_launches = {}  # build_name(dk) -> its launches since the last reset
 build_seconds = None  # wall time of the last nvcc run in this process
 build_log = ""  # nvcc's output of that run (with -Xptxas -v: registers, spills)
 _lib = None
@@ -81,10 +85,24 @@ def build(verbose: bool = False) -> ctypes.CDLL:
     lib.admm_smem_bytes.restype = ctypes.c_longlong
     lib.admm_blocks_per_sm.argtypes = [I] * 6
     lib.admm_blocks_per_sm.restype = I
-    lib.admm_threads.argtypes = [I]
-    lib.admm_threads.restype = I
+    for fn in (lib.admm_threads, lib.admm_columns):
+        fn.argtypes = [I]
+        fn.restype = I
+    lib.admm_max_dk.argtypes = []
+    lib.admm_max_dk.restype = I
     _lib = lib
     return lib
+
+
+def reset_launches():
+    global launches
+    launches = 0
+    build_launches.clear()
+
+
+def build_name(lib, dk: int) -> str:
+    """The template build that takes dk = dim·K: '<threads,columns>'."""
+    return f"<{lib.admm_threads(dk)},{lib.admm_columns(dk)}>"
 
 
 def admm_loop_cuda(li, stencil, N3k, N3kT, rho_lsc: float, max_iter: int, chunk: int,
@@ -145,8 +163,7 @@ def admm_loop_cuda(li, stencil, N3k, N3kT, rho_lsc: float, max_iter: int, chunk:
 
     lib = build()
     if lib.admm_threads(dk) == 0:
-        raise ValueError(f"the kernel takes dim*K <= 56 (2-D), got {dk}: a 3-D build "
-                         "comes with the 3-D pipeline mode (ROADMAP Queue 1 item 12)")
+        raise ValueError(f"the kernel takes dim*K <= {lib.admm_max_dk()}, got {dk}")
     n_chunks = max(1, -(-max_iter // chunk))
     xi = torch.empty_like(li.xi)
     z = torch.empty_like(li.z)
@@ -175,6 +192,8 @@ def admm_loop_cuda(li, stencil, N3k, N3kT, rho_lsc: float, max_iter: int, chunk:
     if rc != 0:
         raise RuntimeError(f"admm_launch failed: CUDA error {rc}")
     launches += n_chunks
+    name = build_name(lib, dk)
+    build_launches[name] = build_launches.get(name, 0) + n_chunks
     # chunks run: through the first test every agent passed (every later
     # launch returned at once), else all
     all_done = done_count == A

@@ -1,10 +1,12 @@
-"""Safe Flight Corridor update (port of lsc_dr_planner_tpu/ops/sfc.py),
-'hull' mode (the DR goal mode) only.
+"""Safe Flight Corridor update (port of lsc_dr_planner_tpu/ops/sfc.py) in
+its three modes: 'hull' (the DR goal mode), 'point' (the other goal
+modes) and 'substep' (DLSC with sub-step replanning).
 
 Boxes live in integer lattice coordinates ([..., 3] inclusive index
 ranges); the box-free predicate is one integral-image lookup. The
 greedy expansion of the JAX package is a `lax.while_loop` per
-(agent, lane); here all A·3 lanes advance together in one masked loop.
+(agent, lane); here all lanes of the fleet (A·3, A·2 or A·(M+2))
+advance together in one masked loop.
 Each trip either grows a live lane by one cell or retires one of its
 six directions, so with the expansion radius clamped to r cells no
 lane needs more than 6·r + 6 trips.
@@ -98,59 +100,139 @@ def sfc_to_world(gw: GridWorld, sfc_lo, sfc_hi, margin: float):
     return lo_pt, hi_pt
 
 
-def _superset_of(gw: GridWorld, lo, hi, pts):
-    """Containment of pts [..., P, 3] in the margin-compensated boxes
-    lo, hi [..., 3]."""
-    lop, hip = sfc_to_world(gw, lo, hi, gw.radius)
-    inside = (pts >= lop[..., None, :] - 1e-6) & (pts <= hip[..., None, :] + 1e-6)
+def goal_directed_axis_order(box_lo_pt, box_hi_pt, goal):
+    """Axis try-order [..., 6] by descending |goal − box mid| (a stable
+    sort), each axis's toward-goal direction first; the away directions
+    follow in mirrored order. Points [..., 3]."""
+    delta = goal - 0.5 * (box_lo_pt + box_hi_pt)
+    offsets = torch.where(delta > 0, 3, 0)
+    order = torch.sort(-torch.abs(delta), dim=-1, stable=True).indices
+    off = torch.gather(offsets, -1, order)
+    return torch.cat([order + off, (order + (3 - off)).flip(-1)], dim=-1)
+
+
+def _contains(gw: GridWorld, lo, hi, pts, margin: float, eps: float):
+    """Containment of pts [..., P, 3] in the world boxes of lo, hi [..., 3]
+    with margin compensation `margin`, to eps."""
+    lo_w, hi_w = sfc_to_world(gw, lo, hi, margin)
+    inside = (pts >= lo_w[..., None, :] - eps) & (pts <= hi_w[..., None, :] + eps)
     return torch.all(inside.flatten(-2), dim=-1)
 
 
-def update_sfc_fused(gw: GridWorld, sfc_lo, sfc_hi, init_done, last_pt, cgoal,
-                     wpt, pos, max_radius_cells: int = 0):
-    """Fleet SFC update in 'hull' mode with all greedy expansions in one
-    batched loop: lane 0 seeds the initialization box from the current
-    position; lanes 1-2 grow the new last box from {trajectory end,
-    current goal, next waypoint} (round seed) and from {trajectory end,
-    current goal} (floor/ceil seed intersected with the previous last
-    box). Boxes shift one segment; the new last box takes lane 1, else
-    lane 2, else the previous last box.
+def _superset_of(gw: GridWorld, lo, hi, pts):
+    """Containment in the boxes as the expansion compensates them (the
+    world's own margin), to 1e-6."""
+    return _contains(gw, lo, hi, pts, gw.radius, 1e-6)
 
-    sfc_lo, sfc_hi: int32 [A, M, 3]; init_done: bool [A]; last_pt,
-    cgoal, wpt, pos: [A, 3]. Returns (new_lo, new_hi) [A, M, 3].
-    """
+
+def update_sfc_fused(gw: GridWorld, mode: str, sfc_lo, sfc_hi, init_done, last_pt,
+                     cgoal, wpt, pos, init_ctrl, margin: float, max_radius_cells: int = 0):
+    """Fleet SFC update with all greedy expansions in one batched loop.
+
+    Lane 0 seeds the initialization box from the current position. Then,
+    by `mode`:
+    - 'hull': lanes 1-2 grow the new last box from {trajectory end,
+      current goal, next waypoint} (round seed) and from {trajectory end,
+      current goal} (floor/ceil seed intersected with the previous last
+      box); the boxes shift one segment and the new last box takes lane
+      1, else lane 2, else the previous last box.
+    - 'point': lane 1 grows the new last box from the trajectory end
+      (intersected with the previous last box) in the goal-directed axis
+      order; the boxes shift one segment, the new last box falling back
+      to the previous one.
+    - 'substep': lanes 1-2 as in 'hull', both also required to contain
+      the whole initial last segment; lanes 3.. grow a box from each
+      initial segment m < M−1. Box m takes the first of (previous box
+      m+1, previous box m, its own lane's box) that contains initial
+      segment m (with `margin`), else keeps previous box m; the last box
+      is the rebuild, or the previous last box if neither lane holds.
+
+    sfc_lo, sfc_hi: int32 [A, M, 3]; init_done: bool [A]; last_pt, cgoal,
+    wpt, pos: [A, 3]; init_ctrl: [A, M, N, 3] (read in 'substep' mode).
+    Returns (new_lo, new_hi) [A, M, 3]."""
+    if mode not in ("hull", "point", "substep"):
+        raise ValueError(f"unknown SFC mode {mode!r}")
     A, M, _ = sfc_lo.shape
+    dev = sfc_lo.device
     prev_lo, prev_hi = sfc_lo[:, -1], sfc_hi[:, -1]
 
-    lo_i = gw.point_to_lattice_floor(pos)
-    hi_i = gw.point_to_lattice_ceil(pos)
+    def within_prev(lo, hi):
+        """The seed as it is if the previous last box holds it, else its
+        intersection with that box."""
+        included = (torch.all(lo >= prev_lo, dim=-1)
+                    & torch.all(hi <= prev_hi, dim=-1))[:, None]
+        return (torch.where(included, lo, torch.maximum(lo, prev_lo)),
+                torch.where(included, hi, torch.minimum(hi, prev_hi)))
+
     hull_pts = torch.stack([last_pt, cgoal], dim=1)  # [A, 2, 3]
-    pts_g = torch.cat([hull_pts, wpt[:, None]], dim=1)  # [A, 3, 3]
-    lo1 = gw.point_to_lattice_round(pts_g.amin(dim=1))
-    hi1 = gw.point_to_lattice_round(pts_g.amax(dim=1))
-    lo2 = gw.point_to_lattice_floor(hull_pts.amin(dim=1))
-    hi2 = gw.point_to_lattice_ceil(hull_pts.amax(dim=1))
-    included = (torch.all(lo2 >= prev_lo, dim=-1)
-                & torch.all(hi2 <= prev_hi, dim=-1))[:, None]
-    lo2 = torch.where(included, lo2, torch.maximum(lo2, prev_lo))
-    hi2 = torch.where(included, hi2, torch.minimum(hi2, prev_hi))
+    los = [gw.point_to_lattice_floor(pos)]
+    his = [gw.point_to_lattice_ceil(pos)]
+    order_d = default_axis_order(A, dev)
+    orders = [order_d]
+    if mode == "point":
+        lo_p, hi_p = within_prev(gw.point_to_lattice_floor(last_pt),
+                                 gw.point_to_lattice_ceil(last_pt))
+        los.append(lo_p)
+        his.append(hi_p)
+        orders.append(goal_directed_axis_order(gw.lattice_to_point(lo_p),
+                                               gw.lattice_to_point(hi_p), cgoal))
+    else:
+        pts_g = torch.cat([hull_pts, wpt[:, None]], dim=1)  # [A, 3, 3]
+        lo2, hi2 = within_prev(gw.point_to_lattice_floor(hull_pts.amin(dim=1)),
+                               gw.point_to_lattice_ceil(hull_pts.amax(dim=1)))
+        los += [gw.point_to_lattice_round(pts_g.amin(dim=1)), lo2]
+        his += [gw.point_to_lattice_round(pts_g.amax(dim=1)), hi2]
+        orders += [order_d, order_d]
+    seeds_lo, seeds_hi = torch.stack(los, dim=1), torch.stack(his, dim=1)
+    lane_order = torch.stack(orders, dim=1)
+    if mode == "substep":
+        segs = init_ctrl[:, :M - 1]  # [A, M-1, N, 3]
+        seeds_lo = torch.cat([seeds_lo, gw.point_to_lattice_floor(segs.amin(dim=2))], dim=1)
+        seeds_hi = torch.cat([seeds_hi, gw.point_to_lattice_ceil(segs.amax(dim=2))], dim=1)
+        lane_order = torch.cat([lane_order, order_d[:, None].expand(A, M - 1, 6)], dim=1)
 
-    # lanes agent-major: [A, 3 lanes, 3] → [A·3, 3]
-    los = torch.stack([lo_i, lo1, lo2], dim=1).reshape(A * 3, 3)
-    his = torch.stack([hi_i, hi1, hi2], dim=1).reshape(A * 3, 3)
+    # lanes agent-major: [A, L, 3] → [A·L, 3]
+    L = seeds_lo.shape[1]
     e_lo, e_hi, e_ok = expand_box(
-        gw, los, his, default_axis_order(A * 3, los.device),
-        max_radius_cells=max_radius_cells)
-    e_lo = e_lo.reshape(A, 3, 3)
-    e_hi = e_hi.reshape(A, 3, 3)
-    e_ok = e_ok.reshape(A, 3)
+        gw, seeds_lo.reshape(A * L, 3), seeds_hi.reshape(A * L, 3),
+        lane_order.reshape(A * L, 6), max_radius_cells=max_radius_cells)
+    e_lo = e_lo.reshape(A, L, 3)
+    e_hi = e_hi.reshape(A, L, 3)
+    e_ok = e_ok.reshape(A, L)
 
-    ok1 = (e_ok[:, 1] & _superset_of(gw, e_lo[:, 1], e_hi[:, 1], pts_g))[:, None]
-    ok2 = (e_ok[:, 2] & _superset_of(gw, e_lo[:, 2], e_hi[:, 2], hull_pts))[:, None]
-    new_lo = torch.where(ok1, e_lo[:, 1], torch.where(ok2, e_lo[:, 2], prev_lo))
-    new_hi = torch.where(ok1, e_hi[:, 1], torch.where(ok2, e_hi[:, 2], prev_hi))
-    ulo = torch.cat([sfc_lo[:, 1:], new_lo[:, None]], dim=1)
-    uhi = torch.cat([sfc_hi[:, 1:], new_hi[:, None]], dim=1)
+    if mode == "point":
+        ok = e_ok[:, 1:2]
+        new_lo = torch.where(ok, e_lo[:, 1], prev_lo)
+        new_hi = torch.where(ok, e_hi[:, 1], prev_hi)
+    else:
+        ok1 = e_ok[:, 1] & _superset_of(gw, e_lo[:, 1], e_hi[:, 1], pts_g)
+        ok2 = e_ok[:, 2] & _superset_of(gw, e_lo[:, 2], e_hi[:, 2], hull_pts)
+        if mode == "substep":
+            # the new last box must hold the whole initial last segment (a
+            # real moving arc here, not LSC's stationary horizon point)
+            ok1 &= _superset_of(gw, e_lo[:, 1], e_hi[:, 1], init_ctrl[:, M - 1])
+            ok2 &= _superset_of(gw, e_lo[:, 2], e_hi[:, 2], init_ctrl[:, M - 1])
+        ok1, ok2 = ok1[:, None], ok2[:, None]
+        new_lo = torch.where(ok1, e_lo[:, 1], torch.where(ok2, e_lo[:, 2], prev_lo))
+        new_hi = torch.where(ok1, e_hi[:, 1], torch.where(ok2, e_hi[:, 2], prev_hi))
+    if mode == "substep":
+        shift_lo, shift_hi = sfc_lo[:, 1:], sfc_hi[:, 1:]
+        hold_lo, hold_hi = sfc_lo[:, :M - 1], sfc_hi[:, :M - 1]
+        c_shift = _contains(gw, shift_lo, shift_hi, segs, margin, 1e-3)[..., None]
+        c_hold = _contains(gw, hold_lo, hold_hi, segs, margin, 1e-3)[..., None]
+        eok = (e_ok[:, 3:] & _contains(gw, e_lo[:, 3:], e_hi[:, 3:], segs, margin,
+                                       1e-3))[..., None]
+        ulo = torch.where(c_shift, shift_lo,
+                          torch.where(c_hold, hold_lo, torch.where(eok, e_lo[:, 3:], hold_lo)))
+        uhi = torch.where(c_shift, shift_hi,
+                          torch.where(c_hold, hold_hi, torch.where(eok, e_hi[:, 3:], hold_hi)))
+        # keep_new: new_lo/new_hi already hold the previous last box where
+        # neither lane does
+        ulo = torch.cat([ulo, new_lo[:, None]], dim=1)
+        uhi = torch.cat([uhi, new_hi[:, None]], dim=1)
+    else:
+        ulo = torch.cat([sfc_lo[:, 1:], new_lo[:, None]], dim=1)
+        uhi = torch.cat([sfc_hi[:, 1:], new_hi[:, None]], dim=1)
     ilo = e_lo[:, 0:1].expand(A, M, 3)
     ihi = e_hi[:, 0:1].expand(A, M, 3)
     done = init_done[:, None, None]

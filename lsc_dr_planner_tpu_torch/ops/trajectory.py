@@ -55,5 +55,15 @@ def shift_one_segment(ctrl):
     return torch.cat([ctrl[..., 1:, :, :], hold], dim=-3)
 
 
+def subsegment_first(ctrl, frac: float):
+    """DLSC sub-step shift: re-parameterize the first segment to [frac, 1]
+    and keep the rest (the C⁰-continuous relaxed-LSC prediction)."""
+    n = ctrl.shape[-2] - 1
+    S = torch.as_tensor(bernstein.subsegment_matrix(n, frac, 1.0), dtype=ctrl.dtype,
+                        device=ctrl.device)
+    first = torch.einsum("ij,...id->...jd", S, ctrl[..., 0, :, :])
+    return torch.cat([first[..., None, :, :], ctrl[..., 1:, :, :]], dim=-3)
+
+
 def last_point(ctrl):
     return ctrl[..., -1, -1, :]

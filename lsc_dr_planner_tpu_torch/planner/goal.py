@@ -1,5 +1,7 @@
-"""Goal planning for the grid-based DR goal mode (port of
-lsc_dr_planner_tpu/planner/goal.py::goal_lp).
+"""Goal planning (port of lsc_dr_planner_tpu/planner/goal.py): the goal LP
+of the grid-based DR goal mode, the right-hand-rule detour with its
+deadlock test, and the host-side line-of-sight goal of the priority-based
+mode.
 
 The 1-D goal LP is solved in closed form: minimizing t ∈ [0, 1] for
 goal = (g_cur − w)·t + w subject to half-spaces a·t ≥ b is a max over
@@ -8,6 +10,7 @@ per-constraint ratios, batched over the fleet.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _EPS = 1e-6
@@ -66,3 +69,69 @@ def goal_lp(
     if d == 2:
         goal = torch.cat([goal, current_goal[..., 2:]], dim=-1)
     return goal, infeasible
+
+
+def right_hand_goal(position, desired_goal, is_deadlock):
+    """Right-hand-rule detour: where an agent is deadlocked, its goal
+    direction rotated about +z (the cross product with ẑ). [A, 3]."""
+    z = torch.tensor([0.0, 0.0, 1.0], dtype=position.dtype, device=position.device)
+    detour = position + torch.linalg.cross(desired_goal - position, z.expand_as(position))
+    return torch.where(is_deadlock[..., None], detour, desired_goal)
+
+
+def is_deadlock(planner_seq: int, velocity, position, desired_goal,
+                vel_threshold: float, seq_threshold: int):
+    """Velocity-threshold deadlock test: past seq_threshold planner steps,
+    slower than vel_threshold and more than 0.2 m from the goal. [A]."""
+    dist = torch.linalg.vector_norm(position - desired_goal, dim=-1)
+    speed = torch.linalg.vector_norm(velocity, dim=-1)
+    return (planner_seq > seq_threshold) & (speed < vel_threshold) & (dist > 0.2)
+
+
+# ----------------------------------------------------------------------
+# line-of-sight goal (host numpy; the priority-based goal mode)
+# ----------------------------------------------------------------------
+
+
+def cast_ray(distance_fn, p0, p1, radius, world_max_dist=1.0, world_resolution=0.1,
+             _depth=0) -> bool:
+    """Recursive bisection sphere-check raycast: True when the segment
+    p0 → p1 keeps `radius` (plus half a cell) from every obstacle by the
+    distances `distance_fn` gives."""
+    p0 = np.asarray(p0, dtype=np.float64)
+    p1 = np.asarray(p1, dtype=np.float64)
+    dist_to_goal = np.linalg.norm(p0 - p1)
+    thresh = np.sqrt(0.25 * dist_to_goal**2 + radius**2)
+    d0 = float(distance_fn(p0))
+    d1 = float(distance_fn(p1))
+    if d0 < radius + 0.5 * world_resolution - 1e-6:
+        return False
+    if d1 < radius + 0.5 * world_resolution - 1e-6:
+        return False
+    if thresh < world_max_dist and d0 > thresh and d1 > thresh:
+        return True
+    if _depth > 40:
+        return True
+    mid = 0.5 * (p0 + p1)
+    return cast_ray(distance_fn, p0, mid, radius, world_max_dist,
+                    world_resolution, _depth + 1) and cast_ray(
+        distance_fn, mid, p1, radius, world_max_dist, world_resolution,
+        _depth + 1)
+
+
+def find_los_free_goal(distance_fn, current_position, path, goal_position,
+                       radius, world_max_dist=1.0, world_resolution=0.1):
+    """Walk the grid path (then the final goal) and keep the farthest point
+    with a collision-free straight line from `current_position`."""
+    los_free = np.asarray(current_position, dtype=np.float64)
+    pts = list(path) + [np.asarray(goal_position, dtype=np.float64)]
+    for p in pts:
+        if cast_ray(distance_fn, current_position,
+                    p, radius + 0.5 * world_resolution,
+                    world_max_dist, world_resolution):
+            los_free = np.asarray(p, dtype=np.float64)
+        else:
+            break
+    if np.linalg.norm(los_free - np.asarray(current_position)) < 1e-6 and len(pts) > 2:
+        los_free = np.asarray(pts[1], dtype=np.float64)
+    return los_free

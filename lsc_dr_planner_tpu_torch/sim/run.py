@@ -42,6 +42,7 @@ def build_param(args) -> Param:
         multisim_time_step=args.dt,
         qp_max_iter=args.qp_iters,
         world_use_global_map=not args.no_global_map,
+        multisim_observer_stddev=args.obs_noise,
     )
 
 
@@ -82,13 +83,16 @@ def main(argv=None):
     ap.add_argument("--mapf", default="pibt", choices=["pibt", "ecbs"])
     ap.add_argument("--dimension", type=int, default=2)
     ap.add_argument("--no-octomap", action="store_true")
-    # local sensing (--sensor-range) and dynamic-obstacle observation
-    # noise (--obs-noise) come with world/map_manager.py and the dynamic
-    # obstacles (ROADMAP Queue 1 item 12); this flag raises until then
+    # local sensing (with its --sensor-range) comes with
+    # world/map_manager.py (ROADMAP Queue 1 item 12); this flag raises
+    # until then
     ap.add_argument("--no-global-map", action="store_true",
                     help="local-sensing mode (reference "
                          "world/use_global_map=false); not ported yet, "
                          "raises NotImplementedError")
+    ap.add_argument("--obs-noise", type=float, default=0.0,
+                    help="dynamic-obstacle observation noise std dev [m] "
+                         "seen by the planner (audit uses true states)")
     ap.add_argument("--checkpoint", help="checkpoint .npz path to write")
     ap.add_argument("--checkpoint-every", type=int, default=0,
                     help="save the checkpoint every N planning steps")

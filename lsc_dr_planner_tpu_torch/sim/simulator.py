@@ -15,9 +15,8 @@ single fused pipeline step for the whole fleet.
 Port of lsc_dr_planner_tpu/sim/simulator.py: the host code is the same
 numpy; only the device touchpoints are torch. The device is an argument:
 "cuda", the default, runs the ADMM loop as the CUDA kernel, and "cpu"
-the plain torch paths. Local sensing, the priority-based goal
-mode and debug frames are not ported yet and raise NotImplementedError
-naming their ROADMAP item.
+the plain torch paths. Local sensing and debug frames are not ported
+yet and raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -45,6 +44,7 @@ from lsc_dr_planner_tpu_torch.planner.pipeline import (
     StepOutputs,
     _unsupported,
 )
+from lsc_dr_planner_tpu_torch.planner.priority import prior_based_goal
 from lsc_dr_planner_tpu_torch.utils.timing import (
     PlanningTime,
     PlanningTimeStatistics,
@@ -295,6 +295,8 @@ class MultiSyncSimulator:
         # plan, audit) and each step's converged-QP share; run-local, not
         # checkpointed (the checkpoint format is the JAX package's)
         self.step_time = PlanningTime()
+        # host time of the priority-based goals per step (PRIOR_BASED only)
+        self.prior_goal_time = PlanningTime()
         self.qp_converged_share: List[float] = []
         self.safety_ratio_agent = np.inf
         self.safety_ratio_obs = np.inf
@@ -1263,21 +1265,35 @@ class MultiSyncSimulator:
                     float(self.mission.world_min[2]) + self.s["radius"]
                 )
 
-        # dynamic obstacles (mission.on > 0) and the priority-based goal
-        # mode are not ported: FleetPlanner's constructor raises for both
-        # (ROADMAP Queue 1 item 12)
+        def f32(x):
+            return _on_device(x, self.device, np.float32)
+
+        def same(x):
+            return _on_device(x, self.device)
+
+        # dynamic obstacles at the current sim time, as the planner observes
+        # them (with observation noise); the audit reads the true states
+        dyn = {}
+        if self.mission.on > 0:
+            obs = self.obstacle_generator.states_at(
+                self.sim_time, noise_std=p.multisim_observer_stddev, rng=self._obs_rng)
+            dyn = dict(
+                dynobs_pos=f32(np.stack([o.position for o in obs])),
+                dynobs_vel=f32(np.stack([o.velocity for o in obs])),
+                dynobs_radius=f32([o.radius for o in obs]),
+                dynobs_downwash=f32([o.downwash for o in obs]),
+                dynobs_max_acc=f32([o.max_acc for o in obs]),
+                dynobs_valid=same(np.ones(len(obs), bool)),
+            )
+
+        if p.goal_mode == GoalMode.PRIOR_BASED:
+            self._prior_based_goals()
 
         # disturbance: observed state must match own prediction start
         pred_start = self.prev_ctrl[:, 0, 0]
         disturbed = self.has_prev & (
             np.linalg.norm(pred_start - self.pos, axis=-1) > p.reset_threshold
         )
-
-        def f32(x):
-            return _on_device(x, self.device, np.float32)
-
-        def same(x):
-            return _on_device(x, self.device)
 
         return StepInputs(
             pos=f32(self.pos),
@@ -1294,7 +1310,32 @@ class MultiSyncSimulator:
             sfc_initialized=same(self.sfc_initialized),
             planner_seq=self.planner_seq,
             qp_y0=f32(self.qp_y),
+            **dyn,
         )
+
+    # ==================================================================
+    def _prior_based_goals(self) -> None:
+        """Host-side priority-based goals (planner/priority.py) into
+        current_goal. Each line-of-sight query asks the world's distance
+        on the planner's device, one point at a time."""
+        p = self.param
+        timer = Timer()
+        dist_fn = None
+        if p.world_use_octomap and self.world.n_boxes:
+            def dist_fn(q):
+                return float(self.world.distance_to_obstacle(
+                    torch.as_tensor(q, dtype=torch.float32, device=self.device))[0])
+        prev_end = self.desired_ctrl[:, -1, -1]
+        new_goals = self.current_goal.copy()
+        for i in range(self.A):
+            nbrs = [j for j in range(self.A) if j != i and (
+                p.communication_range <= 0
+                or np.max(np.abs(self.pos[j] - self.pos[i])) < p.communication_range)]
+            new_goals[i] = prior_based_goal(
+                i, self.pos, self.vel, self.desired_goal, prev_end, self.s["radius"],
+                self.s["downwash"], nbrs, self.coarse, dist_fn, p)
+        self.current_goal = new_goals
+        self.prior_goal_time.update(timer.stop())
 
     # ==================================================================
     def _apply_step_outputs(self, out: StepOutputs) -> None:

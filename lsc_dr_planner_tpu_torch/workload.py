@@ -85,19 +85,24 @@ def forest_mission(n_agents: int, seed: int = 0) -> Mission:
     return m
 
 
-def build_fleet(A: int, seed: int = 0, device=DEFAULT_DEVICE, timing: bool = False):
+def build_fleet(A: int, seed: int = 0, device=DEFAULT_DEVICE, timing: bool = False,
+                **overrides):
     """Agent lattice + forest world + planner on `device` (the card by
     default; "cuda" without a CUDA device raises): (param, planner,
-    fleet, inputs)."""
+    fleet, inputs). `overrides` are `Param` fields set over the bench
+    configuration (LSC, grid-based DR goals, 2-D, comm range 3 m), for
+    instance planner_mode, goal_mode, world_dimension, multisim_time_step
+    or communication_range; the layout is the same for any of them. In
+    3-D the agents start and aim at world_z_2d."""
     device = resolve_device(device)
     pos2, goal2, boxes, wmin, wmax = fleet_layout(A, seed)
-    p = Param(
+    p = Param(**{**dict(
         goal_mode=GoalMode.GRID_BASED_PLANNER,
         world_use_octomap=True,
         world_dimension=2,
         communication_range=3.0,
         max_obstacles=16,
-    )
+    ), **overrides})
     world = build_grid_world(boxes, wmin, wmax, p.world_resolution, 0.15, device)
     planner = FleetPlanner(p, world, A, max_dynobs=0, agent_radius=0.15,
                            max_vel_hint=1.0, timing=timing)
@@ -138,8 +143,9 @@ def advance(p: Param, inp: StepInputs, out) -> StepInputs:
     """The next step's inputs from one step's outputs: ideal dynamics
     along the new plan, the gated waypoint walk, and the dual warm start."""
     pos, vel, acc = trajectory.state_at(out.desired_ctrl, p.multisim_time_step, p.dt)
-    pos = pos.clone()
-    pos[:, 2] = p.world_z_2d
+    if p.world_dimension == 2:
+        pos = pos.clone()
+        pos[:, 2] = p.world_z_2d
 
     # waypoint walk: one grid step toward the goal, only when the goal LP
     # has converged onto the current waypoint AND the new waypoint stays

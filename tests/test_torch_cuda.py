@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from lsc_dr_planner_tpu_torch import workload
+from lsc_dr_planner_tpu_torch.config import GoalMode, PlannerMode
 from lsc_dr_planner_tpu_torch.ops import qp, qp_cuda
 
 pytestmark = pytest.mark.cuda
@@ -113,16 +114,23 @@ def test_wrapper_rejects_bad_inputs(fleet_qp):
         qp.run_loop(cfg, dataclasses.replace(li, un=un), 8, feas_tol)
 
 
-def test_3d_shapes_raise():
-    """dim·K > 56 (3-D) is not taken by the kernel's one build: a clear
-    error, no launch."""
+def _per_agent_close(a, b):
+    """|a − b| within rtol 1e-4 of the agent's largest |b| / atol 1e-5."""
+    d, m = (a - b).abs().flatten(1), b.abs().flatten(1)
+    return bool((d.amax(1) <= 1e-5 + 1e-4 * m.amax(1)).all())
+
+
+def test_dk_above_96_raises():
+    """dim·K > 96 is taken by no build of the kernel: a clear error that
+    names the limit, no launch (M=12 in 3-D: K = 36, dim·K = 108)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    cfg = qp.QPConfig(dim=3, M=10, n=5, phi=3, n_obs=4, use_comm=True, stop_at_horizon=True,
+    cfg = qp.QPConfig(dim=3, M=12, n=5, phi=3, n_obs=4, use_comm=True, stop_at_horizon=False,
                       dt=0.2, control_input_weight=0.01, terminal_weight=1.0, rho=1.0,
                       sigma=1e-6, alpha=1.6, max_iter=16, eps_abs=1e-3)
     ts = qp.torch_statics(cfg, torch.device("cuda"))
     A, K, R = 2, ts["K"], qp.n_rows(cfg)
+    assert 3 * K > 96
     g = torch.Generator(device="cuda").manual_seed(0)
     rnd = lambda *shape: torch.randn(*shape, device="cuda", generator=g)  # noqa: E731
     li = qp.LoopInputs(normals=rnd(A, cfg.n_obs, cfg.M, 3), Kinv=rnd(A, 3 * K, 3 * K),
@@ -131,9 +139,118 @@ def test_3d_shapes_raise():
                        rho=ts["kernel_rho"].expand(A, R), scale=torch.ones(A, R, device="cuda"),
                        xi=rnd(A, 3, K), z=rnd(A, R), y=rnd(A, R))
     before = qp_cuda.launches
-    with pytest.raises(ValueError, match="2-D"):
+    with pytest.raises(ValueError, match="<= 96"):
         qp.run_loop(cfg, li, cfg.max_iter, 5e-3)
     assert qp_cuda.launches == before
+
+
+# The planner modes whose QPs take the kernel's other builds: dim·K 60
+# (2-D BVC with static goals and no comm box: use_comm=False), 84 (LSC in
+# 3-D) and 90 (DLSC in 3-D)
+MODES = {
+    60: dict(planner_mode=PlannerMode.BVC, goal_mode=GoalMode.STATIC,
+             communication_range=-1.0),
+    84: dict(world_dimension=3),
+    90: dict(world_dimension=3, planner_mode=PlannerMode.DLSC),
+}
+
+
+def _fleet_qp(A, dk):
+    p, planner, fleet, inp = workload.build_fleet(A, device="cuda", **MODES[dk])
+    step = workload.make_evolve_step(p, planner, fleet)
+    for _ in range(3):
+        inp, _ = step(inp)
+    cfg = planner.qp_cfg
+    assert cfg.dim * qp.torch_statics(cfg, torch.device("cuda"))["K"] == dk
+    return cfg, planner._step_impl(fleet, inp, defer_qp=True).qp_inp, planner.feas_tol
+
+
+@pytest.fixture(scope="module", params=sorted(MODES))
+def mode_qp(request):
+    """A ragged fleet (A=37) of each mode after 3 evolving steps, on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    return _fleet_qp(37, request.param)
+
+
+def _share(a, b):
+    """Largest |a − b| over the tolerance rtol 1e-4 / atol 1e-5 about b."""
+    return ((a - b).abs() / (1e-5 + 1e-4 * b.abs())).max().item()
+
+
+def test_mode_qp_one_chunk_matches_plain_loop(mode_qp):
+    cfg, qp_inp, feas_tol = mode_qp
+    li = qp.prepare(cfg, qp_inp).loop
+    before = dict(qp_cuda.build_launches)
+    got = qp.run_loop(cfg, li, 8, feas_tol)
+    torch.cuda.synchronize()
+    name = qp_cuda.build_name(qp_cuda.build(), cfg.dim * li.Pn.shape[-1])
+    assert qp_cuda.build_launches[name] == before.get(name, 0) + 1
+    want = qp.admm_loop_plain(cfg, li, 8, feas_tol)
+    for a, b in zip(got[:3], want[:3]):
+        assert torch.isfinite(a).all()
+        assert _per_agent_close(a, b)
+    assert (got[3] == want[3]).float().mean() >= 0.99
+
+
+def test_mode_qp_whole_run_matches_plain_loop(mode_qp):
+    """The run to the kernel's own exit: bitwise its chain of single-chunk
+    launches, every chunk per agent within the tolerance of the plain chunk
+    from the same state, no change from the launches after the exit, and
+    the whole run within one tolerance per chunk of the plain iterate after
+    as many iterations, or no farther from the float64 plain iterate than
+    the float32 plain loop is."""
+    cfg, qp_inp, feas_tol = mode_qp
+    li = qp.prepare(cfg, qp_inp).loop
+    got = qp.run_loop(cfg, li, cfg.max_iter, feas_tol)
+    stop = int(got[4])
+    again = qp.run_loop(cfg, li, stop, feas_tol)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    state = li
+    for _ in range(stop // 8):
+        k = qp.run_loop(cfg, state, 8, feas_tol)
+        p = qp.admm_loop_plain(cfg, state, 8, feas_tol)
+        assert all(_per_agent_close(a, b) for a, b in zip(k[:3], p[:3]))
+        state = dataclasses.replace(state, xi=k[0], z=k[1], y=k[2])
+    for a, b in zip(got[:3], (state.xi, state.z, state.y)):
+        assert torch.equal(a, b)
+    want = qp.admm_loop_plain(cfg, li, stop, 0.0)
+    share = max(_share(a, b) for a, b in zip(got[:3], want[:3]))
+    if share > stop // 8:
+        exact = qp.admm_loop_plain(
+            cfg, qp.LoopInputs(*(getattr(li, f.name).double()
+                                 for f in dataclasses.fields(li))), stop, 0.0)
+        k64 = max(_share(a.double(), e) for a, e in zip(got[:3], exact[:3]))
+        p64 = max(_share(b.double(), e) for b, e in zip(want[:3], exact[:3]))
+        assert k64 <= p64, (share, k64, p64)
+
+
+def test_3d_compacted_rescue():
+    """The compacted rescue (RESCUE = 64 agents, 800 iterations) at dim·K
+    84: one bench step of the 3-D fleet at A=128, as in qp.solve."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    cfg, qp_inp, feas_tol = _fleet_qp(128, 84)
+    main = qp.prepare(cfg, qp_inp).loop
+    xi, z, y = qp.run_loop(cfg, main, cfg.max_iter, feas_tol)[:3]
+    li = qp.rescue_batch(cfg, main, xi, z, y, feas_tol)[2]
+    assert li.xi.shape[0] == qp.RESCUE
+    got = qp.run_loop(cfg, li, cfg.rescue_iter, feas_tol)
+    stop = int(got[4])
+    state = li
+    for _ in range(stop // 8):
+        k = qp.run_loop(cfg, state, 8, feas_tol)
+        p = qp.admm_loop_plain(cfg, state, 8, feas_tol)
+        assert all(_per_agent_close(a, b) for a, b in zip(k[:3], p[:3]))
+        state = dataclasses.replace(state, xi=k[0], z=k[1], y=k[2])
+    for a, b in zip(got[:3], (state.xi, state.z, state.y)):
+        assert torch.equal(a, b)
+    out = qp.solve(cfg, qp_inp, feas_tol)
+    ref = qp.solve(cfg, qp_inp, feas_tol, plain=True)
+    assert out.converged.float().mean() >= ref.converged.float().mean() - 0.01
+    both = out.converged & ref.converged
+    assert (out.x - ref.x).abs()[both].max() < 0.1
 
 
 @pytest.fixture(scope="module")
@@ -209,12 +326,6 @@ def test_simulator_qp_in_place_rescue_contract(sim_qp):
     assert out.converged.float().mean() >= ref.converged.float().mean()
     both = out.converged & ref.converged
     assert (out.x - ref.x).abs()[both].max() < 0.1
-
-
-def _per_agent_close(a, b):
-    """|a − b| within rtol 1e-4 of the agent's largest |b| / atol 1e-5."""
-    d, m = (a - b).abs().flatten(1), b.abs().flatten(1)
-    return bool((d.amax(1) <= 1e-5 + 1e-4 * m.amax(1)).all())
 
 
 @pytest.fixture(scope="module")

@@ -209,7 +209,7 @@ def test_cli_flies_a_mission_on_cpu(tmp_path, capsys):
     assert printed["qp_converged_mean"] > 0.9
 
 
-def test_cli_device_and_unported_options_raise(tmp_path):
+def test_cli_device_and_unported_options_raise(tmp_path, monkeypatch):
     mpath, wpath = _write_mission(tmp_path)
     argv = ["--mission", mpath, "--world", wpath, "--log-dir", str(tmp_path / "log")]
     if not torch.cuda.is_available():
@@ -220,6 +220,20 @@ def test_cli_device_and_unported_options_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="item 12"):
         run_t.main(argv + ["--device", "cpu", "--no-global-map"])
     # options that only unported modules would read are not accepted
-    for opt in ("--sensor-range", "--obs-noise", "--frames-dir"):
+    for opt in ("--sensor-range", "--frames-dir"):
         with pytest.raises(SystemExit):
             run_t.main(argv + ["--device", "cpu", opt, "1"])
+    # --obs-noise sets the planner's dynamic-obstacle observation noise, as
+    # the JAX CLI does
+    from lsc_dr_planner_tpu.sim import run as run_j
+
+    params = {}
+    for name, run in (("port", run_t), ("jax", run_j)):
+        def capture(mission_file, world_file, param, *a, _name=name, **kw):
+            params[_name] = param
+            return {"is_collided": False, "qp_failed": False, "total_flight_time": 1.0}
+
+        monkeypatch.setattr(run, "run_one", capture)
+        run.main(argv + ["--obs-noise", "0.03"] + (["--device", "cpu"] if run is run_t else []))
+    assert params["port"].multisim_observer_stddev == 0.03
+    assert params["jax"].multisim_observer_stddev == 0.03

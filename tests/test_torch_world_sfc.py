@@ -93,17 +93,16 @@ def test_update_sfc_fused_hull_exact(radius_cells):
         wpt = (pos + np.append(rng.uniform(-1.0, 1.0, 2), 0)).astype(np.float32)
         slo = np.tile(np.asarray(gj.point_to_lattice_floor(jnp.asarray(pos))) - 2, (M, 1))
         shi = np.tile(np.asarray(gj.point_to_lattice_ceil(jnp.asarray(pos))) + 2, (M, 1))
+        ictrl = np.repeat(np.linspace(pos, cgoal, M)[:, None, :], 6, axis=1).astype(np.float32)
         for init_done in (False, True):
-            cases.append((slo, shi, init_done, last_pt, cgoal, wpt, pos))
+            cases.append((slo, shi, init_done, last_pt, cgoal, wpt, pos, ictrl))
     cols = [np.stack(c) for c in zip(*cases)]
-    t_lo, t_hi = tsfc.update_sfc_fused(gt, *map(torch.tensor, cols),
+    t_lo, t_hi = tsfc.update_sfc_fused(gt, "hull", *map(torch.tensor, cols), 0.15,
                                        max_radius_cells=radius_cells)
-    for a, (slo, shi, init_done, last_pt, cgoal, wpt, pos) in enumerate(cases):
-        ictrl = jnp.asarray(np.repeat(np.linspace(pos, cgoal, M)[:, None, :], 6, axis=1),
-                            jnp.float32)
+    for a, (slo, shi, init_done, last_pt, cgoal, wpt, pos, ictrl) in enumerate(cases):
         j_lo, j_hi = jsfc.update_sfc_fused(
             gj, "hull", jnp.asarray(slo), jnp.asarray(shi), jnp.asarray(init_done),
             jnp.asarray(last_pt), jnp.asarray(cgoal), jnp.asarray(wpt),
-            jnp.asarray(pos), ictrl, 0.15, max_radius_cells=radius_cells)
+            jnp.asarray(pos), jnp.asarray(ictrl), 0.15, max_radius_cells=radius_cells)
         np.testing.assert_array_equal(t_lo[a].numpy(), np.asarray(j_lo), err_msg=str(a))
         np.testing.assert_array_equal(t_hi[a].numpy(), np.asarray(j_hi), err_msg=str(a))
