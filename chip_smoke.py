@@ -67,7 +67,28 @@ layer and audit, and the `sim.run` CLI) flying forest missions:
      `forest_mission(10)`'s world (its line-of-sight queries ask the
      world's distance on the card), with the host time of the priority
      goals per step; and a mini mission in DYNAMIC_PRIORITY and in DLSC
-     replanning once a segment.
+     replanning once a segment;
+ 11. local sensing (`world_use_global_map=False`, sensor range 3 m):
+     (a) `forest_mission(10)` and (b) `forest_mission(64, seed=1)` flown
+     to their goals by `MultiSyncSimulator.run` with the agents' known
+     maps on the card, at most 300 / 400 planner iterations: the audit,
+     the kernel's launches, the maps each checkpoint restores,
+     `loop_check` on the step after the last checkpoint (after step 3);
+     (a) once more through the CLI (`--no-global-map`), (b) its steps
+     after 1-3 rerun on the CPU (positions, waypoints and known maps
+     identical, control points within 0.1 m); per step the ms of sensing,
+     merging, the per-agent integral images and the SFC stage, beside
+     phase 7's global-map flight;
+ 12. Monte-Carlo scenario batching (`sim.montecarlo.MonteCarloSimulator`):
+     (a) 8 scenarios of `forest_mission(64, seed=1)` (goal noise 0.25 m)
+     until every one finishes or 150 iterations pass: every scenario's
+     audit (no collision, safety ratio ≥ 1, no velocity or acceleration
+     excess) and the count that arrive; per step the phase times,
+     scenario·agent-steps/s and QP convergence; `loop_check` on the
+     flattened QP of iteration 4 (A = 512) and on its compacted rescue,
+     and the loop timed there; (b) 40 scenarios for 5 steps (two chunks
+     of 32 scenarios, the second padded): finite outputs and the card's
+     peak memory per chunk.
 Each flight must pass the audit (no collision, no QP failure, safety
 ratio ≥ 1, no velocity or acceleration excess, finite flight time), use
 the native MAPF backend and launch the ADMM kernel. Each flight is
@@ -79,7 +100,7 @@ planner step 4 (A=64/O=16 and A=10/O=9).
 
 Prints the results and the wall time of each phase, a JSON line with one
 entry per build of the kernel (its dim·K range, launches on the paths of
-phases 5-10, largest error against the plain loop, and ms, plain ms and
+phases 5-12, largest error against the plain loop, and ms, plain ms and
 bound at its A=1024 shape), the
 card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero, with no result, without a
@@ -130,17 +151,19 @@ def gpu_line():
 cuda_ms = admm_timing.cuda_ms
 
 
-def run_checkpointed(sim, max_iter, ck_dir, steps=CK_STEPS):
+def run_checkpointed(sim, max_iter, ck_dir, steps=CK_STEPS, on_save=None):
     """`sim.run()` to the goals in pieces: one call up to each planner
-    step of `steps`, a checkpoint after it, then one call for the rest
-    (at most max_iter planner iterations in all, as one run() call).
-    Returns (run()'s summary, checkpoint paths)."""
+    step of `steps`, a checkpoint after it (then `on_save(path)`), then
+    one call for the rest (at most max_iter planner iterations in all, as
+    one run() call). Returns (run()'s summary, checkpoint paths)."""
     cks, done = [], 0
     for k in steps:
         sim.run(max_iterations=k - done + 1)
         assert sim.planner_seq == k, (sim.planner_seq, k)
         cks.append(str(ck_dir / f"ck{k}.npz"))
         sim.save_checkpoint(cks[-1])
+        if on_save:
+            on_save(cks[-1])
         done = k
     return sim.run(max_iterations=max_iter - done), cks
 
@@ -301,7 +324,8 @@ def loop_check(qp, cfg, li, feas_tol, what, max_iter=None, float64_clause=False)
 def step_qp(param, mission, base, ck, log_dir):
     """The planner and QP inputs of the step after checkpoint `ck`, on
     the card: a fresh simulator restores it and runs the step up to the
-    QP."""
+    QP (merging the known maps first in local-sensing mode, as plan()
+    does)."""
     from lsc_dr_planner_tpu_torch.sim.simulator import MultiSyncSimulator
 
     s = MultiSyncSimulator(param, mission, log_dir=log_dir, share_static_from=base,
@@ -309,6 +333,8 @@ def step_qp(param, mission, base, ck, log_dir):
     s.load_checkpoint(ck)
     s.do_step()
     s.decentralized_mapp()
+    if s.local_maps:
+        s.merge_maps()
     return s.planner, s.planner._step_impl(s.fleet, s._build_step_inputs(), defer_qp=True).qp_inp
 
 
@@ -323,6 +349,17 @@ def min_pair_distance(sim):
     return best
 
 
+def stage_ms_mean(sim):
+    """A flight's mean device ms per planner stage over the sampled steps
+    (planner step 2 and every 25th; CUDA events)."""
+    pt = sim.planning_time
+    return {k: getattr(pt, f).average * 1e3 for k, f in (
+        ("prediction", "obstacle_prediction_time"),
+        ("initial_traj", "initial_traj_planning_time"),
+        ("lsc", "lsc_generation_time"), ("sfc", "sfc_generation_time"),
+        ("goal", "goal_planning_time"), ("qp", "traj_optimization_time"))}
+
+
 def check_audit(r, what):
     assert not r["is_collided"] and not r["qp_failed"], (what, r)
     assert r["safety_ratio_agent"] >= 1.0, (what, r)
@@ -331,13 +368,14 @@ def check_audit(r, what):
     assert r["mapf_backend"] == "native", (what, r)
 
 
-def step_parity(param, mission, cuda_sim, cks, log_dir):
+def step_parity(param, mission, cuda_sim, cks, log_dir, tag="phase7"):
     """From each checkpoint, one step of a fresh simulator on the card
     and one on the CPU. Positions, waypoints and corridors come before the
     QP: identical, they show the host path and the SFC stage agree across
-    devices. Control points, the QP's output, within 0.1 m where both QPs
-    converged (the kernel itself is held by `loop_check`). Returns the
-    per-step comparison."""
+    devices; so do the known maps in local-sensing mode (sensed and
+    merged on each device). Control points, the QP's output, within 0.1 m
+    where both QPs converged (the kernel itself is held by `loop_check`).
+    Returns the per-step comparison."""
     from lsc_dr_planner_tpu_torch.sim.simulator import MultiSyncSimulator
 
     cpu_base = None
@@ -363,7 +401,11 @@ def step_parity(param, mission, cuda_sim, cks, log_dir):
                "converged_cuda": float(g.qp_converged.mean()),
                "converged_cpu": float(c.qp_converged.mean()),
                "max_dctrl": float(np.abs(g.desired_ctrl - c.desired_ctrl)[both].max(initial=0.0))}
-        print("phase7 parity", json.dumps(rec))
+        if g.local_maps:
+            rec["known_equal"] = torch.equal(g.map_manager.known.cpu(), c.map_manager.known)
+            rec["known_cells"] = int(c.map_manager.known.sum())
+            assert rec["known_equal"], rec
+        print(f"{tag} parity", json.dumps(rec))
         assert rec["pos_equal"] and rec["waypoint_equal"], rec
         assert rec["max_dctrl"] < 0.1, rec
         assert both.mean() >= 0.9, rec
@@ -575,13 +617,7 @@ def fly(workload, qp, qp_cuda, builds, dev, gpu, work, tag, overrides, obstacles
            "qp_convergence": r["qp_converged_mean"],
            "kernel_launches": builds.add_path_launches(), "wall_s": wall, "gpu": gpu}
     if sim.planner.timing:
-        pt = sim.planning_time
-        res["stage_ms_mean"] = {
-            k: getattr(pt, f).average * 1e3 for k, f in (
-                ("prediction", "obstacle_prediction_time"),
-                ("initial_traj", "initial_traj_planning_time"),
-                ("lsc", "lsc_generation_time"), ("sfc", "sfc_generation_time"),
-                ("goal", "goal_planning_time"), ("qp", "traj_optimization_time"))}
+        res["stage_ms_mean"] = stage_ms_mean(sim)
     print(f"phase{tag}", json.dumps(res))
     check_audit(r, f"phase {tag}")
     assert sum(res["kernel_launches"].values()) > 0, f"phase {tag} never launched the kernel"
@@ -617,6 +653,212 @@ def prior_based_forest(dev, work):
     return {**mode_missions.summary(sim),
             "prior_goal_ms_p50": sim.prior_goal_time.percentile(50) * 1e3,
             "prior_goal_ms_max": sim.prior_goal_time.max * 1e3}
+
+
+# ---- phase 11: local sensing ----------------------------------------------
+LOCAL = dict(world_use_global_map=False, sensor_range=3.0)
+# (tag, agents, mission seed, max planner iterations, checkpoints): (a)
+# checks the kernel on the step after step 3, (b) reruns the steps after
+# 1-3 on the CPU
+LOCAL_FLIGHTS = (("11a", 10, 0, 300, (3,)), ("11b", 64, 1, 400, (1, 2, 3)))
+
+
+def local_flight(workload, qp, qp_cuda, builds, dev, gpu, work, tag, A, seed, max_iter, cks):
+    """forest_mission(A, seed) flown to its goals in local-sensing mode by
+    `MultiSyncSimulator.run` on the card, checkpointed after the planner
+    steps `cks`: the audit, the kernel's launches, the maps each
+    checkpoint restores (identical to the flight's at that step), and
+    `loop_check` on the QP of the step after the last checkpoint.
+    Returns (simulator, param, mission, checkpoint paths, record)."""
+    from lsc_dr_planner_tpu_torch.config import Param
+    from lsc_dr_planner_tpu_torch.sim.simulator import MultiSyncSimulator
+
+    mission = workload.forest_mission(A, seed)
+    param = Param(multisim_save_result=False, multisim_max_planner_iteration=max_iter, **LOCAL)
+    sim = MultiSyncSimulator(param, mission, log_dir=str(work), device=dev)
+    mm = sim.map_manager
+    ck_dir = work / f"phase{tag}"
+    ck_dir.mkdir(exist_ok=True)
+    snaps = {}
+
+    def snap(path):
+        snaps[path] = (mm.known.clone(), mm._version.copy())
+
+    qp_cuda.reset_launches()
+    t0 = time.perf_counter()
+    r, ck_paths = run_checkpointed(sim, max_iter, ck_dir, steps=cks, on_save=snap)
+    wall = time.perf_counter() - t0
+    d_goal = np.linalg.norm(sim.pos - sim.desired_goal, axis=-1)
+    ms = {name: {"mean": t.average * 1e3, "p50": t.percentile(50) * 1e3, "n": t.N}
+          for name, t in (("sense", sim.sense_time), ("merge", sim.merge_time),
+                          ("local_map", sim.local_map_time))}
+    res = {"phase": tag, "agents": A, "seed": seed, "O": sim.planner.O,
+           "planner_steps": sim.planner_seq, "flight_time_s": r["total_flight_time"],
+           "agents_home": int((d_goal <= param.goal_threshold).sum()),
+           "step_p50_ms": r["step_time_p50_ms"], "step_p99_ms": r["step_time_p99_ms"],
+           "plan_p50_ms": r["planning_time_p50_ms"],
+           "min_pair_distance": min_pair_distance(sim),
+           "safety_ratio_agent": r["safety_ratio_agent"], "qp_convergence": r["qp_converged_mean"],
+           "known_cells": int(mm.union_occ().sum()), "true_cells": int(mm.occ_true.sum()),
+           "grid": list(mm.occ_true.shape), "map_ms": ms,
+           "kernel_launches": builds.add_path_launches(), "wall_s": wall, "gpu": gpu}
+    if sim.planner.timing:
+        res["stage_ms_mean"] = stage_ms_mean(sim)
+        # the SFC stage without the per-agent integral images
+        res["sfc_search_ms_mean"] = res["stage_ms_mean"]["sfc"] - ms["local_map"]["mean"]
+    print(f"phase{tag}", json.dumps(res))
+    check_audit(r, f"phase {tag}")
+    assert sum(res["kernel_launches"].values()) > 0, f"phase {tag} never launched the kernel"
+    assert res["min_pair_distance"] >= 2 * 0.15 - sim.planner.feas_tol, res
+    assert 0 < res["known_cells"] <= res["true_cells"], res
+    assert sim.sense_time.N == sim.planner_seq and sim.merge_time.N == sim.planner_seq
+    for path, (known, version) in snaps.items():
+        s = MultiSyncSimulator(param, mission, log_dir=str(work), share_static_from=sim)
+        s.load_checkpoint(path)
+        assert torch.equal(s.map_manager.known, known), f"{tag}: {path} restores other maps"
+        assert np.array_equal(s.map_manager._version, version), path
+    res["checkpoints_restore_maps"] = len(snaps)
+    planner_k, qp_inp_k = step_qp(param, mission, sim, ck_paths[-1], str(work))
+    cfg_k, tol_k = planner_k.qp_cfg, planner_k.feas_tol
+    res["kernel_check"] = loop_check(qp, cfg_k, qp.prepare(cfg_k, qp_inp_k).loop, tol_k,
+                                     f"phase{tag} kernel, step after {Path(ck_paths[-1]).stem}")
+    builds.note_check(cfg_k, res["kernel_check"])
+    return sim, param, mission, ck_paths, res
+
+
+# ---- phase 12: Monte-Carlo scenario batching --------------------------------
+# The noise-free scenario reaches its goals in about 117 iterations; every
+# noisy one has a goal pushed past the world's edge by Mission.add_noise's
+# one-sided offset and never finishes, so 150 iterations see the outcome
+MC_S, MC_NOISE, MC_MAX_ITER = 8, 0.25, 150
+MC_CHECK_IT = 4  # loop_check on this iteration's flattened QP and its rescue
+MC_BIG_S, MC_BIG_STEPS = 40, 5
+
+
+def montecarlo_run(workload, qp, qp_cuda, builds, dev, gpu, work):
+    """(a) MC_S scenarios of forest_mission(64, seed=1) until every one
+    finishes or MC_MAX_ITER iterations pass: every scenario's audit, the
+    scenarios that arrive and the agents home in each, per step the phase
+    times, scenario·agent-steps/s and QP convergence, and
+    `loop_check` on one step's flattened QP and its compacted rescue."""
+    from lsc_dr_planner_tpu_torch.config import Param
+    from lsc_dr_planner_tpu_torch.sim.montecarlo import MonteCarloSimulator
+
+    param = Param(multisim_save_result=False, multisim_max_planner_iteration=MC_MAX_ITER)
+    mc = MonteCarloSimulator(param, workload.forest_mission(64, 1), n_scenarios=MC_S,
+                             max_noise=MC_NOISE, log_dir=str(work), device=dev)
+    A = mc.sims[0].A
+    res = {"S": MC_S, "A": A, "max_noise": MC_NOISE, "gpu": gpu}
+    steps, before = [], {}
+    qp_cuda.reset_launches()
+    t_run = time.perf_counter()
+    for it in range(MC_MAX_ITER):
+        if all(sim.is_finished() for sim in mc.sims):
+            break
+        t0 = time.perf_counter()
+        prep = mc.prepare_step(it)
+        if it == MC_CHECK_IT:
+            # the kernel against the plain loop on this step's batch; its
+            # launches are not the path's
+            before = builds.add_path_launches()
+            t_check = time.perf_counter()
+            _, batch, B = prep
+            cfg, tol = mc.planner.qp_cfg, mc.planner.feas_tol
+            li = qp.prepare(cfg, mc.chunk_qp(batch, 0, min(B, 32)).qp_inp).loop
+            res["kernel_check"] = loop_check(qp, cfg, li, tol, f"phase12a kernel, A={len(li.xi)}")
+            builds.note_check(cfg, res["kernel_check"])
+            xi, z, y = qp.run_loop(cfg, li, cfg.max_iter, tol)[:3]
+            sub = qp.rescue_batch(cfg, li, xi, z, y, tol)[2]
+            res["rescue_check"] = loop_check(qp, cfg, sub, tol, "phase12a rescue",
+                                             max_iter=cfg.rescue_iter)
+            builds.note_check(cfg, res["rescue_check"])
+            res["loop_timing"] = admm_timing.timed_call(qp, cfg, li, cfg.max_iter, tol,
+                                                        f"montecarlo{len(li.xi)}", 10)
+            res["loop_timing"]["plain_ms"] = cuda_ms(
+                lambda: qp.admm_loop_plain(cfg, li, cfg.max_iter, tol), 2)
+            print("phase12a timing", json.dumps(res["loop_timing"]), f"[{gpu}]")
+            qp_cuda.reset_launches()
+            t0 += time.perf_counter() - t_check
+        mc.plan_prepared(*prep)
+        wall = time.perf_counter() - t0
+        pt = {k: (round(v * 1e3, 3) if k != "n_active" else v) for k, v in mc.phase_times.items()}
+        rec = {"it": it, **pt, "wall_ms": round(wall * 1e3, 3),
+               "sa_steps_per_s": pt["n_active"] * A / wall,
+               "qp_convergence": mc.last_qp_convergence,
+               "peak_mib": [round(b / 2**20, 1) for b in mc.chunk_peak_bytes]}
+        if mc.planner.timing and (it == 2 or it % 25 == 0):
+            rec["stage_ms"] = mc.planner.stage_times_ms()
+        print("phase12a step", json.dumps(rec))
+        steps.append(rec)
+    res["wall_s"] = time.perf_counter() - t_run
+    after = builds.add_path_launches()
+    res["kernel_launches"] = {k: before.get(k, 0) + after.get(k, 0)
+                              for k in before.keys() | after.keys()}
+    results = [sim.summary() for sim in mc.sims]
+    world_min, world_max = mc.sims[0].mission.world_min, mc.sims[0].mission.world_max
+    res["agents_home"] = [int((np.linalg.norm(sim.pos - sim.desired_goal, axis=-1)
+                               <= param.goal_threshold).sum()) for sim in mc.sims]
+    res["goals_outside_world"] = [
+        int(((sim.desired_goal[:, :2] < world_min[:2]) | (sim.desired_goal[:, :2] > world_max[:2]))
+            .any(axis=1).sum()) for sim in mc.sims]
+    for s, r in enumerate(results):
+        assert not r["is_collided"] and r["safety_ratio_agent"] >= 1.0, (s, r)
+        assert r["vel_excess_ratio"] == 0.0 and r["acc_excess_ratio"] == 0.0, (s, r)
+        assert r["mapf_backend"] == "native", (s, r)
+    conv = [r["qp_convergence"] for r in steps]
+    walls = np.asarray([r["wall_ms"] for r in steps])
+    res.update(
+        iterations=len(steps), arrived=sum(bool(np.isfinite(r["total_flight_time"]))
+                                           for r in results),
+        flight_time_s=[r["total_flight_time"] for r in results],
+        safety_ratio_agent_min=min(r["safety_ratio_agent"] for r in results),
+        qp_convergence_min=min(conv), qp_convergence_mean=float(np.mean(conv)),
+        step_p50_ms=float(np.percentile(walls, 50)), step_p99_ms=float(np.percentile(walls, 99)),
+        sa_steps_per_s=float(sum(r["n_active"] for r in steps) * A / (walls.sum() / 1e3)),
+        phase_ms_mean={k: float(np.mean([r[k] for r in steps]))
+                       for k in ("host", "stack", "device", "apply")},
+        peak_mib_max=max((b for r in steps for b in r["peak_mib"]), default=None),
+        steps=steps)
+    print("phase12a", json.dumps({k: v for k, v in res.items()
+                                  if k not in ("steps", "kernel_check", "rescue_check")}))
+    assert sum(res["kernel_launches"].values()) > 0, "phase 12a never launched the kernel"
+    assert res["kernel_check"]["A"] == MC_S * A, res["kernel_check"]["A"]
+    return res
+
+
+def montecarlo_chunks(workload, qp_cuda, builds, dev, gpu, work):
+    """(b) MC_BIG_S scenarios for MC_BIG_STEPS steps: two chunks (32, then
+    8 padded to 32, as the JAX package pads), every output finite; the
+    card's peak memory per chunk."""
+    from lsc_dr_planner_tpu_torch.config import Param
+    from lsc_dr_planner_tpu_torch.sim.montecarlo import MonteCarloSimulator
+
+    param = Param(multisim_save_result=False)
+    mc = MonteCarloSimulator(param, workload.forest_mission(64, 1), n_scenarios=MC_BIG_S,
+                             max_noise=MC_NOISE, log_dir=str(work), device=dev)
+    qp_cuda.reset_launches()
+    steps = []
+    for it in range(MC_BIG_STEPS):
+        t0 = time.perf_counter()
+        mc.step(it)
+        steps.append({"it": it, "wall_ms": (time.perf_counter() - t0) * 1e3,
+                      **{k: v for k, v in mc.phase_times.items()},
+                      "qp_convergence": mc.last_qp_convergence,
+                      "peak_mib": [b / 2**20 for b in mc.chunk_peak_bytes]})
+        print("phase12b step", json.dumps(steps[-1]))
+        assert mc.phase_times["n_active"] == MC_BIG_S, mc.phase_times
+        # two chunks: 32 scenarios, then 8 padded to 32
+        assert len(mc.chunk_peak_bytes) == (2 if mc.device.type == "cuda" else 0)
+        for sim in mc.sims:
+            for name in ("pos", "vel", "acc", "desired_ctrl", "current_goal", "qp_y"):
+                assert np.isfinite(getattr(sim, name)).all(), (it, name)
+    res = {"S": MC_BIG_S, "A": mc.sims[0].A, "steps": steps,
+           "peak_mib_per_chunk": [max(s["peak_mib"][c] for s in steps)
+                                  for c in range(len(mc.chunk_peak_bytes))],
+           "kernel_launches": builds.add_path_launches(), "gpu": gpu}
+    print("phase12b", json.dumps({k: v for k, v in res.items() if k != "steps"}))
+    assert sum(res["kernel_launches"].values()) > 0, "phase 12b never launched the kernel"
+    return res
 
 
 def main():
@@ -806,13 +1048,7 @@ def main():
                "qp_convergence": r["qp_converged_mean"], "kernel_launches": launches,
                "mapf_backend": r["mapf_backend"], "wall_s": wall, "gpu": gpu}
         if sim.planner.timing:
-            pt = sim.planning_time
-            res["stage_ms_mean"] = {
-                k: getattr(pt, f).average * 1e3 for k, f in (
-                    ("prediction", "obstacle_prediction_time"),
-                    ("initial_traj", "initial_traj_planning_time"),
-                    ("lsc", "lsc_generation_time"), ("sfc", "sfc_generation_time"),
-                    ("goal", "goal_planning_time"), ("qp", "traj_optimization_time"))}
+            res["stage_ms_mean"] = stage_ms_mean(sim)
         print(f"phase{phase}", json.dumps(res))
         check_audit(r, f"phase {phase}")
         assert launches > 0, f"phase {phase} never launched the ADMM kernel"
@@ -890,6 +1126,40 @@ def main():
         assert sum(res["kernel_launches"].values()) > 0, f"phase 10 {name}: no kernel launch"
         record["phase10"][name] = res
     phase_done("10")
+
+    # ---- 11. local sensing -----------------------------------------------
+    record["phase11"] = {}
+    for tag, A, seed, max_iter, cks in LOCAL_FLIGHTS:
+        sim, param, mission, ck_paths, res = local_flight(
+            workload, qp, qp_cuda, builds, dev, gpu, work, tag, A, seed, max_iter, cks)
+        if tag == "11a":
+            # the same mission through the CLI, as a user runs it
+            mpath, wpath = str(work / "forest10_local.json"), str(work / "forest10_local.csv")
+            mission.save(mpath)
+            np.savetxt(wpath, mission.world_boxes, delimiter=",")
+            qp_cuda.reset_launches()
+            (cli,) = sim_run.main(["--mission", mpath, "--world", wpath, "--device", "cuda",
+                                   "--no-global-map", "--sensor-range", "3.0",
+                                   "--max-iter", str(max_iter), "--log-dir", str(work)])
+            launches = builds.add_path_launches()
+            check_audit(cli, "phase 11a CLI")
+            assert sum(launches.values()) > 0, "the CLI local flight never launched the kernel"
+            res["cli"] = {"flight_time_s": cli["total_flight_time"],
+                          "planner_steps": cli["planner_seq"], "kernel_launches": launches}
+        else:
+            res["parity"] = step_parity(param, mission, sim, ck_paths, str(work), tag="phase11b")
+            g = record["phase7"]
+            res["beside_phase7"] = {k: g.get(k) for k in (
+                "planner_steps", "flight_time_s", "step_p50_ms", "step_p99_ms",
+                "stage_ms_mean")}
+            print("phase11b beside phase7 (global map)", json.dumps(res["beside_phase7"]))
+        record["phase11"][tag] = res
+    phase_done("11")
+
+    # ---- 12. Monte-Carlo scenario batching -------------------------------
+    record["phase12"] = {"12a": montecarlo_run(workload, qp, qp_cuda, builds, dev, gpu, work),
+                         "12b": montecarlo_chunks(workload, qp_cuda, builds, dev, gpu, work)}
+    phase_done("12")
 
     kernels = []
     for name, r in builds.rec.items():

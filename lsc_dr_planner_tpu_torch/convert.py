@@ -46,8 +46,8 @@ def fleet_from_numpy(fields: Mapping[str, Any], device) -> FleetArrays:
 
 
 def inputs_from_numpy(fields: Mapping[str, Any], device) -> StepInputs:
-    """StepInputs from the JAX fields (occ_known, the local-sensing map,
-    is not read)."""
+    """StepInputs from the JAX fields (occ_known, the local-sensing maps,
+    included when present)."""
     kw = {}
     for f in dataclasses.fields(StepInputs):
         v = fields.get(f.name)

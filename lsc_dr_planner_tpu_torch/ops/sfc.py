@@ -10,6 +10,11 @@ advance together in one masked loop.
 Each trip either grows a live lane by one cell or retires one of its
 six directions, so with the expansion radius clamped to r cells no
 lane needs more than 6·r + 6 trips.
+
+In local-sensing mode the world is a per-agent view
+(`grid.local_grid_world`): every box query of a lane reads its own
+agent's integral image, while lattice geometry and the containment
+tests read the shared world, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -31,19 +36,21 @@ def default_axis_order(n_lanes: int, device):
     return torch.arange(6, dtype=torch.int64, device=device).expand(n_lanes, 6)
 
 
-def expand_box(gw: GridWorld, lo, hi, axis_order, max_radius_cells: int = 0):
+def expand_box(gw: GridWorld, lo, hi, axis_order, max_radius_cells: int = 0,
+               agent=None):
     """Greedy round-robin box expansion of L lanes at once.
 
     lo, hi: int32 [L, 3]; axis_order: int [L, 6] permutation of the six
     directions, tried cyclically. A direction retires when one more cell
     along it would hit an obstacle, leave the world, or (with
     `max_radius_cells` > 0) grow beyond that many cells past the seed
-    face. Returns (lo, hi, ok) where ok = the seed box itself was free.
+    face. `agent` [L]: each lane's agent in a per-agent world view.
+    Returns (lo, hi, ok) where ok = the seed box itself was free.
     """
     dev = lo.device
     L = lo.shape[0]
     dims = gw.dims_t
-    seed_free = (gw.box_is_free(lo, hi) & torch.all(lo >= 0, dim=-1)
+    seed_free = (gw.box_is_free(lo, hi, agent) & torch.all(lo >= 0, dim=-1)
                  & torch.all(hi <= dims, dim=-1))
     if max_radius_cells > 0:
         lo_min = lo - max_radius_cells
@@ -78,7 +85,7 @@ def expand_box(gw: GridWorld, lo, hi, axis_order, max_radius_cells: int = 0):
                      & torch.all(nlo >= lo_min, dim=-1)
                      & torch.all(nhi <= hi_max, dim=-1))
         # finished lanes are frozen, as under the JAX loop's vmap
-        ok = live & in_bounds & gw.box_is_free(nlo, nhi)
+        ok = live & in_bounds & gw.box_is_free(nlo, nhi, agent)
         lo = torch.where(ok[:, None], nlo, lo)
         hi = torch.where(ok[:, None], nhi, hi)
         keep = torch.gather(active, 1, slot[:, None])[:, 0] & ok
@@ -149,7 +156,8 @@ def update_sfc_fused(gw: GridWorld, mode: str, sfc_lo, sfc_hi, init_done, last_p
 
     sfc_lo, sfc_hi: int32 [A, M, 3]; init_done: bool [A]; last_pt, cgoal,
     wpt, pos: [A, 3]; init_ctrl: [A, M, N, 3] (read in 'substep' mode).
-    Returns (new_lo, new_hi) [A, M, 3]."""
+    In a per-agent view of the world (integral images [A, ...]) agent
+    a's lanes read image a. Returns (new_lo, new_hi) [A, M, 3]."""
     if mode not in ("hull", "point", "substep"):
         raise ValueError(f"unknown SFC mode {mode!r}")
     A, M, _ = sfc_lo.shape
@@ -193,9 +201,12 @@ def update_sfc_fused(gw: GridWorld, mode: str, sfc_lo, sfc_hi, init_done, last_p
 
     # lanes agent-major: [A, L, 3] → [A·L, 3]
     L = seeds_lo.shape[1]
+    agent = None
+    if gw.blocked_cumsum.dim() == 4:
+        agent = torch.arange(A, device=dev).repeat_interleave(L)
     e_lo, e_hi, e_ok = expand_box(
         gw, seeds_lo.reshape(A * L, 3), seeds_hi.reshape(A * L, 3),
-        lane_order.reshape(A * L, 6), max_radius_cells=max_radius_cells)
+        lane_order.reshape(A * L, 6), max_radius_cells=max_radius_cells, agent=agent)
     e_lo = e_lo.reshape(A, L, 3)
     e_hi = e_hi.reshape(A, L, 3)
     e_ok = e_ok.reshape(A, L)

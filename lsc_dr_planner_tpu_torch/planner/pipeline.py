@@ -20,8 +20,15 @@ One call of `FleetPlanner.step` runs six stages for every agent at once:
      iteration loop is the CUDA kernel on a CUDA device
 
 Every planner mode, goal mode and world option of the JAX package runs,
-in 2-D and 3-D, apart from local sensing (`world_use_global_map=False`),
-which raises NotImplementedError naming its ROADMAP item.
+in 2-D and 3-D. In local-sensing mode (`StepInputs.occ_known`) the step
+builds each agent's blocked lattice and integral image from its known
+map (world/grid.py::blocked_cumsum) and the SFC update reads them.
+
+`scenarios=S` plans S independent scenarios of the same fleet as one
+flattened fleet of S·A agents (Monte-Carlo, sim/montecarlo.py): the
+neighbour slots stay inside each scenario, dynamic obstacles are per
+scenario, and every other stage is per agent; only the QP's global exit
+spans the batch, as in the JAX package's flattened Monte-Carlo QP.
 """
 
 from __future__ import annotations
@@ -36,7 +43,7 @@ import torch
 from lsc_dr_planner_tpu_torch.config import GoalMode, Param, PlannerMode
 from lsc_dr_planner_tpu_torch.ops import bernstein, lsc, qp, sfc, trajectory
 from lsc_dr_planner_tpu_torch.planner import goal as goalmod
-from lsc_dr_planner_tpu_torch.world.grid import GridWorld
+from lsc_dr_planner_tpu_torch.world.grid import GridWorld, blocked_cumsum, local_grid_world
 
 
 @dataclasses.dataclass
@@ -67,13 +74,17 @@ class StepInputs:
     sfc_hi: torch.Tensor  # [A, M, 3]
     sfc_initialized: torch.Tensor  # [A] bool
     planner_seq: int
-    # dynamic obstacles, OD slots (None when the planner has none)
+    # dynamic obstacles, OD slots (None when the planner has none); with
+    # scenarios=S, one set per scenario: [S, OD, ...]
     dynobs_pos: Optional[torch.Tensor] = None  # [OD, 3]
     dynobs_vel: Optional[torch.Tensor] = None  # [OD, 3]
     dynobs_radius: Optional[torch.Tensor] = None  # [OD]
     dynobs_downwash: Optional[torch.Tensor] = None  # [OD]
     dynobs_max_acc: Optional[torch.Tensor] = None  # [OD]
     dynobs_valid: Optional[torch.Tensor] = None  # [OD] bool
+    # per-agent known occupancy [A, X, Y, Z] bool (local-sensing mode;
+    # None with the global map)
+    occ_known: Optional[torch.Tensor] = None
     # previous step's ADMM duals [A, R] (qp.n_rows rows; None = cold)
     qp_y0: Optional[torch.Tensor] = None
 
@@ -121,8 +132,6 @@ class FleetPlanner:
                  max_dynobs: int = 0, agent_radius: float = 0.15,
                  max_vel_hint: float = 2.0, timing: bool = False):
         p = param
-        if not p.world_use_global_map:
-            _unsupported("local sensing (occ_known)", "12")
         self.param = p
         self.world = world
         self.device = world.device
@@ -175,22 +184,25 @@ class FleetPlanner:
         return out
 
     # ==================================================================
-    def _neighbor_slots(self, inp: StepInputs):
-        """The OA nearest other agents within L∞ communication range:
-        (order [A, OA], valid [A, OA])."""
+    def _neighbor_slots(self, inp: StepInputs, scenarios: int = 1):
+        """The OA nearest other agents of the same scenario within L∞
+        communication range: (order [S·A, OA] into the flattened fleet,
+        valid [S·A, OA])."""
         p = self.param
-        pos = inp.pos
-        A = pos.shape[0]
-        dist = (pos[:, None] - pos[None, :]).abs().amax(dim=-1)
+        S = scenarios
+        A = inp.pos.shape[0] // S
+        pos = inp.pos.reshape(S, A, -1)
+        dist = (pos[:, :, None] - pos[:, None, :]).abs().amax(dim=-1)  # [S, A, A]
         dist = dist + torch.eye(A, dtype=dist.dtype, device=dist.device) * 1e9
         if p.communication_range > 0:
             dist = torch.where(dist < p.communication_range, dist, 1e9)
         # top-k nearest; a stable sort keeps the lower index first among
         # ties, as lax.top_k does
         srt = torch.sort(-dist, dim=-1, descending=True, stable=True)
-        neg_top = srt.values[:, : self.O_agents]
-        order = srt.indices[:, : self.O_agents]
-        return order, -neg_top < 1e8
+        neg_top = srt.values[..., : self.O_agents]
+        order = srt.indices[..., : self.O_agents]
+        order = order + A * torch.arange(S, device=order.device)[:, None, None]
+        return order.reshape(S * A, -1), (-neg_top < 1e8).reshape(S * A, -1)
 
     def _shift(self, ctrl):
         """The previous solution moved on by one replanning period: a whole
@@ -202,7 +214,10 @@ class FleetPlanner:
 
     # ==================================================================
     def _step_impl(self, fleet: FleetArrays, inp: StepInputs,
-                   defer_qp: bool = False):
+                   defer_qp: bool = False, scenarios: int = 1):
+        """One planning step of the fleet. With `scenarios` = S, the
+        agent axis of `fleet` and `inp` is S scenarios of A agents each,
+        scenario-major, and the dynamic obstacles are [S, OD, ...]."""
         p = self.param
         A, O, OA, OD = inp.pos.shape[0], self.O, self.O_agents, self.OD
         M, n, N, phi = p.M, p.n, p.n + 1, p.phi
@@ -214,7 +229,7 @@ class FleetPlanner:
         self._events = []
         self._mark("start")
 
-        order, agent_valid = self._neighbor_slots(inp)
+        order, agent_valid = self._neighbor_slots(inp, scenarios)
         self._mark("neighbors")
 
         # ---------- stage 1: obstacle prediction --------------------------
@@ -242,16 +257,19 @@ class FleetPlanner:
         obs_pos_now = nbr_pos
         obs_goal = inp.current_goal[order]
         if OD > 0:
-            # dynamic obstacles: constant velocity, seen by every agent
+            # dynamic obstacles: constant velocity, seen by every agent of
+            # their scenario
+            S = scenarios
 
             def with_dyn(x, d):
-                return torch.cat([x, d[None].expand(A, *d.shape)], dim=1)
+                tail = x.shape[2:]
+                d = d.reshape(S, 1, OD, *tail).expand(S, A // S, OD, *tail)
+                return torch.cat([x, d.reshape(A, OD, *tail)], dim=1)
 
             obs_pred = with_dyn(obs_pred, trajectory.const_vel_ctrl(
                 inp.dynobs_pos, inp.dynobs_vel, M, n, dt))
             obs_valid = with_dyn(obs_valid, inp.dynobs_valid)
-            obs_is_agent = with_dyn(obs_is_agent,
-                                    torch.zeros((OD,), dtype=torch.bool, device=dev))
+            obs_is_agent = with_dyn(obs_is_agent, torch.zeros_like(inp.dynobs_valid))
             obs_radius = with_dyn(obs_radius, inp.dynobs_radius)
             obs_downwash = with_dyn(obs_downwash, inp.dynobs_downwash)
             obs_max_acc = with_dyn(obs_max_acc, inp.dynobs_max_acc)
@@ -333,9 +351,16 @@ class FleetPlanner:
         # ---------- stage 4: SFC update -----------------------------------
         gw = self.world
         if p.world_use_octomap:
+            gw_a = gw
+            if inp.occ_known is not None:
+                # local sensing: each agent's blocked lattice and integral
+                # image, rebuilt from its known map every step
+                gw_a = local_grid_world(
+                    gw, blocked_cumsum(inp.occ_known, gw.resolution, gw.radius)[1])
+                self._mark("local_map")
             sfc_mode = "substep" if self.substep else "hull" if grid_goals else "point"
             new_sfc_lo, new_sfc_hi = sfc.update_sfc_fused(
-                gw, sfc_mode, inp.sfc_lo, inp.sfc_hi,
+                gw_a, sfc_mode, inp.sfc_lo, inp.sfc_hi,
                 inp.sfc_initialized & ~inp.is_disturbed,
                 trajectory.last_point(initial_ctrl), inp.current_goal,
                 inp.next_waypoint, inp.pos, initial_ctrl, self.sfc_margin,

@@ -4,6 +4,9 @@ Port of lsc_dr_planner_tpu/sim/checkpoint.py, with the same `.npz`
 format and version: arrays are stored natively; non-array state (MAPF
 plan cache, planner-state name, metrics) rides in one pickled object
 field. A resumed run continues bit-identically to an uninterrupted one.
+In local-sensing mode the agents' known maps and their versions are
+saved too (`map_known`, `map_version`) and restored onto the
+simulator's device.
 
 The pickled field names classes by module (`PlanningTimeStatistics`),
 so a checkpoint written by the JAX package names
@@ -19,6 +22,7 @@ import io
 import pickle
 
 import numpy as np
+import torch
 
 _VERSION = 3
 
@@ -66,6 +70,10 @@ def save_checkpoint(sim, path: str) -> None:
         "sim_csv_rows": sim._sim_csv_rows,
         "mission_start_time": sim.mission_start_time,
     }
+    if sim.local_maps:
+        # the known maps live on the planner's device
+        arrays["map_known"] = sim.map_manager.known.cpu().numpy()
+        arrays["map_version"] = sim.map_manager._version
     np.savez_compressed(
         path, __aux__=np.frombuffer(pickle.dumps(aux), dtype=np.uint8),
         **arrays,
@@ -82,10 +90,6 @@ def load_checkpoint(sim, path: str) -> None:
     aux = _PortUnpickler(io.BytesIO(data["__aux__"].tobytes())).load()
     if aux["version"] != _VERSION:
         raise ValueError(f"checkpoint version {aux['version']} unsupported")
-    if "map_known" in data.files:
-        raise NotImplementedError(
-            "a local-sensing checkpoint needs world/map_manager.py, which is "
-            "not ported yet (ROADMAP Queue 1 item 12)")
 
     for k in _ARRAY_FIELDS:
         cur = getattr(sim, k)
@@ -107,3 +111,14 @@ def load_checkpoint(sim, path: str) -> None:
     sim.traj_history = aux["traj_history"]
     sim._sim_csv_rows = aux["sim_csv_rows"]
     sim.mission_start_time = aux["mission_start_time"]
+    if sim.local_maps:
+        mm = sim.map_manager
+        known = torch.as_tensor(data["map_known"], device=mm.device)
+        if known.shape != mm.known.shape:
+            raise ValueError(f"checkpoint field map_known: shape {tuple(known.shape)} != "
+                             f"simulator {tuple(mm.known.shape)}")
+        mm.known = known
+        mm._version = data["map_version"].copy()
+        mm._union = None
+        # force a coarse-grid rebuild from the restored maps
+        sim._coarse_version = -1

@@ -42,6 +42,7 @@ def build_param(args) -> Param:
         multisim_time_step=args.dt,
         qp_max_iter=args.qp_iters,
         world_use_global_map=not args.no_global_map,
+        sensor_range=args.sensor_range,
         multisim_observer_stddev=args.obs_noise,
     )
 
@@ -83,13 +84,11 @@ def main(argv=None):
     ap.add_argument("--mapf", default="pibt", choices=["pibt", "ecbs"])
     ap.add_argument("--dimension", type=int, default=2)
     ap.add_argument("--no-octomap", action="store_true")
-    # local sensing (with its --sensor-range) comes with
-    # world/map_manager.py (ROADMAP Queue 1 item 12); this flag raises
-    # until then
     ap.add_argument("--no-global-map", action="store_true",
-                    help="local-sensing mode (reference "
-                         "world/use_global_map=false); not ported yet, "
-                         "raises NotImplementedError")
+                    help="local-sensing mode: agents discover the world "
+                         "within --sensor-range and merge maps in comm "
+                         "range (reference world/use_global_map=false)")
+    ap.add_argument("--sensor-range", type=float, default=3.0)
     ap.add_argument("--obs-noise", type=float, default=0.0,
                     help="dynamic-obstacle observation noise std dev [m] "
                          "seen by the planner (audit uses true states)")

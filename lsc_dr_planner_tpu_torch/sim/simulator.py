@@ -15,12 +15,17 @@ single fused pipeline step for the whole fleet.
 Port of lsc_dr_planner_tpu/sim/simulator.py: the host code is the same
 numpy; only the device touchpoints are torch. The device is an argument:
 "cuda", the default, runs the ADMM loop as the CUDA kernel, and "cpu"
-the plain torch paths. Local sensing and debug frames are not ported
-yet and raise NotImplementedError naming their ROADMAP item.
+the plain torch paths. In local-sensing mode (`world_use_global_map=
+False`) the agents' known maps (world/map_manager.py) live on that
+device: they are sensed after every step, merged within communication
+range before every plan, and read by the planning step. Debug frames
+are not ported yet and raise NotImplementedError naming their ROADMAP
+item.
 """
 
 from __future__ import annotations
 
+import copy
 import os
 import time
 from enum import Enum
@@ -51,6 +56,7 @@ from lsc_dr_planner_tpu_torch.utils.timing import (
     Timer,
 )
 from lsc_dr_planner_tpu_torch.world.grid import build_grid_world
+from lsc_dr_planner_tpu_torch.world.map_manager import MapManager
 from lsc_dr_planner_tpu_torch.world.obstacles import ObstacleGenerator
 
 
@@ -72,6 +78,12 @@ def _to_host(tensors) -> List[np.ndarray]:
         at += n
     return out
 
+
+def host_output_tensors(out: StepOutputs):
+    """The outputs of a step that the host applies, in
+    `MultiSyncSimulator._apply_host_outputs`' order."""
+    return (out.desired_ctrl, out.current_goal, out.sfc_lo, out.sfc_hi,
+            out.sfc_initialized, out.qp_converged, out.qp_y)
 
 
 def _state_at_np(ctrl, t, dt):
@@ -130,16 +142,15 @@ class MultiSyncSimulator:
         s = mission.stacked()
         self.A = mission.qn
         self.s = s
-        # local-sensing mode (world_use_global_map=False): per-agent
-        # known-occupancy maps (JAX package world/map_manager.py)
-        self.local_maps = p.world_use_octomap and not p.world_use_global_map
-        if self.local_maps:
-            _unsupported("local sensing (world_use_global_map=False)", "12")
-
         if share_static_from is not None:
             base = share_static_from
             self.device = base.device
             self.world = base.world
+            self.local_maps = base.local_maps
+            # the known maps are mutable in local-sensing mode: each
+            # replica owns a copy, so scenarios never share discoveries
+            self.map_manager = (copy.deepcopy(base.map_manager) if base.local_maps
+                                else base.map_manager)
             self._coarse_version = base._coarse_version
             self.coarse = base.coarse
             self.coarse_nomargin = base.coarse_nomargin
@@ -175,8 +186,17 @@ class MultiSyncSimulator:
             cp = np.clip(points, lo, hi)
             return np.max(np.abs(cp - points), axis=-1)
 
+        # local-sensing mode (world_use_global_map=False): per-agent known
+        # maps, revealed by simulated sensing and shared by in-range map
+        # merging; the MAPF grid then holds only discovered obstacles
+        self.local_maps = p.world_use_octomap and not p.world_use_global_map
+        self.map_manager = None
+        if self.local_maps:
+            self.map_manager = MapManager(
+                mission.world_boxes, mission.world_min, mission.world_max,
+                p.world_resolution, self.A, use_global_map=False, device=self.device)
         self._coarse_version = -1
-        coarse_fn = linf_distance if p.world_use_octomap else None
+        coarse_fn = linf_distance if p.world_use_octomap and not self.local_maps else None
         self.coarse = build_coarse_grid(
             mission.world_min, mission.world_max, p.grid_resolution,
             p.world_dimension, p.world_z_2d,
@@ -297,6 +317,12 @@ class MultiSyncSimulator:
         self.step_time = PlanningTime()
         # host time of the priority-based goals per step (PRIOR_BASED only)
         self.prior_goal_time = PlanningTime()
+        # local sensing: wall time of each sense and merge (each ends in a
+        # device→host copy of the map versions), and the device time of
+        # the per-agent integral images at the stage-sampled steps
+        self.sense_time = PlanningTime()
+        self.merge_time = PlanningTime()
+        self.local_map_time = PlanningTime()
         self.qp_converged_share: List[float] = []
         self.safety_ratio_agent = np.inf
         self.safety_ratio_obs = np.inf
@@ -315,6 +341,17 @@ class MultiSyncSimulator:
             f"{p.planner_mode_str()}_{self.A}agents"
         )
         self._sim_csv_rows: List[str] = []
+
+        if self.local_maps:
+            self.sense()
+
+    # ==================================================================
+    def sense(self) -> None:
+        """Simulated local sensing at the current positions
+        (agent_manager.cpp:46-48), timed."""
+        timer = Timer()
+        self.map_manager.sense(self.pos, self.param.sensor_range)
+        self.sense_time.update(timer.stop())
 
     # ==================================================================
     def run(self, max_iterations: Optional[int] = None, verbose: bool = False,
@@ -421,6 +458,8 @@ class MultiSyncSimulator:
         if p.world_dimension == 2:
             self.pos[:, 2] = p.world_z_2d
         self.sim_time += p.multisim_time_step
+        if self.local_maps:
+            self.sense()
 
     # ==================================================================
     def _groups(self) -> List[List[int]]:
@@ -487,6 +526,13 @@ class MultiSyncSimulator:
             k = max(1, int(round(p.dt / p.multisim_time_step)))
             if self.planner_seq % k != 0:
                 return
+
+        # local-sensing mode: the MAPF grid reflects only DISCOVERED
+        # obstacles (reference: GridBasedPlanner occupancy comes from the
+        # agent's own distmap, grid_based_planner.cpp:102-139; after
+        # in-range merging the group members' maps coincide)
+        if self.local_maps and self.map_manager.version() != self._coarse_version:
+            self._rebuild_coarse_from_known()
 
         EPS = 1e-5  # SP_EPSILON_FLOAT (reference sp_const.hpp:4)
 
@@ -1189,13 +1235,68 @@ class MultiSyncSimulator:
         return {"paths": norm, "ptr": [0] * n, "visits": visits}
 
     # ==================================================================
+    def _rebuild_coarse_from_known(self):
+        """Rebuild the coarse MAPF grid from the union of the fleet's
+        discovered occupancy (a host numpy copy of the known maps)."""
+        p = self.param
+        mm = self.map_manager
+        occ = mm.union_occ()
+        idx = np.argwhere(occ)
+        res = p.world_resolution
+        centers = (idx + self.world.origin_idx + 0.5) * res
+
+        if len(centers) == 0:
+            fn = None
+        else:
+            def fn(points):
+                # L∞ distance to the Euclidean-nearest occupied cell's
+                # box (same approximation as the global-map path)
+                out = np.empty(len(points))
+                for i0 in range(0, len(points), 512):
+                    pb = points[i0 : i0 + 512]
+                    d = np.linalg.norm(pb[:, None] - centers[None], axis=-1)
+                    c = centers[np.argmin(d, axis=1)]
+                    cp = np.clip(pb, c - 0.5 * res, c + 0.5 * res)
+                    out[i0 : i0 + 512] = np.max(np.abs(cp - pb), axis=-1)
+                return out
+
+        self.coarse = build_coarse_grid(
+            self.mission.world_min, self.mission.world_max,
+            p.grid_resolution, p.world_dimension, p.world_z_2d,
+            distance_fn=fn,
+            agent_radius=float(self.s["radius"][0]) + p.grid_margin,
+        )
+        self.coarse_nomargin = (
+            build_coarse_grid(
+                self.mission.world_min, self.mission.world_max,
+                p.grid_resolution, p.world_dimension, p.world_z_2d,
+                distance_fn=fn,
+                agent_radius=float(self.s["radius"][0]),
+            )
+            if p.grid_margin > 0 else self.coarse
+        )
+        self._coarse_version = mm.version()
+        self._margined_fails = 0
+        self._layer = self._resolve_layer()  # discovered walls can flip it
+
+    # ==================================================================
     def _log(self, event: str, detail) -> None:
         if len(self.events) < 100000:
             self.events.append((self.planner_seq, event, detail))
 
     # ==================================================================
+    def merge_maps(self) -> None:
+        """Peer map merging within communication range, once per step
+        (multi_sync_simulator.cpp:335-337 in broadcastMsgs), timed."""
+        timer = Timer()
+        self.map_manager.merge(self.pos, self.param.communication_range)
+        self.merge_time.update(timer.stop())
+
+    # ==================================================================
     def plan(self) -> bool:
         timer = Timer()
+        if self.local_maps:
+            self.merge_maps()
         inp = self._build_step_inputs()
         out = self.planner.step(self.fleet, inp)
         self._apply_step_outputs(out)  # blocks on the batched fetch
@@ -1225,7 +1326,11 @@ class MultiSyncSimulator:
             pt.obstacle_prediction_time.update(st["neighbors"] + st["prediction"])
             pt.initial_traj_planning_time.update(st["initial_traj"])
             pt.lsc_generation_time.update(st["lsc"])
-            pt.sfc_generation_time.update(st["sfc"])
+            # the SFC stage includes the per-agent integral images, as in
+            # the JAX package's stage 4
+            pt.sfc_generation_time.update(st["sfc"] + st.get("local_map", 0.0))
+            if "local_map" in st:
+                self.local_map_time.update(st["local_map"])
             pt.goal_planning_time.update(st["goal"])
             pt.traj_optimization_time.update(st["qp"])
         self.qp_converged_share.append(float(np.mean(self.qp_converged)))
@@ -1233,6 +1338,25 @@ class MultiSyncSimulator:
 
     # ==================================================================
     def _build_step_inputs(self) -> StepInputs:
+        return self._device_inputs(self._host_step_inputs())
+
+    def _device_inputs(self, h: dict) -> StepInputs:
+        """StepInputs on the planner's device from `_host_step_inputs`'s
+        arrays, with the known maps in local-sensing mode (they live on
+        the device already)."""
+        inp = {k: v if k == "planner_seq" else _on_device(v, self.device)
+               for k, v in h.items()}
+        if self.local_maps:
+            inp["occ_known"] = self.map_manager.known
+        return StepInputs(**inp)
+
+    def _host_step_inputs(self) -> dict:
+        """The step's inputs as host numpy arrays (and `planner_seq`, an
+        int), by StepInputs field: the planning-state transition, the
+        observed dynamic obstacles, host goals and the disturbance test.
+        The Monte-Carlo layer runs this in worker threads, stacks the
+        scenarios' arrays and copies them to the device once. (Only the
+        PRIOR_BASED goals ask the device, for line-of-sight distances.)"""
         p = self.param
         self.planner_seq += 1
 
@@ -1266,10 +1390,7 @@ class MultiSyncSimulator:
                 )
 
         def f32(x):
-            return _on_device(x, self.device, np.float32)
-
-        def same(x):
-            return _on_device(x, self.device)
+            return np.asarray(x, np.float32)
 
         # dynamic obstacles at the current sim time, as the planner observes
         # them (with observation noise); the audit reads the true states
@@ -1283,7 +1404,7 @@ class MultiSyncSimulator:
                 dynobs_radius=f32([o.radius for o in obs]),
                 dynobs_downwash=f32([o.downwash for o in obs]),
                 dynobs_max_acc=f32([o.max_acc for o in obs]),
-                dynobs_valid=same(np.ones(len(obs), bool)),
+                dynobs_valid=np.ones(len(obs), bool),
             )
 
         if p.goal_mode == GoalMode.PRIOR_BASED:
@@ -1295,19 +1416,19 @@ class MultiSyncSimulator:
             np.linalg.norm(pred_start - self.pos, axis=-1) > p.reset_threshold
         )
 
-        return StepInputs(
+        return dict(
             pos=f32(self.pos),
             vel=f32(self.vel),
             acc=f32(self.acc),
             prev_ctrl=f32(self.prev_ctrl),
-            has_prev=same(self.has_prev),
-            is_disturbed=same(disturbed),
+            has_prev=np.asarray(self.has_prev),
+            is_disturbed=np.asarray(disturbed),
             desired_goal=f32(self.desired_goal),
             current_goal=f32(self.current_goal),
             next_waypoint=f32(self.next_waypoint),
-            sfc_lo=same(self.sfc_lo),
-            sfc_hi=same(self.sfc_hi),
-            sfc_initialized=same(self.sfc_initialized),
+            sfc_lo=np.asarray(self.sfc_lo),
+            sfc_hi=np.asarray(self.sfc_hi),
+            sfc_initialized=np.asarray(self.sfc_initialized),
             planner_seq=self.planner_seq,
             qp_y0=f32(self.qp_y),
             **dyn,
@@ -1340,10 +1461,10 @@ class MultiSyncSimulator:
     # ==================================================================
     def _apply_step_outputs(self, out: StepOutputs) -> None:
         # ONE device→host copy of every output the host consumes
-        desired, goal, lo, hi, init, conv, y = _to_host(
-            (out.desired_ctrl, out.current_goal, out.sfc_lo, out.sfc_hi,
-             out.sfc_initialized, out.qp_converged, out.qp_y)
-        )
+        self._apply_host_outputs(*_to_host(host_output_tensors(out)))
+
+    def _apply_host_outputs(self, desired, goal, lo, hi, init, conv, y) -> None:
+        """Take one step's outputs (numpy, in `host_output_tensors`' order)."""
         self.desired_ctrl = np.asarray(desired, np.float64)
         self.prev_ctrl = self.desired_ctrl.copy()
         self.current_goal = np.asarray(goal, np.float64)

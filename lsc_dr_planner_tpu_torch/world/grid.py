@@ -1,10 +1,18 @@
 """Static world preprocessing (port of lsc_dr_planner_tpu/world/grid.py).
 
 The world is rasterized once on the host (numpy, copied as it is) into
-an occupancy grid, a blocked-lattice mask and its 3-D integral image;
-`GridWorld` holds them as torch tensors on the planner's device, so
-"any blocked lattice point in this box?" is one 8-corner lookup, and
-the rasterized cell range of every box, for point distance queries.
+an occupancy grid; `blocked_cumsum` turns occupancy into the blocked
+lattice (points within the agent radius of an occupied cell) and its
+3-D integral image on the planner's device. `GridWorld` holds them as
+torch tensors, so "any blocked lattice point in this box?" is one
+8-corner lookup, and the rasterized cell range of every box, for point
+distance queries.
+
+In local-sensing mode every agent plans in the part of the world it has
+discovered: `blocked_cumsum` builds the images of per-agent occupancy
+maps, batched over the fleet, and `local_grid_world` is a GridWorld
+whose integral image carries that leading agent axis; its box queries
+then take each query's agent.
 """
 
 from __future__ import annotations
@@ -24,7 +32,8 @@ class GridWorld:
     origin_idx: np.ndarray  # host int [3]; lattice index 0 is at origin_idx*res
     occ: torch.Tensor  # [X, Y, Z] bool
     blocked_cumsum: torch.Tensor  # [X+2, Y+2, Z+2] int32 integral image of the
-    #                               blocked lattice points [X+1, Y+1, Z+1]
+    #                               blocked lattice points [X+1, Y+1, Z+1];
+    #                               [A, X+2, Y+2, Z+2] in a per-agent view
     cell_ranges: torch.Tensor  # [B, 3, 2] int32: rasterized cell index range
     #                            per box per axis [lo, hi) in global indices
     n_boxes: int
@@ -66,20 +75,27 @@ class GridWorld:
                 - self._origin_i)
 
     # ------------------------------------------------------------------
-    def box_blocked_count(self, lo, hi):
+    def box_blocked_count(self, lo, hi, agent=None):
         """Number of blocked lattice points with index in [lo, hi]
         (inclusive), via the integral image. lo, hi: [..., 3] int.
-        Out-of-range indices are clamped before the gather."""
+        Out-of-range indices are clamped before the gather. In a
+        per-agent view `agent` [...] (int) names each query's agent."""
         S = self.blocked_cumsum
-        SX, SY, SZ = S.shape
+        SX, SY, SZ = S.shape[-3:]
         flat = S.reshape(-1)
+        if S.dim() == 4:
+            base = agent.long() * (SX * SY * SZ)
+        elif agent is None:
+            base = 0
+        else:
+            raise ValueError("an agent index needs a per-agent world view")
 
         def at(ix, iy, iz):
-            return flat[(ix * SY + iy) * SZ + iz]
+            return flat[base + (ix * SY + iy) * SZ + iz]
 
-        x0, y0, z0 = (lo[..., k].long().clamp(0, e - 2) for k, e in enumerate(S.shape))
+        x0, y0, z0 = (lo[..., k].long().clamp(0, e - 2) for k, e in enumerate(S.shape[-3:]))
         x1, y1, z1 = ((hi[..., k].long() + 1).clamp(0, e - 1)
-                      for k, e in enumerate(S.shape))
+                      for k, e in enumerate(S.shape[-3:]))
         return (
             at(x1, y1, z1)
             - at(x0, y1, z1)
@@ -91,8 +107,8 @@ class GridWorld:
             - at(x0, y0, z0)
         )
 
-    def box_is_free(self, lo, hi):
-        return self.box_blocked_count(lo, hi) == 0
+    def box_is_free(self, lo, hi, agent=None):
+        return self.box_blocked_count(lo, hi, agent) == 0
 
     # ------------------------------------------------------------------
     def distance_to_obstacle(self, p):
@@ -133,6 +149,49 @@ def dilation_offsets(resolution: float, radius: float) -> Tuple[int, int]:
     return int(np.ceil(-r - 1 + eps)), int(np.floor(r - eps))
 
 
+def blocked_cumsum(occ: torch.Tensor, resolution: float, radius: float):
+    """The blocked lattice and its integral image of occupancy maps
+    `occ` [..., X, Y, Z] bool (leading axes batch, e.g. one map per
+    agent), on occ's device: (blocked [..., X+1, Y+1, Z+1] bool, cumsum
+    [..., X+2, Y+2, Z+2] int32). Lattice point j is blocked iff some
+    occupied cell i has L∞(j·res, cell box of i) < radius, i.e. (i−j) ∈
+    (−radius/res − 1, radius/res): a dilation by shifted ORs, axis by
+    axis, then three int32 cumsums (torch.cumsum would widen int32 to
+    int64) under a leading zero pad."""
+    d_lo, d_hi = dilation_offsets(resolution, radius)
+    nb = occ.dim() - 3
+    cur = occ
+    for axis in range(nb, nb + 3):
+        n_in = cur.shape[axis]
+        shp = list(cur.shape)
+        shp[axis] = n_in + 1
+        nxt = torch.zeros(shp, dtype=torch.bool, device=occ.device)
+        for d in range(d_lo, d_hi + 1):
+            # lattice j gets cell j + d
+            src_lo, src_hi = max(0, d), min(n_in, n_in + 1 + d)
+            if src_hi <= src_lo:
+                continue
+            nxt.narrow(axis, src_lo - d, src_hi - src_lo).logical_or_(
+                cur.narrow(axis, src_lo, src_hi - src_lo))
+        cur = nxt
+    S = cur.to(torch.int32)
+    for axis in range(nb, nb + 3):
+        S = torch.cumsum(S, dim=axis, dtype=torch.int32)
+    out = torch.zeros(S.shape[:nb] + tuple(d + 1 for d in S.shape[nb:]),
+                      dtype=torch.int32, device=occ.device)
+    out[..., 1:, 1:, 1:] = S
+    return cur, out
+
+
+def local_grid_world(base: GridWorld, cumsum: torch.Tensor) -> GridWorld:
+    """`base` seen through per-agent integral images `cumsum` [A, X+2,
+    Y+2, Z+2] (`blocked_cumsum` of the agents' known maps): box queries
+    read the querying agent's image; lattice geometry is the base's. It
+    answers no distance queries (n_boxes = 0): the base's box list does
+    not describe the agents' maps."""
+    return dataclasses.replace(base, blocked_cumsum=cumsum, n_boxes=0)
+
+
 def rasterize_boxes(boxes: np.ndarray, world_min, world_max, resolution: float):
     """Rasterize a box list (cx, cy, cz, sx, sy, sz) into an occupancy
     grid. Returns (occ [X, Y, Z] bool, cell_ranges [B, 3, 2] int32,
@@ -162,46 +221,20 @@ def rasterize_boxes(boxes: np.ndarray, world_min, world_max, resolution: float):
 
 def build_grid_world(boxes: np.ndarray, world_min, world_max, resolution: float,
                      radius: float, device) -> GridWorld:
-    """Rasterize the box list and precompute the static fields on the
-    host, then place them on `device`."""
+    """Rasterize the box list on the host, then build the blocked lattice
+    and its integral image on `device`."""
     occ, cell_ranges, origin_idx, _ = rasterize_boxes(boxes, world_min, world_max,
                                                       resolution)
-    blocked = _blocked_lattice_mask(occ, resolution, radius)
-    S = np.zeros(tuple(d + 1 for d in blocked.shape), dtype=np.int32)
-    S[1:, 1:, 1:] = np.cumsum(np.cumsum(np.cumsum(blocked, 0), 1), 2)
+    occ = torch.as_tensor(occ, device=device)
     return GridWorld(
         resolution=resolution,
         world_min=np.asarray(world_min, dtype=np.float64),
         world_max=np.asarray(world_max, dtype=np.float64),
         origin_idx=origin_idx,
-        occ=torch.as_tensor(occ, device=device),
-        blocked_cumsum=torch.as_tensor(S, device=device),
+        occ=occ,
+        blocked_cumsum=blocked_cumsum(occ, resolution, radius)[1],
         cell_ranges=torch.as_tensor(cell_ranges, device=device),
         n_boxes=len(np.asarray(boxes).reshape(-1, 6)),
         radius=radius,
     )
 
-
-def _blocked_lattice_mask(occ: np.ndarray, res: float, radius: float) -> np.ndarray:
-    """Lattice point j is blocked iff some occupied cell i has
-    L∞(j·res, cell box of i) < radius, i.e. (i−j) ∈ (−radius/res − 1,
-    radius/res); computed by separable dilation, axis by axis."""
-    d_lo, d_hi = dilation_offsets(res, radius)
-    cur = occ
-    for axis in range(3):
-        shp = list(cur.shape)
-        shp[axis] += 1
-        nxt = np.zeros(shp, dtype=bool)
-        for d in range(d_lo, d_hi + 1):
-            # lattice j gets cell j + d
-            src_lo = max(0, d)
-            src_hi = min(cur.shape[axis], shp[axis] + d)
-            if src_hi <= src_lo:
-                continue
-            sl_src = [slice(None)] * 3
-            sl_dst = [slice(None)] * 3
-            sl_src[axis] = slice(src_lo, src_hi)
-            sl_dst[axis] = slice(src_lo - d, src_hi - d)
-            nxt[tuple(sl_dst)] |= cur[tuple(sl_src)]
-        cur = nxt
-    return cur

@@ -5,6 +5,8 @@ tests do).
 
     JAX_PLATFORMS=cpu python tests/cpu_reference.py flights [NAME ...]
     JAX_PLATFORMS=cpu python tests/cpu_reference.py convergence NAME A [STEPS]
+    JAX_PLATFORMS=cpu python tests/cpu_reference.py local A SEED MAX_ITER
+    JAX_PLATFORMS=cpu python tests/cpu_reference.py montecarlo S A SEED MAX_ITER
 
 `flights`: `workload.forest_mission(10)` flown to its goals by the JAX
 simulator in the modes of chip_smoke.py phase 9 (`dlsc`: DLSC sub-step,
@@ -18,11 +20,23 @@ planner mode of tests/test_torch_modes_pipeline.py (CONFIGS), both
 planning from the same state, which advances along the JAX plan; and
 the smallest planar distance between two agents of that state after
 each step.
+
+`local`: `workload.forest_mission(A, SEED)` flown by the JAX simulator
+in local-sensing mode (sensor range 3 m; chip_smoke.py phase 11), one
+JSON line: flight time, steps, audit, agents home, discovered cells, and
+the host seconds per step of sensing, merging and planning.
+
+`montecarlo`: the JAX package's MonteCarloSimulator over S scenarios of
+`workload.forest_mission(A, SEED)` (max_noise 0.25; chip_smoke.py phase
+12), run until every scenario finishes or MAX_ITER iterations pass, one
+JSON line: per scenario the audit and arrival, per step the convergence
+and wall time.
 """
 
 import dataclasses
 import json
 import sys
+import time
 import types
 from pathlib import Path
 
@@ -103,6 +117,65 @@ def convergence(name, A, steps):
     return {"mode": name, "A": A, "jax": conv_j, "port": conv_t, "min_pair_distance": min_dist}
 
 
+def _audit(r):
+    keys = ("total_flight_time", "planner_seq", "is_collided", "qp_failed",
+            "safety_ratio_agent", "vel_excess_ratio", "acc_excess_ratio")
+    return {k: r[k] for k in keys}
+
+
+def local(A, seed, max_iter, log_dir):
+    m = workload.forest_mission(A, seed)
+    p = ParamJ(multisim_save_result=False, multisim_max_planner_iteration=max_iter,
+               world_use_global_map=False, sensor_range=3.0)
+    sim = MultiSyncSimulator(p, m, log_dir=str(log_dir))
+    mm = sim.map_manager
+    t_sense, t_merge = [], []
+    sense, merge = mm.sense, mm.merge
+
+    def timed(fn, out):
+        def run(*a):
+            t0 = time.perf_counter()
+            fn(*a)
+            out.append(time.perf_counter() - t0)
+        return run
+
+    mm.sense, mm.merge = timed(sense, t_sense), timed(merge, t_merge)
+    t0 = time.perf_counter()
+    r = sim.run()
+    wall = time.perf_counter() - t0
+    home = int((np.linalg.norm(sim.pos - sim.desired_goal, axis=-1) <= p.goal_threshold).sum())
+    return {"local": A, "seed": seed, **_audit(r), "agents_home": home,
+            "known_cells": int(mm.union_occ().sum()), "true_cells": int(mm.occ_true.sum()),
+            "sense_s_mean": float(np.mean(t_sense)), "merge_s_mean": float(np.mean(t_merge)),
+            "wall_s_per_step": wall / sim.planner_seq}
+
+
+def montecarlo(S, A, seed, max_iter, log_dir):
+    from lsc_dr_planner_tpu.sim.montecarlo import MonteCarloSimulator
+
+    p = ParamJ(multisim_save_result=False, multisim_max_planner_iteration=max_iter)
+    mc = MonteCarloSimulator(p, workload.forest_mission(A, seed), n_scenarios=S,
+                             max_noise=0.25, log_dir=str(log_dir))
+    conv, wall = [], []
+    for it in range(max_iter):
+        if all(sim.is_finished() for sim in mc.sims):
+            break
+        t0 = time.perf_counter()
+        mc.step(it)
+        wall.append(time.perf_counter() - t0)
+        conv.append(mc.last_qp_convergence)
+    out = []
+    for sim in mc.sims:
+        r = sim.summary()
+        home = int((np.linalg.norm(sim.pos - sim.desired_goal, axis=-1)
+                    <= p.goal_threshold).sum())
+        out.append({**_audit(r), "agents_home": home})
+    return {"montecarlo": S, "A": A, "seed": seed, "iterations": len(wall),
+            "arrived": sum(bool(np.isfinite(o["total_flight_time"])) for o in out),
+            "scenarios": out, "qp_convergence_min": min(conv),
+            "qp_convergence_mean": float(np.mean(conv)), "wall_s_per_step": float(np.mean(wall))}
+
+
 def main():
     what = sys.argv[1]
     if what == "flights":
@@ -113,6 +186,12 @@ def main():
     elif what == "convergence":
         steps = int(sys.argv[4]) if len(sys.argv) > 4 else 13
         print(json.dumps(convergence(sys.argv[2], int(sys.argv[3]), steps)))
+    elif what in ("local", "montecarlo"):
+        log_dir = ROOT / "build" / "cpu_reference"
+        log_dir.mkdir(parents=True, exist_ok=True)
+        args = [int(a) for a in sys.argv[2:]]
+        print(json.dumps(local(*args, log_dir) if what == "local"
+                         else montecarlo(*args, log_dir)))
     else:
         raise SystemExit(__doc__)
 

@@ -8,6 +8,7 @@ with `python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -376,3 +377,147 @@ def test_rescue_batch_run_to_exit_is_its_chain_of_chunks(rescue_qp):
         state = dataclasses.replace(state, xi=k[0], z=k[1], y=k[2])
     for a, b in zip(got[:3], (state.xi, state.z, state.y)):
         assert torch.equal(a, b)
+
+
+# ---- local sensing and Monte-Carlo batching on the card --------------------
+
+
+def _forest64_known(rng):
+    """forest_mission(64, seed=1)'s world, and per agent the rasterization
+    of a random half of its trees (numpy)."""
+    from lsc_dr_planner_tpu_torch.world import grid
+
+    m = workload.forest_mission(64, 1)
+    boxes = m.world_boxes
+    occ = np.stack([grid.rasterize_boxes(boxes[rng.random(len(boxes)) < 0.5], m.world_min,
+                                         m.world_max, 0.1)[0] for _ in range(64)])
+    return m, occ
+
+
+def test_per_agent_sfc_on_card_matches_cpu():
+    """The per-agent blocked lattices and integral images, and the SFC
+    update over them in its three modes, on the card against the CPU
+    path on the same inputs: identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from lsc_dr_planner_tpu_torch.ops import sfc
+    from lsc_dr_planner_tpu_torch.world import grid
+
+    rng = np.random.default_rng(0)
+    m, occ = _forest64_known(rng)
+    A, M, N = 64, 10, 6
+    views, args = [], []
+    for dev in ("cpu", "cuda"):
+        g = grid.build_grid_world(m.world_boxes, m.world_min, m.world_max, 0.1, 0.15, dev)
+        blk, S = grid.blocked_cumsum(torch.as_tensor(occ, device=dev), 0.1, 0.15)
+        views.append((blk.cpu(), S.cpu(), grid.local_grid_world(g, S)))
+    assert torch.equal(views[0][0], views[1][0]) and torch.equal(views[0][1], views[1][1])
+    half = 0.5 * (m.world_max[0] - m.world_min[0]) - 0.5
+    pos = np.column_stack([rng.uniform(-half, half, (A, 2)), np.full(A, 0.6)]).astype(np.float32)
+    last_pt = (pos + np.column_stack([rng.uniform(-0.5, 0.5, (A, 2)), np.zeros(A)])).astype(np.float32)
+    cgoal = (pos + np.column_stack([rng.uniform(-1.5, 1.5, (A, 2)), np.zeros(A)])).astype(np.float32)
+    wpt = (pos + np.column_stack([rng.uniform(-1, 1, (A, 2)), np.zeros(A)])).astype(np.float32)
+    g0 = views[0][2]
+    slo = (g0.point_to_lattice_floor(torch.as_tensor(pos)) - 2)[:, None].expand(A, M, 3)
+    shi = (g0.point_to_lattice_ceil(torch.as_tensor(pos)) + 2)[:, None].expand(A, M, 3)
+    init = torch.as_tensor(rng.random(A) < 0.7)
+    ictrl = torch.as_tensor(np.linspace(pos, last_pt, M * N, axis=1).reshape(A, M, N, 3))
+    cpu_args = [slo.contiguous(), shi.contiguous(), init, *map(torch.as_tensor,
+                                                               (last_pt, cgoal, wpt, pos)), ictrl]
+    for mode in ("hull", "point", "substep"):
+        out = [sfc.update_sfc_fused(v, mode, *(a.to(v.device) for a in cpu_args), 0.15,
+                                    max_radius_cells=40) for _, _, v in views]
+        assert torch.equal(out[0][0], out[1][0].cpu()), mode
+        assert torch.equal(out[0][1], out[1][1].cpu()), mode
+
+
+def test_map_manager_on_card_matches_numpy():
+    """Sensing and merging on the card against the JAX package's numpy
+    algorithm (with an exact int64 merge product) over a random walk of
+    forest_mission(64, seed=1)'s agents: identical maps and versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from lsc_dr_planner_tpu_torch.world.map_manager import MapManager
+
+    m = workload.forest_mission(64, 1)
+    mm = MapManager(m.world_boxes, m.world_min, m.world_max, 0.1, 64, use_global_map=False,
+                    device="cuda")
+    occ, A = mm.occ_true, 64
+    idx = np.argwhere(occ)
+    centers = (idx + mm.origin_idx + 0.5) * 0.1
+    known = np.zeros((A,) + occ.shape, bool)
+    version = np.zeros(A, np.int64)
+    rng = np.random.default_rng(1)
+    pos = m.stacked()["start"].astype(np.float64)
+    for step in range(6):
+        pos[:, :2] += rng.uniform(-0.3, 0.3, (A, 2))
+        mm.sense(pos, 3.0)
+        hit = ((centers[None] - pos[:, None]) ** 2).sum(-1) <= 9.0
+        for a in range(A):
+            cells = tuple(idx[hit[a]].T)
+            version[a] += int((~known[a][cells]).sum())
+            known[a][cells] = True
+        comm = (1.5, 3.0, -1.0)[step % 3]
+        mm.merge(pos, comm)
+        d = np.max(np.abs(pos[:, None] - pos[None]), axis=-1)
+        adj = (d < comm) if comm > 0 else np.ones_like(d, bool)
+        np.fill_diagonal(adj, False)
+        flat = known.reshape(A, -1)
+        before = flat.sum(1)
+        flat = flat | (adj.astype(np.int64) @ flat.astype(np.int64) > 0)
+        version += flat.sum(1) - before
+        known = flat.reshape(known.shape)
+        np.testing.assert_array_equal(mm.known.cpu().numpy(), known)
+        np.testing.assert_array_equal(mm._version, version)
+    np.testing.assert_array_equal(mm.union_occ(), known.any(0))
+
+
+@pytest.fixture(scope="module")
+def montecarlo_qp():
+    """The flattened QP of one Monte-Carlo step (S=8 scenarios of
+    forest_mission(64, seed=1): A = 512) after 3 lockstep steps."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from lsc_dr_planner_tpu_torch.config import Param
+    from lsc_dr_planner_tpu_torch.sim.montecarlo import MonteCarloSimulator
+
+    mc = MonteCarloSimulator(Param(multisim_save_result=False), workload.forest_mission(64, 1),
+                             n_scenarios=8, max_noise=0.25, log_dir="log", device="cuda")
+    for it in range(3):
+        mc.step(it)
+    _, dev, B = mc.prepare_step(3)
+    d = mc.chunk_qp(dev, 0, B)
+    assert d.qp_inp.p0.shape[0] == 512
+    return mc.planner.qp_cfg, d.qp_inp, mc.planner.feas_tol
+
+
+def _chain_matches_plain(cfg, li, max_iter, feas_tol):
+    """The run to the kernel's own exit is bitwise its chain of single
+    chunks, each per agent within the tolerance of the plain chunk from
+    the same state (loop_check's per-agent rule)."""
+    got = qp.run_loop(cfg, li, max_iter, feas_tol)
+    stop = int(got[4])
+    state = li
+    for _ in range(stop // 8):
+        k = qp.run_loop(cfg, state, 8, feas_tol)
+        p = qp.admm_loop_plain(cfg, state, 8, feas_tol)
+        assert all(_per_agent_close(a, b) for a, b in zip(k[:3], p[:3]))
+        state = dataclasses.replace(state, xi=k[0], z=k[1], y=k[2])
+    for a, b in zip(got[:3], (state.xi, state.z, state.y)):
+        assert torch.equal(a, b)
+    return got
+
+
+def test_montecarlo_flattened_qp_matches_plain_loop(montecarlo_qp):
+    cfg, qp_inp, feas_tol = montecarlo_qp
+    main = qp.prepare(cfg, qp_inp).loop
+    xi, z, y = _chain_matches_plain(cfg, main, cfg.max_iter, feas_tol)[:3]
+    # the compacted rescue picks its agents across the 8 scenarios
+    rescue = qp.rescue_batch(cfg, main, xi, z, y, feas_tol)[2]
+    assert rescue.xi.shape[0] == qp.RESCUE
+    _chain_matches_plain(cfg, rescue, cfg.rescue_iter, feas_tol)
+    out = qp.solve(cfg, qp_inp, feas_tol)
+    ref = qp.solve(cfg, qp_inp, feas_tol, plain=True)
+    assert out.converged.float().mean() >= ref.converged.float().mean() - 0.005
+    both = out.converged & ref.converged
+    assert (out.x - ref.x).abs()[both].max() < 0.1

@@ -209,6 +209,16 @@ def test_cli_flies_a_mission_on_cpu(tmp_path, capsys):
     assert printed["qp_converged_mean"] > 0.9
 
 
+def test_cli_flies_local_sensing_on_cpu(tmp_path, capsys):
+    """`--no-global-map --sensor-range`: the agents fly on the maps they
+    discover, with the audit clean."""
+    mpath, wpath = _write_mission(tmp_path)
+    run_t.main(["--mission", mpath, "--world", wpath, "--device", "cpu", "--no-global-map",
+                "--sensor-range", "2.0", "--log-dir", str(tmp_path / "log"),
+                "--max-iter", "300"])
+    _audit_ok(json.loads(capsys.readouterr().out.strip().splitlines()[-1]))
+
+
 def test_cli_device_and_unported_options_raise(tmp_path, monkeypatch):
     mpath, wpath = _write_mission(tmp_path)
     argv = ["--mission", mpath, "--world", wpath, "--log-dir", str(tmp_path / "log")]
@@ -217,23 +227,23 @@ def test_cli_device_and_unported_options_raise(tmp_path, monkeypatch):
             run_t.main(argv + ["--device", "cuda"])
     with pytest.raises(NotImplementedError, match="item 16"):
         run_t.main(argv + ["--device", "cpu", "--debug-frames", "5"])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        run_t.main(argv + ["--device", "cpu", "--no-global-map"])
-    # options that only unported modules would read are not accepted
-    for opt in ("--sensor-range", "--frames-dir"):
-        with pytest.raises(SystemExit):
-            run_t.main(argv + ["--device", "cpu", opt, "1"])
-    # --obs-noise sets the planner's dynamic-obstacle observation noise, as
-    # the JAX CLI does
+    # an option that only an unported module would read is not accepted
+    with pytest.raises(SystemExit):
+        run_t.main(argv + ["--device", "cpu", "--frames-dir", "1"])
+    # --obs-noise, --no-global-map and --sensor-range set the planner's
+    # dynamic-obstacle observation noise and local sensing, as the JAX CLI
+    # does
     from lsc_dr_planner_tpu.sim import run as run_j
 
     params = {}
+    extra = ["--obs-noise", "0.03", "--no-global-map", "--sensor-range", "2.5"]
     for name, run in (("port", run_t), ("jax", run_j)):
         def capture(mission_file, world_file, param, *a, _name=name, **kw):
             params[_name] = param
             return {"is_collided": False, "qp_failed": False, "total_flight_time": 1.0}
 
         monkeypatch.setattr(run, "run_one", capture)
-        run.main(argv + ["--obs-noise", "0.03"] + (["--device", "cpu"] if run is run_t else []))
-    assert params["port"].multisim_observer_stddev == 0.03
-    assert params["jax"].multisim_observer_stddev == 0.03
+        run.main(argv + extra + (["--device", "cpu"] if run is run_t else []))
+    for p in params.values():
+        assert p.multisim_observer_stddev == 0.03
+        assert not p.world_use_global_map and p.sensor_range == 2.5
