@@ -31,8 +31,9 @@ layer and audit, and the `sim.run` CLI) flying forest missions:
      and no two agents closer than 2·radius − feas_tol;
   6. the reference size: `workload.forest_mission(10)` (O = 9 neighbour
      slots, the in-place rescue) flown to its goals on the card by
-     `MultiSyncSimulator.run`, at most 300 planner iterations, then once
-     more through the CLI (`sim.run --device cuda`);
+     `MultiSyncSimulator.run`, at most 300 planner iterations, writing its
+     simulation CSV, then once more through the CLI (`sim.run --device
+     cuda`);
   7. the repo's scaled forest: `forest_mission(64, seed=1)` flown to its
      goals, at most 400 planner iterations; its first 5 steps are rerun
      from checkpoints on the card and by a CPU simulator (the plain torch
@@ -88,7 +89,22 @@ layer and audit, and the `sim.run` CLI) flying forest missions:
      flattened QP of iteration 4 (A = 512) and on its compacted rescue,
      and the loop timed there; (b) 40 scenarios for 5 steps (two chunks
      of 32 scenarios, the second padded): finite outputs and the card's
-     peak memory per chunk.
+     peak memory per chunk;
+ 13. the multi-device runtime on one rank, the debug step and the replay
+     reader: (a) a one-rank NCCL group (parallel/mesh.py::init_group)
+     runs the all-gather step and the halo step (parallel/halo.py, on
+     the spatially sorted fleet) at A=1024 from a state 3 steps in, each
+     equal to the unsharded step on the same inputs (rtol 1e-4 / atol
+     2e-4; the loop's exit chunk, residual and duals skipped), each
+     launching the kernel, with their times beside the unsharded step's;
+     the scaling harness's one-rank row (one card: no scaling number);
+     (b) the step with `planner.debug` on: every stash tensor finite and
+     on the card, the outputs those of the normal step, its time beside
+     the normal step's; (c) `sim.replay.read_csv` on the simulation CSV
+     phase 6 wrote: every row the positions the flight recorded, the row
+     at the final time its final positions; (d) this machine has no
+     matplotlib: `render_debug_frame` raises the ImportError that names
+     it and draws nothing.
 Each flight must pass the audit (no collision, no QP failure, safety
 ratio ≥ 1, no velocity or acceleration excess, finite flight time), use
 the native MAPF backend and launch the ADMM kernel. Each flight is
@@ -100,7 +116,7 @@ planner step 4 (A=64/O=16 and A=10/O=9).
 
 Prints the results and the wall time of each phase, a JSON line with one
 entry per build of the kernel (its dim·K range, launches on the paths of
-phases 5-12, largest error against the plain loop, and ms, plain ms and
+phases 5-13, largest error against the plain loop, and ms, plain ms and
 bound at its A=1024 shape), the
 card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero, with no result, without a
@@ -861,6 +877,144 @@ def montecarlo_chunks(workload, qp_cuda, builds, dev, gpu, work):
     return res
 
 
+# ---- phase 13: multi-device runtime, debug step, replay ----------------------
+P13_WARMUP, P13_REPS = 3, 3  # evolving steps before phase 13's state; timed calls
+
+
+def max_diffs(ref, out):
+    """Per field of two StepOutputs, the largest |difference|."""
+    return {f.name: float((getattr(out, f.name).double() - getattr(ref, f.name).double())
+                          .abs().max().item())
+            for f in dataclasses.fields(ref) if getattr(ref, f.name) is not None}
+
+
+def assert_step_close(ref, out, what):
+    """tests/test_parallel.py's `_tree_allclose` (rtol 1e-4 / atol 2e-4;
+    the loop's exit chunk, residual and duals skipped)."""
+    for f in dataclasses.fields(ref):
+        if f.name in ("qp_iterations", "qp_residual", "qp_y"):
+            continue
+        a, b = getattr(out, f.name), getattr(ref, f.name)
+        if a.dtype in (torch.bool, torch.int32, torch.int64):
+            assert torch.equal(a, b), (what, f.name)
+        else:
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=2e-4, msg=f"{what}: {f.name}")
+
+
+def stash_tensors(dbg):
+    """Every tensor of the planner's debug stash, by key."""
+    out = {}
+    for k, v in dbg.items():
+        if torch.is_tensor(v):
+            out[k] = v
+        else:
+            out.update({f"{k}.{f.name}": getattr(v, f.name) for f in dataclasses.fields(v)})
+    return out
+
+
+def phase13(workload, qp_cuda, builds, dev, gpu, work, sim6):
+    """(a) A one-rank NCCL group runs the all-gather step and the halo
+    step at A=1024: each equal to the unsharded step on the same inputs,
+    each launching the ADMM kernel; the scaling harness's one-rank row.
+    (b) The debug step: every stash tensor finite and on the card, the
+    outputs those of the normal step. (c) `read_csv` on phase 6's CSV.
+    (d) Rendering needs matplotlib, which this machine lacks: the debug
+    frame raises the ImportError and draws nothing."""
+    import importlib.util
+
+    import torch.distributed as dist
+
+    from lsc_dr_planner_tpu_torch.parallel import halo, mesh, scaling
+    from lsc_dr_planner_tpu_torch.sim import replay
+
+    res = {"A": A_MAIN, "gpu": gpu}
+    init = work / "phase13_group"
+    init.unlink(missing_ok=True)
+    group = mesh.init_group(dev, 0, 1, f"file://{init}")
+    try:
+        # NCCL on the card (gloo only where the device is the CPU)
+        assert dist.get_backend(group) == ("nccl" if dev.type == "cuda" else "gloo")
+        p, planner, fleet, inp = workload.build_fleet(A_MAIN, device=dev)
+        step = workload.make_evolve_step(p, planner, fleet)
+        for _ in range(P13_WARMUP):  # a state with previous solutions
+            inp, _ = step(inp)
+        ref = planner._step_impl(fleet, inp)
+        ms = {"unsharded": cuda_ms(lambda: planner._step_impl(fleet, inp), P13_REPS)}
+
+        # (a) the all-gather step, then the halo step on the sorted fleet
+        sharded = mesh.make_sharded_step(planner, group)
+        perm = torch.as_tensor(halo.spatial_permutation(inp.pos.cpu().numpy()), device=dev)
+        fleet_p, inp_p = halo.permute_agents(fleet, inp, perm)
+        hops = halo.required_hops(inp_p.pos.cpu().numpy(), 1, p.communication_range)
+        halo_step = halo.make_halo_step(planner, group, hops)
+        ref_p = planner._step_impl(fleet_p, inp_p)
+        res["hops"] = hops
+        for name, fn, want, (f, i) in (("allgather", sharded, ref, (fleet, inp)),
+                                        ("halo", halo_step, ref_p, (fleet_p, inp_p))):
+            f_l, i_l = mesh.shard_step_inputs(f, i, 0, 1)
+            qp_cuda.reset_launches()
+            out = mesh.gather_outputs(fn(f_l, i_l), group)
+            torch.cuda.synchronize()
+            launches = builds.add_path_launches()
+            diffs = max_diffs(want, out)
+            print(f"phase13 {name}: kernel launches {launches}, largest difference from the "
+                  f"unsharded step {json.dumps(diffs)}")
+            assert sum(launches.values()) > 0, f"phase 13 {name} never launched the kernel"
+            assert_step_close(want, out, f"phase13 {name}")
+            ms[name] = cuda_ms(lambda: mesh.gather_outputs(fn(f_l, i_l), group), P13_REPS)
+            res[name] = {"kernel_launches": launches, "max_diff": diffs}
+        res["step_ms"] = ms
+        print("phase13 step ms", json.dumps(ms), f"[{gpu}]")
+        rows = scaling.measure_scaling(device_counts=(1,), A_per_device=A_MAIN,
+                                       steps=P13_REPS, device=dev, group=group)
+        assert [r["devices"] for r in rows] == [1], rows
+        print("phase13 scaling", json.dumps(rows), f"[{gpu}]")
+        res["scaling"] = rows
+    finally:
+        dist.destroy_process_group()
+
+    # (b) the debug step on the card
+    planner.debug = True
+    out = planner._step_impl(fleet, inp)
+    stash = stash_tensors(planner._dbg)
+    for k, t in stash.items():
+        assert t.device.type == dev.type, (k, t.device)
+        assert t.dtype == torch.bool or torch.isfinite(t).all(), k
+    ms_dbg = cuda_ms(lambda: planner._step_impl(fleet, inp), P13_REPS)
+    planner.debug = False
+    diffs = max_diffs(ref, out)
+    assert_step_close(ref, out, "phase13 debug step")
+    ms_plain = cuda_ms(lambda: planner._step_impl(fleet, inp), P13_REPS)
+    res["debug"] = {"stash_tensors": len(stash), "max_diff": diffs, "ms": ms_dbg,
+                    "ms_normal": ms_plain}
+    print(f"phase13 debug step: {len(stash)} stash tensors on the card, finite; largest "
+          f"difference from the normal step {max(diffs.values()):.3e}; "
+          f"{ms_dbg:.2f} ms against {ms_plain:.2f} ms [{gpu}]")
+
+    # (c) phase 6's simulation CSV read back
+    path = Path(sim6.log_dir) / f"simulation_{sim6.mission_start_time}_{sim6.file_name_param}.csv"
+    log = replay.read_csv(str(path))
+    hist = np.stack(sim6.traj_history)
+    assert log.agent_states.shape[:2] == hist.shape[:2], (log.agent_states.shape, hist.shape)
+    np.testing.assert_allclose(log.agent_states[:, :, :3], hist, rtol=1e-5, atol=1e-6)
+    last = int(np.nonzero(np.isclose(log.times, sim6.sim_time))[0][-1])
+    np.testing.assert_allclose(log.agent_states[last, :, :3], sim6.pos, rtol=1e-5, atol=1e-6)
+    res["csv"] = {"rows": len(log.times), "agents": log.qn, "t_end": float(log.times[-1])}
+    print("phase13 csv", json.dumps(res["csv"]))
+
+    # (d) no matplotlib on this machine: the frame raises and draws nothing
+    assert importlib.util.find_spec("matplotlib") is None
+    frame = work / "phase13_frame.png"
+    seq = sim6.planner_seq
+    try:
+        replay.render_debug_frame(sim6, str(frame))
+        raise AssertionError("render_debug_frame rendered without matplotlib")
+    except ImportError as e:
+        assert "matplotlib" in str(e), e
+    assert not frame.exists() and sim6.planner_seq == seq
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script measures the port on a GPU")
@@ -1025,8 +1179,11 @@ def main():
     work.mkdir(parents=True, exist_ok=True)
     for phase, A, seed, max_iter in FLIGHTS:
         mission = workload.forest_mission(A, seed)
-        param = Param(multisim_save_result=False, multisim_max_planner_iteration=max_iter)
+        # phase 6 writes its simulation CSV, which phase 13 reads back
+        param = Param(multisim_save_result=phase == 6, multisim_max_planner_iteration=max_iter)
         sim = MultiSyncSimulator(param, mission, log_dir=str(work), device=dev)
+        if phase == 6:
+            sim6 = sim
         ck_dir = work / f"phase{phase}"
         ck_dir.mkdir(exist_ok=True)
         qp_cuda.reset_launches()
@@ -1160,6 +1317,10 @@ def main():
     record["phase12"] = {"12a": montecarlo_run(workload, qp, qp_cuda, builds, dev, gpu, work),
                          "12b": montecarlo_chunks(workload, qp_cuda, builds, dev, gpu, work)}
     phase_done("12")
+
+    # ---- 13. one-rank NCCL group, debug step, replay ----------------------
+    record["phase13"] = phase13(workload, qp_cuda, builds, dev, gpu, work, sim6)
+    phase_done("13")
 
     kernels = []
     for name, r in builds.rec.items():

@@ -24,6 +24,12 @@ in 2-D and 3-D. In local-sensing mode (`StepInputs.occ_known`) the step
 builds each agent's blocked lattice and integral image from its known
 map (world/grid.py::blocked_cumsum) and the SFC update reads them.
 
+`neighbors=` replaces the step's own neighbour gather with a
+`NeighborData` built elsewhere: the multi-device steps
+(parallel/mesh.py, parallel/halo.py) select each local agent's
+neighbours from candidates gathered over the ranks. With `debug` set,
+the step keeps its intermediates in `_dbg` (sim/replay.py draws them).
+
 `scenarios=S` plans S independent scenarios of the same fleet as one
 flattened fleet of S·A agents (Monte-Carlo, sim/montecarlo.py): the
 neighbour slots stay inside each scenario, dynamic obstacles are per
@@ -90,6 +96,23 @@ class StepInputs:
 
 
 @dataclasses.dataclass
+class NeighborData:
+    """Each agent's OA neighbour slots, [A, OA, ...]: the fields of the
+    reference's broadcast obstacle message. `FleetPlanner._gather_neighbors`
+    builds it from the whole fleet; the multi-device steps build it from
+    the candidates the ranks exchange."""
+
+    prev_ctrl: torch.Tensor  # [A, OA, M, N, 3]
+    has_prev: torch.Tensor  # [A, OA]
+    pos: torch.Tensor  # [A, OA, 3]
+    vel: torch.Tensor  # [A, OA, 3]
+    radius: torch.Tensor  # [A, OA]
+    downwash: torch.Tensor  # [A, OA]
+    goal: torch.Tensor  # [A, OA, 3]
+    valid: torch.Tensor  # [A, OA] bool
+
+
+@dataclasses.dataclass
 class DeferredQP:
     """Stage 1–5 products and the assembled QP, returned by
     `_step_impl(..., defer_qp=True)`."""
@@ -115,10 +138,6 @@ class StepOutputs:
     obs_pred_ctrl: torch.Tensor  # [A, O, M, N, 3]
     initial_ctrl: torch.Tensor  # [A, M, N, 3]
     qp_y: Optional[torch.Tensor] = None  # [A, R] duals — next warm start
-
-
-def _unsupported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
 
 
 class FleetPlanner:
@@ -163,6 +182,8 @@ class FleetPlanner:
             dtype=torch.float32, device=self.device)
         self.timing = timing and self.device.type == "cuda"
         self._events = []
+        self.debug = False  # keep the step's intermediates in self._dbg
+        self._dbg = {}
 
     # ==================================================================
     def step(self, fleet: FleetArrays, inp: StepInputs) -> StepOutputs:
@@ -204,6 +225,16 @@ class FleetPlanner:
         order = order + A * torch.arange(S, device=order.device)[:, None, None]
         return order.reshape(S * A, -1), (-neg_top < 1e8).reshape(S * A, -1)
 
+    def _gather_neighbors(self, fleet: FleetArrays, inp: StepInputs,
+                          scenarios: int = 1) -> NeighborData:
+        """The neighbour slots of `_neighbor_slots`, gathered from the
+        fleet on this device."""
+        order, valid = self._neighbor_slots(inp, scenarios)
+        return NeighborData(
+            prev_ctrl=inp.prev_ctrl[order], has_prev=inp.has_prev[order],
+            pos=inp.pos[order], vel=inp.vel[order], radius=fleet.radius[order],
+            downwash=fleet.downwash[order], goal=inp.current_goal[order], valid=valid)
+
     def _shift(self, ctrl):
         """The previous solution moved on by one replanning period: a whole
         segment, or the sub-segment ts/dt in DLSC sub-step mode."""
@@ -214,10 +245,13 @@ class FleetPlanner:
 
     # ==================================================================
     def _step_impl(self, fleet: FleetArrays, inp: StepInputs,
-                   defer_qp: bool = False, scenarios: int = 1):
+                   defer_qp: bool = False, scenarios: int = 1,
+                   neighbors: Optional[NeighborData] = None):
         """One planning step of the fleet. With `scenarios` = S, the
         agent axis of `fleet` and `inp` is S scenarios of A agents each,
-        scenario-major, and the dynamic obstacles are [S, OD, ...]."""
+        scenario-major, and the dynamic obstacles are [S, OD, ...].
+        `neighbors` replaces the gather of each agent's neighbour slots
+        (one scenario only)."""
         p = self.param
         A, O, OA, OD = inp.pos.shape[0], self.O, self.O_agents, self.OD
         M, n, N, phi = p.M, p.n, p.n + 1, p.phi
@@ -229,15 +263,20 @@ class FleetPlanner:
         self._events = []
         self._mark("start")
 
-        order, agent_valid = self._neighbor_slots(inp, scenarios)
+        if neighbors is not None and scenarios > 1:
+            raise ValueError("neighbors= plans one scenario; the scenarios= path "
+                             "gathers its own neighbour slots")
+        nd = neighbors if neighbors is not None else self._gather_neighbors(
+            fleet, inp, scenarios)
+        agent_valid = nd.valid
         self._mark("neighbors")
 
         # ---------- stage 1: obstacle prediction --------------------------
-        nbr_pos = inp.pos[order]
-        nbr_vel = inp.vel[order]
+        nbr_pos = nd.pos
+        nbr_vel = nd.vel
         if lsc_family:
-            agent_pred = torch.where(inp.has_prev[order][..., None, None, None],
-                                     self._shift(inp.prev_ctrl[order]),
+            agent_pred = torch.where(nd.has_prev[..., None, None, None],
+                                     self._shift(nd.prev_ctrl),
                                      trajectory.const_vel_ctrl(nbr_pos, nbr_vel, M, n, dt))
         elif mode == PlannerMode.BVC:
             agent_pred = trajectory.const_vel_ctrl(nbr_pos, torch.zeros_like(nbr_vel),
@@ -251,11 +290,11 @@ class FleetPlanner:
                                hold, agent_pred)
         obs_valid = agent_valid
         obs_is_agent = torch.ones((A, OA), dtype=torch.bool, device=dev)
-        obs_radius = fleet.radius[order]
-        obs_downwash = fleet.downwash[order]
+        obs_radius = nd.radius
+        obs_downwash = nd.downwash
         obs_max_acc = torch.zeros((A, OA), dtype=f32, device=dev)
         obs_pos_now = nbr_pos
-        obs_goal = inp.current_goal[order]
+        obs_goal = nd.goal
         if OD > 0:
             # dynamic obstacles: constant velocity, seen by every agent of
             # their scenario
@@ -436,6 +475,12 @@ class FleetPlanner:
                                    device=dev) - fleet.radius
         else:
             comm_half = torch.full((A,), 1e19, dtype=f32, device=dev)
+
+        if self.debug:
+            self._dbg = dict(
+                ls=ls, obs_valid=obs_valid, obs_pred=obs_pred, sfc_lo_w=sfc_lo_w,
+                sfc_hi_w=sfc_hi_w, new_goal=new_goal, initial_ctrl=initial_ctrl, nd=nd,
+                lb=lb, ub=ub, terminal_mask=terminal_mask, rhs=rhs, active=active)
 
         y0 = None
         if inp.qp_y0 is not None and p.qp_warm_start_duals:

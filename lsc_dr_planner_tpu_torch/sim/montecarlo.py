@@ -19,6 +19,17 @@ lsc_dr_planner_tpu/sim/montecarlo.py).
     calls); the workers build numpy inputs only, which the main thread
     stacks and copies to the device once.
 
+With a process group (`group=`, parallel/mesh.py::init_group) the
+scenarios split over its ranks, as the JAX package's `mesh=` splits them
+over devices: every rank keeps every scenario's host state and runs the
+deterministic host phase for all of them; the bucket is padded to a
+multiple of the group's size, each rank plans its contiguous block of
+scenarios, and an all-gather of the outputs the host applies gives
+every rank every scenario's outputs. Each rank's batch is its own QP
+batch: the loop's exit and the compacted rescue are per rank, so a
+split run can differ from one device's within the loop's exit chunk,
+and, with more than 64 agents a rank, in the agents the rescue takes.
+
 Like the JAX package, a local-sensing scenario senses after every step
 but never merges maps (only `MultiSyncSimulator.plan` merges).
 """
@@ -33,6 +44,7 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from lsc_dr_planner_tpu_torch.config import Param
 from lsc_dr_planner_tpu_torch.device import DEFAULT as DEFAULT_DEVICE
@@ -57,8 +69,12 @@ class MonteCarloSimulator:
 
     def __init__(self, param: Param, mission: Mission, n_scenarios: int,
                  max_noise: float = 0.25, log_dir: str = "log", seed: int = 0,
-                 device=DEFAULT_DEVICE, host_workers: Optional[int] = None):
+                 device=DEFAULT_DEVICE, host_workers: Optional[int] = None, group=None):
         self.S = n_scenarios
+        # the process group the scenarios split over (None: this device alone)
+        self.group = group
+        self.world = dist.get_world_size(group) if group is not None else 1
+        self.rank = dist.get_rank(group) if group is not None else 0
         base = MultiSyncSimulator(param, mission, log_dir=log_dir, seed=seed,
                                   save_result=False, device=device)
         self.sims: List[MultiSyncSimulator] = [base]
@@ -126,7 +142,8 @@ class MonteCarloSimulator:
         of CHUNK scenarios, one after another: per chunk, stages 1-5 as one
         fused fleet, one QP over all its agents, then the failsafe.
         Returns the outputs the host applies (`host_output_tensors`),
-        scenario-major over the B·A agents."""
+        scenario-major over the B·A agents, or with a group over every
+        rank's B·A agents."""
         pl = self.planner
         cuda = self.device.type == "cuda"
         self.chunk_peak_bytes = []
@@ -139,7 +156,12 @@ class MonteCarloSimulator:
             outs.append(host_output_tensors(pl.finish_step(out, d)))
             if cuda:
                 self.chunk_peak_bytes.append(torch.cuda.max_memory_allocated(self.device))
-        return [torch.cat(parts) for parts in zip(*outs)]
+        outs = [torch.cat(parts) for parts in zip(*outs)]
+        if self.group is None:
+            return outs
+        from lsc_dr_planner_tpu_torch.parallel.mesh import all_gather_rows
+
+        return [all_gather_rows(x, self.group) for x in outs]
 
     # ------------------------------------------------------------------
     def prepare_step(self, iteration: int):
@@ -151,7 +173,9 @@ class MonteCarloSimulator:
         The batch is padded to a power-of-two bucket with repeats of the
         last active input (past 32, to a multiple of 32), as in the JAX
         package: the compacted rescue picks across the whole batch, so
-        the padding decides which agents it takes."""
+        the padding decides which agents it takes. With a group, B is
+        then padded to a multiple of its size, and the inputs on the
+        device are this rank's block of B / size scenarios."""
         p = self.sims[0].param
         active = [sim for sim in self.sims if not sim.is_finished()]
         if not active:
@@ -193,10 +217,12 @@ class MonteCarloSimulator:
         B = min(B, self.S)
         if B > CHUNK:
             B = -(-n_act // CHUNK) * CHUNK
+        B = -(-B // self.world) * self.world
         inputs = inputs + [inputs[-1]] * (B - n_act)
         if occ is not None:
             occ = occ + [occ[-1]] * (B - n_act)
-        dev = self._stack(inputs, occ)
+        mine = slice(self.rank * B // self.world, (self.rank + 1) * B // self.world)
+        dev = self._stack(inputs[mine], occ[mine] if occ is not None else None)
         self.phase_times = {"n_active": n_act, "host": t1 - t0,
                             "stack": time.perf_counter() - t1}
         return active, dev, B
@@ -215,7 +241,7 @@ class MonteCarloSimulator:
         scenario."""
         t2 = time.perf_counter()
         # one device→host copy of the outputs the host applies
-        host = _to_host(self._batched_step(dev, B))
+        host = _to_host(self._batched_step(dev, B // self.world))
         t3 = time.perf_counter()
         A = active[0].A
         # fleet-wide QP convergence across the active scenarios (padded

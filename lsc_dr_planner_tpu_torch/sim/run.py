@@ -49,7 +49,7 @@ def build_param(args) -> Param:
 
 def run_one(mission_file, world_file, param, log_dir, seed, verbose,
             checkpoint=None, checkpoint_every=0, resume=None,
-            frame_every=0, device=DEFAULT_DEVICE):
+            frame_every=0, frame_dir=None, device=DEFAULT_DEVICE):
     mission = Mission.load(
         mission_file,
         world_file=world_file if param.world_use_octomap else None,
@@ -64,7 +64,7 @@ def run_one(mission_file, world_file, param, log_dir, seed, verbose,
         sim.load_checkpoint(resume)
     result = sim.run(verbose=verbose, checkpoint_path=checkpoint,
                      checkpoint_every=checkpoint_every,
-                     frame_every=frame_every)
+                     frame_every=frame_every, frame_dir=frame_dir)
     result["mission"] = os.path.basename(mission_file)
     return result
 
@@ -98,9 +98,13 @@ def main(argv=None):
     ap.add_argument("--resume", help="checkpoint .npz to restore before "
                                      "running (single-mission mode)")
     ap.add_argument("--debug-frames", type=int, default=0,
-                    help="render a debug frame every N planning steps; "
-                         "sim/replay.py is not ported yet (ROADMAP item "
-                         "16), so a non-zero value raises")
+                    help="render an internal-artifact debug frame (SFC "
+                         "boxes, LSC half-planes, waypoints/grid paths, "
+                         "comm groups) every N planning steps (needs "
+                         "matplotlib)")
+    ap.add_argument("--frames-dir", default=None,
+                    help="directory for --debug-frames output "
+                         "(default: log dir)")
     ap.add_argument("--comm-range", type=float, default=3.0)
     ap.add_argument("--max-iter", type=int, default=600)
     ap.add_argument("--M", type=int, default=10)
@@ -134,7 +138,7 @@ def main(argv=None):
                     args.verbose, checkpoint=args.checkpoint,
                     checkpoint_every=args.checkpoint_every,
                     resume=args.resume, frame_every=args.debug_frames,
-                    device=args.device)
+                    frame_dir=args.frames_dir, device=args.device)
         print(json.dumps(r))
         results.append(r)
     return results

@@ -18,9 +18,9 @@ numpy; only the device touchpoints are torch. The device is an argument:
 the plain torch paths. In local-sensing mode (`world_use_global_map=
 False`) the agents' known maps (world/map_manager.py) live on that
 device: they are sensed after every step, merged within communication
-range before every plan, and read by the planning step. Debug frames
-are not ported yet and raise NotImplementedError naming their ROADMAP
-item.
+range before every plan, and read by the planning step. `run(frame_every=N)`
+draws a debug frame of the planner's intermediates every N planning
+steps (sim/replay.py::render_debug_frame; needs matplotlib).
 """
 
 from __future__ import annotations
@@ -47,7 +47,6 @@ from lsc_dr_planner_tpu_torch.planner.pipeline import (
     FleetPlanner,
     StepInputs,
     StepOutputs,
-    _unsupported,
 )
 from lsc_dr_planner_tpu_torch.planner.priority import prior_based_goal
 from lsc_dr_planner_tpu_torch.utils.timing import (
@@ -358,8 +357,6 @@ class MultiSyncSimulator:
             checkpoint_path: Optional[str] = None, checkpoint_every: int = 0,
             frame_every: int = 0, frame_dir: Optional[str] = None):
         p = self.param
-        if frame_every:
-            _unsupported("debug frames (sim/replay.py)", "16")
         max_iter = max_iterations or p.multisim_max_planner_iteration
         for it in range(max_iter):
             if self.is_finished() or it == max_iter - 1:
@@ -375,6 +372,13 @@ class MultiSyncSimulator:
             if not ok:
                 self.qp_failed = True
                 break
+            if frame_every and self.planner_seq % frame_every == 0:
+                # the planner's intermediates (SFC, LSC, waypoints, groups)
+                from lsc_dr_planner_tpu_torch.sim.replay import render_debug_frame
+
+                fd = frame_dir or self.log_dir
+                os.makedirs(fd, exist_ok=True)
+                render_debug_frame(self, os.path.join(fd, f"frame_{self.planner_seq:04d}.png"))
             # LAND runs the planner but stops recording/auditing —
             # landing agents intentionally descend through each other's
             # altitude band (reference: multi_sync_simulator.cpp:365-371)

@@ -7,6 +7,12 @@ tests do).
     JAX_PLATFORMS=cpu python tests/cpu_reference.py convergence NAME A [STEPS]
     JAX_PLATFORMS=cpu python tests/cpu_reference.py local A SEED MAX_ITER
     JAX_PLATFORMS=cpu python tests/cpu_reference.py montecarlo S A SEED MAX_ITER
+    JAX_PLATFORMS=cpu python tests/cpu_reference.py mcstep S A SEED STEP OUT.npz
+    JAX_PLATFORMS=cpu python tests/cpu_reference.py flightcsv A SEED MAX_ITER
+    JAX_PLATFORMS=cpu python tests/cpu_reference.py teacher flight A SEED STEPS
+    JAX_PLATFORMS=cpu python tests/cpu_reference.py teacher montecarlo S A SEED STEPS
+    JAX_PLATFORMS=cpu python tests/cpu_reference.py freerun flight A SEED STEPS
+    JAX_PLATFORMS=cpu python tests/cpu_reference.py freerun montecarlo S A SEED STEPS
 
 `flights`: `workload.forest_mission(10)` flown to its goals by the JAX
 simulator in the modes of chip_smoke.py phase 9 (`dlsc`: DLSC sub-step,
@@ -31,6 +37,39 @@ the host seconds per step of sensing, merging and planning.
 12), run until every scenario finishes or MAX_ITER iterations pass, one
 JSON line: per scenario the audit and arrival, per step the convergence
 and wall time.
+
+`mcstep`: the same Monte-Carlo run (S scenarios of
+`workload.forest_mission(A, SEED)`, max_noise 0.25) stepped to planner
+step STEP; the stacked StepInputs that plan that step, the fleet and the
+JAX package's converged set of that step go to OUT.npz, and one JSON
+line prints the convergence per step and the agents that did not
+converge at STEP.
+
+`flightcsv`: `workload.forest_mission(A, SEED)` flown by the JAX
+simulator and by the port's (both on the CPU, default `Param`, at most
+MAX_ITER planner steps), each writing its simulation CSV under
+build/cpu_reference/flightcsv/; one JSON line: both flights' steps and
+flight times, the CSVs, and the first divergence between them
+(`lsc_dr_planner_tpu_torch.tools.trace_diff`, 1 mm).
+
+`teacher`: teacher-forced steps. The JAX package flies
+`workload.forest_mission(A, SEED)` (`flight`: its simulator, default
+`Param`; `montecarlo`: S scenarios, max_noise 0.25, as `mcstep`) for
+STEPS planner steps; at each step the port plans from exactly the
+inputs JAX planned from (`convert`). One JSON line per step: whether
+the SFC boxes, goals and converged sets agree, the largest
+control-point gap where both converged (and its agent), each package's
+`qp_iterations` for that agent and its loop exit (the largest
+`qp_iterations`), how many agents left the loop at another chunk in
+the two packages, and the largest gap among the agents that left at the
+same chunk and among those that did not; and the same comparison of the
+port with itself, its inputs' positions moved by 1e-6 m (the loop's
+sensitivity to a float32 rounding of its inputs).
+
+`freerun`: the same flights, each package on its own state (both on the
+CPU). One JSON line per step: the largest position gap, the agents
+(scenario, agent) whose MAPF waypoint or SFC boxes differ between the
+two, and the agents that did not converge in each.
 """
 
 import dataclasses
@@ -176,6 +215,236 @@ def montecarlo(S, A, seed, max_iter, log_dir):
             "qp_convergence_mean": float(np.mean(conv)), "wall_s_per_step": float(np.mean(wall))}
 
 
+def mcstep(S, A, seed, step, out_path, log_dir):
+    from lsc_dr_planner_tpu.sim.montecarlo import MonteCarloSimulator
+
+    p = ParamJ(multisim_save_result=False)
+    mc = MonteCarloSimulator(p, workload.forest_mission(A, seed), n_scenarios=S,
+                             max_noise=0.25, log_dir=str(log_dir))
+    vstep, seen = mc._vstep, {}
+
+    def capture(fleet, stacked):
+        out = vstep(fleet, stacked)
+        seen.update(fleet=fleet, inp=stacked, out=out)
+        return out
+
+    mc._vstep = capture
+    conv = []
+    for it in range(step):
+        mc.step(it)
+        conv.append(mc.last_qp_convergence)
+    inp, out = seen["inp"], seen["out"]
+    arrays = {f"inp_{k}": np.asarray(v) for k, v in inp._asdict().items() if v is not None}
+    arrays.update({f"fleet_{k}": np.asarray(v) for k, v in seen["fleet"]._asdict().items()})
+    converged = np.asarray(out.qp_converged)
+    np.savez_compressed(out_path, converged=converged, **arrays)
+    bad = [np.nonzero(~c)[0].tolist() for c in converged]
+    return {"mcstep": step, "S": S, "A": A, "seed": seed, "convergence": conv,
+            "not_converged": bad, "bytes": Path(out_path).stat().st_size}
+
+
+def flightcsv(A, seed, max_iter, log_dir):
+    from lsc_dr_planner_tpu_torch.config import Param as ParamT
+    from lsc_dr_planner_tpu_torch.sim.replay import read_csv
+    from lsc_dr_planner_tpu_torch.sim.simulator import MultiSyncSimulator as SimT
+    from lsc_dr_planner_tpu_torch.tools.trace_diff import first_divergence
+
+    m = workload.forest_mission(A, seed)
+    out = {"flightcsv": A, "seed": seed}
+    for name, sim_cls, param_cls, kw in (("jax", MultiSyncSimulator, ParamJ, {}),
+                                         ("port", SimT, ParamT, {"device": "cpu"})):
+        d = log_dir / "flightcsv" / name
+        d.mkdir(parents=True, exist_ok=True)
+        for f in d.glob("*.csv"):
+            f.unlink()
+        p = param_cls(multisim_save_result=True, multisim_max_planner_iteration=max_iter)
+        sim = sim_cls(p, m, log_dir=str(d), **kw)
+        r = sim.run()
+        (csv,) = d.glob("simulation_*.csv")
+        out[name] = {**_audit(r), "csv": str(csv)}
+    la, lb = read_csv(out["jax"]["csv"]), read_csv(out["port"]["csv"])
+    out["rows"] = [len(la.times), len(lb.times)]
+    out["first_divergence"] = first_divergence(la, lb, 1e-3)
+    return out
+
+
+def _teacher_row(step, out_j, out_t):
+    """One teacher-forced step: JAX's outputs `out_j` against the port's
+    `out_t` (numpy mappings, agents flattened)."""
+    conv = out_j["qp_converged"] & out_t["qp_converged"]
+    gap = np.abs(out_j["desired_ctrl"] - out_t["desired_ctrl"]).reshape(len(conv), -1).max(-1)
+    gap = np.where(conv, gap, 0.0)
+    it_j, it_t = out_j["qp_iterations"], out_t["qp_iterations"]
+    same = it_j == it_t
+    worst = int(np.argmax(gap))
+    return {
+        "step": step,
+        "boxes_equal": bool(np.array_equal(out_j["sfc_lo"], out_t["sfc_lo"])
+                            and np.array_equal(out_j["sfc_hi"], out_t["sfc_hi"])),
+        "goal_max_diff": float(np.abs(out_j["current_goal"] - out_t["current_goal"]).max()),
+        "converged": [int(out_j["qp_converged"].sum()), int(out_t["qp_converged"].sum())],
+        "converged_equal": bool(np.array_equal(out_j["qp_converged"], out_t["qp_converged"])),
+        "ctrl_gap_max": float(gap.max()), "ctrl_gap_agent": worst,
+        "agent_iterations": [int(it_j[worst]), int(it_t[worst])],
+        "loop_exit": [int(it_j.max()), int(it_t.max())],
+        "agents_other_chunk": int((~same).sum()), "agents": int(len(conv)),
+        "ctrl_gap_max_same_chunk": float(gap[same].max(initial=0.0)),
+        "ctrl_gap_max_other_chunk": float(gap[~same].max(initial=0.0)),
+    }
+
+
+def _jax_outputs(out, keys=("desired_ctrl", "current_goal", "sfc_lo", "sfc_hi",
+                            "qp_converged", "qp_iterations")):
+    """JAX StepOutputs as numpy, a leading scenario axis flattened."""
+    lead = np.asarray(out.qp_converged).size
+    return {k: np.asarray(getattr(out, k)).reshape((lead,) + np.shape(getattr(out, k))[
+        np.ndim(out.qp_converged):]) for k in keys}
+
+
+def teacher(kind, args, log_dir):
+    from lsc_dr_planner_tpu_torch import convert
+    from lsc_dr_planner_tpu_torch.config import Param as ParamT
+    from lsc_dr_planner_tpu_torch.planner.pipeline import FleetArrays
+    from lsc_dr_planner_tpu_torch.sim.simulator import MultiSyncSimulator as SimT
+
+    if kind == "flight":
+        A, seed, steps = args
+        S = 1
+    else:
+        S, A, seed, steps = args
+    m = workload.forest_mission(A, seed)
+    planner_t = SimT(ParamT(multisim_save_result=False), m, device="cpu").planner
+    seen = {}
+    if kind == "flight":
+        sim = MultiSyncSimulator(ParamJ(multisim_save_result=False), m, log_dir=str(log_dir))
+        jstep = sim.planner.step
+
+        def capture(fleet, inp):
+            out = jstep(fleet, inp)
+            seen[int(inp.planner_seq)] = (fleet, inp, out)
+            return out
+
+        sim.planner.step = capture
+
+        def advance(it):
+            _advance_flight(sim, it)
+    else:
+        from lsc_dr_planner_tpu.sim.montecarlo import MonteCarloSimulator
+
+        sim = MonteCarloSimulator(ParamJ(multisim_save_result=False), m, n_scenarios=S,
+                                  max_noise=0.25, log_dir=str(log_dir))
+        vstep = sim._vstep
+
+        def capture(fleet, stacked):
+            out = vstep(fleet, stacked)
+            seen[len(seen)] = (fleet, stacked, out)
+            return out
+
+        sim._vstep = capture
+        advance = sim.step
+    rows = []
+    for it in range(steps):
+        advance(it)
+        fleet_j, inp_j, out_j = seen[max(seen)]
+        fields = {}
+        for k, v in inp_j._asdict().items():
+            if v is None:
+                continue
+            v = np.asarray(v)
+            if k == "planner_seq":
+                v = int(v.reshape(-1)[0])
+            elif S > 1 and not k.startswith("dynobs_"):
+                v = v.reshape((S * A,) + v.shape[2:])
+            fields[k] = v
+        inp_t = convert.inputs_from_numpy(fields, "cpu")
+        fleet_t = convert.fleet_from_numpy(
+            {k: np.asarray(v) for k, v in fleet_j._asdict().items()}, "cpu")
+        if S > 1:
+            fleet_t = FleetArrays(**{k: v.repeat(S, *([1] * (v.dim() - 1)))
+                                     for k, v in vars(fleet_t).items()})
+
+        def plan(inp):
+            return convert.outputs_to_numpy(planner_t._step_impl(
+                fleet_t, inp, **({"scenarios": S} if S > 1 else {})))
+
+        out_t = plan(inp_t)
+        row = _teacher_row(it + 1, _jax_outputs(out_j), out_t)
+        # the port against itself with every position moved by 1e-6 m
+        # (about two float32 ulps at these coordinates)
+        near = _teacher_row(it + 1, out_t, plan(dataclasses.replace(inp_t, pos=inp_t.pos + 1e-6)))
+        row["port_vs_port_pos_1e-6"] = {k: near[k] for k in (
+            "boxes_equal", "converged_equal", "ctrl_gap_max", "agents_other_chunk")}
+        print(json.dumps({"teacher": kind, **row}), flush=True)
+        rows.append(row)
+    return rows
+
+
+def _advance_flight(sim, it):
+    """One iteration of a simulator's run loop (both packages')."""
+    if sim.planner_seq > 0 or it > 0:
+        sim.do_step()
+    sim.decentralized_mapp()
+    assert sim.plan()
+
+
+def _agents(mask, A, limit=12):
+    """(scenario, agent) of the first `limit` agents set in `mask`."""
+    return [[int(i) // A, int(i) % A] for i in np.nonzero(mask)[0][:limit]]
+
+
+def freerun(kind, args, log_dir):
+    from lsc_dr_planner_tpu_torch.config import Param as ParamT
+    from lsc_dr_planner_tpu_torch.sim.simulator import MultiSyncSimulator as SimT
+
+    if kind == "flight":
+        A, seed, steps = args
+        m = workload.forest_mission(A, seed)
+        sims_j = [MultiSyncSimulator(ParamJ(multisim_save_result=False), m,
+                                     log_dir=str(log_dir))]
+        sims_t = [SimT(ParamT(multisim_save_result=False), m, device="cpu")]
+
+        def advance(it):
+            _advance_flight(sims_j[0], it)
+            _advance_flight(sims_t[0], it)
+    else:
+        from lsc_dr_planner_tpu.sim.montecarlo import MonteCarloSimulator as MonteCarloJ
+        from lsc_dr_planner_tpu_torch.sim.montecarlo import MonteCarloSimulator as MonteCarloT
+
+        S, A, seed, steps = args
+        m = workload.forest_mission(A, seed)
+        mc_j = MonteCarloJ(ParamJ(multisim_save_result=False), m, n_scenarios=S,
+                           max_noise=0.25, log_dir=str(log_dir))
+        mc_t = MonteCarloT(ParamT(multisim_save_result=False), m, n_scenarios=S,
+                           max_noise=0.25, log_dir=str(log_dir), device="cpu")
+        sims_j, sims_t = mc_j.sims, mc_t.sims
+
+        def advance(it):
+            mc_j.step(it)
+            mc_t.step(it)
+
+    def state(sims, k):
+        return np.concatenate([np.asarray(getattr(sim, k)) for sim in sims])
+
+    rows = []
+    for it in range(steps):
+        advance(it)
+        j, t = ({k: state(sims, k) for k in ("pos", "next_waypoint", "sfc_lo", "sfc_hi",
+                                             "qp_converged")} for sims in (sims_j, sims_t))
+        wp = np.abs(j["next_waypoint"] - t["next_waypoint"]).max(-1)
+        boxes = (j["sfc_lo"] != t["sfc_lo"]).reshape(len(wp), -1).any(-1) | \
+            (j["sfc_hi"] != t["sfc_hi"]).reshape(len(wp), -1).any(-1)
+        row = {"freerun": kind, "step": it + 1,
+               "pos_max_diff": float(np.abs(j["pos"] - t["pos"]).max()),
+               "waypoints_differ": _agents(wp > 1e-3, A), "waypoint_max_diff": float(wp.max()),
+               "n_waypoints_differ": int((wp > 1e-3).sum()),
+               "boxes_differ": _agents(boxes, A), "n_boxes_differ": int(boxes.sum()),
+               "not_converged": {"jax": _agents(~j["qp_converged"], A, 48),
+                                 "port": _agents(~t["qp_converged"], A, 48)}}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
 def main():
     what = sys.argv[1]
     if what == "flights":
@@ -186,6 +455,20 @@ def main():
     elif what == "convergence":
         steps = int(sys.argv[4]) if len(sys.argv) > 4 else 13
         print(json.dumps(convergence(sys.argv[2], int(sys.argv[3]), steps)))
+    elif what == "flightcsv":
+        log_dir = ROOT / "build" / "cpu_reference"
+        A, seed, max_iter = (int(a) for a in sys.argv[2:5])
+        print(json.dumps(flightcsv(A, seed, max_iter, log_dir)))
+    elif what == "mcstep":
+        log_dir = ROOT / "build" / "cpu_reference"
+        log_dir.mkdir(parents=True, exist_ok=True)
+        S, A, seed, step = (int(a) for a in sys.argv[2:6])
+        print(json.dumps(mcstep(S, A, seed, step, sys.argv[6], log_dir)))
+    elif what in ("teacher", "freerun"):
+        log_dir = ROOT / "build" / "cpu_reference"
+        log_dir.mkdir(parents=True, exist_ok=True)
+        (teacher if what == "teacher" else freerun)(
+            sys.argv[2], [int(a) for a in sys.argv[3:]], log_dir)
     elif what in ("local", "montecarlo"):
         log_dir = ROOT / "build" / "cpu_reference"
         log_dir.mkdir(parents=True, exist_ok=True)

@@ -9,6 +9,7 @@ positions within 0.02 m; control points within 0.1 m where both QPs
 converged, the pipeline's tolerance (tests/test_torch_pipeline.py)."""
 
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -16,10 +17,10 @@ import torch
 
 from lsc_dr_planner_tpu.config import Param as ParamJ
 from lsc_dr_planner_tpu.sim.montecarlo import MonteCarloSimulator as MonteCarloJ
-from lsc_dr_planner_tpu_torch import workload
+from lsc_dr_planner_tpu_torch import convert, workload
 from lsc_dr_planner_tpu_torch.config import Param
 from lsc_dr_planner_tpu_torch.mission import ObstacleSpec, generate_random_mission
-from lsc_dr_planner_tpu_torch.planner.pipeline import StepInputs
+from lsc_dr_planner_tpu_torch.planner.pipeline import FleetArrays, StepInputs
 from lsc_dr_planner_tpu_torch.sim.montecarlo import MonteCarloSimulator
 from lsc_dr_planner_tpu_torch.sim.simulator import MultiSyncSimulator
 
@@ -158,3 +159,34 @@ def test_fused_scenarios_plan_as_alone(tmp_path):
             a, b = getattr(fused.qp_inp, f.name), getattr(alone.qp_inp, f.name)
             if b is not None:
                 torch.testing.assert_close(a[rows], b, rtol=1e-6, atol=1e-6, msg=f.name)
+
+
+def test_step5_converged_set_matches_jax_on_identical_inputs():
+    """The stacked inputs with which the JAX package's Monte-Carlo plans
+    step 5 of 8 scenarios of forest_mission(64, seed=1) (goal noise
+    0.25 m): the port's scenario-batched step on exactly those inputs
+    converges the agents JAX converges (all 512). Flown on its own
+    inputs, the port fails agents 3, 39 and 61 of every scenario at this
+    step: its state has drifted from JAX's by then (PERF.md, R1).
+    Fixture: `tests/cpu_reference.py mcstep 8 64 1 5 <out.npz>`."""
+    z = np.load(Path(__file__).parent / "fixtures" / "mc_step5_forest64_s8.npz")
+    S, A = z["converged"].shape
+    sim = MultiSyncSimulator(Param(multisim_save_result=False), workload.forest_mission(A, 1),
+                             device="cpu")
+    fields = {}
+    for k in z.files:
+        if k.startswith("inp_"):
+            name, v = k[4:], z[k]
+            if name == "planner_seq":
+                v = int(v.reshape(-1)[0])
+            elif not name.startswith("dynobs_"):
+                v = v.reshape((S * A,) + v.shape[2:])
+            fields[name] = v
+    inp = convert.inputs_from_numpy(fields, "cpu")
+    fleet = convert.fleet_from_numpy({k[6:]: z[k] for k in z.files if k.startswith("fleet_")},
+                                     "cpu")
+    for f in dataclasses.fields(fleet):
+        assert torch.equal(getattr(fleet, f.name), getattr(sim.fleet, f.name)), f.name
+    tiled = FleetArrays(**{k: v.repeat(S, *([1] * (v.dim() - 1))) for k, v in vars(fleet).items()})
+    out = sim.planner._step_impl(tiled, inp, scenarios=S)
+    np.testing.assert_array_equal(out.qp_converged.reshape(S, A).numpy(), z["converged"])

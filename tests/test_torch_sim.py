@@ -225,21 +225,19 @@ def test_cli_device_and_unported_options_raise(tmp_path, monkeypatch):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             run_t.main(argv + ["--device", "cuda"])
-    with pytest.raises(NotImplementedError, match="item 16"):
-        run_t.main(argv + ["--device", "cpu", "--debug-frames", "5"])
-    # an option that only an unported module would read is not accepted
-    with pytest.raises(SystemExit):
-        run_t.main(argv + ["--device", "cpu", "--frames-dir", "1"])
     # --obs-noise, --no-global-map and --sensor-range set the planner's
-    # dynamic-obstacle observation noise and local sensing, as the JAX CLI
-    # does
+    # dynamic-obstacle observation noise and local sensing, and
+    # --debug-frames / --frames-dir the debug frames, as the JAX CLI does
     from lsc_dr_planner_tpu.sim import run as run_j
 
-    params = {}
-    extra = ["--obs-noise", "0.03", "--no-global-map", "--sensor-range", "2.5"]
+    params, frames = {}, {}
+    frame_dir = str(tmp_path / "frames")
+    extra = ["--obs-noise", "0.03", "--no-global-map", "--sensor-range", "2.5",
+             "--debug-frames", "5", "--frames-dir", frame_dir]
     for name, run in (("port", run_t), ("jax", run_j)):
         def capture(mission_file, world_file, param, *a, _name=name, **kw):
             params[_name] = param
+            frames[_name] = (kw["frame_every"], kw["frame_dir"])
             return {"is_collided": False, "qp_failed": False, "total_flight_time": 1.0}
 
         monkeypatch.setattr(run, "run_one", capture)
@@ -247,3 +245,4 @@ def test_cli_device_and_unported_options_raise(tmp_path, monkeypatch):
     for p in params.values():
         assert p.multisim_observer_stddev == 0.03
         assert not p.world_use_global_map and p.sensor_range == 2.5
+    assert frames["port"] == frames["jax"] == (5, frame_dir)
