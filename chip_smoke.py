@@ -28,7 +28,9 @@ layer and audit, and the `sim.run` CLI) flying forest missions:
      control points within 0.1 where both converged;
   5. the main path: 3 warm-up and 20 timed evolving steps; the kernel must
      have been launched, every output finite, mean QP convergence > 0.9
-     and no two agents closer than 2·radius − feas_tol;
+     and no two agents closer than 2·radius − feas_tol; the SFC loop's
+     trips and host syncs per step (`ops/sfc.py`'s counters; also in
+     phase 8's modes);
   6. the reference size: `workload.forest_mission(10)` (O = 9 neighbour
      slots, the in-place rescue) flown to its goals on the card by
      `MultiSyncSimulator.run`, at most 300 planner iterations, writing its
@@ -104,7 +106,22 @@ layer and audit, and the `sim.run` CLI) flying forest missions:
      phase 6 wrote: every row the positions the flight recorded, the row
      at the final time its final positions; (d) this machine has no
      matplotlib: `render_debug_frame` raises the ImportError that names
-     it and draws nothing.
+     it and draws nothing;
+ 14. the port's tools (lsc_dr_planner_tpu_torch/tools/), each through
+     its own entry point: (a) `sfc_bench` at A = 128 and 1024, clamps 30
+     and 70 (the main path's), 3 reps: the SFC loop's trips, host syncs,
+     launches per call and per trip (torch.profiler), ms per trip and
+     its bound; (b) `qp_forensics` at A=1024 in DLSC sub-step for 12
+     steps, convergence > 0.9 a step, and the re-solve at 1000 iterations
+     where the last step leaves agents; (c) `mc_pod_bench` at A=1024,
+     S=8 (one chunk of 8,192 agents) for 2 steps: every scenario's audit
+     so far, finite state, the chunk's peak memory, and `loop_check` on
+     the next iteration's 8,192-agent batch; (d) `scale_demo`'s 256-agent
+     smoke run of 15 steps (no collision, no QP failure, safety ratio
+     ≥ 1); (e) `dlsc_openworld`'s circle8 and (f) `fuzz_missions`'s cases
+     2001 (hybrid layer) and, time allowing, 2002 (mcp) at 8 agents, which
+     must succeed / come out clean, as in the JAX package. (b)-(f) must
+     launch the kernel.
 Each flight must pass the audit (no collision, no QP failure, safety
 ratio ≥ 1, no velocity or acceleration excess, finite flight time), use
 the native MAPF backend and launch the ADMM kernel. Each flight is
@@ -116,7 +133,7 @@ planner step 4 (A=64/O=16 and A=10/O=9).
 
 Prints the results and the wall time of each phase, a JSON line with one
 entry per build of the kernel (its dim·K range, launches on the paths of
-phases 5-13, largest error against the plain loop, and ms, plain ms and
+phases 5-14, largest error against the plain loop, and ms, plain ms and
 bound at its A=1024 shape), the
 card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero, with no result, without a
@@ -511,6 +528,8 @@ def fused_mode(workload, qp, qp_cuda, builds, dev, gpu, tag, overrides, steps=Tr
     """One planner mode at A=1024: loop_check on the QP after 3 evolving
     steps and on its compacted rescue, the loop timed, then (with `steps`)
     3 warm-up and 10 timed steps."""
+    from lsc_dr_planner_tpu_torch.ops import sfc
+
     p, planner, fleet, inp = workload.build_fleet(A_MAIN, device=dev, timing=True, **overrides)
     step = workload.make_evolve_step(p, planner, fleet)
     for _ in range(WARMUP):
@@ -546,6 +565,7 @@ def fused_mode(workload, qp, qp_cuda, builds, dev, gpu, tag, overrides, steps=Tr
         inp, _ = step(inp)
     torch.cuda.synchronize()
     qp_cuda.reset_launches()
+    sfc.reset_counts()
     dists = []
 
     def check(inp):
@@ -562,7 +582,8 @@ def fused_mode(workload, qp, qp_cuda, builds, dev, gpu, tag, overrides, steps=Tr
                qp_convergence=float(np.mean(convs)), min_pair_distance=min(dists),
                qp_convergence_per_step=convs, min_pair_distance_per_step=dists,
                kernel_launches=builds.add_path_launches(),
-               stage_ms=admm_timing.mean_stages(stages), gpu=gpu)
+               stage_ms=admm_timing.mean_stages(stages), gpu=gpu,
+               sfc_trips_per_step=sfc.trips / TIMED8, sfc_syncs_per_step=sfc.syncs / TIMED8)
     print(f"phase{tag}", json.dumps({k: v for k, v in res.items()
                                       if k not in ("check", "rescue_check", "timing")}))
     assert sum(res["kernel_launches"].values()) > 0, f"phase {tag} never launched the kernel"
@@ -1015,11 +1036,134 @@ def phase13(workload, qp_cuda, builds, dev, gpu, work, sim6):
     return res
 
 
+# ---- phase 14: the tools -----------------------------------------------------
+P14_SFC_SIZES, P14_SFC_CLAMPS, P14_SFC_REPS = "128,1024", "30,70", 3
+P14_QP_STEPS = 12  # DLSC sub-step steps of qp_forensics at A=1024
+P14_MC_A, P14_MC_S, P14_MC_STEPS = 1024, 8, 2
+P14_MC_CHECK_IT = P14_MC_STEPS + 1  # loop_check on the QP of the iteration after them
+P14_SMOKE_A, P14_SMOKE_ITER = 256, 15
+# fuzz cases of the JAX package's slow test (tests/test_sim.py), 8 agents;
+# the second runs if phase 14 has used less than P14_SECOND_FUZZ_S by then
+P14_FUZZ = ((2001, "hybrid"), (2002, "mcp"))
+P14_SECOND_FUZZ_S = 110.0
+
+
+def phase14(workload, qp, qp_cuda, builds, dev, gpu, work):
+    """The port's tools on the card, each through its own entry point:
+    (a) sfc_bench at A = 128 and 1024, clamps 30 and 70: the SFC loop's
+    trips, syncs, launches per trip and bound; (b) qp_forensics at
+    A=1024 in DLSC sub-step; (c) mc_pod_bench at A=1024, S=8 (one chunk
+    of 8,192 agents), and `loop_check` on the next iteration's batch;
+    (d) scale_demo's 256-agent smoke run; (e) dlsc_openworld's circle8;
+    (f) fuzz_missions's cases 2001 (hybrid) and, time allowing, 2002
+    (mcp) at 8 agents. Every path but (a) must launch the ADMM kernel
+    and pass its audit."""
+    from lsc_dr_planner_tpu_torch.config import PlannerMode
+    from lsc_dr_planner_tpu_torch.tools import (
+        dlsc_openworld, fuzz_missions, mc_pod_bench, qp_forensics, scale_demo, sfc_bench,
+    )
+
+    t0 = time.perf_counter()
+    res = {"gpu": gpu}
+
+    def launched(what):
+        launches = builds.add_path_launches()
+        print(f"phase14 {what}: kernel launches {json.dumps(launches)}")
+        assert sum(launches.values()) > 0, f"phase 14 {what} never launched the ADMM kernel"
+        return launches
+
+    # (a) the SFC loop alone
+    rows = sfc_bench.main(["--sizes", P14_SFC_SIZES, "--clamps", P14_SFC_CLAMPS,
+                           "--reps", str(P14_SFC_REPS), "--device", dev.type])
+    for r in rows:
+        assert 0 < r["trips"] <= 6 * r["clamp"] + 6, r
+        assert r["syncs"] == -(-min(r["trips"] + 1, 6 * r["clamp"] + 6) // 8), r
+        assert np.isfinite(r["sfc_ms"]) and (r["launches_per_call"] or dev.type != "cuda"), r
+    res["sfc_bench"] = rows
+
+    # (b) QP forensics in DLSC sub-step
+    qp_cuda.reset_launches()
+    rows = qp_forensics.run(A_MAIN, P14_QP_STEPS, dev, planner_mode=PlannerMode.DLSC,
+                            multisim_time_step=0.1)
+    steps = [r for r in rows if "step" in r]
+    assert len(steps) == P14_QP_STEPS and all(r["conv_rate"] > 0.9 for r in steps), rows
+    resolved = [r for r in rows if "note" in r]
+    if steps[-1]["n_bad"]:
+        (r,) = resolved
+        assert r["still_bad"] <= steps[-1]["n_bad"], r
+    else:
+        print(f"phase14 qp_forensics: no agent failed at the last step ({P14_QP_STEPS}); "
+              "nothing to re-solve")
+    res["qp_forensics"] = {"rows": rows, "kernel_launches": launched("qp_forensics")}
+
+    # (c) Monte-Carlo pod slice: S=8 scenarios of 1024 agents
+    mc, built_s = mc_pod_bench.build(P14_MC_S, mc_pod_bench.pod_mission(P14_MC_A),
+                                     mc_pod_bench.pod_param(), dev, str(work / "mc_pod"))
+    qp_cuda.reset_launches()
+    row = mc_pod_bench.measure(mc, P14_MC_STEPS, built_s, gpu)
+    print("phase14 mc_pod_bench", json.dumps(row))
+    launches = launched("mc_pod_bench")
+    assert row["qp_convergence_min"] > 0.9, row
+    assert len(row["chunk_peak_bytes"]) == (1 if dev.type == "cuda" else 0), row
+    for s, sim in enumerate(mc.sims):
+        r = sim.summary()
+        assert not r["is_collided"] and r["safety_ratio_agent"] >= 1.0, (s, r)
+        assert r["vel_excess_ratio"] == 0.0 and r["acc_excess_ratio"] == 0.0, (s, r)
+        for name in ("pos", "vel", "acc", "desired_ctrl", "current_goal", "qp_y"):
+            assert np.isfinite(getattr(sim, name)).all(), (s, name)
+    # the kernel against the plain loop on the next iteration's flattened batch
+    _, batch, B = mc.prepare_step(P14_MC_CHECK_IT)
+    cfg, tol = mc.planner.qp_cfg, mc.planner.feas_tol
+    li = qp.prepare(cfg, mc.chunk_qp(batch, 0, B).qp_inp).loop
+    check = loop_check(qp, cfg, li, tol, f"phase14 mc_pod_bench kernel, A={len(li.xi)}")
+    assert check["A"] == P14_MC_S * P14_MC_A, check["A"]
+    builds.note_check(cfg, check)
+    res["mc_pod_bench"] = {"row": row, "kernel_launches": launches, "kernel_check": check,
+                           "peak_mib_per_chunk": [b / 2**20 for b in row["chunk_peak_bytes"]]}
+    del mc, batch, li
+
+    # (d) the 256-agent scaled-forest smoke run
+    qp_cuda.reset_launches()
+    row = scale_demo.run_scale(P14_SMOKE_A, P14_SMOKE_ITER, False, str(work / "scale"), dev)
+    print("phase14 scale_demo", json.dumps(row))
+    assert row["steps"] == P14_SMOKE_ITER and not row["collided"] and not row["qp_failed"], row
+    assert row["safety_ratio_agent"] >= 1.0, row
+    res["scale_demo"] = {"row": row, "kernel_launches": launched("scale_demo")}
+
+    # (e) DLSC open world: the 8-agent circle swap
+    qp_cuda.reset_launches()
+    r = dlsc_openworld.run_one(dlsc_openworld.circle_mission(8, 0.22 * 8 + 1.8, seed=8),
+                               "circle8", device=dev, log_dir=str(work / "dlsc_open"))
+    keys = ("total_flight_time", "planner_seq", "safety_ratio_agent", "is_collided",
+            "qp_failed", "vel_excess_ratio", "acc_excess_ratio", "wall_s", "success")
+    print("phase14 dlsc_openworld circle8", json.dumps({k: r[k] for k in keys}))
+    assert r["success"], r
+    res["dlsc_openworld"] = {**{k: r[k] for k in keys},
+                             "kernel_launches": launched("dlsc_openworld circle8")}
+
+    # (f) fuzz cases the JAX package holds to be clean
+    res["fuzz_missions"] = []
+    for i, (seed, layer) in enumerate(P14_FUZZ):
+        if i and time.perf_counter() - t0 > P14_SECOND_FUZZ_S:
+            print(f"phase14 fuzz_missions: case {seed} {layer} left out (time)")
+            break
+        qp_cuda.reset_launches()
+        r = fuzz_missions.run_case(seed, layer, A=8, device=dev,
+                                   log_dir=str(work / "fuzz"))
+        keys = ("seed", "layer", "A", "kind", "total_flight_time", "planner_seq",
+                "safety_ratio_agent", "is_collided", "qp_failed", "wall_s", "clean")
+        print("phase14 fuzz_missions", json.dumps({k: r.get(k) for k in keys}))
+        assert "skip" not in r and r["clean"], r
+        res["fuzz_missions"].append({**{k: r[k] for k in keys},
+                                     "kernel_launches": launched(f"fuzz {seed} {layer}")})
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script measures the port on a GPU")
     from lsc_dr_planner_tpu_torch import workload
-    from lsc_dr_planner_tpu_torch.ops import qp, qp_cuda
+    from lsc_dr_planner_tpu_torch.ops import qp, qp_cuda, sfc
 
     dev = torch.device("cuda", 0)
     gpu = gpu_line()
@@ -1143,6 +1287,7 @@ def main():
         inp, conv = step(inp)
     torch.cuda.synchronize()
     qp_cuda.reset_launches()
+    sfc.reset_counts()
     dists = []
 
     def check(inp):
@@ -1162,7 +1307,8 @@ def main():
             "p99_ms": float(np.percentile(lat, 99) * 1e3),
             "agent_steps_per_s": A_MAIN * TIMED / float(lat.sum()),
             "qp_convergence": conv_mean, "min_pair_distance": min_dist,
-            "kernel_launches": launches, "stage_ms": stage_ms, "gpu": gpu}
+            "kernel_launches": launches, "stage_ms": stage_ms, "gpu": gpu,
+            "sfc_trips_per_step": sfc.trips / TIMED, "sfc_syncs_per_step": sfc.syncs / TIMED}
     print("main path", json.dumps(main))
     assert launches > 0, "the main path never launched the ADMM kernel"
     assert conv_mean > 0.9, conv_mean
@@ -1321,6 +1467,10 @@ def main():
     # ---- 13. one-rank NCCL group, debug step, replay ----------------------
     record["phase13"] = phase13(workload, qp_cuda, builds, dev, gpu, work, sim6)
     phase_done("13")
+
+    # ---- 14. the tools ----------------------------------------------------
+    record["phase14"] = phase14(workload, qp, qp_cuda, builds, dev, gpu, work)
+    phase_done("14")
 
     kernels = []
     for name, r in builds.rec.items():

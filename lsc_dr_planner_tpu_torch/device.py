@@ -7,6 +7,8 @@ torch paths). Nothing falls back from one to the other.
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 DEFAULT = "cuda"
@@ -19,3 +21,20 @@ def resolve(device) -> torch.device:
         raise RuntimeError("device 'cuda' requested, but torch sees no CUDA device "
                            "(pass device='cpu' / --device cpu to run on the CPU)")
     return dev
+
+
+def describe(device) -> str:
+    """What a measurement ran on: "cpu", or the card's name and power
+    limit as `nvidia-smi --query-gpu=name,power.limit` gives them (a
+    card set below its maximum power runs slower under load)."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return dev.type
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    try:
+        return subprocess.run(
+            ["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True, check=True,
+            timeout=60).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return f"{torch.cuda.get_device_name(index)}, power limit not read"

@@ -15,6 +15,11 @@ In local-sensing mode the world is a per-agent view
 (`grid.local_grid_world`): every box query of a lane reads its own
 agent's integral image, while lattice geometry and the containment
 tests read the shared world, as in the JAX package.
+
+`trips` and `syncs` count the loop's trips and its host reads of "is
+any lane live?" since the last `reset_counts()`, and `last_lanes` keeps
+the last call's lanes (seeds, results, seed-free mask; references to
+tensors the loop made anyway): `tools/sfc_bench.py` reads them.
 """
 
 from __future__ import annotations
@@ -30,6 +35,15 @@ _DIR_AXIS = (0, 1, 2, 0, 1, 2)
 _DIR_SIGN = (-1, -1, -1, 1, 1, 1)
 _MAX_ITERS = 4096  # the JAX loop's own cap when the radius is unclamped
 _EXIT_CHECK = 8  # trips between host-side "any lane live?" checks
+
+trips = 0  # loop trips run since the last reset_counts()
+syncs = 0  # host reads of "any lane live?" since then (one every _EXIT_CHECK trips)
+last_lanes = None  # the last expand_box call's (seed_lo, seed_hi, lo, hi, seed_free)
+
+
+def reset_counts():
+    global trips, syncs
+    trips = syncs = 0
 
 
 def default_axis_order(n_lanes: int, device):
@@ -47,6 +61,8 @@ def expand_box(gw: GridWorld, lo, hi, axis_order, max_radius_cells: int = 0,
     face. `agent` [L]: each lane's agent in a per-agent world view.
     Returns (lo, hi, ok) where ok = the seed box itself was free.
     """
+    global trips, syncs, last_lanes
+    seed_lo, seed_hi = lo, hi
     dev = lo.device
     L = lo.shape[0]
     dims = gw.dims_t
@@ -69,8 +85,11 @@ def expand_box(gw: GridWorld, lo, hi, axis_order, max_radius_cells: int = 0,
     ptr = torch.zeros(L, dtype=torch.int64, device=dev)
 
     for trip in range(max_trips):
-        if trip % _EXIT_CHECK == 0 and not bool(active.any()):
-            break
+        if trip % _EXIT_CHECK == 0:
+            syncs += 1
+            if not bool(active.any()):
+                break
+        trips += 1
         live = active.any(dim=-1)
         # next active slot in cyclic order starting at ptr
         order_pos = (ptr[:, None] + idx6) % 6
@@ -91,6 +110,7 @@ def expand_box(gw: GridWorld, lo, hi, axis_order, max_radius_cells: int = 0,
         keep = torch.gather(active, 1, slot[:, None])[:, 0] & ok
         active = active.scatter(1, slot[:, None], keep[:, None])
         ptr = torch.where(ok, (slot + 1) % 6, slot)
+    last_lanes = (seed_lo, seed_hi, lo, hi, seed_free)
     return lo, hi, seed_free
 
 

@@ -13,6 +13,9 @@ tests do).
     JAX_PLATFORMS=cpu python tests/cpu_reference.py teacher montecarlo S A SEED STEPS
     JAX_PLATFORMS=cpu python tests/cpu_reference.py freerun flight A SEED STEPS
     JAX_PLATFORMS=cpu python tests/cpu_reference.py freerun montecarlo S A SEED STEPS
+    JAX_PLATFORMS=cpu python tests/cpu_reference.py teacher circle A STEPS
+    JAX_PLATFORMS=cpu python tests/cpu_reference.py freerun circle A STEPS
+    JAX_PLATFORMS=cpu python tests/cpu_reference.py tools [CASE ...]
 
 `flights`: `workload.forest_mission(10)` flown to its goals by the JAX
 simulator in the modes of chip_smoke.py phase 9 (`dlsc`: DLSC sub-step,
@@ -65,6 +68,19 @@ the two packages, and the largest gap among the agents that left at the
 same chunk and among those that did not; and the same comparison of the
 port with itself, its inputs' positions moved by 1e-6 m (the loop's
 sensitivity to a float32 rounding of its inputs).
+
+`tools`: the JAX tools' own runs of the cases chip_smoke.py phase 14
+flies with the port's tools: `tools/dlsc_openworld.py::run_one` on
+`circle8`, and `tools/fuzz_missions.py::run_case` at 8 agents on seeds
+2001 (hybrid layer), 2002 (mcp) and 2003 (auto), the cases of the JAX
+package's slow fuzz test; CASE may also name any other mission of
+dlsc_openworld's main (circle16, circle24, swap10_s0, swap14_s1,
+swap18_s2, swap22_s3). One JSON line each: flight time, planner steps,
+the audit, and `success` / `clean`.
+
+`teacher circle` and `freerun circle` fly dlsc_openworld's circle{A}
+mission in its configuration (DLSC sub-step, PRIOR_BASED goals, no
+octomap, comm range off) instead of the forest.
 
 `freerun`: the same flights, each package on its own state (both on the
 CPU). One JSON line per step: the largest position gap, the agents
@@ -301,22 +317,44 @@ def _jax_outputs(out, keys=("desired_ctrl", "current_goal", "sfc_lo", "sfc_hi",
         np.ndim(out.qp_converged):]) for k in keys}
 
 
+def _flight_setup(kind, args):
+    """(mission, JAX Param, port Param, steps) of a `flight` (forest A,
+    SEED, default Param) or a `circle` (dlsc_openworld's circle{A} in its
+    configuration) comparison."""
+    from lsc_dr_planner_tpu import config as config_j
+    from lsc_dr_planner_tpu_torch import config as config_t
+
+    if kind == "circle":
+        A, steps = args
+
+        def param(c):
+            return c.Param(world_dimension=2, world_use_octomap=False, communication_range=-1.0,
+                           goal_mode=c.GoalMode.PRIOR_BASED, planner_mode=c.PlannerMode.DLSC,
+                           multisim_time_step=0.1, multisim_save_result=False)
+
+        return _dlsc_missions()[f"circle{A}"], param(config_j), param(config_t), steps
+    A, seed, steps = args
+    return (workload.forest_mission(A, seed), config_j.Param(multisim_save_result=False),
+            config_t.Param(multisim_save_result=False), steps)
+
+
 def teacher(kind, args, log_dir):
     from lsc_dr_planner_tpu_torch import convert
     from lsc_dr_planner_tpu_torch.config import Param as ParamT
     from lsc_dr_planner_tpu_torch.planner.pipeline import FleetArrays
     from lsc_dr_planner_tpu_torch.sim.simulator import MultiSyncSimulator as SimT
 
-    if kind == "flight":
-        A, seed, steps = args
-        S = 1
+    if kind in ("flight", "circle"):
+        m, param_j, param_t, steps = _flight_setup(kind, args)
+        A, S = len(m.agents), 1
     else:
         S, A, seed, steps = args
-    m = workload.forest_mission(A, seed)
-    planner_t = SimT(ParamT(multisim_save_result=False), m, device="cpu").planner
+        m = workload.forest_mission(A, seed)
+        param_t = ParamT(multisim_save_result=False)
+    planner_t = SimT(param_t, m, device="cpu").planner
     seen = {}
-    if kind == "flight":
-        sim = MultiSyncSimulator(ParamJ(multisim_save_result=False), m, log_dir=str(log_dir))
+    if kind != "montecarlo":
+        sim = MultiSyncSimulator(param_j, m, log_dir=str(log_dir))
         jstep = sim.planner.step
 
         def capture(fleet, inp):
@@ -396,12 +434,11 @@ def freerun(kind, args, log_dir):
     from lsc_dr_planner_tpu_torch.config import Param as ParamT
     from lsc_dr_planner_tpu_torch.sim.simulator import MultiSyncSimulator as SimT
 
-    if kind == "flight":
-        A, seed, steps = args
-        m = workload.forest_mission(A, seed)
-        sims_j = [MultiSyncSimulator(ParamJ(multisim_save_result=False), m,
-                                     log_dir=str(log_dir))]
-        sims_t = [SimT(ParamT(multisim_save_result=False), m, device="cpu")]
+    if kind in ("flight", "circle"):
+        m, param_j, param_t, steps = _flight_setup(kind, args)
+        A = len(m.agents)
+        sims_j = [MultiSyncSimulator(param_j, m, log_dir=str(log_dir))]
+        sims_t = [SimT(param_t, m, device="cpu")]
 
         def advance(it):
             _advance_flight(sims_j[0], it)
@@ -445,6 +482,39 @@ def freerun(kind, args, log_dir):
     return rows
 
 
+TOOL_CASES = ("circle8", "fuzz2001_hybrid", "fuzz2002_mcp", "fuzz2003_auto")
+
+
+def _dlsc_missions():
+    """The missions of tools/dlsc_openworld.py's main, by name."""
+    from tools import dlsc_openworld
+
+    out = {f"circle{A}": dlsc_openworld.circle_mission(A, 0.22 * A + 1.8, seed=A)
+           for A in (8, 16, 24)}
+    for s in range(4):
+        A = 10 + 4 * s
+        out[f"swap{A}_s{s}"] = dlsc_openworld.random_swap_mission(
+            A, 1.1 * np.sqrt(A) + 2.0, seed=100 + s)
+    return out
+
+
+def tool_case(name):
+    if not name.startswith("fuzz"):
+        from tools import dlsc_openworld
+
+        r = dlsc_openworld.run_one(_dlsc_missions()[name], name)
+        flag = "success"
+    else:
+        from tools import fuzz_missions
+
+        seed, layer = name[len("fuzz"):].split("_")
+        r = fuzz_missions.run_case(int(seed), layer, A=8)
+        flag = "clean"
+    return {"case": name, **{k: r.get(k) for k in (
+        "total_flight_time", "planner_seq", "is_collided", "qp_failed", "safety_ratio_agent",
+        "vel_excess_ratio", "acc_excess_ratio", "wall_s", flag)}}
+
+
 def main():
     what = sys.argv[1]
     if what == "flights":
@@ -469,6 +539,9 @@ def main():
         log_dir.mkdir(parents=True, exist_ok=True)
         (teacher if what == "teacher" else freerun)(
             sys.argv[2], [int(a) for a in sys.argv[3:]], log_dir)
+    elif what == "tools":
+        for name in sys.argv[2:] or TOOL_CASES:
+            print(json.dumps(tool_case(name)), flush=True)
     elif what in ("local", "montecarlo"):
         log_dir = ROOT / "build" / "cpu_reference"
         log_dir.mkdir(parents=True, exist_ok=True)
