@@ -10,8 +10,10 @@ simulator (`sim.simulator.MultiSyncSimulator` with its MAPF waypoint
 layer and audit, and the `sim.run` CLI) flying forest missions:
 
   1. environment: torch/CUDA versions, nvcc, the card's name and power limit;
-  2. build the ADMM kernel (csrc/admm.cu) with nvcc, printing ptxas's
-     registers and spills;
+  2. build the ADMM kernel (csrc/admm.cu) and the SFC kernel
+     (csrc/sfc_expand.cu), one nvcc per source started together, printing
+     ptxas's registers and spills; time one L2 round trip
+     (`sfc_cuda.l2_round_trip_ns`, for the SFC kernel's latency floor);
   3. kernel against the plain loop for one chunk (8 iterations) on the
      main path's QP: iterates within rtol 1e-4 / atol 1e-5, itdone equal
      on ≥ 99.5% of agents; then many chunks on a ragged fleet (A=37) that
@@ -28,14 +30,20 @@ layer and audit, and the `sim.run` CLI) flying forest missions:
      control points within 0.1 where both converged;
   5. the main path: 3 warm-up and 20 timed evolving steps; the kernel must
      have been launched, every output finite, mean QP convergence > 0.9
-     and no two agents closer than 2·radius − feas_tol; the SFC loop's
-     trips and host syncs per step (`ops/sfc.py`'s counters; also in
-     phase 8's modes);
+     and no two agents closer than 2·radius − feas_tol; every SFC update
+     through the SFC kernel (its launches > 0, no host sync, no trip of
+     the plain loop), the longest lane's trips per step (`ops/sfc.py`'s
+     device counter; also in phase 8's modes); `sfc_check` on the SFC
+     calls of two timed steps: the kernel's boxes and seed-free flags
+     equal the plain loop's on the card, lane for lane; the SFC kernel
+     timed on the first (CUDA events) beside the plain loop, with its
+     bounds;
   6. the reference size: `workload.forest_mission(10)` (O = 9 neighbour
      slots, the in-place rescue) flown to its goals on the card by
      `MultiSyncSimulator.run`, at most 300 planner iterations, writing its
      simulation CSV, then once more through the CLI (`sim.run --device
-     cuda`);
+     cuda`); `sfc_check` on its SFC calls, and on the same lanes with no
+     radius clamp (r = 0);
   7. the repo's scaled forest: `forest_mission(64, seed=1)` flown to its
      goals, at most 400 planner iterations; its first 5 steps are rerun
      from checkpoints on the card and by a CPU simulator (the plain torch
@@ -48,7 +56,9 @@ layer and audit, and the `sim.run` CLI) flying forest missions:
      box (60, 'point' SFC); per mode the kernel against the plain loop on
      one step's QP and on its compacted rescue (`loop_check`, with its
      per-agent float64 clause in the DLSC and 3-D batches), the loop
-     timed, then 3 warm-up and 10 timed steps with stage times, QP
+     timed, then 3 warm-up and 10 timed steps with stage times,
+     `sfc_check` and the SFC kernel's time ('hull', 'substep' and, with
+     static goals, 'point' lanes; 2-D and 3-D), QP
      convergence > 0.9 and no two agents closer than 2·radius − feas_tol
      (with the downwash in 3-D) in (a) and (b); in (c) and (d), whose QPs
      fail by design in this layout (RSFC's failsafe flies agents into each
@@ -70,13 +80,16 @@ layer and audit, and the `sim.run` CLI) flying forest missions:
      `forest_mission(10)`'s world (its line-of-sight queries ask the
      world's distance on the card), with the host time of the priority
      goals per step; and a mini mission in DYNAMIC_PRIORITY and in DLSC
-     replanning once a segment;
+     replanning once a segment; the small missions fly with no world map
+     (no SFC update), the forest's PRIOR_BASED flight through the SFC
+     kernel in 'point' mode, with `sfc_check` on its first SFC call;
  11. local sensing (`world_use_global_map=False`, sensor range 3 m):
      (a) `forest_mission(10)` and (b) `forest_mission(64, seed=1)` flown
      to their goals by `MultiSyncSimulator.run` with the agents' known
      maps on the card, at most 300 / 400 planner iterations: the audit,
-     the kernel's launches, the maps each checkpoint restores,
-     `loop_check` on the step after the last checkpoint (after step 3);
+     the kernels' launches, `sfc_check` on the per-agent images' SFC
+     calls, the maps each checkpoint restores, `loop_check` on the step
+     after the last checkpoint (after step 3);
      (a) once more through the CLI (`--no-global-map`), (b) its steps
      after 1-3 rerun on the CPU (positions, waypoints and known maps
      identical, control points within 0.1 m); per step the ms of sensing,
@@ -89,7 +102,8 @@ layer and audit, and the `sim.run` CLI) flying forest missions:
      excess) and the count that arrive; per step the phase times,
      scenario·agent-steps/s and QP convergence; `loop_check` on the
      flattened QP of iteration 4 (A = 512) and on its compacted rescue,
-     and the loop timed there; (b) 40 scenarios for 5 steps (two chunks
+     and the loop timed there, `sfc_check` on the SFC calls of
+     iterations 0 and 50 (1,536 lanes); (b) 40 scenarios for 5 steps (two chunks
      of 32 scenarios, the second padded): finite outputs and the card's
      peak memory per chunk;
  13. the multi-device runtime on one rank, the debug step and the replay
@@ -109,9 +123,9 @@ layer and audit, and the `sim.run` CLI) flying forest missions:
      it and draws nothing;
  14. the port's tools (lsc_dr_planner_tpu_torch/tools/), each through
      its own entry point: (a) `sfc_bench` at A = 128 and 1024, clamps 30
-     and 70 (the main path's), 3 reps: the SFC loop's trips, host syncs,
-     launches per call and per trip (torch.profiler), ms per trip and
-     its bound; (b) `qp_forensics` at A=1024 in DLSC sub-step for 12
+     and 70 (the main path's), 3 reps, the plain loop and the kernel:
+     trips, host syncs, launches per call and per trip (torch.profiler),
+     kernel ms, ms per trip and the bound; (b) `qp_forensics` at A=1024 in DLSC sub-step for 12
      steps, convergence > 0.9 a step, and the re-solve at 1000 iterations
      where the last step leaves agents; (c) `mc_pod_bench` at A=1024,
      S=8 (one chunk of 8,192 agents) for 2 steps: every scenario's audit
@@ -120,11 +134,12 @@ layer and audit, and the `sim.run` CLI) flying forest missions:
      smoke run of 15 steps (no collision, no QP failure, safety ratio
      ≥ 1); (e) `dlsc_openworld`'s circle8 and (f) `fuzz_missions`'s cases
      2001 (hybrid layer) and, time allowing, 2002 (mcp) at 8 agents, which
-     must succeed / come out clean, as in the JAX package. (b)-(f) must
-     launch the kernel.
+     must succeed / come out clean, as in the JAX package. (a) must
+     launch the SFC kernel, (b)-(f) the ADMM kernel and, where their
+     world has a map (not (c), (e)), the SFC kernel.
 Each flight must pass the audit (no collision, no QP failure, safety
 ratio ≥ 1, no velocity or acceleration excess, finite flight time), use
-the native MAPF backend and launch the ADMM kernel. Each flight is
+the native MAPF backend and launch the ADMM and SFC kernels. Each flight is
 checkpointed after the planner steps of CK_STEPS; on the QP of the step
 that follows each checkpoint, the kernel is held against the plain loop
 as in phase 3 (every chunk per agent within rtol 1e-4 / atol 1e-5, and
@@ -132,9 +147,12 @@ the run to the kernel's own exit), and the loop is timed on the QP of
 planner step 4 (A=64/O=16 and A=10/O=9).
 
 Prints the results and the wall time of each phase, a JSON line with one
-entry per build of the kernel (its dim·K range, launches on the paths of
-phases 5-14, largest error against the plain loop, and ms, plain ms and
-bound at its A=1024 shape), the
+entry per build of the ADMM kernel (its dim·K range, launches on the
+paths of phases 5-14, largest error against the plain loop, and ms,
+plain ms and bound at its A=1024 shape) and one for the SFC kernel (its
+launches on those paths, the calls and lanes `sfc_check` held to the
+plain loop, ms, plain ms, bound and latency floor on the main path's
+call), the
 card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero, with no result, without a
 CUDA device or outside a checkout of the repository. Writes the full
@@ -146,6 +164,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -447,33 +466,60 @@ def step_parity(param, mission, cuda_sim, cks, log_dir, tag="phase7"):
 
 
 class Builds:
-    """Per-build records of the kernel: the dim·K range each template
+    """Per-build records of the ADMM kernel: the dim·K range each template
     build takes, its launches on the main paths (`add_path_launches` after
     each path), its largest error against the plain loop, and its timing
-    at its A=1024 shape."""
+    at its A=1024 shape; and the record of the SFC kernel (`sfc`): its
+    launches on the main paths, the lanes `sfc_check` held to the plain
+    loop, and its timing on the main path's call."""
 
-    def __init__(self, qp, qp_cuda, dev):
-        self.qp, self.qp_cuda, self.dev = qp, qp_cuda, dev
+    def __init__(self, qp, qp_cuda, sfc_cuda, dev):
+        self.qp, self.qp_cuda, self.sfc_cuda, self.dev = qp, qp_cuda, sfc_cuda, dev
         self.lib = qp_cuda.build()
         self.rec = {}
         for dk in range(1, self.lib.admm_max_dk() + 1):
             r = self.rec.setdefault(qp_cuda.build_name(self.lib, dk), {
                 "dk": [dk, dk], "launches": 0, "max_abs_err": 0.0, "ms": None})
             r["dk"][1] = dk
+        self.sfc = {"launches": 0, "max_abs_err": 0, "calls_checked": 0, "lanes_checked": 0,
+                    "ms": None}
 
     def name(self, cfg):
         return self.qp_cuda.build_name(
             self.lib, cfg.dim * self.qp.torch_statics(cfg, self.dev)["K"])
 
+    def reset_launches(self):
+        self.qp_cuda.reset_launches()
+        self.sfc_cuda.reset_launches()
+
     def add_path_launches(self):
-        """Adds the launches counted since the last reset, per build."""
-        for name, n in self.qp_cuda.build_launches.items():
+        """Adds the launches counted since the last reset, per ADMM build
+        and of the SFC kernel ("sfc_expand"), and returns them."""
+        out = dict(self.qp_cuda.build_launches)
+        for name, n in out.items():
             self.rec[name]["launches"] += n
-        return dict(self.qp_cuda.build_launches)
+        out["sfc_expand"] = self.sfc_cuda.launches
+        self.sfc["launches"] += self.sfc_cuda.launches
+        return out
+
+    @staticmethod
+    def assert_launched(launches, what, sfc=True):
+        """Both kernels launched on the path (the ADMM kernel alone with
+        `sfc` False: a path with no world map, world_use_octomap off, has
+        no SFC update)."""
+        admm = sum(n for k, n in launches.items() if k != "sfc_expand")
+        assert admm > 0, f"{what} never launched the ADMM kernel"
+        assert launches["sfc_expand"] > 0 or not sfc, f"{what} never launched the SFC kernel"
 
     def note_check(self, cfg, rec):
         r = self.rec[self.name(cfg)]
         r["max_abs_err"] = max(r["max_abs_err"], rec["max_abs_err_chunk"])
+
+    def note_sfc_check(self, recs):
+        for r in recs:
+            self.sfc["max_abs_err"] = max(self.sfc["max_abs_err"], r["max_abs_err"])
+            self.sfc["calls_checked"] += 1
+            self.sfc["lanes_checked"] += r["lanes"]
 
     def note_timing(self, cfg, timing, plain_ms):
         r = self.rec[self.name(cfg)]
@@ -481,6 +527,137 @@ class Builds:
             r.update(ms=timing["ms"], plain_ms=plain_ms, iters=timing["iters"],
                      A=timing["A"], R=timing["R"], bound_ms=timing["bound_ms"],
                      bound_by=timing["bound_by"], bound_share=timing["bound_share"])
+
+
+class SfcCalls:
+    """While active, records the inputs and outputs of `sfc.expand_box`
+    calls (the sampled steps of `sfc_check`): every `every`-th call from
+    the first, at most `keep` of them. update_sfc_fused looks expand_box
+    up in its module at each call, so the recorder sees every call of
+    the path."""
+
+    def __init__(self, sfc, every=1, keep=2):
+        self.sfc, self.every, self.keep = sfc, every, keep
+        self.calls, self.n = [], 0
+
+    def __enter__(self):
+        self.orig = self.sfc.expand_box
+
+        def record(*a, **k):
+            out = self.orig(*a, **k)
+            if self.n % self.every == 0 and len(self.calls) < self.keep:
+                self.calls.append((a, k, out))
+            self.n += 1
+            return out
+
+        self.sfc.expand_box = record
+        return self
+
+    def __exit__(self, *exc):
+        self.sfc.expand_box = self.orig
+
+
+def sfc_check(sfc, builds, calls, what, radius=None):
+    """The SFC kernel against the plain loop on the card, on the lanes of
+    the recorded calls of a path (`radius` replaces their clamp): the
+    path's own result (the kernel's), one more launch of the kernel and
+    the plain loop (plain=True) on the same inputs give equal boxes and
+    seed-free flags, lane for lane. Returns the per-call records."""
+    assert calls.calls, f"{what}: no SFC call recorded"
+    recs = []
+    for a, k, got in calls.calls:
+        assert not k.get("plain"), what
+        if radius is not None:
+            k = {**k, "max_radius_cells": radius}
+            got = sfc.expand_box(*a, **k)
+        again = sfc.expand_box(*a, **k)
+        want = sfc.expand_box(*a, **{**k, "plain": True})
+        assert got[0].device.type == "cuda", what
+        differ = torch.zeros(len(want[2]), dtype=torch.bool, device=want[2].device)
+        err = 0
+        for x, y, z in zip(got, again, want):
+            x, y, z = (t.long().view(len(differ), -1) for t in (x, y, z))
+            d = (x - z).abs().amax(1)
+            differ |= (d > 0) | (y != z).any(1)
+            err = max(err, int(d.max()))
+        live = sfc.lane_trips(a[1], a[2], *want)
+        recs.append({"lanes": len(differ), "per_agent_images": k.get("agent") is not None,
+                     "radius": k.get("max_radius_cells", 0), "seed_free": int(want[2].sum()),
+                     "longest_lane_trips": int(live.max()), "lanes_differing": int(differ.sum()),
+                     "max_abs_err": err})
+    print(f"{what} sfc_check", json.dumps(recs))
+    assert all(r["lanes_differing"] == 0 for r in recs), (what, recs)
+    builds.note_sfc_check(recs)
+    return recs
+
+
+# The SFC kernel's operations per live lane-trip: 12 bound tests, 12
+# clamps of the 8-corner query, 24 index operations (x·SY + y)·SZ + z,
+# the count's 7 additions and its test, 6 state updates
+SFC_OPS_PER_TRIP = 62
+FP32_OPS_PER_S = 67e12  # H100 SXM outside the tensor cores; its int32 rate is no higher
+SFC_REPS = 50
+
+
+# The hull enumeration of build_clsc (ops/geometry.py::
+# closest_point_origin_to_hull, the JAX package's :192-237; no Pallas
+# original), float operations per hull of 6 points counted from its code:
+# 15 segments at 27, 20 triangles at 153 (6 dot products, the Voronoi
+# tests, 4 candidate points, 6 selects of 3 components), 41 candidates'
+# squared norms and argmin at 6, 15 tetrahedra at 135 (5 signed volumes,
+# the sign tests); bytes per hull: its 6 points read, its closest point
+# and distance written
+HULL_OPS = 15 * 27 + 20 * 153 + 41 * 6 + 15 * 135
+HULL_BYTES = 6 * 3 * 4 + 4 * 4
+
+
+def hull_bound(A, O, M):
+    """The least time of the hull enumeration over [A, O, M] hulls on an
+    H100 SXM: the larger of its operations at FP32_OPS_PER_S and its
+    bytes at 3.35 TB/s."""
+    hulls = A * O * M
+    ops_ms = hulls * HULL_OPS / FP32_OPS_PER_S * 1e3
+    bytes_ms = hulls * HULL_BYTES / 3.35e12 * 1e3
+    return {"hulls": hulls, "ops_per_hull": HULL_OPS, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def sfc_timing(sfc, calls, l2_ns, gpu, what):
+    """The SFC kernel's ms per call (CUDA events, SFC_REPS launches of
+    `sfc.expand_box_kernel`, the launch without expand_box's trip count)
+    on the first recorded call, the plain loop's ms on the card on the
+    same lanes, and the bounds of this call's work: the bytes
+    (`sfc_bench.bound_bytes`: each lane's 8-corner seed query, at most
+    4 new corners per live lane-trip, each lane's seed, order and result
+    once, at 3.35 TB/s), the operations (SFC_OPS_PER_TRIP per live
+    lane-trip at FP32_OPS_PER_S), the larger of which is `bound_ms`, and
+    beside them the latency floor (the longest lane's trips times one L2
+    round trip), which the bytes and operations bound do not see."""
+    from lsc_dr_planner_tpu_torch.tools import sfc_bench
+
+    a, k, out = calls.calls[0]
+    lanes = a[1].shape[0]
+    kernel_k = {x: v for x, v in k.items() if x != "plain"}
+    ms = cuda_ms(lambda: sfc.expand_box_kernel(*a, **kernel_k), SFC_REPS)
+    plain_ms = cuda_ms(lambda: sfc.expand_box(*a, **{**k, "plain": True}), 2)
+    live = sfc.lane_trips(a[1], a[2], *out)
+    lane_total, longest = int(live.sum()), int(live.max())
+    bytes_ = sfc_bench.bound_bytes(lanes, lane_total)
+    bytes_ms = bytes_ / sfc_bench.HBM_BYTES_PER_S * 1e3
+    ops_ms = SFC_OPS_PER_TRIP * lane_total / FP32_OPS_PER_S * 1e3
+    rec = {"lanes": lanes, "radius": k.get("max_radius_cells", 0),
+           "per_agent_images": k.get("agent") is not None, "lane_trips": lane_total,
+           "longest_lane_trips": longest, "ms": ms, "plain_ms": plain_ms,
+           "bytes": bytes_, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "l2_round_trip_ns": l2_ns, "latency_floor_ms": longest * l2_ns * 1e-6,
+           "ms_per_longest_trip_us": ms * 1e3 / longest if longest else None}
+    rec["bound_share"] = rec["bound_ms"] / ms
+    rec["floor_share"] = rec["latency_floor_ms"] / ms
+    print(f"{what} sfc timing", json.dumps(rec), f"[{gpu}]")
+    return rec
 
 
 def min_pair_distance_now(pos, dim, downwash):
@@ -523,11 +700,12 @@ def phase8_modes():
     )
 
 
-def fused_mode(workload, qp, qp_cuda, builds, dev, gpu, tag, overrides, steps=True,
-               float64_clause=False):
+def fused_mode(workload, qp, builds, dev, gpu, tag, overrides, steps=True,
+               float64_clause=False, l2_ns=None):
     """One planner mode at A=1024: loop_check on the QP after 3 evolving
     steps and on its compacted rescue, the loop timed, then (with `steps`)
-    3 warm-up and 10 timed steps."""
+    3 warm-up and 10 timed steps, `sfc_check` on the first and sixth
+    timed steps' SFC calls and the SFC kernel timed on the first."""
     from lsc_dr_planner_tpu_torch.ops import sfc
 
     p, planner, fleet, inp = workload.build_fleet(A_MAIN, device=dev, timing=True, **overrides)
@@ -564,7 +742,7 @@ def fused_mode(workload, qp, qp_cuda, builds, dev, gpu, tag, overrides, steps=Tr
     for _ in range(WARMUP):
         inp, _ = step(inp)
     torch.cuda.synchronize()
-    qp_cuda.reset_launches()
+    builds.reset_launches()
     sfc.reset_counts()
     dists = []
 
@@ -574,19 +752,26 @@ def fused_mode(workload, qp, qp_cuda, builds, dev, gpu, tag, overrides, steps=Tr
         dists.append(min_pair_distance_now(inp.pos, p.world_dimension,
                                            float(fleet.downwash[0])))
 
-    inp, lat, stages, convs = admm_timing.timed_steps(step, planner, inp, TIMED8, check)
+    with SfcCalls(sfc, every=TIMED8 // 2) as calls:
+        inp, lat, stages, convs = admm_timing.timed_steps(step, planner, inp, TIMED8, check)
+    launches = builds.add_path_launches()
+    lane_trips = sfc.read_lane_trips()
     lat = np.asarray(lat)
     res.update(steps=TIMED8, p50_ms=float(np.percentile(lat, 50) * 1e3),
                p99_ms=float(np.percentile(lat, 99) * 1e3),
                agent_steps_per_s=A_MAIN * TIMED8 / float(lat.sum()),
                qp_convergence=float(np.mean(convs)), min_pair_distance=min(dists),
                qp_convergence_per_step=convs, min_pair_distance_per_step=dists,
-               kernel_launches=builds.add_path_launches(),
-               stage_ms=admm_timing.mean_stages(stages), gpu=gpu,
-               sfc_trips_per_step=sfc.trips / TIMED8, sfc_syncs_per_step=sfc.syncs / TIMED8)
+               kernel_launches=launches, stage_ms=admm_timing.mean_stages(stages), gpu=gpu,
+               sfc_trips_per_step=lane_trips / TIMED8, sfc_syncs_per_step=sfc.syncs / TIMED8,
+               sfc_plain_trips=sfc.trips)
     print(f"phase{tag}", json.dumps({k: v for k, v in res.items()
                                       if k not in ("check", "rescue_check", "timing")}))
-    assert sum(res["kernel_launches"].values()) > 0, f"phase {tag} never launched the kernel"
+    builds.assert_launched(launches, f"phase {tag}")
+    assert launches["sfc_expand"] == calls.n, (tag, launches, calls.n)  # every SFC update
+    assert sfc.syncs == 0 and sfc.trips == 0, f"phase {tag}: the plain SFC loop ran"
+    res["sfc_check"] = sfc_check(sfc, builds, calls, f"phase{tag}")
+    res["sfc_timing"] = sfc_timing(sfc, calls, l2_ns, gpu, f"phase{tag}")
     sep = 2 * 0.15 - feas_tol
     if tag in JAX_CPU_1024:
         conv_ref, sep_ref = JAX_CPU_1024[tag]
@@ -621,7 +806,7 @@ def phase9_flights():
     )
 
 
-def fly(workload, qp, qp_cuda, builds, dev, gpu, work, tag, overrides, obstacles, max_iter):
+def fly(workload, qp, builds, dev, gpu, work, tag, overrides, obstacles, max_iter):
     from lsc_dr_planner_tpu_torch.config import Param
     from lsc_dr_planner_tpu_torch.mission import Mission
     from lsc_dr_planner_tpu_torch.sim.simulator import MultiSyncSimulator
@@ -638,7 +823,7 @@ def fly(workload, qp, qp_cuda, builds, dev, gpu, work, tag, overrides, obstacles
     sim = MultiSyncSimulator(param, mission, log_dir=str(work), device=dev)
     ck_dir = work / f"phase{tag}"
     ck_dir.mkdir(exist_ok=True)
-    qp_cuda.reset_launches()
+    builds.reset_launches()
     t0 = time.perf_counter()
     r, cks = run_checkpointed(sim, max_iter, ck_dir, steps=CK9)
     wall = time.perf_counter() - t0
@@ -657,7 +842,7 @@ def fly(workload, qp, qp_cuda, builds, dev, gpu, work, tag, overrides, obstacles
         res["stage_ms_mean"] = stage_ms_mean(sim)
     print(f"phase{tag}", json.dumps(res))
     check_audit(r, f"phase {tag}")
-    assert sum(res["kernel_launches"].values()) > 0, f"phase {tag} never launched the kernel"
+    builds.assert_launched(res["kernel_launches"], f"phase {tag}")
     if obstacles:
         assert r["safety_ratio_obs"] >= 1.0, res
     planner_k, qp_inp_k = step_qp(param, mission, sim, cks[0], str(work))
@@ -700,14 +885,16 @@ LOCAL = dict(world_use_global_map=False, sensor_range=3.0)
 LOCAL_FLIGHTS = (("11a", 10, 0, 300, (3,)), ("11b", 64, 1, 400, (1, 2, 3)))
 
 
-def local_flight(workload, qp, qp_cuda, builds, dev, gpu, work, tag, A, seed, max_iter, cks):
+def local_flight(workload, qp, builds, dev, gpu, work, tag, A, seed, max_iter, cks):
     """forest_mission(A, seed) flown to its goals in local-sensing mode by
     `MultiSyncSimulator.run` on the card, checkpointed after the planner
-    steps `cks`: the audit, the kernel's launches, the maps each
+    steps `cks`: the audit, the kernels' launches, `sfc_check` on the
+    SFC calls of planner steps 1 and 26 (per-agent images), the maps each
     checkpoint restores (identical to the flight's at that step), and
     `loop_check` on the QP of the step after the last checkpoint.
     Returns (simulator, param, mission, checkpoint paths, record)."""
     from lsc_dr_planner_tpu_torch.config import Param
+    from lsc_dr_planner_tpu_torch.ops import sfc
     from lsc_dr_planner_tpu_torch.sim.simulator import MultiSyncSimulator
 
     mission = workload.forest_mission(A, seed)
@@ -721,9 +908,10 @@ def local_flight(workload, qp, qp_cuda, builds, dev, gpu, work, tag, A, seed, ma
     def snap(path):
         snaps[path] = (mm.known.clone(), mm._version.copy())
 
-    qp_cuda.reset_launches()
+    builds.reset_launches()
     t0 = time.perf_counter()
-    r, ck_paths = run_checkpointed(sim, max_iter, ck_dir, steps=cks, on_save=snap)
+    with SfcCalls(sfc, every=25) as calls:
+        r, ck_paths = run_checkpointed(sim, max_iter, ck_dir, steps=cks, on_save=snap)
     wall = time.perf_counter() - t0
     d_goal = np.linalg.norm(sim.pos - sim.desired_goal, axis=-1)
     ms = {name: {"mean": t.average * 1e3, "p50": t.percentile(50) * 1e3, "n": t.N}
@@ -745,7 +933,9 @@ def local_flight(workload, qp, qp_cuda, builds, dev, gpu, work, tag, A, seed, ma
         res["sfc_search_ms_mean"] = res["stage_ms_mean"]["sfc"] - ms["local_map"]["mean"]
     print(f"phase{tag}", json.dumps(res))
     check_audit(r, f"phase {tag}")
-    assert sum(res["kernel_launches"].values()) > 0, f"phase {tag} never launched the kernel"
+    builds.assert_launched(res["kernel_launches"], f"phase {tag}")
+    res["sfc_check"] = sfc_check(sfc, builds, calls, f"phase{tag}")
+    assert all(c["per_agent_images"] for c in res["sfc_check"]), res["sfc_check"]
     assert res["min_pair_distance"] >= 2 * 0.15 - sim.planner.feas_tol, res
     assert 0 < res["known_cells"] <= res["true_cells"], res
     assert sim.sense_time.N == sim.planner_seq and sim.merge_time.N == sim.planner_seq
@@ -772,13 +962,15 @@ MC_CHECK_IT = 4  # loop_check on this iteration's flattened QP and its rescue
 MC_BIG_S, MC_BIG_STEPS = 40, 5
 
 
-def montecarlo_run(workload, qp, qp_cuda, builds, dev, gpu, work):
+def montecarlo_run(workload, qp, builds, dev, gpu, work):
     """(a) MC_S scenarios of forest_mission(64, seed=1) until every one
     finishes or MC_MAX_ITER iterations pass: every scenario's audit, the
     scenarios that arrive and the agents home in each, per step the phase
     times, scenario·agent-steps/s and QP convergence, and
-    `loop_check` on one step's flattened QP and its compacted rescue."""
+    `loop_check` on one step's flattened QP and its compacted rescue;
+    `sfc_check` on the SFC calls of iterations 0 and 50."""
     from lsc_dr_planner_tpu_torch.config import Param
+    from lsc_dr_planner_tpu_torch.ops import sfc
     from lsc_dr_planner_tpu_torch.sim.montecarlo import MonteCarloSimulator
 
     param = Param(multisim_save_result=False, multisim_max_planner_iteration=MC_MAX_ITER)
@@ -787,46 +979,49 @@ def montecarlo_run(workload, qp, qp_cuda, builds, dev, gpu, work):
     A = mc.sims[0].A
     res = {"S": MC_S, "A": A, "max_noise": MC_NOISE, "gpu": gpu}
     steps, before = [], {}
-    qp_cuda.reset_launches()
+    builds.reset_launches()
     t_run = time.perf_counter()
-    for it in range(MC_MAX_ITER):
-        if all(sim.is_finished() for sim in mc.sims):
-            break
-        t0 = time.perf_counter()
-        prep = mc.prepare_step(it)
-        if it == MC_CHECK_IT:
-            # the kernel against the plain loop on this step's batch; its
-            # launches are not the path's
-            before = builds.add_path_launches()
-            t_check = time.perf_counter()
-            _, batch, B = prep
-            cfg, tol = mc.planner.qp_cfg, mc.planner.feas_tol
-            li = qp.prepare(cfg, mc.chunk_qp(batch, 0, min(B, 32)).qp_inp).loop
-            res["kernel_check"] = loop_check(qp, cfg, li, tol, f"phase12a kernel, A={len(li.xi)}")
-            builds.note_check(cfg, res["kernel_check"])
-            xi, z, y = qp.run_loop(cfg, li, cfg.max_iter, tol)[:3]
-            sub = qp.rescue_batch(cfg, li, xi, z, y, tol)[2]
-            res["rescue_check"] = loop_check(qp, cfg, sub, tol, "phase12a rescue",
-                                             max_iter=cfg.rescue_iter)
-            builds.note_check(cfg, res["rescue_check"])
-            res["loop_timing"] = admm_timing.timed_call(qp, cfg, li, cfg.max_iter, tol,
-                                                        f"montecarlo{len(li.xi)}", 10)
-            res["loop_timing"]["plain_ms"] = cuda_ms(
-                lambda: qp.admm_loop_plain(cfg, li, cfg.max_iter, tol), 2)
-            print("phase12a timing", json.dumps(res["loop_timing"]), f"[{gpu}]")
-            qp_cuda.reset_launches()
-            t0 += time.perf_counter() - t_check
-        mc.plan_prepared(*prep)
-        wall = time.perf_counter() - t0
-        pt = {k: (round(v * 1e3, 3) if k != "n_active" else v) for k, v in mc.phase_times.items()}
-        rec = {"it": it, **pt, "wall_ms": round(wall * 1e3, 3),
-               "sa_steps_per_s": pt["n_active"] * A / wall,
-               "qp_convergence": mc.last_qp_convergence,
-               "peak_mib": [round(b / 2**20, 1) for b in mc.chunk_peak_bytes]}
-        if mc.planner.timing and (it == 2 or it % 25 == 0):
-            rec["stage_ms"] = mc.planner.stage_times_ms()
-        print("phase12a step", json.dumps(rec))
-        steps.append(rec)
+    with SfcCalls(sfc, every=50) as calls:
+        for it in range(MC_MAX_ITER):
+            if all(sim.is_finished() for sim in mc.sims):
+                break
+            t0 = time.perf_counter()
+            prep = mc.prepare_step(it)
+            if it == MC_CHECK_IT:
+                # the kernel against the plain loop on this step's batch; its
+                # launches are not the path's
+                before = builds.add_path_launches()
+                t_check = time.perf_counter()
+                _, batch, B = prep
+                cfg, tol = mc.planner.qp_cfg, mc.planner.feas_tol
+                li = qp.prepare(cfg, mc.chunk_qp(batch, 0, min(B, 32)).qp_inp).loop
+                res["kernel_check"] = loop_check(qp, cfg, li, tol,
+                                                 f"phase12a kernel, A={len(li.xi)}")
+                builds.note_check(cfg, res["kernel_check"])
+                xi, z, y = qp.run_loop(cfg, li, cfg.max_iter, tol)[:3]
+                sub = qp.rescue_batch(cfg, li, xi, z, y, tol)[2]
+                res["rescue_check"] = loop_check(qp, cfg, sub, tol, "phase12a rescue",
+                                                 max_iter=cfg.rescue_iter)
+                builds.note_check(cfg, res["rescue_check"])
+                res["loop_timing"] = admm_timing.timed_call(qp, cfg, li, cfg.max_iter, tol,
+                                                            f"montecarlo{len(li.xi)}", 10)
+                res["loop_timing"]["plain_ms"] = cuda_ms(
+                    lambda: qp.admm_loop_plain(cfg, li, cfg.max_iter, tol), 2)
+                print("phase12a timing", json.dumps(res["loop_timing"]), f"[{gpu}]")
+                builds.reset_launches()
+                t0 += time.perf_counter() - t_check
+            mc.plan_prepared(*prep)
+            wall = time.perf_counter() - t0
+            pt = {k: (round(v * 1e3, 3) if k != "n_active" else v)
+                  for k, v in mc.phase_times.items()}
+            rec = {"it": it, **pt, "wall_ms": round(wall * 1e3, 3),
+                   "sa_steps_per_s": pt["n_active"] * A / wall,
+                   "qp_convergence": mc.last_qp_convergence,
+                   "peak_mib": [round(b / 2**20, 1) for b in mc.chunk_peak_bytes]}
+            if mc.planner.timing and (it == 2 or it % 25 == 0):
+                rec["stage_ms"] = mc.planner.stage_times_ms()
+            print("phase12a step", json.dumps(rec))
+            steps.append(rec)
     res["wall_s"] = time.perf_counter() - t_run
     after = builds.add_path_launches()
     res["kernel_launches"] = {k: before.get(k, 0) + after.get(k, 0)
@@ -858,12 +1053,14 @@ def montecarlo_run(workload, qp, qp_cuda, builds, dev, gpu, work):
         steps=steps)
     print("phase12a", json.dumps({k: v for k, v in res.items()
                                   if k not in ("steps", "kernel_check", "rescue_check")}))
-    assert sum(res["kernel_launches"].values()) > 0, "phase 12a never launched the kernel"
+    builds.assert_launched(res["kernel_launches"], "phase 12a")
     assert res["kernel_check"]["A"] == MC_S * A, res["kernel_check"]["A"]
+    res["sfc_check"] = sfc_check(sfc, builds, calls, "phase12a")
+    assert res["sfc_check"][0]["lanes"] == 3 * MC_S * A, res["sfc_check"]
     return res
 
 
-def montecarlo_chunks(workload, qp_cuda, builds, dev, gpu, work):
+def montecarlo_chunks(workload, builds, dev, gpu, work):
     """(b) MC_BIG_S scenarios for MC_BIG_STEPS steps: two chunks (32, then
     8 padded to 32, as the JAX package pads), every output finite; the
     card's peak memory per chunk."""
@@ -873,7 +1070,7 @@ def montecarlo_chunks(workload, qp_cuda, builds, dev, gpu, work):
     param = Param(multisim_save_result=False)
     mc = MonteCarloSimulator(param, workload.forest_mission(64, 1), n_scenarios=MC_BIG_S,
                              max_noise=MC_NOISE, log_dir=str(work), device=dev)
-    qp_cuda.reset_launches()
+    builds.reset_launches()
     steps = []
     for it in range(MC_BIG_STEPS):
         t0 = time.perf_counter()
@@ -894,7 +1091,7 @@ def montecarlo_chunks(workload, qp_cuda, builds, dev, gpu, work):
                                   for c in range(len(mc.chunk_peak_bytes))],
            "kernel_launches": builds.add_path_launches(), "gpu": gpu}
     print("phase12b", json.dumps({k: v for k, v in res.items() if k != "steps"}))
-    assert sum(res["kernel_launches"].values()) > 0, "phase 12b never launched the kernel"
+    builds.assert_launched(res["kernel_launches"], "phase 12b")
     return res
 
 
@@ -933,7 +1130,7 @@ def stash_tensors(dbg):
     return out
 
 
-def phase13(workload, qp_cuda, builds, dev, gpu, work, sim6):
+def phase13(workload, builds, dev, gpu, work, sim6):
     """(a) A one-rank NCCL group runs the all-gather step and the halo
     step at A=1024: each equal to the unsharded step on the same inputs,
     each launching the ADMM kernel; the scaling harness's one-rank row.
@@ -973,14 +1170,14 @@ def phase13(workload, qp_cuda, builds, dev, gpu, work, sim6):
         for name, fn, want, (f, i) in (("allgather", sharded, ref, (fleet, inp)),
                                         ("halo", halo_step, ref_p, (fleet_p, inp_p))):
             f_l, i_l = mesh.shard_step_inputs(f, i, 0, 1)
-            qp_cuda.reset_launches()
+            builds.reset_launches()
             out = mesh.gather_outputs(fn(f_l, i_l), group)
             torch.cuda.synchronize()
             launches = builds.add_path_launches()
             diffs = max_diffs(want, out)
             print(f"phase13 {name}: kernel launches {launches}, largest difference from the "
                   f"unsharded step {json.dumps(diffs)}")
-            assert sum(launches.values()) > 0, f"phase 13 {name} never launched the kernel"
+            builds.assert_launched(launches, f"phase 13 {name}")
             assert_step_close(want, out, f"phase13 {name}")
             ms[name] = cuda_ms(lambda: mesh.gather_outputs(fn(f_l, i_l), group), P13_REPS)
             res[name] = {"kernel_launches": launches, "max_diff": diffs}
@@ -1048,16 +1245,18 @@ P14_FUZZ = ((2001, "hybrid"), (2002, "mcp"))
 P14_SECOND_FUZZ_S = 110.0
 
 
-def phase14(workload, qp, qp_cuda, builds, dev, gpu, work):
+def phase14(qp, builds, dev, gpu, work):
     """The port's tools on the card, each through its own entry point:
-    (a) sfc_bench at A = 128 and 1024, clamps 30 and 70: the SFC loop's
-    trips, syncs, launches per trip and bound; (b) qp_forensics at
-    A=1024 in DLSC sub-step; (c) mc_pod_bench at A=1024, S=8 (one chunk
-    of 8,192 agents), and `loop_check` on the next iteration's batch;
-    (d) scale_demo's 256-agent smoke run; (e) dlsc_openworld's circle8;
-    (f) fuzz_missions's cases 2001 (hybrid) and, time allowing, 2002
-    (mcp) at 8 agents. Every path but (a) must launch the ADMM kernel
-    and pass its audit."""
+    (a) sfc_bench at A = 128 and 1024, clamps 30 and 70, the plain loop
+    and the kernel: trips, syncs, launches per call and per trip, kernel
+    ms and bound; (b) qp_forensics at A=1024 in DLSC sub-step; (c)
+    mc_pod_bench at A=1024, S=8 (one chunk of 8,192 agents), and
+    `loop_check` on the next iteration's batch; (d) scale_demo's 256-agent
+    smoke run; (e) dlsc_openworld's circle8; (f) fuzz_missions's cases
+    2001 (hybrid) and, time allowing, 2002 (mcp) at 8 agents. (a) must
+    launch the SFC kernel; (b)-(f) the ADMM kernel, and the SFC kernel
+    where their world has a map ((c) and (e) fly open worlds with
+    world_use_octomap off: no SFC update); each passes its audit."""
     from lsc_dr_planner_tpu_torch.config import PlannerMode
     from lsc_dr_planner_tpu_torch.tools import (
         dlsc_openworld, fuzz_missions, mc_pod_bench, qp_forensics, scale_demo, sfc_bench,
@@ -1066,23 +1265,33 @@ def phase14(workload, qp, qp_cuda, builds, dev, gpu, work):
     t0 = time.perf_counter()
     res = {"gpu": gpu}
 
-    def launched(what):
+    def launched(what, sfc=True):
         launches = builds.add_path_launches()
         print(f"phase14 {what}: kernel launches {json.dumps(launches)}")
-        assert sum(launches.values()) > 0, f"phase 14 {what} never launched the ADMM kernel"
+        builds.assert_launched(launches, f"phase 14 {what}", sfc)
         return launches
 
-    # (a) the SFC loop alone
+    # (a) the SFC update alone, plain loop and kernel
+    builds.reset_launches()
     rows = sfc_bench.main(["--sizes", P14_SFC_SIZES, "--clamps", P14_SFC_CLAMPS,
                            "--reps", str(P14_SFC_REPS), "--device", dev.type])
+    launches = builds.add_path_launches()
+    print(f"phase14 sfc_bench: kernel launches {json.dumps(launches)}")
+    assert launches["sfc_expand"] > 0, "phase 14 sfc_bench never launched the SFC kernel"
     for r in rows:
-        assert 0 < r["trips"] <= 6 * r["clamp"] + 6, r
-        assert r["syncs"] == -(-min(r["trips"] + 1, 6 * r["clamp"] + 6) // 8), r
+        assert 0 < r["longest_lane_trips"] <= 6 * r["clamp"] + 6, r
+        assert r["longest_lane_trips_read"] == r["longest_lane_trips"], r
         assert np.isfinite(r["sfc_ms"]) and (r["launches_per_call"] or dev.type != "cuda"), r
+        if r["path"] == "plain":
+            assert 0 < r["trips"] <= 6 * r["clamp"] + 6, r
+            assert r["syncs"] == -(-min(r["trips"] + 1, 6 * r["clamp"] + 6) // 8), r
+        else:
+            assert r["trips"] == r["syncs"] == 0 and r["kernel_launches_per_call"] == 1, r
+    assert [r["path"] for r in rows] == ["plain", "kernel"] * (len(rows) // 2), rows
     res["sfc_bench"] = rows
 
     # (b) QP forensics in DLSC sub-step
-    qp_cuda.reset_launches()
+    builds.reset_launches()
     rows = qp_forensics.run(A_MAIN, P14_QP_STEPS, dev, planner_mode=PlannerMode.DLSC,
                             multisim_time_step=0.1)
     steps = [r for r in rows if "step" in r]
@@ -1099,10 +1308,10 @@ def phase14(workload, qp, qp_cuda, builds, dev, gpu, work):
     # (c) Monte-Carlo pod slice: S=8 scenarios of 1024 agents
     mc, built_s = mc_pod_bench.build(P14_MC_S, mc_pod_bench.pod_mission(P14_MC_A),
                                      mc_pod_bench.pod_param(), dev, str(work / "mc_pod"))
-    qp_cuda.reset_launches()
+    builds.reset_launches()
     row = mc_pod_bench.measure(mc, P14_MC_STEPS, built_s, gpu)
     print("phase14 mc_pod_bench", json.dumps(row))
-    launches = launched("mc_pod_bench")
+    launches = launched("mc_pod_bench", sfc=False)  # an open world: no SFC
     assert row["qp_convergence_min"] > 0.9, row
     assert len(row["chunk_peak_bytes"]) == (1 if dev.type == "cuda" else 0), row
     for s, sim in enumerate(mc.sims):
@@ -1123,7 +1332,7 @@ def phase14(workload, qp, qp_cuda, builds, dev, gpu, work):
     del mc, batch, li
 
     # (d) the 256-agent scaled-forest smoke run
-    qp_cuda.reset_launches()
+    builds.reset_launches()
     row = scale_demo.run_scale(P14_SMOKE_A, P14_SMOKE_ITER, False, str(work / "scale"), dev)
     print("phase14 scale_demo", json.dumps(row))
     assert row["steps"] == P14_SMOKE_ITER and not row["collided"] and not row["qp_failed"], row
@@ -1131,7 +1340,7 @@ def phase14(workload, qp, qp_cuda, builds, dev, gpu, work):
     res["scale_demo"] = {"row": row, "kernel_launches": launched("scale_demo")}
 
     # (e) DLSC open world: the 8-agent circle swap
-    qp_cuda.reset_launches()
+    builds.reset_launches()
     r = dlsc_openworld.run_one(dlsc_openworld.circle_mission(8, 0.22 * 8 + 1.8, seed=8),
                                "circle8", device=dev, log_dir=str(work / "dlsc_open"))
     keys = ("total_flight_time", "planner_seq", "safety_ratio_agent", "is_collided",
@@ -1139,7 +1348,7 @@ def phase14(workload, qp, qp_cuda, builds, dev, gpu, work):
     print("phase14 dlsc_openworld circle8", json.dumps({k: r[k] for k in keys}))
     assert r["success"], r
     res["dlsc_openworld"] = {**{k: r[k] for k in keys},
-                             "kernel_launches": launched("dlsc_openworld circle8")}
+                             "kernel_launches": launched("dlsc_openworld circle8", sfc=False)}
 
     # (f) fuzz cases the JAX package holds to be clean
     res["fuzz_missions"] = []
@@ -1147,7 +1356,7 @@ def phase14(workload, qp, qp_cuda, builds, dev, gpu, work):
         if i and time.perf_counter() - t0 > P14_SECOND_FUZZ_S:
             print(f"phase14 fuzz_missions: case {seed} {layer} left out (time)")
             break
-        qp_cuda.reset_launches()
+        builds.reset_launches()
         r = fuzz_missions.run_case(seed, layer, A=8, device=dev,
                                    log_dir=str(work / "fuzz"))
         keys = ("seed", "layer", "A", "kind", "total_flight_time", "planner_seq",
@@ -1163,14 +1372,14 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script measures the port on a GPU")
     from lsc_dr_planner_tpu_torch import workload
-    from lsc_dr_planner_tpu_torch.ops import qp, qp_cuda, sfc
+    from lsc_dr_planner_tpu_torch.ops import cuda_build, qp, qp_cuda, sfc, sfc_cuda
 
     dev = torch.device("cuda", 0)
     gpu = gpu_line()
     record = {"gpu": gpu}
 
     # ---- 1. environment ----------------------------------------------
-    nvcc = sh([qp_cuda.nvcc_path(), "--version"]).splitlines()[-1]
+    nvcc = sh([cuda_build.nvcc_path(), "--version"]).splitlines()[-1]
     env = {"torch": torch.__version__, "cuda": torch.version.cuda, "nvcc": nvcc,
            "python": sys.version.split()[0], "gpu": gpu}
     print("env", json.dumps(env))
@@ -1185,15 +1394,22 @@ def main():
         t_phase[0] = now
         print(f"phase {name} wall {walls[name]:.1f} s", flush=True)
 
-    # ---- 2. kernel build ---------------------------------------------
+    # ---- 2. kernel builds: one nvcc per source, all at once ------------
     t0 = time.perf_counter()
-    qp_cuda.build(verbose=True)
+    with ThreadPoolExecutor(2) as pool:  # each build waits on its own nvcc process
+        for done in [pool.submit(w.build, True) for w in (qp_cuda, sfc_cuda)]:
+            done.result()
     build_s = time.perf_counter() - t0
-    print(f"build admm.cu: {build_s:.2f} s (nvcc {qp_cuda.build_seconds} s)")
+    nvcc_s = {name: sec for name, (sec, _) in cuda_build.build_log.items()}
+    print(f"build admm.cu, sfc_expand.cu: {build_s:.2f} s (nvcc {json.dumps(nvcc_s)})")
     record["build_s"] = build_s
-    record["ptxas"] = qp_cuda.build_log
-    builds = Builds(qp, qp_cuda, dev)
+    record["nvcc_s"] = nvcc_s
+    record["ptxas"] = {name: log for name, (_, log) in cuda_build.build_log.items()}
+    builds = Builds(qp, qp_cuda, sfc_cuda, dev)
     print("builds", json.dumps({k: v["dk"] for k, v in builds.rec.items()}))
+    l2_ns = sfc_cuda.l2_round_trip_ns(dev)
+    print(f"one L2 round trip (sfc_cuda.l2_round_trip_ns): {l2_ns:.1f} ns [{gpu}]")
+    record["l2_round_trip_ns"] = l2_ns
     phase_done("1-2")
 
     # ---- 3. kernel vs plain loop, one chunk ----------------------------
@@ -1286,7 +1502,7 @@ def main():
     for _ in range(WARMUP):
         inp, conv = step(inp)
     torch.cuda.synchronize()
-    qp_cuda.reset_launches()
+    builds.reset_launches()
     sfc.reset_counts()
     dists = []
 
@@ -1296,10 +1512,11 @@ def main():
             assert torch.isfinite(getattr(inp, name)).all(), name
         dists.append(min_pair_distance_now(inp.pos, 2, 1.0))
 
-    inp, lat, stages, convs = admm_timing.timed_steps(step, planner, inp, TIMED, check)
+    with SfcCalls(sfc, every=TIMED // 2) as calls:
+        inp, lat, stages, convs = admm_timing.timed_steps(step, planner, inp, TIMED, check)
     min_dist = min(dists)
-    launches = qp_cuda.launches
-    builds.add_path_launches()
+    launches = builds.add_path_launches()
+    lane_trips = sfc.read_lane_trips()
     lat = np.asarray(lat)
     conv_mean = float(np.mean(convs))
     stage_ms = admm_timing.mean_stages(stages)
@@ -1308,11 +1525,22 @@ def main():
             "agent_steps_per_s": A_MAIN * TIMED / float(lat.sum()),
             "qp_convergence": conv_mean, "min_pair_distance": min_dist,
             "kernel_launches": launches, "stage_ms": stage_ms, "gpu": gpu,
-            "sfc_trips_per_step": sfc.trips / TIMED, "sfc_syncs_per_step": sfc.syncs / TIMED}
+            "sfc_trips_per_step": lane_trips / TIMED, "sfc_syncs_per_step": sfc.syncs / TIMED,
+            "sfc_plain_trips": sfc.trips}
     print("main path", json.dumps(main))
-    assert launches > 0, "the main path never launched the ADMM kernel"
+    builds.assert_launched(launches, "the main path")
+    assert launches["sfc_expand"] == calls.n, (launches, calls.n)  # every SFC update
+    assert sfc.syncs == 0 and sfc.trips == 0, "the main path's SFC stage ran the plain loop"
     assert conv_mean > 0.9, conv_mean
     assert min_dist >= 2 * 0.15 - planner.feas_tol, min_dist
+    main["clsc_hull_bound"] = hull_bound(A_MAIN, planner.O, p.M)
+    print("phase5 CLSC hull enumeration", json.dumps(main["clsc_hull_bound"]),
+          f"beside its stage: {stage_ms.get('lsc')} ms")
+    main["sfc_check"] = sfc_check(sfc, builds, calls, "phase5")
+    main["sfc_timing"] = sfc_timing(sfc, calls, l2_ns, gpu, "phase5")
+    builds.sfc.update({k: main["sfc_timing"][k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "bound_share", "lanes", "lane_trips",
+        "longest_lane_trips", "bytes_ms", "ops_ms", "latency_floor_ms", "floor_share")})
     record["main"] = main
     phase_done("5")
 
@@ -1332,12 +1560,12 @@ def main():
             sim6 = sim
         ck_dir = work / f"phase{phase}"
         ck_dir.mkdir(exist_ok=True)
-        qp_cuda.reset_launches()
+        builds.reset_launches()
         t0 = time.perf_counter()
-        r, cks = run_checkpointed(sim, max_iter, ck_dir)
+        with SfcCalls(sfc, every=25) as calls:
+            r, cks = run_checkpointed(sim, max_iter, ck_dir)
         wall = time.perf_counter() - t0
-        launches = qp_cuda.launches
-        builds.add_path_launches()
+        launches = builds.add_path_launches()
         mapf = np.asarray(sim.planning_time.mapf_time.samples) * 1e3
         res = {"phase": phase, "agents": A, "seed": seed, "O": sim.planner.O,
                "planner_steps": sim.planner_seq,
@@ -1354,10 +1582,13 @@ def main():
             res["stage_ms_mean"] = stage_ms_mean(sim)
         print(f"phase{phase}", json.dumps(res))
         check_audit(r, f"phase {phase}")
-        assert launches > 0, f"phase {phase} never launched the ADMM kernel"
+        builds.assert_launched(launches, f"phase {phase}")
         assert res["min_pair_distance"] >= 2 * 0.15 - sim.planner.feas_tol, res
         assert sim.step_time.N == sim.planner_seq, (sim.step_time.N, sim.planner_seq)
         record[f"phase{phase}"] = res
+        res["sfc_check"] = sfc_check(sfc, builds, calls, f"phase{phase}")
+        if phase == 6:  # the same lanes with no radius clamp (r = 0)
+            res["sfc_check_r0"] = sfc_check(sfc, builds, calls, "phase6 r=0", radius=0)
 
         # the kernel against the plain loop on the QPs of the flight's steps
         res["kernel_checks"] = []
@@ -1379,15 +1610,15 @@ def main():
             mpath, wpath = str(work / "forest10.json"), str(work / "forest10.csv")
             mission.save(mpath)
             np.savetxt(wpath, mission.world_boxes, delimiter=",")
-            qp_cuda.reset_launches()
+            builds.reset_launches()
             (cli,) = sim_run.main(["--mission", mpath, "--world", wpath, "--device", "cuda",
                                    "--max-iter", str(max_iter), "--log-dir", str(work)])
-            builds.add_path_launches()
+            launches = builds.add_path_launches()
             check_audit(cli, "phase 6 CLI")
-            assert qp_cuda.launches > 0, "the CLI run never launched the ADMM kernel"
+            builds.assert_launched(launches, "the CLI run")
             record["phase6"]["cli"] = {"flight_time_s": cli["total_flight_time"],
                                        "planner_steps": cli["planner_seq"],
-                                       "kernel_launches": qp_cuda.launches}
+                                       "kernel_launches": launches}
         else:
             record["phase7"]["parity"] = step_parity(param, mission, sim, cks[:PARITY_STEPS],
                                                      str(work))
@@ -1398,11 +1629,11 @@ def main():
     record["phase8"] = {}
     for tag, what, overrides, f64 in phase8_modes():
         print(f"phase{tag}: {what}", flush=True)
-        record["phase8"][tag] = fused_mode(workload, qp, qp_cuda, builds, dev, gpu, tag,
-                                           overrides, float64_clause=f64)
+        record["phase8"][tag] = fused_mode(workload, qp, builds, dev, gpu, tag,
+                                           overrides, float64_clause=f64, l2_ns=l2_ns)
     from lsc_dr_planner_tpu_torch.config import PlannerMode
 
-    record["phase8"]["8e"] = fused_mode(workload, qp, qp_cuda, builds, dev, gpu, "8e",
+    record["phase8"]["8e"] = fused_mode(workload, qp, builds, dev, gpu, "8e",
                                         dict(world_dimension=3,
                                              planner_mode=PlannerMode.DLSC), steps=False,
                                         float64_clause=True)
@@ -1411,7 +1642,7 @@ def main():
     # ---- 9. forest flights in the new modes ------------------------------
     record["phase9"] = {}
     for tag, overrides, obstacles, max_iter in phase9_flights():
-        record["phase9"][tag] = fly(workload, qp, qp_cuda, builds, dev, gpu, work, tag,
+        record["phase9"][tag] = fly(workload, qp, builds, dev, gpu, work, tag,
                                     overrides, obstacles, max_iter)
     phase_done("9")
 
@@ -1421,32 +1652,39 @@ def main():
 
     missions = {**mode_missions.MISSIONS, "prior_based_forest": prior_based_forest}
     for name, fly_mission in missions.items():
-        qp_cuda.reset_launches()
+        builds.reset_launches()
         t0 = time.perf_counter()
-        res = fly_mission(dev, work)
+        with SfcCalls(sfc, keep=1) as calls:
+            res = fly_mission(dev, work)
         res.update(wall_s=time.perf_counter() - t0, kernel_launches=builds.add_path_launches())
         print(f"phase10 {name}", json.dumps(res))
-        assert sum(res["kernel_launches"].values()) > 0, f"phase 10 {name}: no kernel launch"
+        # the small missions fly with world_use_octomap off (no SFC update);
+        # every SFC update of the others launches the kernel
+        builds.assert_launched(res["kernel_launches"], f"phase 10 {name}", sfc=calls.n > 0)
+        assert res["kernel_launches"]["sfc_expand"] == calls.n, (name, calls.n)
+        if calls.n:
+            res["sfc_check"] = sfc_check(sfc, builds, calls, f"phase10 {name}")
         record["phase10"][name] = res
+    assert "sfc_check" in record["phase10"]["prior_based_forest"], "no 'point' SFC in phase 10"
     phase_done("10")
 
     # ---- 11. local sensing -----------------------------------------------
     record["phase11"] = {}
     for tag, A, seed, max_iter, cks in LOCAL_FLIGHTS:
         sim, param, mission, ck_paths, res = local_flight(
-            workload, qp, qp_cuda, builds, dev, gpu, work, tag, A, seed, max_iter, cks)
+            workload, qp, builds, dev, gpu, work, tag, A, seed, max_iter, cks)
         if tag == "11a":
             # the same mission through the CLI, as a user runs it
             mpath, wpath = str(work / "forest10_local.json"), str(work / "forest10_local.csv")
             mission.save(mpath)
             np.savetxt(wpath, mission.world_boxes, delimiter=",")
-            qp_cuda.reset_launches()
+            builds.reset_launches()
             (cli,) = sim_run.main(["--mission", mpath, "--world", wpath, "--device", "cuda",
                                    "--no-global-map", "--sensor-range", "3.0",
                                    "--max-iter", str(max_iter), "--log-dir", str(work)])
             launches = builds.add_path_launches()
             check_audit(cli, "phase 11a CLI")
-            assert sum(launches.values()) > 0, "the CLI local flight never launched the kernel"
+            builds.assert_launched(launches, "the CLI local flight")
             res["cli"] = {"flight_time_s": cli["total_flight_time"],
                           "planner_steps": cli["planner_seq"], "kernel_launches": launches}
         else:
@@ -1460,16 +1698,16 @@ def main():
     phase_done("11")
 
     # ---- 12. Monte-Carlo scenario batching -------------------------------
-    record["phase12"] = {"12a": montecarlo_run(workload, qp, qp_cuda, builds, dev, gpu, work),
-                         "12b": montecarlo_chunks(workload, qp_cuda, builds, dev, gpu, work)}
+    record["phase12"] = {"12a": montecarlo_run(workload, qp, builds, dev, gpu, work),
+                         "12b": montecarlo_chunks(workload, builds, dev, gpu, work)}
     phase_done("12")
 
     # ---- 13. one-rank NCCL group, debug step, replay ----------------------
-    record["phase13"] = phase13(workload, qp_cuda, builds, dev, gpu, work, sim6)
+    record["phase13"] = phase13(workload, builds, dev, gpu, work, sim6)
     phase_done("13")
 
     # ---- 14. the tools ----------------------------------------------------
-    record["phase14"] = phase14(workload, qp, qp_cuda, builds, dev, gpu, work)
+    record["phase14"] = phase14(qp, builds, dev, gpu, work)
     phase_done("14")
 
     kernels = []
@@ -1487,6 +1725,23 @@ def main():
             "bound_share": r["bound_share"],
             "library_ms": None,  # no single PyTorch call computes the loop
         })
+    r = builds.sfc
+    print("sfc_expand", json.dumps(r))
+    assert r["launches"] > 0, "the SFC kernel was never launched on a main path"
+    assert r["ms"] is not None and r["calls_checked"] > 0, r
+    kernels.append({
+        "name": "sfc_expand", "route": "cuda",
+        "source": "lsc_dr_planner_tpu_torch/csrc/sfc_expand.cu",
+        # a lax.while_loop; no Pallas original
+        "replaces": "lsc_dr_planner_tpu/ops/sfc.py:37",
+        "launches": r["launches"], "max_abs_err": r["max_abs_err"],
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "lanes": r["lanes"],
+        "longest_lane_trips": r["longest_lane_trips"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "bound_share": r["bound_share"],
+        "latency_floor_ms": r["latency_floor_ms"], "floor_share": r["floor_share"],
+        "calls_checked": r["calls_checked"], "lanes_checked": r["lanes_checked"],
+        "library_ms": None,  # no PyTorch call computes the loop
+    })
     record["kernels"] = kernels
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(json.dumps({"kernels": kernels}))

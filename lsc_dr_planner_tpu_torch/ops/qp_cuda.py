@@ -11,73 +11,37 @@ builds take every planner mode's QP: 128 threads for dim·K ≤ 60 (2-D:
 (3-D: 84 and 90); a larger dim·K raises ValueError.
 
 The source is compiled at first use by `nvcc` for sm_90a into a shared
-library with a plain C entry point under `build/` at the checkout root,
-and loaded with ctypes; the library's name carries a hash of the source,
-so an edited source is rebuilt. `admm_loop_cuda` takes CUDA tensors
-only and raises on anything else; `qp.run_loop` gives it CUDA tensors
-and CPU tensors to the plain loop. `launches` counts kernel launches,
+library with a plain C entry point under `build/` at the checkout root
+(`cuda_build`; the library's name carries a hash of the source, so an
+edited source is rebuilt), and loaded with ctypes. `admm_loop_cuda`
+takes CUDA tensors only and raises on anything else; `qp.run_loop`
+gives it CUDA tensors and CPU tensors to the plain loop. `launches` counts kernel launches,
 `build_launches` the launches of each build, keyed by `build_name`.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import torch
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "admm.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+from lsc_dr_planner_tpu_torch.ops import cuda_build
+
+SOURCE = cuda_build.CSRC / "admm.cu"
 
 STENCIL_WIDTH = 3  # nonzeros per static row at most (the acceleration stencil)
 
 launches = 0  # kernel launches (one per chunk) since the last reset
 build_launches = {}  # build_name(dk) -> its launches since the last reset
-build_seconds = None  # wall time of the last nvcc run in this process
-build_log = ""  # nvcc's output of that run (with -Xptxas -v: registers, spills)
 _lib = None
-
-
-def nvcc_path() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = Path(home) / "bin" / "nvcc"
-    if not path.exists():
-        raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
-    return str(path)
 
 
 def build(verbose: bool = False) -> ctypes.CDLL:
     """Compile (if needed) and load the kernel library."""
-    global _lib, build_seconds, build_log
+    global _lib
     if _lib is not None:
         return _lib
-    src = SOURCE.read_bytes()
-    lib_path = BUILD_DIR / f"libadmm_{hashlib.sha256(src).hexdigest()[:12]}.so"
-    if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-               "-o", str(tmp), str(SOURCE)]
-        t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        build_seconds = time.perf_counter() - t0
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
-        build_log = res.stdout + res.stderr
-        if verbose:
-            print(build_log)
-        tmp.replace(lib_path)
-    lib = ctypes.CDLL(str(lib_path))
+    lib = ctypes.CDLL(str(cuda_build.compile_source(SOURCE, verbose)))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.admm_launch.argtypes = [P] * 26 + [I] * 9 + [F] * 6 + [P]
     lib.admm_launch.restype = I

@@ -5,21 +5,27 @@ modes) and 'substep' (DLSC with sub-step replanning).
 Boxes live in integer lattice coordinates ([..., 3] inclusive index
 ranges); the box-free predicate is one integral-image lookup. The
 greedy expansion of the JAX package is a `lax.while_loop` per
-(agent, lane); here all lanes of the fleet (A·3, A·2 or A·(M+2))
-advance together in one masked loop.
-Each trip either grows a live lane by one cell or retires one of its
-six directions, so with the expansion radius clamped to r cells no
-lane needs more than 6·r + 6 trips.
+(agent, lane); here `expand_box` grows all lanes of the fleet (A·3, A·2
+or A·(M+2)) at once: on the card in one launch of the CUDA kernel
+(`sfc_cuda`, `csrc/sfc_expand.cu`: one thread per lane, the whole loop
+on the device, no host read), on the CPU in the masked loop
+`expand_box_plain`, the kernel's plain version, whose lanes advance
+together. Each trip either grows a live lane by one cell or retires one
+of its six directions, so with the expansion radius clamped to r cells
+no lane needs more than 6·r + 6 trips.
 
 In local-sensing mode the world is a per-agent view
 (`grid.local_grid_world`): every box query of a lane reads its own
 agent's integral image, while lattice geometry and the containment
 tests read the shared world, as in the JAX package.
 
-`trips` and `syncs` count the loop's trips and its host reads of "is
-any lane live?" since the last `reset_counts()`, and `last_lanes` keeps
-the last call's lanes (seeds, results, seed-free mask; references to
-tensors the loop made anyway): `tools/sfc_bench.py` reads them.
+Counters since the last `reset_counts()`: `trips` and `syncs`, the
+plain loop's trips and its host reads of "is any lane live?" (0 on the
+kernel path); on either path, each call's longest lane's trips summed
+on the lanes' device, read by `read_lane_trips()` (one host read);
+`last_lanes` keeps the last call's lanes (seeds, results, seed-free
+mask; references to tensors the call made anyway). `tools/sfc_bench.py`
+and `chip_smoke.py` read them.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import math
 
 import torch
 
+from lsc_dr_planner_tpu_torch.ops import sfc_cuda
 from lsc_dr_planner_tpu_torch.world.grid import GridWorld
 
 # direction encoding: 0,1,2 = -x,-y,-z; 3,4,5 = +x,+y,+z
@@ -36,14 +43,31 @@ _DIR_SIGN = (-1, -1, -1, 1, 1, 1)
 _MAX_ITERS = 4096  # the JAX loop's own cap when the radius is unclamped
 _EXIT_CHECK = 8  # trips between host-side "any lane live?" checks
 
-trips = 0  # loop trips run since the last reset_counts()
-syncs = 0  # host reads of "any lane live?" since then (one every _EXIT_CHECK trips)
+trips = 0  # plain-loop trips run since the last reset_counts()
+syncs = 0  # its host reads of "any lane live?" since then (one every _EXIT_CHECK trips)
 last_lanes = None  # the last expand_box call's (seed_lo, seed_hi, lo, hi, seed_free)
+_lane_trips = {}  # device -> int64 [1]: each call's longest lane's trips, summed
 
 
 def reset_counts():
     global trips, syncs
     trips = syncs = 0
+    for t in _lane_trips.values():
+        t.zero_()
+
+
+def read_lane_trips() -> int:
+    """The longest lane's trips of every expand_box call since the last
+    reset_counts(), summed (one host read per device)."""
+    return sum(int(t.item()) for t in _lane_trips.values())
+
+
+def lane_trips(seed_lo, seed_hi, lo, hi, seed_free):
+    """Trips each lane of an `expand_box` call was live [L] (int64): its
+    growth in cells plus its six retirements, 0 for a blocked seed (a
+    lane cut by the trip cap ran the cap's trips instead)."""
+    grown = (seed_lo - lo).sum(-1) + (hi - seed_hi).sum(-1)
+    return (grown.long() + 6) * seed_free.long()
 
 
 def default_axis_order(n_lanes: int, device):
@@ -51,7 +75,7 @@ def default_axis_order(n_lanes: int, device):
 
 
 def expand_box(gw: GridWorld, lo, hi, axis_order, max_radius_cells: int = 0,
-               agent=None):
+               agent=None, plain: bool = False):
     """Greedy round-robin box expansion of L lanes at once.
 
     lo, hi: int32 [L, 3]; axis_order: int [L, 6] permutation of the six
@@ -60,9 +84,53 @@ def expand_box(gw: GridWorld, lo, hi, axis_order, max_radius_cells: int = 0,
     `max_radius_cells` > 0) grow beyond that many cells past the seed
     face. `agent` [L]: each lane's agent in a per-agent world view.
     Returns (lo, hi, ok) where ok = the seed box itself was free.
-    """
-    global trips, syncs, last_lanes
-    seed_lo, seed_hi = lo, hi
+
+    CUDA tensors go to the kernel (one launch, no host read; a failure
+    to build or launch raises), CPU tensors to `expand_box_plain`;
+    `plain` forces the plain loop on any device, for comparisons. Any
+    other device raises."""
+    global last_lanes
+    dev = lo.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no SFC expansion for device {dev}")
+    r = max_radius_cells
+    max_trips = _max_trips(r)
+    total = _lane_trips.get(dev)
+    if total is None:
+        total = _lane_trips[dev] = torch.zeros(1, dtype=torch.int64, device=dev)
+    if plain or dev.type == "cpu":
+        out = expand_box_plain(gw, lo, hi, axis_order, r, agent, max_trips)
+    else:
+        out = expand_box_kernel(gw, lo, hi, axis_order, r, agent)
+    if len(lo):  # a lane the cap cuts was live for all max_trips trips
+        total += lane_trips(lo, hi, *out).clamp(max=max_trips).max()
+    last_lanes = (lo, hi, *out)
+    return out
+
+
+def _max_trips(max_radius_cells: int) -> int:
+    r = max_radius_cells
+    return min(_MAX_ITERS, 6 * r + 6) if r > 0 else _MAX_ITERS
+
+
+def expand_box_kernel(gw: GridWorld, lo, hi, axis_order, max_radius_cells: int = 0,
+                      agent=None):
+    """The kernel's launch alone, as `expand_box` makes it (CUDA tensors
+    only; no counter but the wrapper's launches): what `chip_smoke.py`
+    times as the kernel's ms."""
+    return sfc_cuda.expand_box_cuda(
+        gw.blocked_cumsum, gw.dims, lo.contiguous(), hi.contiguous(),
+        axis_order.to(torch.int64).contiguous(), max_radius_cells, _max_trips(max_radius_cells),
+        None if agent is None else agent.to(torch.int64).contiguous())
+
+
+def expand_box_plain(gw: GridWorld, lo, hi, axis_order, max_radius_cells: int,
+                     agent, max_trips: int):
+    """The kernel's plain version: all lanes advance together in one
+    masked loop of at most `max_trips` trips, which leaves finished
+    lanes frozen (as under the JAX loop's vmap) and reads "is any lane
+    live?" back to the host every _EXIT_CHECK trips."""
+    global trips, syncs
     dev = lo.device
     L = lo.shape[0]
     dims = gw.dims_t
@@ -71,11 +139,9 @@ def expand_box(gw: GridWorld, lo, hi, axis_order, max_radius_cells: int = 0,
     if max_radius_cells > 0:
         lo_min = lo - max_radius_cells
         hi_max = hi + max_radius_cells
-        max_trips = min(_MAX_ITERS, 6 * max_radius_cells + 6)
     else:
         lo_min = torch.full_like(lo, -(2**30))
         hi_max = torch.full_like(hi, 2**30)
-        max_trips = _MAX_ITERS
 
     dir_axis = torch.tensor(_DIR_AXIS, device=dev)
     dir_sign = torch.tensor(_DIR_SIGN, dtype=torch.int32, device=dev)
@@ -110,7 +176,6 @@ def expand_box(gw: GridWorld, lo, hi, axis_order, max_radius_cells: int = 0,
         keep = torch.gather(active, 1, slot[:, None])[:, 0] & ok
         active = active.scatter(1, slot[:, None], keep[:, None])
         ptr = torch.where(ok, (slot + 1) % 6, slot)
-    last_lanes = (seed_lo, seed_hi, lo, hi, seed_free)
     return lo, hi, seed_free
 
 
@@ -153,7 +218,8 @@ def _superset_of(gw: GridWorld, lo, hi, pts):
 
 
 def update_sfc_fused(gw: GridWorld, mode: str, sfc_lo, sfc_hi, init_done, last_pt,
-                     cgoal, wpt, pos, init_ctrl, margin: float, max_radius_cells: int = 0):
+                     cgoal, wpt, pos, init_ctrl, margin: float, max_radius_cells: int = 0,
+                     plain: bool = False):
     """Fleet SFC update with all greedy expansions in one batched loop.
 
     Lane 0 seeds the initialization box from the current position. Then,
@@ -177,7 +243,8 @@ def update_sfc_fused(gw: GridWorld, mode: str, sfc_lo, sfc_hi, init_done, last_p
     sfc_lo, sfc_hi: int32 [A, M, 3]; init_done: bool [A]; last_pt, cgoal,
     wpt, pos: [A, 3]; init_ctrl: [A, M, N, 3] (read in 'substep' mode).
     In a per-agent view of the world (integral images [A, ...]) agent
-    a's lanes read image a. Returns (new_lo, new_hi) [A, M, 3]."""
+    a's lanes read image a. `plain` takes the plain loop on any device
+    (`expand_box`), for comparisons. Returns (new_lo, new_hi) [A, M, 3]."""
     if mode not in ("hull", "point", "substep"):
         raise ValueError(f"unknown SFC mode {mode!r}")
     A, M, _ = sfc_lo.shape
@@ -226,7 +293,8 @@ def update_sfc_fused(gw: GridWorld, mode: str, sfc_lo, sfc_hi, init_done, last_p
         agent = torch.arange(A, device=dev).repeat_interleave(L)
     e_lo, e_hi, e_ok = expand_box(
         gw, seeds_lo.reshape(A * L, 3), seeds_hi.reshape(A * L, 3),
-        lane_order.reshape(A * L, 6), max_radius_cells=max_radius_cells, agent=agent)
+        lane_order.reshape(A * L, 6), max_radius_cells=max_radius_cells, agent=agent,
+        plain=plain)
     e_lo = e_lo.reshape(A, L, 3)
     e_hi = e_hi.reshape(A, L, 3)
     e_ok = e_ok.reshape(A, L)

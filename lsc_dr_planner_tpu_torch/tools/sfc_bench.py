@@ -4,44 +4,55 @@ what sets its time.
 
 The JAX tool times its sequential builders `initialize_sfc` and
 `construct_sfc_from_hull`; the port folds them into one call,
-`ops/sfc.py::update_sfc_fused` in 'hull' mode, whose masked loop
-`expand_box` grows all lanes of the fleet together (three per agent: the
-initialization box from the position, and the two hull attempts from
-{position, goal}, the goal also standing as the next waypoint). Each row
-times that call on the JAX tool's world and inputs (rng 0: a forest of
-0.3 m columns at 0.25 trees/m² in a square of half-width 0.6·32 + 2 m,
-resolution 0.1 m, inflation 0.15 m; random positions and near-antipodal
-goals), its previous boxes the initialization boxes, as
-`initialize_sfc` leaves them. Beside the JAX row (`A`, `clamp`,
-`sfc_ms`, `per_agent_us`; device time over `--reps` calls after a
-warm-up) it gives:
+`ops/sfc.py::update_sfc_fused` in 'hull' mode, whose `expand_box` grows
+all lanes of the fleet together (three per agent: the initialization
+box from the position, and the two hull attempts from {position, goal},
+the goal also standing as the next waypoint). Each row times that call
+on the JAX tool's world and inputs (rng 0: a forest of 0.3 m columns at
+0.25 trees/m² in a square of half-width 0.6·32 + 2 m, resolution 0.1 m,
+inflation 0.15 m; random positions and near-antipodal goals), its
+previous boxes the initialization boxes, as `initialize_sfc` leaves
+them. Per fleet size and clamp, a row with `path` "plain" (the masked
+loop `expand_box_plain`; on the card forced with plain=True) and, on the
+card, a row with `path` "kernel" (the CUDA kernel, one launch). Beside
+the JAX row (`A`, `clamp`, `sfc_ms`, `per_agent_us`; device time of the
+whole update over `--reps` calls after a warm-up) it gives:
 
-- `trips`, `syncs`: the loop's trips and its host reads of "is any lane
-  live?" (every 8 trips), from `expand_box`'s counters;
+- `trips`, `syncs`: the plain loop's trips and its host reads of "is
+  any lane live?" (every 8 trips); both 0 on the kernel path;
 - `launches_per_call`, `launches_per_trip`: device kernels of one call
-  in `torch.profiler` (`launch_source` says which count: the kernels the
-  profiler saw on the device, or, where it saw none, the
-  `cudaLaunchKernel` calls on the host), `copies_per_call`, its
-  memory copies, and `device_busy_ms`, the device time of its kernels
-  and copies in that profiled call (the rest of `sfc_ms` the device
-  waits on the host);
-- `ms_per_trip`;
+  of the whole update in `torch.profiler` (`launch_source` says which
+  count: the kernels the profiler saw on the device, or, where it saw
+  none, the `cudaLaunchKernel` calls on the host), `copies_per_call`,
+  its memory copies, and `device_busy_ms`, the device time of its
+  kernels and copies in that profiled call (the rest of `sfc_ms` the
+  device waits on the host);
+- on the kernel path, `kernel_launches_per_call` (the wrapper's count:
+  1) and `kernel_ms`, the kernel's own device time in the profiled call;
+- `ms_per_trip` (and `launches_per_trip`): per trip of the plain loop,
+  or on the kernel path per trip of its longest lane;
 - `lane_trips`, `longest_lane_trips`: the trips each lane was live
   (every live trip grows a lane by one cell or retires one of its six
   directions, so a lane whose seed box is free is live for its growth in
   cells plus 6 trips; a clamped lane always finishes inside the loop's
-  6·clamp + 6 trips);
-- `bound_bytes`, `bound_ms`, `bound_share`: the least the loop's memory
-  traffic could take, at 3.35 TB/s: one box query (8 int32 corners of
-  the integral image) per lane for its seed and per live trip, and each
-  lane's seed, direction order and result once. The loop does no
-  arithmetic worth a bound of its own, so the bytes bound it.
+  6·clamp + 6 trips), and `longest_lane_trips_read`, the longest as
+  `sfc.read_lane_trips()` counts it on the device;
+- `bound_bytes`, `bound_ms`, `bound_share`: the least the expansion's
+  memory traffic could take, at 3.35 TB/s (`bound_bytes()`): each lane's
+  seed query (8 int32 corners of the integral image), then per live
+  trip at most the 4 corners of the face it moves (the other 4 are the
+  current box's, read by an earlier query), and each lane's seed,
+  direction order and result once. Lanes that read the same corners
+  (the three of one agent) are each counted, so the bytes are still an
+  upper estimate. The loop does no arithmetic worth a bound of its own,
+  so the bytes bound it (the share is of the whole update's time, and
+  of the kernel's on the kernel path).
 
     python -m lsc_dr_planner_tpu_torch.tools.sfc_bench [--sizes 128,256,512,768,1024]
         [--clamps 30] [--reps 5] [--device cuda|cpu]
 
 The main path clamps at `FleetPlanner.sfc_expand_cells`: 70 cells for
-`workload.build_fleet`, at most 426 trips and 54 syncs a call.
+`workload.build_fleet`, at most 426 trips a call.
 """
 
 from __future__ import annotations
@@ -56,15 +67,22 @@ import torch
 from lsc_dr_planner_tpu_torch.device import DEFAULT as DEFAULT_DEVICE
 from lsc_dr_planner_tpu_torch.device import describe
 from lsc_dr_planner_tpu_torch.device import resolve as resolve_device
-from lsc_dr_planner_tpu_torch.ops import sfc
+from lsc_dr_planner_tpu_torch.ops import sfc, sfc_cuda
 from lsc_dr_planner_tpu_torch.world.grid import GridWorld, build_grid_world
 
 RESOLUTION, INFLATION = 0.1, 0.15  # the world's lattice and its obstacle inflation [m]
 M = 10  # corridor boxes per agent, as the JAX tool's initialize_sfc
 MARGIN = 0.15  # the agents' radius (read by the 'substep' mode only)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate
-QUERY_BYTES = 8 * 4  # one box query: 8 int32 corners of the integral image
+SEED_BYTES = 8 * 4  # a lane's seed query: the 8 int32 corners of the integral image
+TRIP_BYTES = 4 * 4  # a trip's query: at most the 4 corners of the face it moves
 LANE_BYTES = 2 * 3 * 4 + 6 * 8 + 2 * 3 * 4 + 1  # seed lo/hi, order (int64), lo/hi, ok
+
+
+def bound_bytes(n_lanes: int, lane_total: int) -> int:
+    """Bytes an expansion of `n_lanes` lanes, live for `lane_total`
+    lane-trips in all, must move (see the module's docstring)."""
+    return (SEED_BYTES + LANE_BYTES) * n_lanes + TRIP_BYTES * lane_total
 
 
 def bench_trees(rng: np.random.Generator):
@@ -93,15 +111,16 @@ def bench_agents(rng: np.random.Generator, A: int):
     return pos, goal
 
 
-def sfc_call(gw: GridWorld, pos, goal, clamp: int):
+def sfc_call(gw: GridWorld, pos, goal, clamp: int, plain: bool = False):
     """The timed call: `update_sfc_fused` in 'hull' mode from boxes
     initialized at `pos` (set up here by one call with no box yet),
-    hull {pos, goal}, goal as the next waypoint. Returns fn() → (lo, hi)."""
+    hull {pos, goal}, goal as the next waypoint; `plain` takes the plain
+    loop on any device. Returns fn() → (lo, hi)."""
     A = len(pos)
     p = torch.as_tensor(pos, device=gw.device)
     g = torch.as_tensor(goal, device=gw.device)
     args = dict(last_pt=p, cgoal=g, wpt=g, pos=p, init_ctrl=None, margin=MARGIN,
-                max_radius_cells=clamp)
+                max_radius_cells=clamp, plain=plain)
     none = torch.zeros((A, M, 3), dtype=torch.int32, device=gw.device)
     init_lo, init_hi = sfc.update_sfc_fused(
         gw, "hull", none, none, torch.zeros(A, dtype=torch.bool, device=gw.device), **args)
@@ -109,11 +128,7 @@ def sfc_call(gw: GridWorld, pos, goal, clamp: int):
     return lambda: sfc.update_sfc_fused(gw, "hull", init_lo, init_hi, done, **args)
 
 
-def lane_trips(seed_lo, seed_hi, lo, hi, seed_free):
-    """Trips each lane of an `expand_box` call was live [L] (int64): its
-    growth in cells plus its six retirements, 0 for a blocked seed."""
-    grown = (seed_lo - lo).sum(-1) + (hi - seed_hi).sum(-1)
-    return (grown.long() + 6) * seed_free.long()
+lane_trips = sfc.lane_trips  # trips each lane of the last call was live
 
 
 def device_ms(fn, reps: int, dev: torch.device) -> float:
@@ -138,8 +153,9 @@ def device_ms(fn, reps: int, dev: torch.device) -> float:
 
 def launch_counts(fn, dev: torch.device) -> dict:
     """One call of fn() under `torch.profiler`: the kernels and memory
-    copies the device ran and their device time (ms), and the
-    `cudaLaunchKernel` calls on the host (all 0 on the CPU)."""
+    copies the device ran and their device time (ms), the device time of
+    the SFC kernel among them, and the `cudaLaunchKernel` calls on the
+    host (all 0 on the CPU)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -151,7 +167,7 @@ def launch_counts(fn, dev: torch.device) -> dict:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
     kernels = copies = host_launches = 0
-    busy_us = 0.0
+    busy_us = sfc_us = 0.0
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
             busy_us += e.self_device_time_total
@@ -159,45 +175,61 @@ def launch_counts(fn, dev: torch.device) -> dict:
                 copies += e.count
             else:
                 kernels += e.count
+            if "sfc_expand_kernel" in e.key:
+                sfc_us += e.self_device_time_total
         elif e.key.startswith("cudaLaunchKernel"):
             host_launches += e.count
     return {"device_kernels": kernels, "device_copies": copies,
-            "device_busy_ms": busy_us / 1e3, "host_launch_calls": host_launches}
+            "device_busy_ms": busy_us / 1e3, "sfc_kernel_ms": sfc_us / 1e3,
+            "host_launch_calls": host_launches}
 
 
-def measure(gw: GridWorld, pos, goal, clamp: int, reps: int, label: str) -> dict:
-    """One row: the JAX tool's fields, then the loop's trips, syncs,
-    launches and bound (see the module's docstring)."""
+def measure(gw: GridWorld, pos, goal, clamp: int, reps: int, label: str,
+            plain: bool = True) -> dict:
+    """One row of one path (the plain loop, or the kernel: `plain`
+    False on the card): the JAX tool's fields, then the expansion's
+    trips, syncs, launches and bound (see the module's docstring)."""
     dev = gw.device
     A = len(pos)
-    fn = sfc_call(gw, pos, goal, clamp)
+    fn = sfc_call(gw, pos, goal, clamp, plain)
     ms = device_ms(fn, reps, dev)
     sfc.reset_counts()
+    kernel_before = sfc_cuda.launches
     fn()
+    kernel_launches = sfc_cuda.launches - kernel_before
+    longest_read = sfc.read_lane_trips()
     trips, syncs = sfc.trips, sfc.syncs
+    per_trip = trips if plain else longest_read
     live = lane_trips(*sfc.last_lanes)
     n_lanes = len(live)
     lane_total, longest = int(live.sum()), int(live.max())
     counts = launch_counts(fn, dev)
     launches = counts["device_kernels"] or counts["host_launch_calls"] or None
-    bound_bytes = QUERY_BYTES * (n_lanes + lane_total) + LANE_BYTES * n_lanes
-    bound_ms = bound_bytes / HBM_BYTES_PER_S * 1e3
-    return {
-        "A": A, "clamp": clamp, "sfc_ms": ms, "per_agent_us": ms * 1e3 / A,
+    n_bytes = bound_bytes(n_lanes, lane_total)
+    bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    row = {
+        "A": A, "clamp": clamp, "path": "plain" if plain else "kernel",
+        "sfc_ms": ms, "per_agent_us": ms * 1e3 / A,
         "trips": trips, "syncs": syncs, "lanes": n_lanes,
         "launches_per_call": launches,
-        "launches_per_trip": launches / trips if launches and trips else None,
+        "launches_per_trip": launches / per_trip if launches and per_trip else None,
         "launch_source": ("profiler device kernels" if counts["device_kernels"]
                           else "host cudaLaunchKernel calls" if launches
                           else "none (cpu)"),
         "copies_per_call": counts["device_copies"],
         "device_busy_ms": counts["device_busy_ms"] if launches else None,
-        "ms_per_trip": ms / trips if trips else None,
+        "ms_per_trip": ms / per_trip if per_trip else None,
         "lane_trips": lane_total, "longest_lane_trips": longest,
-        "bound_bytes": bound_bytes, "bound_ms": bound_ms, "bound_by": "bytes",
+        "longest_lane_trips_read": longest_read,
+        "bound_bytes": n_bytes, "bound_ms": bound_ms, "bound_by": "bytes",
         "bound_share": bound_ms / ms,
         "device": label,
     }
+    if not plain:
+        kernel_ms = counts["sfc_kernel_ms"] or None
+        row.update(kernel_launches_per_call=kernel_launches, kernel_ms=kernel_ms,
+                   kernel_bound_share=bound_ms / kernel_ms if kernel_ms else None)
+    return row
 
 
 def main(argv=None):
@@ -217,8 +249,9 @@ def main(argv=None):
     for clamp in [int(c) for c in args.clamps.split(",")]:
         for A in [int(s) for s in args.sizes.split(",")]:
             pos, goal = bench_agents(rng, A)
-            rows.append(measure(gw, pos, goal, clamp, args.reps, label))
-            print(json.dumps(rows[-1]), flush=True)
+            for plain in (True, False) if dev.type == "cuda" else (True,):
+                rows.append(measure(gw, pos, goal, clamp, args.reps, label, plain))
+                print(json.dumps(rows[-1]), flush=True)
     return rows
 
 

@@ -218,9 +218,10 @@ def main():
     ranks = torch.cuda.device_count()
     if ranks < 2:
         raise SystemExit(f"needs at least 2 CUDA devices, found {ranks}")
-    from lsc_dr_planner_tpu_torch.ops import qp_cuda
+    from lsc_dr_planner_tpu_torch.ops import qp_cuda, sfc_cuda
 
-    qp_cuda.build()  # once, before the ranks load it
+    qp_cuda.build()  # once each, before the ranks load them
+    sfc_cuda.build()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip())
