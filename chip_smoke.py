@@ -10,9 +10,10 @@ simulator (`sim.simulator.MultiSyncSimulator` with its MAPF waypoint
 layer and audit, and the `sim.run` CLI) flying forest missions:
 
   1. environment: torch/CUDA versions, nvcc, the card's name and power limit;
-  2. build the ADMM kernel (csrc/admm.cu) and the SFC kernel
-     (csrc/sfc_expand.cu), one nvcc per source started together, printing
-     ptxas's registers and spills; time one L2 round trip
+  2. build the ADMM kernel (csrc/admm.cu), the SFC kernel
+     (csrc/sfc_expand.cu) and the hull kernel (csrc/hull_closest.cu), one
+     nvcc per source started together, printing ptxas's registers and
+     spills; time one L2 round trip
      (`sfc_cuda.l2_round_trip_ns`, for the SFC kernel's latency floor);
   3. kernel against the plain loop for one chunk (8 iterations) on the
      main path's QP: iterates within rtol 1e-4 / atol 1e-5, itdone equal
@@ -37,13 +38,25 @@ layer and audit, and the `sim.run` CLI) flying forest missions:
      calls of two timed steps: the kernel's boxes and seed-free flags
      equal the plain loop's on the card, lane for lane; the SFC kernel
      timed on the first (CUDA events) beside the plain loop, with its
-     bounds;
+     bounds; every hull query of build_clsc through the hull kernel (one
+     launch a step, no plain enumeration on the card), `hull_check` on
+     the hull queries of the same two steps: the kernel's closest points
+     and distances equal the plain enumeration's on the card, hull for
+     hull, and its result on the negated points is the negated result;
+     the hull kernel timed on the first (its launch alone, by CUDA events
+     and the profiler's device time) beside the plain enumeration and
+     `hull_bound` (the least work of that call's hulls); `clsc_split`:
+     build_clsc against its hull query (device kernels, device-busy ms,
+     CUDA-event ms); `rounding_check`: the sums, cross products and square
+     roots the plain enumeration pins round on the card as on the CPU, bit
+     for bit;
   6. the reference size: `workload.forest_mission(10)` (O = 9 neighbour
      slots, the in-place rescue) flown to its goals on the card by
      `MultiSyncSimulator.run`, at most 300 planner iterations, writing its
      simulation CSV, then once more through the CLI (`sim.run --device
      cuda`); `sfc_check` on its SFC calls, and on the same lanes with no
-     radius clamp (r = 0);
+     radius clamp (r = 0); `hull_check` on its hull queries (also in
+     phases 7, 8a, 8b, 9, 10, 11 and 12a);
   7. the repo's scaled forest: `forest_mission(64, seed=1)` flown to its
      goals, at most 400 planner iterations; its first 5 steps are rerun
      from checkpoints on the card and by a CPU simulator (the plain torch
@@ -146,13 +159,20 @@ as in phase 3 (every chunk per agent within rtol 1e-4 / atol 1e-5, and
 the run to the kernel's own exit), and the loop is timed on the QP of
 planner step 4 (A=64/O=16 and A=10/O=9).
 
+Every path that builds LSC rows (all but BVC and RSFC) must launch the
+hull kernel once per hull query and run the plain enumeration on no
+CUDA tensor; `hull_check` must cover build_lsc (phase 10) and
+build_clsc, 2-D and 3-D.
+
 Prints the results and the wall time of each phase, a JSON line with one
 entry per build of the ADMM kernel (its dim·K range, launches on the
 paths of phases 5-14, largest error against the plain loop, and ms,
-plain ms and bound at its A=1024 shape) and one for the SFC kernel (its
+plain ms and bound at its A=1024 shape), one for the SFC kernel (its
 launches on those paths, the calls and lanes `sfc_check` held to the
 plain loop, ms, plain ms, bound and latency floor on the main path's
-call), the
+call) and one for the hull kernel (its launches on those paths, the
+calls and hulls `hull_check` held to the plain enumeration, ms, plain
+ms and bound on the main path's call), the
 card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero, with no result, without a
 CUDA device or outside a checkout of the repository. Writes the full
@@ -469,12 +489,15 @@ class Builds:
     """Per-build records of the ADMM kernel: the dim·K range each template
     build takes, its launches on the main paths (`add_path_launches` after
     each path), its largest error against the plain loop, and its timing
-    at its A=1024 shape; and the record of the SFC kernel (`sfc`): its
+    at its A=1024 shape; the record of the SFC kernel (`sfc`): its
     launches on the main paths, the lanes `sfc_check` held to the plain
-    loop, and its timing on the main path's call."""
+    loop, and its timing on the main path's call; and that of the hull
+    kernel (`hull`): its launches, the hulls `hull_check` held to the
+    plain enumeration, and its timing on the main path's call."""
 
-    def __init__(self, qp, qp_cuda, sfc_cuda, dev):
+    def __init__(self, qp, qp_cuda, sfc_cuda, hull_cuda, geometry, dev):
         self.qp, self.qp_cuda, self.sfc_cuda, self.dev = qp, qp_cuda, sfc_cuda, dev
+        self.hull_cuda, self.geometry = hull_cuda, geometry
         self.lib = qp_cuda.build()
         self.rec = {}
         for dk in range(1, self.lib.admm_max_dk() + 1):
@@ -483,6 +506,8 @@ class Builds:
             r["dk"][1] = dk
         self.sfc = {"launches": 0, "max_abs_err": 0, "calls_checked": 0, "lanes_checked": 0,
                     "ms": None}
+        self.hull = {"launches": 0, "max_abs_err": 0.0, "calls_checked": 0, "hulls_checked": 0,
+                     "callers": [], "dims": [], "ms": None}
 
     def name(self, cfg):
         return self.qp_cuda.build_name(
@@ -491,29 +516,50 @@ class Builds:
     def reset_launches(self):
         self.qp_cuda.reset_launches()
         self.sfc_cuda.reset_launches()
+        self.hull_cuda.reset_launches()
+        self.geometry.reset_counts()
 
     def add_path_launches(self):
-        """Adds the launches counted since the last reset, per ADMM build
-        and of the SFC kernel ("sfc_expand"), and returns them."""
+        """Adds the launches counted since the last reset, per ADMM build,
+        of the SFC kernel ("sfc_expand") and of the hull kernel
+        ("hull_closest"), and returns them with the plain hull
+        enumerations run on CUDA tensors ("hull_plain_on_cuda")."""
         out = dict(self.qp_cuda.build_launches)
         for name, n in out.items():
             self.rec[name]["launches"] += n
         out["sfc_expand"] = self.sfc_cuda.launches
         self.sfc["launches"] += self.sfc_cuda.launches
+        out["hull_closest"] = self.hull_cuda.launches
+        self.hull["launches"] += self.hull_cuda.launches
+        out["hull_plain_on_cuda"] = self.geometry.plain_cuda_calls
         return out
 
     @staticmethod
-    def assert_launched(launches, what, sfc=True):
-        """Both kernels launched on the path (the ADMM kernel alone with
-        `sfc` False: a path with no world map, world_use_octomap off, has
-        no SFC update)."""
-        admm = sum(n for k, n in launches.items() if k != "sfc_expand")
+    def assert_launched(launches, what, sfc=True, hull=True):
+        """The kernels launched on the path (the SFC kernel not with `sfc`
+        False: a path with no world map, world_use_octomap off, has no SFC
+        update; the hull kernel not with `hull` False: BVC and RSFC build
+        no LSC rows), and the plain hull enumeration ran on no CUDA
+        tensor."""
+        admm = sum(n for k, n in launches.items() if k not in NOT_ADMM)
         assert admm > 0, f"{what} never launched the ADMM kernel"
         assert launches["sfc_expand"] > 0 or not sfc, f"{what} never launched the SFC kernel"
+        assert launches["hull_closest"] > 0 or not hull, f"{what} never launched the hull kernel"
+        assert launches["hull_plain_on_cuda"] == 0, f"{what} ran the plain hull enumeration"
 
     def note_check(self, cfg, rec):
         r = self.rec[self.name(cfg)]
         r["max_abs_err"] = max(r["max_abs_err"], rec["max_abs_err_chunk"])
+
+    def note_hull_check(self, recs):
+        h = self.hull
+        for r in recs:
+            h["max_abs_err"] = max(h["max_abs_err"], r["max_abs_err"])
+            h["calls_checked"] += 1
+            h["hulls_checked"] += r["hulls"]
+            for key, v in (("callers", r["caller"]), ("dims", r["dim"])):
+                if v not in h[key]:
+                    h[key].append(v)
 
     def note_sfc_check(self, recs):
         for r in recs:
@@ -527,6 +573,9 @@ class Builds:
             r.update(ms=timing["ms"], plain_ms=plain_ms, iters=timing["iters"],
                      A=timing["A"], R=timing["R"], bound_ms=timing["bound_ms"],
                      bound_by=timing["bound_by"], bound_share=timing["bound_share"])
+
+
+NOT_ADMM = ("sfc_expand", "hull_closest", "hull_plain_on_cuda")
 
 
 class SfcCalls:
@@ -555,6 +604,191 @@ class SfcCalls:
 
     def __exit__(self, *exc):
         self.sfc.expand_box = self.orig
+
+
+class HullCalls:
+    """While active, records the inputs and outputs of
+    `geometry.closest_point_origin_to_hull` calls and the function that
+    made each (build_lsc or build_clsc): every `every`-th call from the
+    first, at most `keep` of them; `n` counts every call. ops/lsc.py looks
+    the query up in its module at each call, so the recorder sees every
+    call of the path."""
+
+    def __init__(self, geometry, every=1, keep=2):
+        self.geometry, self.every, self.keep = geometry, every, keep
+        self.calls, self.n = [], 0
+
+    def __enter__(self):
+        self.orig = self.geometry.closest_point_origin_to_hull
+
+        def record(points, **k):
+            out = self.orig(points, **k)
+            if self.n % self.every == 0 and len(self.calls) < self.keep:
+                self.calls.append((points, k, out, sys._getframe(1).f_code.co_name))
+            self.n += 1
+            return out
+
+        self.geometry.closest_point_origin_to_hull = record
+        return self
+
+    def __exit__(self, *exc):
+        self.geometry.closest_point_origin_to_hull = self.orig
+
+
+def hull_check(geometry, hull_cuda, builds, calls, what):
+    """The hull kernel against the plain enumeration on the card, on the
+    hulls of the recorded calls of a path: the path's own result (the
+    kernel's), one more launch of the kernel and the plain enumeration
+    (plain=True) on the same points give equal points and distances by
+    value, hull for hull; the kernel on the negated points gives the
+    negated points and the same distances. Returns the per-call records."""
+    assert calls.calls, f"{what}: no hull query recorded"
+    recs = []
+    for x, k, got, caller in calls.calls:
+        assert not k.get("plain") and x.device.type == "cuda" and got[0].device == x.device, what
+        again = hull_cuda.closest_point_origin_to_hull_cuda(x)
+        want = geometry.closest_point_origin_to_hull(x, plain=True)
+        neg = hull_cuda.closest_point_origin_to_hull_cuda(-x)
+        H = want[1].numel()
+
+        def ne(a, b):  # by value, a NaN equal to a NaN: per hull
+            return ((a != b) & ~(a.isnan() & b.isnan())).view(H, -1).any(1)
+
+        differ = torch.zeros(H, dtype=torch.bool, device=x.device)
+        for a, b in zip(got, want):
+            differ |= ne(a, b)
+        for a, b in zip(again, got):
+            differ |= ne(a, b)
+        odd = ne(neg[0], -got[0]) | ne(neg[1], got[1])
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        recs.append({"caller": caller, "hulls": H, "K": x.shape[-2],
+                     "dim": 2 if not bool(x[..., 2].any()) else 3,
+                     "inside": int((want[1] == 0).sum()), "hulls_differing": int(differ.sum()),
+                     "not_odd": int(odd.sum()), "max_abs_err": err})
+    print(f"{what} hull_check", json.dumps(recs))
+    assert all(r["hulls_differing"] == 0 and r["not_odd"] == 0 for r in recs), (what, recs)
+    builds.note_hull_check(recs)
+    return recs
+
+
+HULL_REPS = 50
+
+
+def hull_timing(geometry, hull_cuda, calls, gpu, what):
+    """The hull kernel on the first recorded call: its ms a call by CUDA
+    events over HULL_REPS launches of the kernel alone (outputs allocated
+    and the stream looked up once, no wrapper, so no host work of the
+    wrapper between launches), and its device ms a launch under
+    torch.profiler (the mean over the launches it saw; None where it saw
+    none); the plain enumeration's ms on the card on the same hulls; the
+    bound of this call's work (`hull_bound`)."""
+    from lsc_dr_planner_tpu_torch.tools import sfc_bench
+
+    x, _, got, _ = calls.calls[0]
+    K, H = x.shape[-2], got[1].numel()
+    lib = hull_cuda.build()
+    closest = torch.empty(H, 3, dtype=torch.float32, device=x.device)
+    dist = torch.empty(H, dtype=torch.float32, device=x.device)
+    args = (x.data_ptr(), H, K, closest.data_ptr(), dist.data_ptr(),
+            torch.cuda.current_stream(x.device).cuda_stream)
+
+    def launch():
+        assert lib.hull_closest_launch(*args) == 0, what
+
+    ms = cuda_ms(launch, HULL_REPS)
+    assert torch.equal(closest, got[0].view(H, 3)) and torch.equal(dist, got[1].view(H)), what
+    prof = sfc_bench.launch_counts(lambda: [launch() for _ in range(HULL_REPS)], x.device)
+    seen = prof["device_kernels"]  # the profiler may miss a few ctypes launches
+    plain_ms = cuda_ms(lambda: geometry.closest_point_origin_to_hull(x, plain=True), 10)
+    rec = {"shape": list(x.shape), "dim": 2 if not bool(x[..., 2].any()) else 3, "ms": ms,
+           "device_ms": prof["device_busy_ms"] / seen if seen else None,
+           "profiled_kernels": prof["device_kernels"], "plain_ms": plain_ms, **hull_bound(x)}
+    rec["bound_share"] = rec["bound_ms"] / ms
+    print(f"{what} hull timing", json.dumps(rec), f"[{gpu}]")
+    return rec
+
+
+def clsc_split(workload, dev, gpu, reps=20):
+    """The main path's CLSC stage split into the hull query and the rest
+    of build_clsc, on the inputs of the step after WARMUP evolving steps
+    at A=1024: each one call under `torch.profiler` (device kernels and
+    device-busy ms, `sfc_bench.launch_counts`) and its ms by CUDA events
+    over `reps` calls. It needs nothing that older checkouts of the port
+    (from the one with tools/sfc_bench.py on) lack, so it can measure one:
+    import that checkout's package before this script."""
+    from lsc_dr_planner_tpu_torch.ops import geometry, lsc
+    from lsc_dr_planner_tpu_torch.tools import sfc_bench
+
+    p, planner, fleet, inp = workload.build_fleet(A_MAIN, device=dev)
+    step = workload.make_evolve_step(p, planner, fleet)
+    for _ in range(WARMUP):
+        inp, _ = step(inp)
+    build, query = lsc.build_clsc, geometry.closest_point_origin_to_hull
+    seen = {}
+
+    def rec_build(*a, **k):
+        seen["build"] = (a, k)
+        return build(*a, **k)
+
+    def rec_query(points, **k):
+        seen["query"] = points
+        return query(points, **k)
+
+    lsc.build_clsc, geometry.closest_point_origin_to_hull = rec_build, rec_query
+    try:
+        planner._step_impl(fleet, inp)
+    finally:
+        lsc.build_clsc, geometry.closest_point_origin_to_hull = build, query
+    a, k = seen["build"]
+    x = seen["query"]
+    res = {"package": str(Path(lsc.__file__).resolve().parents[1]), "hulls": x.shape[:3].numel(),
+           "gpu": gpu}
+    for name, fn in (("build_clsc", lambda: build(*a, **k)), ("hull_query", lambda: query(x))):
+        c = sfc_bench.launch_counts(fn, dev)
+        res[name] = {"device_kernels": c["device_kernels"], "device_busy_ms": c["device_busy_ms"],
+                     "host_launch_calls": c["host_launch_calls"], "ms": cuda_ms(fn, reps)}
+    res["rest"] = {key: res["build_clsc"][key] - res["hull_query"][key]
+                   for key in ("device_kernels", "device_busy_ms", "ms")}
+    print("clsc split", json.dumps(res), f"[{gpu}]")
+    return res
+
+
+def rounding_check(dev, n=1 << 20, seed=0):
+    """The rounding the hull enumeration pins (geometry.py::_dot3, _cross,
+    the float64 sqrt) is the same on `dev` as on the CPU, bit for bit, on
+    n random float32 triples (normal): what lets the CPU's twin and plain
+    version stand for the card's. Also counts the values where the ops
+    the pinning replaces (torch.sum of the products, torch.linalg.cross,
+    the float32 sqrt) differ on `dev` from the pinned ones."""
+    from lsc_dr_planner_tpu_torch.ops import geometry
+
+    g = torch.Generator().manual_seed(seed)
+    a, b = (torch.randn(n, 3, generator=g) for _ in range(2))
+
+    def pinned(a, b):
+        d2 = geometry._dot3(a, a)
+        return geometry._dot3(a, b), geometry._cross(a, b), torch.sqrt(d2.double()).float()
+
+    cpu = pinned(a, b)
+    a, b = a.to(dev), b.to(dev)
+    card = pinned(a, b)
+    for name, x, y in zip(("dot3", "cross", "sqrt"), card, cpu):
+        assert torch.equal(x.cpu(), y), f"pinned {name} differs between {dev} and the CPU"
+    d2 = geometry._dot3(a, a)
+    res = {"n": n, "device": str(dev), "pinned_equal_to_cpu": True,
+           "sum_vs_dot3": int((torch.sum(a * b, dim=-1) != card[0]).sum()),
+           "linalg_cross_vs_cross": int((torch.linalg.cross(a, b, dim=-1) != card[1]).sum()),
+           "sqrt_vs_float64_sqrt": int((torch.sqrt(d2) != card[2]).sum())}
+    print("rounding check", json.dumps(res))
+    return res
+
+
+def clsc_split_main():
+    """`clsc_split` alone on the card, for the checkout whose package is
+    imported (see `clsc_split`): one JSON line."""
+    from lsc_dr_planner_tpu_torch import workload
+
+    clsc_split(workload, torch.device("cuda", 0), gpu_line())
 
 
 def sfc_check(sfc, builds, calls, what, radius=None):
@@ -599,27 +833,147 @@ FP32_OPS_PER_S = 67e12  # H100 SXM outside the tensor cores; its int32 rate is n
 SFC_REPS = 50
 
 
-# The hull enumeration of build_clsc (ops/geometry.py::
-# closest_point_origin_to_hull, the JAX package's :192-237; no Pallas
-# original), float operations per hull of 6 points counted from its code:
-# 15 segments at 27, 20 triangles at 153 (6 dot products, the Voronoi
-# tests, 4 candidate points, 6 selects of 3 components), 41 candidates'
-# squared norms and argmin at 6, 15 tetrahedra at 135 (5 signed volumes,
-# the sign tests); bytes per hull: its 6 points read, its closest point
-# and distance written
-HULL_OPS = 15 * 27 + 20 * 153 + 41 * 6 + 15 * 135
-HULL_BYTES = 6 * 3 * 4 + 4 * 4
+# The hull query of build_clsc (ops/geometry.py::closest_point_origin_to_hull,
+# the JAX package's :192-237; no Pallas original) does work that depends on
+# its points. `hull_ops` counts the least of it on a run's hulls: the float
+# additions, subtractions, multiplications, divisions and square roots of
+# the plain enumeration's formulas, each distinct subexpression once (an
+# edge's difference and its dot products with its end points, shared by the
+# edge and its triangles; a cross product shared by tetrahedra), terms with
+# a zero operand dropped, and only what the data asks for: the tetrahedra
+# first, in order up to the first that holds the origin, each up to its
+# first failing test (the volume, then the four signs); for a hull that
+# holds no origin, the vertices' norms, each edge's point where its
+# parameter is above 0, each triangle's tests in the plain version's
+# precedence, each condition in order up to the first false, and the one
+# point the tests pick, each candidate's squared norm, one square root.
+# Comparisons, clamps, selects and sign flips count nothing. Bytes per hull
+# of K points: its points read, its closest point and distance written.
+DOT, CROSS, AXPY, DIFF = 5, 9, 6, 3
+HULL_VOL_EPS = 1e-10
 
 
-def hull_bound(A, O, M):
-    """The least time of the hull enumeration over [A, O, M] hulls on an
-    H100 SXM: the larger of its operations at FP32_OPS_PER_S and its
-    bytes at 3.35 TB/s."""
-    hulls = A * O * M
-    ops_ms = hulls * HULL_OPS / FP32_OPS_PER_S * 1e3
-    bytes_ms = hulls * HULL_BYTES / 3.35e12 * 1e3
-    return {"hulls": hulls, "ops_per_hull": HULL_OPS, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
-            "bound_ms": max(ops_ms, bytes_ms),
+def hull_ops(x):
+    """The least float operations of the hull query on the hulls of `x`
+    ([..., K, 3] float32), summed over the hulls (see above): (all of them,
+    those of the tetrahedra's tests, the hulls that hold the origin)."""
+    from itertools import combinations
+
+    from lsc_dr_planner_tpu_torch.ops import geometry as g
+
+    p = x.reshape(-1, *x.shape[-2:])
+    H, K = p.shape[:2]
+    v = [p[:, i] for i in range(K)]
+    E = {e: v[e[1]] - v[e[0]] for e in combinations(range(K), 2)}
+    need = {}  # distinct subexpression -> (its operations, the hulls that need it)
+
+    def use(key, ops, mask):
+        need[key] = (ops, mask if key not in need else need[key][1] | mask)
+
+    def total():
+        return sum(ops * int(m.sum()) for ops, m in need.values())
+
+    eps = HULL_VOL_EPS
+    reach = torch.ones(H, dtype=torch.bool, device=p.device)  # no earlier tetrahedron holds 0
+    for i, j, k, m in combinations(range(K), 4):
+        for e in ((i, j), (i, k), (i, m)):
+            use(("E", *e), DIFF, reach)
+        C = g._cross(E[i, k], E[i, m])
+        use(("C", i, k, m), CROSS, reach)
+        use(("v0", i, j, k, m), DOT, reach)
+        v0 = g._dot3(E[i, j], C)
+        alive, pos = reach & (v0.abs() > eps), v0 > 0
+        # signed_vol with a zero vertex: v1 = b·(c×d), v2 = −a·C, v3, v4
+        for n, (cross_key, vol) in enumerate((
+                (("X", k, m), lambda: g._dot3(v[j], g._cross(v[k], v[m]))),
+                (None, lambda: g._dot3(-v[i], C)),
+                (("Y", i, m), lambda: g._dot3(E[i, j], g._cross(-v[i], E[i, m]))),
+                (("Z", i, k), lambda: g._dot3(E[i, j], g._cross(E[i, k], -v[i])))), 1):
+            if cross_key:
+                use(cross_key, CROSS, alive)
+            use((f"v{n}", i, j, k, m), DOT, alive)
+            s = vol()
+            alive = alive & torch.where(pos, s >= -eps, s <= eps)
+        reach = reach & ~alive
+    tetra_ops = total()
+    out = reach  # the hulls that hold no origin
+    use(("N",), DOT * K, out)
+    use(("sqrt",), 1, out)
+    S = {}
+    for i, j in combinations(range(K), 2):
+        use(("E", i, j), DIFF, out)
+        use(("G", i, j), DOT, out)
+        use(("S", i, j), DOT, out)
+        G = g._dot3(E[i, j], E[i, j])
+        S[i, j] = g._dot3(-v[i], E[i, j])
+        live = out & (G > g._EPS)
+        use(("t", i, j), 1, live)
+        t = S[i, j] / G.clamp(min=g._EPS)
+        # the point a + t·ab and its norm: a's for t ≤ 0, a + ab for t ≥ 1
+        use(("ep", i, j), AXPY + DOT, live & (t > 0) & (t < 1))
+        use(("ep1", i, j), DIFF + DOT, live & (t >= 1))
+    for i, j, k in combinations(range(K), 3):
+        b, c, ab, ac = v[j], v[k], E[i, j], E[i, k]
+        d = {"d1": S[i, j], "d2": S[i, k], "d3": g._dot3(ab, -b), "d4": g._dot3(ac, -b),
+             "d5": g._dot3(ab, -c), "d6": g._dot3(ac, -c)}
+        d["vc"] = d["d1"] * d["d4"] - d["d3"] * d["d2"]
+        d["vb"] = d["d5"] * d["d2"] - d["d1"] * d["d6"]
+        d["va"] = d["d3"] * d["d6"] - d["d5"] * d["d4"]
+        d["d43"], d["d56"] = d["d4"] - d["d3"], d["d5"] - d["d6"]
+        # (key, operations, what it needs); d1, d2 are the edges' S
+        q = {"d1": (None, 0, ()), "d2": (None, 0, ()), "d3": (("T", i, j), DOT, ()),
+             "d6": (("T", i, k), DOT, ()), "d4": (("D", i, j, k, 4), DOT, ()),
+             "d5": (("D", i, j, k, 5), DOT, ()),
+             "vc": (("V", i, j, k, "c"), 3, ("d1", "d4", "d3", "d2")),
+             "vb": (("V", i, j, k, "b"), 3, ("d5", "d2", "d1", "d6")),
+             "va": (("V", i, j, k, "a"), 3, ("d3", "d6", "d5", "d4")),
+             "d43": (("V", i, j, k, 43), 1, ("d4", "d3")),
+             "d56": (("V", i, j, k, 56), 1, ("d5", "d6"))}
+
+        def needs(name, mask):
+            key, ops, deps = q[name]
+            if key:
+                use(key, ops, mask)
+            for dep in deps:
+                needs(dep, mask)
+
+        alive = out
+        # the Voronoi tests in the plain version's precedence, the point each
+        # picks (a vertex's norm is the vertex's), then the interior
+        for region, conds, ops in (
+                ("a", (("d1", d["d1"] <= 0), ("d2", d["d2"] <= 0)), 0),
+                ("b", (("d3", d["d3"] >= 0), ("d4", d["d4"] <= d["d3"])), 0),
+                ("c", (("d6", d["d6"] >= 0), ("d5", d["d5"] <= d["d6"])), 0),
+                ("ab", (("vc", d["vc"] <= 0), ("d1", d["d1"] >= 0), ("d3", d["d3"] <= 0)),
+                 2 + AXPY + DOT),
+                ("ac", (("vb", d["vb"] <= 0), ("d2", d["d2"] >= 0), ("d6", d["d6"] <= 0)),
+                 2 + AXPY + DOT),
+                ("bc", (("va", d["va"] <= 0), ("d43", d["d43"] >= 0), ("d56", d["d56"] >= 0)),
+                 2 + AXPY + DOT)):
+            sel = alive
+            for name, cond in conds:
+                needs(name, sel)
+                sel = sel & cond
+            use(("P", i, j, k, region), ops, sel)
+            alive = alive & ~sel
+        for name in ("va", "vb", "vc"):
+            needs(name, alive)
+        use(("P", i, j, k, "in"), 4 + 2 * AXPY + DOT, alive)
+    return total(), tetra_ops, int((~out).sum())
+
+
+def hull_bound(x):
+    """The least time of the hull query on the hulls of `x` ([..., K, 3])
+    on an H100 SXM: the larger of its least operations (`hull_ops`) at
+    FP32_OPS_PER_S and its bytes at 3.35 TB/s."""
+    K = x.shape[-2]
+    hulls = x[..., 0, 0].numel()
+    ops, tetra_ops, inside = hull_ops(x)
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    bytes_ms = hulls * (K * 3 * 4 + 4 * 4) / 3.35e12 * 1e3
+    return {"hulls": hulls, "K": K, "ops": ops, "ops_per_hull": ops / hulls,
+            "tetra_ops": tetra_ops, "candidate_ops": ops - tetra_ops, "hulls_inside": inside,
+            "ops_ms": ops_ms, "bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
@@ -705,8 +1059,11 @@ def fused_mode(workload, qp, builds, dev, gpu, tag, overrides, steps=True,
     """One planner mode at A=1024: loop_check on the QP after 3 evolving
     steps and on its compacted rescue, the loop timed, then (with `steps`)
     3 warm-up and 10 timed steps, `sfc_check` on the first and sixth
-    timed steps' SFC calls and the SFC kernel timed on the first."""
-    from lsc_dr_planner_tpu_torch.ops import sfc
+    timed steps' SFC calls and the SFC kernel timed on the first; in the
+    LSC family `hull_check` on the same steps' hull queries and the hull
+    kernel timed on the first (BVC and RSFC make none)."""
+    from lsc_dr_planner_tpu_torch.config import PlannerMode
+    from lsc_dr_planner_tpu_torch.ops import geometry, hull_cuda, sfc
 
     p, planner, fleet, inp = workload.build_fleet(A_MAIN, device=dev, timing=True, **overrides)
     step = workload.make_evolve_step(p, planner, fleet)
@@ -752,7 +1109,7 @@ def fused_mode(workload, qp, builds, dev, gpu, tag, overrides, steps=True,
         dists.append(min_pair_distance_now(inp.pos, p.world_dimension,
                                            float(fleet.downwash[0])))
 
-    with SfcCalls(sfc, every=TIMED8 // 2) as calls:
+    with SfcCalls(sfc, every=TIMED8 // 2) as calls, HullCalls(geometry, every=TIMED8 // 2) as hulls:
         inp, lat, stages, convs = admm_timing.timed_steps(step, planner, inp, TIMED8, check)
     launches = builds.add_path_launches()
     lane_trips = sfc.read_lane_trips()
@@ -767,11 +1124,16 @@ def fused_mode(workload, qp, builds, dev, gpu, tag, overrides, steps=True,
                sfc_plain_trips=sfc.trips)
     print(f"phase{tag}", json.dumps({k: v for k, v in res.items()
                                       if k not in ("check", "rescue_check", "timing")}))
-    builds.assert_launched(launches, f"phase {tag}")
+    lsc_family = p.planner_mode in (PlannerMode.LSC, PlannerMode.DLSC)
+    builds.assert_launched(launches, f"phase {tag}", hull=lsc_family)
     assert launches["sfc_expand"] == calls.n, (tag, launches, calls.n)  # every SFC update
+    assert launches["hull_closest"] == hulls.n, (tag, launches, hulls.n)  # every hull query
     assert sfc.syncs == 0 and sfc.trips == 0, f"phase {tag}: the plain SFC loop ran"
     res["sfc_check"] = sfc_check(sfc, builds, calls, f"phase{tag}")
     res["sfc_timing"] = sfc_timing(sfc, calls, l2_ns, gpu, f"phase{tag}")
+    if lsc_family:
+        res["hull_check"] = hull_check(geometry, hull_cuda, builds, hulls, f"phase{tag}")
+        res["hull_timing"] = hull_timing(geometry, hull_cuda, hulls, gpu, f"phase{tag}")
     sep = 2 * 0.15 - feas_tol
     if tag in JAX_CPU_1024:
         conv_ref, sep_ref = JAX_CPU_1024[tag]
@@ -809,6 +1171,7 @@ def phase9_flights():
 def fly(workload, qp, builds, dev, gpu, work, tag, overrides, obstacles, max_iter):
     from lsc_dr_planner_tpu_torch.config import Param
     from lsc_dr_planner_tpu_torch.mission import Mission
+    from lsc_dr_planner_tpu_torch.ops import geometry, hull_cuda
     from lsc_dr_planner_tpu_torch.sim.simulator import MultiSyncSimulator
 
     m = workload.forest_mission(10)
@@ -825,7 +1188,8 @@ def fly(workload, qp, builds, dev, gpu, work, tag, overrides, obstacles, max_ite
     ck_dir.mkdir(exist_ok=True)
     builds.reset_launches()
     t0 = time.perf_counter()
-    r, cks = run_checkpointed(sim, max_iter, ck_dir, steps=CK9)
+    with HullCalls(geometry, every=25) as hulls:
+        r, cks = run_checkpointed(sim, max_iter, ck_dir, steps=CK9)
     wall = time.perf_counter() - t0
     d_goal = np.linalg.norm(sim.pos - sim.desired_goal, axis=-1)
     res = {"phase": tag, "agents": 10, "dim": dim, "O": sim.planner.O,
@@ -843,8 +1207,10 @@ def fly(workload, qp, builds, dev, gpu, work, tag, overrides, obstacles, max_ite
     print(f"phase{tag}", json.dumps(res))
     check_audit(r, f"phase {tag}")
     builds.assert_launched(res["kernel_launches"], f"phase {tag}")
+    assert res["kernel_launches"]["hull_closest"] == hulls.n, (tag, hulls.n)
     if obstacles:
         assert r["safety_ratio_obs"] >= 1.0, res
+    res["hull_check"] = hull_check(geometry, hull_cuda, builds, hulls, f"phase{tag}")
     planner_k, qp_inp_k = step_qp(param, mission, sim, cks[0], str(work))
     cfg_k, tol_k = planner_k.qp_cfg, planner_k.feas_tol
     li_k = qp.prepare(cfg_k, qp_inp_k).loop
@@ -858,6 +1224,9 @@ def fly(workload, qp, builds, dev, gpu, work, tag, overrides, obstacles, max_ite
 
 
 # ---- phase 10: the JAX package's small mode missions ---------------------
+NO_HULL_MISSIONS = ("rsfc_crossing", "bvc")  # BVC and RSFC build no LSC rows
+
+
 def prior_based_forest(dev, work):
     """PRIOR_BASED in forest_mission(10)'s world: every line-of-sight
     query asks the world's distance on the card."""
@@ -894,7 +1263,7 @@ def local_flight(workload, qp, builds, dev, gpu, work, tag, A, seed, max_iter, c
     `loop_check` on the QP of the step after the last checkpoint.
     Returns (simulator, param, mission, checkpoint paths, record)."""
     from lsc_dr_planner_tpu_torch.config import Param
-    from lsc_dr_planner_tpu_torch.ops import sfc
+    from lsc_dr_planner_tpu_torch.ops import geometry, hull_cuda, sfc
     from lsc_dr_planner_tpu_torch.sim.simulator import MultiSyncSimulator
 
     mission = workload.forest_mission(A, seed)
@@ -910,7 +1279,7 @@ def local_flight(workload, qp, builds, dev, gpu, work, tag, A, seed, max_iter, c
 
     builds.reset_launches()
     t0 = time.perf_counter()
-    with SfcCalls(sfc, every=25) as calls:
+    with SfcCalls(sfc, every=25) as calls, HullCalls(geometry, every=25) as hulls:
         r, ck_paths = run_checkpointed(sim, max_iter, ck_dir, steps=cks, on_save=snap)
     wall = time.perf_counter() - t0
     d_goal = np.linalg.norm(sim.pos - sim.desired_goal, axis=-1)
@@ -934,8 +1303,10 @@ def local_flight(workload, qp, builds, dev, gpu, work, tag, A, seed, max_iter, c
     print(f"phase{tag}", json.dumps(res))
     check_audit(r, f"phase {tag}")
     builds.assert_launched(res["kernel_launches"], f"phase {tag}")
+    assert res["kernel_launches"]["hull_closest"] == hulls.n, (tag, hulls.n)
     res["sfc_check"] = sfc_check(sfc, builds, calls, f"phase{tag}")
     assert all(c["per_agent_images"] for c in res["sfc_check"]), res["sfc_check"]
+    res["hull_check"] = hull_check(geometry, hull_cuda, builds, hulls, f"phase{tag}")
     assert res["min_pair_distance"] >= 2 * 0.15 - sim.planner.feas_tol, res
     assert 0 < res["known_cells"] <= res["true_cells"], res
     assert sim.sense_time.N == sim.planner_seq and sim.merge_time.N == sim.planner_seq
@@ -970,7 +1341,7 @@ def montecarlo_run(workload, qp, builds, dev, gpu, work):
     `loop_check` on one step's flattened QP and its compacted rescue;
     `sfc_check` on the SFC calls of iterations 0 and 50."""
     from lsc_dr_planner_tpu_torch.config import Param
-    from lsc_dr_planner_tpu_torch.ops import sfc
+    from lsc_dr_planner_tpu_torch.ops import geometry, hull_cuda, sfc
     from lsc_dr_planner_tpu_torch.sim.montecarlo import MonteCarloSimulator
 
     param = Param(multisim_save_result=False, multisim_max_planner_iteration=MC_MAX_ITER)
@@ -978,10 +1349,10 @@ def montecarlo_run(workload, qp, builds, dev, gpu, work):
                              max_noise=MC_NOISE, log_dir=str(work), device=dev)
     A = mc.sims[0].A
     res = {"S": MC_S, "A": A, "max_noise": MC_NOISE, "gpu": gpu}
-    steps, before = [], {}
+    steps, before, check_hulls = [], {}, 0
     builds.reset_launches()
     t_run = time.perf_counter()
-    with SfcCalls(sfc, every=50) as calls:
+    with SfcCalls(sfc, every=50) as calls, HullCalls(geometry, every=50) as hulls:
         for it in range(MC_MAX_ITER):
             if all(sim.is_finished() for sim in mc.sims):
                 break
@@ -989,9 +1360,9 @@ def montecarlo_run(workload, qp, builds, dev, gpu, work):
             prep = mc.prepare_step(it)
             if it == MC_CHECK_IT:
                 # the kernel against the plain loop on this step's batch; its
-                # launches are not the path's
+                # launches, and chunk_qp's hull query, are not the path's
                 before = builds.add_path_launches()
-                t_check = time.perf_counter()
+                t_check, hulls_n0 = time.perf_counter(), hulls.n
                 _, batch, B = prep
                 cfg, tol = mc.planner.qp_cfg, mc.planner.feas_tol
                 li = qp.prepare(cfg, mc.chunk_qp(batch, 0, min(B, 32)).qp_inp).loop
@@ -1009,6 +1380,7 @@ def montecarlo_run(workload, qp, builds, dev, gpu, work):
                     lambda: qp.admm_loop_plain(cfg, li, cfg.max_iter, tol), 2)
                 print("phase12a timing", json.dumps(res["loop_timing"]), f"[{gpu}]")
                 builds.reset_launches()
+                check_hulls = hulls.n - hulls_n0
                 t0 += time.perf_counter() - t_check
             mc.plan_prepared(*prep)
             wall = time.perf_counter() - t0
@@ -1055,8 +1427,11 @@ def montecarlo_run(workload, qp, builds, dev, gpu, work):
                                   if k not in ("steps", "kernel_check", "rescue_check")}))
     builds.assert_launched(res["kernel_launches"], "phase 12a")
     assert res["kernel_check"]["A"] == MC_S * A, res["kernel_check"]["A"]
+    assert res["kernel_launches"]["hull_closest"] == hulls.n - check_hulls, (hulls.n,
+                                                                             check_hulls)
     res["sfc_check"] = sfc_check(sfc, builds, calls, "phase12a")
     assert res["sfc_check"][0]["lanes"] == 3 * MC_S * A, res["sfc_check"]
+    res["hull_check"] = hull_check(geometry, hull_cuda, builds, hulls, "phase12a")
     return res
 
 
@@ -1372,7 +1747,9 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script measures the port on a GPU")
     from lsc_dr_planner_tpu_torch import workload
-    from lsc_dr_planner_tpu_torch.ops import cuda_build, qp, qp_cuda, sfc, sfc_cuda
+    from lsc_dr_planner_tpu_torch.ops import (
+        cuda_build, geometry, hull_cuda, qp, qp_cuda, sfc, sfc_cuda,
+    )
 
     dev = torch.device("cuda", 0)
     gpu = gpu_line()
@@ -1396,16 +1773,18 @@ def main():
 
     # ---- 2. kernel builds: one nvcc per source, all at once ------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # each build waits on its own nvcc process
-        for done in [pool.submit(w.build, True) for w in (qp_cuda, sfc_cuda)]:
+    wrappers = (qp_cuda, sfc_cuda, hull_cuda)
+    with ThreadPoolExecutor(len(wrappers)) as pool:  # each build waits on its own nvcc process
+        for done in [pool.submit(w.build, True) for w in wrappers]:
             done.result()
     build_s = time.perf_counter() - t0
     nvcc_s = {name: sec for name, (sec, _) in cuda_build.build_log.items()}
-    print(f"build admm.cu, sfc_expand.cu: {build_s:.2f} s (nvcc {json.dumps(nvcc_s)})")
+    print(f"build admm.cu, sfc_expand.cu, hull_closest.cu: {build_s:.2f} s "
+          f"(nvcc {json.dumps(nvcc_s)})")
     record["build_s"] = build_s
     record["nvcc_s"] = nvcc_s
     record["ptxas"] = {name: log for name, (_, log) in cuda_build.build_log.items()}
-    builds = Builds(qp, qp_cuda, sfc_cuda, dev)
+    builds = Builds(qp, qp_cuda, sfc_cuda, hull_cuda, geometry, dev)
     print("builds", json.dumps({k: v["dk"] for k, v in builds.rec.items()}))
     l2_ns = sfc_cuda.l2_round_trip_ns(dev)
     print(f"one L2 round trip (sfc_cuda.l2_round_trip_ns): {l2_ns:.1f} ns [{gpu}]")
@@ -1512,7 +1891,7 @@ def main():
             assert torch.isfinite(getattr(inp, name)).all(), name
         dists.append(min_pair_distance_now(inp.pos, 2, 1.0))
 
-    with SfcCalls(sfc, every=TIMED // 2) as calls:
+    with SfcCalls(sfc, every=TIMED // 2) as calls, HullCalls(geometry, every=TIMED // 2) as hulls:
         inp, lat, stages, convs = admm_timing.timed_steps(step, planner, inp, TIMED, check)
     min_dist = min(dists)
     launches = builds.add_path_launches()
@@ -1530,12 +1909,19 @@ def main():
     print("main path", json.dumps(main))
     builds.assert_launched(launches, "the main path")
     assert launches["sfc_expand"] == calls.n, (launches, calls.n)  # every SFC update
+    assert launches["hull_closest"] == hulls.n > 0, (launches, hulls.n)  # every hull query
     assert sfc.syncs == 0 and sfc.trips == 0, "the main path's SFC stage ran the plain loop"
     assert conv_mean > 0.9, conv_mean
     assert min_dist >= 2 * 0.15 - planner.feas_tol, min_dist
-    main["clsc_hull_bound"] = hull_bound(A_MAIN, planner.O, p.M)
-    print("phase5 CLSC hull enumeration", json.dumps(main["clsc_hull_bound"]),
-          f"beside its stage: {stage_ms.get('lsc')} ms")
+    main["hull_check"] = hull_check(geometry, hull_cuda, builds, hulls, "phase5")
+    main["hull_timing"] = hull_timing(geometry, hull_cuda, hulls, gpu, "phase5")
+    assert main["hull_timing"]["hulls"] == A_MAIN * planner.O * p.M, main["hull_timing"]
+    builds.hull.update({k: main["hull_timing"][k] for k in (
+        "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "bound_share", "hulls",
+        "ops_per_hull", "ops_ms", "bytes_ms")})
+    print(f"phase5 CLSC stage {stage_ms.get('lsc')} ms a step [{gpu}]")
+    main["clsc_split"] = clsc_split(workload, dev, gpu)
+    main["rounding_check"] = rounding_check(dev)
     main["sfc_check"] = sfc_check(sfc, builds, calls, "phase5")
     main["sfc_timing"] = sfc_timing(sfc, calls, l2_ns, gpu, "phase5")
     builds.sfc.update({k: main["sfc_timing"][k] for k in (
@@ -1562,7 +1948,7 @@ def main():
         ck_dir.mkdir(exist_ok=True)
         builds.reset_launches()
         t0 = time.perf_counter()
-        with SfcCalls(sfc, every=25) as calls:
+        with SfcCalls(sfc, every=25) as calls, HullCalls(geometry, every=25) as hulls:
             r, cks = run_checkpointed(sim, max_iter, ck_dir)
         wall = time.perf_counter() - t0
         launches = builds.add_path_launches()
@@ -1583,12 +1969,14 @@ def main():
         print(f"phase{phase}", json.dumps(res))
         check_audit(r, f"phase {phase}")
         builds.assert_launched(launches, f"phase {phase}")
+        assert launches["hull_closest"] == hulls.n, (phase, launches, hulls.n)
         assert res["min_pair_distance"] >= 2 * 0.15 - sim.planner.feas_tol, res
         assert sim.step_time.N == sim.planner_seq, (sim.step_time.N, sim.planner_seq)
         record[f"phase{phase}"] = res
         res["sfc_check"] = sfc_check(sfc, builds, calls, f"phase{phase}")
         if phase == 6:  # the same lanes with no radius clamp (r = 0)
             res["sfc_check_r0"] = sfc_check(sfc, builds, calls, "phase6 r=0", radius=0)
+        res["hull_check"] = hull_check(geometry, hull_cuda, builds, hulls, f"phase{phase}")
 
         # the kernel against the plain loop on the QPs of the flight's steps
         res["kernel_checks"] = []
@@ -1654,18 +2042,24 @@ def main():
     for name, fly_mission in missions.items():
         builds.reset_launches()
         t0 = time.perf_counter()
-        with SfcCalls(sfc, keep=1) as calls:
+        with SfcCalls(sfc, keep=1) as calls, HullCalls(geometry, keep=1) as hulls:
             res = fly_mission(dev, work)
         res.update(wall_s=time.perf_counter() - t0, kernel_launches=builds.add_path_launches())
         print(f"phase10 {name}", json.dumps(res))
         # the small missions fly with world_use_octomap off (no SFC update);
-        # every SFC update of the others launches the kernel
-        builds.assert_launched(res["kernel_launches"], f"phase 10 {name}", sfc=calls.n > 0)
+        # every SFC update of the others launches the kernel; every mission
+        # but BVC and RSFC builds LSC rows (plain LSC, build_lsc)
+        builds.assert_launched(res["kernel_launches"], f"phase 10 {name}", sfc=calls.n > 0,
+                               hull=name not in NO_HULL_MISSIONS)
         assert res["kernel_launches"]["sfc_expand"] == calls.n, (name, calls.n)
+        assert res["kernel_launches"]["hull_closest"] == hulls.n, (name, hulls.n)
         if calls.n:
             res["sfc_check"] = sfc_check(sfc, builds, calls, f"phase10 {name}")
+        if hulls.n:
+            res["hull_check"] = hull_check(geometry, hull_cuda, builds, hulls, f"phase10 {name}")
         record["phase10"][name] = res
     assert "sfc_check" in record["phase10"]["prior_based_forest"], "no 'point' SFC in phase 10"
+    assert "build_lsc" in builds.hull["callers"], "no build_lsc hull query checked in phase 10"
     phase_done("10")
 
     # ---- 11. local sensing -----------------------------------------------
@@ -1741,6 +2135,24 @@ def main():
         "latency_floor_ms": r["latency_floor_ms"], "floor_share": r["floor_share"],
         "calls_checked": r["calls_checked"], "lanes_checked": r["lanes_checked"],
         "library_ms": None,  # no PyTorch call computes the loop
+    })
+    r = builds.hull
+    print("hull_closest", json.dumps(r))
+    assert r["launches"] > 0, "the hull kernel was never launched on a main path"
+    assert r["ms"] is not None and r["calls_checked"] > 0, r
+    assert sorted(r["callers"]) == ["build_clsc", "build_lsc"], r["callers"]
+    assert sorted(r["dims"]) == [2, 3], r["dims"]
+    kernels.append({
+        "name": "hull_closest", "route": "cuda",
+        "source": "lsc_dr_planner_tpu_torch/csrc/hull_closest.cu",
+        # a jnp enumeration; no Pallas original
+        "replaces": "lsc_dr_planner_tpu/ops/geometry.py:192",
+        "launches": r["launches"], "max_abs_err": r["max_abs_err"],
+        "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
+        "hulls": r["hulls"], "ops_per_hull": r["ops_per_hull"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "bound_share": r["bound_share"],
+        "calls_checked": r["calls_checked"], "hulls_checked": r["hulls_checked"],
+        "library_ms": None,  # no PyTorch call computes the enumeration
     })
     record["kernels"] = kernels
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))

@@ -3,9 +3,14 @@
 Branch-free, fixed-shape, batched over arbitrary leading axes. The
 point-to-convex-hull query is the exact Carathéodory enumeration of the
 JAX package: every vertex, edge and triangle of the K-point hull is a
-candidate, plus C(K,4) origin-inside-tetrahedron tests. For K=6 that is
-41 candidates and 15 tetrahedra, all materialised (a fused kernel is a
-later item).
+candidate, plus C(K,4) origin-inside-tetrahedron tests. On CUDA tensors
+it runs as one hand-written kernel (`csrc/hull_closest.cu` through
+`hull_cuda`, one thread a hull); on CPU tensors, or with `plain=True`,
+as `closest_point_origin_to_hull_plain`, the kernel's plain version,
+which materialises every candidate (41 and 15 tetrahedra for K=6). The
+plain version pins the rounding of its 3-term sums, cross products and
+square roots (`_dot3`, `_cross`, float64 sqrt), so that the kernel
+repeats it bit for bit on the card and its Python twin on the CPU.
 """
 
 from __future__ import annotations
@@ -16,18 +21,49 @@ import itertools
 import numpy as np
 import torch
 
+from lsc_dr_planner_tpu_torch.ops import hull_cuda
+
 _EPS = 1e-12
+
+plain_cuda_calls = 0  # plain hull enumerations run on CUDA tensors since the last reset
+
+
+def reset_counts():
+    global plain_cuda_calls
+    plain_cuda_calls = 0
 
 
 def _dot(a, b):
     return torch.sum(a * b, dim=-1)
 
 
+def _dot3(a, b):
+    """(a0·b0 + a1·b1) + a2·b2, each product and sum rounded on its own
+    (torch.sum leaves the association to the device's reduction)."""
+    p = a * b
+    return (p[..., 0] + p[..., 1]) + p[..., 2]
+
+
+def _cross(u, v):
+    """u × v, each component u_i·v_j − u_k·v_l with the second product
+    rounded and the first not, then rounded once: the fused multiply-add
+    that torch.linalg.cross and XLA compute on the CPU, pinned on every
+    device (a float32 product is exact in float64, so this rounds only
+    the difference, in float64 and then to float32)."""
+
+    def fms(a, b, c, d):
+        return (a.double() * b.double() - (c * d).double()).float()
+
+    return torch.stack([fms(u[..., 1], v[..., 2], u[..., 2], v[..., 1]),
+                        fms(u[..., 2], v[..., 0], u[..., 0], v[..., 2]),
+                        fms(u[..., 0], v[..., 1], u[..., 1], v[..., 0])], dim=-1)
+
+
 def closest_point_on_segment(p, a, b):
     """Closest point to p on segment [a, b]; all [..., D]."""
     ab = b - a
-    denom = _dot(ab, ab)[..., None]
-    t = _dot(p - a, ab)[..., None] / torch.clamp(denom, min=_EPS)
+    denom = _dot3(ab, ab)[..., None]
+    t = _dot3(p - a, ab)[..., None] / torch.clamp(denom, min=_EPS)
     t = torch.where(denom <= _EPS, 0.0, torch.clamp(t, 0.0, 1.0))
     return a + t * ab
 
@@ -95,14 +131,14 @@ def _closest_on_triangle_to_origin(a, b, c):
     ab = b - a
     ac = c - a
     ap = -a
-    d1 = _dot(ab, ap)
-    d2 = _dot(ac, ap)
+    d1 = _dot3(ab, ap)
+    d2 = _dot3(ac, ap)
     bp = -b
-    d3 = _dot(ab, bp)
-    d4 = _dot(ac, bp)
+    d3 = _dot3(ab, bp)
+    d4 = _dot3(ac, bp)
     cp = -c
-    d5 = _dot(ab, cp)
-    d6 = _dot(ac, cp)
+    d5 = _dot3(ab, cp)
+    d6 = _dot3(ac, cp)
 
     vc = d1 * d4 - d3 * d2
     vb = d5 * d2 - d1 * d6
@@ -141,7 +177,7 @@ def _origin_in_tetra(a, b, c, d):
     """True where the origin is inside tetrahedron (a, b, c, d); [..., 3]."""
 
     def signed_vol(p0, p1, p2, p3):
-        return _dot(p1 - p0, torch.linalg.cross(p2 - p0, p3 - p0, dim=-1))
+        return _dot3(p1 - p0, _cross(p2 - p0, p3 - p0))
 
     o = torch.zeros_like(a)
     v0 = signed_vol(a, b, c, d)
@@ -156,12 +192,31 @@ def _origin_in_tetra(a, b, c, d):
     return nondegen & torch.where(v0 > 0, same_pos, same_neg)
 
 
-def closest_point_origin_to_hull(points):
+def closest_point_origin_to_hull(points, plain: bool = False):
     """Exact closest point to the origin in conv(points).
 
-    points: [..., K, 3] → (closest_point [..., 3], dist [...]). Odd under
-    points → −points, so a reciprocal pair gets mirrored normals.
+    points: [..., K, 3] float32 → (closest_point [..., 3], dist [...]).
+    Odd under points → −points, so a reciprocal pair gets mirrored
+    normals. CUDA tensors go to the kernel (contiguous, K ≤ 8; a failure
+    to build or launch raises), CPU tensors to the plain enumeration;
+    `plain` forces the plain enumeration on any device, for comparisons.
+    Any other device raises.
     """
+    global plain_cuda_calls
+    dev = points.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no hull query for device {dev}")
+    if plain or dev.type == "cpu":
+        if dev.type == "cuda":
+            plain_cuda_calls += 1
+        return closest_point_origin_to_hull_plain(points)
+    return hull_cuda.closest_point_origin_to_hull_cuda(points)
+
+
+def closest_point_origin_to_hull_plain(points):
+    """The kernel's plain version: every candidate materialised, the
+    first minimum of the squared norms (as jnp.argmin), then the
+    tetrahedra."""
     pairs, triples, quads = _simplex_indices(points.shape[-2], points.device)
 
     def pick(idx):
@@ -174,12 +229,14 @@ def closest_point_origin_to_hull(points):
     if len(triples[0]):
         cand.append(_closest_on_triangle_to_origin(*map(pick, triples)))
     cand = torch.cat(cand, dim=-2)
-    d2 = _dot(cand, cand)
+    d2 = _dot3(cand, cand)
     idx = torch.argmin(d2, dim=-1)  # first minimum among ties, as jnp.argmin
     best = torch.gather(
         cand, -2, idx[..., None, None].expand(*idx.shape, 1, cand.shape[-1])
     )[..., 0, :]
-    dist = torch.sqrt(torch.gather(d2, -1, idx[..., None])[..., 0])
+    # through float64: torch's CPU float32 sqrt is not correctly rounded
+    # (1 ulp off on ~0.6% of values); rounded from float64 it is, as on CUDA
+    dist = torch.sqrt(torch.gather(d2, -1, idx[..., None])[..., 0].double()).float()
 
     if len(quads[0]):
         inside = torch.any(_origin_in_tetra(*map(pick, quads)), dim=-1)

@@ -18,6 +18,7 @@ from lsc_dr_planner_tpu_torch.ops import lsc as tlsc
 from lsc_dr_planner_tpu_torch.ops import trajectory as ttraj
 from lsc_dr_planner_tpu_torch.planner import goal as tgoal
 from lsc_dr_planner_tpu_torch.planner import pipeline as tpipe
+from test_torch_hull_kernel import hull_cases
 
 # One intra-op thread: the suite runs in several worker processes on a
 # shared CPU, and torch's spinning thread pool would starve the JAX
@@ -79,23 +80,9 @@ def test_state_at(t):
         close(a, b, atol=ATOL * max(1.0, float(np.abs(np.asarray(b)).max())))
 
 
-def _hull_cases():
-    rng = np.random.default_rng(2)
-    generic = f32(rng, 64, 6, 3)
-    interior = f32(rng, 16, 6, 3) + 0.0  # clouds around the origin
-    planar = f32(rng, 32, 6, 3)
-    planar[..., 2] = 0.6  # 2-D: every hull is planar, triangles and edges tie
-    offset = f32(rng, 32, 6, 3, scale=0.3) + np.array([1.0, -0.5, 0.2], np.float32)
-    point = np.repeat(f32(rng, 8, 1, 3), 6, axis=1)  # all six points equal
-    line = (f32(rng, 8, 1, 3) + np.linspace(0, 1, 6, dtype=np.float32)[None, :, None]
-            * f32(rng, 8, 1, 3))  # collinear
-    return {"generic": generic, "interior": interior, "planar": planar,
-            "offset": offset, "point": point, "line": line}
-
-
-@pytest.mark.parametrize("case", list(_hull_cases()))
+@pytest.mark.parametrize("case", list(hull_cases()))
 def test_closest_point_origin_to_hull(case):
-    pts = _hull_cases()[case]
+    pts = hull_cases()[case]
     bt, dt_ = tgeo.closest_point_origin_to_hull(torch.tensor(pts))
     bj, dj = jgeo.closest_point_origin_to_hull(jnp.asarray(pts))
     close(dt_, dj)
