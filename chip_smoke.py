@@ -10,11 +10,12 @@ simulator (`sim.simulator.MultiSyncSimulator` with its MAPF waypoint
 layer and audit, and the `sim.run` CLI) flying forest missions:
 
   1. environment: torch/CUDA versions, nvcc, the card's name and power limit;
-  2. build the ADMM kernel (csrc/admm.cu), the SFC kernel
-     (csrc/sfc_expand.cu) and the hull kernel (csrc/hull_closest.cu), one
-     nvcc per source started together, printing ptxas's registers and
-     spills; time one L2 round trip
-     (`sfc_cuda.l2_round_trip_ns`, for the SFC kernel's latency floor);
+  2. build the ADMM kernel (csrc/admm.cu), the SFC kernels
+     (csrc/sfc_expand.cu: the expansion and the fused 'hull' update) and
+     the hull kernels (csrc/hull_closest.cu: the query and the fused CLSC
+     construction), one nvcc per source started together, printing
+     ptxas's registers and spills per kernel; time one L2 round trip
+     (`sfc_cuda.l2_round_trip_ns`, for the SFC kernels' latency floor);
   3. kernel against the plain loop for one chunk (8 iterations) on the
      main path's QP: iterates within rtol 1e-4 / atol 1e-5, itdone equal
      on ≥ 99.5% of agents; then many chunks on a ragged fleet (A=37) that
@@ -31,32 +32,38 @@ layer and audit, and the `sim.run` CLI) flying forest missions:
      control points within 0.1 where both converged;
   5. the main path: 3 warm-up and 20 timed evolving steps; the kernel must
      have been launched, every output finite, mean QP convergence > 0.9
-     and no two agents closer than 2·radius − feas_tol; every SFC update
-     through the SFC kernel (its launches > 0, no host sync, no trip of
-     the plain loop), the longest lane's trips per step (`ops/sfc.py`'s
-     device counter; also in phase 8's modes); `sfc_check` on the SFC
-     calls of two timed steps: the kernel's boxes and seed-free flags
-     equal the plain loop's on the card, lane for lane; the SFC kernel
-     timed on the first (CUDA events) beside the plain loop, with its
-     bounds; every hull query of build_clsc through the hull kernel (one
-     launch a step, no plain enumeration on the card), `hull_check` on
-     the hull queries of the same two steps: the kernel's closest points
-     and distances equal the plain enumeration's on the card, hull for
-     hull, and its result on the negated points is the negated result;
-     the hull kernel timed on the first (its launch alone, by CUDA events
-     and the profiler's device time) beside the plain enumeration and
-     `hull_bound` (the least work of that call's hulls); `clsc_split`:
-     build_clsc against its hull query (device kernels, device-busy ms,
-     CUDA-event ms); `rounding_check`: the sums, cross products and square
-     roots the plain enumeration pins round on the card as on the CPU, bit
-     for bit;
+     and no two agents closer than 2·radius − feas_tol; every CLSC
+     construction one launch of the fused CLSC kernel and every 'hull'
+     SFC update one launch of the fused SFC kernel (the wrappers'
+     counters against the calls; no hull query, expansion, plain-loop
+     trip or plain body on the card), the longest lane's trips per step
+     (the fused kernel adds them to `ops/sfc.py`'s device counter; also
+     in phase 8's modes); `clsc_check` and `sfc_hull_check` on the calls
+     of two timed steps: the fused kernels' normals, anchors and margins,
+     and lattice boxes, world boxes and lanes, equal their plain bodies'
+     on the card, element for element; each kernel timed on the first
+     (queued back to back, by CUDA events and the profiler's device
+     time) beside its plain version and its bound (`clsc_bound`: bytes
+     and least operations, `hull_ops` extended; `trip_bounds`: bytes,
+     operations and the latency floor); the expansion entry and the hull query timed
+     on the same call's lanes and hulls (and the query held to the plain
+     enumeration there); `clsc_split` and `sfc_split`: each stage's
+     function under the profiler (device kernels, copies, host launch
+     calls) and the wrappers' counters, one launch and no copy each;
+     `rounding_check`: the rounding the plain versions pin (sums, cross
+     products, square roots, the segment construction, the SFC seeds
+     and world boxes) is the card's as the CPU's, bit for bit;
+     `sfc_probe`: the expansion on the main path's lanes, on all lanes
+     and on the longest alone, one dependent
+     8-corner query, and the kernels' SASS (instructions, loads);
   6. the reference size: `workload.forest_mission(10)` (O = 9 neighbour
      slots, the in-place rescue) flown to its goals on the card by
      `MultiSyncSimulator.run`, at most 300 planner iterations, writing its
      simulation CSV, then once more through the CLI (`sim.run --device
-     cuda`); `sfc_check` on its SFC calls, and on the same lanes with no
-     radius clamp (r = 0); `hull_check` on its hull queries (also in
-     phases 7, 8a, 8b, 9, 10, 11 and 12a);
+     cuda`); `sfc_hull_check` on its SFC updates, and on the same
+     updates with no radius clamp (r = 0); `clsc_check` on its CLSC
+     constructions (also in phases 7, 8a, 8b, 9, 11, 12a and on phase
+     14's 8,192-agent Monte-Carlo batch);
   7. the repo's scaled forest: `forest_mission(64, seed=1)` flown to its
      goals, at most 400 planner iterations; its first 5 steps are rerun
      from checkpoints on the card and by a CPU simulator (the plain torch
@@ -69,9 +76,11 @@ layer and audit, and the `sim.run` CLI) flying forest missions:
      box (60, 'point' SFC); per mode the kernel against the plain loop on
      one step's QP and on its compacted rescue (`loop_check`, with its
      per-agent float64 clause in the DLSC and 3-D batches), the loop
-     timed, then 3 warm-up and 10 timed steps with stage times,
-     `sfc_check` and the SFC kernel's time ('hull', 'substep' and, with
-     static goals, 'point' lanes; 2-D and 3-D), QP
+     timed, then 3 warm-up and 10 timed steps with stage times, each
+     geometry kernel once a call, `sfc_hull_check` ('hull') or
+     `sfc_check` ('substep' and, with static goals, 'point' lanes) and the
+     SFC kernel's time, `clsc_check` and the CLSC kernel's time (2-D and
+     3-D), QP
      convergence > 0.9 and no two agents closer than 2·radius − feas_tol
      (with the downwash in 3-D) in (a) and (b); in (c) and (d), whose QPs
      fail by design in this layout (RSFC's failsafe flies agents into each
@@ -95,13 +104,14 @@ layer and audit, and the `sim.run` CLI) flying forest missions:
      goals per step; and a mini mission in DYNAMIC_PRIORITY and in DLSC
      replanning once a segment; the small missions fly with no world map
      (no SFC update), the forest's PRIOR_BASED flight through the SFC
-     kernel in 'point' mode, with `sfc_check` on its first SFC call;
+     expansion kernel in 'point' mode, with `sfc_check` on its first SFC
+     call, and `hull_check` on build_lsc's hull queries;
  11. local sensing (`world_use_global_map=False`, sensor range 3 m):
      (a) `forest_mission(10)` and (b) `forest_mission(64, seed=1)` flown
      to their goals by `MultiSyncSimulator.run` with the agents' known
      maps on the card, at most 300 / 400 planner iterations: the audit,
-     the kernels' launches, `sfc_check` on the per-agent images' SFC
-     calls, the maps each checkpoint restores, `loop_check` on the step
+     the kernels' launches, `sfc_hull_check` on the per-agent images'
+     SFC updates, `clsc_check`, the maps each checkpoint restores, `loop_check` on the step
      after the last checkpoint (after step 3);
      (a) once more through the CLI (`--no-global-map`), (b) its steps
      after 1-3 rerun on the CPU (positions, waypoints and known maps
@@ -115,8 +125,8 @@ layer and audit, and the `sim.run` CLI) flying forest missions:
      excess) and the count that arrive; per step the phase times,
      scenario·agent-steps/s and QP convergence; `loop_check` on the
      flattened QP of iteration 4 (A = 512) and on its compacted rescue,
-     and the loop timed there, `sfc_check` on the SFC calls of
-     iterations 0 and 50 (1,536 lanes); (b) 40 scenarios for 5 steps (two chunks
+     and the loop timed there, `sfc_hull_check` and `clsc_check` on the
+     calls of iterations 0 and 50 (1,536 lanes); (b) 40 scenarios for 5 steps (two chunks
      of 32 scenarios, the second padded): finite outputs and the card's
      peak memory per chunk;
  13. the multi-device runtime on one rank, the debug step and the replay
@@ -159,28 +169,30 @@ as in phase 3 (every chunk per agent within rtol 1e-4 / atol 1e-5, and
 the run to the kernel's own exit), and the loop is timed on the QP of
 planner step 4 (A=64/O=16 and A=10/O=9).
 
-Every path that builds LSC rows (all but BVC and RSFC) must launch the
-hull kernel once per hull query and run the plain enumeration on no
-CUDA tensor; `hull_check` must cover build_lsc (phase 10) and
-build_clsc, 2-D and 3-D.
+Every path that builds LSC rows (all but BVC and RSFC) must launch a
+hull kernel once per CLSC construction (the fused kernel) or hull query
+(build_lsc's), and run no plain enumeration, CLSC body or 'hull' SFC
+body on a CUDA tensor; `clsc_check` must cover 2-D and 3-D, the SFC
+checks the shared and the per-agent images, `hull_check` build_lsc
+(phase 10) and the main path's 2-D and 8b's 3-D hulls.
 
 Prints the results and the wall time of each phase, a JSON line with one
 entry per build of the ADMM kernel (its dim·K range, launches on the
 paths of phases 5-14, largest error against the plain loop, and ms,
-plain ms and bound at its A=1024 shape), one for the SFC kernel (its
-launches on those paths, the calls and lanes `sfc_check` held to the
-plain loop, ms, plain ms, bound and latency floor on the main path's
-call) and one for the hull kernel (its launches on those paths, the
-calls and hulls `hull_check` held to the plain enumeration, ms, plain
-ms and bound on the main path's call), the
-card's name and power limit, and as the last line
-{"ok": true, "device": {...}}. Exits non-zero, with no result, without a
+plain ms and bound at its A=1024 shape) and one per geometry kernel
+(sfc_expand, sfc_update_hull, hull_closest, clsc_build: its launches on
+those paths, the calls and items its check held to its plain version,
+ms, device ms, plain ms, bound and share on the main path's call, the
+SFC kernels' latency floor, ptxas's registers), the card's name and
+power limit, and as the last line {"ok": true, "device": {...}}. Exits non-zero, with no result, without a
 CUDA device or outside a checkout of the repository. Writes the full
 record to chiprun_out/chip_smoke.json.
 """
 
 import dataclasses
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -489,15 +501,16 @@ class Builds:
     """Per-build records of the ADMM kernel: the dim·K range each template
     build takes, its launches on the main paths (`add_path_launches` after
     each path), its largest error against the plain loop, and its timing
-    at its A=1024 shape; the record of the SFC kernel (`sfc`): its
-    launches on the main paths, the lanes `sfc_check` held to the plain
-    loop, and its timing on the main path's call; and that of the hull
-    kernel (`hull`): its launches, the hulls `hull_check` held to the
-    plain enumeration, and its timing on the main path's call."""
+    at its A=1024 shape; and a record per geometry kernel: `sfc` (the
+    expansion, sfc_expand: the 'point' and 'substep' SFC modes),
+    `sfc_hull` (the fused 'hull' SFC update), `hull` (the hull query,
+    build_lsc's) and `clsc` (the fused CLSC construction): its launches
+    on the main paths, the calls and items its check held to the plain
+    version, and its timing at the main path's shape."""
 
-    def __init__(self, qp, qp_cuda, sfc_cuda, hull_cuda, geometry, dev):
+    def __init__(self, qp, qp_cuda, sfc_cuda, hull_cuda, geometry, lsc, sfc, dev):
         self.qp, self.qp_cuda, self.sfc_cuda, self.dev = qp, qp_cuda, sfc_cuda, dev
-        self.hull_cuda, self.geometry = hull_cuda, geometry
+        self.hull_cuda, self.geometry, self.lsc, self.sfc_ops = hull_cuda, geometry, lsc, sfc
         self.lib = qp_cuda.build()
         self.rec = {}
         for dk in range(1, self.lib.admm_max_dk() + 1):
@@ -506,8 +519,13 @@ class Builds:
             r["dk"][1] = dk
         self.sfc = {"launches": 0, "max_abs_err": 0, "calls_checked": 0, "lanes_checked": 0,
                     "ms": None}
+        self.sfc_hull = {"launches": 0, "max_abs_err": 0.0, "calls_checked": 0,
+                         "agents_checked": 0, "elements_checked": 0, "per_agent_images": [],
+                         "ms": None}
         self.hull = {"launches": 0, "max_abs_err": 0.0, "calls_checked": 0, "hulls_checked": 0,
                      "callers": [], "dims": [], "ms": None}
+        self.clsc = {"launches": 0, "max_abs_err": 0.0, "calls_checked": 0, "pairs_checked": 0,
+                     "elements_checked": 0, "dims": [], "ms": None}
 
     def name(self, cfg):
         return self.qp_cuda.build_name(
@@ -518,34 +536,52 @@ class Builds:
         self.sfc_cuda.reset_launches()
         self.hull_cuda.reset_launches()
         self.geometry.reset_counts()
+        self.lsc.reset_counts()
+        self.sfc_ops.reset_counts()
 
     def add_path_launches(self):
         """Adds the launches counted since the last reset, per ADMM build,
-        of the SFC kernel ("sfc_expand") and of the hull kernel
-        ("hull_closest"), and returns them with the plain hull
-        enumerations run on CUDA tensors ("hull_plain_on_cuda")."""
+        of the SFC expansion ("sfc_expand"), the fused 'hull' SFC update
+        ("sfc_update_hull"), the hull query ("hull_closest") and the fused
+        CLSC construction ("clsc_build"), and returns them with the plain
+        versions run on CUDA tensors: hull enumerations
+        ("hull_plain_on_cuda"), CLSC bodies ("clsc_plain_on_cuda") and
+        'hull' SFC bodies ("sfc_hull_plain_on_cuda")."""
         out = dict(self.qp_cuda.build_launches)
         for name, n in out.items():
             self.rec[name]["launches"] += n
-        out["sfc_expand"] = self.sfc_cuda.launches
-        self.sfc["launches"] += self.sfc_cuda.launches
-        out["hull_closest"] = self.hull_cuda.launches
-        self.hull["launches"] += self.hull_cuda.launches
+        for key, n, rec in (("sfc_expand", self.sfc_cuda.launches, self.sfc),
+                            ("sfc_update_hull", self.sfc_cuda.hull_launches, self.sfc_hull),
+                            ("hull_closest", self.hull_cuda.launches, self.hull),
+                            ("clsc_build", self.hull_cuda.clsc_launches, self.clsc)):
+            out[key] = n
+            rec["launches"] += n
         out["hull_plain_on_cuda"] = self.geometry.plain_cuda_calls
+        out["clsc_plain_on_cuda"] = self.lsc.plain_cuda_calls
+        out["sfc_hull_plain_on_cuda"] = self.sfc_ops.plain_cuda_calls
         return out
 
     @staticmethod
-    def assert_launched(launches, what, sfc=True, hull=True):
-        """The kernels launched on the path (the SFC kernel not with `sfc`
-        False: a path with no world map, world_use_octomap off, has no SFC
-        update; the hull kernel not with `hull` False: BVC and RSFC build
-        no LSC rows), and the plain hull enumeration ran on no CUDA
-        tensor."""
+    def assert_launched(launches, what, sfc=True, hull=True, clsc=False, sfc_hull=False):
+        """The kernels launched on the path: the ADMM kernel; an SFC kernel
+        (not with `sfc` False: a path with no world map, world_use_octomap
+        off, has no SFC update); a hull kernel, the query or the fused
+        CLSC construction (not with `hull` False: BVC and RSFC build no
+        LSC rows); the fused CLSC kernel with `clsc` (the LSC family with
+        DR goals), the fused 'hull' SFC kernel with `sfc_hull` (DR goals
+        with a world map, not in DLSC sub-step); and no plain hull
+        enumeration, CLSC body or 'hull' SFC body on a CUDA tensor."""
         admm = sum(n for k, n in launches.items() if k not in NOT_ADMM)
         assert admm > 0, f"{what} never launched the ADMM kernel"
-        assert launches["sfc_expand"] > 0 or not sfc, f"{what} never launched the SFC kernel"
-        assert launches["hull_closest"] > 0 or not hull, f"{what} never launched the hull kernel"
-        assert launches["hull_plain_on_cuda"] == 0, f"{what} ran the plain hull enumeration"
+        assert launches["sfc_expand"] + launches["sfc_update_hull"] > 0 or not sfc, \
+            f"{what} never launched an SFC kernel"
+        assert launches["hull_closest"] + launches["clsc_build"] > 0 or not hull, \
+            f"{what} never launched a hull kernel"
+        assert launches["clsc_build"] > 0 or not clsc, f"{what} never launched the CLSC kernel"
+        assert launches["sfc_update_hull"] > 0 or not sfc_hull, \
+            f"{what} never launched the fused 'hull' SFC kernel"
+        for key in PLAIN_ON_CUDA:
+            assert launches[key] == 0, f"{what} ran a plain version on the card: {key}"
 
     def note_check(self, cfg, rec):
         r = self.rec[self.name(cfg)]
@@ -567,6 +603,26 @@ class Builds:
             self.sfc["calls_checked"] += 1
             self.sfc["lanes_checked"] += r["lanes"]
 
+    def note_sfc_hull_check(self, recs):
+        h = self.sfc_hull
+        for r in recs:
+            h["max_abs_err"] = max(h["max_abs_err"], r["max_abs_err"])
+            h["calls_checked"] += 1
+            h["agents_checked"] += r["agents"]
+            h["elements_checked"] += r["elements"]
+            if r["per_agent_images"] not in h["per_agent_images"]:
+                h["per_agent_images"].append(r["per_agent_images"])
+
+    def note_clsc_check(self, recs):
+        c = self.clsc
+        for r in recs:
+            c["max_abs_err"] = max(c["max_abs_err"], r["max_abs_err"])
+            c["calls_checked"] += 1
+            c["pairs_checked"] += r["pairs"]
+            c["elements_checked"] += r["elements"]
+            if r["dim"] not in c["dims"]:
+                c["dims"].append(r["dim"])
+
     def note_timing(self, cfg, timing, plain_ms):
         r = self.rec[self.name(cfg)]
         if r["ms"] is None:
@@ -575,64 +631,96 @@ class Builds:
                      bound_by=timing["bound_by"], bound_share=timing["bound_share"])
 
 
-NOT_ADMM = ("sfc_expand", "hull_closest", "hull_plain_on_cuda")
+PLAIN_ON_CUDA = ("hull_plain_on_cuda", "clsc_plain_on_cuda", "sfc_hull_plain_on_cuda")
+NOT_ADMM = ("sfc_expand", "sfc_update_hull", "hull_closest", "clsc_build", *PLAIN_ON_CUDA)
 
 
-class SfcCalls:
-    """While active, records the inputs and outputs of `sfc.expand_box`
-    calls (the sampled steps of `sfc_check`): every `every`-th call from
-    the first, at most `keep` of them. update_sfc_fused looks expand_box
-    up in its module at each call, so the recorder sees every call of
-    the path."""
+def assert_one_launch_a_call(launches, recorders, what):
+    """Each geometry kernel launched once per call of its function on the
+    path (`path_calls`' recorders): the 'hull' SFC updates, the
+    expansions, the CLSC constructions, the hull queries."""
+    got = tuple(launches[k] for k in ("sfc_update_hull", "sfc_expand", "clsc_build",
+                                      "hull_closest"))
+    assert got == tuple(r.n for r in recorders), (what, got, [r.n for r in recorders])
 
-    def __init__(self, sfc, every=1, keep=2):
-        self.sfc, self.every, self.keep = sfc, every, keep
+
+class Calls:
+    """While active, records the inputs, outputs and caller of calls of
+    `module.name` (the sampled steps of a check): of the calls that
+    `accept(args, kwargs)` lets through (all by default), every `every`-th
+    from the first, at most `keep` of them; `n` counts every call let
+    through. The port looks these functions up in their modules at each
+    call, so the recorder sees every call of the path."""
+
+    def __init__(self, module, name, every=1, keep=2, accept=None):
+        self.module, self.name, self.accept = module, name, accept
+        self.every, self.keep = every, keep
         self.calls, self.n = [], 0
 
     def __enter__(self):
-        self.orig = self.sfc.expand_box
+        self.orig = getattr(self.module, self.name)
 
         def record(*a, **k):
             out = self.orig(*a, **k)
-            if self.n % self.every == 0 and len(self.calls) < self.keep:
-                self.calls.append((a, k, out))
-            self.n += 1
+            if self.accept is None or self.accept(a, k):
+                if self.n % self.every == 0 and len(self.calls) < self.keep:
+                    self.calls.append((a, k, out, sys._getframe(1).f_code.co_name))
+                self.n += 1
             return out
 
-        self.sfc.expand_box = record
+        setattr(self.module, self.name, record)
         return self
 
     def __exit__(self, *exc):
-        self.sfc.expand_box = self.orig
+        setattr(self.module, self.name, self.orig)
 
 
-class HullCalls:
-    """While active, records the inputs and outputs of
-    `geometry.closest_point_origin_to_hull` calls and the function that
-    made each (build_lsc or build_clsc): every `every`-th call from the
-    first, at most `keep` of them; `n` counts every call. ops/lsc.py looks
-    the query up in its module at each call, so the recorder sees every
-    call of the path."""
+def hull_mode(a, k):
+    """Lets through the SFC updates (sfc.update_sfc) in 'hull' mode."""
+    return (a[1] if len(a) > 1 else k.get("mode")) == "hull"
 
-    def __init__(self, geometry, every=1, keep=2):
-        self.geometry, self.every, self.keep = geometry, every, keep
-        self.calls, self.n = [], 0
 
-    def __enter__(self):
-        self.orig = self.geometry.closest_point_origin_to_hull
+def path_calls(sfc, lsc, geometry, every=1, keep=2):
+    """The recorders of a path's kernel calls: the 'hull' SFC updates, the
+    SFC expansions ('point', 'substep'), the CLSC constructions and the
+    hull queries (build_lsc's)."""
+    return (Calls(sfc, "update_sfc", every, keep, hull_mode), Calls(sfc, "expand_box", every, keep),
+            Calls(lsc, "build_clsc", every, keep),
+            Calls(geometry, "closest_point_origin_to_hull", every, keep))
 
-        def record(points, **k):
-            out = self.orig(points, **k)
-            if self.n % self.every == 0 and len(self.calls) < self.keep:
-                self.calls.append((points, k, out, sys._getframe(1).f_code.co_name))
-            self.n += 1
-            return out
 
-        self.geometry.closest_point_origin_to_hull = record
-        return self
+SLEEP_CYCLES = 100_000_000  # ~50 ms of the card's clock: time to queue the timed calls
 
-    def __exit__(self, *exc):
-        self.geometry.closest_point_origin_to_hull = self.orig
+
+def queued_ms(fn, reps):
+    """Mean device ms of fn() over `reps` calls queued behind a sleep
+    kernel (torch.cuda._sleep), after one warm-up call: the calls run
+    back to back on the card, so the host's time to issue each (the
+    wrapper's checks and allocations) does not count."""
+    fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def differing(a, b):
+    """Elements of a and b that differ by value (a NaN equal to a NaN)."""
+    if a.is_floating_point():
+        return int(((a != b) & ~(a.isnan() & b.isnan())).sum())
+    return int((a != b).sum())
+
+
+def max_err(a, b):
+    if a.numel() == 0:
+        return 0.0
+    return float((a.double() - b.double()).abs().nan_to_num(0.0).max())
 
 
 def hull_check(geometry, hull_cuda, builds, calls, what):
@@ -644,162 +732,236 @@ def hull_check(geometry, hull_cuda, builds, calls, what):
     negated points and the same distances. Returns the per-call records."""
     assert calls.calls, f"{what}: no hull query recorded"
     recs = []
-    for x, k, got, caller in calls.calls:
-        assert not k.get("plain") and x.device.type == "cuda" and got[0].device == x.device, what
-        again = hull_cuda.closest_point_origin_to_hull_cuda(x)
-        want = geometry.closest_point_origin_to_hull(x, plain=True)
-        neg = hull_cuda.closest_point_origin_to_hull_cuda(-x)
-        H = want[1].numel()
-
-        def ne(a, b):  # by value, a NaN equal to a NaN: per hull
-            return ((a != b) & ~(a.isnan() & b.isnan())).view(H, -1).any(1)
-
-        differ = torch.zeros(H, dtype=torch.bool, device=x.device)
-        for a, b in zip(got, want):
-            differ |= ne(a, b)
-        for a, b in zip(again, got):
-            differ |= ne(a, b)
-        odd = ne(neg[0], -got[0]) | ne(neg[1], got[1])
-        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
-        recs.append({"caller": caller, "hulls": H, "K": x.shape[-2],
-                     "dim": 2 if not bool(x[..., 2].any()) else 3,
-                     "inside": int((want[1] == 0).sum()), "hulls_differing": int(differ.sum()),
-                     "not_odd": int(odd.sum()), "max_abs_err": err})
+    for a, k, got, caller in calls.calls:
+        assert not k.get("plain") and a[0].device.type == "cuda", what
+        recs.append(hull_record(geometry, hull_cuda, a[0], got, caller))
     print(f"{what} hull_check", json.dumps(recs))
     assert all(r["hulls_differing"] == 0 and r["not_odd"] == 0 for r in recs), (what, recs)
     builds.note_hull_check(recs)
     return recs
 
 
-HULL_REPS = 50
+def hull_record(geometry, hull_cuda, x, got, caller):
+    """One call's record of `hull_check`: the kernel's result `got` on the
+    hulls `x` against one more launch and the plain enumeration, and its
+    oddness."""
+    again = hull_cuda.closest_point_origin_to_hull_cuda(x)
+    want = geometry.closest_point_origin_to_hull(x, plain=True)
+    neg = hull_cuda.closest_point_origin_to_hull_cuda(-x)
+    H = want[1].numel()
+
+    def ne(a, b):  # by value, a NaN equal to a NaN: per hull
+        return ((a != b) & ~(a.isnan() & b.isnan())).view(H, -1).any(1)
+
+    differ = torch.zeros(H, dtype=torch.bool, device=x.device)
+    for a, b in zip(got, want):
+        differ |= ne(a, b)
+    for a, b in zip(again, got):
+        differ |= ne(a, b)
+    odd = ne(neg[0], -got[0]) | ne(neg[1], got[1])
+    return {"caller": caller, "hulls": H, "K": x.shape[-2],
+            "dim": 2 if not bool(x[..., 2].any()) else 3,
+            "inside": int((want[1] == 0).sum()), "hulls_differing": int(differ.sum()),
+            "not_odd": int(odd.sum()), "max_abs_err": max(max_err(a, b) for a, b in zip(got, want))}
 
 
-def hull_timing(geometry, hull_cuda, calls, gpu, what):
-    """The hull kernel on the first recorded call: its ms a call by CUDA
-    events over HULL_REPS launches of the kernel alone (outputs allocated
-    and the stream looked up once, no wrapper, so no host work of the
-    wrapper between launches), and its device ms a launch under
-    torch.profiler (the mean over the launches it saw; None where it saw
-    none); the plain enumeration's ms on the card on the same hulls; the
-    bound of this call's work (`hull_bound`)."""
+KERNEL_REPS = 50  # launches of a kernel timed back to back
+
+
+def profiled_ms(fn, dev, reps=KERNEL_REPS):
+    """Device ms a kernel launch under torch.profiler, the mean over the
+    launches of `reps` calls of fn() that it saw (it may miss some
+    ctypes launches; None where it saw none), and how many it saw."""
     from lsc_dr_planner_tpu_torch.tools import sfc_bench
 
-    x, _, got, _ = calls.calls[0]
-    K, H = x.shape[-2], got[1].numel()
-    lib = hull_cuda.build()
-    closest = torch.empty(H, 3, dtype=torch.float32, device=x.device)
-    dist = torch.empty(H, dtype=torch.float32, device=x.device)
-    args = (x.data_ptr(), H, K, closest.data_ptr(), dist.data_ptr(),
-            torch.cuda.current_stream(x.device).cuda_stream)
+    prof = sfc_bench.launch_counts(lambda: [fn() for _ in range(reps)], dev)
+    seen = prof["device_kernels"]
+    return (prof["device_busy_ms"] / seen if seen else None), seen
 
-    def launch():
-        assert lib.hull_closest_launch(*args) == 0, what
 
-    ms = cuda_ms(launch, HULL_REPS)
-    assert torch.equal(closest, got[0].view(H, 3)) and torch.equal(dist, got[1].view(H)), what
-    prof = sfc_bench.launch_counts(lambda: [launch() for _ in range(HULL_REPS)], x.device)
-    seen = prof["device_kernels"]  # the profiler may miss a few ctypes launches
+def hull_timing(geometry, hull_cuda, builds, x, gpu, what):
+    """The hull kernel (hull_closest, build_lsc's query) on the hulls `x`
+    of a path's CLSC construction (its plain body's query): the kernel
+    against the plain enumeration (`hull_record`, noted as a check), its
+    ms a call by CUDA events over KERNEL_REPS launches queued back to
+    back, its device ms under torch.profiler, the plain enumeration's ms
+    on the card, and the bound of this call's work (`hull_bound`)."""
+    got = hull_cuda.closest_point_origin_to_hull_cuda(x)
+    check = hull_record(geometry, hull_cuda, x, got, "build_clsc (plain body)")
+    assert check["hulls_differing"] == 0 and check["not_odd"] == 0, (what, check)
+    builds.note_hull_check([check])
+    ms = queued_ms(lambda: hull_cuda.closest_point_origin_to_hull_cuda(x), KERNEL_REPS)
+    device_ms, seen = profiled_ms(lambda: hull_cuda.closest_point_origin_to_hull_cuda(x), x.device)
     plain_ms = cuda_ms(lambda: geometry.closest_point_origin_to_hull(x, plain=True), 10)
-    rec = {"shape": list(x.shape), "dim": 2 if not bool(x[..., 2].any()) else 3, "ms": ms,
-           "device_ms": prof["device_busy_ms"] / seen if seen else None,
-           "profiled_kernels": prof["device_kernels"], "plain_ms": plain_ms, **hull_bound(x)}
+    rec = {"shape": list(x.shape), "dim": check["dim"], "ms": ms, "device_ms": device_ms,
+           "profiled_kernels": seen, "plain_ms": plain_ms, **hull_bound(x)}
     rec["bound_share"] = rec["bound_ms"] / ms
     print(f"{what} hull timing", json.dumps(rec), f"[{gpu}]")
     return rec
 
 
-def clsc_split(workload, dev, gpu, reps=20):
-    """The main path's CLSC stage split into the hull query and the rest
-    of build_clsc, on the inputs of the step after WARMUP evolving steps
-    at A=1024: each one call under `torch.profiler` (device kernels and
-    device-busy ms, `sfc_bench.launch_counts`) and its ms by CUDA events
-    over `reps` calls. It needs nothing that older checkouts of the port
-    (from the one with tools/sfc_bench.py on) lack, so it can measure one:
-    import that checkout's package before this script."""
-    from lsc_dr_planner_tpu_torch.ops import geometry, lsc
-    from lsc_dr_planner_tpu_torch.tools import sfc_bench
+def clsc_args(call):
+    """(the 10 tensors, world_dimension) of a recorded build_clsc call."""
+    a, k = call[0], call[1]
+    return a[:10], k.get("world_dimension", a[10] if len(a) > 10 else None)
 
-    p, planner, fleet, inp = workload.build_fleet(A_MAIN, device=dev)
-    step = workload.make_evolve_step(p, planner, fleet)
-    for _ in range(WARMUP):
-        inp, _ = step(inp)
-    build, query = lsc.build_clsc, geometry.closest_point_origin_to_hull
-    seen = {}
 
-    def rec_build(*a, **k):
-        seen["build"] = (a, k)
-        return build(*a, **k)
+def clsc_check(lsc, builds, calls, what):
+    """The fused CLSC kernel against the plain body on the card, on the
+    recorded build_clsc calls of a path: the path's own result (the
+    kernel's), one more launch and the plain body (plain=True) on the
+    same inputs give equal normals, anchors and margins by value, element
+    for element. Returns the per-call records."""
+    assert calls.calls, f"{what}: no build_clsc call recorded"
+    recs = []
+    for call in calls.calls:
+        a, dim = clsc_args(call)
+        got = call[2]
+        assert not call[1].get("plain") and a[1].device.type == "cuda", what
+        again = lsc.build_clsc(*a, world_dimension=dim)
+        want = lsc.build_clsc(*a, world_dimension=dim, plain=True)
+        names = ("normals", "anchors", "margins")
+        n_diff = sum(differing(getattr(got, n), getattr(want, n))
+                     + differing(getattr(again, n), getattr(got, n)) for n in names)
+        A, O, M, N = a[1].shape[:4]
+        recs.append({"agents": A, "pairs": A * O, "hulls": A * O * M, "N": N, "dim": dim,
+                     "elements": sum(getattr(want, n).numel() for n in names),
+                     "masked_pairs": int((~a[9]).sum()), "elements_differing": n_diff,
+                     "max_abs_err": max(max_err(getattr(got, n), getattr(want, n))
+                                        for n in names)})
+    print(f"{what} clsc_check", json.dumps(recs))
+    assert all(r["elements_differing"] == 0 for r in recs), (what, recs)
+    builds.note_clsc_check(recs)
+    return recs
 
-    def rec_query(points, **k):
-        seen["query"] = points
+
+def clsc_plain_query(lsc, geometry, a, dim):
+    """The hull query's points of build_clsc's plain body on `a` (the
+    kernel queries the same hulls inside)."""
+    seen = []
+    query = geometry.closest_point_origin_to_hull
+
+    def record(points, **k):
+        seen.append(points)
         return query(points, **k)
 
-    lsc.build_clsc, geometry.closest_point_origin_to_hull = rec_build, rec_query
+    geometry.closest_point_origin_to_hull = record
     try:
-        planner._step_impl(fleet, inp)
+        lsc.build_clsc(*a, world_dimension=dim, plain=True)
     finally:
-        lsc.build_clsc, geometry.closest_point_origin_to_hull = build, query
-    a, k = seen["build"]
-    x = seen["query"]
-    res = {"package": str(Path(lsc.__file__).resolve().parents[1]), "hulls": x.shape[:3].numel(),
-           "gpu": gpu}
-    for name, fn in (("build_clsc", lambda: build(*a, **k)), ("hull_query", lambda: query(x))):
-        c = sfc_bench.launch_counts(fn, dev)
-        res[name] = {"device_kernels": c["device_kernels"], "device_busy_ms": c["device_busy_ms"],
-                     "host_launch_calls": c["host_launch_calls"], "ms": cuda_ms(fn, reps)}
-    res["rest"] = {key: res["build_clsc"][key] - res["hull_query"][key]
-                   for key in ("device_kernels", "device_busy_ms", "ms")}
-    print("clsc split", json.dumps(res), f"[{gpu}]")
-    return res
+        geometry.closest_point_origin_to_hull = query
+    (x,) = seen
+    return x
 
 
-def rounding_check(dev, n=1 << 20, seed=0):
-    """The rounding the hull enumeration pins (geometry.py::_dot3, _cross,
-    the float64 sqrt) is the same on `dev` as on the CPU, bit for bit, on
-    n random float32 triples (normal): what lets the CPU's twin and plain
-    version stand for the card's. Also counts the values where the ops
-    the pinning replaces (torch.sum of the products, torch.linalg.cross,
-    the float32 sqrt) differ on `dev` from the pinned ones."""
-    from lsc_dr_planner_tpu_torch.ops import geometry
-
-    g = torch.Generator().manual_seed(seed)
-    a, b = (torch.randn(n, 3, generator=g) for _ in range(2))
-
-    def pinned(a, b):
-        d2 = geometry._dot3(a, a)
-        return geometry._dot3(a, b), geometry._cross(a, b), torch.sqrt(d2.double()).float()
-
-    cpu = pinned(a, b)
-    a, b = a.to(dev), b.to(dev)
-    card = pinned(a, b)
-    for name, x, y in zip(("dot3", "cross", "sqrt"), card, cpu):
-        assert torch.equal(x.cpu(), y), f"pinned {name} differs between {dev} and the CPU"
-    d2 = geometry._dot3(a, a)
-    res = {"n": n, "device": str(dev), "pinned_equal_to_cpu": True,
-           "sum_vs_dot3": int((torch.sum(a * b, dim=-1) != card[0]).sum()),
-           "linalg_cross_vs_cross": int((torch.linalg.cross(a, b, dim=-1) != card[1]).sum()),
-           "sqrt_vs_float64_sqrt": int((torch.sqrt(d2) != card[2]).sum())}
-    print("rounding check", json.dumps(res))
-    return res
+# The CLSC construction's least operations beyond its hull queries
+# (`hull_ops`), counted as `hull_ops` counts: per hull, the 3·N
+# differences rel = init − obs, in 3-D the 2·N z-scalings, the normal's 3
+# divisions, N projections and margins (a dot product, an addition, a
+# halving each) and the world normal's division; per pair, the downwash
+# (5), the segment construction in full (69: 9 differences, 5 dot
+# products, the parameters' 13, both points' 12, the distance's 6),
+# normal_last (3), margin_last (2), the guard (1, then N differences and
+# dot products), in 3-D the goals' 2 z-scalings. Bytes: each input read
+# once (a pair's neighbour points, goal, radius, downwash, flags; an
+# agent's initial points, radius, downwash, goal), each output written once.
+CLSC_PAIR_OPS = 5 + 69 + 3 + 2 + 1
 
 
-def clsc_split_main():
-    """`clsc_split` alone on the card, for the checkout whose package is
-    imported (see `clsc_split`): one JSON line."""
-    from lsc_dr_planner_tpu_torch import workload
+def clsc_bound(a, dim, x):
+    """The least time of build_clsc on its inputs `a` (the hulls' points
+    `x` from its plain body) on an H100 SXM: the larger of its least
+    operations at FP32_OPS_PER_S and its bytes at 3.35 TB/s."""
+    A, O, M, N = a[1].shape[:4]
+    pairs, hulls = A * O, A * O * M
+    pts = M * N * 3 * 4
+    bytes_ = pairs * (pts + 12 + 4 + 4 + 1 + 1 + pts + M * 3 * 4 + M * N * 4) + A * (pts + 20)
+    hull = hull_ops(x)[0]
+    ops = (hull + hulls * (3 * N + (2 * N if dim == 3 else 0) + 3 + N * (DOT + 2) + 1)
+           + pairs * (CLSC_PAIR_OPS + N * (3 + DOT) + (2 if dim == 3 else 0)))
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    bytes_ms = bytes_ / 3.35e12 * 1e3
+    return {"pairs": pairs, "hulls": hulls, "N": N, "bytes": bytes_, "ops": ops,
+            "hull_ops": hull, "ops_per_hull": ops / hulls, "ops_ms": ops_ms,
+            "bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
-    clsc_split(workload, torch.device("cuda", 0), gpu_line())
+
+def clsc_timing(lsc, hull_cuda, geometry, calls, gpu, what):
+    """The fused CLSC kernel on the first recorded build_clsc call: its ms
+    a call by CUDA events over KERNEL_REPS launches queued back to back,
+    its device ms under torch.profiler, the plain body's ms on the card,
+    and the bound of this call's work (`clsc_bound`). Returns the record
+    and the hulls' points (for `hull_timing`)."""
+    a, dim = clsc_args(calls.calls[0])
+    a = tuple(t.contiguous() for t in a)
+
+    def launch():
+        return hull_cuda.build_clsc_cuda(*a, dim)
+
+    ms = queued_ms(launch, KERNEL_REPS)
+    device_ms, seen = profiled_ms(launch, a[1].device)
+    plain_ms = cuda_ms(lambda: lsc.build_clsc(*a, world_dimension=dim, plain=True), 5)
+    x = clsc_plain_query(lsc, geometry, a, dim)
+    rec = {"shape": list(a[1].shape), "dim": dim, "ms": ms, "device_ms": device_ms,
+           "profiled_kernels": seen, "plain_ms": plain_ms,
+           **clsc_bound(a, dim, x)}
+    rec["bound_share"] = rec["bound_ms"] / ms
+    print(f"{what} clsc timing", json.dumps(rec), f"[{gpu}]")
+    return rec, x
+
+
+def sfc_update_args(call):
+    """(args, kwargs) of a recorded update_sfc call, without `plain`."""
+    return call[0], {x: v for x, v in call[1].items() if x != "plain"}
+
+
+def sfc_hull_check(sfc, builds, calls, what, radius=None):
+    """The fused 'hull' SFC kernel against the plain body on the card, on
+    the recorded 'hull'-mode update_sfc calls of a path (`radius`
+    replaces their clamp): the path's own boxes (the kernel's), one more
+    launch and the plain body (plain=True: torch seeding and selection
+    around the plain loop, then sfc_to_world) give equal lattice boxes,
+    world boxes and lanes (seeds, results, seed-free flags), element for
+    element. Returns the per-call records."""
+    assert calls.calls, f"{what}: no 'hull' SFC update recorded"
+    recs = []
+    for call in calls.calls:
+        a, k = sfc_update_args(call)
+        got = call[2]
+        assert a[2].device.type == "cuda", what
+        if radius is not None:
+            k = {**k, "max_radius_cells": radius}
+            got = sfc.update_sfc(*a, **k)
+        again = sfc.update_sfc(*a, **k)
+        lanes = sfc.last_lanes
+        want = sfc.update_sfc(*a, **{**k, "plain": True})
+        n_diff = (sum(differing(g, w) + differing(r, g) for g, r, w in zip(got, again, want))
+                  + sum(differing(g, w) for g, w in zip(lanes, sfc.last_lanes)))
+        live = sfc.lane_trips(*sfc.last_lanes)
+        recs.append({"agents": a[2].shape[0], "lanes": len(live),
+                     "per_agent_images": a[0].blocked_cumsum.dim() == 4,
+                     "radius": k.get("max_radius_cells", 0), "seed_free": int(lanes[4].sum()),
+                     "longest_lane_trips": int(live.max()) if len(live) else 0,
+                     "elements": sum(t.numel() for t in (*want, *lanes)),
+                     "elements_differing": n_diff,
+                     "max_abs_err": max(max_err(g, w) for g, w in zip(got, want))})
+    print(f"{what} sfc_hull_check", json.dumps(recs))
+    assert all(r["elements_differing"] == 0 for r in recs), (what, recs)
+    builds.note_sfc_hull_check(recs)
+    return recs
 
 
 def sfc_check(sfc, builds, calls, what, radius=None):
-    """The SFC kernel against the plain loop on the card, on the lanes of
-    the recorded calls of a path (`radius` replaces their clamp): the
-    path's own result (the kernel's), one more launch of the kernel and
-    the plain loop (plain=True) on the same inputs give equal boxes and
-    seed-free flags, lane for lane. Returns the per-call records."""
+    """The SFC expansion kernel against the plain loop on the card, on the
+    lanes of the recorded expand_box calls of a path ('point' and
+    'substep' modes; `radius` replaces their clamp): the path's own
+    result (the kernel's), one more launch of the kernel and the plain
+    loop (plain=True) on the same inputs give equal boxes and seed-free
+    flags, lane for lane. Returns the per-call records."""
     assert calls.calls, f"{what}: no SFC call recorded"
     recs = []
-    for a, k, got in calls.calls:
+    for a, k, got, _ in calls.calls:
         assert not k.get("plain"), what
         if radius is not None:
             k = {**k, "max_radius_cells": radius}
@@ -825,12 +987,136 @@ def sfc_check(sfc, builds, calls, what, radius=None):
     return recs
 
 
-# The SFC kernel's operations per live lane-trip: 12 bound tests, 12
+def stage_split(fn, counters, dev, reps=20):
+    """One call of a stage's function fn() under torch.profiler (device
+    kernels and copies, device-busy ms, host launch calls), the launches
+    it added to each wrapper counter (`counters`: name -> fn() -> count),
+    and its ms by CUDA events over `reps` calls."""
+    from lsc_dr_planner_tpu_torch.tools import sfc_bench
+
+    fn()
+    torch.cuda.synchronize()
+    before = {n: c() for n, c in counters.items()}
+    prof = sfc_bench.launch_counts(fn, dev)
+    res = {key: prof[key] for key in ("device_kernels", "device_copies", "device_busy_ms",
+                                      "host_launch_calls")}
+    res["wrapper_launches"] = {n: c() - before[n] for n, c in counters.items()}
+    res["ms"] = cuda_ms(fn, reps)
+    return res
+
+
+def main_path_state(workload, dev):
+    """The planner and state of `build_fleet(A_MAIN)` after WARMUP
+    evolving steps."""
+    p, planner, fleet, inp = workload.build_fleet(A_MAIN, device=dev)
+    step = workload.make_evolve_step(p, planner, fleet)
+    for _ in range(WARMUP):
+        inp, _ = step(inp)
+    return planner, fleet, inp
+
+
+def clsc_split(workload, dev, gpu, reps=20):
+    """The main path's CLSC stage on the inputs of the step after WARMUP
+    evolving steps at A=1024, by `stage_split`: build_clsc, and its plain
+    body."""
+    from lsc_dr_planner_tpu_torch.ops import hull_cuda, lsc
+
+    planner, fleet, inp = main_path_state(workload, dev)
+    with Calls(lsc, "build_clsc") as c:
+        planner._step_impl(fleet, inp)
+    a, k = c.calls[0][:2]
+    counters = {"hull_closest": lambda: hull_cuda.launches,
+                "clsc_build": lambda: hull_cuda.clsc_launches}
+    res = {"gpu": gpu,
+           "build_clsc": stage_split(lambda: lsc.build_clsc(*a, **k), counters, dev, reps),
+           "plain_body": stage_split(lambda: lsc.build_clsc(*a, **k, plain=True), counters,
+                                     dev, reps)}
+    print("clsc split", json.dumps(res), f"[{gpu}]")
+    return res
+
+
+def sfc_split(workload, dev, gpu, reps=20):
+    """The main path's SFC stage ('hull' mode, sfc.update_sfc: the boxes
+    and their world boxes) on the inputs of the step after WARMUP
+    evolving steps at A=1024, by `stage_split`, and its plain body."""
+    from lsc_dr_planner_tpu_torch.ops import sfc, sfc_cuda
+
+    planner, fleet, inp = main_path_state(workload, dev)
+    with Calls(sfc, "update_sfc", accept=hull_mode) as c:
+        planner._step_impl(fleet, inp)
+    a, k = sfc_update_args(c.calls[0])
+    counters = {"sfc_update_hull": lambda: sfc_cuda.hull_launches,
+                "sfc_expand": lambda: sfc_cuda.launches}
+    res = {"agents": a[2].shape[0], "gpu": gpu,
+           "update_sfc": stage_split(lambda: sfc.update_sfc(*a, **k), counters, dev, reps),
+           "plain_body": stage_split(lambda: sfc.update_sfc(*a, **k, plain=True), counters,
+                                     dev, 2)}
+    print("sfc split", json.dumps(res), f"[{gpu}]")
+    return res
+
+
+def rounding_check(dev, n=1 << 20, seed=0):
+    """The rounding the plain versions pin is the same on `dev` as on the
+    CPU, bit for bit, on n random float32 inputs (normal): the 3-term
+    sums, cross products and square roots of the hull query and of
+    build_clsc's projections (geometry.py::_dot3, _cross, the float64
+    sqrt), build_clsc's segment construction
+    (geometry.closest_between_segments), and the SFC seeds
+    (world/grid.py's point_to_lattice_*: p / res a true division) with
+    the world boxes (sfc_to_world): what lets the CPU's twins and plain
+    versions stand for the card's. Also counts the values where the ops
+    the pinning replaces (torch.sum of the products, torch.linalg.cross,
+    the float32 sqrt, torch.einsum's projection, torch.linalg.vector_norm,
+    p divided by a Python float) differ on `dev` from the pinned ones."""
+    from lsc_dr_planner_tpu_torch.ops import geometry, sfc
+    from lsc_dr_planner_tpu_torch.world import grid
+
+    g = torch.Generator().manual_seed(seed)
+    a, b, c, d = (torch.randn(n, 3, generator=g) for _ in range(4))
+    pts = 20.0 * torch.randn(n, 3, generator=g)
+    boxes = torch.randint(-5, 110, (n, 3), generator=g, dtype=torch.int32)
+    world = grid.build_grid_world(np.zeros((0, 6)), [-5.0, -5.0, 0.0], [5.0, 5.0, 3.0], 0.1,
+                                  0.15, "cpu")
+
+    def pinned(w, a, b, c, d, pts, boxes):
+        return (geometry._dot3(a, b), geometry._cross(a, b),
+                torch.sqrt(geometry._dot3(a, a).double()).float(),
+                *geometry.closest_between_segments(a, b, c, d),
+                w.point_to_lattice_floor(pts), w.point_to_lattice_ceil(pts),
+                w.point_to_lattice_round(pts), *sfc.sfc_to_world(w, boxes, boxes + 7, 0.15))
+
+    names = ("dot3", "cross", "sqrt", "segment_cp", "segment_cq", "segment_dist",
+             "lattice_floor", "lattice_ceil", "lattice_round", "world_lo", "world_hi")
+    cpu = pinned(world, a, b, c, d, pts, boxes)
+    w_dev = grid.local_grid_world(world, world.blocked_cumsum.to(dev))
+    a, b, c, d, pts, boxes = (t.to(dev) for t in (a, b, c, d, pts, boxes))
+    card = pinned(w_dev, a, b, c, d, pts, boxes)
+    for name, x, y in zip(names, card, cpu):
+        assert torch.equal(x.cpu(), y), f"pinned {name} differs between {dev} and the CPU"
+    # build_clsc's projection: [hulls, N, 3] points against [hulls, 3] normals
+    rel, nrm = a.view(-1, 4, 3), b.view(-1, 4, 3)[:, 0]
+    res = {"n": n, "device": str(dev), "pinned_equal_to_cpu": list(names),
+           "sum_vs_dot3": int((torch.sum(a * b, dim=-1) != card[0]).sum()),
+           "linalg_cross_vs_cross": int((torch.linalg.cross(a, b, dim=-1) != card[1]).sum()),
+           "sqrt_vs_float64_sqrt": int((torch.sqrt(geometry._dot3(a, a)) != card[2]).sum()),
+           "einsum_vs_dot3_projection": int((torch.einsum("hnd,hd->hn", rel, nrm)
+                                             != geometry._dot3(rel, nrm[:, None])).sum()),
+           "vector_norm_vs_float64_sqrt": int((torch.linalg.vector_norm(a, dim=-1)
+                                               != card[2]).sum()),
+           "scalar_division_vs_pinned_floor": int(
+               (torch.floor(pts / 0.1 + 1e-6).to(torch.int32) - w_dev._origin_i
+                != card[6]).sum()),
+           "scalar_division_vs_pinned_round": int(
+               (torch.round(pts / 0.1).to(torch.int32) - w_dev._origin_i != card[8]).sum())}
+    print("rounding check", json.dumps(res))
+    return res
+
+
+# The SFC kernels' operations per live lane-trip: 12 bound tests, 12
 # clamps of the 8-corner query, 24 index operations (x·SY + y)·SZ + z,
 # the count's 7 additions and its test, 6 state updates
 SFC_OPS_PER_TRIP = 62
 FP32_OPS_PER_S = 67e12  # H100 SXM outside the tensor cores; its int32 rate is no higher
-SFC_REPS = 50
 
 
 # The hull query of build_clsc (ops/geometry.py::closest_point_origin_to_hull,
@@ -977,41 +1263,284 @@ def hull_bound(x):
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
-def sfc_timing(sfc, calls, l2_ns, gpu, what):
-    """The SFC kernel's ms per call (CUDA events, SFC_REPS launches of
-    `sfc.expand_box_kernel`, the launch without expand_box's trip count)
-    on the first recorded call, the plain loop's ms on the card on the
-    same lanes, and the bounds of this call's work: the bytes
-    (`sfc_bench.bound_bytes`: each lane's 8-corner seed query, at most
-    4 new corners per live lane-trip, each lane's seed, order and result
+def sfc_timing(sfc, lanes, l2_ns, gpu, what):
+    """The SFC expansion kernel (sfc_expand) on the lanes `lanes` = (args,
+    kwargs) of an expand_box call: its ms a call by CUDA events over
+    KERNEL_REPS launches queued back to back (`sfc.expand_box_kernel`,
+    the launch without expand_box's trip count), its device ms under
+    torch.profiler, the plain loop's ms on the card on the same lanes,
+    and the bounds of this call's work: the bytes
+    (`sfc_bench.bound_bytes`: each lane's 8-corner seed query, at most 4
+    new corners per live lane-trip, each lane's seed, order and result
     once, at 3.35 TB/s), the operations (SFC_OPS_PER_TRIP per live
     lane-trip at FP32_OPS_PER_S), the larger of which is `bound_ms`, and
-    beside them the latency floor (the longest lane's trips times one L2
-    round trip), which the bytes and operations bound do not see."""
+    beside them the latency floor (the longest lane's rounds in the
+    chain design, one L2 round trip each, `trip_bounds`), which the bytes
+    and operations bound do not see."""
     from lsc_dr_planner_tpu_torch.tools import sfc_bench
 
-    a, k, out = calls.calls[0]
-    lanes = a[1].shape[0]
-    kernel_k = {x: v for x, v in k.items() if x != "plain"}
-    ms = cuda_ms(lambda: sfc.expand_box_kernel(*a, **kernel_k), SFC_REPS)
-    plain_ms = cuda_ms(lambda: sfc.expand_box(*a, **{**k, "plain": True}), 2)
-    live = sfc.lane_trips(a[1], a[2], *out)
-    lane_total, longest = int(live.sum()), int(live.max())
-    bytes_ = sfc_bench.bound_bytes(lanes, lane_total)
-    bytes_ms = bytes_ / sfc_bench.HBM_BYTES_PER_S * 1e3
-    ops_ms = SFC_OPS_PER_TRIP * lane_total / FP32_OPS_PER_S * 1e3
-    rec = {"lanes": lanes, "radius": k.get("max_radius_cells", 0),
+    a, k = lanes
+    k = {x: v for x, v in k.items() if x != "plain"}
+    ms = queued_ms(lambda: sfc.expand_box_kernel(*a, **k), KERNEL_REPS)
+    device_ms, seen = profiled_ms(lambda: sfc.expand_box_kernel(*a, **k), a[1].device)
+    plain_ms = cuda_ms(lambda: sfc.expand_box(*a, **k, plain=True), 2)
+    live = sfc.lane_trips(a[1], a[2], *sfc.expand_box_kernel(*a, **k))
+    lanes_n, lane_total, longest = len(live), int(live.sum()), int(live.max())
+    r = k.get("max_radius_cells", 0)
+    outcomes = lane_outcomes(a[0], a[1], a[2], a[3], r, k.get("agent"), int(live.argmax()))
+    assert len(outcomes) == longest, (what, len(outcomes), longest)
+    bytes_ = sfc_bench.bound_bytes(lanes_n, lane_total)
+    rec = {"lanes": lanes_n, "radius": k.get("max_radius_cells", 0),
            "per_agent_images": k.get("agent") is not None, "lane_trips": lane_total,
-           "longest_lane_trips": longest, "ms": ms, "plain_ms": plain_ms,
-           "bytes": bytes_, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
-           "bound_ms": max(bytes_ms, ops_ms),
-           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-           "l2_round_trip_ns": l2_ns, "latency_floor_ms": longest * l2_ns * 1e-6,
-           "ms_per_longest_trip_us": ms * 1e3 / longest if longest else None}
-    rec["bound_share"] = rec["bound_ms"] / ms
-    rec["floor_share"] = rec["latency_floor_ms"] / ms
+           "longest_lane_trips": longest, "ms": ms, "device_ms": device_ms,
+           "profiled_kernels": seen, "plain_ms": plain_ms,
+           **trip_bounds(bytes_, SFC_OPS_PER_TRIP * lane_total, outcomes, l2_ns, ms)}
     print(f"{what} sfc timing", json.dumps(rec), f"[{gpu}]")
     return rec
+
+
+def lane_outcomes(gw, lo, hi, order, r, agent, i):
+    """The trip outcomes (True: the box grew) of lane i of an expansion,
+    by the sequential loop on the CPU (the plain loop's algorithm, one
+    lane)."""
+    from lsc_dr_planner_tpu_torch.ops import sfc
+
+    S = gw.blocked_cumsum if agent is None else gw.blocked_cumsum[int(agent[i])]
+    S = S.cpu().numpy().astype(np.int64)
+    dims = gw.dims
+
+    def free(b):
+        x0, y0, z0 = (min(max(v, 0), e - 2) for v, e in zip(b[:3], S.shape))
+        x1, y1, z1 = (min(max(v + 1, 0), e - 1) for v, e in zip(b[3:], S.shape))
+        return (S[x1, y1, z1] - S[x0, y1, z1] - S[x1, y0, z1] - S[x1, y1, z0] + S[x0, y0, z1]
+                + S[x0, y1, z0] + S[x1, y0, z0] - S[x0, y0, z0]) == 0
+
+    b = [int(v) for v in lo[i]] + [int(v) for v in hi[i]]
+    o = [int(v) for v in order[i]]
+    lim = ([max(0, v - r) if r > 0 else 0 for v in b[:3]]
+           + [min(d, v + r) if r > 0 else d for v, d in zip(b[3:], dims)])
+    if not (free(b) and min(b[:3]) >= 0 and all(v <= d for v, d in zip(b[3:], dims))):
+        return []
+    active, ptr, out = 0x3F, 0, []
+    while active and len(out) < sfc._max_trips(r):
+        slot = next(s_ for p in range(6) for s_ in [(ptr + p) % 6] if (active >> s_) & 1)
+        d = o[slot]
+        nb = list(b)
+        nb[d] += -1 if d < 3 else 1
+        ok = (nb[d] >= lim[d] if d < 3 else nb[d] <= lim[d]) and free(nb)
+        out.append(ok)
+        if ok:
+            b, ptr = nb, (slot + 1) % 6
+        else:
+            active, ptr = active & ~(1 << slot), slot
+    return out
+
+
+def chain_rounds(outcomes, width=32):
+    """Rounds of the chain design for a lane with these trip outcomes:
+    each resolves the growths up to and with the first failing trip, at
+    most `width` trips."""
+    rounds = k = 0
+    while k < len(outcomes):
+        run = 0
+        while run < width and k + run < len(outcomes) and outcomes[k + run]:
+            run += 1
+        k += run + (run < width and k + run < len(outcomes))
+        rounds += 1
+    return rounds
+
+
+def trip_bounds(bytes_, ops, outcomes, l2_ns, ms):
+    """An SFC kernel's bounds: bytes at 3.35 TB/s, operations at
+    FP32_OPS_PER_S, the larger of them (`bound_ms`), and the latency
+    floor: the longest lane's rounds in the chain design (its trip
+    `outcomes`: `chain_rounds`), one L2 round trip each; each as a share
+    of `ms`."""
+    bytes_ms = bytes_ / 3.35e12 * 1e3
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    rounds = chain_rounds(outcomes)
+    floor_ms = rounds * l2_ns * 1e-6
+    return {"bytes": bytes_, "bytes_ms": bytes_ms, "ops": ops, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_share": max(bytes_ms, ops_ms) / ms, "l2_round_trip_ns": l2_ns,
+            "longest_lane_rounds": rounds, "latency_floor_ms": floor_ms,
+            "floor_share": floor_ms / ms,
+            "ms_per_longest_trip_us": ms * 1e3 / len(outcomes) if outcomes else None}
+
+
+def fused_lanes(sfc, call):
+    """The lanes of a recorded 'hull' update (its seeds in the default
+    direction order, each agent's on its own image in a per-agent view)
+    as an expand_box call's (args, kwargs)."""
+    a, k = sfc_update_args(call)
+    sfc.update_sfc(*a, **k)
+    lo, hi = sfc.last_lanes[:2]
+    gw, dev = a[0], lo.device
+    agent = None
+    if gw.blocked_cumsum.dim() == 4:
+        agent = torch.arange(len(lo) // 3, device=dev).repeat_interleave(3)
+    return ((gw, lo, hi, sfc.default_axis_order(len(lo), dev).contiguous()),
+            {"max_radius_cells": k.get("max_radius_cells", 0), "agent": agent})
+
+
+# The fused 'hull' update's work beyond the expansion, per agent: its
+# seeds (3 lanes × 6 faces × at most 3 operations), the containment tests
+# of lanes 1 and 2 (2 × 3 axes × 6: the world box's face, its shift, the
+# 1e-6 slack, both sides), and its M world boxes (6 faces × 3). Bytes per
+# agent beyond the expansion's: its 4 points, its M previous boxes and
+# init_done read, its M boxes and world boxes and its 3 lanes (seeds,
+# results, seed-free flags) written.
+SFC_AGENT_OPS = 54 + 36
+
+
+def sfc_hull_timing(sfc, calls, l2_ns, gpu, what):
+    """The fused 'hull' SFC kernel on the first recorded 'hull' update: its
+    ms a call by CUDA events over KERNEL_REPS launches queued back to back
+    (through sfc.update_sfc), its device ms under torch.profiler, the
+    plain body's ms on the card, and the bounds of this call's work
+    (`trip_bounds`: the expansion's bytes and operations as sfc_timing
+    counts them, without a lane's seed and order read, plus the agents'
+    own, SFC_AGENT_OPS)."""
+    from lsc_dr_planner_tpu_torch.tools import sfc_bench
+
+    a, k = sfc_update_args(calls.calls[0])
+    ms = queued_ms(lambda: sfc.update_sfc(*a, **k), KERNEL_REPS)
+    device_ms, seen = profiled_ms(lambda: sfc.update_sfc(*a, **k), a[2].device)
+    plain_ms = cuda_ms(lambda: sfc.update_sfc(*a, **k, plain=True), 2)
+    (gw, lo, hi, order), lk = fused_lanes(sfc, calls.calls[0])
+    live = sfc.lane_trips(*sfc.last_lanes)
+    lanes_n, lane_total, longest = len(live), int(live.sum()), int(live.max())
+    outcomes = lane_outcomes(gw, lo, hi, order, lk["max_radius_cells"], lk["agent"],
+                             int(live.argmax()))
+    assert len(outcomes) == longest, (what, len(outcomes), longest)
+    A, M = a[2].shape[:2]
+    bytes_ = (sfc_bench.SEED_BYTES * lanes_n + sfc_bench.TRIP_BYTES * lane_total
+              + A * (4 * 12 + 2 * M * 12 + 1 + 4 * M * 12 + 3 * (4 * 12 + 1)))
+    ops = SFC_OPS_PER_TRIP * lane_total + A * (SFC_AGENT_OPS + 18 * M)
+    rec = {"agents": A, "lanes": lanes_n, "radius": k.get("max_radius_cells", 0),
+           "per_agent_images": a[0].blocked_cumsum.dim() == 4, "lane_trips": lane_total,
+           "longest_lane_trips": longest, "ms": ms, "device_ms": device_ms,
+           "profiled_kernels": seen, "plain_ms": plain_ms,
+           **trip_bounds(bytes_, ops, outcomes, l2_ns, ms)}
+    print(f"{what} sfc_hull timing", json.dumps(rec), f"[{gpu}]")
+    return rec
+
+
+def kernel_name(mangled):
+    """A kernel's name and template arguments from its mangled name:
+    e.g. hull_closest_kernel<6>."""
+    found = None  # the last length-prefixed name that ends in _kernel
+    for m in re.finditer(r"\d+", mangled):
+        n, end = int(m.group()), m.end()
+        name = mangled[end:end + n]
+        if len(name) == n and name.endswith("_kernel"):
+            args = re.findall(r"L[ib](\d+)E", mangled[end + n:])
+            found = name + (f"<{','.join(args)}>" if args else "")
+    return found or mangled
+
+
+def ptxas_summary(log):
+    """{kernel: {registers, spill_bytes, smem_bytes}} from nvcc's
+    -Xptxas -v output."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = kernel_name(m.group(1))
+            out[name] = {"registers": None, "spill_bytes": 0, "smem_bytes": 0}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            out[name]["smem_bytes"] = int(m.group(2) or 0)
+    return out
+
+
+def sass_counts(lib):
+    """Per kernel of the shared library `lib`, from `cuobjdump -sass`: its
+    SASS instructions, global loads (LDG) and branches (BRA); None where
+    the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True).stdout
+    res, name = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = kernel_name(m.group(1))
+            res[name] = {"instructions": 0, "LDG": 0, "BRA": 0}
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z0-9_.]+)", line)
+        if name and m:
+            op = m.group(2).split(".")[0]
+            res[name]["instructions"] += 1
+            if op in ("LDG", "BRA"):
+                res[name][op] += 1
+    return res
+
+
+def sfc_probe(workload, dev, gpu, l2_ns=None):
+    """Why an expansion trip costs what it does, on the main path's lanes
+    (the SFC update of the step after WARMUP evolving steps at A=1024,
+    with its clamp): the expansion kernel's ms (queued back to back) on
+    all lanes and on the longest lane alone, as µs per trip of the
+    longest lane and in L2 round trips (`sfc_cuda.l2_round_trip_ns`),
+    and one dependent 8-corner query (`query_round_trip_ns`); and the SASS of the kernel
+    library (`sass_counts`). It runs on older checkouts of the port (from
+    the one with tools/sfc_bench.py on) as `clsc_split` does."""
+    from lsc_dr_planner_tpu_torch.ops import cuda_build, sfc, sfc_cuda
+
+    planner, fleet, inp = main_path_state(workload, dev)
+    fused = hasattr(sfc, "update_sfc")
+    if fused:  # the 'hull' update is one fused launch: its lanes
+        with Calls(sfc, "update_sfc", accept=hull_mode) as c:
+            planner._step_impl(fleet, inp)
+        (gw, lo, hi, order), k = fused_lanes(sfc, c.calls[0])
+    else:
+        with Calls(sfc, "expand_box") as c:
+            planner._step_impl(fleet, inp)
+        a, k = c.calls[0][:2]
+        gw, lo, hi, order = a[0], a[1], a[2], a[3].to(torch.int64).contiguous()
+    r = k.get("max_radius_cells", 0)
+    live = sfc.lane_trips(lo, hi, *sfc.expand_box_kernel(gw, lo, hi, order, r))
+    i = int(live.argmax())
+    longest = int(live[i])
+    l2 = l2_ns if l2_ns is not None else sfc_cuda.l2_round_trip_ns(dev)
+    rows = []
+    for name, lanes in (("all", (lo, hi, order)),
+                        ("longest_alone", tuple(t[i:i + 1].contiguous()
+                                                for t in (lo, hi, order)))):
+        ms = queued_ms(lambda: sfc_cuda.expand_box_cuda(
+            gw.blocked_cumsum, gw.dims, *lanes, r, sfc._max_trips(r), None), KERNEL_REPS)
+        rows.append({"lanes": name, "n_lanes": len(lanes[0]), "ms": ms,
+                     "us_per_trip": ms * 1e3 / longest,
+                     "l2_round_trips_per_trip": ms * 1e6 / longest / l2})
+    res = {"package": str(Path(sfc.__file__).resolve().parents[1]), "lanes": len(lo),
+           "lane_trips": int(live.sum()), "longest_lane_trips": longest, "radius": r,
+           "image": list(gw.blocked_cumsum.shape),
+           "image_mib": gw.blocked_cumsum.numel() * 4 / 2**20, "l2_round_trip_ns": l2,
+           "rows": rows, "gpu": gpu}
+    if hasattr(sfc_cuda, "query_round_trip_ns"):
+        q = sfc_cuda.query_round_trip_ns(gw.blocked_cumsum)
+        res.update(query_ns=q, query_l2_round_trips=q / l2)
+    res["sass"] = sass_counts(cuda_build.library_path(sfc_cuda.SOURCE))
+    print("sfc probe", json.dumps(res), f"[{gpu}]")
+    return res
+
+
+def sfc_probe_main():
+    """`sfc_probe` alone on the card, for the checkout whose package is
+    imported (see `sfc_probe`): one JSON line."""
+    from lsc_dr_planner_tpu_torch import workload
+
+    sfc_probe(workload, torch.device("cuda", 0), gpu_line())
 
 
 def min_pair_distance_now(pos, dim, downwash):
@@ -1023,6 +1552,32 @@ def min_pair_distance_now(pos, dim, downwash):
         q[:, 2] = q[:, 2] / downwash
     d = torch.cdist(q, q) + torch.eye(len(q), device=q.device) * 1e9
     return d.min().item()
+
+
+def unconverged_steps(qp, planner, fleet, states, convs, out_dir):
+    """For each step whose QP left agents unconverged (`convs`, the
+    steps' converged shares; `states`, each step's input state): that
+    step's QP solved again from its state by the kernel and by the plain
+    loop (qp.solve, plain=True), and the agents each leaves unconverged:
+    whether the QP itself, and not the kernel, holds them. The step's QP
+    inputs, its QPConfig and tolerance go to
+    `out_dir/unconverged_qp_step<i>.npz`, for solvers off the card."""
+    out = []
+    for i, (inp, conv) in enumerate(zip(states, convs)):
+        if conv >= 1.0:
+            continue
+        cfg, tol = planner.qp_cfg, planner.feas_tol
+        qp_inp = planner._step_impl(fleet, inp, defer_qp=True).qp_inp
+        got, want = qp.solve(cfg, qp_inp, tol), qp.solve(cfg, qp_inp, tol, plain=True)
+        out.append({"step": i, "converged_share": conv,
+                    "kernel_unconverged": torch.nonzero(~got.converged).flatten().tolist(),
+                    "plain_unconverged": torch.nonzero(~want.converged).flatten().tolist()})
+        np.savez_compressed(
+            out_dir / f"unconverged_qp_step{i}.npz", feas_tol=tol,
+            cfg=json.dumps(dataclasses.asdict(cfg)),
+            **{f.name: getattr(qp_inp, f.name).cpu().numpy()
+               for f in dataclasses.fields(qp_inp) if getattr(qp_inp, f.name) is not None})
+    return out
 
 
 # ---- phase 8: the fused step in the other planner modes ------------------
@@ -1058,12 +1613,15 @@ def fused_mode(workload, qp, builds, dev, gpu, tag, overrides, steps=True,
                float64_clause=False, l2_ns=None):
     """One planner mode at A=1024: loop_check on the QP after 3 evolving
     steps and on its compacted rescue, the loop timed, then (with `steps`)
-    3 warm-up and 10 timed steps, `sfc_check` on the first and sixth
-    timed steps' SFC calls and the SFC kernel timed on the first; in the
-    LSC family `hull_check` on the same steps' hull queries and the hull
-    kernel timed on the first (BVC and RSFC make none)."""
-    from lsc_dr_planner_tpu_torch.config import PlannerMode
-    from lsc_dr_planner_tpu_torch.ops import geometry, hull_cuda, sfc
+    3 warm-up and 10 timed steps, each geometry kernel launched once a
+    call of its function, the SFC kernels held to their plain versions
+    on the first and sixth timed steps' SFC calls (`sfc_hull_check` in
+    'hull' mode, `sfc_check` in 'point' and 'substep') and timed on the
+    first; with DR goals in the LSC family `clsc_check` on the same steps'
+    CLSC constructions and the fused CLSC kernel timed on the first (BVC
+    and RSFC make none)."""
+    from lsc_dr_planner_tpu_torch.config import GoalMode, PlannerMode
+    from lsc_dr_planner_tpu_torch.ops import geometry, hull_cuda, lsc, sfc
 
     p, planner, fleet, inp = workload.build_fleet(A_MAIN, device=dev, timing=True, **overrides)
     step = workload.make_evolve_step(p, planner, fleet)
@@ -1109,7 +1667,9 @@ def fused_mode(workload, qp, builds, dev, gpu, tag, overrides, steps=True,
         dists.append(min_pair_distance_now(inp.pos, p.world_dimension,
                                            float(fleet.downwash[0])))
 
-    with SfcCalls(sfc, every=TIMED8 // 2) as calls, HullCalls(geometry, every=TIMED8 // 2) as hulls:
+    recorders = path_calls(sfc, lsc, geometry, every=TIMED8 // 2)
+    sfcs, expands, clscs, hulls = recorders
+    with sfcs, expands, clscs, hulls:
         inp, lat, stages, convs = admm_timing.timed_steps(step, planner, inp, TIMED8, check)
     launches = builds.add_path_launches()
     lane_trips = sfc.read_lane_trips()
@@ -1125,15 +1685,26 @@ def fused_mode(workload, qp, builds, dev, gpu, tag, overrides, steps=True,
     print(f"phase{tag}", json.dumps({k: v for k, v in res.items()
                                       if k not in ("check", "rescue_check", "timing")}))
     lsc_family = p.planner_mode in (PlannerMode.LSC, PlannerMode.DLSC)
-    builds.assert_launched(launches, f"phase {tag}", hull=lsc_family)
-    assert launches["sfc_expand"] == calls.n, (tag, launches, calls.n)  # every SFC update
-    assert launches["hull_closest"] == hulls.n, (tag, launches, hulls.n)  # every hull query
+    dr = lsc_family and p.goal_mode == GoalMode.GRID_BASED_PLANNER
+    builds.assert_launched(launches, f"phase {tag}", hull=lsc_family, clsc=dr,
+                           sfc_hull=dr and not planner.substep)
+    assert_one_launch_a_call(launches, recorders, f"phase {tag}")
     assert sfc.syncs == 0 and sfc.trips == 0, f"phase {tag}: the plain SFC loop ran"
-    res["sfc_check"] = sfc_check(sfc, builds, calls, f"phase{tag}")
-    res["sfc_timing"] = sfc_timing(sfc, calls, l2_ns, gpu, f"phase{tag}")
-    if lsc_family:
-        res["hull_check"] = hull_check(geometry, hull_cuda, builds, hulls, f"phase{tag}")
-        res["hull_timing"] = hull_timing(geometry, hull_cuda, hulls, gpu, f"phase{tag}")
+    assert sfcs.n + expands.n == TIMED8 and clscs.n == (TIMED8 if dr else 0), (tag, clscs.n)
+    res["launches_per_call"] = {
+        "clsc_build": launches["clsc_build"] / clscs.n if clscs.n else None,
+        "sfc_update_hull": launches["sfc_update_hull"] / sfcs.n if sfcs.n else None,
+        "sfc_expand": launches["sfc_expand"] / expands.n if expands.n else None}
+    if sfcs.n:
+        res["sfc_hull_check"] = sfc_hull_check(sfc, builds, sfcs, f"phase{tag}")
+        res["sfc_hull_timing"] = sfc_hull_timing(sfc, sfcs, l2_ns, gpu, f"phase{tag}")
+    if expands.n:
+        res["sfc_check"] = sfc_check(sfc, builds, expands, f"phase{tag}")
+        res["sfc_timing"] = sfc_timing(sfc, expands.calls[0][:2], l2_ns, gpu, f"phase{tag}")
+    if clscs.n:
+        res["clsc_check"] = clsc_check(lsc, builds, clscs, f"phase{tag}")
+        res["clsc_timing"], x = clsc_timing(lsc, hull_cuda, geometry, clscs, gpu, f"phase{tag}")
+        res["hull_timing"] = hull_timing(geometry, hull_cuda, builds, x, gpu, f"phase{tag}")
     sep = 2 * 0.15 - feas_tol
     if tag in JAX_CPU_1024:
         conv_ref, sep_ref = JAX_CPU_1024[tag]
@@ -1171,7 +1742,7 @@ def phase9_flights():
 def fly(workload, qp, builds, dev, gpu, work, tag, overrides, obstacles, max_iter):
     from lsc_dr_planner_tpu_torch.config import Param
     from lsc_dr_planner_tpu_torch.mission import Mission
-    from lsc_dr_planner_tpu_torch.ops import geometry, hull_cuda
+    from lsc_dr_planner_tpu_torch.ops import geometry, lsc, sfc
     from lsc_dr_planner_tpu_torch.sim.simulator import MultiSyncSimulator
 
     m = workload.forest_mission(10)
@@ -1188,7 +1759,9 @@ def fly(workload, qp, builds, dev, gpu, work, tag, overrides, obstacles, max_ite
     ck_dir.mkdir(exist_ok=True)
     builds.reset_launches()
     t0 = time.perf_counter()
-    with HullCalls(geometry, every=25) as hulls:
+    recorders = path_calls(sfc, lsc, geometry, every=25)
+    sfcs, expands, clscs, hulls = recorders
+    with sfcs, expands, clscs, hulls:
         r, cks = run_checkpointed(sim, max_iter, ck_dir, steps=CK9)
     wall = time.perf_counter() - t0
     d_goal = np.linalg.norm(sim.pos - sim.desired_goal, axis=-1)
@@ -1206,11 +1779,16 @@ def fly(workload, qp, builds, dev, gpu, work, tag, overrides, obstacles, max_ite
         res["stage_ms_mean"] = stage_ms_mean(sim)
     print(f"phase{tag}", json.dumps(res))
     check_audit(r, f"phase {tag}")
-    builds.assert_launched(res["kernel_launches"], f"phase {tag}")
-    assert res["kernel_launches"]["hull_closest"] == hulls.n, (tag, hulls.n)
+    builds.assert_launched(res["kernel_launches"], f"phase {tag}", clsc=True,
+                           sfc_hull=not sim.planner.substep)
+    assert_one_launch_a_call(res["kernel_launches"], recorders, f"phase {tag}")
     if obstacles:
         assert r["safety_ratio_obs"] >= 1.0, res
-    res["hull_check"] = hull_check(geometry, hull_cuda, builds, hulls, f"phase{tag}")
+    res["clsc_check"] = clsc_check(lsc, builds, clscs, f"phase{tag}")
+    if sfcs.n:
+        res["sfc_hull_check"] = sfc_hull_check(sfc, builds, sfcs, f"phase{tag}")
+    else:
+        res["sfc_check"] = sfc_check(sfc, builds, expands, f"phase{tag}")
     planner_k, qp_inp_k = step_qp(param, mission, sim, cks[0], str(work))
     cfg_k, tol_k = planner_k.qp_cfg, planner_k.feas_tol
     li_k = qp.prepare(cfg_k, qp_inp_k).loop
@@ -1257,13 +1835,14 @@ LOCAL_FLIGHTS = (("11a", 10, 0, 300, (3,)), ("11b", 64, 1, 400, (1, 2, 3)))
 def local_flight(workload, qp, builds, dev, gpu, work, tag, A, seed, max_iter, cks):
     """forest_mission(A, seed) flown to its goals in local-sensing mode by
     `MultiSyncSimulator.run` on the card, checkpointed after the planner
-    steps `cks`: the audit, the kernels' launches, `sfc_check` on the
-    SFC calls of planner steps 1 and 26 (per-agent images), the maps each
+    steps `cks`: the audit, the kernels' launches, `sfc_hull_check` on
+    the SFC updates of planner steps 1 and 26 (per-agent images) and
+    `clsc_check` on the same steps' CLSC constructions, the maps each
     checkpoint restores (identical to the flight's at that step), and
     `loop_check` on the QP of the step after the last checkpoint.
     Returns (simulator, param, mission, checkpoint paths, record)."""
     from lsc_dr_planner_tpu_torch.config import Param
-    from lsc_dr_planner_tpu_torch.ops import geometry, hull_cuda, sfc
+    from lsc_dr_planner_tpu_torch.ops import geometry, lsc, sfc
     from lsc_dr_planner_tpu_torch.sim.simulator import MultiSyncSimulator
 
     mission = workload.forest_mission(A, seed)
@@ -1279,7 +1858,9 @@ def local_flight(workload, qp, builds, dev, gpu, work, tag, A, seed, max_iter, c
 
     builds.reset_launches()
     t0 = time.perf_counter()
-    with SfcCalls(sfc, every=25) as calls, HullCalls(geometry, every=25) as hulls:
+    recorders = path_calls(sfc, lsc, geometry, every=25)
+    sfcs, expands, clscs, hulls = recorders
+    with sfcs, expands, clscs, hulls:
         r, ck_paths = run_checkpointed(sim, max_iter, ck_dir, steps=cks, on_save=snap)
     wall = time.perf_counter() - t0
     d_goal = np.linalg.norm(sim.pos - sim.desired_goal, axis=-1)
@@ -1302,11 +1883,11 @@ def local_flight(workload, qp, builds, dev, gpu, work, tag, A, seed, max_iter, c
         res["sfc_search_ms_mean"] = res["stage_ms_mean"]["sfc"] - ms["local_map"]["mean"]
     print(f"phase{tag}", json.dumps(res))
     check_audit(r, f"phase {tag}")
-    builds.assert_launched(res["kernel_launches"], f"phase {tag}")
-    assert res["kernel_launches"]["hull_closest"] == hulls.n, (tag, hulls.n)
-    res["sfc_check"] = sfc_check(sfc, builds, calls, f"phase{tag}")
-    assert all(c["per_agent_images"] for c in res["sfc_check"]), res["sfc_check"]
-    res["hull_check"] = hull_check(geometry, hull_cuda, builds, hulls, f"phase{tag}")
+    builds.assert_launched(res["kernel_launches"], f"phase {tag}", clsc=True, sfc_hull=True)
+    assert_one_launch_a_call(res["kernel_launches"], recorders, f"phase {tag}")
+    res["sfc_hull_check"] = sfc_hull_check(sfc, builds, sfcs, f"phase{tag}")
+    assert all(c["per_agent_images"] for c in res["sfc_hull_check"]), res["sfc_hull_check"]
+    res["clsc_check"] = clsc_check(lsc, builds, clscs, f"phase{tag}")
     assert res["min_pair_distance"] >= 2 * 0.15 - sim.planner.feas_tol, res
     assert 0 < res["known_cells"] <= res["true_cells"], res
     assert sim.sense_time.N == sim.planner_seq and sim.merge_time.N == sim.planner_seq
@@ -1339,9 +1920,10 @@ def montecarlo_run(workload, qp, builds, dev, gpu, work):
     scenarios that arrive and the agents home in each, per step the phase
     times, scenario·agent-steps/s and QP convergence, and
     `loop_check` on one step's flattened QP and its compacted rescue;
-    `sfc_check` on the SFC calls of iterations 0 and 50."""
+    `sfc_hull_check` and `clsc_check` on the SFC updates and CLSC
+    constructions of iterations 0 and 50."""
     from lsc_dr_planner_tpu_torch.config import Param
-    from lsc_dr_planner_tpu_torch.ops import geometry, hull_cuda, sfc
+    from lsc_dr_planner_tpu_torch.ops import geometry, lsc, sfc
     from lsc_dr_planner_tpu_torch.sim.montecarlo import MonteCarloSimulator
 
     param = Param(multisim_save_result=False, multisim_max_planner_iteration=MC_MAX_ITER)
@@ -1349,10 +1931,13 @@ def montecarlo_run(workload, qp, builds, dev, gpu, work):
                              max_noise=MC_NOISE, log_dir=str(work), device=dev)
     A = mc.sims[0].A
     res = {"S": MC_S, "A": A, "max_noise": MC_NOISE, "gpu": gpu}
-    steps, before, check_hulls = [], {}, 0
+    steps, before = [], {}
+    recorders = path_calls(sfc, lsc, geometry, every=50)
+    sfcs, expands, clscs, hulls = recorders
+    check_calls = [0] * len(recorders)
     builds.reset_launches()
     t_run = time.perf_counter()
-    with SfcCalls(sfc, every=50) as calls, HullCalls(geometry, every=50) as hulls:
+    with sfcs, expands, clscs, hulls:
         for it in range(MC_MAX_ITER):
             if all(sim.is_finished() for sim in mc.sims):
                 break
@@ -1362,7 +1947,7 @@ def montecarlo_run(workload, qp, builds, dev, gpu, work):
                 # the kernel against the plain loop on this step's batch; its
                 # launches, and chunk_qp's hull query, are not the path's
                 before = builds.add_path_launches()
-                t_check, hulls_n0 = time.perf_counter(), hulls.n
+                t_check, n0 = time.perf_counter(), [r.n for r in recorders]
                 _, batch, B = prep
                 cfg, tol = mc.planner.qp_cfg, mc.planner.feas_tol
                 li = qp.prepare(cfg, mc.chunk_qp(batch, 0, min(B, 32)).qp_inp).loop
@@ -1380,7 +1965,7 @@ def montecarlo_run(workload, qp, builds, dev, gpu, work):
                     lambda: qp.admm_loop_plain(cfg, li, cfg.max_iter, tol), 2)
                 print("phase12a timing", json.dumps(res["loop_timing"]), f"[{gpu}]")
                 builds.reset_launches()
-                check_hulls = hulls.n - hulls_n0
+                check_calls = [r.n - n for r, n in zip(recorders, n0)]
                 t0 += time.perf_counter() - t_check
             mc.plan_prepared(*prep)
             wall = time.perf_counter() - t0
@@ -1425,13 +2010,14 @@ def montecarlo_run(workload, qp, builds, dev, gpu, work):
         steps=steps)
     print("phase12a", json.dumps({k: v for k, v in res.items()
                                   if k not in ("steps", "kernel_check", "rescue_check")}))
-    builds.assert_launched(res["kernel_launches"], "phase 12a")
+    builds.assert_launched(res["kernel_launches"], "phase 12a", clsc=True, sfc_hull=True)
     assert res["kernel_check"]["A"] == MC_S * A, res["kernel_check"]["A"]
-    assert res["kernel_launches"]["hull_closest"] == hulls.n - check_hulls, (hulls.n,
-                                                                             check_hulls)
-    res["sfc_check"] = sfc_check(sfc, builds, calls, "phase12a")
-    assert res["sfc_check"][0]["lanes"] == 3 * MC_S * A, res["sfc_check"]
-    res["hull_check"] = hull_check(geometry, hull_cuda, builds, hulls, "phase12a")
+    got = tuple(res["kernel_launches"][k] for k in ("sfc_update_hull", "sfc_expand",
+                                                    "clsc_build", "hull_closest"))
+    assert got == tuple(r.n - c for r, c in zip(recorders, check_calls)), (got, check_calls)
+    res["sfc_hull_check"] = sfc_hull_check(sfc, builds, sfcs, "phase12a")
+    assert res["sfc_hull_check"][0]["lanes"] == 3 * MC_S * A, res["sfc_hull_check"]
+    res["clsc_check"] = clsc_check(lsc, builds, clscs, "phase12a")
     return res
 
 
@@ -1466,7 +2052,7 @@ def montecarlo_chunks(workload, builds, dev, gpu, work):
                                   for c in range(len(mc.chunk_peak_bytes))],
            "kernel_launches": builds.add_path_launches(), "gpu": gpu}
     print("phase12b", json.dumps({k: v for k, v in res.items() if k != "steps"}))
-    builds.assert_launched(res["kernel_launches"], "phase 12b")
+    builds.assert_launched(res["kernel_launches"], "phase 12b", clsc=True, sfc_hull=True)
     return res
 
 
@@ -1552,7 +2138,7 @@ def phase13(workload, builds, dev, gpu, work, sim6):
             diffs = max_diffs(want, out)
             print(f"phase13 {name}: kernel launches {launches}, largest difference from the "
                   f"unsharded step {json.dumps(diffs)}")
-            builds.assert_launched(launches, f"phase 13 {name}")
+            builds.assert_launched(launches, f"phase 13 {name}", clsc=True, sfc_hull=True)
             assert_step_close(want, out, f"phase13 {name}")
             ms[name] = cuda_ms(lambda: mesh.gather_outputs(fn(f_l, i_l), group), P13_REPS)
             res[name] = {"kernel_launches": launches, "max_diff": diffs}
@@ -1633,6 +2219,7 @@ def phase14(qp, builds, dev, gpu, work):
     where their world has a map ((c) and (e) fly open worlds with
     world_use_octomap off: no SFC update); each passes its audit."""
     from lsc_dr_planner_tpu_torch.config import PlannerMode
+    from lsc_dr_planner_tpu_torch.ops import lsc
     from lsc_dr_planner_tpu_torch.tools import (
         dlsc_openworld, fuzz_missions, mc_pod_bench, qp_forensics, scale_demo, sfc_bench,
     )
@@ -1640,10 +2227,10 @@ def phase14(qp, builds, dev, gpu, work):
     t0 = time.perf_counter()
     res = {"gpu": gpu}
 
-    def launched(what, sfc=True):
+    def launched(what, sfc=True, **fused):
         launches = builds.add_path_launches()
         print(f"phase14 {what}: kernel launches {json.dumps(launches)}")
-        builds.assert_launched(launches, f"phase 14 {what}", sfc)
+        builds.assert_launched(launches, f"phase 14 {what}", sfc, **fused)
         return launches
 
     # (a) the SFC update alone, plain loop and kernel
@@ -1652,7 +2239,7 @@ def phase14(qp, builds, dev, gpu, work):
                            "--reps", str(P14_SFC_REPS), "--device", dev.type])
     launches = builds.add_path_launches()
     print(f"phase14 sfc_bench: kernel launches {json.dumps(launches)}")
-    assert launches["sfc_expand"] > 0, "phase 14 sfc_bench never launched the SFC kernel"
+    assert launches["sfc_update_hull"] > 0, "phase 14 sfc_bench never launched the SFC kernel"
     for r in rows:
         assert 0 < r["longest_lane_trips"] <= 6 * r["clamp"] + 6, r
         assert r["longest_lane_trips_read"] == r["longest_lane_trips"], r
@@ -1678,15 +2265,18 @@ def phase14(qp, builds, dev, gpu, work):
     else:
         print(f"phase14 qp_forensics: no agent failed at the last step ({P14_QP_STEPS}); "
               "nothing to re-solve")
-    res["qp_forensics"] = {"rows": rows, "kernel_launches": launched("qp_forensics")}
+    res["qp_forensics"] = {"rows": rows, "kernel_launches": launched("qp_forensics", clsc=True)}
 
     # (c) Monte-Carlo pod slice: S=8 scenarios of 1024 agents
     mc, built_s = mc_pod_bench.build(P14_MC_S, mc_pod_bench.pod_mission(P14_MC_A),
                                      mc_pod_bench.pod_param(), dev, str(work / "mc_pod"))
     builds.reset_launches()
-    row = mc_pod_bench.measure(mc, P14_MC_STEPS, built_s, gpu)
+    with Calls(lsc, "build_clsc", keep=1) as clscs:
+        row = mc_pod_bench.measure(mc, P14_MC_STEPS, built_s, gpu)
     print("phase14 mc_pod_bench", json.dumps(row))
-    launches = launched("mc_pod_bench", sfc=False)  # an open world: no SFC
+    launches = launched("mc_pod_bench", sfc=False, clsc=True)  # an open world: no SFC
+    clsc_pod = clsc_check(lsc, builds, clscs, "phase14 mc_pod_bench")
+    assert clsc_pod[0]["agents"] == P14_MC_S * P14_MC_A, clsc_pod
     assert row["qp_convergence_min"] > 0.9, row
     assert len(row["chunk_peak_bytes"]) == (1 if dev.type == "cuda" else 0), row
     for s, sim in enumerate(mc.sims):
@@ -1703,6 +2293,7 @@ def phase14(qp, builds, dev, gpu, work):
     assert check["A"] == P14_MC_S * P14_MC_A, check["A"]
     builds.note_check(cfg, check)
     res["mc_pod_bench"] = {"row": row, "kernel_launches": launches, "kernel_check": check,
+                           "clsc_check": clsc_pod,
                            "peak_mib_per_chunk": [b / 2**20 for b in row["chunk_peak_bytes"]]}
     del mc, batch, li
 
@@ -1712,7 +2303,8 @@ def phase14(qp, builds, dev, gpu, work):
     print("phase14 scale_demo", json.dumps(row))
     assert row["steps"] == P14_SMOKE_ITER and not row["collided"] and not row["qp_failed"], row
     assert row["safety_ratio_agent"] >= 1.0, row
-    res["scale_demo"] = {"row": row, "kernel_launches": launched("scale_demo")}
+    res["scale_demo"] = {"row": row, "kernel_launches": launched("scale_demo", clsc=True,
+                                                                 sfc_hull=True)}
 
     # (e) DLSC open world: the 8-agent circle swap
     builds.reset_launches()
@@ -1748,7 +2340,7 @@ def main():
         raise SystemExit("chip_smoke: no CUDA device; this script measures the port on a GPU")
     from lsc_dr_planner_tpu_torch import workload
     from lsc_dr_planner_tpu_torch.ops import (
-        cuda_build, geometry, hull_cuda, qp, qp_cuda, sfc, sfc_cuda,
+        cuda_build, geometry, hull_cuda, lsc, qp, qp_cuda, sfc, sfc_cuda,
     )
 
     dev = torch.device("cuda", 0)
@@ -1784,7 +2376,10 @@ def main():
     record["build_s"] = build_s
     record["nvcc_s"] = nvcc_s
     record["ptxas"] = {name: log for name, (_, log) in cuda_build.build_log.items()}
-    builds = Builds(qp, qp_cuda, sfc_cuda, hull_cuda, geometry, dev)
+    kernels_ptxas = {k: v for _, log in record["ptxas"].items()
+                     for k, v in ptxas_summary(log).items()}
+    print("ptxas", json.dumps(kernels_ptxas))
+    builds = Builds(qp, qp_cuda, sfc_cuda, hull_cuda, geometry, lsc, sfc, dev)
     print("builds", json.dumps({k: v["dk"] for k, v in builds.rec.items()}))
     l2_ns = sfc_cuda.l2_round_trip_ns(dev)
     print(f"one L2 round trip (sfc_cuda.l2_round_trip_ns): {l2_ns:.1f} ns [{gpu}]")
@@ -1821,6 +2416,7 @@ def main():
     # loop-only times of this batch and of its rescue, occupancy,
     # per-launch cost
     out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
     timing = {"calls": admm_timing.bench_calls(qp, cfg, li, feas_tol)}
     timing.update(admm_timing.kernel_report(qp, qp_cuda, cfg, li))
     for c in timing["calls"]:
@@ -1885,13 +2481,18 @@ def main():
     sfc.reset_counts()
     dists = []
 
+    states = [inp]  # each timed step's input state, for `unconverged_steps`
+
     def check(inp):
         assert inp.prev_ctrl.shape == (A_MAIN, p.M, p.n + 1, 3), inp.prev_ctrl.shape
         for name in ("pos", "vel", "acc", "prev_ctrl", "current_goal", "qp_y0"):
             assert torch.isfinite(getattr(inp, name)).all(), name
         dists.append(min_pair_distance_now(inp.pos, 2, 1.0))
+        states.append(inp)
 
-    with SfcCalls(sfc, every=TIMED // 2) as calls, HullCalls(geometry, every=TIMED // 2) as hulls:
+    recorders = path_calls(sfc, lsc, geometry, every=TIMED // 2)
+    sfcs, expands, clscs, hulls = recorders
+    with sfcs, expands, clscs, hulls:
         inp, lat, stages, convs = admm_timing.timed_steps(step, planner, inp, TIMED, check)
     min_dist = min(dists)
     launches = builds.add_path_launches()
@@ -1904,29 +2505,51 @@ def main():
             "agent_steps_per_s": A_MAIN * TIMED / float(lat.sum()),
             "qp_convergence": conv_mean, "min_pair_distance": min_dist,
             "kernel_launches": launches, "stage_ms": stage_ms, "gpu": gpu,
+            "qp_convergence_per_step": convs,
+            "calls": {"update_sfc_hull": sfcs.n, "expand_box": expands.n,
+                      "build_clsc": clscs.n, "hull_query": hulls.n},
             "sfc_trips_per_step": lane_trips / TIMED, "sfc_syncs_per_step": sfc.syncs / TIMED,
             "sfc_plain_trips": sfc.trips}
     print("main path", json.dumps(main))
-    builds.assert_launched(launches, "the main path")
-    assert launches["sfc_expand"] == calls.n, (launches, calls.n)  # every SFC update
-    assert launches["hull_closest"] == hulls.n > 0, (launches, hulls.n)  # every hull query
+    builds.assert_launched(launches, "the main path", clsc=True, sfc_hull=True)
+    # one launch a CLSC construction and a 'hull' SFC update, every step
+    assert_one_launch_a_call(launches, recorders, "the main path")
+    assert sfcs.n == clscs.n == TIMED and expands.n == hulls.n == 0, main["calls"]
     assert sfc.syncs == 0 and sfc.trips == 0, "the main path's SFC stage ran the plain loop"
+    assert lane_trips > 0, "the fused SFC kernel added no trips to the device counter"
     assert conv_mean > 0.9, conv_mean
     assert min_dist >= 2 * 0.15 - planner.feas_tol, min_dist
-    main["hull_check"] = hull_check(geometry, hull_cuda, builds, hulls, "phase5")
-    main["hull_timing"] = hull_timing(geometry, hull_cuda, hulls, gpu, "phase5")
-    assert main["hull_timing"]["hulls"] == A_MAIN * planner.O * p.M, main["hull_timing"]
-    builds.hull.update({k: main["hull_timing"][k] for k in (
-        "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "bound_share", "hulls",
-        "ops_per_hull", "ops_ms", "bytes_ms")})
-    print(f"phase5 CLSC stage {stage_ms.get('lsc')} ms a step [{gpu}]")
+    main["unconverged_steps"] = unconverged_steps(qp, planner, fleet, states[:-1], convs,
+                                                 out_dir)
+    print("phase5 unconverged steps", json.dumps(main["unconverged_steps"]))
+    main["clsc_check"] = clsc_check(lsc, builds, clscs, "phase5")
+    main["clsc_timing"], x = clsc_timing(lsc, hull_cuda, geometry, clscs, gpu, "phase5")
+    assert main["clsc_timing"]["hulls"] == A_MAIN * planner.O * p.M, main["clsc_timing"]
+    main["hull_timing"] = hull_timing(geometry, hull_cuda, builds, x, gpu, "phase5")
+    main["sfc_hull_check"] = sfc_hull_check(sfc, builds, sfcs, "phase5")
+    main["sfc_hull_timing"] = sfc_hull_timing(sfc, sfcs, l2_ns, gpu, "phase5")
+    # the expansion entry (the 'point' and 'substep' modes') on the main path's lanes
+    main["sfc_timing"] = sfc_timing(sfc, fused_lanes(sfc, sfcs.calls[0]), l2_ns, gpu, "phase5")
+    for rec, t in ((builds.clsc, main["clsc_timing"]), (builds.hull, main["hull_timing"]),
+                   (builds.sfc_hull, main["sfc_hull_timing"]), (builds.sfc, main["sfc_timing"])):
+        rec.update({k: t[k] for k in (
+            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "bound_share", "bytes_ms",
+            "ops_ms", *(k for k in ("hulls", "ops_per_hull", "lanes",
+                                    "lane_trips", "longest_lane_trips", "latency_floor_ms",
+                                    "floor_share") if k in t))})
+    print(f"phase5 CLSC stage {stage_ms.get('lsc')} ms, SFC stage {stage_ms.get('sfc')} ms "
+          f"a step [{gpu}]")
     main["clsc_split"] = clsc_split(workload, dev, gpu)
+    main["sfc_split"] = sfc_split(workload, dev, gpu)
+    for split, key in ((main["clsc_split"]["build_clsc"], "clsc_build"),
+                       (main["sfc_split"]["update_sfc"], "sfc_update_hull")):
+        # one launch of the stage's kernel, no other wrapper launch, no
+        # memory copy (no host read); the profiler may miss a ctypes launch
+        assert split["wrapper_launches"][key] == 1, (key, split)
+        assert sum(split["wrapper_launches"].values()) == 1, (key, split)
+        assert split["device_copies"] == 0 and split["device_kernels"] <= 1, (key, split)
     main["rounding_check"] = rounding_check(dev)
-    main["sfc_check"] = sfc_check(sfc, builds, calls, "phase5")
-    main["sfc_timing"] = sfc_timing(sfc, calls, l2_ns, gpu, "phase5")
-    builds.sfc.update({k: main["sfc_timing"][k] for k in (
-        "ms", "plain_ms", "bound_ms", "bound_by", "bound_share", "lanes", "lane_trips",
-        "longest_lane_trips", "bytes_ms", "ops_ms", "latency_floor_ms", "floor_share")})
+    main["sfc_probe"] = sfc_probe(workload, dev, gpu, l2_ns)
     record["main"] = main
     phase_done("5")
 
@@ -1948,7 +2571,9 @@ def main():
         ck_dir.mkdir(exist_ok=True)
         builds.reset_launches()
         t0 = time.perf_counter()
-        with SfcCalls(sfc, every=25) as calls, HullCalls(geometry, every=25) as hulls:
+        recorders = path_calls(sfc, lsc, geometry, every=25)
+        sfcs, expands, clscs, hulls = recorders
+        with sfcs, expands, clscs, hulls:
             r, cks = run_checkpointed(sim, max_iter, ck_dir)
         wall = time.perf_counter() - t0
         launches = builds.add_path_launches()
@@ -1968,15 +2593,15 @@ def main():
             res["stage_ms_mean"] = stage_ms_mean(sim)
         print(f"phase{phase}", json.dumps(res))
         check_audit(r, f"phase {phase}")
-        builds.assert_launched(launches, f"phase {phase}")
-        assert launches["hull_closest"] == hulls.n, (phase, launches, hulls.n)
+        builds.assert_launched(launches, f"phase {phase}", clsc=True, sfc_hull=True)
+        assert_one_launch_a_call(launches, recorders, f"phase {phase}")
         assert res["min_pair_distance"] >= 2 * 0.15 - sim.planner.feas_tol, res
         assert sim.step_time.N == sim.planner_seq, (sim.step_time.N, sim.planner_seq)
         record[f"phase{phase}"] = res
-        res["sfc_check"] = sfc_check(sfc, builds, calls, f"phase{phase}")
-        if phase == 6:  # the same lanes with no radius clamp (r = 0)
-            res["sfc_check_r0"] = sfc_check(sfc, builds, calls, "phase6 r=0", radius=0)
-        res["hull_check"] = hull_check(geometry, hull_cuda, builds, hulls, f"phase{phase}")
+        res["sfc_hull_check"] = sfc_hull_check(sfc, builds, sfcs, f"phase{phase}")
+        if phase == 6:  # the same updates with no radius clamp (r = 0)
+            res["sfc_hull_check_r0"] = sfc_hull_check(sfc, builds, sfcs, "phase6 r=0", radius=0)
+        res["clsc_check"] = clsc_check(lsc, builds, clscs, f"phase{phase}")
 
         # the kernel against the plain loop on the QPs of the flight's steps
         res["kernel_checks"] = []
@@ -2042,21 +2667,26 @@ def main():
     for name, fly_mission in missions.items():
         builds.reset_launches()
         t0 = time.perf_counter()
-        with SfcCalls(sfc, keep=1) as calls, HullCalls(geometry, keep=1) as hulls:
+        recorders = path_calls(sfc, lsc, geometry, keep=1)
+        sfcs, expands, clscs, hulls = recorders
+        with sfcs, expands, clscs, hulls:
             res = fly_mission(dev, work)
         res.update(wall_s=time.perf_counter() - t0, kernel_launches=builds.add_path_launches())
         print(f"phase10 {name}", json.dumps(res))
         # the small missions fly with world_use_octomap off (no SFC update);
-        # every SFC update of the others launches the kernel; every mission
+        # every SFC update of the others launches a kernel; every mission
         # but BVC and RSFC builds LSC rows (plain LSC, build_lsc)
-        builds.assert_launched(res["kernel_launches"], f"phase 10 {name}", sfc=calls.n > 0,
-                               hull=name not in NO_HULL_MISSIONS)
-        assert res["kernel_launches"]["sfc_expand"] == calls.n, (name, calls.n)
-        assert res["kernel_launches"]["hull_closest"] == hulls.n, (name, hulls.n)
-        if calls.n:
-            res["sfc_check"] = sfc_check(sfc, builds, calls, f"phase10 {name}")
+        builds.assert_launched(res["kernel_launches"], f"phase 10 {name}",
+                               sfc=sfcs.n + expands.n > 0, hull=name not in NO_HULL_MISSIONS)
+        assert_one_launch_a_call(res["kernel_launches"], recorders, f"phase 10 {name}")
+        if expands.n:
+            res["sfc_check"] = sfc_check(sfc, builds, expands, f"phase10 {name}")
+        if sfcs.n:
+            res["sfc_hull_check"] = sfc_hull_check(sfc, builds, sfcs, f"phase10 {name}")
         if hulls.n:
             res["hull_check"] = hull_check(geometry, hull_cuda, builds, hulls, f"phase10 {name}")
+        if clscs.n:
+            res["clsc_check"] = clsc_check(lsc, builds, clscs, f"phase10 {name}")
         record["phase10"][name] = res
     assert "sfc_check" in record["phase10"]["prior_based_forest"], "no 'point' SFC in phase 10"
     assert "build_lsc" in builds.hull["callers"], "no build_lsc hull query checked in phase 10"
@@ -2119,41 +2749,40 @@ def main():
             "bound_share": r["bound_share"],
             "library_ms": None,  # no single PyTorch call computes the loop
         })
-    r = builds.sfc
-    print("sfc_expand", json.dumps(r))
-    assert r["launches"] > 0, "the SFC kernel was never launched on a main path"
-    assert r["ms"] is not None and r["calls_checked"] > 0, r
-    kernels.append({
-        "name": "sfc_expand", "route": "cuda",
-        "source": "lsc_dr_planner_tpu_torch/csrc/sfc_expand.cu",
-        # a lax.while_loop; no Pallas original
-        "replaces": "lsc_dr_planner_tpu/ops/sfc.py:37",
-        "launches": r["launches"], "max_abs_err": r["max_abs_err"],
-        "ms": r["ms"], "plain_ms": r["plain_ms"], "lanes": r["lanes"],
-        "longest_lane_trips": r["longest_lane_trips"], "bound_ms": r["bound_ms"],
-        "bound_by": r["bound_by"], "bound_share": r["bound_share"],
-        "latency_floor_ms": r["latency_floor_ms"], "floor_share": r["floor_share"],
-        "calls_checked": r["calls_checked"], "lanes_checked": r["lanes_checked"],
-        "library_ms": None,  # no PyTorch call computes the loop
-    })
-    r = builds.hull
-    print("hull_closest", json.dumps(r))
-    assert r["launches"] > 0, "the hull kernel was never launched on a main path"
-    assert r["ms"] is not None and r["calls_checked"] > 0, r
-    assert sorted(r["callers"]) == ["build_clsc", "build_lsc"], r["callers"]
-    assert sorted(r["dims"]) == [2, 3], r["dims"]
-    kernels.append({
-        "name": "hull_closest", "route": "cuda",
-        "source": "lsc_dr_planner_tpu_torch/csrc/hull_closest.cu",
-        # a jnp enumeration; no Pallas original
-        "replaces": "lsc_dr_planner_tpu/ops/geometry.py:192",
-        "launches": r["launches"], "max_abs_err": r["max_abs_err"],
-        "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
-        "hulls": r["hulls"], "ops_per_hull": r["ops_per_hull"], "bound_ms": r["bound_ms"],
-        "bound_by": r["bound_by"], "bound_share": r["bound_share"],
-        "calls_checked": r["calls_checked"], "hulls_checked": r["hulls_checked"],
-        "library_ms": None,  # no PyTorch call computes the enumeration
-    })
+    geometry_kernels = (
+        # (name, record, source, the TPU-side function it replaces, its kernel in
+        # ptxas's summary, the items its check counts)
+        ("sfc_expand", builds.sfc, "sfc_expand.cu",
+         "lsc_dr_planner_tpu/ops/sfc.py:37",  # a lax.while_loop; no Pallas original
+         "sfc_expand_kernel", ("calls_checked", "lanes_checked")),
+        ("sfc_update_hull", builds.sfc_hull, "sfc_expand.cu",
+         "lsc_dr_planner_tpu/ops/sfc.py:313",  # update_sfc_fused, jnp and a while_loop
+         "sfc_update_hull_kernel", ("calls_checked", "agents_checked", "elements_checked")),
+        ("hull_closest", builds.hull, "hull_closest.cu",
+         "lsc_dr_planner_tpu/ops/geometry.py:192",  # a jnp enumeration; no Pallas original
+         "hull_closest_kernel<6>", ("calls_checked", "hulls_checked")),
+        ("clsc_build", builds.clsc, "hull_closest.cu",
+         "lsc_dr_planner_tpu/ops/lsc.py:129",  # build_clsc, jnp; no Pallas original
+         "clsc_build_kernel<6>", ("calls_checked", "pairs_checked", "elements_checked")),
+    )
+    for name, r, source, replaces, kernel, checked in geometry_kernels:
+        print(name, json.dumps(r))
+        assert r["launches"] > 0, f"{name} was never launched on a main path"
+        assert r["ms"] is not None and r["calls_checked"] > 0, (name, r)
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"lsc_dr_planner_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": r["launches"], "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "bound_share": r["bound_share"],
+            **{k: r[k] for k in ("latency_floor_ms", "floor_share") if k in r},
+            **{k: r[k] for k in checked}, "ptxas": kernels_ptxas.get(kernel),
+            "library_ms": None,  # no PyTorch call computes it
+        })
+    assert sorted(builds.hull["callers"]) == ["build_clsc (plain body)", "build_lsc"], \
+        builds.hull["callers"]
+    assert sorted(builds.hull["dims"]) == [2, 3], builds.hull["dims"]
+    assert sorted(builds.clsc["dims"]) == [2, 3], builds.clsc["dims"]
+    assert sorted(builds.sfc_hull["per_agent_images"]) == [False, True], builds.sfc_hull
     record["kernels"] = kernels
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(json.dumps({"kernels": kernels}))

@@ -1,48 +1,75 @@
-// Closest point of the convex hull of K points to the origin, one thread per
-// hull, for NVIDIA Hopper (sm_90a).
+// The CLSC construction and the closest point of a convex hull to the origin,
+// for NVIDIA Hopper (sm_90a). Two entries share one device function for the
+// hull enumeration (`hull_query`):
 //
-// Replaces the JAX package's lsc_dr_planner_tpu/ops/geometry.py::
-// closest_point_origin_to_hull (:192-237), a jnp enumeration that XLA fused on
-// the TPU (it has no Pallas original). It computes what the plain version
-// lsc_dr_planner_tpu_torch/ops/geometry.py::closest_point_origin_to_hull_plain
-// computes, bit for bit: the K vertices, then the C(K,2) edges and the C(K,3)
-// triangles in itertools.combinations order as candidates, each edge's and
-// triangle's closest point to the origin by the plain version's formulas, the
-// first candidate of least squared norm (strict <, as torch.argmin and
-// jnp.argmin take the first minimum; a NaN norm counts as the least, as in
-// torch.argmin), its norm; then the C(K,4)
-// origin-in-tetrahedron tests, and +0 for the point and the distance where
-// any passes. Every float operation is the plain version's, in its order, each
-// rounded on its own: __fmul_rn/__fadd_rn/__fsub_rn/__fdiv_rn/__fsqrt_rn keep
-// nvcc from contracting a*b + c into a fused multiply-add (torch runs each op as
-// its own kernel, so the plain version never fuses); the 3-term sums associate
-// as (x0*y0 + x1*y1) + x2*y2 (geometry.py::_dot3); the cross products round as
-// geometry.py::_cross does (the fused multiply-add of torch.linalg.cross and XLA
-// on the CPU, through float64); the norm is a correctly rounded square root (the
-// plain version's, through float64). The triangle's Voronoi query keeps the
-// plain version's precedence (the last torch.where wins: vertex a, b, c, edge
-// ab, ac, bc, then the interior) and computes only the point it selects; the
-// clamps are the plain version's float32 _EPS = 1e-12 and the volume test's
-// 1e-10. IEEE operations are odd under points -> -points, so the kernel keeps
-// the plain version's exact oddness (a reciprocal pair gets mirrored normals).
+// - clsc_build_launch: the whole of lsc_dr_planner_tpu_torch/ops/lsc.py::
+//   build_clsc (the JAX package's lsc_dr_planner_tpu/ops/lsc.py:129, jnp that
+//   XLA fused on the TPU; no Pallas original) in one launch, one thread per
+//   (agent, neighbour, segment) hull: the pairwise downwash, the z-scaling of
+//   both control-point sets and their difference, the hull query and
+//   normal_poly / margins_poly; the thread of segment M−1 also computes the
+//   segment-to-segment construction (closest_between_segments, normal_last,
+//   margin_last), the feasibility guard clsc_ok and the selects of segment
+//   M−1; every thread then scales its normal back to world coordinates, masks
+//   it and writes normals [A,O,M,3], anchors [A,O,M,N,3] and margins
+//   [A,O,M,N]. Where the plain body issues ~106 host-issued ops around the
+//   query, this is one launch and no host read.
+// - hull_closest_launch: the query alone, one thread per hull (build_lsc's;
+//   the JAX package's lsc_dr_planner_tpu/ops/geometry.py:192
+//   closest_point_origin_to_hull, no Pallas original).
 //
-// The layout. One thread per hull with its K points in registers (K is a
-// template parameter, 1..8, so every loop unrolls and no register array is
-// indexed at run time), the candidates and the running minimum in registers:
-// one launch for the whole [A, O, M] batch and nothing materialised, where the
-// plain version builds every candidate as its own [A, O, M, k, 3] tensor in
-// about a hundred launches.
+// Both equal their plain versions (ops/lsc.py::build_clsc's torch body and
+// ops/geometry.py::closest_point_origin_to_hull_plain) bit for bit. The query:
+// the K vertices, then the C(K,2) edges and C(K,3) triangles in
+// itertools.combinations order as candidates, the first candidate of least
+// squared norm (strict <, as torch.argmin and jnp.argmin take the first
+// minimum; a NaN norm counts as the least), its norm; then the C(K,4)
+// origin-in-tetrahedron tests, each stopped at its first failing sign test
+// (the test is "any tetrahedron passes", so stopping early changes no
+// result), and +0 for the point and the distance where one passes. Every float
+// operation is the plain version's, in its order, each rounded on its own:
+// __fmul_rn/__fadd_rn/__fsub_rn/__fdiv_rn/__fsqrt_rn keep nvcc from
+// contracting a*b + c into a fused multiply-add (torch runs each op as its own
+// kernel, so the plain version never fuses); 3-term sums associate as
+// (x0*y0 + x1*y1) + x2*y2 (geometry.py::_dot3, which the plain body also uses
+// for the projections and the segment construction); cross products round as
+// geometry.py::_cross (the fused multiply-add of torch.linalg.cross and XLA on
+// the CPU, through float64); norms are correctly rounded square roots (the
+// plain versions', through float64). The triangle's Voronoi query keeps the
+// plain version's precedence (vertex a, b, c, edge ab, ac, bc, the interior)
+// and computes only the point it selects. IEEE operations are odd under
+// points -> -points, so the query keeps the plain version's exact oddness.
 //
-// What bounds it on the H100. A hull of 6 points is 88 bytes read and written,
-// and its least work depends on its points (which Voronoi region each
-// triangle's tests pick, which tetrahedra are degenerate): chip_smoke.py::hull_bound counts both
-// on each run's hulls, and PERF.md section 6 gives the bound beside the
-// kernel's time. The kernel does more than that least work by design: it
-// computes every tetrahedron's five volumes in full, the rounded-on-their-own
-// operations take one instruction each where the peak counts a fused
-// multiply-add as two, each IEEE division is a multi-instruction sequence, and
-// the point loads stride 12·K bytes a thread. A point layout with unit stride,
-// a warp per hull and fusing the rest of build_clsc are later work.
+// The layout. One thread per hull, its K points in registers (K is a template
+// parameter, 1..8, so no register array is indexed at run time). A block of
+// 128 hulls first stages its hulls' points (for CLSC the neighbours'
+// [hulls, K, 3] floats and the [M, K, 3] initial control points of the agents
+// the block spans, each agent's once) in shared memory with unit-stride,
+// coalesced loads, where a hull's own loads would stride 12·K bytes from
+// thread to thread; CLSC's outputs go back through shared memory too (the
+// anchors are the neighbours' points, overwritten for segment M−1 where the
+// guard holds), so every global store is unit-stride. A thread per hull,
+// not a warp per (agent, neighbour) pair: a pair has M = 10 hulls, so a warp
+// per pair leaves 22 of 32 lanes idle through the enumeration; measured and
+// dropped, it ran 2.0x slower (0.112 against 0.055 ms at the main path's
+// call, PERF.md section 6).
+//
+// What bounds it, measured on an NVIDIA H100 80GB HBM3 at 700.00 W (nvidia-smi
+// --query-gpu=name,power.limit; chip_smoke.py's clsc_timing and hull_timing;
+// PERF.md section 6). CLSC at the main path's call (A = 1024, O = 16, M = 10,
+// N = 6): each of 16,384 pairs reads 720 B of neighbour points and writes
+// 1,080 B of anchors, normals and margins, each of 1,024 agents reads 720 B
+// once: ~30.6 MB, 0.0091 ms at 3.35 TB/s; its least operations (670 a hull,
+// chip_smoke.py::clsc_bound) take 0.0016 ms. The kernel takes 0.055 ms (16.5%
+// of the bound; 0.071 ms in 3-D), where the earlier construction (the query's
+// launch among ~106 torch ops) took ~2 ms, most of it the host issuing ops for
+// 0.41 ms of device work. The query alone takes 0.032 ms on the
+// same 2-D hulls (0.0043 ms bound: 88 bytes a hull) and 0.044 ms in 3-D. Both
+// do more than the least work by design: the operations rounded on their own
+// take one instruction each where the peak counts a fused multiply-add as
+// two, each IEEE division is a multi-instruction sequence, 128 registers (K =
+// 6) leave 16 warps an SM, and a warp runs a tetrahedron's volumes as far as
+// its slowest hull's test goes.
 
 #include <cuda_runtime.h>
 
@@ -50,9 +77,11 @@
 
 namespace {
 
-constexpr int kThreads = 128;     // hulls per block
+constexpr int kThreads = 128;     // hulls per block (thread per hull)
 constexpr float kEps = 1e-12f;    // geometry.py's _EPS, as torch casts it to float32
 constexpr float kVolEps = 1e-10f; // _origin_in_tetra's volume test
+constexpr float kEpsF = 1e-6f;    // lsc.py's _EPS_F
+constexpr float kGuard = 1e-4f;   // build_clsc's feasibility slack
 
 struct V3 {
   float x, y, z;
@@ -61,6 +90,7 @@ struct V3 {
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ float div(float a, float b) { return __fdiv_rn(a, b); }
 
 __device__ __forceinline__ V3 sub3(V3 a, V3 b) { return {sub(a.x, b.x), sub(a.y, b.y), sub(a.z, b.z)}; }
 __device__ __forceinline__ V3 neg3(V3 a) { return {-a.x, -a.y, -a.z}; }
@@ -86,8 +116,11 @@ __device__ __forceinline__ V3 cross3(V3 u, V3 v) {
 __device__ __forceinline__ float clamp_min(float x, float lo) { return x != x ? x : fmaxf(x, lo); }
 __device__ __forceinline__ float clamp01(float x) { return x != x ? x : fminf(fmaxf(x, 0.f), 1.f); }
 // t / clamp(den, min=_EPS), clamped to [0, 1]
-__device__ __forceinline__ float ratio01(float t, float den) {
-  return clamp01(__fdiv_rn(t, clamp_min(den, kEps)));
+__device__ __forceinline__ float ratio01(float t, float den) { return clamp01(div(t, clamp_min(den, kEps))); }
+// v / clamp(n, min=_EPS_F), per component
+__device__ __forceinline__ V3 unit(V3 v, float n) {
+  const float d = clamp_min(n, kEpsF);
+  return {div(v.x, d), div(v.y, d), div(v.z, d)};
 }
 
 // geometry.py::closest_point_on_segment(0, a, b)
@@ -118,7 +151,7 @@ __device__ __forceinline__ V3 triangle_closest(V3 a, V3 b, V3 c) {
   if (va <= 0.f && d43 >= 0.f && d56 >= 0.f)                      // on_bc
     return axpy(b, ratio01(d43, add(d43, d56)), sub3(c, b));
   const float denom = clamp_min(add(add(va, vb), vc), kEps);      // the interior
-  return axpy(axpy(a, __fdiv_rn(vb, denom), ab), __fdiv_rn(vc, denom), ac);
+  return axpy(axpy(a, div(vb, denom), ab), div(vc, denom), ac);
 }
 
 // geometry.py::_origin_in_tetra's signed_vol(p0, p1, p2, p3)
@@ -126,15 +159,16 @@ __device__ __forceinline__ float signed_vol(V3 p0, V3 p1, V3 p2, V3 p3) {
   return dot3(sub3(p1, p0), cross3(sub3(p2, p0), sub3(p3, p0)));
 }
 
-// geometry.py::_origin_in_tetra
+// geometry.py::_origin_in_tetra, each volume computed only if every test
+// before it passed
 __device__ __forceinline__ bool origin_in_tetra(V3 a, V3 b, V3 c, V3 d) {
   const V3 o = {0.f, 0.f, 0.f};
   const float v0 = signed_vol(a, b, c, d);
   if (!(fabsf(v0) > kVolEps)) return false;
-  const float v1 = signed_vol(o, b, c, d), v2 = signed_vol(a, o, c, d);
-  const float v3 = signed_vol(a, b, o, d), v4 = signed_vol(a, b, c, o);
-  if (v0 > 0.f) return v1 >= -kVolEps && v2 >= -kVolEps && v3 >= -kVolEps && v4 >= -kVolEps;
-  return v1 <= kVolEps && v2 <= kVolEps && v3 <= kVolEps && v4 <= kVolEps;
+  const bool pos = v0 > 0.f;
+  auto same = [pos](float v) { return pos ? v >= -kVolEps : v <= kVolEps; };
+  return same(signed_vol(o, b, c, d)) && same(signed_vol(a, o, c, d)) &&
+         same(signed_vol(a, b, o, d)) && same(signed_vol(a, b, c, o));
 }
 
 // The running first minimum of the squared norm over the candidates, with
@@ -152,17 +186,9 @@ struct Best {
   }
 };
 
+// The closest point of conv(p[0..K-1]) to the origin and its distance.
 template <int K>
-__global__ void __launch_bounds__(kThreads)
-    hull_closest_kernel(const float* __restrict__ pts, long long H, float* __restrict__ closest,
-                        float* __restrict__ dist) {
-  const long long h = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (h >= H) return;
-  const float* q = pts + h * (3 * K);
-  V3 p[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) p[k] = {__ldg(q + 3 * k), __ldg(q + 3 * k + 1), __ldg(q + 3 * k + 2)};
-
+__device__ __forceinline__ void hull_query(const V3 (&p)[K], V3& closest, float& dist) {
   Best best{p[0], dot3(p[0], p[0])};
 #pragma unroll
   for (int i = 1; i < K; ++i) best.consider(p[i]);
@@ -188,16 +214,199 @@ __global__ void __launch_bounds__(kThreads)
         for (int l = k + 1; l < K; ++l) inside = inside || origin_in_tetra(p[i], p[j], p[k], p[l]);
 
   if (inside) best = {{0.f, 0.f, 0.f}, 0.f};
-  closest[3 * h] = best.p.x;
-  closest[3 * h + 1] = best.p.y;
-  closest[3 * h + 2] = best.p.z;
-  dist[h] = __fsqrt_rn(best.d2);
+  closest = best.p;
+  dist = __fsqrt_rn(best.d2);
+}
+
+// geometry.py::closest_between_segments(p1, p2, q1, q2): the closest points
+// cp on [p1, p2] and cq on [q1, q2], and |cq − cp|
+__device__ __forceinline__ void segments_closest(V3 p1, V3 p2, V3 q1, V3 q2, V3& cp, V3& cq,
+                                                 float& dist) {
+  const V3 d1 = sub3(p2, p1), d2 = sub3(q2, q1), r = sub3(p1, q1);
+  const float a = dot3(d1, d1), e = dot3(d2, d2), f = dot3(d2, r), c = dot3(d1, r),
+              b = dot3(d1, d2);
+  const float denom = sub(mul(a, e), mul(b, b));
+  const float s_gen = clamp01(div(sub(mul(b, f), mul(c, e)), clamp_min(denom, kEps)));
+  float s = denom > mul(kEps, clamp_min(mul(a, e), 1.f)) ? s_gen : 0.f;
+  s = a <= kEps ? 0.f : s;
+  const float t = div(add(mul(b, s), f), clamp_min(e, kEps));
+  const float tc = clamp01(t);
+  const float s2 = clamp01(div(sub(mul(b, tc), c), clamp_min(a, kEps)));
+  s = a <= kEps ? 0.f : (t == tc ? s : s2);
+  cp = axpy(p1, s, d1);
+  cq = axpy(q1, e <= kEps ? 0.f : tc, d2);
+  const V3 dd = sub3(cq, cp);
+  dist = __fsqrt_rn(dot3(dd, dd));
+}
+
+// ---- hull_closest: the query alone --------------------------------------------
+template <int K>
+__global__ void __launch_bounds__(kThreads)
+    hull_closest_kernel(const float* __restrict__ pts, long long H, float* __restrict__ closest,
+                        float* __restrict__ dist) {
+  __shared__ float tile[kThreads * 3 * K];
+  const long long h0 = static_cast<long long>(blockIdx.x) * kThreads;
+  const int n = static_cast<int>(min(static_cast<long long>(kThreads), H - h0));
+  const float* src = pts + h0 * (3 * K);
+  for (int i = threadIdx.x; i < n * 3 * K; i += kThreads) tile[i] = __ldg(src + i);
+  __syncthreads();
+  if (static_cast<int>(threadIdx.x) >= n) return;
+  const float* q = tile + threadIdx.x * (3 * K);
+  V3 p[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) p[k] = {q[3 * k], q[3 * k + 1], q[3 * k + 2]};
+  V3 c;
+  float d;
+  hull_query<K>(p, c, d);
+  const long long h = h0 + threadIdx.x;
+  closest[3 * h] = c.x;
+  closest[3 * h + 1] = c.y;
+  closest[3 * h + 2] = c.z;
+  dist[h] = d;
+}
+
+// ---- clsc_build: the whole CLSC construction ----------------------------------
+struct ClscArgs {
+  const float* init;            // [A, M, K, 3] initial control points
+  const float* obs;             // [A, O, M, K, 3] neighbours' control points
+  const float* obs_goal;        // [A, O, 3]
+  const float* agent_radius;    // [A]
+  const float* agent_downwash;  // [A]
+  const float* obs_radius;      // [A, O]
+  const float* obs_downwash;    // [A, O]
+  const unsigned char* obs_is_agent;  // [A, O] bool
+  const float* current_goal;    // [A, 3]
+  const unsigned char* obs_mask;      // [A, O] bool
+  long long A;
+  int O, M;
+  int dim3;                     // world_dimension == 3 (else no downwash transform)
+  float* normals;               // [A, O, M, 3]
+  float* anchors;               // [A, O, M, K, 3]
+  float* margins;               // [A, O, M, K]
+};
+
+__device__ __forceinline__ V3 load3(const float* p) { return {__ldg(p), __ldg(p + 1), __ldg(p + 2)}; }
+// _z_scale: z / dw, which leaves z as it is in 2-D (dw = 1: x / 1 is x in IEEE
+// arithmetic, so the division is skipped there)
+__device__ __forceinline__ V3 zscale(V3 v, float dw, bool dim3) {
+  return {v.x, v.y, dim3 ? div(v.z, dw) : v.z};
 }
 
 template <int K>
-void launch(const float* pts, long long H, float* closest, float* dist, unsigned blocks,
-            cudaStream_t stream) {
+__global__ void __launch_bounds__(kThreads) clsc_build_kernel(ClscArgs g) {
+  __shared__ float obs_tile[kThreads * 3 * K];  // the block's hulls, then their anchors
+  __shared__ float margin_tile[kThreads * K];
+  __shared__ float normal_tile[kThreads * 3];
+  extern __shared__ float init_tile[];          // [agents the block spans, M, K, 3]
+
+  const long long OM = static_cast<long long>(g.O) * g.M;
+  const long long H = g.A * OM;
+  // the block's first hull and count; this thread's hull in the block (-1: none)
+  const long long h0 = static_cast<long long>(blockIdx.x) * kThreads;
+  const int nh = static_cast<int>(min(static_cast<long long>(kThreads), H - h0));
+  const int my = static_cast<int>(threadIdx.x) < nh ? static_cast<int>(threadIdx.x) : -1;
+  const long long a0 = h0 / OM;
+  const int na = static_cast<int>((h0 + nh - 1) / OM - a0 + 1);
+  const int MK3 = g.M * K * 3;
+  {
+    const float* src = g.obs + h0 * (3 * K);
+    for (int i = threadIdx.x; i < nh * 3 * K; i += blockDim.x) obs_tile[i] = __ldg(src + i);
+    const float* isrc = g.init + a0 * MK3;
+    for (int i = threadIdx.x; i < na * MK3; i += blockDim.x) init_tile[i] = __ldg(isrc + i);
+  }
+  __syncthreads();
+
+  if (my >= 0) {
+    const long long h = h0 + my, pair = h / g.M, a = pair / g.O;
+    const int m = static_cast<int>(h - pair * g.M);
+    const float ar = __ldg(g.agent_radius + a), ad = __ldg(g.agent_downwash + a);
+    const float orad = __ldg(g.obs_radius + pair), od = __ldg(g.obs_downwash + pair);
+    const float den = add(ar, orad);
+    // downwash_between
+    const float dw = g.obs_is_agent[pair] ? div(add(mul(ad, ar), mul(od, orad)), den)
+                                          : div(add(ar, mul(od, orad)), den);
+    const bool d3 = g.dim3;
+    const float* ob = obs_tile + my * (3 * K);
+    const float* in = init_tile + ((a - a0) * g.M + m) * (3 * K);
+    V3 rel[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const V3 it = zscale({in[3 * k], in[3 * k + 1], in[3 * k + 2]}, dw, d3);
+      const V3 ot = zscale({ob[3 * k], ob[3 * k + 1], ob[3 * k + 2]}, dw, d3);
+      rel[k] = sub3(it, ot);
+    }
+    V3 closest;
+    float dist;
+    hull_query<K>(rel, closest, dist);
+    V3 normal = unit(closest, dist);
+    float marg[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) marg[k] = mul(0.5f, add(den, dot3(rel[k], normal)));
+
+    if (m == g.M - 1) {
+      // the last segment: (obs end → obs goal) against (agent end → agent goal)
+      const V3 obs_last = zscale({ob[3 * K - 3], ob[3 * K - 2], ob[3 * K - 1]}, dw, d3);
+      const V3 agent_last = zscale({in[3 * K - 3], in[3 * K - 2], in[3 * K - 1]}, dw, d3);
+      const V3 og = zscale(load3(g.obs_goal + 3 * pair), dw, d3);
+      const V3 cg = zscale(load3(g.current_goal + 3 * a), dw, d3);
+      V3 cp, cq;
+      float seg;
+      segments_closest(obs_last, og, agent_last, cg, cp, cq, seg);
+      const V3 nl = unit(sub3(cq, cp), seg);
+      const float ml = mul(0.5f, add(den, seg));
+      const float floor_ = sub(ml, kGuard);
+      bool ok = true;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const V3 it = zscale({in[3 * k], in[3 * k + 1], in[3 * k + 2]}, dw, d3);
+        ok = ok && dot3(sub3(it, cp), nl) >= floor_;
+      }
+      if (ok) {  // clsc_ok: the segment plane, anchored at the obstacle-side point
+        normal = nl;
+        float* an = obs_tile + my * (3 * K);  // this thread's own slot only
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          marg[k] = ml;
+          an[3 * k] = cp.x;
+          an[3 * k + 1] = cp.y;
+          an[3 * k + 2] = cp.z;
+        }
+      }
+    }
+    // _to_world_normal (the pair's own downwash), then the mask
+    const bool keep = g.obs_mask[pair];
+    normal_tile[3 * my] = keep ? normal.x : 0.f;
+    normal_tile[3 * my + 1] = keep ? normal.y : 0.f;
+    normal_tile[3 * my + 2] = keep ? div(normal.z, dw) : 0.f;
+#pragma unroll
+    for (int k = 0; k < K; ++k) margin_tile[my * K + k] = marg[k];
+  }
+  __syncthreads();
+  float* an = g.anchors + h0 * (3 * K);
+  for (int i = threadIdx.x; i < nh * 3 * K; i += blockDim.x) an[i] = obs_tile[i];
+  float* mg = g.margins + h0 * K;
+  for (int i = threadIdx.x; i < nh * K; i += blockDim.x) mg[i] = margin_tile[i];
+  float* nm = g.normals + h0 * 3;
+  for (int i = threadIdx.x; i < nh * 3; i += blockDim.x) nm[i] = normal_tile[i];
+}
+
+template <int K>
+void hull_launch(const float* pts, long long H, float* closest, float* dist, unsigned blocks,
+                 cudaStream_t stream) {
   hull_closest_kernel<K><<<blocks, kThreads, 0, stream>>>(pts, H, closest, dist);
+}
+
+template <int K>
+int clsc_launch(const ClscArgs& g, unsigned blocks, cudaStream_t stream) {
+  // agents a block spans at most: its hulls start anywhere in an agent's O·M
+  const long long OM = static_cast<long long>(g.O) * g.M;
+  const long long span = (kThreads - 1) / OM + 2;
+  const long long na = span < g.A ? span : g.A;
+  const size_t smem = static_cast<size_t>(na) * g.M * K * 3 * sizeof(float);
+  const size_t tiles = (kThreads * 3 * K + kThreads * K + kThreads * 3) * sizeof(float);
+  if (smem + tiles > 48 * 1024) return cudaErrorInvalidValue;  // M too large to stage
+  clsc_build_kernel<K><<<blocks, kThreads, smem, stream>>>(g);
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -211,15 +420,50 @@ extern "C" int hull_closest_launch(const float* pts, long long H, int K, float* 
   const unsigned blocks = static_cast<unsigned>((H + kThreads - 1) / kThreads);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (K) {
-    case 1: launch<1>(pts, H, closest, dist, blocks, s); break;
-    case 2: launch<2>(pts, H, closest, dist, blocks, s); break;
-    case 3: launch<3>(pts, H, closest, dist, blocks, s); break;
-    case 4: launch<4>(pts, H, closest, dist, blocks, s); break;
-    case 5: launch<5>(pts, H, closest, dist, blocks, s); break;
-    case 6: launch<6>(pts, H, closest, dist, blocks, s); break;
-    case 7: launch<7>(pts, H, closest, dist, blocks, s); break;
-    case 8: launch<8>(pts, H, closest, dist, blocks, s); break;
+    case 1: hull_launch<1>(pts, H, closest, dist, blocks, s); break;
+    case 2: hull_launch<2>(pts, H, closest, dist, blocks, s); break;
+    case 3: hull_launch<3>(pts, H, closest, dist, blocks, s); break;
+    case 4: hull_launch<4>(pts, H, closest, dist, blocks, s); break;
+    case 5: hull_launch<5>(pts, H, closest, dist, blocks, s); break;
+    case 6: hull_launch<6>(pts, H, closest, dist, blocks, s); break;
+    case 7: hull_launch<7>(pts, H, closest, dist, blocks, s); break;
+    case 8: hull_launch<8>(pts, H, closest, dist, blocks, s); break;
     default: return cudaErrorInvalidValue;
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Queues build_clsc of A agents, O neighbour slots, M segments of N control
+// points (every array float32 or bool, contiguous, in build_clsc's shapes) on
+// `stream`: one launch, no synchronisation. Returns the CUDA error code (0 on
+// success).
+extern "C" int clsc_build_launch(const float* init, const float* obs, const float* obs_goal,
+                                 const float* agent_radius, const float* agent_downwash,
+                                 const float* obs_radius, const float* obs_downwash,
+                                 const unsigned char* obs_is_agent, const float* current_goal,
+                                 const unsigned char* obs_mask, long long A, int O, int M, int N,
+                                 int world_dimension, float* normals, float* anchors,
+                                 float* margins, void* stream) {
+  if (A < 1 || O < 1 || M < 1) return cudaErrorInvalidValue;
+  ClscArgs g{init, obs, obs_goal, agent_radius, agent_downwash, obs_radius, obs_downwash,
+             obs_is_agent, current_goal, obs_mask, A, O, M, world_dimension == 3,
+             normals, anchors, margins};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long blocks = (A * O * M + kThreads - 1) / kThreads;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  const unsigned b = static_cast<unsigned>(blocks);
+  int rc;
+  switch (N) {
+    case 1: rc = clsc_launch<1>(g, b, s); break;
+    case 2: rc = clsc_launch<2>(g, b, s); break;
+    case 3: rc = clsc_launch<3>(g, b, s); break;
+    case 4: rc = clsc_launch<4>(g, b, s); break;
+    case 5: rc = clsc_launch<5>(g, b, s); break;
+    case 6: rc = clsc_launch<6>(g, b, s); break;
+    case 7: rc = clsc_launch<7>(g, b, s); break;
+    case 8: rc = clsc_launch<8>(g, b, s); break;
+    default: return cudaErrorInvalidValue;
+  }
+  if (rc != cudaSuccess) return rc;
   return static_cast<int>(cudaGetLastError());
 }

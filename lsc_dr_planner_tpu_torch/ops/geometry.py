@@ -83,16 +83,18 @@ def closest_between_line_paths(p1, p2, q1, q2):
 
 
 def closest_between_segments(p1, p2, q1, q2):
-    """Closest points between segments [p1,p2] and [q1,q2]; all [..., D].
-    Returns (point_on_P, point_on_Q, dist)."""
+    """Closest points between segments [p1,p2] and [q1,q2]; all [..., 3].
+    Returns (point_on_P, point_on_Q, dist). The rounding of its dot
+    products (`_dot3`) and of the distance (a square root through
+    float64) is pinned, as csrc/hull_closest.cu repeats it for CLSC."""
     d1 = p2 - p1
     d2 = q2 - q1
     r = p1 - q1
-    a = _dot(d1, d1)
-    e = _dot(d2, d2)
-    f = _dot(d2, r)
-    c = _dot(d1, r)
-    b = _dot(d1, d2)
+    a = _dot3(d1, d1)
+    e = _dot3(d2, d2)
+    f = _dot3(d2, r)
+    c = _dot3(d1, r)
+    b = _dot3(d1, d2)
     denom = a * e - b * b
 
     s_gen = torch.clamp((b * f - c * e) / torch.clamp(denom, min=_EPS), 0.0, 1.0)
@@ -108,8 +110,8 @@ def closest_between_segments(p1, p2, q1, q2):
 
     cp = p1 + s[..., None] * d1
     cq = q1 + t[..., None] * d2
-    dist = torch.linalg.vector_norm(cq - cp, dim=-1)
-    return cp, cq, dist
+    d = cq - cp
+    return cp, cq, torch.sqrt(_dot3(d, d).double()).float()
 
 
 @functools.lru_cache(maxsize=None)

@@ -8,6 +8,18 @@ into vacuous rows. Four constructions, one per planner mode: plain LSC
 (the DR goal mode), the Buffered Voronoi Cell and Reciprocal RSFC. Each
 works in downwash-scaled coordinates (z divided by the pairwise downwash
 coefficient) and scales the normal's z back.
+
+CLSC, the main path's construction, runs on CUDA tensors as one launch
+of a hand-written kernel (`hull_cuda.build_clsc_cuda`,
+csrc/hull_closest.cu: a thread per hull, the whole construction, no host
+read), and on CPU tensors, or with `plain=True`, as the torch body of
+`build_clsc`, its plain version (~106 ops around the hull query). The
+plain body pins the rounding torch leaves open (its projections and the
+segment construction's dot products as `geometry._dot3`, the segment
+distance as a float64 square root), so that the kernel repeats it bit
+for bit on the card and a Python twin on the CPU; `plain_cuda_calls`
+counts plain bodies run on CUDA tensors since `reset_counts()`. Plain
+LSC keeps the hull query as its own launch (`geometry`).
 """
 
 from __future__ import annotations
@@ -16,9 +28,16 @@ from dataclasses import dataclass
 
 import torch
 
-from lsc_dr_planner_tpu_torch.ops import geometry
+from lsc_dr_planner_tpu_torch.ops import geometry, hull_cuda
 
 _EPS_F = 1e-6
+
+plain_cuda_calls = 0  # plain build_clsc bodies run on CUDA tensors since the last reset
+
+
+def reset_counts():
+    global plain_cuda_calls
+    plain_cuda_calls = 0
 
 
 @dataclass
@@ -106,13 +125,37 @@ def build_clsc(
     current_goal,  # [A, 3]
     obs_mask,  # [A, O] bool
     world_dimension: int,
+    plain: bool = False,
 ) -> LSCSet:
     """Communication-aware LSC: segments m < M−1 from the hull of relative
     control points; the last segment from the closest points between
     (obs end → obs goal) and (agent end → agent goal), anchored at the
     obstacle-side point, with the hull plane as the fallback where the
     initial last segment would violate it. In 2-D no downwash transform
-    is applied."""
+    is applied.
+
+    CUDA tensors go to the kernel (one launch; a failure to build or
+    launch raises), CPU tensors to the plain body; `plain` forces the
+    plain body (and its plain hull enumeration) on any device, for
+    comparisons. Any other device raises."""
+    global plain_cuda_calls
+    args = (initial_ctrl, obs_ctrl, obs_goal, agent_radius, agent_downwash, obs_radius,
+            obs_downwash, obs_is_agent, current_goal, obs_mask)
+    dev = obs_ctrl.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no CLSC construction for device {dev}")
+    if dev.type == "cuda" and not plain:
+        return LSCSet(*hull_cuda.build_clsc_cuda(*(t.contiguous() for t in args),
+                                                 world_dimension))
+    if dev.type == "cuda":
+        plain_cuda_calls += 1
+    return _build_clsc_plain(*args, world_dimension, plain)
+
+
+def _build_clsc_plain(initial_ctrl, obs_ctrl, obs_goal, agent_radius, agent_downwash,
+                      obs_radius, obs_downwash, obs_is_agent, current_goal, obs_mask,
+                      world_dimension: int, plain: bool) -> LSCSet:
+    """build_clsc's plain version (the torch body)."""
     A, O, M, N, _ = obs_ctrl.shape
     dw = downwash_between(agent_radius[:, None], agent_downwash[:, None],
                           obs_radius, obs_downwash, obs_is_agent)
@@ -123,11 +166,11 @@ def build_clsc(
     obs_t = _z_scale(obs_ctrl, dwb)
     rel = init_t - obs_t
 
-    closest, dist = geometry.closest_point_origin_to_hull(rel)
+    closest, dist = geometry.closest_point_origin_to_hull(rel, plain=plain)
     normal_poly = closest / torch.clamp(dist[..., None], min=_EPS_F)
 
     collision_dist = (agent_radius[:, None] + obs_radius)[..., None, None]
-    proj = torch.einsum("aomnd,aomd->aomn", rel, normal_poly)
+    proj = geometry._dot3(rel, normal_poly[..., None, :])
     margins_poly = 0.5 * (collision_dist + proj)
 
     # ---- last segment: segment-to-segment construction
@@ -143,8 +186,7 @@ def build_clsc(
     # feasibility guard: where the initial last segment violates the
     # segment plane, fall back to the per-control-point hull plane
     init_last = init_t[..., M - 1, :, :]  # [A, O, N, 3]
-    proj_init = torch.einsum("aond,aod->aon",
-                             init_last - cp_obs[..., None, :], normal_last)
+    proj_init = geometry._dot3(init_last - cp_obs[..., None, :], normal_last[..., None, :])
     clsc_ok = torch.all(proj_init >= margin_last[..., None] - 1e-4, dim=-1)
 
     normal_m1 = torch.where(clsc_ok[..., None], normal_last,

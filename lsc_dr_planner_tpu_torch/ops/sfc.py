@@ -5,14 +5,21 @@ modes) and 'substep' (DLSC with sub-step replanning).
 Boxes live in integer lattice coordinates ([..., 3] inclusive index
 ranges); the box-free predicate is one integral-image lookup. The
 greedy expansion of the JAX package is a `lax.while_loop` per
-(agent, lane); here `expand_box` grows all lanes of the fleet (A·3, A·2
-or A·(M+2)) at once: on the card in one launch of the CUDA kernel
-(`sfc_cuda`, `csrc/sfc_expand.cu`: one thread per lane, the whole loop
-on the device, no host read), on the CPU in the masked loop
-`expand_box_plain`, the kernel's plain version, whose lanes advance
-together. Each trip either grows a live lane by one cell or retires one
-of its six directions, so with the expansion radius clamped to r cells
-no lane needs more than 6·r + 6 trips.
+(agent, lane). Here, on the card:
+- 'hull' mode, the main path's, is one launch of a hand-written kernel
+  (`sfc_cuda.update_sfc_hull_cuda`, csrc/sfc_expand.cu: a block of three
+  warps per agent computes the seeds, the three lanes' expansions, the
+  selection, the shift and the world boxes);
+- 'point' and 'substep' seed and select in torch around `expand_box`,
+  which grows all lanes of the fleet (A·2 or A·(M+2)) in one launch of
+  the kernel's other entry (`sfc_cuda.expand_box_cuda`).
+Both entries expand a lane with one warp that speculates on a chain of
+growths, resolving up to 32 trips a round (see the source). On the CPU,
+or with `plain=True`, the torch bodies run: `_update_sfc_plain`'s seeding
+and selection around the masked loop `expand_box_plain`, whose lanes
+advance together. Each trip either grows a live lane by one cell or
+retires one of its six directions, so with the expansion radius clamped
+to r cells no lane needs more than 6·r + 6 trips.
 
 In local-sensing mode the world is a per-agent view
 (`grid.local_grid_world`): every box query of a lane reads its own
@@ -21,11 +28,12 @@ tests read the shared world, as in the JAX package.
 
 Counters since the last `reset_counts()`: `trips` and `syncs`, the
 plain loop's trips and its host reads of "is any lane live?" (0 on the
-kernel path); on either path, each call's longest lane's trips summed
-on the lanes' device, read by `read_lane_trips()` (one host read);
-`last_lanes` keeps the last call's lanes (seeds, results, seed-free
-mask; references to tensors the call made anyway). `tools/sfc_bench.py`
-and `chip_smoke.py` read them.
+kernel paths); `plain_cuda_calls`, plain 'hull' bodies run on CUDA
+tensors; on every path, each call's longest lane's trips summed on the
+lanes' device, read by `read_lane_trips()` (one host read); `last_lanes`
+keeps the last expansion's lanes (seeds, results, seed-free mask;
+tensors the call made anyway). `tools/sfc_bench.py` and `chip_smoke.py`
+read them.
 """
 
 from __future__ import annotations
@@ -45,15 +53,24 @@ _EXIT_CHECK = 8  # trips between host-side "any lane live?" checks
 
 trips = 0  # plain-loop trips run since the last reset_counts()
 syncs = 0  # its host reads of "any lane live?" since then (one every _EXIT_CHECK trips)
-last_lanes = None  # the last expand_box call's (seed_lo, seed_hi, lo, hi, seed_free)
+plain_cuda_calls = 0  # plain 'hull' bodies run on CUDA tensors since then
+last_lanes = None  # the last expansion's (seed_lo, seed_hi, lo, hi, seed_free)
 _lane_trips = {}  # device -> int64 [1]: each call's longest lane's trips, summed
+_hull_scratch = {}  # device -> int32 [2]: the fused kernel's per-call scratch (zero between calls)
 
 
 def reset_counts():
-    global trips, syncs
-    trips = syncs = 0
+    global trips, syncs, plain_cuda_calls
+    trips = syncs = plain_cuda_calls = 0
     for t in _lane_trips.values():
         t.zero_()
+
+
+def _trip_total(dev):
+    total = _lane_trips.get(dev)
+    if total is None:
+        total = _lane_trips[dev] = torch.zeros(1, dtype=torch.int64, device=dev)
+    return total
 
 
 def read_lane_trips() -> int:
@@ -95,9 +112,7 @@ def expand_box(gw: GridWorld, lo, hi, axis_order, max_radius_cells: int = 0,
         raise ValueError(f"no SFC expansion for device {dev}")
     r = max_radius_cells
     max_trips = _max_trips(r)
-    total = _lane_trips.get(dev)
-    if total is None:
-        total = _lane_trips[dev] = torch.zeros(1, dtype=torch.int64, device=dev)
+    total = _trip_total(dev)
     if plain or dev.type == "cpu":
         out = expand_box_plain(gw, lo, hi, axis_order, r, agent, max_trips)
     else:
@@ -182,8 +197,7 @@ def expand_box_plain(gw: GridWorld, lo, hi, axis_order, max_radius_cells: int,
 def sfc_to_world(gw: GridWorld, sfc_lo, sfc_hi, margin: float):
     """Lattice boxes → world boxes with margin compensation: each face
     not on the world boundary moves outward by margin − ⌊margin/res⌋·res."""
-    res = gw.resolution
-    delta = margin - math.floor(margin / res + 1e-9) * res
+    delta = _face_delta(margin, gw.resolution)
     dims = gw.dims_t
     lo_pt = gw.lattice_to_point(sfc_lo)
     hi_pt = gw.lattice_to_point(sfc_hi)
@@ -217,10 +231,12 @@ def _superset_of(gw: GridWorld, lo, hi, pts):
     return _contains(gw, lo, hi, pts, gw.radius, 1e-6)
 
 
-def update_sfc_fused(gw: GridWorld, mode: str, sfc_lo, sfc_hi, init_done, last_pt,
-                     cgoal, wpt, pos, init_ctrl, margin: float, max_radius_cells: int = 0,
-                     plain: bool = False):
-    """Fleet SFC update with all greedy expansions in one batched loop.
+def _update_sfc_plain(gw: GridWorld, mode: str, sfc_lo, sfc_hi, init_done, last_pt,
+                      cgoal, wpt, pos, init_ctrl, margin: float, max_radius_cells: int,
+                      plain: bool):
+    """The torch body of `update_sfc`'s lattice boxes (the JAX package's
+    update_sfc_fused): seeding and selection in torch around one
+    `expand_box` of all lanes.
 
     Lane 0 seeds the initialization box from the current position. Then,
     by `mode`:
@@ -243,12 +259,13 @@ def update_sfc_fused(gw: GridWorld, mode: str, sfc_lo, sfc_hi, init_done, last_p
     sfc_lo, sfc_hi: int32 [A, M, 3]; init_done: bool [A]; last_pt, cgoal,
     wpt, pos: [A, 3]; init_ctrl: [A, M, N, 3] (read in 'substep' mode).
     In a per-agent view of the world (integral images [A, ...]) agent
-    a's lanes read image a. `plain` takes the plain loop on any device
-    (`expand_box`), for comparisons. Returns (new_lo, new_hi) [A, M, 3]."""
-    if mode not in ("hull", "point", "substep"):
-        raise ValueError(f"unknown SFC mode {mode!r}")
-    A, M, _ = sfc_lo.shape
+    a's lanes read image a. `plain` takes the plain loop for the
+    expansion too. Returns (new_lo, new_hi) [A, M, 3]."""
+    global plain_cuda_calls
     dev = sfc_lo.device
+    if mode == "hull" and dev.type == "cuda":
+        plain_cuda_calls += 1
+    A, M, _ = sfc_lo.shape
     prev_lo, prev_hi = sfc_lo[:, -1], sfc_hi[:, -1]
 
     def within_prev(lo, hi):
@@ -336,3 +353,42 @@ def update_sfc_fused(gw: GridWorld, mode: str, sfc_lo, sfc_hi, init_done, last_p
     ihi = e_hi[:, 0:1].expand(A, M, 3)
     done = init_done[:, None, None]
     return torch.where(done, ulo, ilo), torch.where(done, uhi, ihi)
+
+
+def update_sfc(gw: GridWorld, mode: str, sfc_lo, sfc_hi, init_done, last_pt, cgoal, wpt, pos,
+               init_ctrl, margin: float, max_radius_cells: int = 0, plain: bool = False):
+    """The planner's SFC stage: the fleet's new boxes (the JAX package's
+    update_sfc_fused) and their world boxes with `margin` (sfc_to_world),
+    (new_lo, new_hi, lo_w, hi_w) [A, M, 3]. In 'hull' mode CUDA tensors
+    go to the fused kernel (one launch, no host read; a failure to build
+    or launch raises). Every other case, and `plain=True` on any device
+    (for comparisons), runs the torch body `_update_sfc_plain`, then
+    `sfc_to_world`; its expansion takes the kernel on CUDA tensors unless
+    `plain`."""
+    global last_lanes
+    if mode not in ("hull", "point", "substep"):
+        raise ValueError(f"unknown SFC mode {mode!r}")
+    dev = sfc_lo.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no SFC update for device {dev}")
+    if mode != "hull" or plain or dev.type != "cuda":
+        lo, hi = _update_sfc_plain(gw, mode, sfc_lo, sfc_hi, init_done, last_pt, cgoal, wpt,
+                                   pos, init_ctrl, margin, max_radius_cells, plain)
+        return (lo, hi, *sfc_to_world(gw, lo, hi, margin))
+    scratch = _hull_scratch.get(dev)
+    if scratch is None:
+        scratch = _hull_scratch[dev] = torch.zeros(2, dtype=torch.int32, device=dev)
+    res = gw.resolution
+    out = sfc_cuda.update_sfc_hull_cuda(
+        gw.blocked_cumsum, gw.dims, [int(v) for v in gw.origin_idx], res,
+        sfc_lo.contiguous(), sfc_hi.contiguous(), init_done.contiguous(),
+        last_pt, cgoal, wpt, pos,
+        _face_delta(gw.radius, res), _face_delta(margin, res), max_radius_cells,
+        _max_trips(max_radius_cells), _trip_total(dev), scratch)
+    last_lanes = out[4:]
+    return out[:4]
+
+
+def _face_delta(margin: float, res: float) -> float:
+    """sfc_to_world's outward shift of a face not on the world boundary."""
+    return margin - math.floor(margin / res + 1e-9) * res

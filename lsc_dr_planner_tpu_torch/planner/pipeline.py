@@ -398,14 +398,14 @@ class FleetPlanner:
                     gw, blocked_cumsum(inp.occ_known, gw.resolution, gw.radius)[1])
                 self._mark("local_map")
             sfc_mode = "substep" if self.substep else "hull" if grid_goals else "point"
-            new_sfc_lo, new_sfc_hi = sfc.update_sfc_fused(
+            # the boxes and their world boxes ('hull' mode on the card: one
+            # kernel launch; gw_a's lattice geometry is gw's)
+            new_sfc_lo, new_sfc_hi, sfc_lo_w, sfc_hi_w = sfc.update_sfc(
                 gw_a, sfc_mode, inp.sfc_lo, inp.sfc_hi,
                 inp.sfc_initialized & ~inp.is_disturbed,
                 trajectory.last_point(initial_ctrl), inp.current_goal,
                 inp.next_waypoint, inp.pos, initial_ctrl, self.sfc_margin,
                 max_radius_cells=self.sfc_expand_cells)
-            sfc_lo_w, sfc_hi_w = sfc.sfc_to_world(gw, new_sfc_lo, new_sfc_hi,
-                                                  self.sfc_margin)
         else:
             new_sfc_lo, new_sfc_hi = inp.sfc_lo, inp.sfc_hi
             sfc_lo_w = torch.full((A, M, 3), -1e9, dtype=f32, device=dev)

@@ -4,17 +4,20 @@ what sets its time.
 
 The JAX tool times its sequential builders `initialize_sfc` and
 `construct_sfc_from_hull`; the port folds them into one call,
-`ops/sfc.py::update_sfc_fused` in 'hull' mode, whose `expand_box` grows
-all lanes of the fleet together (three per agent: the initialization
-box from the position, and the two hull attempts from {position, goal},
-the goal also standing as the next waypoint). Each row times that call
+`ops/sfc.py::update_sfc` in 'hull' mode, which grows all lanes of
+the fleet together (three per agent: the initialization box from the
+position, and the two hull attempts from {position, goal}, the goal
+also standing as the next waypoint); on the card the whole update is one
+launch of the fused kernel (`sfc_cuda.update_sfc_hull_cuda`). Each row
+times that call
 on the JAX tool's world and inputs (rng 0: a forest of 0.3 m columns at
 0.25 trees/m² in a square of half-width 0.6·32 + 2 m, resolution 0.1 m,
 inflation 0.15 m; random positions and near-antipodal goals), its
 previous boxes the initialization boxes, as `initialize_sfc` leaves
 them. Per fleet size and clamp, a row with `path` "plain" (the masked
-loop `expand_box_plain`; on the card forced with plain=True) and, on the
-card, a row with `path` "kernel" (the CUDA kernel, one launch). Beside
+loop `expand_box_plain` inside the torch body; on the card forced with
+plain=True) and, on the card, a row with `path` "kernel" (the fused
+CUDA kernel, one launch). Beside
 the JAX row (`A`, `clamp`, `sfc_ms`, `per_agent_us`; device time of the
 whole update over `--reps` calls after a warm-up) it gives:
 
@@ -112,20 +115,20 @@ def bench_agents(rng: np.random.Generator, A: int):
 
 
 def sfc_call(gw: GridWorld, pos, goal, clamp: int, plain: bool = False):
-    """The timed call: `update_sfc_fused` in 'hull' mode from boxes
+    """The timed call: `update_sfc` in 'hull' mode from boxes
     initialized at `pos` (set up here by one call with no box yet),
     hull {pos, goal}, goal as the next waypoint; `plain` takes the plain
-    loop on any device. Returns fn() → (lo, hi)."""
+    loop on any device. Returns fn() → (lo, hi), the lattice boxes."""
     A = len(pos)
     p = torch.as_tensor(pos, device=gw.device)
     g = torch.as_tensor(goal, device=gw.device)
     args = dict(last_pt=p, cgoal=g, wpt=g, pos=p, init_ctrl=None, margin=MARGIN,
                 max_radius_cells=clamp, plain=plain)
     none = torch.zeros((A, M, 3), dtype=torch.int32, device=gw.device)
-    init_lo, init_hi = sfc.update_sfc_fused(
-        gw, "hull", none, none, torch.zeros(A, dtype=torch.bool, device=gw.device), **args)
+    init_lo, init_hi = sfc.update_sfc(
+        gw, "hull", none, none, torch.zeros(A, dtype=torch.bool, device=gw.device), **args)[:2]
     done = torch.ones(A, dtype=torch.bool, device=gw.device)
-    return lambda: sfc.update_sfc_fused(gw, "hull", init_lo, init_hi, done, **args)
+    return lambda: sfc.update_sfc(gw, "hull", init_lo, init_hi, done, **args)[:2]
 
 
 lane_trips = sfc.lane_trips  # trips each lane of the last call was live
@@ -154,7 +157,7 @@ def device_ms(fn, reps: int, dev: torch.device) -> float:
 def launch_counts(fn, dev: torch.device) -> dict:
     """One call of fn() under `torch.profiler`: the kernels and memory
     copies the device ran and their device time (ms), the device time of
-    the SFC kernel among them, and the `cudaLaunchKernel` calls on the
+    the SFC kernels among them, and the `cudaLaunchKernel` calls on the
     host (all 0 on the CPU)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -175,7 +178,7 @@ def launch_counts(fn, dev: torch.device) -> dict:
                 copies += e.count
             else:
                 kernels += e.count
-            if "sfc_expand_kernel" in e.key:
+            if "sfc_expand_kernel" in e.key or "sfc_update_hull_kernel" in e.key:
                 sfc_us += e.self_device_time_total
         elif e.key.startswith("cudaLaunchKernel"):
             host_launches += e.count
@@ -194,9 +197,9 @@ def measure(gw: GridWorld, pos, goal, clamp: int, reps: int, label: str,
     fn = sfc_call(gw, pos, goal, clamp, plain)
     ms = device_ms(fn, reps, dev)
     sfc.reset_counts()
-    kernel_before = sfc_cuda.launches
+    kernel_before = sfc_cuda.launches + sfc_cuda.hull_launches
     fn()
-    kernel_launches = sfc_cuda.launches - kernel_before
+    kernel_launches = sfc_cuda.launches + sfc_cuda.hull_launches - kernel_before
     longest_read = sfc.read_lane_trips()
     trips, syncs = sfc.trips, sfc.syncs
     per_trip = trips if plain else longest_read

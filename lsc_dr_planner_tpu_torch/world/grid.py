@@ -47,6 +47,11 @@ class GridWorld:
         self.dims_t = torch.tensor(self.dims, dtype=torch.int32, device=dev)
         self._origin_i = torch.as_tensor(self.origin_idx, dtype=torch.int32, device=dev)
         self._origin_f = self._origin_i.to(torch.float32)
+        # the resolution as a device tensor: p / res is then a true
+        # division on every device (PyTorch multiplies by the reciprocal
+        # when a CUDA tensor is divided by a Python scalar, which can
+        # round otherwise than the CPU's division and the SFC kernel's)
+        self._res_t = torch.tensor(self.resolution, dtype=torch.float32, device=dev)
 
     @property
     def device(self) -> torch.device:
@@ -62,16 +67,16 @@ class GridWorld:
         return (idx.to(torch.float32) + self._origin_f) * self.resolution
 
     def point_to_lattice_floor(self, p):
-        return (torch.floor(p / self.resolution + 1e-6).to(torch.int32)
+        return (torch.floor(p / self._res_t + 1e-6).to(torch.int32)
                 - self._origin_i)
 
     def point_to_lattice_ceil(self, p):
-        return (torch.ceil(p / self.resolution - 1e-6).to(torch.int32)
+        return (torch.ceil(p / self._res_t - 1e-6).to(torch.int32)
                 - self._origin_i)
 
     def point_to_lattice_round(self, p):
         # round half to even on f32, as jnp.round
-        return (torch.round(p / self.resolution).to(torch.int32)
+        return (torch.round(p / self._res_t).to(torch.int32)
                 - self._origin_i)
 
     # ------------------------------------------------------------------

@@ -425,8 +425,8 @@ def test_per_agent_sfc_on_card_matches_cpu():
     cpu_args = [slo.contiguous(), shi.contiguous(), init, *map(torch.as_tensor,
                                                                (last_pt, cgoal, wpt, pos)), ictrl]
     for mode in ("hull", "point", "substep"):
-        out = [sfc.update_sfc_fused(v, mode, *(a.to(v.device) for a in cpu_args), 0.15,
-                                    max_radius_cells=40) for _, _, v in views]
+        out = [sfc.update_sfc(v, mode, *(a.to(v.device) for a in cpu_args), 0.15,
+                              max_radius_cells=40) for _, _, v in views]
         assert torch.equal(out[0][0], out[1][0].cpu()), mode
         assert torch.equal(out[0][1], out[1][1].cpu()), mode
 

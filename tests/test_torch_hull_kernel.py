@@ -194,7 +194,9 @@ def nonfinite_hulls():
 @functools.lru_cache(maxsize=None)
 def clsc_rel(A=32, steps=2, device="cpu"):
     """The hull query's input of build_clsc ([A, O, M, N, 3]) on
-    `workload.build_fleet(A)` after `steps` evolving steps, as numpy."""
+    `workload.build_fleet(A)` after `steps` evolving steps, as numpy
+    (the step's build_clsc runs its plain body, which queries the hulls
+    on their own; on the card the fused kernel queries them inside)."""
     from lsc_dr_planner_tpu_torch import workload
 
     p, planner, fleet, inp = workload.build_fleet(A, device=device)
@@ -202,17 +204,18 @@ def clsc_rel(A=32, steps=2, device="cpu"):
     for _ in range(steps):
         inp, _ = step(inp)
     seen = []
-    query = geometry.closest_point_origin_to_hull
+    query, build = geometry.closest_point_origin_to_hull, lsc.build_clsc
 
     def record(points, **k):
         seen.append(points.cpu().numpy())
         return query(points, **k)
 
     geometry.closest_point_origin_to_hull = record
+    lsc.build_clsc = functools.partial(build, plain=True)
     try:
         planner._step_impl(fleet, inp)
     finally:
-        geometry.closest_point_origin_to_hull = query
+        geometry.closest_point_origin_to_hull, lsc.build_clsc = query, build
     (rel,) = seen
     return rel
 
@@ -443,19 +446,23 @@ def test_kernel_on_main_path_clsc(cuda_dev):
 @pytest.mark.parametrize("build", ["build_lsc", "build_clsc"])
 @pytest.mark.parametrize("dim", [2, 3])
 def test_lsc_constructions_on_card_equal_plain(cuda_dev, monkeypatch, build, dim):
-    """build_lsc and build_clsc on the card launch the kernel once and
-    equal their runs with the plain enumeration."""
+    """build_lsc on the card launches the hull kernel once, build_clsc
+    the fused CLSC kernel (which queries the hulls inside) once; each
+    equals its run with the plain enumeration (build_clsc: its plain
+    body)."""
     kw = lsc_inputs(dim, cuda_dev)[build]
     if dim == 2:
         for name in ("initial_ctrl", "obs_ctrl"):
             kw[name][..., 2] = 0.6
     extra = {"world_dimension": dim} if build == "build_clsc" else {}
-    launches = hull_cuda.launches
+    launches = (hull_cuda.launches, hull_cuda.clsc_launches)
     got = getattr(lsc, build)(**kw, **extra)
     torch.cuda.synchronize()
-    assert hull_cuda.launches == launches + 1
+    fused = build == "build_clsc"
+    assert (hull_cuda.launches, hull_cuda.clsc_launches) == (launches[0] + (not fused),
+                                                             launches[1] + fused)
     monkeypatch.setattr(geometry, "closest_point_origin_to_hull",
                         functools.partial(geometry.closest_point_origin_to_hull, plain=True))
-    want = getattr(lsc, build)(**kw, **extra)
+    want = getattr(lsc, build)(**kw, **extra, **({"plain": True} if fused else {}))
     for name in ("normals", "anchors", "margins"):
         assert torch.equal(getattr(got, name), getattr(want, name)), name

@@ -223,10 +223,10 @@ def test_update_sfc_fused_per_agent_maps_exact(mode):
     j_lo, j_hi = jax.jit(jax.vmap(one))(tuple(map(jnp.asarray, cols)), jnp.asarray(occ))
     view = tgrid.local_grid_world(gt, tgrid.blocked_cumsum(torch.as_tensor(occ), 0.1, 0.15)[1])
     t_args = list(map(torch.as_tensor, cols))
-    t_lo, t_hi = tsfc.update_sfc_fused(view, mode, *t_args, 0.15, max_radius_cells=40)
+    t_lo, t_hi, *_ = tsfc.update_sfc(view, mode, *t_args, 0.15, max_radius_cells=40)
     np.testing.assert_array_equal(t_lo.numpy(), np.asarray(j_lo))
     np.testing.assert_array_equal(t_hi.numpy(), np.asarray(j_hi))
-    g_lo, g_hi = tsfc.update_sfc_fused(gt, mode, *t_args, 0.15, max_radius_cells=40)
+    g_lo, g_hi, *_ = tsfc.update_sfc(gt, mode, *t_args, 0.15, max_radius_cells=40)
     assert not (torch.equal(g_lo, t_lo) and torch.equal(g_hi, t_hi))
 
 

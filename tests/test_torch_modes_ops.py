@@ -197,7 +197,7 @@ def test_update_sfc_fused_modes_exact(mode, radius_cells):
     rng, gj, gt = _forest()
     cases = _sfc_cases(rng, gj)
     cols = [torch.as_tensor(np.stack(c)) for c in zip(*cases)]
-    t_lo, t_hi = tsfc.update_sfc_fused(gt, mode, *cols, 0.15, max_radius_cells=radius_cells)
+    t_lo, t_hi, *_ = tsfc.update_sfc(gt, mode, *cols, 0.15, max_radius_cells=radius_cells)
     for a, c in enumerate(cases):
         j_lo, j_hi = jsfc.update_sfc_fused(gj, mode, *map(jnp.asarray, c), 0.15,
                                            max_radius_cells=radius_cells)

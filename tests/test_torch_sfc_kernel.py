@@ -283,9 +283,10 @@ def test_kernel_equals_plain_loop_on_card(cuda_dev, seed, per_agent, r):
 @pytest.mark.parametrize("dim", [2, 3])
 @pytest.mark.parametrize("mode", ["hull", "point", "substep"])
 def test_update_sfc_fused_kernel_equals_plain(cuda_dev, monkeypatch, mode, dim, per_agent):
-    """update_sfc_fused on the card in each mode: its expand_box call
-    went through the kernel and equals the plain loop on the same lanes;
-    the boxes equal the CPU path's."""
+    """update_sfc on the card in each mode: 'point' and 'substep'
+    through expand_box's kernel, equal to the plain loop on the same
+    lanes; 'hull' as one launch of the fused kernel (no expand_box call),
+    equal to the plain body on the card; the boxes equal the CPU path's."""
     A, M, N = 24, 10, 6
     rng, boxes, gt, occ = _world(10 + dim, A if per_agent else 0)
     views = []  # (device, world view): the CPU's, then the card's
@@ -319,12 +320,20 @@ def test_update_sfc_fused_kernel_equals_plain(cuda_dev, monkeypatch, mode, dim, 
         return out
 
     monkeypatch.setattr(sfc, "expand_box", record)
-    out = [sfc.update_sfc_fused(view, mode, *(t.to(dev) for t in cpu_args), 0.15,
-                                max_radius_cells=20) for dev, view in views]
-    _, (a, k, got) = calls  # the CPU call, then the card's
-    assert got[0].device.type == "cuda"
-    want = kernel_expand(*a, **{**k, "plain": True})
-    for x, y in zip(got, want):
-        assert torch.equal(x, y), mode
+    fused = sfc_cuda.hull_launches
+    out = [sfc.update_sfc(view, mode, *(t.to(dev) for t in cpu_args), 0.15,
+                          max_radius_cells=20) for dev, view in views]
+    if mode == "hull":
+        assert len(calls) == 1 and sfc_cuda.hull_launches == fused + 1  # the CPU call only
+        card_args = (views[1][1], mode, *(t.to(cuda_dev) for t in cpu_args), 0.15)
+        want = sfc.update_sfc(*card_args, max_radius_cells=20, plain=True)
+        for x, y in zip(out[1], want):
+            assert torch.equal(x, y), mode
+    else:
+        _, (a, k, got) = calls  # the CPU call, then the card's
+        assert got[0].device.type == "cuda"
+        want = kernel_expand(*a, **{**k, "plain": True})
+        for x, y in zip(got, want):
+            assert torch.equal(x, y), mode
     for x, y in zip(*out):
         assert torch.equal(x, y.cpu()), mode

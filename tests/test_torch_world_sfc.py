@@ -97,8 +97,8 @@ def test_update_sfc_fused_hull_exact(radius_cells):
         for init_done in (False, True):
             cases.append((slo, shi, init_done, last_pt, cgoal, wpt, pos, ictrl))
     cols = [np.stack(c) for c in zip(*cases)]
-    t_lo, t_hi = tsfc.update_sfc_fused(gt, "hull", *map(torch.tensor, cols), 0.15,
-                                       max_radius_cells=radius_cells)
+    t_lo, t_hi, *_ = tsfc.update_sfc(gt, "hull", *map(torch.tensor, cols), 0.15,
+                                     max_radius_cells=radius_cells)
     for a, (slo, shi, init_done, last_pt, cgoal, wpt, pos, ictrl) in enumerate(cases):
         j_lo, j_hi = jsfc.update_sfc_fused(
             gj, "hull", jnp.asarray(slo), jnp.asarray(shi), jnp.asarray(init_done),
