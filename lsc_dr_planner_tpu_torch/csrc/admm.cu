@@ -67,7 +67,19 @@
 // thread each; the exit test's eight reductions are one warp-shuffle pass and
 // one shared step. No float atomics: an agent's result does not depend on
 // which agents share the launch (the rescue compacts different agents each
-// step).
+// step). The Kinv matvec, the adjoint accumulator and the N3k adjoint product
+// add their exact products in double and round once (a Kinv product as its
+// float rounding and the rounding's error, from an FMA: converting the row's
+// registers to double would spill them). Added in float32, one product at a
+// time, on the acceleration rows' duals (ρ = 50) of a few agents of 3-D DLSC
+// batches (KKT condition ~1.6e5) the kernel strayed 5–17 times as far from the
+// float64 plain loop as the float32 plain loop does over one-ulp moves of its
+// state (chip_smoke.py's phase 8e, on that state and on it moved by 1e-6 m);
+// with these sums at most 1.85 times. Measured on the H100 (chip_smoke.py's
+// admm_sums_main, 200 iterations at A=1024): 2-D 4.40 → 5.08 ms, 3-D 7.78 →
+// 8.88 ms, 24 B spilled in each build; the same sums in float-float (an FMA
+// error term and a two-sum in float32) gave the same results in 5.49 and
+// 10.08 ms.
 //
 // What bounds it on the H100: the float32 FMA pipes and the latency of five
 // barriers per iteration; the bound of the work itself (about 54 k flops per
@@ -236,29 +248,29 @@ __device__ float adjoint(const Dims& D, const Args& a, const float* Z, const flo
   const float* Ys = Y + D.R_lsc;
   for (int i = threadIdx.x; i < D.dim * D.MN; i += NT) {
     const int d = i / D.MN, mn = i - d * D.MN, m = MOF[mn];
-    float acc = 0.f;
+    double acc = 0.;
     for (int o = 0; o < D.O; ++o) {
       const int r = o * D.MN + mn;
       const float w = DUAL ? Y[r] : a.rho_lsc * Z[r] - Y[r];
-      acc += NRM[(o * D.M + m) * D.dim + d] * w;
+      acc += (double)NRM[(o * D.M + m) * D.dim + d] * (double)w;
     }
     const int e1 = __ldg(a.adj_ptr + i + 1);
     for (int e = __ldg(a.adj_ptr + i); e < e1; ++e) {
       const int s = __ldg(a.adj_row + e);
       const float w = DUAL ? Ys[s] : __ldg(a.rho_stat + s) * Zs[s] - Ys[s];
-      acc += __ldg(a.adj_coef + e) * w;
+      acc += (double)__ldg(a.adj_coef + e) * (double)w;
     }
-    VA[i] = acc;
+    VA[i] = (float)acc;
   }
   __syncthreads();
-  float acc = 0.f;
+  double acc = 0.;
   if (ki < D.dk) {
     const int d = ki / D.K, k = ki - d * D.K;
     const int lo = kh * D.mhalf, hi = min(D.MN, lo + D.mhalf);
     const float* va = VA + d * D.MN;
-    for (int mn = lo; mn < hi; ++mn) acc += __ldg(a.N3kT + mn * D.K + k) * va[mn];
+    for (int mn = lo; mn < hi; ++mn) acc += (double)__ldg(a.N3kT + mn * D.K + k) * (double)va[mn];
   }
-  return acc + __shfl_xor_sync(kFull, acc, 1);
+  return (float)(acc + __shfl_xor_sync(kFull, acc, 1));
 }
 
 // v[0..6] maxima, v[7] a sum, over the block; every thread gets the result,
@@ -360,12 +372,15 @@ __global__ void __launch_bounds__(NT, NT == 128 ? 8 : 3) admm_chunk_kernel(Args 
     if (kh == 0 && ki < D.dk) RHS[ki] = (a.sigma * XI[ki] - QN[ki]) + g;
     __syncthreads();
     // ξ̃ = Kinv·rhs
-    float acc = 0.f;
+    double acc = 0.;
 #pragma unroll
     for (int c = 0; c < KC; ++c)
-      if (c < ncols) acc += kin[c] * RHS[c0 + c];
+      if (c < ncols) {  // the exact product p + e, added in double
+        const float p = __fmul_rn(kin[c], RHS[c0 + c]);
+        acc += (double)p + (double)__fmaf_rn(kin[c], RHS[c0 + c], -p);
+      }
     acc += __shfl_xor_sync(kFull, acc, 1);
-    if (kh == 0 && ki < D.dk) XT[ki] = acc;
+    if (kh == 0 && ki < D.dk) XT[ki] = (float)acc;
     __syncthreads();
     // control points of ξ̃; ξ ← αξ̃ + (1 − α)ξ
     control_points<NT>(D, XT, a.N3k, VU, VL);

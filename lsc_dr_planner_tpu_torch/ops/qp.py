@@ -7,11 +7,18 @@ nullspace basis). The per-agent KKT matrix is assembled from Kronecker
 structure and inverted once by batched Cholesky, so each iteration is
 one [dk, dk] matvec per agent plus the structured row operator.
 
-The numpy statics are copied from the JAX package as they are. The
-iteration loop has two implementations: `admm_loop_plain` here, the
-mirror of the XLA loop with its global early exit, and the CUDA kernel
-`csrc/admm.cu` (wrapper `ops/qp_cuda.py`). `run_loop` gives CUDA
-tensors to the kernel and CPU tensors to the plain loop.
+The numpy statics are copied from the JAX package as they are. The two
+parts of a solve each have two implementations, a plain torch version
+here and a hand-written CUDA kernel; CUDA tensors go to the kernel, CPU
+tensors to the plain version:
+- the preparation (`prepare`: rows, reduced cost, KKT inverse, warm
+  start): `_prepare_plain`, and one launch of `csrc/qp_prepare.cu`
+  (wrapper `ops/qp_prepare_cuda.py`); `plain_cuda_calls` counts plain
+  bodies run on CUDA tensors since `reset_counts()`;
+- the iteration loop (`run_loop`): `admm_loop_plain`, the mirror of the
+  XLA loop with its global early exit, and `csrc/admm.cu` (wrapper
+  `ops/qp_cuda.py`).
+On the kernel paths a solve reads nothing back to the host.
 """
 
 from __future__ import annotations
@@ -23,11 +30,18 @@ from typing import Optional
 import numpy as np
 import torch
 
-from lsc_dr_planner_tpu_torch.ops import bernstein, qp_cuda
+from lsc_dr_planner_tpu_torch.ops import bernstein, qp_cuda, qp_prepare_cuda
 
 _INF = 1e20
 CHUNK = 8  # iterations between exit tests
 RESCUE = 64  # rescue batch size above which stragglers are compacted
+
+plain_cuda_calls = 0  # plain `prepare` bodies run on CUDA tensors since the last reset
+
+
+def reset_counts():
+    global plain_cuda_calls
+    plain_cuda_calls = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,8 +123,31 @@ class LoopInputs:
             setattr(self, f.name, getattr(self, f.name).contiguous())
 
     def take(self, idx) -> "LoopInputs":
-        return LoopInputs(*(getattr(self, f.name)[idx]
-                            for f in dataclasses.fields(self)))
+        """The agents `idx`; keeps the kernel-rows mark."""
+        return self._carry_mark(LoopInputs(*(getattr(self, f.name)[idx]
+                                             for f in dataclasses.fields(self))))
+
+    def resume(self, xi, z, y) -> "LoopInputs":
+        """The same problems, from the iterate (xi, z, y); keeps the mark."""
+        return self._carry_mark(dataclasses.replace(self, xi=xi, z=z, y=y))
+
+    def mark_kernel_rows(self) -> "LoopInputs":
+        """Marks rho and un, in their present state, as what the CUDA loop
+        kernel takes in their place (`check_kernel_rows`): set by the
+        check itself and by the preparation kernel, which writes them so
+        by construction. An edit in place (the tensors' version counters)
+        or another tensor clears the mark."""
+        self._kernel_rows_mark = self._rows_state()
+        return self
+
+    def kernel_rows_marked(self) -> bool:
+        return self.__dict__.get("_kernel_rows_mark") == self._rows_state()
+
+    def _rows_state(self):
+        return (self.rho.data_ptr(), self.rho._version, self.un.data_ptr(), self.un._version)
+
+    def _carry_mark(self, out: "LoopInputs") -> "LoopInputs":
+        return out.mark_kernel_rows() if self.kernel_rows_marked() else out
 
 
 # ----------------------------------------------------------------------
@@ -121,10 +158,10 @@ class LoopInputs:
 def pinned_values(cfg: QPConfig, p0, v0, a0):
     """Exact initial control points from the initial state:
     c0 = p, c1 = p + dt/n·v, c2 = dt²/(n(n−1))·a + 2c1 − c0."""
-    n, dt = cfg.n, cfg.dt
+    sc = prepare_scalars(cfg)
     c0 = p0
-    c1 = p0 + v0 * (dt / n)
-    c2 = a0 * (dt * dt / (n * (n - 1))) + 2 * c1 - c0
+    c1 = p0 + v0 * sc["vel"]
+    c2 = a0 * sc["acc"] + 2 * c1 - c0
     return torch.stack([c0, c1, c2], dim=-1)  # [..., dim, phi]
 
 
@@ -323,11 +360,12 @@ def stencil_table(cfg: QPConfig):
 @functools.lru_cache(maxsize=None)
 def torch_statics(cfg: QPConfig, device: torch.device, dtype: torch.dtype = torch.float32):
     """`_solver_statics` as `dtype` (float32) tensors on `device` (its
-    integer arrays stay numpy), plus the CUDA kernel's operators: N3k
+    integer arrays stay numpy), plus the CUDA kernels' operators: N3k
     [K, MN] (the nullspace basis, k-major) and its transpose N3kT,
-    `stencil`, `stencil_table` as tensors, and `kernel_rho` [R], the ρ of
-    every row as the kernel takes it (ρ_lsc on the LSC rows, the table's
-    on the static rows)."""
+    `stencil`, `stencil_table` as tensors, `kernel_rho` [R], the ρ of
+    every row as the loop kernel takes it (ρ_lsc on the LSC rows, the
+    table's on the static rows), `P_blk` [N, N] (P_base = I_M ⊗ P_blk)
+    and `prep`, the statics the preparation kernel reads, contiguous."""
     st = _solver_statics(cfg)
     out = {k: (torch.as_tensor(v, dtype=dtype, device=device)
                if isinstance(v, np.ndarray) and v.dtype.kind == "f" else v)
@@ -344,6 +382,16 @@ def torch_statics(cfg: QPConfig, device: torch.device, dtype: torch.dtype = torc
         out["stencil"]["rho"]])
     out["comm_pairs"] = tuple(torch.as_tensor(v, device=device) for v in _comm_pairs(cfg.M))
     out["P_base64"] = torch.as_tensor(st["P_base"], dtype=torch.float64, device=device)
+    # P_base = I_M ⊗ P_blk: one segment's block of the jerk cost
+    N = cfg.N
+    blk = st["P_base"][:N, :N]
+    if not np.array_equal(st["P_base"], np.kron(np.eye(cfg.M), blk)):
+        raise ValueError("P_base is not block diagonal with equal blocks")
+    out["P_blk"] = torch.as_tensor(blk, dtype=dtype, device=device)
+    # the preparation kernel's statics, contiguous (N_null is a transpose)
+    out["prep"] = {k: out[k].contiguous() for k in (
+        "X_pin", "P_blk", "N_null", "N3k", "Pn_base", "T_term", "G_stat", "T_lsc",
+        "kernel_rho", "An_stat")}
     return out
 
 
@@ -369,7 +417,6 @@ def _rows_batched(cfg: QPConfig, x, normals):
 def constraint_bounds(cfg: QPConfig, inp: QPInputs):
     """(l, u, rho) flat row vectors [A, R] (inequalities only)."""
     dim, M, n, N, phi = cfg.dim, cfg.M, cfg.n, cfg.N, cfg.phi
-    dt = cfg.dt
     dtype, dev = inp.p0.dtype, inp.p0.device
     A = inp.p0.shape[0]
     ls, us, rs = [], [], []
@@ -382,16 +429,19 @@ def constraint_bounds(cfg: QPConfig, inp: QPInputs):
     lsc_l = torch.where(inp.lsc_active, inp.lsc_rhs, -_INF)
     add(lsc_l, torch.full_like(lsc_l, _INF), cfg.rho * _RHO_SCALE["lsc"])
 
-    # velocity |Δ| ≤ 0.95·vmax·dt/n (5% robustness buffer); skip m=0, i<2
-    vcap = (0.95 * inp.vmax * dt / n)[:, :, None, None].expand(A, dim, M, n)
+    # velocity |Δ| ≤ 0.95·vmax·dt/n (5% robustness buffer); skip m=0, i<2.
+    # One product with the scalar rounded once: a tensor divided by a
+    # Python scalar is multiplied by its reciprocal on the card and
+    # divided on the CPU, which round differently
+    sc = prepare_scalars(cfg)
+    vcap = (inp.vmax * sc["vcap"])[:, :, None, None].expand(A, dim, M, n)
     vmask = torch.ones((M, n), dtype=torch.bool, device=dev)
     vmask[0, :2] = False
     vcap = torch.where(vmask, vcap, _INF)
     add(-vcap, vcap, cfg.rho * _RHO_SCALE["vel"])
 
     # acceleration |Δ²| ≤ 0.95·amax·dt²/(n(n−1)); skip m=0, i=0
-    acap = (0.95 * inp.amax * dt * dt / (n * (n - 1)))[:, :, None, None].expand(
-        A, dim, M, n - 1)
+    acap = (inp.amax * sc["acap"])[:, :, None, None].expand(A, dim, M, n - 1)
     amask = torch.ones((M, n - 1), dtype=torch.bool, device=dev)
     amask[0, 0] = False
     acap = torch.where(amask, acap, _INF)
@@ -519,12 +569,12 @@ def check_kernel_rows(cfg: QPConfig, li: LoopInputs):
     one-sided LSC rows (u ≥ 1e19; `prepare` makes it 1e20 less the pin
     offset). The kernel reads neither li.rho nor the LSC rows of li.un,
     so inputs of another kind (another ρ, a finite LSC bound) would
-    otherwise leave the plain loop's answer without a word. One host
-    synchronisation, once per LoopInputs and state of its ρ and u
-    tensors (their version counters see in-place edits), so repeated
-    calls on one batch queue without a stall."""
-    seen = (li.rho.data_ptr(), li.rho._version, li.un.data_ptr(), li.un._version)
-    if li.__dict__.get("_kernel_rows_checked") == seen:
+    otherwise leave the plain loop's answer without a word. Loop inputs
+    that carry the mark (`LoopInputs.mark_kernel_rows`: the preparation
+    kernel's, their `take` and `resume`, or a batch checked before in
+    the same state) pass at once; any other costs one host
+    synchronisation, and then carries the mark."""
+    if li.kernel_rows_marked():
         return
     ts = torch_statics(cfg, li.xi.device, li.rho.dtype)
     R_lsc = cfg.n_obs * cfg.M * cfg.N
@@ -535,7 +585,7 @@ def check_kernel_rows(cfg: QPConfig, li: LoopInputs):
     if bool(((li.rho != want).any() | (li.un[:, :R_lsc] < 0.1 * _INF).any()).item()):
         raise ValueError("the CUDA kernel takes ρ per family and one-sided LSC rows; "
                          "these loop inputs differ (use plain=True)")
-    li._kernel_rows_checked = seen
+    li.mark_kernel_rows()
 
 
 def rescue_batch(cfg: QPConfig, li: LoopInputs, xi, z, y, feas_tol: float):
@@ -552,7 +602,7 @@ def rescue_batch(cfg: QPConfig, li: LoopInputs, xi, z, y, feas_tol: float):
     bad = resc >= 0.6 * feas_tol
     key = torch.where(bad, resc, -1.0)
     idx = torch.sort(key, descending=True, stable=True).indices[:RESCUE]
-    sub = dataclasses.replace(li.take(idx), xi=xi[idx], z=z[idx], y=y[idx])
+    sub = li.take(idx).resume(xi[idx], z[idx], y[idx])
     return idx, bad[idx], sub
 
 
@@ -573,18 +623,72 @@ class Prepared:
     u: torch.Tensor  # [A, R]
     tvec: torch.Tensor  # [A, 1, MN]
     qflat: torch.Tensor  # [A, dim, MN]
+    info: torch.Tensor  # [A] int32: 0, or the order of the KKT matrix's first non-positive pivot
 
 
-def prepare(cfg: QPConfig, inputs: QPInputs) -> Prepared:
+def prepare_scalars(cfg: QPConfig):
+    """The Python scalars of the preparation's arithmetic, each met by a
+    tensor in one product (rounded once to its type), in the plain body
+    and the kernel alike, and the KKT matrix's ρ_lsc and σ."""
+    n, dt, tw = cfg.n, cfg.dt, cfg.terminal_weight
+    return {"vel": dt / n, "acc": dt * dt / (n * (n - 1)), "vcap": 0.95 * dt / n,
+            "acap": 0.95 * dt * dt / (n * (n - 1)), "tdiag": 2.0 * tw, "q": -2.0 * tw,
+            "rho_lsc": cfg.rho * _RHO_SCALE["lsc"], "sigma": cfg.sigma}
+
+
+def prepare(cfg: QPConfig, inputs: QPInputs, plain: bool = False) -> Prepared:
     """Everything before the ADMM loop: pins and their particular
     solution, bounds in reduced coordinates, the reduced cost, the KKT
-    inverse (batched Cholesky) and the warm start."""
+    inverse and the warm start. CUDA tensors go to the kernel (one
+    launch, no host synchronisation; its loop inputs carry the
+    kernel-rows mark), CPU tensors to the plain body; `plain` forces the
+    plain body on any device, for comparisons. Any other device raises."""
+    global plain_cuda_calls
+    dev = inputs.p0.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no QP preparation for device {dev}")
+    if dev.type == "cpu" or plain:
+        if dev.type == "cuda":
+            plain_cuda_calls += 1
+        return _prepare_plain(cfg, inputs)
+    out = qp_prepare_cuda.prepare_cuda(cfg, torch_statics(cfg, dev), inputs,
+                                       prepare_scalars(cfg))
+    loop = LoopInputs(**{f.name: out[f.name] for f in dataclasses.fields(LoopInputs)})
+    return Prepared(loop=loop.mark_kernel_rows(),
+                    **{f.name: out[f.name] for f in dataclasses.fields(Prepared)
+                       if f.name != "loop"})
+
+
+def kkt_matrix(cfg: QPConfig, inputs: QPInputs):
+    """The plain body's KKT matrix from its Kronecker structure: (Kmat [A,
+    dim·K, dim·K] with rows d·K + k, Pn_dim [A, K, K] the reduced cost's
+    Hessian per dimension)."""
     dev, dtype = inputs.p0.device, inputs.p0.dtype
     ts = torch_statics(cfg, dev)
+    A, dim, K = inputs.p0.shape[0], cfg.dim, ts["K"]
+    tdiag = prepare_scalars(cfg)["tdiag"] * inputs.terminal_mask  # [A, M]
+    Pn_dim = ts["Pn_base"][None] + torch.einsum("am,mkl->akl", tdiag, ts["T_term"])
+    diag_blk = (Pn_dim + ts["G_stat"][None]
+                + cfg.sigma * torch.eye(K, dtype=dtype, device=dev)[None])
+    S_lsc = torch.einsum("aomd,aome->amde", inputs.lsc_normals, inputs.lsc_normals)
+    Kmat = (cfg.rho * _RHO_SCALE["lsc"]) * torch.einsum(
+        "amde,mkl->adkel", S_lsc, ts["T_lsc"])  # [A, dim, K, dim, K]
+    for d in range(dim):
+        Kmat[:, d, :, d, :] += diag_blk
+    return Kmat.reshape(A, dim * K, dim * K), Pn_dim
+
+
+def _prepare_plain(cfg: QPConfig, inputs: QPInputs) -> Prepared:
+    """prepare's plain version (the torch body). A KKT matrix that is not
+    positive definite gets a NaN inverse and its pivot's order in `info`,
+    as jnp.linalg.cholesky gives NaN; nothing raises and nothing is read
+    back to the host."""
+    dev, dtype = inputs.p0.device, inputs.p0.dtype
+    ts = torch_statics(cfg, dev)
+    sc = prepare_scalars(cfg)
     A = inputs.p0.shape[0]
     dim, M, n, N = cfg.dim, cfg.M, cfg.n, cfg.N
     MN = M * N
-    K = ts["K"]
     N_null = ts["N_null"]
 
     pins = pinned_values(cfg, inputs.p0, inputs.v0, inputs.a0)  # [A, dim, phi]
@@ -594,29 +698,26 @@ def prepare(cfg: QPConfig, inputs: QPInputs) -> Prepared:
     ln, un = l - b_off, u - b_off
 
     # reduced cost
-    tdiag = 2.0 * cfg.terminal_weight * inputs.terminal_mask  # [A, M]
+    tdiag = sc["tdiag"] * inputs.terminal_mask  # [A, M]
     tvec = torch.zeros((A, M, N), dtype=dtype, device=dev)
     tvec[:, :, n] = tdiag
     tvec = tvec.reshape(A, 1, MN)
     q = torch.zeros((A, dim, M, N), dtype=dtype, device=dev)
-    q[..., n] = (-2.0 * cfg.terminal_weight * inputs.terminal_mask[:, None, :]
-                 * inputs.goal[..., None])
+    q[..., n] = sc["q"] * inputs.terminal_mask[:, None, :] * inputs.goal[..., None]
     qflat = q.reshape(A, dim, MN)
+    # qn = N_nullᵀ(q + P·xpart) is a small difference of terms up to ~1e2
+    # times its size (N_nullᵀ·P_base·X_pin is ~0: X_pin is the minimum-jerk
+    # particular solution): its float32 rounding, which depends on the
+    # order of the sums, is as large as qn itself for agents far from the
+    # origin, as in the JAX package's identical formulation
     Pxp = torch.einsum("vw,adw->adv", ts["P_base"], xpart) + tvec * xpart
     qn = torch.einsum("vk,adv->adk", N_null, qflat + Pxp)  # [A, dim, K]
 
     # KKT matrix from Kronecker structure, inverted once
-    Pn_dim = ts["Pn_base"][None] + torch.einsum("am,mkl->akl", tdiag, ts["T_term"])
-    diag_blk = (Pn_dim + ts["G_stat"][None]
-                + cfg.sigma * torch.eye(K, dtype=dtype, device=dev)[None])
-    S_lsc = torch.einsum("aomd,aome->amde", inputs.lsc_normals, inputs.lsc_normals)
-    Kmat = (cfg.rho * _RHO_SCALE["lsc"]) * torch.einsum(
-        "amde,mkl->adkel", S_lsc, ts["T_lsc"])  # [A, dim, K, dim, K]
-    for d in range(dim):
-        Kmat[:, d, :, d, :] += diag_blk
-    Kmat = Kmat.reshape(A, dim * K, dim * K)
-    chol = torch.linalg.cholesky(Kmat)
-    eye_dk = torch.eye(dim * K, dtype=dtype, device=dev).expand(A, dim * K, dim * K)
+    Kmat, Pn_dim = kkt_matrix(cfg, inputs)
+    chol, info = torch.linalg.cholesky_ex(Kmat)
+    chol = torch.where((info != 0)[:, None, None], float("nan"), chol)
+    eye_dk = torch.eye(Kmat.shape[-1], dtype=dtype, device=dev).expand(Kmat.shape)
     Kinv = torch.cholesky_solve(eye_dk, chol)
 
     # residual row scale (matches the caller's feasibility gate)
@@ -628,15 +729,16 @@ def prepare(cfg: QPConfig, inputs: QPInputs) -> Prepared:
     loop = LoopInputs(normals=inputs.lsc_normals, Kinv=Kinv, Pn=Pn_dim, qn=qn,
                       ln=ln, un=un, rho=rho, scale=scale, xi=xi0, z=z0, y=y0)
     return Prepared(loop=loop, xpart=xpart, b_off=b_off, l=l, u=u, tvec=tvec,
-                    qflat=qflat)
+                    qflat=qflat, info=info)
 
 
 def solve(cfg: QPConfig, inputs: QPInputs, feas_tol: float = 5e-3,
           plain: bool = False) -> QPResult:
     """Solve all agents' QPs in one batched ADMM, then rescue the
     stragglers (small fleets in place; above RESCUE agents the worst
-    RESCUE are compacted into one batch)."""
-    pr = prepare(cfg, inputs)
+    RESCUE are compacted into one batch). `plain` forces the plain
+    preparation and loop on any device, for comparisons."""
+    pr = prepare(cfg, inputs, plain)
     li = pr.loop
     A = li.xi.shape[0]
     dim, M, N = cfg.dim, cfg.M, cfg.N
@@ -645,7 +747,7 @@ def solve(cfg: QPConfig, inputs: QPInputs, feas_tol: float = 5e-3,
     xi, z, y, itdone, iters = run_loop(cfg, li, cfg.max_iter, feas_tol, plain)
 
     if cfg.rescue_iter > 0 and A <= RESCUE:
-        cont = dataclasses.replace(li, xi=xi, z=z, y=y)
+        cont = li.resume(xi, z, y)
         xi, z, y, itdone2, iters2 = run_loop(cfg, cont, cfg.rescue_iter, feas_tol, plain)
         itdone = (torch.clamp(itdone, max=cfg.max_iter)
                   + torch.minimum(itdone2, iters2)).to(torch.int32)

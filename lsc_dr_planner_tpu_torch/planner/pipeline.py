@@ -180,6 +180,10 @@ class FleetPlanner:
         self._growth = torch.as_tensor(
             _uncertainty_growth_table(p.n, p.dt, p.obs_uncertainty_horizon, p.M),
             dtype=torch.float32, device=self.device)
+        # the world's box on the device, copied once: a host-to-device copy
+        # in the step would hold the host until the card caught up
+        self._world_box = tuple(torch.as_tensor(v, dtype=torch.float32, device=self.device)
+                                for v in (world.world_min, world.world_max))
         self.timing = timing and self.device.type == "cuda"
         self._events = []
         self.debug = False  # keep the step's intermediates in self._dbg
@@ -458,10 +462,8 @@ class FleetPlanner:
 
         # variable bounds: the world (∩ SFC with the octomap), plus the
         # waypoint comm box on the segment ends
-        wmin = torch.tensor(gw.world_min[:dim], dtype=f32, device=dev)
-        wmax = torch.tensor(gw.world_max[:dim], dtype=f32, device=dev)
-        lb = wmin[None, :, None, None].expand(A, dim, M, N)
-        ub = wmax[None, :, None, None].expand(A, dim, M, N)
+        lb = self._world_box[0][None, :dim, None, None].expand(A, dim, M, N)
+        ub = self._world_box[1][None, :dim, None, None].expand(A, dim, M, N)
         if p.world_use_octomap:
             lb = torch.maximum(lb, sfc_lo_w[..., :dim].transpose(1, 2)[..., None])
             ub = torch.minimum(ub, sfc_hi_w[..., :dim].transpose(1, 2)[..., None])

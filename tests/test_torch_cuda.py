@@ -14,7 +14,7 @@ import torch
 
 from lsc_dr_planner_tpu_torch import workload
 from lsc_dr_planner_tpu_torch.config import GoalMode, PlannerMode
-from lsc_dr_planner_tpu_torch.ops import qp, qp_cuda
+from lsc_dr_planner_tpu_torch.ops import qp, qp_check, qp_cuda
 
 pytestmark = pytest.mark.cuda
 
@@ -292,8 +292,13 @@ def test_simulator_qp_exit_matches_plain_iterate(sim_qp):
     max_iter) is bitwise the chain of single-chunk launches, each chunk
     agrees with the plain chunk from the same state (per agent: within
     rtol 1e-4 of its largest entry, as a mid-run dual of an inactive row
-    is a difference of two terms of that size), and the whole run is the
-    plain loop's iterate after as many iterations."""
+    is a difference of two terms of that size), and the whole run is
+    held to the float64 plain iterate after as many iterations
+    (`qp_check.whole_run_f64`: per agent within one tolerance of it, or
+    within F64_FACTOR times the float32 plain loop's spread about it;
+    after ~200 iterations the float32 plain loop is itself a few
+    tolerances from float64 on this state, so a float32 run is no
+    reference for another)."""
     cfg, qp_inp, feas_tol = sim_qp
     li = qp.prepare(cfg, qp_inp).loop
     got = qp.run_loop(cfg, li, cfg.max_iter, feas_tol)
@@ -311,9 +316,47 @@ def test_simulator_qp_exit_matches_plain_iterate(sim_qp):
         state = dataclasses.replace(state, xi=k[0], z=k[1], y=k[2])
     for a, b in zip(got[:3], (state.xi, state.z, state.y)):
         assert torch.equal(a, b)
-    want = qp.admm_loop_plain(cfg, li, stop, 0.0)
-    for a, b in zip(got[:3], want[:3]):
-        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    rec = qp_check.whole_run_f64(cfg, li, got)
+    assert rec["agents_failed"] == 0, rec
+
+
+@pytest.fixture(scope="module")
+def moved_dlsc_3d():
+    """The DLSC 3-D bench fleet (A=1024, dim·K 90: chip_smoke.py's phase
+    8e) after 3 evolving steps, with every agent's position moved by
+    1e-6 m in a random direction (one state a seed): the QPs of the next
+    step, prepared on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    p, planner, fleet, inp = workload.build_fleet(1024, device="cuda", world_dimension=3,
+                                                  planner_mode=PlannerMode.DLSC)
+    step = workload.make_evolve_step(p, planner, fleet)
+    for _ in range(3):
+        inp, _ = step(inp)
+    cfg = planner.qp_cfg
+    out = []
+    for seed in (11, 12, 13):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        d = torch.randn(inp.pos.shape, generator=g, device="cuda")
+        moved = dataclasses.replace(
+            inp, pos=inp.pos + 1e-6 * d / torch.linalg.vector_norm(d, dim=-1, keepdim=True))
+        qi = planner._step_impl(fleet, moved, defer_qp=True).qp_inp
+        out.append(qp.prepare(cfg, qi).loop)
+    return cfg, planner.feas_tol, out
+
+
+@pytest.mark.parametrize("state", [0, 1, 2])
+def test_moved_dlsc_3d_whole_run_is_held_to_float64(moved_dlsc_3d, state):
+    """The float64 criterion of the whole run (`qp_check.whole_run_f64`)
+    on the ill-conditioned 3-D DLSC batch moved by a micrometre: the
+    acceleration rows' duals (ρ = 50) of a few agents are where float32
+    sums of the Kinv matvec and the adjoint strayed 5–8 times the
+    float32 plain loop's spread."""
+    cfg, feas_tol, lis = moved_dlsc_3d
+    li = lis[state]
+    got = qp.run_loop(cfg, li, cfg.max_iter, feas_tol)
+    rec = qp_check.whole_run_f64(cfg, li, got, seed=state)
+    assert rec["agents_failed"] == 0, rec
 
 
 def test_simulator_qp_in_place_rescue_contract(sim_qp):
