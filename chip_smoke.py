@@ -206,6 +206,7 @@ CUDA device or outside a checkout of the repository. Writes the full
 record to chiprun_out/chip_smoke.json.
 """
 
+import contextlib
 import dataclasses
 import json
 import re
@@ -761,6 +762,22 @@ def queued_ms(fn, reps):
     return e0.elapsed_time(e1) / reps
 
 
+def host_ms(fn, reps):
+    """Mean host ms to issue fn() over `reps` calls queued behind a sleep
+    kernel, after one warm-up call: the card is busy all along, so no call
+    waits for it and the time is the host's alone (Python, the
+    allocations, the launches)."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
 def differing(a, b):
     """Elements of a and b that differ by value (a NaN equal to a NaN)."""
     if a.is_floating_point():
@@ -1202,15 +1219,27 @@ def prepare_bound(qp, cfg, inp):
 
 def prepare_timing(qp, qp_prepare_cuda, calls, gpu, what):
     """The QP preparation kernel on the first recorded qp.prepare call of a
-    path: its ms a call by CUDA events over KERNEL_REPS launches queued
-    back to back, its device ms under torch.profiler, the plain body's ms
-    on the card (plain=True), the library call beside it
-    (`torch.cholesky_inverse` of `torch.linalg.cholesky_ex` on the plain
-    body's KKT matrix in float64: the inverse alone, in the kernel's
-    precision, which the port never calls; and in float32),
-    the bound of this call's work (`prepare_bound`), the kernel's shared
-    memory and resident agents per SM."""
+    path (`prepare_kernel_record`) and the host's time to issue it:
+    prepare_cuda's and qp.prepare's (`host_ms`)."""
     cfg, inp = calls.calls[0][0][:2]
+    rec = prepare_kernel_record(qp, qp_prepare_cuda, cfg, inp)
+    ts, sc = qp.torch_statics(cfg, inp.p0.device), qp.prepare_scalars(cfg)
+    rec["host_ms"] = host_ms(lambda: qp_prepare_cuda.prepare_cuda(cfg, ts, inp, sc), KERNEL_REPS)
+    rec["prepare_host_ms"] = host_ms(lambda: qp.prepare(cfg, inp), KERNEL_REPS)
+    print(f"{what} prepare timing", json.dumps(rec), f"[{gpu}]")
+    return rec
+
+
+def prepare_kernel_record(qp, qp_prepare_cuda, cfg, inp, library=True):
+    """The QP preparation kernel on `inp`: its ms a call by CUDA events
+    over KERNEL_REPS launches queued back to back, its device ms under
+    torch.profiler, the plain body's ms on the card (plain=True), the
+    library call beside it (`torch.cholesky_inverse` of
+    `torch.linalg.cholesky_ex` on the plain body's KKT matrix in float64:
+    the inverse alone, in the kernel's precision, which the port never
+    calls; and in float32; not with `library` False), the bound of this
+    call's work (`prepare_bound`), the kernel's shared memory and
+    resident agents per SM."""
     dev = inp.p0.device
     ts, sc = qp.torch_statics(cfg, dev), qp.prepare_scalars(cfg)
 
@@ -1219,21 +1248,112 @@ def prepare_timing(qp, qp_prepare_cuda, calls, gpu, what):
 
     ms = queued_ms(launch, KERNEL_REPS)
     device_ms, seen = profiled_ms(launch, dev)
-    plain_ms = cuda_ms(lambda: qp.prepare(cfg, inp, plain=True), 5)
-    kmat32 = qp.kkt_matrix(cfg, inp)[0]
-    kmat = kmat32.double()
-    library_ms = queued_ms(lambda: torch.cholesky_inverse(torch.linalg.cholesky_ex(kmat).L), 20)
-    library_ms_f32 = queued_ms(
-        lambda: torch.cholesky_inverse(torch.linalg.cholesky_ex(kmat32).L), 20)
     lib = qp_prepare_cuda.build()
     shape = (cfg.dim, cfg.n_obs, cfg.M, cfg.N, ts["K"])
     rec = {"dim": cfg.dim, "O": cfg.n_obs, "ms": ms, "device_ms": device_ms,
-           "profiled_kernels": seen, "plain_ms": plain_ms, "library_ms": library_ms,
-           "library_ms_float32": library_ms_f32, "smem_bytes": lib.qp_prepare_smem_bytes(*shape),
+           "profiled_kernels": seen, "smem_bytes": lib.qp_prepare_smem_bytes(*shape),
            "blocks_per_sm": lib.qp_prepare_blocks_per_sm(*shape), **prepare_bound(qp, cfg, inp)}
+    if library:
+        kmat32 = qp.kkt_matrix(cfg, inp)[0]
+        kmat = kmat32.double()
+        rec.update(
+            plain_ms=cuda_ms(lambda: qp.prepare(cfg, inp, plain=True), 5),
+            library_ms=queued_ms(
+                lambda: torch.cholesky_inverse(torch.linalg.cholesky_ex(kmat).L), 20),
+            library_ms_float32=queued_ms(
+                lambda: torch.cholesky_inverse(torch.linalg.cholesky_ex(kmat32).L), 20))
     rec["bound_share"] = rec["bound_ms"] / ms
-    print(f"{what} prepare timing", json.dumps(rec), f"[{gpu}]")
     return rec
+
+
+@contextlib.contextmanager
+def built_from(wrapper, src):
+    """For the duration, the kernel library of `wrapper` (qp_cuda,
+    qp_prepare_cuda, ...) built from the source file `src` in its place;
+    yields ptxas's registers and spills of its build (the build log is
+    keyed by file name: give each source its own). The shipped source is
+    restored afterwards."""
+    from lsc_dr_planner_tpu_torch.ops import cuda_build
+
+    shipped = wrapper.SOURCE
+    wrapper.SOURCE, wrapper._lib = Path(src).resolve(), None
+    try:
+        wrapper.build(verbose=True)
+        yield ptxas_summary(cuda_build.build_log.get(Path(src).name, (0, ""))[1])
+    finally:
+        wrapper.SOURCE, wrapper._lib = shipped, None
+
+
+def prepare_sources_main(sources):
+    """The QP preparation kernel built from each of `sources`
+    (qp_prepare.cu files of one PrepArgs layout: an older tree's, this
+    tree's, variants), in the order given (for an A/B: parent, change,
+    change, parent), on the same batches: the main path's QP (2-D,
+    A=1024, after WARMUP evolving steps), 8b's (3-D) and the main path's
+    eight times over (A=8,192, mc_pod_bench's batch). Per source its
+    ptxas registers and spills, and per batch `prepare_kernel_record`
+    (no library call) and its agreement with the plain body
+    (`qp_check.prepare_agreement`: elements differing, largest share of
+    tolerance; Kinv's distance from the float64 inverse of the source's
+    own KKT matrix over twice the plain body's, `kinv_ratio_max`; info
+    nonzero); Kinv's entries that differ from the first source's and
+    from the float32 rounding of `torch.linalg.inv` of the KKT matrix in
+    float64. One JSON line a source; returns the records."""
+    from lsc_dr_planner_tpu_torch import workload
+    from lsc_dr_planner_tpu_torch.ops import (hull_cuda, qp, qp_check, qp_cuda, qp_prepare_cuda,
+                                              sfc_cuda)
+
+    dev, gpu = torch.device("cuda", 0), gpu_line()
+    wrappers = (qp_cuda, sfc_cuda, hull_cuda, qp_prepare_cuda)
+    with ThreadPoolExecutor(len(wrappers)) as pool:
+        for done in [pool.submit(w.build) for w in wrappers]:
+            done.result()
+    batches = {}
+    for tag, overrides in (("2d", {}), ("3d", dict(world_dimension=3))):
+        planner, fleet, inp = main_path_state(workload, dev, **overrides)
+        batches[tag] = (planner.qp_cfg,
+                        planner._step_impl(fleet, inp, defer_qp=True).qp_inp)
+    cfg, inp = batches["2d"]
+    batches["A8192"] = (cfg, qp.QPInputs(**{
+        f.name: None if getattr(inp, f.name) is None else getattr(inp, f.name).repeat(
+            P14_MC_S, *[1] * (getattr(inp, f.name).dim() - 1))
+        for f in dataclasses.fields(inp)}))
+    plain = {}
+    for tag, (cfg, inp) in batches.items():
+        want = qp.prepare(cfg, inp, plain=True)
+        plain[tag] = want, qp_check.kinv_distance(want.loop.Kinv, qp.kkt_matrix(cfg, inp)[0])
+    torch.cuda.synchronize()
+    recs, first_kinv = [], {}
+    for src in sources:
+        with built_from(qp_prepare_cuda, src) as ptxas:
+            rec = {"source": str(src), "gpu": gpu, "ptxas": ptxas}
+            for tag, (cfg, inp) in batches.items():
+                ts = qp.torch_statics(cfg, dev)
+                A, dk = inp.p0.shape[0], cfg.dim * ts["K"]
+                kmat = torch.empty(A, dk, dk, dtype=torch.float64, device=dev)
+                out = qp_prepare_cuda.prepare_cuda(cfg, ts, inp, qp.prepare_scalars(cfg),
+                                                   kmat=kmat)
+                got = qp.prepare(cfg, inp)
+                want, d_p = plain[tag]
+                agree = qp_check.prepare_agreement(cfg, inp, got, want)
+                d_k = qp_check.kinv_distance(out["Kinv"], kmat)
+                first = first_kinv.setdefault(tag, out["Kinv"])
+                rec[tag] = {
+                    **prepare_kernel_record(qp, qp_prepare_cuda, cfg, inp, library=False),
+                    "differing": sum(agree["differing"].values())
+                    + sum(agree["vacuous_differing"].values()),
+                    "max_share_of_tolerance": max(agree["share_of_tolerance"].values()),
+                    "kinv_ratio_max": float((d_k / torch.clamp(2 * d_p, min=1e-5)).max()),
+                    "kinv_dist_max": float(d_k.max()),
+                    "kinv_symmetric": bool(torch.equal(out["Kinv"], out["Kinv"].transpose(1, 2))),
+                    "info_nonzero": int((out["info"] != 0).sum()),
+                    "kinv_entries": out["Kinv"].numel(),
+                    "kinv_differing_from_first": differing(out["Kinv"], first),
+                    "kinv_differing_from_f64_inverse": differing(
+                        out["Kinv"], torch.linalg.inv(kmat).float())}
+        print("prepare source", json.dumps(rec), flush=True)
+        recs.append(rec)
+    return recs
 
 
 SYNC_WORDS = "synchroniz"  # in the warning of torch.cuda.set_sync_debug_mode("warn")
@@ -1337,6 +1457,7 @@ def qp_split(workload, dev, gpu, overrides=None, reps=10, count_reps=SYNC_COUNT_
            "host_syncs_by_part": syncs_by_part,
            "solve": stage_split(lambda: qp.solve(*a, **k), counters, dev, 5),
            "prepare": stage_split(lambda: qp.prepare(cfg, qp_inp), counters, dev, 20),
+           "prepare_host_ms": host_ms(lambda: qp.prepare(cfg, qp_inp), 20),
            "gpu": gpu}
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -1398,14 +1519,17 @@ def admm_sums_main(sources, seeds=MOVED_SEEDS):
     whole_run_f64 and the element-wise share of the whole run against
     the float32 plain loop (the clause it replaced); the loop timed
     (`admm_timing.timed_call`) on the main path's batch (2-D, A=1024),
-    its compacted rescue and 8b's (3-D); ptxas's registers and spills.
-    One JSON line a source."""
+    its compacted rescue and 8b's (3-D); the QPs of TIMED evolving steps
+    of the main path and of 8b (as `qp.solve` got them, steps of this
+    tree's kernels) solved again: each solve's rescue exit, the sum of
+    the exits, mean solve ms (CUDA events) and convergence; ptxas's
+    registers and spills. One JSON line a source."""
     import tempfile
 
     from lsc_dr_planner_tpu_torch import workload
     from lsc_dr_planner_tpu_torch.config import Param, PlannerMode
-    from lsc_dr_planner_tpu_torch.ops import (cuda_build, hull_cuda, qp, qp_check, qp_cuda,
-                                              qp_prepare_cuda, sfc_cuda)
+    from lsc_dr_planner_tpu_torch.ops import (hull_cuda, qp, qp_check, qp_cuda, qp_prepare_cuda,
+                                              sfc_cuda)
     from lsc_dr_planner_tpu_torch.sim.simulator import MultiSyncSimulator
 
     dev, gpu = torch.device("cuda", 0), gpu_line()
@@ -1441,14 +1565,20 @@ def admm_sums_main(sources, seeds=MOVED_SEEDS):
         qi = sim.planner._step_impl(sim.fleet, sim._build_step_inputs(), defer_qp=True).qp_inp
         batches["simqp"] = (sim.planner.qp_cfg, sim.planner.feas_tol,
                             [("simqp", qp.prepare(sim.planner.qp_cfg, qi).loop)])
+    solves = {}
+    for tag, overrides in (("2d", {}), ("3d", dict(world_dimension=3))):
+        p, planner, fleet, inp = workload.build_fleet(A_MAIN, device=dev, **overrides)
+        step = workload.make_evolve_step(p, planner, fleet)
+        for _ in range(WARMUP):
+            inp, _ = step(inp)
+        with Calls(qp, "solve", keep=TIMED) as calls:
+            for _ in range(TIMED):
+                inp, _ = step(inp)
+        solves[tag] = [(a, k) for a, k, _, _ in calls.calls]
     torch.cuda.synchronize()
-    shipped = qp_cuda.SOURCE
-    try:
-        for src in sources:
-            qp_cuda.SOURCE, qp_cuda._lib = Path(src).resolve(), None
-            qp_cuda.build(verbose=True)
-            rec = {"source": str(src), "gpu": gpu,
-                   "ptxas": ptxas_summary(cuda_build.build_log.get(Path(src).name, (0, ""))[1])}
+    for src in sources:
+        with built_from(qp_cuda, src) as ptxas:
+            rec = {"source": str(src), "gpu": gpu, "ptxas": ptxas}
             cfg, feas_tol, states = batches["8e"]
             rec["8e"] = []
             for name, li in states:
@@ -1471,9 +1601,17 @@ def admm_sums_main(sources, seeds=MOVED_SEEDS):
                 iters = cfg.rescue_iter if tag == "rescue" else cfg.max_iter
                 rec["timing"][tag] = admm_timing.timed_call(qp, cfg, li, iters, feas_tol,
                                                             tag, 10)
-            print("admm sums", json.dumps(rec), f"[{gpu}]", flush=True)
-    finally:
-        qp_cuda.SOURCE, qp_cuda._lib = shipped, None
+            rec["steps"] = {}
+            for tag, calls in solves.items():
+                with Calls(qp, "run_loop", keep=len(calls),
+                           accept=lambda a, k: a[2] != a[0].max_iter) as rescues:
+                    conv = [float(qp.solve(*a, **k).converged.float().mean()) for a, k in calls]
+                ms = [cuda_ms(lambda: qp.solve(*a, **k), 2) for a, k in calls]
+                exits = [int(out[4]) for _, _, out, _ in rescues.calls]
+                rec["steps"][tag] = {"rescue_exits": exits, "rescue_iters": sum(exits),
+                                     "solve_ms": sum(ms) / len(ms),
+                                     "qp_convergence": sum(conv) / len(conv)}
+        print("admm sums", json.dumps(rec), f"[{gpu}]", flush=True)
 
 
 def rounding_check(dev, n=1 << 20, seed=0):
@@ -3014,7 +3152,8 @@ def main():
             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "bound_share", "bytes_ms",
             "ops_ms", *(k for k in ("hulls", "ops_per_hull", "lanes", "library_ms",
                                     "lane_trips", "longest_lane_trips", "latency_floor_ms",
-                                    "floor_share") if k in t))})
+                                    "floor_share", "host_ms", "blocks_per_sm", "smem_bytes")
+                                if k in t))})
     print(f"phase5 CLSC stage {stage_ms.get('lsc')} ms, SFC stage {stage_ms.get('sfc')} ms "
           f"a step [{gpu}]")
     main["clsc_split"] = clsc_split(workload, dev, gpu)
@@ -3270,7 +3409,9 @@ def main():
         "bound_by": r["bound_by"], "bound_share": r["bound_share"],
         **{k: r[k] for k in ("calls_checked", "agents_checked", "elements_checked",
                              "max_share_of_tolerance", "max_kinv_ratio")},
-        "ptxas": kernels_ptxas.get("qp_prepare_kernel"),
+        # two builds: <8> blocks an SM up to 8 tile rows, <4> above
+        "ptxas": {k: v for k, v in kernels_ptxas.items() if k.startswith("qp_prepare_kernel")},
+        **{k: r[k] for k in ("host_ms", "blocks_per_sm", "smem_bytes")},
         # torch.cholesky_inverse(torch.linalg.cholesky_ex(Kmat).L): the inverse alone
         "library_ms": r["library_ms"],
     })

@@ -19,9 +19,9 @@
 // gate state go to global memory.
 //
 // The operator. The static rows (velocity, acceleration, comm pairs, bounds)
-// are difference stencils over the control points VU_d = N_null·ξ_d, at most 3
+// are difference stencils over the control points VD_d = N_null·ξ_d, at most 3
 // nonzeros a row (ops/qp.py::stencil_table, built from _solver_statics's A_dim
-// in its flat row order). The kernel forms VU once per iteration (needed for
+// in its flat row order). The kernel forms VD once per iteration (needed for
 // the LSC rows anyway) and reads each static row off it, and the adjoint adds
 // the transposed stencils (compressed columns) into the same control-point
 // accumulator as the LSC adjoint, so one N3k product brings both back to
@@ -30,8 +30,8 @@
 // iteration of one agent is about 15 k FMAs instead of 60 k, plus ~15 flops
 // per row of elementwise update. A static row is a difference of nearby
 // points, so the float32 rounding of the points would cost it what the dense
-// product does not lose: the points are summed in double and kept as a float
-// pair (hi + lo), and each static row is taken in double from them. Measured
+// product does not lose: the points are summed and kept in double, and each
+// static row is taken in double from them. Measured
 // on the H100 on one A=37 batch, this halved the kernel's per-chunk distance
 // to the float64 plain loop, to the float32 plain loop's own, for 4.5% of time.
 //
@@ -67,19 +67,27 @@
 // thread each; the exit test's eight reductions are one warp-shuffle pass and
 // one shared step. No float atomics: an agent's result does not depend on
 // which agents share the launch (the rescue compacts different agents each
-// step). The Kinv matvec, the adjoint accumulator and the N3k adjoint product
-// add their exact products in double and round once (a Kinv product as its
-// float rounding and the rounding's error, from an FMA: converting the row's
-// registers to double would spill them). Added in float32, one product at a
-// time, on the acceleration rows' duals (ρ = 50) of a few agents of 3-D DLSC
-// batches (KKT condition ~1.6e5) the kernel strayed 5–17 times as far from the
-// float64 plain loop as the float32 plain loop does over one-ulp moves of its
-// state (chip_smoke.py's phase 8e, on that state and on it moved by 1e-6 m);
-// with these sums at most 1.85 times. Measured on the H100 (chip_smoke.py's
-// admm_sums_main, 200 iterations at A=1024): 2-D 4.40 → 5.08 ms, 3-D 7.78 →
-// 8.88 ms, 24 B spilled in each build; the same sums in float-float (an FMA
-// error term and a two-sum in float32) gave the same results in 5.49 and
-// 10.08 ms.
+// step).
+//
+// Precision. The loop's state (ξ, z, y) is float32, and so are the row
+// updates; what sets a dual's fixed point is in double. Per iteration, rhs =
+// (σξ − q) + Aᵀ(ρz − y) is formed in double (q and Aᵀ(ρz − y) cancel), the
+// adjoint adds its exact products in double, ξ̃ = Kinv·rhs is a double FMA
+// chain (each float Kinv entry converted where it is used: hoisted out of the
+// iteration loop, the conversions spilled 312 B in 2-D and 520 B in 3-D), and
+// the control points of ξ̃ and every row taken from them stay in double until
+// the row is rounded once. admm_rounding.py ranks the float32 roundings these
+// replace on the CPU (3-D DLSC, A=1024, the worst dual against the float64
+// plain loop: rhs alone 2.33 tolerances, ξ̃ 2.41, the LSC rows 1.03, all of the
+// kernel's float32 steps 4.30, those it keeps 0.041, the float32 plain loop
+// 150). On the H100 (chip_smoke.py::admm_sums_main, phase 8e's DLSC 3-D state
+// and twelve copies moved by 1e-6 m, KKT condition ~1.6e5): the whole run's
+// float64 ratio went from 1.44–5.23 (one state over F64_FACTOR 5) with double
+// sums of the matvec and adjoint alone to 0.37–2.22, the chunk ratio from
+// 0.58–3.74 to 0.34–0.98;
+// 200 iterations at A=1024 take 5.08 → 4.81 ms in 2-D and 8.92 → 9.49 ms in
+// 3-D (0 and 16 B spilled). Float32 sums one product at a time strayed 5–17
+// times the float32 plain loop's own spread on the same states.
 //
 // What bounds it on the H100: the float32 FMA pipes and the latency of five
 // barriers per iteration; the bound of the work itself (about 54 k flops per
@@ -157,8 +165,9 @@ __host__ __device__ inline Dims make_dims(int dim, int O, int M, int N, int K,
   return D;
 }
 
-// Z, Y, AX, LN [R]; UN [R_stat]; NRM [O*M*dim]; XI, XIP, QN, RHS, XT [dk];
-// VU, VL, VA [dim*MN]; RED [8 per warp]; MOF [MN] (int).
+// VD [dim*MN doubles]; XTD [dk doubles]; Z, Y, AX, LN [R]; UN [R_stat];
+// NRM [O*M*dim]; XI, XIP, QN [dk]; VA [dim*MN]; RED [8 per warp]; MOF [MN]
+// (int).
 __host__ __device__ inline size_t smem_floats(const Dims& D, int threads) {
   return 4 * (size_t)D.R + D.R_stat + (size_t)D.O * D.M * D.dim + 5 * (size_t)D.dk +
          3 * (size_t)D.dim * D.MN + 8 * (threads / 32) + D.MN;
@@ -167,6 +176,15 @@ __host__ __device__ inline size_t smem_floats(const Dims& D, int threads) {
 __host__ __device__ inline int admm_n_chunks(int max_iter, int chunk) {
   const int n = (max_iter + chunk - 1) / chunk;
   return n > 1 ? n : 1;
+}
+
+// x in double, converted where it is used: a conversion the compiler may
+// hoist out of the iteration loop would hold each Kinv register twice, in
+// double too, and spill them.
+__device__ __forceinline__ double to_double_here(float x) {
+  double d;
+  asm volatile("cvt.f64.f32 %0, %1;" : "=d"(d) : "f"(x));
+  return d;
 }
 
 // One row's relaxation, projection onto [lo, hi] and dual update, in the
@@ -197,52 +215,47 @@ __device__ __forceinline__ void for_lsc_rows(const Dims& D, F f) {
   }
 }
 
-// Row value of LSC row (o, mn) and of static row s, given the control points.
+// Row value of LSC row (o, mn) and of static row s from the control points
+// VD, each taken in double and rounded once.
 __device__ __forceinline__ float lsc_row(const Dims& D, const float* NRM, const int* MOF,
-                                         const float* VU, int o, int mn) {
+                                         const double* VD, int o, int mn) {
   const float* nr = NRM + (o * D.M + MOF[mn]) * D.dim;
-  float acc = 0.f;
-  for (int d = 0; d < D.dim; ++d) acc += nr[d] * VU[d * D.MN + mn];
-  return acc;
-}
-
-// The static row from the double-float control points VU + VL: a difference
-// of nearby points, so it is taken in double and rounded once.
-__device__ __forceinline__ float stat_row(const Args& a, const float* VU, const float* VL,
-                                          int s) {
   double acc = 0.;
-#pragma unroll
-  for (int e = 0; e < kWidth; ++e) {
-    const int i = __ldg(a.st_idx + s * kWidth + e);
-    acc += (double)__ldg(a.st_coef + s * kWidth + e) * ((double)VU[i] + (double)VL[i]);
-  }
+  for (int d = 0; d < D.dim; ++d) acc += (double)nr[d] * VD[d * D.MN + mn];
   return (float)acc;
 }
 
-// VU[d*MN + mn] + VL[d*MN + mn] = Σ_k x[d*K + k]·N3k[k, mn], the control
-// points of x per dim, summed in double and kept as a float pair: the static
-// rows are differences of neighbouring points, and the float32 rounding of the
-// points alone would cost them twice the float32 plain loop's error.
-template <int NT>
-__device__ void control_points(const Dims& D, const float* x,
-                               const float* __restrict__ N3k, float* VU, float* VL) {
+// A static row is a difference of nearby points: rounded to float32 first,
+// the points would cost it twice the float32 plain loop's error.
+__device__ __forceinline__ float stat_row(const Args& a, const double* VD, int s) {
+  double acc = 0.;
+#pragma unroll
+  for (int e = 0; e < kWidth; ++e)
+    acc += (double)__ldg(a.st_coef + s * kWidth + e) * VD[__ldg(a.st_idx + s * kWidth + e)];
+  return (float)acc;
+}
+
+// VD[d*MN + mn] = Σ_k x[d*K + k]·N3k[k, mn], the control points of x (float:
+// the warm start; double: ξ̃) per dim, in double.
+template <int NT, class T>
+__device__ void control_points(const Dims& D, const T* x, const float* __restrict__ N3k,
+                               double* VD) {
   for (int i = threadIdx.x; i < D.dim * D.MN; i += NT) {
     const int d = i / D.MN, mn = i - d * D.MN;
-    const float* xd = x + d * D.K;
+    const T* xd = x + d * D.K;
     double acc = 0.;
     for (int k = 0; k < D.K; ++k) acc += (double)xd[k] * (double)__ldg(N3k + k * D.MN + mn);
-    VU[i] = (float)acc;
-    VL[i] = (float)(acc - (double)VU[i]);
+    VD[i] = acc;
   }
 }
 
 // Aᵀw for the row cotangent w = ρz − y (DUAL: w = y). The LSC rows through
 // the normals and the static rows through the transposed stencils go into one
 // control-point accumulator VA [dim*MN]; one N3k product then gives ξ-space.
-// Returns output ki (= threadIdx.x / 2) on both threads of the pair, 0 beyond
-// dk.
+// Returns output ki (= threadIdx.x / 2) in double, on both threads of the
+// pair, 0 beyond dk.
 template <int NT, bool DUAL>
-__device__ float adjoint(const Dims& D, const Args& a, const float* Z, const float* Y,
+__device__ double adjoint(const Dims& D, const Args& a, const float* Z, const float* Y,
                          const float* NRM, const int* MOF, float* VA, int ki, int kh) {
   const float* Zs = Z + D.R_lsc;
   const float* Ys = Y + D.R_lsc;
@@ -270,7 +283,7 @@ __device__ float adjoint(const Dims& D, const Args& a, const float* Z, const flo
     const float* va = VA + d * D.MN;
     for (int mn = lo; mn < hi; ++mn) acc += (double)__ldg(a.N3kT + mn * D.K + k) * (double)va[mn];
   }
-  return (float)(acc + __shfl_xor_sync(kFull, acc, 1));
+  return acc + __shfl_xor_sync(kFull, acc, 1);
 }
 
 // v[0..6] maxima, v[7] a sum, over the block; every thread gets the result,
@@ -308,12 +321,20 @@ __global__ void __launch_bounds__(NT, NT == 128 ? 8 : 3) admm_chunk_kernel(Args 
     if (threadIdx.x == 0 && blockIdx.x == 0) a.done_count[ck] = gridDim.x;
     return;
   }
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const Dims D = make_dims(a.dim, a.O, a.M, a.N, a.K, a.R_stat);
   const int t = threadIdx.x;
   const size_t agent = blockIdx.x;
 
-  float* Z = smem;
+  // The doubles first. From the adjoint to the Kinv product VD is free and
+  // holds rhs (dk ≤ dim·MN: K ≤ MN, N3k being a basis of a subspace of the MN
+  // control points); after the loop XTD holds the exit tests' Aᵀy and P·ξ.
+  double* VD = reinterpret_cast<double*>(smem);
+  double* RHSD = VD;
+  double* XTD = VD + D.dim * D.MN;
+  float* RHS = reinterpret_cast<float*>(XTD);
+  float* XT = RHS + D.dk;
+  float* Z = XT + D.dk;
   float* Y = Z + D.R;
   float* AX = Y + D.R;
   float* LN = AX + D.R;
@@ -322,11 +343,7 @@ __global__ void __launch_bounds__(NT, NT == 128 ? 8 : 3) admm_chunk_kernel(Args 
   float* XI = NRM + D.O * D.M * D.dim;
   float* XIP = XI + D.dk;
   float* QN = XIP + D.dk;
-  float* RHS = QN + D.dk;
-  float* XT = RHS + D.dk;
-  float* VU = XT + D.dk;
-  float* VL = VU + D.dim * D.MN;
-  float* VA = VL + D.dim * D.MN;
+  float* VA = QN + D.dk;
   float* RED = VA + D.dim * D.MN;
   int* MOF = reinterpret_cast<int*>(RED + 8 * (NT / 32));
 
@@ -358,42 +375,39 @@ __global__ void __launch_bounds__(NT, NT == 128 ? 8 : 3) admm_chunk_kernel(Args 
   for (int c = 0; c < KC; ++c) kin[c] = c < ncols ? kinv_g[c] : 0.f;
   __syncthreads();
   if (ck == 0) {  // A·xi of the warm start
-    control_points<NT>(D, XI, a.N3k, VU, VL);
+    control_points<NT>(D, XI, a.N3k, VD);
     __syncthreads();
-    for_lsc_rows<NT>(D, [&](int r, int o, int mn) { AX[r] = lsc_row(D, NRM, MOF, VU, o, mn); });
-    for (int s = t; s < D.R_stat; s += NT) AX[D.R_lsc + s] = stat_row(a, VU, VL, s);
+    for_lsc_rows<NT>(D, [&](int r, int o, int mn) { AX[r] = lsc_row(D, NRM, MOF, VD, o, mn); });
+    for (int s = t; s < D.R_stat; s += NT) AX[D.R_lsc + s] = stat_row(a, VD, s);
     __syncthreads();
   }
 
   const float alpha = a.alpha, beta = a.one_minus_alpha;
   for (int it = 0; it < a.chunk; ++it) {
-    // rhs = σξ − q + Aᵀ(ρz − y)
-    const float g = adjoint<NT, false>(D, a, Z, Y, NRM, MOF, VA, ki, kh);
-    if (kh == 0 && ki < D.dk) RHS[ki] = (a.sigma * XI[ki] - QN[ki]) + g;
+    // rhs = σξ − q + Aᵀ(ρz − y), in double: q and Aᵀ(ρz − y) cancel
+    const double g = adjoint<NT, false>(D, a, Z, Y, NRM, MOF, VA, ki, kh);
+    if (kh == 0 && ki < D.dk) RHSD[ki] = ((double)a.sigma * XI[ki] - (double)QN[ki]) + g;
     __syncthreads();
-    // ξ̃ = Kinv·rhs
+    // ξ̃ = Kinv·rhs, in double
     double acc = 0.;
 #pragma unroll
     for (int c = 0; c < KC; ++c)
-      if (c < ncols) {  // the exact product p + e, added in double
-        const float p = __fmul_rn(kin[c], RHS[c0 + c]);
-        acc += (double)p + (double)__fmaf_rn(kin[c], RHS[c0 + c], -p);
-      }
+      if (c < ncols) acc = fma(to_double_here(kin[c]), RHSD[c0 + c], acc);
     acc += __shfl_xor_sync(kFull, acc, 1);
-    if (kh == 0 && ki < D.dk) XT[ki] = (float)acc;
+    if (kh == 0 && ki < D.dk) XTD[ki] = acc;
     __syncthreads();
     // control points of ξ̃; ξ ← αξ̃ + (1 − α)ξ
-    control_points<NT>(D, XT, a.N3k, VU, VL);
-    for (int j = t; j < D.dk; j += NT) XI[j] = alpha * XT[j] + beta * XI[j];
+    control_points<NT>(D, XTD, a.N3k, VD);
+    for (int j = t; j < D.dk; j += NT) XI[j] = alpha * (float)XTD[j] + beta * XI[j];
     __syncthreads();
     // z̃ = A·ξ̃, over-relaxation, projection onto [l, u], dual update
     for_lsc_rows<NT>(D, [&](int r, int o, int mn) {
-      update_row(lsc_row(D, NRM, MOF, VU, o, mn), Z[r], Y[r], AX[r], LN[r], INFINITY,
+      update_row(lsc_row(D, NRM, MOF, VD, o, mn), Z[r], Y[r], AX[r], LN[r], INFINITY,
                  a.rho_lsc, alpha, beta);
     });
     for (int s = t; s < D.R_stat; s += NT) {
       const int r = D.R_lsc + s;
-      update_row(stat_row(a, VU, VL, s), Z[r], Y[r], AX[r], LN[r], UN[s], __ldg(a.rho_stat + s),
+      update_row(stat_row(a, VD, s), Z[r], Y[r], AX[r], LN[r], UN[s], __ldg(a.rho_stat + s),
                  alpha, beta);
     }
     __syncthreads();
@@ -408,7 +422,7 @@ __global__ void __launch_bounds__(NT, NT == 128 ? 8 : 3) admm_chunk_kernel(Args 
     const float vr = fmaxf(fmaxf(LN[r] - axr, axr - hi), 0.f);
     v[0] = fmaxf(v[0], vr / scale_g[r]);
   }
-  const float aty_k = adjoint<NT, true>(D, a, Z, Y, NRM, MOF, VA, ki, kh);  // Aᵀy
+  const float aty_k = (float)adjoint<NT, true>(D, a, Z, Y, NRM, MOF, VA, ki, kh);  // Aᵀy
   if (kh == 0 && ki < D.dk) RHS[ki] = aty_k;
   const float* pn_g = a.Pn + agent * D.K * D.K;
   for (int j = t; j < D.dk; j += NT) {  // P·ξ

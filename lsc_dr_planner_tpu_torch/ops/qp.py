@@ -388,10 +388,12 @@ def torch_statics(cfg: QPConfig, device: torch.device, dtype: torch.dtype = torc
     if not np.array_equal(st["P_base"], np.kron(np.eye(cfg.M), blk)):
         raise ValueError("P_base is not block diagonal with equal blocks")
     out["P_blk"] = torch.as_tensor(blk, dtype=dtype, device=device)
-    # the preparation kernel's statics, contiguous (N_null is a transpose)
+    # the preparation kernel's statics, contiguous (N_null is a transpose;
+    # An_statT [dim·K, R_stat], so that a row a thread reads coalesced)
     out["prep"] = {k: out[k].contiguous() for k in (
         "X_pin", "P_blk", "N_null", "N3k", "Pn_base", "T_term", "G_stat", "T_lsc",
-        "kernel_rho", "An_stat")}
+        "kernel_rho")}
+    out["prep"]["An_statT"] = out["An_stat"].T.contiguous()
     return out
 
 

@@ -37,7 +37,7 @@ class _Tin(ctypes.Structure):
 _INPUTS = ("p0", "v0", "a0", "goal", "terminal_mask", "lsc_normals", "lsc_rhs", "lsc_active",
            "vmax", "amax", "lb", "ub", "comm_halfrange", "x0", "y0")
 _STATICS = ("X_pin", "P_blk", "N_null", "N3k", "Pn_base", "T_term", "G_stat", "T_lsc",
-            "kernel_rho", "An_stat", "st_idx")
+            "kernel_rho", "An_statT", "st_idx")
 # the outputs in the kernel's order: qp.LoopInputs' and qp.Prepared's fields
 OUTPUTS = ("normals", "Kinv", "Pn", "qn", "ln", "un", "rho", "scale", "xi", "z", "y",
            "xpart", "b_off", "l", "u", "tvec", "qflat", "info")

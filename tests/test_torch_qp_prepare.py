@@ -6,9 +6,9 @@ The kernel runs only on the card (tests/test_torch_qp_prepare_kernel.py
 and chip_smoke.py hold it to the plain body there). Here the twin repeats
 what each of its blocks computes for one agent: the row index decoding
 of constraint_bounds's flat order, the Kronecker assembly of the KKT
-matrix by index arithmetic, the right-looking L·D·Lᵀ factor, the unit
-lower inverse and the product Xᵀ·D⁻¹·X, in double where the kernel keeps
-double. Inputs are made from numpy seeds: a few agents (A ≤ 16), O ≤ 4
+matrix by index arithmetic, and its inverse in double as the kernel's
+tiles of 8 take it (the padding, the panels of the L·D·Lᵀ factor, the
+block inverse of L and the tile order of the product Wᵀ·D⁻¹·W). Inputs are made from numpy seeds: a few agents (A ≤ 16), O ≤ 4
 neighbour slots, 2-D and 3-D, comm rows on and off, warm and cold duals.
 """
 
@@ -93,10 +93,9 @@ def twin(cfg, inp, a):
     sum in float32 in the CPU einsums' order (`fsum`: a chain of fused
     multiply-adds from 0, emulated in float64; `lsum`: a product, then an
     addition, a term); the rows decoded from their flat index; the KKT matrix assembled entry by
-    entry (row d·K + k, column e·K + l), then its L·D·Lᵀ factor and the
-    unit lower inverse right-looking in one float64 array (L below the
-    diagonal, X = L⁻¹ above it), Kinv = Xᵀ·D⁻¹·X. Returns ({field:
-    array}, Kmat float64, info)."""
+    entry (row d·K + k, column e·K + l), then inverted in float64 as the
+    kernel does (`blocked_inverse`). Returns ({field: array}, Kmat
+    float64, info)."""
     ts = qp.torch_statics(cfg, CPU)
     st = {k: v.numpy() for k, v in ts["stencil"].items()}
     f32 = np.float32
@@ -205,24 +204,83 @@ def twin(cfg, inp, a):
     for d in range(dim):
         Kf[d, :, d, :] = Kf[d, :, d, :] + diag
     Kmat = Kf.reshape(dk, dk).astype(np.float64)
-    KM = np.tril(Kmat)
-    # K = L·D·Lᵀ, right-looking; column j keeps L's column times d_j
-    invd = np.zeros(dk)
-    for j in range(dk):
-        if not KM[j, j] > 0:
-            out["Kinv"] = np.full((dk, dk), np.nan, f32)
-            return out, Kmat, j + 1
-        invd[j] = 1.0 / KM[j, j]
-        col = KM[j + 1:, j]
-        KM[j + 1:, j + 1:] -= np.tril(np.outer(col * invd[j], col))
-    KM[np.tril_indices(dk, -1)] *= invd[np.tril_indices(dk, -1)[1]]
-    # X = L⁻¹ right-looking, X[i][c] (i > c) kept at KM[c][i]
-    for k in range(dk - 1):
-        xk = np.append(KM[:k, k], 1.0)  # X[k][c], c ≤ k
-        KM[:k + 1, k + 1:] -= np.outer(xk, KM[k + 1:, k])
-    X = np.triu(KM, 1).T + np.eye(dk)
-    out["Kinv"] = (X.T @ (invd[:, None] * X)).astype(f32)
-    return out, Kmat, 0
+    out["Kinv"], info = blocked_inverse(Kmat)
+    return out, Kmat, info
+
+
+def blocked_inverse(Kmat):
+    """The kernel's double inverse of an SPD matrix of order dk, tile by
+    tile: padded to nT tiles of 8 with an identity; K = L·D·Lᵀ by panels
+    (the diagonal tile column by column, the panel's rows below it by
+    forward substitution, the trailing lower tiles by rank-8 products);
+    each diagonal tile's unit lower inverse, a column at a time; W = L⁻¹
+    block column by block column from the last (the column times the
+    inverted diagonal tile staged, then W[I][J] = −Σ_{K=J+1..I}
+    W[I][K]·staged[K]); Kinv = Wᵀ·D⁻¹·W, each lower tile once, K
+    ascending, its lower triangle mirrored. Every tile product adds its
+    two halves (columns 0-3 and 4-7 of A) in two accumulators, then one to
+    the other; within a half the terms add in numpy's order here and in
+    the tensor cores' on the card. Returns (Kinv float32, info: 0 or the
+    order of the first non-positive pivot, with a NaN Kinv)."""
+    dk = Kmat.shape[0]
+    nT = -(-dk // 8)
+    KM = np.eye(8 * nT)
+    KM[:dk, :dk] = np.tril(Kmat)
+
+    def t(I, J):  # tile (I, J), a view
+        return KM[8 * I:8 * I + 8, 8 * J:8 * J + 8]
+
+    def w(I, J):  # W's tile (I, J); a diagonal tile holds W's strict lower part
+        return np.tril(t(I, J), -1) + np.eye(8) if I == J else t(I, J)
+
+    def halves(a, b):  # a @ b as the kernel's two accumulators take it
+        return a[:, :4] @ b[:4], a[:, 4:] @ b[4:]
+
+    invd = np.zeros(8 * nT)
+    for p in range(nT):
+        T = t(p, p)
+        for j in range(8):  # column j keeps L's column times d_j
+            if not T[j, j] > 0:
+                return np.full((dk, dk), np.nan, np.float32), 8 * p + j + 1
+            invd[8 * p + j] = 1.0 / T[j, j]
+            col = T[j + 1:, j]
+            T[j + 1:, j + 1:] -= np.tril(np.outer(col * invd[8 * p + j], col))
+        for I in range(p + 1, nT):  # the panel's rows: L[i][j] = (K[i][j] − Σ_l L[i][l]·T[j][l])/d_j
+            R = t(I, p)
+            for j in range(8):
+                R[:, j] = (R[:, j] - R[:, :j] @ T[j, :j]) * invd[8 * p + j]
+        L = np.tril(T, -1) * invd[8 * p:8 * p + 8][None, :] + np.eye(8)
+        Wpp = np.eye(8)  # the diagonal tile's unit lower inverse, column c
+        for c in range(8):
+            for i in range(c + 1, 8):
+                Wpp[i, c] = -L[i, c:i] @ Wpp[c:i, c]
+        d = np.diag(T).copy()
+        for I in range(p + 1, nT):  # the trailing lower tiles
+            for J in range(p + 1, I + 1):
+                lo, hi = halves(-t(I, p), (t(J, p) * d[None, :]).T)
+                t(I, J)[:] = (t(I, J) + lo) + hi
+        T[np.tril_indices(8, -1)] = Wpp[np.tril_indices(8, -1)]
+    for J in range(nT - 2, -1, -1):
+        staged = [sum(halves(t(K, J), w(J, J))) for K in range(J + 1, nT)]
+        for I in range(J + 1, nT):
+            acc = [np.zeros((8, 8)), np.zeros((8, 8))]
+            for K in range(J + 1, I + 1):
+                for h, part in enumerate(halves(-w(I, K), staged[K - J - 1])):
+                    acc[h] += part
+            t(I, J)[:] = acc[0] + acc[1]
+    Kinv = np.zeros((8 * nT, 8 * nT))
+    for I in range(nT):
+        for J in range(I + 1):
+            acc = [np.zeros((8, 8)), np.zeros((8, 8))]
+            for K in range(I, nT):
+                for h, part in enumerate(halves(w(K, I).T, invd[8 * K:8 * K + 8, None] * w(K, J))):
+                    acc[h] += part
+            tl = acc[0] + acc[1]
+            if I == J:
+                tl = np.tril(tl) + np.tril(tl, -1).T
+            Kinv[8 * I:8 * I + 8, 8 * J:8 * J + 8] = tl
+            Kinv[8 * J:8 * J + 8, 8 * I:8 * I + 8] = tl.T
+    return Kinv[:dk, :dk].astype(np.float32), 0
 
 
 def twin_prepared(cfg, inp):
@@ -240,22 +298,40 @@ def twin_prepared(cfg, inp):
     return pr, torch.as_tensor(np.stack(kmats)), t["info"]
 
 
-TWIN_CASES = [(2, True, True, True), (2, False, False, True), (3, True, False, True),
-              (2, True, True, False)]
+# (dim, use_comm, warm, stop_at_horizon, the segment whose terminal weight is
+# made -1e5 on agent 0, or None): 2-D (dim·K 56, 60: seven and eight tile
+# rows), 3-D (84, padded to 88), and an indefinite KKT matrix whose first
+# non-positive pivot is the 12th, the fourth column of the second panel
+TWIN_CASES = [(2, True, True, True, None), (2, False, False, True, None),
+              (3, True, False, True, None), (2, True, True, False, None),
+              (3, False, True, True, None), (2, True, False, True, 4)]
 
 
-@pytest.mark.parametrize("dim,use_comm,warm,stop", TWIN_CASES)
-def test_twin_matches_plain_body(dim, use_comm, warm, stop):
+@pytest.mark.parametrize("dim,use_comm,warm,stop,bad_segment", TWIN_CASES)
+def test_twin_matches_plain_body(dim, use_comm, warm, stop, bad_segment):
     """The kernel's arithmetic against the plain body on the CPU: the
     elementwise outputs and copies equal, the sums within
     `qp_check.prepare_tolerances` and equal (the kernel adds in the order of the
     CPU's einsums); the KKT matrix within its float32 assembly's rounding,
     and Kinv within 1e-6 of the float64 inverse of its KKT matrix (the
-    plain body's float32 Cholesky: ~1e-3)."""
+    plain body's float32 Cholesky: ~1e-3). Where agent 0's KKT matrix is
+    indefinite, its info (the first non-positive pivot's order, inside a
+    panel) and its NaN Kinv equal the plain body's, and the other agents
+    are held as above."""
     cfg = qp_cfg(dim, use_comm, stop_at_horizon=stop)
-    inp = port_inputs(random_inputs(cfg, 3, seed=10 * dim + use_comm, warm=warm))
+    arrays = random_inputs(cfg, 3, seed=10 * dim + use_comm, warm=warm)
+    if bad_segment is not None:
+        arrays["terminal_mask"][0, bad_segment] = -1e5
+    inp = port_inputs(arrays)
     want = qp.prepare(cfg, inp)
     got, kmat, info = twin_prepared(cfg, inp)
+    assert torch.equal(info, want.info), (info, want.info)
+    ok = info == 0
+    if bad_segment is not None:
+        assert int(info[0]) == 12 and (int(info[0]) - 1) % 8 != 0 and ok[1:].all(), info
+        assert got.loop.Kinv[0].isnan().all() and want.loop.Kinv[0].isnan().all()
+    else:
+        assert ok.all(), info
     rec = qp_check.prepare_agreement(cfg, inp, got, want)
     assert all(n == 0 for n in rec["differing"].values()), rec
     assert all(n == 0 for n in rec["vacuous_differing"].values()), rec
@@ -267,10 +343,11 @@ def test_twin_matches_plain_body(dim, use_comm, warm, stop):
     # Kmat: sums of M + 4 float32 terms in the plain body
     plain_k = qp.kkt_matrix(cfg, inp)[0].double()
     assert ((kmat - plain_k).abs() <= 2.0 ** -23 * (cfg.M + 4) * plain_k.abs().amax()).all()
-    d_twin = qp_check.kinv_distance(got.loop.Kinv, kmat)
-    d_plain = qp_check.kinv_distance(want.loop.Kinv, plain_k)
+    d_twin = qp_check.kinv_distance(got.loop.Kinv[ok], kmat[ok])
+    d_plain = qp_check.kinv_distance(want.loop.Kinv[ok], plain_k[ok])
     assert d_twin.max() < 1e-6 and (d_twin <= torch.clamp(2 * d_plain, min=1e-5)).all(), \
         (d_twin, d_plain)
+    assert torch.equal(got.loop.Kinv[ok], got.loop.Kinv[ok].transpose(1, 2))
 
 
 def test_twin_and_plain_body_give_nan_for_an_indefinite_kkt_matrix():

@@ -30,6 +30,7 @@ LAYOUTS = {
     "3d": dict(world_dimension=3),  # dim·K 84
     "no_comm": dict(planner_mode=PlannerMode.BVC, goal_mode=GoalMode.STATIC,
                     communication_range=-1.0),  # dim·K 60, no comm rows
+    "3d_dk90": dict(world_dimension=3, planner_mode=PlannerMode.DLSC),  # dim·K 90, padded to 96
 }
 
 
@@ -59,17 +60,21 @@ def cuda_dev():
     return torch.device("cuda")
 
 
-@pytest.fixture(scope="module", params=["2d", "3d", "no_comm", "O9", "A1", "A8192"])
+@pytest.fixture(scope="module",
+                params=["2d", "3d", "no_comm", "3d_dk90", "O9", "A1", "A133", "A8192"])
 def case_qp(request, cuda_dev):
     """The QP of a fleet after 3 evolving steps: a ragged 2-D fleet (A=37),
-    3-D, comm rows off, 10 agents (O = 9 slots), one agent of the 2-D
-    fleet, and the 1024-agent fleet's QP eight times over (A = 8,192,
-    mc_pod_bench's batch)."""
+    3-D (dim·K 84), comm rows off, DLSC 3-D (dim·K 90), 10 agents (O = 9
+    slots), one agent of the 2-D fleet, 133 agents (one an SM of the
+    H100's 132, and one more), and the 1024-agent fleet's QP eight times
+    over (A = 8,192, mc_pod_bench's batch)."""
     name = request.param
     if name in LAYOUTS:
         return _fleet_qp(37, **LAYOUTS[name])
     if name == "O9":
         return _fleet_qp(10)
+    if name == "A133":
+        return _fleet_qp(133)
     if name == "A1":
         cfg, inp, tol = _fleet_qp(37)
         return cfg, _take(inp, slice(5, 6)), tol
@@ -95,6 +100,28 @@ def test_kernel_matches_plain_body(case_qp):
     d_plain = qp_check.kinv_distance(want.loop.Kinv, qp.kkt_matrix(cfg, inp)[0])
     assert (d_kernel <= torch.clamp(2 * d_plain, min=1e-5)).all(), (d_kernel.max(), d_plain)
     assert got.loop.kernel_rows_marked() and got.loop.take(torch.tensor([0])).kernel_rows_marked()
+
+
+@pytest.mark.parametrize("layout", ["2d", "3d"])
+def test_kinv_symmetric_and_an_indefinite_agent_alone(cuda_dev, layout):
+    """Kinv is exactly symmetric. An agent whose KKT matrix is made
+    indefinite (its 5th segment's terminal weight -1e5) gets info > 0
+    and an all-NaN Kinv, nothing raises, and every output of the other
+    agents is the same, bit for bit, as in the batch without it."""
+    cfg, inp, _ = _fleet_qp(37, **LAYOUTS[layout])
+    ts = qp.torch_statics(cfg, cuda_dev)
+    sc = qp.prepare_scalars(cfg)
+    good = qp_prepare_cuda.prepare_cuda(cfg, ts, inp, sc)
+    assert torch.equal(good["Kinv"], good["Kinv"].transpose(1, 2))
+    assert int(good["info"].abs().sum()) == 0
+    tmask = inp.terminal_mask.clone()
+    tmask[5, 4] = -1e5
+    bad = qp_prepare_cuda.prepare_cuda(cfg, ts, dataclasses.replace(inp, terminal_mask=tmask), sc)
+    torch.cuda.synchronize()
+    assert int(bad["info"][5]) > 0 and bad["Kinv"][5].isnan().all()
+    others = torch.arange(inp.p0.shape[0], device=cuda_dev) != 5
+    for name in qp_prepare_cuda.OUTPUTS:
+        assert torch.equal(bad[name][others], good[name][others]), name
 
 
 def test_cpu_tensors_and_large_dk_raise(cuda_dev):
