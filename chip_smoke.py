@@ -13,7 +13,9 @@ layer and audit, and the `sim.run` CLI) flying forest missions:
   2. build the ADMM kernel (csrc/admm.cu), the SFC kernels
      (csrc/sfc_expand.cu: the expansion and the fused 'hull' update), the
      hull kernels (csrc/hull_closest.cu: the query and the fused CLSC
-     construction) and the QP preparation kernel (csrc/qp_prepare.cu),
+     construction), the QP preparation kernel (csrc/qp_prepare.cu) and
+     the step's stage kernels (csrc/step_stages.cu: the neighbour slots,
+     the prediction and initial trajectory, the goal and the QP inputs),
      one nvcc per source started together, printing
      ptxas's registers and spills per kernel; time one L2 round trip
      (`sfc_cuda.l2_round_trip_ns`, for the SFC kernels' latency floor);
@@ -70,7 +72,16 @@ layer and audit, and the `sim.run` CLI) flying forest missions:
      split by CUDA events into the input assembly, prepare, the main
      loop, rescue_batch, the rescue loop and the finish, its host
      synchronisations counted (0), qp.solve run under
-     torch.cuda.set_sync_debug_mode("error");
+     torch.cuda.set_sync_debug_mode("error"); one launch of each stage
+     kernel a step (planner/stages.py's entries: neighbor_slots,
+     step_front, goal_qp_inputs; `assert_one_launch_a_call`), no plain
+     stage body on the card, and `stage_timing` (ms queued, device ms,
+     host ms, plain ms, bytes bound) on the first recorded call; from
+     here to phase 14's end the stage entries are recorded, and on the
+     recorded calls of every phase (5-14; in 13 the sharded steps'
+     gathered neighbour slots) `neighbor_check`, `front_check` and
+     `goal_inputs_check` hold each kernel's outputs to its plain body's,
+     element for element;
   6. the reference size: `workload.forest_mission(10)` (O = 9 neighbour
      slots, the in-place rescue) flown to its goals on the card by
      `MultiSyncSimulator.run`, at most 300 planner iterations, writing its
@@ -199,8 +210,10 @@ plain ms and bound at its A=1024 shape), one per geometry kernel
 (sfc_expand, sfc_update_hull, hull_closest, clsc_build: its launches on
 those paths, the calls and items its check held to its plain version,
 ms, device ms, plain ms, bound and share on the main path's call, the
-SFC kernels' latency floor, ptxas's registers) and one for qp_prepare
-(the same, with the library inverse's ms), the card's name and
+SFC kernels' latency floor, ptxas's registers), one for qp_prepare
+(the same, with the library inverse's ms) and one per stage kernel
+(neighbor_slots, step_front, goal_qp_inputs: the same, with the host
+ms to issue a call and the phases checked), the card's name and
 power limit, and as the last line {"ok": true, "device": {...}}. Exits non-zero, with no result, without a
 CUDA device or outside a checkout of the repository. Writes the full
 record to chiprun_out/chip_smoke.json.
@@ -534,9 +547,9 @@ class Builds:
     `prepare_check` held to the plain body, and its timing."""
 
     def __init__(self, qp, qp_cuda, sfc_cuda, hull_cuda, geometry, lsc, sfc, dev,
-                 qp_prepare_cuda):
+                 qp_prepare_cuda, stages, step_cuda):
         self.qp, self.qp_cuda, self.sfc_cuda, self.dev = qp, qp_cuda, sfc_cuda, dev
-        self.qp_prepare_cuda = qp_prepare_cuda
+        self.qp_prepare_cuda, self.stages, self.step_cuda = qp_prepare_cuda, stages, step_cuda
         self.hull_cuda, self.geometry, self.lsc, self.sfc_ops = hull_cuda, geometry, lsc, sfc
         self.lib = qp_cuda.build()
         self.rec = {}
@@ -556,6 +569,11 @@ class Builds:
         self.prep = {"launches": 0, "max_abs_err": 0.0, "calls_checked": 0, "agents_checked": 0,
                      "elements_checked": 0, "max_share_of_tolerance": 0.0,
                      "max_kinv_ratio": 0.0, "dims": [], "max_agents": 0, "ms": None}
+        # the step's stage kernels (csrc/step_stages.cu): launches, the calls,
+        # elements and phases their checks held to the plain bodies, timing
+        self.stage = {e: {"launches": 0, "max_abs_err": 0.0, "calls_checked": 0,
+                          "elements_checked": 0, "phases": [], "ms": None}
+                      for e in STAGE_ENTRIES}
 
     def name(self, cfg):
         return self.qp_cuda.build_name(
@@ -570,6 +588,8 @@ class Builds:
         self.sfc_ops.reset_counts()
         self.qp.reset_counts()
         self.qp_prepare_cuda.reset_launches()
+        self.step_cuda.reset_launches()
+        self.stages.reset_counts()
 
     def add_path_launches(self):
         """Adds the launches counted since the last reset, per ADMM build,
@@ -580,7 +600,10 @@ class Builds:
         CUDA tensors: hull enumerations ("hull_plain_on_cuda"), CLSC
         bodies ("clsc_plain_on_cuda"), 'hull' SFC bodies
         ("sfc_hull_plain_on_cuda") and QP preparations
-        ("prepare_plain_on_cuda")."""
+        ("prepare_plain_on_cuda"); and the step's stage kernels
+        ("neighbor_slots", "step_front", "goal_qp_inputs") with their plain
+        bodies on CUDA tensors ("neighbor_plain_on_cuda",
+        "front_plain_on_cuda", "goal_plain_on_cuda")."""
         out = dict(self.qp_cuda.build_launches)
         for name, n in out.items():
             self.rec[name]["launches"] += n
@@ -595,20 +618,36 @@ class Builds:
         out["clsc_plain_on_cuda"] = self.lsc.plain_cuda_calls
         out["sfc_hull_plain_on_cuda"] = self.sfc_ops.plain_cuda_calls
         out["prepare_plain_on_cuda"] = self.qp.plain_cuda_calls
+        for key, n in (("neighbor_slots", self.step_cuda.neighbor_launches),
+                       ("step_front", self.step_cuda.front_launches),
+                       ("goal_qp_inputs", self.step_cuda.goal_launches)):
+            out[key] = n
+            self.stage[key]["launches"] += n
+        for key in ("neighbor_plain_on_cuda", "front_plain_on_cuda", "goal_plain_on_cuda"):
+            out[key] = getattr(self.stages, key)
         return out
 
     @staticmethod
-    def assert_launched(launches, what, sfc=True, hull=True, clsc=False, sfc_hull=False):
-        """The kernels launched on the path: the ADMM kernel; an SFC kernel
+    def assert_launched(launches, what, sfc=True, hull=True, clsc=False, sfc_hull=False,
+                        neighbors=True):
+        """The kernels launched on the path: the ADMM kernel; the step's
+        prediction and goal kernels, and its neighbour kernel (not with
+        `neighbors` False: the sharded steps bring their own neighbour
+        slots, a fleet of one has none); an SFC kernel
         (not with `sfc` False: a path with no world map, world_use_octomap
         off, has no SFC update); a hull kernel, the query or the fused
         CLSC construction (not with `hull` False: BVC and RSFC build no
         LSC rows); the fused CLSC kernel with `clsc` (the LSC family with
         DR goals), the fused 'hull' SFC kernel with `sfc_hull` (DR goals
         with a world map, not in DLSC sub-step); and no plain hull
-        enumeration, CLSC body or 'hull' SFC body on a CUDA tensor."""
+        enumeration, CLSC body, 'hull' SFC body or stage body on a CUDA
+        tensor."""
         admm = sum(n for k, n in launches.items() if k not in NOT_ADMM)
         assert admm > 0, f"{what} never launched the ADMM kernel"
+        assert launches["step_front"] > 0 and launches["goal_qp_inputs"] > 0, \
+            f"{what} never launched the prediction or the goal kernel"
+        assert launches["neighbor_slots"] > 0 or not neighbors, \
+            f"{what} never launched the neighbour kernel"
         assert launches["sfc_expand"] + launches["sfc_update_hull"] > 0 or not sfc, \
             f"{what} never launched an SFC kernel"
         assert launches["hull_closest"] + launches["clsc_build"] > 0 or not hull, \
@@ -673,6 +712,14 @@ class Builds:
             if r["dim"] not in c["dims"]:
                 c["dims"].append(r["dim"])
 
+    def note_stage_check(self, rec, what):
+        r = self.stage[rec["entry"]]
+        r["max_abs_err"] = max(r["max_abs_err"], rec["max_abs_err"])
+        r["calls_checked"] += rec["calls"]
+        r["elements_checked"] += rec["elements"]
+        if what not in r["phases"]:
+            r["phases"].append(what)
+
     def note_timing(self, cfg, timing, plain_ms):
         r = self.rec[self.name(cfg)]
         if r["ms"] is None:
@@ -682,18 +729,24 @@ class Builds:
 
 
 PLAIN_ON_CUDA = ("hull_plain_on_cuda", "clsc_plain_on_cuda", "sfc_hull_plain_on_cuda",
-                 "prepare_plain_on_cuda")
+                 "prepare_plain_on_cuda", "neighbor_plain_on_cuda", "front_plain_on_cuda",
+                 "goal_plain_on_cuda")
+STAGE_ENTRIES = ("neighbor_slots", "step_front", "goal_qp_inputs")  # planner/stages.py
 NOT_ADMM = ("sfc_expand", "sfc_update_hull", "hull_closest", "clsc_build", "qp_prepare",
-            *PLAIN_ON_CUDA)
+            *STAGE_ENTRIES, *PLAIN_ON_CUDA)
 
 
-def assert_one_launch_a_call(launches, recorders, what):
+def assert_one_launch_a_call(launches, recorders, what, stage_recorders=()):
     """Each geometry kernel launched once per call of its function on the
     path (`path_calls`' recorders): the 'hull' SFC updates, the
-    expansions, the CLSC constructions, the hull queries."""
+    expansions, the CLSC constructions, the hull queries; and each stage
+    kernel once per call of its entry (`stage_recorders`, where given)."""
     got = tuple(launches[k] for k in ("sfc_update_hull", "sfc_expand", "clsc_build",
                                       "hull_closest"))
     assert got == tuple(r.n for r in recorders), (what, got, [r.n for r in recorders])
+    got = tuple(launches[r.name] for r in stage_recorders)
+    assert got == tuple(r.n for r in stage_recorders), (what, got,
+                                                        [r.n for r in stage_recorders])
 
 
 class Calls:
@@ -739,6 +792,228 @@ def path_calls(sfc, lsc, geometry, every=1, keep=2):
     return (Calls(sfc, "update_sfc", every, keep, hull_mode), Calls(sfc, "expand_box", every, keep),
             Calls(lsc, "build_clsc", every, keep),
             Calls(geometry, "closest_point_origin_to_hull", every, keep))
+
+
+def stage_recorders(stages, every=1, keep=2):
+    """The recorders of the step's stage entries (planner/stages.py:
+    neighbor_slots, step_front, goal_qp_inputs), each keeping at most
+    `keep` calls, every `every`-th from the first."""
+    return tuple(Calls(stages, name, every, keep) for name in STAGE_ENTRIES)
+
+
+def restart(recorders, every, accept=None):
+    """Clears the recorders for the next phase, with its stride and filter."""
+    for r in recorders:
+        r.calls, r.n, r.every, r.accept = [], 0, every, accept
+
+
+def _stage_fields(entry, out):
+    if entry == "neighbor_slots":
+        return list(zip(("order", "valid"), out))
+    return [(f.name, getattr(out, f.name)) for f in dataclasses.fields(out)]
+
+
+def stage_check(builds, calls, what):
+    """The recorded calls of one stage entry (each ran its kernel on the
+    card) against its plain body on the same inputs (plain=True): every
+    output equal element for element, by value (a NaN equal to a NaN).
+    Returns the check's record, noted in `builds`."""
+    entry = calls.name
+    rec = {"entry": entry, "calls": 0, "elements": 0, "differing": 0, "max_abs_err": 0.0,
+           "callers": sorted({c[3] for c in calls.calls})}
+    for a, k, got, _ in calls.calls:
+        assert not k.get("plain"), (what, entry)
+        want = calls.orig(*a, **k, plain=True)
+        for (name, x), (_, y) in zip(_stage_fields(entry, got), _stage_fields(entry, want)):
+            assert (x is None) == (y is None), (what, entry, name)
+            if x is None:
+                continue
+            assert x.device.type == "cuda" and x.dtype == y.dtype and x.shape == y.shape, \
+                (what, entry, name, x.dtype, y.dtype, tuple(x.shape), tuple(y.shape))
+            rec["differing"] += differing(x, y)
+            rec["elements"] += x.numel()
+            rec["max_abs_err"] = max(rec["max_abs_err"], max_err(x, y))
+        rec["calls"] += 1
+    torch.cuda.synchronize()
+    print(f"{what} {entry} check", json.dumps(rec))
+    assert rec["differing"] == 0, (what, rec)
+    builds.note_stage_check(rec, what)
+    return rec
+
+
+def neighbor_check(builds, recorders, what):
+    return stage_check(builds, recorders[0], what)
+
+
+def front_check(builds, recorders, what):
+    return stage_check(builds, recorders[1], what)
+
+
+def goal_inputs_check(builds, recorders, what):
+    return stage_check(builds, recorders[2], what)
+
+
+def stage_checks(builds, recorders, what):
+    """neighbor_check, front_check and goal_inputs_check on the calls a
+    phase made and its recorders kept."""
+    return {r.name: check(builds, recorders, what) for check, r in zip(
+        (neighbor_check, front_check, goal_inputs_check), recorders) if r.calls}
+
+
+def stage_io(entry, a, k, got):
+    """(bytes, operations) of one stage call: each tensor the kernel reads
+    counted once and each output once, and its least arithmetic."""
+    seen, nbytes = set(), 0
+
+    def add(t):
+        nonlocal nbytes
+        if t is not None and (t.data_ptr(), t.numel()) not in seen:
+            seen.add((t.data_ptr(), t.numel()))
+            nbytes += t.numel() * t.element_size()
+
+    outs = [x for _, x in _stage_fields(entry, got)]
+    for t in outs:
+        add(t)
+    if entry == "neighbor_slots":
+        pos, S = a[0], a[1]
+        add(pos)
+        A = pos.shape[0] // S
+        return nbytes, S * A * A * 9  # 3 differences, 3 abs, 2 max, the range test
+    if entry == "step_front":
+        cfg, fleet, inp, order, valid, nd = a[:6]
+        for t in (order, valid, inp.prev_ctrl, inp.has_prev, inp.pos, inp.vel, inp.is_disturbed,
+                  fleet.max_acc, cfg.growth, cfg.sub, *(getattr(inp, "dynobs_" + f) for f in (
+                      "pos", "vel", "radius", "downwash", "max_acc", "valid"))):
+            add(t)
+        for t in ((nd.prev_ctrl, nd.has_prev, nd.pos, nd.vel, nd.radius, nd.downwash, nd.goal,
+                   nd.valid) if nd is not None else (fleet.radius, fleet.downwash,
+                                                     inp.current_goal)):
+            add(t)
+        return nbytes, 2 * got.obs_pred.numel() + 2 * got.initial_ctrl.numel()
+    cfg, fleet, inp, normals, anchors, margins, obs_valid, lo_w, hi_w = a[:9]
+    for t in (inp.pos, inp.vel, inp.current_goal, inp.desired_goal, inp.next_waypoint,
+              inp.is_disturbed, inp.has_prev, fleet.nominal_velocity, fleet.radius, normals,
+              anchors, margins, obs_valid, *((lo_w, hi_w) if cfg.use_sfc else ()),
+              inp.qp_y0 if cfg.warm_duals else None):
+        add(t)
+    return nbytes, 2 * cfg.dim * got.lsc_rhs.numel() + 4 * got.lb.numel()
+
+
+def one_buffer_outputs(dev, specs):
+    """step_cuda._outputs' alternative: every output a view of one byte
+    buffer at a 16-byte aligned offset (one allocation, three tensor
+    operations a view)."""
+    offsets, at = [], 0
+    for _, shape, dtype in specs:
+        offsets.append(at)
+        at += -(-int(np.prod(shape)) * dtype.itemsize // 16) * 16
+    buf = torch.empty(max(at, 16), dtype=torch.uint8, device=dev)
+    return {name: buf[o:o + int(np.prod(shape)) * dtype.itemsize].view(dtype).view(shape)
+            for (name, shape, dtype), o in zip(specs, offsets)}
+
+
+def stage_timing(builds, recorders, gpu, what):
+    """Each stage kernel on its first recorded call: ms a call queued back
+    to back (CUDA events) and its device ms (profiler), the host ms to
+    issue a call (also with `one_buffer_outputs`), its plain body's ms on
+    the card, and its bound (bytes at HBM_BYTES_PER_S, operations at
+    FP32_OPS_PER_S, `stage_io`)."""
+    out = {}
+    for r in recorders:
+        a, k, got, _ = r.calls[0]
+        fn = lambda: r.orig(*a, **k)  # noqa: E731
+        nbytes, ops = stage_io(r.name, a, k, got)
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+        t = {"queued_ms": queued_ms(fn, KERNEL_REPS), "host_ms": host_ms(fn, KERNEL_REPS),
+             "plain_ms": cuda_ms(lambda: r.orig(*a, **k, plain=True), 5), "bytes": nbytes,
+             "ops": ops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+             "bound_ms": max(bytes_ms, ops_ms),
+             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+        # the host's time with the outputs carved out of one buffer, against
+        # the wrapper's one torch.empty an output, and the wrapper's again
+        outputs = builds.step_cuda._outputs
+        builds.step_cuda._outputs = one_buffer_outputs
+        try:
+            t["host_ms_one_buffer"] = host_ms(fn, KERNEL_REPS)
+        finally:
+            builds.step_cuda._outputs = outputs
+        t["host_ms_again"] = host_ms(fn, KERNEL_REPS)
+        t["device_ms"], t["device_launches_seen"] = profiled_ms(fn, builds.dev)
+        t["ms"] = t["queued_ms"]
+        t["bound_share"] = t["bound_ms"] / t["ms"]
+        out[r.name] = t
+        builds.stage[r.name].update(t)
+    print(f"{what} stage kernel timing", json.dumps(out), f"[{gpu}]")
+    return out
+
+
+def stage_timing_main():
+    """The stage kernels alone: built, then `stage_timing` on the calls of
+    one main-path step after WARMUP evolving steps at A=1024. One JSON
+    line."""
+    import types
+
+    from lsc_dr_planner_tpu_torch import workload
+    from lsc_dr_planner_tpu_torch.ops import step_cuda
+    from lsc_dr_planner_tpu_torch.planner import stages
+
+    dev, gpu = torch.device("cuda", 0), gpu_line()
+    step_cuda.build()
+    planner, fleet, inp = main_path_state(workload, dev)
+    recs = stage_recorders(stages)
+    with contextlib.ExitStack() as stack:
+        for r in recs:
+            stack.enter_context(r)
+        planner._step_impl(fleet, inp)
+    builds = types.SimpleNamespace(dev=dev, step_cuda=step_cuda,
+                                   stage={e: {} for e in STAGE_ENTRIES})
+    out = stage_timing(builds, recs, gpu, "main path")
+    print("stage timing", json.dumps(out))
+    return out
+
+
+def stages_ab_main():
+    """For the checkout whose package is imported (an older one, the
+    parent's, as `qp_ab_main` does): its kernels built, then in the main
+    path's layout and in 8a's (DLSC sub-step) WARMUP and TIMED evolving
+    steps (step p50, mean stage ms, QP convergence), and one step from
+    its start to qp.solve's entry (`_step_impl(defer_qp=True)`) under the
+    profiler: the device kernels and copies it issued, and its host ms
+    (behind a sleep kernel). One JSON line."""
+    from lsc_dr_planner_tpu_torch import workload
+    from lsc_dr_planner_tpu_torch.config import PlannerMode
+    from lsc_dr_planner_tpu_torch.ops import hull_cuda, qp_cuda, qp_prepare_cuda, sfc_cuda
+    from lsc_dr_planner_tpu_torch.tools import sfc_bench
+
+    dev, gpu = torch.device("cuda", 0), gpu_line()
+    wrappers = [qp_cuda, sfc_cuda, hull_cuda, qp_prepare_cuda]
+    try:
+        from lsc_dr_planner_tpu_torch.ops import step_cuda
+        wrappers.append(step_cuda)
+    except ImportError:  # a tree without the stage kernels
+        pass
+    with ThreadPoolExecutor(len(wrappers)) as pool:
+        for done in [pool.submit(w.build) for w in wrappers]:
+            done.result()
+    rec = {"package": str(Path(qp_cuda.__file__).resolve().parents[1]), "gpu": gpu}
+    for tag, overrides in (("main", {}), ("8a", dict(planner_mode=PlannerMode.DLSC,
+                                                     multisim_time_step=0.1))):
+        p, planner, fleet, inp = workload.build_fleet(A_MAIN, device=dev, timing=True,
+                                                      **overrides)
+        step = workload.make_evolve_step(p, planner, fleet)
+        for _ in range(WARMUP):
+            inp, _ = step(inp)
+        inp, lat, stages, convs = admm_timing.timed_steps(step, planner, inp, TIMED)
+        front = lambda: planner._step_impl(fleet, inp, defer_qp=True)  # noqa: E731
+        prof = sfc_bench.launch_counts(front, dev)
+        rec[tag] = {"p50_ms": float(np.percentile(lat, 50) * 1e3),
+                    "stage_ms": admm_timing.mean_stages(stages),
+                    "qp_convergence": float(np.mean(convs)),
+                    "before_solve": {**{key: prof[key] for key in (
+                        "device_kernels", "device_copies", "device_busy_ms",
+                        "host_launch_calls")}, "host_ms": host_ms(front, 10)}}
+    print("stages ab", json.dumps(rec))
+    return rec
 
 
 SLEEP_CYCLES = 100_000_000  # ~50 ms of the card's clock: time to queue the timed calls
@@ -1676,6 +1951,7 @@ def rounding_check(dev, n=1 << 20, seed=0):
 # the count's 7 additions and its test, 6 state updates
 SFC_OPS_PER_TRIP = 62
 FP32_OPS_PER_S = 67e12  # H100 SXM outside the tensor cores; its int32 rate is no higher
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM's device memory
 
 
 # The hull query of build_clsc (ops/geometry.py::closest_point_origin_to_hull,
@@ -2731,7 +3007,8 @@ def phase13(workload, builds, dev, gpu, work, sim6):
             diffs = max_diffs(want, out)
             print(f"phase13 {name}: kernel launches {launches}, largest difference from the "
                   f"unsharded step {json.dumps(diffs)}")
-            builds.assert_launched(launches, f"phase 13 {name}", clsc=True, sfc_hull=True)
+            builds.assert_launched(launches, f"phase 13 {name}", clsc=True, sfc_hull=True,
+                                   neighbors=False)
             assert_step_close(want, out, f"phase13 {name}")
             ms[name] = cuda_ms(lambda: mesh.gather_outputs(fn(f_l, i_l), group), P13_REPS)
             res[name] = {"kernel_launches": launches, "max_diff": diffs}
@@ -2936,7 +3213,9 @@ def main():
     from lsc_dr_planner_tpu_torch import workload
     from lsc_dr_planner_tpu_torch.ops import (
         cuda_build, geometry, hull_cuda, lsc, qp, qp_cuda, qp_prepare_cuda, sfc, sfc_cuda,
+        step_cuda,
     )
+    from lsc_dr_planner_tpu_torch.planner import stages as stage_ops
 
     dev = torch.device("cuda", 0)
     gpu = gpu_line()
@@ -2960,13 +3239,14 @@ def main():
 
     # ---- 2. kernel builds: one nvcc per source, all at once ------------
     t0 = time.perf_counter()
-    wrappers = (qp_cuda, sfc_cuda, hull_cuda, qp_prepare_cuda)
+    wrappers = (qp_cuda, sfc_cuda, hull_cuda, qp_prepare_cuda, step_cuda)
     with ThreadPoolExecutor(len(wrappers)) as pool:  # each build waits on its own nvcc process
         for done in [pool.submit(w.build, True) for w in wrappers]:
             done.result()
     build_s = time.perf_counter() - t0
     nvcc_s = {name: sec for name, (sec, _) in cuda_build.build_log.items()}
-    print(f"build admm.cu, sfc_expand.cu, hull_closest.cu, qp_prepare.cu: {build_s:.2f} s "
+    print(f"build admm.cu, sfc_expand.cu, hull_closest.cu, qp_prepare.cu, step_stages.cu: "
+          f"{build_s:.2f} s "
           f"(nvcc {json.dumps(nvcc_s)})")
     record["build_s"] = build_s
     record["nvcc_s"] = nvcc_s
@@ -2974,7 +3254,8 @@ def main():
     kernels_ptxas = {k: v for _, log in record["ptxas"].items()
                      for k, v in ptxas_summary(log).items()}
     print("ptxas", json.dumps(kernels_ptxas))
-    builds = Builds(qp, qp_cuda, sfc_cuda, hull_cuda, geometry, lsc, sfc, dev, qp_prepare_cuda)
+    builds = Builds(qp, qp_cuda, sfc_cuda, hull_cuda, geometry, lsc, sfc, dev, qp_prepare_cuda,
+                    stage_ops, step_cuda)
     print("builds", json.dumps({k: v["dk"] for k, v in builds.rec.items()}))
     l2_ns = sfc_cuda.l2_round_trip_ns(dev)
     print(f"one L2 round trip (sfc_cuda.l2_round_trip_ns): {l2_ns:.1f} ns [{gpu}]")
@@ -3087,6 +3368,13 @@ def main():
     builds.reset_launches()
     sfc.reset_counts()
     dists = []
+    # the step's stage entries, recorded from here to phase 14's end, each
+    # phase's calls held to the plain bodies (`stage_checks`)
+    stage_stack = contextlib.ExitStack()
+    srec = stage_recorders(stage_ops)
+    for r in srec:
+        stage_stack.enter_context(r)
+    restart(srec, TIMED // 2)
 
     states = [inp]  # each timed step's input state, for `unconverged_steps`
 
@@ -3119,9 +3407,13 @@ def main():
             "sfc_plain_trips": sfc.trips}
     print("main path", json.dumps(main))
     builds.assert_launched(launches, "the main path", clsc=True, sfc_hull=True)
-    # one launch a CLSC construction and a 'hull' SFC update, every step
-    assert_one_launch_a_call(launches, recorders, "the main path")
+    # one launch a CLSC construction, a 'hull' SFC update and a stage entry,
+    # every step
+    assert_one_launch_a_call(launches, recorders, "the main path", srec)
     assert sfcs.n == clscs.n == TIMED and expands.n == hulls.n == 0, main["calls"]
+    assert all(r.n == TIMED for r in srec), [(r.name, r.n) for r in srec]
+    main["stage_checks"] = stage_checks(builds, srec, "phase5")
+    main["stage_timing"] = stage_timing(builds, srec, gpu, "phase5")
     # one launch of the QP preparation kernel a step
     assert preps.n == launches["qp_prepare"] == TIMED, (preps.n, launches["qp_prepare"])
     assert sfc.syncs == 0 and sfc.trips == 0, "the main path's SFC stage ran the plain loop"
@@ -3187,6 +3479,7 @@ def main():
         ck_dir = work / f"phase{phase}"
         ck_dir.mkdir(exist_ok=True)
         builds.reset_launches()
+        restart(srec, 25)
         t0 = time.perf_counter()
         recorders = path_calls(sfc, lsc, geometry, every=25)
         sfcs, expands, clscs, hulls = recorders
@@ -3219,6 +3512,7 @@ def main():
         if phase == 6:  # the same updates with no radius clamp (r = 0)
             res["sfc_hull_check_r0"] = sfc_hull_check(sfc, builds, sfcs, "phase6 r=0", radius=0)
         res["clsc_check"] = clsc_check(lsc, builds, clscs, f"phase{phase}")
+        res["stage_checks"] = stage_checks(builds, srec, f"phase{phase}")
 
         # the kernel against the plain loop on the QPs of the flight's steps
         res["kernel_checks"] = []
@@ -3259,21 +3553,27 @@ def main():
     record["phase8"] = {}
     for tag, what, overrides, f64 in phase8_modes():
         print(f"phase{tag}: {what}", flush=True)
+        restart(srec, TIMED8 // 2)
         record["phase8"][tag] = fused_mode(workload, qp, builds, dev, gpu, tag,
                                            overrides, float64_clause=f64, l2_ns=l2_ns)
+        record["phase8"][tag]["stage_checks"] = stage_checks(builds, srec, f"phase{tag}")
     from lsc_dr_planner_tpu_torch.config import PlannerMode
 
+    restart(srec, 1)
     record["phase8"]["8e"] = fused_mode(workload, qp, builds, dev, gpu, "8e",
                                         dict(world_dimension=3,
                                              planner_mode=PlannerMode.DLSC), steps=False,
                                         float64_clause=True, moved_seeds=MOVED_SEEDS)
+    record["phase8"]["8e"]["stage_checks"] = stage_checks(builds, srec, "phase8e")
     phase_done("8")
 
     # ---- 9. forest flights in the new modes ------------------------------
     record["phase9"] = {}
     for tag, overrides, obstacles, max_iter in phase9_flights():
+        restart(srec, 25)
         record["phase9"][tag] = fly(workload, qp, builds, dev, gpu, work, tag,
                                     overrides, obstacles, max_iter)
+        record["phase9"][tag]["stage_checks"] = stage_checks(builds, srec, f"phase{tag}")
     phase_done("9")
 
     # ---- 10. the JAX package's small mode missions -----------------------
@@ -3283,6 +3583,7 @@ def main():
     missions = {**mode_missions.MISSIONS, "prior_based_forest": prior_based_forest}
     for name, fly_mission in missions.items():
         builds.reset_launches()
+        restart(srec, 10)
         t0 = time.perf_counter()
         recorders = path_calls(sfc, lsc, geometry, keep=1)
         sfcs, expands, clscs, hulls = recorders
@@ -3294,7 +3595,8 @@ def main():
         # every SFC update of the others launches a kernel; every mission
         # but BVC and RSFC builds LSC rows (plain LSC, build_lsc)
         builds.assert_launched(res["kernel_launches"], f"phase 10 {name}",
-                               sfc=sfcs.n + expands.n > 0, hull=name not in NO_HULL_MISSIONS)
+                               sfc=sfcs.n + expands.n > 0, hull=name not in NO_HULL_MISSIONS,
+                               neighbors=False)
         assert_one_launch_a_call(res["kernel_launches"], recorders, f"phase 10 {name}")
         if expands.n:
             res["sfc_check"] = sfc_check(sfc, builds, expands, f"phase10 {name}")
@@ -3304,6 +3606,7 @@ def main():
             res["hull_check"] = hull_check(geometry, hull_cuda, builds, hulls, f"phase10 {name}")
         if clscs.n:
             res["clsc_check"] = clsc_check(lsc, builds, clscs, f"phase10 {name}")
+        res["stage_checks"] = stage_checks(builds, srec, f"phase10 {name}")
         record["phase10"][name] = res
     assert "sfc_check" in record["phase10"]["prior_based_forest"], "no 'point' SFC in phase 10"
     assert "build_lsc" in builds.hull["callers"], "no build_lsc hull query checked in phase 10"
@@ -3312,8 +3615,10 @@ def main():
     # ---- 11. local sensing -----------------------------------------------
     record["phase11"] = {}
     for tag, A, seed, max_iter, cks in LOCAL_FLIGHTS:
+        restart(srec, 25)
         sim, param, mission, ck_paths, res = local_flight(
             workload, qp, builds, dev, gpu, work, tag, A, seed, max_iter, cks)
+        res["stage_checks"] = stage_checks(builds, srec, f"phase{tag}")
         if tag == "11a":
             # the same mission through the CLI, as a user runs it
             mpath, wpath = str(work / "forest10_local.json"), str(work / "forest10_local.csv")
@@ -3339,16 +3644,28 @@ def main():
     phase_done("11")
 
     # ---- 12. Monte-Carlo scenario batching -------------------------------
-    record["phase12"] = {"12a": montecarlo_run(workload, qp, builds, dev, gpu, work),
-                         "12b": montecarlo_chunks(workload, builds, dev, gpu, work)}
+    restart(srec, 50)
+    record["phase12"] = {"12a": montecarlo_run(workload, qp, builds, dev, gpu, work)}
+    record["phase12"]["12a"]["stage_checks"] = stage_checks(builds, srec, "phase12a")
+    restart(srec, 1)
+    record["phase12"]["12b"] = montecarlo_chunks(workload, builds, dev, gpu, work)
+    record["phase12"]["12b"]["stage_checks"] = stage_checks(builds, srec, "phase12b")
     phase_done("12")
 
     # ---- 13. one-rank NCCL group, debug step, replay ----------------------
+    # the prediction kernel on the sharded steps' gathered neighbour slots
+    restart(srec, 1)
+    srec[1].accept = lambda a, k: a[5] is not None
     record["phase13"] = phase13(workload, builds, dev, gpu, work, sim6)
+    record["phase13"]["stage_checks"] = stage_checks(builds, srec, "phase13")
+    assert record["phase13"]["stage_checks"]["step_front"]["calls"] > 0
     phase_done("13")
 
     # ---- 14. the tools ----------------------------------------------------
+    restart(srec, 25)
     record["phase14"] = phase14(qp, builds, dev, gpu, work)
+    record["phase14"]["stage_checks"] = stage_checks(builds, srec, "phase14")
+    stage_stack.close()
     phase_done("14")
 
     kernels = []
@@ -3415,6 +3732,28 @@ def main():
         # torch.cholesky_inverse(torch.linalg.cholesky_ex(Kmat).L): the inverse alone
         "library_ms": r["library_ms"],
     })
+    for name, replaces, kernel in (
+            # the JAX package's code each replaces, jnp and lax in its jitted step;
+            # no Pallas original
+            ("neighbor_slots", "lsc_dr_planner_tpu/planner/pipeline.py:226",
+             "neighbor_slots_kernel<16>"),
+            ("step_front", "lsc_dr_planner_tpu/planner/pipeline.py:292", "step_front_kernel"),
+            ("goal_qp_inputs", "lsc_dr_planner_tpu/planner/goal.py:26",
+             "goal_qp_inputs_kernel")):
+        r = builds.stage[name]
+        print(name, json.dumps(r))
+        assert r["launches"] > 0 and r["ms"] is not None and r["calls_checked"] > 0, (name, r)
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "lsc_dr_planner_tpu_torch/csrc/step_stages.cu", "replaces": replaces,
+            "launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            **{k: r[k] for k in ("queued_ms", "device_ms", "host_ms", "host_ms_one_buffer",
+                                 "plain_ms", "bound_ms", "bound_by", "bound_share", "bytes",
+                                 "calls_checked", "elements_checked", "phases")},
+            "ptxas": {k: v for k, v in kernels_ptxas.items() if k.startswith(kernel[:-4])}
+            if name == "neighbor_slots" else kernels_ptxas.get(kernel),
+            "library_ms": None,  # no single PyTorch call computes it
+        })
     assert sorted(builds.hull["callers"]) == ["build_clsc (plain body)", "build_lsc"], \
         builds.hull["callers"]
     assert sorted(builds.hull["dims"]) == [2, 3], builds.hull["dims"]

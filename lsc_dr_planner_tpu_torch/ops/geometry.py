@@ -44,6 +44,23 @@ def _dot3(a, b):
     return (p[..., 0] + p[..., 1]) + p[..., 2]
 
 
+def _dotn(a, b):
+    """Σ_d a_d·b_d over the last axis (2 or more long), left to right,
+    each product and sum rounded on its own (`_dot3` for any length)."""
+    p = a * b
+    s = p[..., 0] + p[..., 1]
+    for d in range(2, p.shape[-1]):
+        s = s + p[..., d]
+    return s
+
+
+def _norm(x):
+    """The Euclidean norm over the last axis: `_dotn(x, x)` and its square
+    root in float64 (torch's CPU float32 square root is not correctly
+    rounded)."""
+    return torch.sqrt(_dotn(x, x).double()).float()
+
+
 def _cross(u, v):
     """u × v, each component u_i·v_j − u_k·v_l with the second product
     rounded and the first not, then rounded once: the fused multiply-add

@@ -7,6 +7,9 @@ with uniform segment time dt; every op batches over the leading axes.
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from lsc_dr_planner_tpu_torch.ops import bernstein
@@ -15,10 +18,19 @@ from lsc_dr_planner_tpu_torch.ops import bernstein
 def const_vel_ctrl(pos, vel, M: int, n: int, dt: float):
     """Constant-velocity control points: ctrl[m, i] = pos + vel·(m + i/n)·dt.
     pos, vel: [..., D] → [..., M, n+1, D]."""
-    m = torch.arange(M, dtype=pos.dtype, device=pos.device)[:, None]
-    i = torch.arange(n + 1, dtype=pos.dtype, device=pos.device)[None, :]
-    t = (m + i / n) * dt  # [M, n+1]
+    t = _cv_times(M, n, dt, pos.dtype, pos.device)  # [M, n+1]
     return pos[..., None, None, :] + vel[..., None, None, :] * t[:, :, None]
+
+
+@functools.lru_cache(maxsize=None)
+def _cv_times(M: int, n: int, dt: float, dtype, device):
+    """(m + i/n)·dt in `dtype`, one rounding an operation and i/n a true
+    division, on every device (torch divides a CUDA tensor by a Python
+    number through its reciprocal), made once per device: [M, n+1]."""
+    f = np.float32 if dtype == torch.float32 else np.float64
+    m = np.arange(M, dtype=f)[:, None]
+    i = np.arange(n + 1, dtype=f)[None, :]
+    return torch.as_tensor((m + i / f(n)) * f(dt), dtype=dtype, device=device)
 
 
 def derivative_ctrl(ctrl, dt: float):
@@ -57,11 +69,16 @@ def shift_one_segment(ctrl):
 
 def subsegment_first(ctrl, frac: float):
     """DLSC sub-step shift: re-parameterize the first segment to [frac, 1]
-    and keep the rest (the C⁰-continuous relaxed-LSC prediction)."""
+    and keep the rest (the C⁰-continuous relaxed-LSC prediction). Each
+    new point Σ_i S[i, j]·c_i sums left to right, each product and sum
+    rounded on its own (the prediction kernel's order)."""
     n = ctrl.shape[-2] - 1
     S = torch.as_tensor(bernstein.subsegment_matrix(n, frac, 1.0), dtype=ctrl.dtype,
                         device=ctrl.device)
-    first = torch.einsum("ij,...id->...jd", S, ctrl[..., 0, :, :])
+    c0 = ctrl[..., 0, :, :]  # [..., n+1, D]
+    first = S[0, :, None] * c0[..., 0:1, :]
+    for i in range(1, n + 1):
+        first = first + S[i, :, None] * c0[..., i:i + 1, :]
     return torch.cat([first[..., None, :, :], ctrl[..., 1:, :, :]], dim=-3)
 
 

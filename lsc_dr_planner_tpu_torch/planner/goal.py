@@ -5,13 +5,19 @@ mode.
 
 The 1-D goal LP is solved in closed form: minimizing t ∈ [0, 1] for
 goal = (g_cur − w)·t + w subject to half-spaces a·t ≥ b is a max over
-per-constraint ratios, batched over the fleet.
+per-constraint ratios, batched over the fleet. Its sums over coordinates
+run left to right and its norms take a float64 square root
+(geometry._dotn, geometry._norm), and the detour's cross product is
+geometry._cross, so that the goal kernel (csrc/step_stages.cu) repeats
+them bit for bit.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from lsc_dr_planner_tpu_torch.ops import geometry
 
 _EPS = 1e-6
 
@@ -36,10 +42,9 @@ def goal_lp(
     gw = g - w  # [A, d]
 
     n_l = lsc_normals_last[..., :d]
-    a_l = torch.einsum("aod,ad->ao", n_l, gw)
-    b_l = lsc_margin_last + torch.einsum(
-        "aod,aod->ao", n_l, lsc_anchor_last[..., :d] - w[:, None, :])
-    valid_l = lsc_valid & (torch.linalg.vector_norm(n_l, dim=-1) > _EPS)
+    a_l = geometry._dotn(n_l, gw[:, None, :])
+    b_l = lsc_margin_last + geometry._dotn(n_l, lsc_anchor_last[..., :d] - w[:, None, :])
+    valid_l = lsc_valid & (geometry._norm(n_l) > _EPS)
 
     inf = float("inf")
     lower_l = torch.where(valid_l & (a_l > _EPS), b_l / a_l, -inf)
@@ -75,7 +80,7 @@ def right_hand_goal(position, desired_goal, is_deadlock):
     """Right-hand-rule detour: where an agent is deadlocked, its goal
     direction rotated about +z (the cross product with ẑ). [A, 3]."""
     z = torch.tensor([0.0, 0.0, 1.0], dtype=position.dtype, device=position.device)
-    detour = position + torch.linalg.cross(desired_goal - position, z.expand_as(position))
+    detour = position + geometry._cross(desired_goal - position, z.expand_as(position))
     return torch.where(is_deadlock[..., None], detour, desired_goal)
 
 
@@ -83,8 +88,8 @@ def is_deadlock(planner_seq: int, velocity, position, desired_goal,
                 vel_threshold: float, seq_threshold: int):
     """Velocity-threshold deadlock test: past seq_threshold planner steps,
     slower than vel_threshold and more than 0.2 m from the goal. [A]."""
-    dist = torch.linalg.vector_norm(position - desired_goal, dim=-1)
-    speed = torch.linalg.vector_norm(velocity, dim=-1)
+    dist = geometry._norm(position - desired_goal)
+    speed = geometry._norm(velocity)
     return (planner_seq > seq_threshold) & (speed < vel_threshold) & (dist > 0.2)
 
 

@@ -19,6 +19,11 @@ One call of `FleetPlanner.step` runs six stages for every agent at once:
   6. trajectory optimization — the batched ADMM QP (ops/qp.py), whose
      iteration loop is the CUDA kernel on a CUDA device
 
+The neighbour slots, stages 1 and 2, and stage 5 with the QP-input
+assembly of stage 6 are three entries of planner/stages.py: one launch
+each of a hand-written kernel on the card (csrc/step_stages.cu), their
+plain torch bodies on the CPU.
+
 Every planner mode, goal mode and world option of the JAX package runs,
 in 2-D and 3-D. In local-sensing mode (`StepInputs.occ_known`) the step
 builds each agent's blocked lattice and integral image from its known
@@ -48,7 +53,8 @@ import torch
 
 from lsc_dr_planner_tpu_torch.config import GoalMode, Param, PlannerMode
 from lsc_dr_planner_tpu_torch.ops import bernstein, lsc, qp, sfc, trajectory
-from lsc_dr_planner_tpu_torch.planner import goal as goalmod
+from lsc_dr_planner_tpu_torch.planner import stages
+from lsc_dr_planner_tpu_torch.planner.stages import NeighborData
 from lsc_dr_planner_tpu_torch.world.grid import GridWorld, blocked_cumsum, local_grid_world
 
 
@@ -93,23 +99,6 @@ class StepInputs:
     occ_known: Optional[torch.Tensor] = None
     # previous step's ADMM duals [A, R] (qp.n_rows rows; None = cold)
     qp_y0: Optional[torch.Tensor] = None
-
-
-@dataclasses.dataclass
-class NeighborData:
-    """Each agent's OA neighbour slots, [A, OA, ...]: the fields of the
-    reference's broadcast obstacle message. `FleetPlanner._gather_neighbors`
-    builds it from the whole fleet; the multi-device steps build it from
-    the candidates the ranks exchange."""
-
-    prev_ctrl: torch.Tensor  # [A, OA, M, N, 3]
-    has_prev: torch.Tensor  # [A, OA]
-    pos: torch.Tensor  # [A, OA, 3]
-    vel: torch.Tensor  # [A, OA, 3]
-    radius: torch.Tensor  # [A, OA]
-    downwash: torch.Tensor  # [A, OA]
-    goal: torch.Tensor  # [A, OA, 3]
-    valid: torch.Tensor  # [A, OA] bool
 
 
 @dataclasses.dataclass
@@ -184,6 +173,8 @@ class FleetPlanner:
         # in the step would hold the host until the card caught up
         self._world_box = tuple(torch.as_tensor(v, dtype=torch.float32, device=self.device)
                                 for v in (world.world_min, world.world_max))
+        self.stage_cfg = stages.stage_config(p, self.O_agents, self.OD, self.O, self._growth,
+                                             *self._world_box)
         self.timing = timing and self.device.type == "cuda"
         self._events = []
         self.debug = False  # keep the step's intermediates in self._dbg
@@ -212,40 +203,14 @@ class FleetPlanner:
     def _neighbor_slots(self, inp: StepInputs, scenarios: int = 1):
         """The OA nearest other agents of the same scenario within L∞
         communication range: (order [S·A, OA] into the flattened fleet,
-        valid [S·A, OA])."""
-        p = self.param
-        S = scenarios
-        A = inp.pos.shape[0] // S
-        pos = inp.pos.reshape(S, A, -1)
-        dist = (pos[:, :, None] - pos[:, None, :]).abs().amax(dim=-1)  # [S, A, A]
-        dist = dist + torch.eye(A, dtype=dist.dtype, device=dist.device) * 1e9
-        if p.communication_range > 0:
-            dist = torch.where(dist < p.communication_range, dist, 1e9)
-        # top-k nearest; a stable sort keeps the lower index first among
-        # ties, as lax.top_k does
-        srt = torch.sort(-dist, dim=-1, descending=True, stable=True)
-        neg_top = srt.values[..., : self.O_agents]
-        order = srt.indices[..., : self.O_agents]
-        order = order + A * torch.arange(S, device=order.device)[:, None, None]
-        return order.reshape(S * A, -1), (-neg_top < 1e8).reshape(S * A, -1)
+        valid [S·A, OA]) (stages.neighbor_slots)."""
+        return stages.neighbor_slots(inp.pos, scenarios, self.stage_cfg)
 
     def _gather_neighbors(self, fleet: FleetArrays, inp: StepInputs,
                           scenarios: int = 1) -> NeighborData:
         """The neighbour slots of `_neighbor_slots`, gathered from the
         fleet on this device."""
-        order, valid = self._neighbor_slots(inp, scenarios)
-        return NeighborData(
-            prev_ctrl=inp.prev_ctrl[order], has_prev=inp.has_prev[order],
-            pos=inp.pos[order], vel=inp.vel[order], radius=fleet.radius[order],
-            downwash=fleet.downwash[order], goal=inp.current_goal[order], valid=valid)
-
-    def _shift(self, ctrl):
-        """The previous solution moved on by one replanning period: a whole
-        segment, or the sub-segment ts/dt in DLSC sub-step mode."""
-        p = self.param
-        if p.multisim_time_step == p.dt:
-            return trajectory.shift_one_segment(ctrl)
-        return trajectory.subsegment_first(ctrl, p.multisim_time_step / p.dt)
+        return stages.gather_neighbors(fleet, inp, *self._neighbor_slots(inp, scenarios))
 
     # ==================================================================
     def _step_impl(self, fleet: FleetArrays, inp: StepInputs,
@@ -257,9 +222,7 @@ class FleetPlanner:
         `neighbors` replaces the gather of each agent's neighbour slots
         (one scenario only)."""
         p = self.param
-        A, O, OA, OD = inp.pos.shape[0], self.O, self.O_agents, self.OD
-        M, n, N, phi = p.M, p.n, p.n + 1, p.phi
-        dt = p.dt
+        A, M = inp.pos.shape[0], p.M
         f32 = torch.float32
         dev = inp.pos.device
         mode = p.planner_mode
@@ -270,104 +233,19 @@ class FleetPlanner:
         if neighbors is not None and scenarios > 1:
             raise ValueError("neighbors= plans one scenario; the scenarios= path "
                              "gathers its own neighbour slots")
-        nd = neighbors if neighbors is not None else self._gather_neighbors(
-            fleet, inp, scenarios)
-        agent_valid = nd.valid
+        order = valid = None
+        if neighbors is None:
+            order, valid = self._neighbor_slots(inp, scenarios)
         self._mark("neighbors")
 
-        # ---------- stage 1: obstacle prediction --------------------------
-        nbr_pos = nd.pos
-        nbr_vel = nd.vel
-        if lsc_family:
-            agent_pred = torch.where(nd.has_prev[..., None, None, None],
-                                     self._shift(nd.prev_ctrl),
-                                     trajectory.const_vel_ctrl(nbr_pos, nbr_vel, M, n, dt))
-        elif mode == PlannerMode.BVC:
-            agent_pred = trajectory.const_vel_ctrl(nbr_pos, torch.zeros_like(nbr_vel),
-                                                   M, n, dt)
-        else:  # RSFC (and the circle test): constant velocity
-            agent_pred = trajectory.const_vel_ctrl(nbr_pos, nbr_vel, M, n, dt)
-        # disturbance reset: the prediction must start at the observed position
-        pred_err = torch.linalg.vector_norm(agent_pred[..., 0, 0, :] - nbr_pos, dim=-1)
-        hold = trajectory.const_vel_ctrl(nbr_pos, torch.zeros_like(nbr_vel), M, n, dt)
-        obs_pred = torch.where((pred_err > p.reset_threshold)[..., None, None, None],
-                               hold, agent_pred)
-        obs_valid = agent_valid
-        obs_is_agent = torch.ones((A, OA), dtype=torch.bool, device=dev)
-        obs_radius = nd.radius
-        obs_downwash = nd.downwash
-        obs_max_acc = torch.zeros((A, OA), dtype=f32, device=dev)
-        obs_pos_now = nbr_pos
-        obs_goal = nd.goal
-        if OD > 0:
-            # dynamic obstacles: constant velocity, seen by every agent of
-            # their scenario
-            S = scenarios
-
-            def with_dyn(x, d):
-                tail = x.shape[2:]
-                d = d.reshape(S, 1, OD, *tail).expand(S, A // S, OD, *tail)
-                return torch.cat([x, d.reshape(A, OD, *tail)], dim=1)
-
-            obs_pred = with_dyn(obs_pred, trajectory.const_vel_ctrl(
-                inp.dynobs_pos, inp.dynobs_vel, M, n, dt))
-            obs_valid = with_dyn(obs_valid, inp.dynobs_valid)
-            obs_is_agent = with_dyn(obs_is_agent, torch.zeros_like(inp.dynobs_valid))
-            obs_radius = with_dyn(obs_radius, inp.dynobs_radius)
-            obs_downwash = with_dyn(obs_downwash, inp.dynobs_downwash)
-            obs_max_acc = with_dyn(obs_max_acc, inp.dynobs_max_acc)
-            obs_pos_now = with_dyn(obs_pos_now, inp.dynobs_pos)
-            obs_goal = with_dyn(obs_goal, inp.dynobs_pos)
-        elif O > OA:  # degenerate padding slot (single agent)
-            pad = O - OA
-
-            def padcat(x, fill=0.0):
-                return torch.cat(
-                    [x, torch.full((A, pad) + x.shape[2:], fill, dtype=x.dtype,
-                                   device=dev)], dim=1)
-
-            obs_pred = padcat(obs_pred)
-            obs_valid = padcat(obs_valid, False)
-            obs_is_agent = padcat(obs_is_agent, False)
-            obs_radius = padcat(obs_radius, 0.1)
-            obs_downwash = padcat(obs_downwash, 1.0)
-            obs_max_acc = padcat(obs_max_acc)
-            obs_pos_now = padcat(obs_pos_now)
-            obs_goal = padcat(obs_goal)
-
-        # size prediction: constant-acceleration uncertainty growth and the
-        # velocity guard, for dynamic obstacles (every slot in RSFC); read
-        # by plain LSC and RSFC only
+        # ---------- stages 1 and 2: obstacle prediction, initial trajectory
+        # (one launch on the card; the initial_traj mark reads ~0)
+        fr = stages.step_front(self.stage_cfg, fleet, inp, order, valid, neighbors, scenarios)
+        obs_pred, obs_valid, obs_is_agent = fr.obs_pred, fr.obs_valid, fr.obs_is_agent
+        obs_radius, obs_downwash, obs_goal = fr.obs_radius, fr.obs_downwash, fr.obs_goal
+        initial_ctrl = fr.initial_ctrl
         grid_goals = p.goal_mode == GoalMode.GRID_BASED_PLANNER
-        obs_pred_sizes = None
-        if not (lsc_family and grid_goals) and mode != PlannerMode.BVC:
-            size_base = obs_radius[..., None, None].expand(A, O, M, N)
-            obs_pred_sizes = size_base
-            if p.obs_size_prediction:
-                if p.use_velocity_guard:
-                    vel_guard = (p.velocity_guard_ratio * torch.sum(inp.vel ** 2, dim=-1)
-                                 / fleet.max_acc[:, 0])
-                else:
-                    vel_guard = torch.zeros((A,), dtype=f32, device=dev)
-                grown = (size_base + vel_guard[:, None, None, None]
-                         + obs_max_acc[..., None, None] * self._growth[None, None])
-                use_growth = ~obs_is_agent | (mode == PlannerMode.RECIPROCAL_RSFC)
-                obs_pred_sizes = torch.where(use_growth[..., None, None], grown, size_base)
         self._mark("prediction")
-
-        # ---------- stage 2: initial trajectory ---------------------------
-        if lsc_family:
-            initial_ctrl = torch.where(inp.has_prev[..., None, None, None],
-                                       self._shift(inp.prev_ctrl),
-                                       trajectory.const_vel_ctrl(inp.pos, inp.vel, M, n, dt))
-        elif mode == PlannerMode.BVC:
-            initial_ctrl = trajectory.const_vel_ctrl(inp.pos, torch.zeros_like(inp.vel),
-                                                     M, n, dt)
-        else:
-            initial_ctrl = trajectory.const_vel_ctrl(inp.pos, inp.vel, M, n, dt)
-        hold_self = trajectory.const_vel_ctrl(inp.pos, torch.zeros_like(inp.vel), M, n, dt)
-        initial_ctrl = torch.where(inp.is_disturbed[..., None, None, None],
-                                   hold_self, initial_ctrl)
         self._mark("initial_traj")
 
         # ---------- stage 3: corridor construction ------------------------
@@ -379,14 +257,14 @@ class FleetPlanner:
                                 fleet.downwash, obs_radius, obs_downwash, obs_is_agent,
                                 inp.current_goal, obs_valid, p.world_dimension)
         elif lsc_family:
-            ls = lsc.build_lsc(initial_ctrl, obs_pred, obs_pred_sizes, fleet.radius,
+            ls = lsc.build_lsc(initial_ctrl, obs_pred, fr.obs_pred_sizes, fleet.radius,
                                fleet.downwash, obs_radius, obs_downwash, obs_is_agent,
-                               obs_pos_now, inp.current_goal, obs_valid)
+                               fr.obs_pos_now, inp.current_goal, obs_valid)
         elif mode == PlannerMode.BVC:
             ls = lsc.build_bvc(initial_ctrl, obs_pred, fleet.radius, fleet.downwash,
                                obs_radius, obs_downwash, obs_is_agent, obs_valid)
         else:
-            ls = lsc.build_reciprocal_rsfc(initial_ctrl, obs_pred, obs_pred_sizes,
+            ls = lsc.build_reciprocal_rsfc(initial_ctrl, obs_pred, fr.obs_pred_sizes,
                                            fleet.radius, fleet.downwash, obs_radius,
                                            obs_downwash, obs_is_agent, obs_valid)
         self._mark("lsc")
@@ -416,86 +294,32 @@ class FleetPlanner:
             sfc_hi_w = torch.full((A, M, 3), 1e9, dtype=f32, device=dev)
         self._mark("sfc")
 
-        # ---------- stage 5: goal planning --------------------------------
-        dim = p.world_dimension
-        if grid_goals:
-            new_goal, _ = goalmod.goal_lp(
-                inp.current_goal, inp.next_waypoint,
-                ls.normals[:, :, M - 1, :], ls.anchors[:, :, M - 1, N - 1, :],
-                ls.margins[:, :, M - 1, N - 1], obs_valid,
-                sfc_lo_w[:, M - 1], sfc_hi_w[:, M - 1], dim,
-                use_sfc=p.world_use_octomap)
-        elif p.goal_mode == GoalMode.RIGHT_HAND:
-            dl = goalmod.is_deadlock(inp.planner_seq, inp.vel, inp.pos, inp.desired_goal,
-                                     p.deadlock_velocity_threshold,
-                                     p.deadlock_seq_threshold)
-            new_goal = goalmod.right_hand_goal(inp.pos, inp.desired_goal, dl)
-        elif p.goal_mode in (GoalMode.PRIOR_BASED, GoalMode.DYNAMIC_PRIORITY):
-            # the host computes these goals (planner/priority.py)
-            new_goal = inp.current_goal
-        else:  # STATIC
-            new_goal = inp.desired_goal
-        # disturbed agents hold position as goal
-        new_goal = torch.where(inp.is_disturbed[..., None], inp.pos, new_goal)
+        # ---------- stage 5 and the QP-input assembly of stage 6 ----------
+        # (one launch on the card; stages.py says what it computes)
+        gq = stages.goal_qp_inputs(self.stage_cfg, fleet, inp, ls.normals, ls.anchors,
+                                   ls.margins, obs_valid, sfc_lo_w, sfc_hi_w,
+                                   inp.planner_seq)
+        new_goal = gq.new_goal
         self._mark("goal")
 
         # ---------- stage 6: trajectory optimization ----------------------
-        # terminal segments from the nominal-velocity flight-time heuristic
-        dist_goal = torch.linalg.vector_norm(new_goal - inp.pos, dim=-1)
-        ift = dist_goal / fleet.nominal_velocity
-        tseg = torch.clamp(torch.floor((M * dt - ift + 1e-9) / dt).to(torch.int32), min=1)
-        seg_idx = torch.arange(M, device=dev)[None, :]
-        terminal_mask = (seg_idx >= (M - tseg[:, None])).to(f32)
-
-        nrm = ls.normals[..., :dim]
-        # tiny margin inflation: solutions within the ADMM feasibility
-        # tolerance still certify true separation. In sub-step mode it is
-        # sized above the loosened gate (feas_tol), and covers the shift of
-        # the pairwise point correspondence inside the first segment.
-        qp_margin = 1e-2 if self.substep else 1e-3
-        rhs = (torch.einsum("aomd,aomnd->aomn", nrm, ls.anchors[..., :dim])
-               + ls.margins + qp_margin)
-        nnorm = torch.linalg.vector_norm(ls.normals, dim=-1)
-        active = (obs_valid[..., None, None] & (nnorm > 1e-6)[..., None]).expand(
-            A, O, M, N).clone()
-        active[:, :, 0, :phi] = False
-
-        # variable bounds: the world (∩ SFC with the octomap), plus the
-        # waypoint comm box on the segment ends
-        lb = self._world_box[0][None, :dim, None, None].expand(A, dim, M, N)
-        ub = self._world_box[1][None, :dim, None, None].expand(A, dim, M, N)
-        if p.world_use_octomap:
-            lb = torch.maximum(lb, sfc_lo_w[..., :dim].transpose(1, 2)[..., None])
-            ub = torch.minimum(ub, sfc_hi_w[..., :dim].transpose(1, 2)[..., None])
-        lb, ub = lb.clone(), ub.clone()
-        if p.communication_range > 0:
-            wp = inp.next_waypoint[..., :dim]
-            half = 0.5 * p.communication_range - 1e-6
-            lb[..., N - 1] = torch.maximum(lb[..., N - 1], (wp - half)[:, :, None])
-            ub[..., N - 1] = torch.minimum(ub[..., N - 1], (wp + half)[:, :, None])
-            comm_half = torch.full((A,), 0.5 * p.communication_range, dtype=f32,
-                                   device=dev) - fleet.radius
-        else:
-            comm_half = torch.full((A,), 1e19, dtype=f32, device=dev)
-
+        dim = p.world_dimension
         if self.debug:
+            nd = neighbors if neighbors is not None else stages.gather_neighbors(
+                fleet, inp, order, valid)
             self._dbg = dict(
                 ls=ls, obs_valid=obs_valid, obs_pred=obs_pred, sfc_lo_w=sfc_lo_w,
                 sfc_hi_w=sfc_hi_w, new_goal=new_goal, initial_ctrl=initial_ctrl, nd=nd,
-                lb=lb, ub=ub, terminal_mask=terminal_mask, rhs=rhs, active=active)
+                lb=gq.lb, ub=gq.ub, terminal_mask=gq.terminal_mask, rhs=gq.lsc_rhs,
+                active=gq.lsc_active)
 
-        y0 = None
-        if inp.qp_y0 is not None and p.qp_warm_start_duals:
-            # duals carry over only when the problem is a shifted
-            # continuation of last step's (fresh or disturbed agents cold-start)
-            y0 = inp.qp_y0 * (inp.has_prev & ~inp.is_disturbed)[:, None].to(f32)
         qp_inp = qp.QPInputs(
             p0=inp.pos[:, :dim], v0=inp.vel[:, :dim], a0=inp.acc[:, :dim],
-            goal=new_goal[:, :dim], terminal_mask=terminal_mask,
-            lsc_normals=nrm, lsc_rhs=rhs, lsc_active=active,
+            goal=new_goal[:, :dim], terminal_mask=gq.terminal_mask,
+            lsc_normals=ls.normals[..., :dim], lsc_rhs=gq.lsc_rhs, lsc_active=gq.lsc_active,
             vmax=fleet.max_vel[:, :dim], amax=fleet.max_acc[:, :dim],
-            lb=lb, ub=ub, comm_halfrange=comm_half,
-            x0=initial_ctrl[..., :dim].permute(0, 3, 1, 2), y0=y0,
+            lb=gq.lb, ub=gq.ub, comm_halfrange=gq.comm_halfrange,
+            x0=initial_ctrl[..., :dim].permute(0, 3, 1, 2), y0=gq.y0,
         )
         deferred = DeferredQP(qp_inp=qp_inp, initial_ctrl=initial_ctrl,
                               new_goal=new_goal, new_sfc_lo=new_sfc_lo,
