@@ -73,13 +73,18 @@ layer and audit, and the `sim.run` CLI) flying forest missions:
      loop, rescue_batch, the rescue loop and the finish, its host
      synchronisations counted (0), qp.solve run under
      torch.cuda.set_sync_debug_mode("error"); one launch of each stage
-     kernel a step (planner/stages.py's entries: neighbor_slots,
-     step_front, goal_qp_inputs; `assert_one_launch_a_call`), no plain
-     stage body on the card, and `stage_timing` (ms queued, device ms,
-     host ms, plain ms, bytes bound) on the first recorded call; from
-     here to phase 14's end the stage entries are recorded, and on the
-     recorded calls of every phase (5-14; in 13 the sharded steps'
-     gathered neighbour slots) `neighbor_check`, `front_check` and
+     kernel a step (planner/stages.py's entries: front_with_neighbors,
+     the neighbour selection inside the prediction's launch, and
+     goal_qp_inputs; `assert_one_launch_a_call`), no plain stage body on
+     the card, and `stage_timing` (ms queued, device ms, host ms, plain
+     ms, bytes bound, registers, shared memory, blocks an SM) on the
+     first recorded call; then SEPARATE_STEPS steps with the two as
+     separate launches (`separate_launches`), one launch of
+     neighbor_slots and of step_front a step, checked and timed the same
+     way; from here to
+     phase 14's end the stage entries are recorded, and on the recorded
+     calls of every phase (5-14; in 13 the sharded steps' gathered
+     neighbour slots) `neighbor_check`, `front_check`, `fused_check` and
      `goal_inputs_check` hold each kernel's outputs to its plain body's,
      element for element;
   6. the reference size: `workload.forest_mission(10)` (O = 9 neighbour
@@ -212,8 +217,9 @@ those paths, the calls and items its check held to its plain version,
 ms, device ms, plain ms, bound and share on the main path's call, the
 SFC kernels' latency floor, ptxas's registers), one for qp_prepare
 (the same, with the library inverse's ms) and one per stage kernel
-(neighbor_slots, step_front, goal_qp_inputs: the same, with the host
-ms to issue a call and the phases checked), the card's name and
+(neighbor_slots, step_front, front_with_neighbors, goal_qp_inputs: the
+same, with the host ms to issue a call, the phases checked, the kernel's
+template, its dynamic shared memory and blocks an SM), the card's name and
 power limit, and as the last line {"ok": true, "device": {...}}. Exits non-zero, with no result, without a
 CUDA device or outside a checkout of the repository. Writes the full
 record to chiprun_out/chip_smoke.json.
@@ -238,6 +244,7 @@ sys.path.insert(0, str(ROOT))
 import admm_timing  # noqa: E402
 A_MAIN = 1024
 WARMUP, TIMED = 3, 20
+SEPARATE_STEPS = 3  # main-path steps with the neighbour selection launched on its own
 # (phase, agents, mission seed, max planner iterations). Seed 0 of the
 # 64-agent forest wedges one agent 3.3 m short of its goal in the JAX
 # package and the port alike (its waypoint layer, not the planner step),
@@ -601,9 +608,10 @@ class Builds:
         bodies ("clsc_plain_on_cuda"), 'hull' SFC bodies
         ("sfc_hull_plain_on_cuda") and QP preparations
         ("prepare_plain_on_cuda"); and the step's stage kernels
-        ("neighbor_slots", "step_front", "goal_qp_inputs") with their plain
-        bodies on CUDA tensors ("neighbor_plain_on_cuda",
-        "front_plain_on_cuda", "goal_plain_on_cuda")."""
+        ("neighbor_slots", "step_front", "front_with_neighbors",
+        "goal_qp_inputs") with their plain bodies on CUDA tensors
+        ("neighbor_plain_on_cuda", "front_plain_on_cuda",
+        "fused_plain_on_cuda", "goal_plain_on_cuda")."""
         out = dict(self.qp_cuda.build_launches)
         for name, n in out.items():
             self.rec[name]["launches"] += n
@@ -620,10 +628,12 @@ class Builds:
         out["prepare_plain_on_cuda"] = self.qp.plain_cuda_calls
         for key, n in (("neighbor_slots", self.step_cuda.neighbor_launches),
                        ("step_front", self.step_cuda.front_launches),
+                       ("front_with_neighbors", self.step_cuda.fused_launches),
                        ("goal_qp_inputs", self.step_cuda.goal_launches)):
             out[key] = n
             self.stage[key]["launches"] += n
-        for key in ("neighbor_plain_on_cuda", "front_plain_on_cuda", "goal_plain_on_cuda"):
+        for key in ("neighbor_plain_on_cuda", "front_plain_on_cuda", "fused_plain_on_cuda",
+                    "goal_plain_on_cuda"):
             out[key] = getattr(self.stages, key)
         return out
 
@@ -631,9 +641,10 @@ class Builds:
     def assert_launched(launches, what, sfc=True, hull=True, clsc=False, sfc_hull=False,
                         neighbors=True):
         """The kernels launched on the path: the ADMM kernel; the step's
-        prediction and goal kernels, and its neighbour kernel (not with
-        `neighbors` False: the sharded steps bring their own neighbour
-        slots, a fleet of one has none); an SFC kernel
+        prediction (with its own selection or not) and goal kernels, and
+        a neighbour selection, alone or in the prediction's launch (not
+        with `neighbors` False: the sharded steps bring their own
+        neighbour slots, a fleet of one has none); an SFC kernel
         (not with `sfc` False: a path with no world map, world_use_octomap
         off, has no SFC update); a hull kernel, the query or the fused
         CLSC construction (not with `hull` False: BVC and RSFC build no
@@ -644,10 +655,11 @@ class Builds:
         tensor."""
         admm = sum(n for k, n in launches.items() if k not in NOT_ADMM)
         assert admm > 0, f"{what} never launched the ADMM kernel"
-        assert launches["step_front"] > 0 and launches["goal_qp_inputs"] > 0, \
+        assert launches["step_front"] + launches["front_with_neighbors"] > 0 \
+            and launches["goal_qp_inputs"] > 0, \
             f"{what} never launched the prediction or the goal kernel"
-        assert launches["neighbor_slots"] > 0 or not neighbors, \
-            f"{what} never launched the neighbour kernel"
+        assert launches["neighbor_slots"] + launches["front_with_neighbors"] > 0 \
+            or not neighbors, f"{what} never launched the neighbour selection"
         assert launches["sfc_expand"] + launches["sfc_update_hull"] > 0 or not sfc, \
             f"{what} never launched an SFC kernel"
         assert launches["hull_closest"] + launches["clsc_build"] > 0 or not hull, \
@@ -730,10 +742,34 @@ class Builds:
 
 PLAIN_ON_CUDA = ("hull_plain_on_cuda", "clsc_plain_on_cuda", "sfc_hull_plain_on_cuda",
                  "prepare_plain_on_cuda", "neighbor_plain_on_cuda", "front_plain_on_cuda",
-                 "goal_plain_on_cuda")
-STAGE_ENTRIES = ("neighbor_slots", "step_front", "goal_qp_inputs")  # planner/stages.py
+                 "fused_plain_on_cuda", "goal_plain_on_cuda")
+# planner/stages.py's entries (the step calls the third, the multi-device
+# steps the second; `separate_launches` the first two in the third's place)
+STAGE_ENTRIES = ("neighbor_slots", "step_front", "front_with_neighbors", "goal_qp_inputs")
 NOT_ADMM = ("sfc_expand", "sfc_update_hull", "hull_closest", "clsc_build", "qp_prepare",
             *STAGE_ENTRIES, *PLAIN_ON_CUDA)
+
+
+@contextlib.contextmanager
+def separate_launches(stages):
+    """For the duration, the step's front_with_neighbors as two launches:
+    the neighbour selection alone (neighbor_slots), then the prediction on
+    its slots (step_front), each looked up at its call so that recorders
+    see them; the fused route's yardstick. A tree without the fused entry
+    (an older one) runs its own two launches as it is."""
+    fused = getattr(stages, "front_with_neighbors", None)
+
+    def front(cfg, fleet, inp, scenarios=1):
+        order, valid = stages.neighbor_slots(inp.pos, scenarios, cfg)
+        return order, valid, stages.step_front(cfg, fleet, inp, order, valid, None, scenarios)
+
+    if fused is not None:
+        stages.front_with_neighbors = front
+    try:
+        yield
+    finally:
+        if fused is not None:
+            stages.front_with_neighbors = fused
 
 
 def assert_one_launch_a_call(launches, recorders, what, stage_recorders=()):
@@ -796,9 +832,11 @@ def path_calls(sfc, lsc, geometry, every=1, keep=2):
 
 def stage_recorders(stages, every=1, keep=2):
     """The recorders of the step's stage entries (planner/stages.py:
-    neighbor_slots, step_front, goal_qp_inputs), each keeping at most
-    `keep` calls, every `every`-th from the first."""
-    return tuple(Calls(stages, name, every, keep) for name in STAGE_ENTRIES)
+    neighbor_slots, step_front, front_with_neighbors, goal_qp_inputs; an
+    older tree's that it has), each keeping at most `keep` calls, every
+    `every`-th from the first."""
+    return tuple(Calls(stages, name, every, keep) for name in STAGE_ENTRIES
+                 if hasattr(stages, name))
 
 
 def restart(recorders, every, accept=None):
@@ -810,6 +848,8 @@ def restart(recorders, every, accept=None):
 def _stage_fields(entry, out):
     if entry == "neighbor_slots":
         return list(zip(("order", "valid"), out))
+    if entry == "front_with_neighbors":
+        return [("order", out[0]), ("valid", out[1])] + _stage_fields("step_front", out[2])
     return [(f.name, getattr(out, f.name)) for f in dataclasses.fields(out)]
 
 
@@ -849,15 +889,19 @@ def front_check(builds, recorders, what):
     return stage_check(builds, recorders[1], what)
 
 
-def goal_inputs_check(builds, recorders, what):
+def fused_check(builds, recorders, what):
     return stage_check(builds, recorders[2], what)
 
 
+def goal_inputs_check(builds, recorders, what):
+    return stage_check(builds, recorders[3], what)
+
+
 def stage_checks(builds, recorders, what):
-    """neighbor_check, front_check and goal_inputs_check on the calls a
-    phase made and its recorders kept."""
+    """neighbor_check, front_check, fused_check and goal_inputs_check on
+    the calls a phase made and its recorders kept."""
     return {r.name: check(builds, recorders, what) for check, r in zip(
-        (neighbor_check, front_check, goal_inputs_check), recorders) if r.calls}
+        (neighbor_check, front_check, fused_check, goal_inputs_check), recorders) if r.calls}
 
 
 def stage_io(entry, a, k, got):
@@ -879,6 +923,13 @@ def stage_io(entry, a, k, got):
         add(pos)
         A = pos.shape[0] // S
         return nbytes, S * A * A * 9  # 3 differences, 3 abs, 2 max, the range test
+    if entry == "front_with_neighbors":  # the selection's and the prediction's, pos once
+        cfg, fleet, inp, S = a[:4]
+        order, valid, front = got
+        n_sel, ops_sel = stage_io("neighbor_slots", (inp.pos, S), {}, (order, valid))
+        n_front, ops_front = stage_io("step_front", (cfg, fleet, inp, None, None, None), {},
+                                      front)
+        return n_front + n_sel - inp.pos.numel() * 4, ops_sel + ops_front
     if entry == "step_front":
         cfg, fleet, inp, order, valid, nd = a[:6]
         for t in (order, valid, inp.prev_ctrl, inp.has_prev, inp.pos, inp.vel, inp.is_disturbed,
@@ -912,14 +963,56 @@ def one_buffer_outputs(dev, specs):
             for (name, shape, dtype), o in zip(specs, offsets)}
 
 
+def stage_resources(step_cuda, entry, a):
+    """The kernel a stage call launched (its name in ptxas's summary), its
+    registers and static shared memory (ptxas, where this process built
+    the library), its dynamic shared memory a block and its blocks an SM
+    (an older tree's wrapper without the queries: the first two alone)."""
+    from lsc_dr_planner_tpu_torch.ops import cuda_build
+
+    cfg = a[2] if entry == "neighbor_slots" else a[0]
+    six = cfg.n == 5
+    K = 16  # an older tree's neighbour kernel (a warp an agent): <16> up to 16 slots
+    if hasattr(step_cuda, "list_len") and entry in ("neighbor_slots", "front_with_neighbors"):
+        A = a[0].shape[0] // a[1] if entry == "neighbor_slots" else a[2].pos.shape[0] // a[3]
+        K = step_cuda.list_len(A, cfg.OA)
+    sel = entry == "front_with_neighbors" and cfg.OA > 0
+    kernel, query = {
+        "neighbor_slots": (f"neighbor_slots_kernel<{K}>", 0),
+        "step_front": ("step_front_kernel" + ("<6,8,0>" if six else "<0,8,0>"), 1),
+        "front_with_neighbors": (f"step_front_kernel<{6 if six else 0},{K if sel else 8},"
+                                 f"{int(sel)}>", 2 if sel else 1),
+        "goal_qp_inputs": ("goal_qp_inputs_kernel", 3)}[entry]
+    if not hasattr(step_cuda, "list_len"):  # an older tree's: one prediction kernel
+        kernel = {"step_front": "step_front_kernel"}.get(entry, kernel)
+    log = cuda_build.build_log.get("step_stages.cu")
+    res = {"kernel": kernel, **(ptxas_summary(log[1]).get(kernel, {}) if log else {})}
+    if hasattr(step_cuda, "occupancy"):
+        if entry == "neighbor_slots":
+            dyn = 12 * step_cuda.BLOCK_THREADS * K
+        elif entry == "goal_qp_inputs":
+            dyn = 0
+        else:
+            inp = a[2]
+            S = a[3] if entry == "front_with_neighbors" else a[6]
+            dyn = step_cuda.build().step_front_smem_bytes(inp.pos.shape[0], S, cfg.OA, cfg.M,
+                                                          cfg.n, cfg.mode, int(sel))
+        res.update(dynamic_smem_bytes=dyn,
+                   blocks_per_sm=step_cuda.occupancy(query, cfg.n, K, dyn))
+    return res
+
+
 def stage_timing(builds, recorders, gpu, what):
-    """Each stage kernel on its first recorded call: ms a call queued back
-    to back (CUDA events) and its device ms (profiler), the host ms to
-    issue a call (also with `one_buffer_outputs`), its plain body's ms on
-    the card, and its bound (bytes at HBM_BYTES_PER_S, operations at
-    FP32_OPS_PER_S, `stage_io`)."""
+    """Each stage kernel on its first recorded call (of the entries that
+    were called): ms a call queued back to back (CUDA events) and its
+    device ms (profiler), the host ms to issue a call (also with
+    `one_buffer_outputs`), its plain body's ms on the card, its bound
+    (bytes at HBM_BYTES_PER_S, operations at FP32_OPS_PER_S, `stage_io`),
+    registers, shared memory and blocks an SM (`stage_resources`)."""
     out = {}
     for r in recorders:
+        if not r.calls:
+            continue
         a, k, got, _ = r.calls[0]
         fn = lambda: r.orig(*a, **k)  # noqa: E731
         nbytes, ops = stage_io(r.name, a, k, got)
@@ -941,6 +1034,7 @@ def stage_timing(builds, recorders, gpu, what):
         t["device_ms"], t["device_launches_seen"] = profiled_ms(fn, builds.dev)
         t["ms"] = t["queued_ms"]
         t["bound_share"] = t["bound_ms"] / t["ms"]
+        t.update(stage_resources(builds.step_cuda, r.name, a))
         out[r.name] = t
         builds.stage[r.name].update(t)
     print(f"{what} stage kernel timing", json.dumps(out), f"[{gpu}]")
@@ -948,9 +1042,14 @@ def stage_timing(builds, recorders, gpu, what):
 
 
 def stage_timing_main():
-    """The stage kernels alone: built, then `stage_timing` on the calls of
-    one main-path step after WARMUP evolving steps at A=1024. One JSON
-    line."""
+    """The stage kernels alone, of the checkout whose package is imported
+    (an older one, as `stages_ab_main` does): built (ptxas's record
+    kept), then `stage_timing` on the calls of one step after WARMUP
+    evolving steps at A=1024, in the main path's layout (2-D) and in 8b's
+    (3-D), the neighbour selection inside the prediction's launch and, as
+    separate launches (`separate_launches`; a tree without the fused
+    entry: its own two launches).
+    One JSON line."""
     import types
 
     from lsc_dr_planner_tpu_torch import workload
@@ -958,18 +1057,111 @@ def stage_timing_main():
     from lsc_dr_planner_tpu_torch.planner import stages
 
     dev, gpu = torch.device("cuda", 0), gpu_line()
-    step_cuda.build()
-    planner, fleet, inp = main_path_state(workload, dev)
-    recs = stage_recorders(stages)
-    with contextlib.ExitStack() as stack:
-        for r in recs:
-            stack.enter_context(r)
-        planner._step_impl(fleet, inp)
-    builds = types.SimpleNamespace(dev=dev, step_cuda=step_cuda,
-                                   stage={e: {} for e in STAGE_ENTRIES})
-    out = stage_timing(builds, recs, gpu, "main path")
+    build_all(step_cuda)
+    out = {"package": str(Path(step_cuda.__file__).resolve().parents[1]), "gpu": gpu}
+    for tag, overrides in (("main", {}), ("8b", dict(world_dimension=3))):
+        planner, fleet, inp = main_path_state(workload, dev, **overrides)
+        for fuse in ((True, False) if hasattr(stages, "front_with_neighbors") else (False,)):
+            recs = stage_recorders(stages)
+            with contextlib.ExitStack() as stack:
+                for r in recs:
+                    stack.enter_context(r)
+                if not fuse:
+                    stack.enter_context(separate_launches(stages))
+                planner._step_impl(fleet, inp, defer_qp=True)
+            builds = types.SimpleNamespace(dev=dev, step_cuda=step_cuda,
+                                           stage={e: {} for e in STAGE_ENTRIES})
+            what = f"{tag} {'fused' if fuse else 'separate'}"
+            out[what] = stage_timing(builds, recs, gpu, what)
     print("stage timing", json.dumps(out))
     return out
+
+
+def stage_sources_main(sources):
+    """The neighbour selection and the prediction kernels built from other
+    `step_stages.cu` sources (of this tree's argument layout) on the same
+    calls, in the order given: the calls of one step after WARMUP evolving
+    steps at A=1024 in the main path's layout (2-D) and in 8b's (3-D),
+    fused and separate; per source ptxas, each call's ms queued back to
+    back and device ms (profiler), and its elements that differ from the
+    plain body's (a variant with a part cut out, a timing breakdown, may
+    differ). One JSON line a source."""
+    from lsc_dr_planner_tpu_torch import workload
+    from lsc_dr_planner_tpu_torch.ops import step_cuda
+    from lsc_dr_planner_tpu_torch.planner import stages
+
+    dev, gpu = torch.device("cuda", 0), gpu_line()
+    build_all()
+    calls = {}
+    for tag, overrides in (("main", {}), ("8b", dict(world_dimension=3))):
+        planner, fleet, inp = main_path_state(workload, dev, **overrides)
+        for fuse in (True, False):
+            recs = stage_recorders(stages)
+            with contextlib.ExitStack() as stack:
+                for r in recs:
+                    stack.enter_context(r)
+                if not fuse:
+                    stack.enter_context(separate_launches(stages))
+                planner._step_impl(fleet, inp, defer_qp=True)
+            for r in recs:
+                if r.calls and r.name != "goal_qp_inputs":
+                    calls[f"{tag} {r.name}"] = (r, r.calls[0])
+    out = []
+    for src in sources:
+        with built_from(step_cuda, src) as ptxas:
+            rec = {"source": str(src), "gpu": gpu, "ptxas": ptxas}
+            for what, (r, (a, k, _, _)) in calls.items():
+                fn = lambda: r.orig(*a, **k)  # noqa: E731
+                got, want = fn(), r.orig(*a, **k, plain=True)
+                torch.cuda.synchronize()
+                rec[what] = {
+                    "queued_ms": queued_ms(fn, KERNEL_REPS),
+                    "device_ms": profiled_ms(fn, dev)[0],
+                    "differing": sum(differing(x, y) for (_, x), (_, y) in zip(
+                        _stage_fields(r.name, got), _stage_fields(r.name, want))
+                        if x is not None)}
+        print("stage source", json.dumps(rec))
+        out.append(rec)
+    return out
+
+
+def front_host_main(rounds=6):
+    """The host ms of one main-path step up to qp.solve's entry
+    (`_step_impl(defer_qp=True)`, behind a sleep kernel) in turns with the
+    neighbour selection inside the prediction's launch and as its own
+    launch (`separate_launches`; a tree without the fused entry: its one
+    route),
+    `rounds` times, one process, one state. One JSON line."""
+    from lsc_dr_planner_tpu_torch import workload
+    from lsc_dr_planner_tpu_torch.planner import stages
+
+    dev, gpu = torch.device("cuda", 0), gpu_line()
+    build_all()
+    planner, fleet, inp = main_path_state(workload, dev)
+    rec = {"package": str(Path(workload.__file__).resolve().parent), "gpu": gpu}
+    front = lambda: planner._step_impl(fleet, inp, defer_qp=True)  # noqa: E731
+    for _ in range(rounds):
+        for fuse in ((True, False) if hasattr(stages, "front_with_neighbors") else (False,)):
+            with contextlib.nullcontext() if fuse else separate_launches(stages):
+                rec.setdefault("fused" if fuse else "separate", []).append(host_ms(front, 10))
+    print("front host", json.dumps(rec))
+    return rec
+
+
+def build_all(verbose=None):
+    """Builds the imported package's kernel libraries, one nvcc each, all
+    at once (the wrapper `verbose` names keeps ptxas's record)."""
+    from lsc_dr_planner_tpu_torch.ops import hull_cuda, qp_cuda, qp_prepare_cuda, sfc_cuda
+
+    wrappers = [qp_cuda, sfc_cuda, hull_cuda, qp_prepare_cuda]
+    try:
+        from lsc_dr_planner_tpu_torch.ops import step_cuda
+        wrappers.append(step_cuda)
+    except ImportError:  # a tree without the stage kernels
+        pass
+    with ThreadPoolExecutor(len(wrappers)) as pool:
+        for done in [pool.submit(w.build, w is verbose) for w in wrappers]:
+            done.result()
 
 
 def stages_ab_main():
@@ -979,39 +1171,39 @@ def stages_ab_main():
     steps (step p50, mean stage ms, QP convergence), and one step from
     its start to qp.solve's entry (`_step_impl(defer_qp=True)`) under the
     profiler: the device kernels and copies it issued, and its host ms
-    (behind a sleep kernel). One JSON line."""
+    (behind a sleep kernel); in a tree with the fused entry also the main
+    path with the neighbour selection and the prediction as two launches
+    ("main_separate", `separate_launches`). One JSON line."""
     from lsc_dr_planner_tpu_torch import workload
     from lsc_dr_planner_tpu_torch.config import PlannerMode
-    from lsc_dr_planner_tpu_torch.ops import hull_cuda, qp_cuda, qp_prepare_cuda, sfc_cuda
+    from lsc_dr_planner_tpu_torch.ops import qp_cuda
+    from lsc_dr_planner_tpu_torch.planner import stages as stage_ops
     from lsc_dr_planner_tpu_torch.tools import sfc_bench
 
     dev, gpu = torch.device("cuda", 0), gpu_line()
-    wrappers = [qp_cuda, sfc_cuda, hull_cuda, qp_prepare_cuda]
-    try:
-        from lsc_dr_planner_tpu_torch.ops import step_cuda
-        wrappers.append(step_cuda)
-    except ImportError:  # a tree without the stage kernels
-        pass
-    with ThreadPoolExecutor(len(wrappers)) as pool:
-        for done in [pool.submit(w.build) for w in wrappers]:
-            done.result()
+    build_all()
     rec = {"package": str(Path(qp_cuda.__file__).resolve().parents[1]), "gpu": gpu}
-    for tag, overrides in (("main", {}), ("8a", dict(planner_mode=PlannerMode.DLSC,
-                                                     multisim_time_step=0.1))):
-        p, planner, fleet, inp = workload.build_fleet(A_MAIN, device=dev, timing=True,
-                                                      **overrides)
-        step = workload.make_evolve_step(p, planner, fleet)
-        for _ in range(WARMUP):
-            inp, _ = step(inp)
-        inp, lat, stages, convs = admm_timing.timed_steps(step, planner, inp, TIMED)
-        front = lambda: planner._step_impl(fleet, inp, defer_qp=True)  # noqa: E731
-        prof = sfc_bench.launch_counts(front, dev)
-        rec[tag] = {"p50_ms": float(np.percentile(lat, 50) * 1e3),
-                    "stage_ms": admm_timing.mean_stages(stages),
-                    "qp_convergence": float(np.mean(convs)),
-                    "before_solve": {**{key: prof[key] for key in (
-                        "device_kernels", "device_copies", "device_busy_ms",
-                        "host_launch_calls")}, "host_ms": host_ms(front, 10)}}
+    for tag, overrides in (("main", {}),
+                           ("8a", dict(planner_mode=PlannerMode.DLSC, multisim_time_step=0.1)),
+                           ("main_separate", {})):  # last: the parent's runs have none
+        separate = tag == "main_separate"
+        if separate and not hasattr(stage_ops, "front_with_neighbors"):
+            continue
+        with separate_launches(stage_ops) if separate else contextlib.nullcontext():
+            p, planner, fleet, inp = workload.build_fleet(A_MAIN, device=dev, timing=True,
+                                                          **overrides)
+            step = workload.make_evolve_step(p, planner, fleet)
+            for _ in range(WARMUP):
+                inp, _ = step(inp)
+            inp, lat, stages, convs = admm_timing.timed_steps(step, planner, inp, TIMED)
+            front = lambda: planner._step_impl(fleet, inp, defer_qp=True)  # noqa: E731
+            prof = sfc_bench.launch_counts(front, dev)
+            rec[tag] = {"p50_ms": float(np.percentile(lat, 50) * 1e3),
+                        "stage_ms": admm_timing.mean_stages(stages),
+                        "qp_convergence": float(np.mean(convs)),
+                        "before_solve": {**{key: prof[key] for key in (
+                            "device_kernels", "device_copies", "device_busy_ms",
+                            "host_launch_calls")}, "host_ms": host_ms(front, 10)}}
     print("stages ab", json.dumps(rec))
     return rec
 
@@ -3411,9 +3603,26 @@ def main():
     # every step
     assert_one_launch_a_call(launches, recorders, "the main path", srec)
     assert sfcs.n == clscs.n == TIMED and expands.n == hulls.n == 0, main["calls"]
-    assert all(r.n == TIMED for r in srec), [(r.name, r.n) for r in srec]
+    # the neighbour selection inside the prediction's launch
+    assert [r.n for r in srec] == [0, 0, TIMED, TIMED], [(r.name, r.n) for r in srec]
     main["stage_checks"] = stage_checks(builds, srec, "phase5")
     main["stage_timing"] = stage_timing(builds, srec, gpu, "phase5")
+    # the same path with the selection and the prediction as two launches
+    # (`separate_launches`), SEPARATE_STEPS steps on
+    builds.reset_launches()
+    restart(srec, 1)
+    sep_inp = inp
+    with separate_launches(stage_ops):
+        for _ in range(SEPARATE_STEPS):
+            sep_inp, _ = step(sep_inp)
+    sep_launches = builds.add_path_launches()
+    builds.assert_launched(sep_launches, "the main path, separate launches", clsc=True,
+                           sfc_hull=True)
+    assert [sep_launches[r.name] for r in srec] == [r.n for r in srec] == [
+        SEPARATE_STEPS, SEPARATE_STEPS, 0, SEPARATE_STEPS], [(r.name, r.n) for r in srec]
+    main["separate"] = {"steps": SEPARATE_STEPS,
+                        "stage_checks": stage_checks(builds, srec, "phase5 separate"),
+                        "stage_timing": stage_timing(builds, srec[:2], gpu, "phase5 separate")}
     # one launch of the QP preparation kernel a step
     assert preps.n == launches["qp_prepare"] == TIMED, (preps.n, launches["qp_prepare"])
     assert sfc.syncs == 0 and sfc.trips == 0, "the main path's SFC stage ran the plain loop"
@@ -3732,14 +3941,13 @@ def main():
         # torch.cholesky_inverse(torch.linalg.cholesky_ex(Kmat).L): the inverse alone
         "library_ms": r["library_ms"],
     })
-    for name, replaces, kernel in (
+    for name, replaces in (
             # the JAX package's code each replaces, jnp and lax in its jitted step;
             # no Pallas original
-            ("neighbor_slots", "lsc_dr_planner_tpu/planner/pipeline.py:226",
-             "neighbor_slots_kernel<16>"),
-            ("step_front", "lsc_dr_planner_tpu/planner/pipeline.py:292", "step_front_kernel"),
-            ("goal_qp_inputs", "lsc_dr_planner_tpu/planner/goal.py:26",
-             "goal_qp_inputs_kernel")):
+            ("neighbor_slots", "lsc_dr_planner_tpu/planner/pipeline.py:226"),
+            ("step_front", "lsc_dr_planner_tpu/planner/pipeline.py:292"),
+            ("front_with_neighbors", "lsc_dr_planner_tpu/planner/pipeline.py:226-445"),
+            ("goal_qp_inputs", "lsc_dr_planner_tpu/planner/goal.py:26")):
         r = builds.stage[name]
         print(name, json.dumps(r))
         assert r["launches"] > 0 and r["ms"] is not None and r["calls_checked"] > 0, (name, r)
@@ -3749,9 +3957,9 @@ def main():
             "launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             **{k: r[k] for k in ("queued_ms", "device_ms", "host_ms", "host_ms_one_buffer",
                                  "plain_ms", "bound_ms", "bound_by", "bound_share", "bytes",
-                                 "calls_checked", "elements_checked", "phases")},
-            "ptxas": {k: v for k, v in kernels_ptxas.items() if k.startswith(kernel[:-4])}
-            if name == "neighbor_slots" else kernels_ptxas.get(kernel),
+                                 "calls_checked", "elements_checked", "phases", "kernel",
+                                 "dynamic_smem_bytes", "blocks_per_sm")},
+            "ptxas": kernels_ptxas.get(r["kernel"]),
             "library_ms": None,  # no single PyTorch call computes it
         })
     assert sorted(builds.hull["callers"]) == ["build_clsc (plain body)", "build_lsc"], \

@@ -4,40 +4,62 @@
 // Pallas kernel: the JAX package ran these stages as XLA fusions inside its
 // one jitted step; the port ran them as ~125 small torch kernels a step, each
 // issued by the host (~25-30 us apiece on the card's host) while the device
-// waited, whatever the fleet's size.
+// waited, whatever the fleet's size. Every kernel runs one agent a block of
+// 128 threads (4 warps): at <= 64 registers 8 blocks fit an SM, so the main
+// path's 1,024 agents are all resident at once on the H100's 132 SMs.
 //
-// - neighbor_slots_launch (stages.neighbor_slots; the JAX package's
-//   lsc_dr_planner_tpu/planner/pipeline.py:226-252, lax.top_k at :247). Each
-//   agent's OA nearest other agents of its scenario by L-infinity distance,
-//   out-of-range ones and the agent itself at 1e9, nearest first and the lower
-//   index first among ties; valid where the distance is below 1e8. One warp
-//   an agent: each lane scans every 32nd candidate and keeps a sorted list of
-//   its K smallest keys (distance bits << 32 | index: the distances are never
-//   negative, so the integer order is (distance, index) order) in registers,
-//   an unrolled insertion so that no array is indexed at run time; then OA
-//   rounds of a warp minimum over the lists' heads, the winner popping its
-//   head. The arithmetic is a subtraction, abs, max and a compare, so the
-//   result is exact, ties included. Bound: the plain body's [S, A, A] matrix
-//   is gone; the kernel reads S*A*12 bytes and writes S*A*OA*9, and its
-//   least work is S*A*A candidate tests of 9 operations (0.14 us at the main
-//   path's A = 1,024). Latency sets its time: a lane's 32 serial insertions
-//   and the warp's OA rounds of shuffles.
-// - step_front_launch (stages.step_front; pipeline.py:292-445 of the JAX
-//   package, ops/trajectory.py:22, 83, 99). Stage 1, the obstacle prediction,
-//   and stage 2, the initial trajectory: each slot's source read through
-//   `order` from the fleet's own arrays (or from a gathered NeighborData), the
-//   previous solution shifted by a segment or re-parameterised by the DLSC
-//   sub-step, constant velocity where there is none (RSFC always), the
-//   position (BVC), the disturbance reset, the dynamic obstacles of the
-//   agent's scenario after the agent slots, the single-agent padding slot, the
-//   size prediction where the mode reads it; the agent's own prediction, held
-//   where it is disturbed. One block of 128 threads an agent: first a thread a
-//   slot decides the slot's source and reset and writes its attributes, then
-//   the threads run over (slot, segment, point, axis) so that every store of
-//   obs_pred [A, O, M, N, 3] and initial_ctrl [A, M, N, 3] is unit-stride.
-//   Bound: bytes. At A = 1,024, O = 16, M = 10, N = 6 it moves 14.1 MB
-//   (obs_pred 11.8 MB written), 4.2 us at 3.35 TB/s; the sources it gathers
-//   are each agent's 720 B of points, 0.7 MB read once, L2-resident.
+// - select_nearest, the neighbour selection (stages.neighbor_slots; the JAX
+//   package's lsc_dr_planner_tpu/planner/pipeline.py:226-252, lax.top_k at
+//   :247): each agent's OA nearest other agents of its scenario by
+//   L-infinity distance, out-of-range ones and the agent itself at 1e9,
+//   nearest first and the lower index first among ties; valid where the
+//   distance is below 1e8. Keys are distance bits << 32 | index (distances
+//   are never negative, so the integer order is (distance, index) order and
+//   every key is unique): the arithmetic is a subtraction, abs, max and a
+//   compare, so the result is exact, ties included. The scenario's positions
+//   are staged in shared memory a tile of 128*K at a time (16-B cp.async);
+//   thread t takes candidates t, t + 128, ..., sorts each tile's K keys with
+//   a bitonic network and merges them into its ascending list of the K
+//   smallest (K = 8 while a thread has at most 8 candidates, A <= 1,024;
+//   else 16 or 32, at least min(OA, candidates a thread)). Each warp then
+//   takes its lanes' OA smallest, a round a key: two redux.sync minima (the
+//   keys' high and low words) over the lanes' heads, the winner popping to
+//   its next key, already in a register while the one after it loads from
+//   shared memory; the four warps' ascending lists are merged by rank (a
+//   key's index in its list plus the keys below it in the other three, a
+//   binary search each). Run alone (neighbor_slots_launch) or as the first
+//   phase of the prediction kernel (step_front_launch with select on).
+//   Bound: the plain body's [S, A, A] matrix is gone; it reads S*A*12 bytes
+//   and writes S*A*OA*9, and its least work is S*A*A candidate tests of 9
+//   operations (0.14 us at the main path's A = 1,024). Its time is the
+//   block's chain: the tile's loads, a sort of 8, OA rounds of two
+//   reductions (about half of it; a round that settles ties by a ballot,
+//   and a cut-off at a bound from the first OA/4 rounds, measured slower).
+// - step_front_launch (stages.step_front, and with select on
+//   stages.front_with_neighbors; pipeline.py:292-445 of the JAX package,
+//   ops/trajectory.py:22, 83, 99). Stage 1, the obstacle prediction, and
+//   stage 2, the initial trajectory: each slot's source read through `order`
+//   (or the block's own selection) from the fleet's own arrays, or from a
+//   gathered NeighborData; the previous solution shifted by a segment or
+//   re-parameterised by the DLSC sub-step, constant velocity where there is
+//   none (RSFC always), the position (BVC), the disturbance reset, the
+//   dynamic obstacles of the agent's scenario after the agent slots, the
+//   single-agent padding slot, the size prediction where the mode reads it;
+//   the agent's own prediction, held where it is disturbed. The LSC family's
+//   source rows (M*N*3 floats each, 720 B on the main path) and the agent's
+//   own are staged in shared memory by 16-B cp.async from all four warps,
+//   while the threads write the slots' attributes a (slot, field) each; the
+//   reset reads each row's first point from there; then every output is
+//   written four floats a thread with 16-B stores (one agent's obs_pred is
+//   O*M*N*3 contiguous floats), each from shared memory: four floats of a
+//   shifted row at once, or element by element the sub-step's sum or
+//   position + velocity * the point's time from a table (element r is
+//   point r / 3, axis r % 3). N (n + 1) is a template argument (6, or any
+//   at run time: the sub-step's sum unrolls); the front reads no world
+//   dimension (every slot is predicted on all three axes). Bound:
+//   bytes. At A = 1,024, O = 16, M = 10, N = 6 it moves 14.1 MB (obs_pred
+//   11.8 MB written), 4.2 us at 3.35 TB/s; the sources it gathers are each
+//   agent's 720 B of points, 0.7 MB read once, L2-resident.
 // - goal_qp_inputs_launch (stages.goal_qp_inputs; planner/goal.py:26-122 and
 //   pipeline.py:566-690 of the JAX package). Stage 5: the goal of every goal
 //   mode (the closed-form goal LP over the O last-point LSC rows and the six
@@ -53,11 +75,8 @@
 //   path's call (the anchors 11.8 MB, the warm start's duals 5.6 MB in and 5.6
 //   MB out, the margins and rows 3.9 MB each), 10.5 us at 3.35 TB/s.
 //
-// Measured on an NVIDIA H100 80GB HBM3 at 700.00 W (nvidia-smi
-// --query-gpu=name,power.limit; chip_smoke.py's stage_timing, PERF.md section
-// 6) at the main path's call: 0.016, 0.030 and 0.017-0.018 ms queued back to
-// back, where the torch ops they replace kept the device waiting on the host
-// for ~3.8 ms a step; each takes 0.03-0.17 ms of the host's time to issue.
+// Times on the card, beside their bounds and the plain bodies': PERF.md
+// section 6 (chip_smoke.py's stage_timing and stage_timing_main).
 //
 // Rounding: every float operation is the plain body's, in its order, each
 // rounded on its own (__fmul_rn, __fadd_rn, __fsub_rn, __fdiv_rn keep nvcc
@@ -72,15 +91,19 @@
 
 #include <climits>
 #include <cmath>
+#include <cstdint>
 #include <cstring>
 
 namespace {
 
-constexpr int kWarpThreads = 256;  // neighbour selection: 8 agents (warps) a block
-constexpr int kBlockThreads = 128;  // prediction and goal kernels: one agent a block
-constexpr int kMaxSlots = 64;      // O, the obstacle slots an agent
+constexpr int kBlockThreads = 128;  // every stage kernel: one agent a block of 4 warps
+constexpr int kWarps = kBlockThreads / 32;
+constexpr int kMaxSlots = 64;       // O, the obstacle slots an agent
+constexpr int kMaxAgentSlots = 32;  // OA: a warp's lanes hold its nearest keys
+constexpr int kMaxSmem = 232448;    // bytes of shared memory a block may use (227 KB)
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kEps = 1e-6f;      // goal.py's _EPS, the rows' activity threshold
+typedef unsigned long long u64;
 
 enum Mode { kLsc = 0, kBvc = 1, kRsfc = 2 };
 enum Goal { kGoalLp = 0, kGoalRightHand = 1, kGoalHost = 2, kGoalStatic = 3 };
@@ -110,69 +133,255 @@ __device__ __forceinline__ float fms(float a, float b, float c, float d) {
 }
 
 // ---------------------------------------------------------------------------
-// neighbour slots
+// shared-memory staging
 // ---------------------------------------------------------------------------
 
-// key into the ascending list b of the K smallest, unrolled: b[k] takes b[k-1]
-// where key < b[k-1], key where it falls between, else stays
-template <int K>
-__device__ __forceinline__ void insert(unsigned long long (&b)[K], unsigned long long key) {
-  if (key >= b[K - 1]) return;
-#pragma unroll
-  for (int k = K - 1; k > 0; --k) {
-    const unsigned long long prev = b[k - 1];
-    b[k] = key < prev ? prev : (key < b[k] ? key : b[k]);
-  }
-  b[0] = key < b[0] ? key : b[0];
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-template <int K>
-__device__ __forceinline__ void pop(unsigned long long (&b)[K]) {
-#pragma unroll
-  for (int k = 0; k < K - 1; ++k) b[k] = b[k + 1];
-  b[K - 1] = ~0ull;
+__device__ __forceinline__ void cp_async16(float* s, const float* g) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(s)), "l"(g));
 }
 
-template <int K>
-__global__ void __launch_bounds__(kWarpThreads)
-neighbor_slots_kernel(const float* __restrict__ pos, int S, int A, int OA, float range,
-                      int use_range, long long* __restrict__ order, bool* __restrict__ valid) {
-  const long long agent = (static_cast<long long>(blockIdx.x) * kWarpThreads + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (agent >= static_cast<long long>(S) * A) return;  // the whole warp leaves together
-  const int s = static_cast<int>(agent / A), i = static_cast<int>(agent - static_cast<long long>(s) * A);
-  const float* p = pos + static_cast<long long>(s) * A * 3;
-  const float px = __ldg(p + 3 * i), py = __ldg(p + 3 * i + 1), pz = __ldg(p + 3 * i + 2);
-  unsigned long long best[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) best[k] = ~0ull;
-  for (int j = lane; j < A; j += 32) {
-    const float* q = p + 3 * j;
-    float d = fmaxf(fmaxf(fabsf(sub(px, __ldg(q))), fabsf(sub(py, __ldg(q + 1)))),
-                    fabsf(sub(pz, __ldg(q + 2))));
-    if (j == i) d = add(d, 1e9f);  // dist + eye * 1e9 (+0 elsewhere)
-    if (use_range && !(d < range)) d = 1e9f;
-    insert<K>(best, (static_cast<unsigned long long>(__float_as_uint(d)) << 32) |
-                        static_cast<unsigned>(j));
-  }
-  unsigned long long mine = ~0ull;  // lane r keeps round r's key
-  for (int r = 0; r < OA; ++r) {
-    unsigned long long m = best[0];
-#pragma unroll
-    for (int off = 16; off; off >>= 1) {
-      const unsigned long long o = __shfl_xor_sync(kFull, m, off);
-      m = o < m ? o : m;
+// the same, kept in L1 too: the blocks of an SM read one scenario's positions
+__device__ __forceinline__ void cp_async16_l1(float* s, const float* g) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(s)), "l"(g));
+}
+
+__device__ __forceinline__ void cp_async4(float* s, const float* g) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(s)), "l"(g));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// queue the copy of n floats from g to s by `threads` threads (this one
+// `rank` among them): 16 B a copy where both ends are 16-B aligned (`l1`:
+// cached in L1 as well), else 4; complete after cp_async_wait_all and a
+// barrier
+template <bool l1 = false>
+__device__ __forceinline__ void stage_floats(float* s, const float* g, int n, int rank,
+                                             int threads) {
+  int done = 0;
+  if (((reinterpret_cast<uintptr_t>(g) | smem_addr(s)) & 15) == 0) {
+    const int n4 = n >> 2;
+    for (int e = rank; e < n4; e += threads) {
+      if (l1) cp_async16_l1(s + 4 * e, g + 4 * e);
+      else cp_async16(s + 4 * e, g + 4 * e);
     }
-    if (best[0] == m) pop<K>(best);  // keys are unique: one lane pops
-    if (lane == (r & 31)) mine = m;
-    if ((r & 31) == 31 || r == OA - 1) {
-      const int r0 = r & ~31;
-      if (lane <= r - r0) {
-        const long long at = agent * OA + r0 + lane;
-        order[at] = static_cast<long long>(mine & 0xffffffffull) + static_cast<long long>(s) * A;
-        valid[at] = __uint_as_float(static_cast<unsigned>(mine >> 32)) < 1e8f;
+    done = 4 * n4;
+  }
+  for (int e = done + rank; e < n; e += threads) cp_async4(s + e, g + e);
+}
+
+// out[0, total) of this agent, rows of `span` floats, four consecutive
+// floats a thread (value(row, r) the element at column r of a row; run(row,
+// r, v) may fill v with the four from (row, r) at once where they lie in
+// one row, and says whether it did): one 16-B store where `out` is 16-B
+// aligned, else four
+template <class F, class G>
+__device__ __forceinline__ void store_runs(float* __restrict__ out, int total, int span,
+                                           F value, G run) {
+  const bool vec = (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  int f = 4 * threadIdx.x, row = f / span, r = f - row * span;
+  for (; f < total; f += 4 * kBlockThreads) {
+    float v[4];
+    if (!(f + 4 <= total && r + 4 <= span && run(row, r, v))) {
+      int ro = row, rr = r;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        v[q] = f + q < total ? value(ro, rr) : 0.0f;
+        if (++rr == span) {
+          rr = 0;
+          ++ro;
+        }
       }
     }
+    if (vec && f + 4 <= total) {
+      *reinterpret_cast<float4*>(out + f) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+      for (int q = 0; q < 4 && f + q < total; ++q) out[f + q] = v[q];
+    }
+    r += 4 * kBlockThreads;
+    while (r >= span) {
+      r -= span;
+      ++row;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// neighbour selection
+// ---------------------------------------------------------------------------
+
+// a <= b afterwards
+__device__ __forceinline__ void cex(u64& a, u64& b) {
+  const u64 lo = a < b ? a : b, hi = a < b ? b : a;
+  a = lo;
+  b = hi;
+}
+
+// b ascending: a bitonic sorting network, every index a constant
+template <int K>
+__device__ __forceinline__ void sort_keys(u64 (&b)[K]) {
+#pragma unroll
+  for (int size = 2; size <= K; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+#pragma unroll
+      for (int i = 0; i < K; ++i) {
+        const int j = i ^ stride;
+        if (j > i) {
+          if ((i & size) == 0) cex(b[i], b[j]);
+          else cex(b[j], b[i]);
+        }
+      }
+    }
+  }
+}
+
+// b (ascending) <- the K smallest of b and c (both ascending): the
+// elementwise minimum of b and reversed c is bitonic and holds them; then
+// the half-cleaners sort it
+template <int K>
+__device__ __forceinline__ void merge_low(u64 (&b)[K], const u64 (&c)[K]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i) b[i] = b[i] < c[K - 1 - i] ? b[i] : c[K - 1 - i];
+#pragma unroll
+  for (int stride = K >> 1; stride > 0; stride >>= 1) {
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      const int j = i ^ stride;
+      if (j > i) cex(b[i], b[j]);
+    }
+  }
+}
+
+// the K of the list a thread keeps: the least of 8, 16, 32 that holds
+// min(OA, its candidates), so that its list keeps every key of the OA
+// nearest it scans
+__host__ __device__ inline int list_len(int A, int OA) {
+  const int c = (A + kBlockThreads - 1) / kBlockThreads;
+  const int need = OA < c ? OA : c;
+  return need <= 8 ? 8 : need <= 16 ? 16 : 32;
+}
+
+// floats of shared memory select_nearest<K> takes: the positions of a tile
+// (its lists past their first two keys reuse them)
+__host__ __device__ constexpr int select_floats(int K) { return 3 * kBlockThreads * K; }
+
+// The OA nearest keys of agent i among the A positions p [A, 3] (its
+// scenario's), ascending, into s_key[0, OA), by the whole block; s_u:
+// select_floats(K) floats of 16-B aligned shared memory. Needs 1 <= OA <=
+// 32 and OA < A. Ends with a barrier.
+template <int K>
+__device__ void select_nearest(const float* __restrict__ p, int A, int i, int OA, float range,
+                               bool use_range, float* s_u, u64* s_top, u64* s_key) {
+  constexpr int kTile = kBlockThreads * K;  // candidates a tile
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const float px = __ldg(p + 3 * i), py = __ldg(p + 3 * i + 1), pz = __ldg(p + 3 * i + 2);
+  u64 best[K];
+  for (int t0 = 0; t0 < A; t0 += kTile) {
+    const int n = A - t0 < kTile ? A - t0 : kTile;
+    if (t0 > 0) __syncthreads();  // every thread is done with the last tile
+    stage_floats<true>(s_u, p + 3LL * t0, 3 * n, tid, kBlockThreads);
+    cp_async_wait_all();
+    __syncthreads();
+    u64 c[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int jl = tid + k * kBlockThreads;
+      u64 key = ~0ull;
+      if (jl < n) {
+        const int j = t0 + jl;
+        const float* q = s_u + 3 * jl;
+        float d = fmaxf(fmaxf(fabsf(sub(px, q[0])), fabsf(sub(py, q[1]))), fabsf(sub(pz, q[2])));
+        if (j == i) d = add(d, 1e9f);  // dist + eye * 1e9 (+0 elsewhere)
+        if (use_range && !(d < range)) d = 1e9f;
+        key = (static_cast<u64>(__float_as_uint(d)) << 32) | static_cast<unsigned>(j);
+      }
+      c[k] = key;
+    }
+    sort_keys<K>(c);
+    if (t0 == 0) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) best[k] = c[k];
+    } else {
+      merge_low<K>(best, c);
+    }
+  }
+  // the lists past their first two keys in shared memory, key k of thread
+  // t at s_list[k * 128 + t] (over the positions)
+  __syncthreads();
+  u64* s_list = reinterpret_cast<u64*>(s_u);
+#pragma unroll
+  for (int k = 2; k < K; ++k) s_list[k * kBlockThreads + tid] = best[k];
+  // the warp's OA smallest, one a round: the least head by its high word
+  // (the distance), then by its low word (the index) among the lanes that
+  // hold that high word; the one lane that holds it pops (keys are unique;
+  // an exhausted list holds ~0, which only an exhausted warp takes), its
+  // next key already in a register and the one after it loading meanwhile
+  u64 head = best[0], next = best[1], mine = ~0ull;
+  int h = 1;
+  for (int r = 0; r < OA; ++r) {
+    const unsigned hi = static_cast<unsigned>(head >> 32), lo = static_cast<unsigned>(head);
+    const unsigned mhi = __reduce_min_sync(kFull, hi);
+    const unsigned mlo = __reduce_min_sync(kFull, hi == mhi ? lo : kFull);
+    if (lane == r) mine = (static_cast<u64>(mhi) << 32) | mlo;  // lane r keeps round r's key
+    if (hi == mhi && lo == mlo) {
+      head = next;
+      ++h;
+      next = h < K ? s_list[h * kBlockThreads + tid] : ~0ull;
+    }
+  }
+  s_top[warp * 32 + lane] = mine;  // ~0 past OA
+  __syncthreads();
+  // the four ascending rows merged by rank: a real key among the OA
+  // smallest lies in its warp's row with every smaller key of the others;
+  // its rank is its index plus their keys below it
+  if (lane < OA) {
+    int rank = lane;
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) {
+      const u64* other = s_top + ((warp + w) % kWarps) * 32;
+      int at = 0;
+#pragma unroll
+      for (int step = 16; step; step >>= 1)
+        if (other[at + step - 1] < mine) at += step;
+      rank += at + (other[at] < mine);
+    }
+    if (rank < OA) s_key[rank] = mine;
+  }
+  __syncthreads();
+}
+
+// key -> (order into the flattened fleet, valid)
+__device__ __forceinline__ long long key_row(u64 key, long long first) {
+  return static_cast<long long>(key & 0xffffffffull) + first;
+}
+__device__ __forceinline__ bool key_valid(u64 key) {
+  return __uint_as_float(static_cast<unsigned>(key >> 32)) < 1e8f;
+}
+
+template <int K>
+__global__ void __launch_bounds__(kBlockThreads, K > 8 ? 4 : 8)
+neighbor_slots_kernel(const float* __restrict__ pos, int A, int OA, float range, int use_range,
+                      long long* __restrict__ order, bool* __restrict__ valid) {
+  extern __shared__ float4 smem4[];
+  __shared__ u64 s_top[kWarps * 32];
+  __shared__ u64 s_key[kMaxAgentSlots];
+  const long long agent = blockIdx.x;
+  const int s = static_cast<int>(agent / A), i = static_cast<int>(agent - static_cast<long long>(s) * A);
+  const int tid = threadIdx.x;
+  const long long first = static_cast<long long>(s) * A;
+  select_nearest<K>(pos + first * 3, A, i, OA, range, use_range != 0,
+                    reinterpret_cast<float*>(smem4), s_top, s_key);
+  if (tid < OA) {
+    const u64 key = s_key[tid];
+    order[agent * OA + tid] = key_row(key, first);
+    valid[agent * OA + tid] = key_valid(key);
   }
 }
 
@@ -186,7 +395,7 @@ struct FrontPtrs {
   const bool* slot_valid;  // [A, OA]
   const float* src_prev;   // [rows, M, N, 3]
   const bool* src_has_prev;
-  const float* src_pos;    // [rows, 3]
+  const float* src_pos;    // [rows, 3] (with select: the fleet's, [S*A, 3])
   const float* src_vel;
   const float* src_radius;  // [rows]
   const float* src_downwash;
@@ -215,141 +424,231 @@ struct FrontPtrs {
   float* obs_goal;
   float* initial;          // [A, M, N, 3]
   float* sizes;            // [A, O, M, N] (null: not written)
+  long long* order_out;    // [A, OA] with select (else null)
+  bool* valid_out;
 };
 
 struct FrontArgs {
   FrontPtrs p;
-  int A, S, O, OA, OD, M, n, mode, size_growth, use_guard;
-  float dt, reset, guard;
+  int A, S, O, OA, OD, M, n, mode, size_growth, use_guard, select, use_range;
+  float dt, reset, guard, range;
 };
+
+// the dynamic shared memory of step_front_kernel, in floats: the points'
+// times [M*N] at 0, the sub-step matrix [N*N] at `sub`, and at `u` the
+// selection's tile or, after it, the LSC family's OA + 1 rows (the slots'
+// sources, then the agent's own)
+struct FrontSmem {
+  int sub, u, floats;
+};
+
+__host__ __device__ inline FrontSmem front_smem(int M, int N, int OA, int mode, int K, bool select) {
+  FrontSmem s;
+  s.sub = (M * N + 3) & ~3;
+  s.u = s.sub + ((N * N + 3) & ~3);
+  const int rows = mode == kLsc ? (OA + 1) * M * N * 3 : 0;
+  const int sel = select ? select_floats(K) : 0;
+  s.floats = s.u + (rows > sel ? rows : sel);
+  return s;
+}
 
 // trajectory.const_vel_ctrl's time of point (m, i): (m + i/n)*dt
 __device__ __forceinline__ float cv_time(int m, int i, int n, float dt) {
   return mul(add(static_cast<float>(m), div(static_cast<float>(i), static_cast<float>(n))), dt);
 }
 
-// stages.predict at (m, i, d): `prev` the source's [M, N, 3] points
-__device__ float predict_at(const FrontArgs& a, const float* __restrict__ prev, bool has_prev,
-                            const float* __restrict__ p3, const float* __restrict__ v3, int m,
-                            int i, int d) {
-  const int N = a.n + 1;
-  const float t = cv_time(m, i, a.n, a.dt);
-  if (a.mode == kBvc) return add(p3[d], mul(0.0f, t));
-  if (a.mode == kRsfc || !has_prev) return add(p3[d], mul(v3[d], t));
-  if (a.p.sub == nullptr) {  // shift one segment, the last point held
-    return m < a.M - 1 ? prev[((m + 1) * N + i) * 3 + d] : prev[((a.M - 1) * N + N - 1) * 3 + d];
-  }
-  if (m > 0) return prev[(m * N + i) * 3 + d];
-  float acc = mul(a.p.sub[i], prev[d]);  // sum_k S[k, i] * c_k, left to right
-  for (int k = 1; k < N; ++k) acc = add(acc, mul(a.p.sub[k * N + i], prev[k * 3 + d]));
+// a slot's prediction: from its row (the LSC family's shift or sub-step),
+// position + velocity * time (constant velocity; velocity 0: the position,
+// BVC's and the reset's hold), or 0 (the padding slot)
+enum Kind { kRow = 0, kCv = 1, kPad = 2 };
+
+// element r = (m*N + i)*3 + d of the prediction from the source's row: the
+// row shifted one segment, the last point held; or (sub) segment 0
+// re-parameterised, sum_k S[k, i] * c_k left to right, the rest as it is
+// (r < 3N: segment 0, point i = r / 3)
+template <int NT>
+__device__ __forceinline__ float row_value(const float* __restrict__ row,
+                                           const float* __restrict__ s_sub, bool substep, int N,
+                                           int MN3, int r, int d) {
+  if (!substep) return r < MN3 - 3 * N ? row[r + 3 * N] : row[MN3 - 3 + d];
+  if (r >= 3 * N) return row[r];
+  const int i = r / 3;
+  float acc = mul(s_sub[i], row[d]);
+#pragma unroll
+  for (int k = 1; k < (NT ? NT : N); ++k) acc = add(acc, mul(s_sub[k * N + i], row[3 * k + d]));
   return acc;
 }
 
-enum Slot { kPred = 0, kHold = 1, kDyn = 2, kPad = 3 };
-
-__global__ void __launch_bounds__(kBlockThreads) step_front_kernel(FrontArgs a) {
+template <int NT, int K, bool kSelect>
+__global__ void __launch_bounds__(kBlockThreads, K > 8 ? 4 : 8) step_front_kernel(FrontArgs a) {
   const FrontPtrs& P = a.p;
-  const int ag = blockIdx.x, tid = threadIdx.x;
-  const int O = a.O, OA = a.OA, M = a.M, N = a.n + 1;
-  const int MN3 = M * N * 3;
-  __shared__ long long s_src[kMaxSlots];  // the slot's source row (agent slots), dynamic index
-  __shared__ int s_kind[kMaxSlots];
-  __shared__ bool s_has_prev[kMaxSlots];
+  const int ag = blockIdx.x, tid = threadIdx.x, lane = tid & 31;
+  const int O = a.O, OA = a.OA, M = a.M, N = NT ? NT : a.n + 1;
+  const int N3 = 3 * N, MN3 = M * N3;
+  const int per = a.A / a.S, s = ag / per;
+  const bool substep = P.sub != nullptr, rows = a.mode == kLsc;
+  extern __shared__ float4 smem4[];
+  float* s_t = reinterpret_cast<float*>(smem4);
+  const FrontSmem L = front_smem(M, N, OA, a.mode, K, kSelect);
+  float* s_sub = s_t + L.sub;
+  float* s_u = s_t + L.u;
+  __shared__ u64 s_top[kSelect ? kWarps * 32 : 1];
+  __shared__ u64 s_key[kSelect ? kMaxAgentSlots : 1];
+  __shared__ long long s_src[kMaxSlots];  // the agent slots' source rows
+  __shared__ bool s_valid[kMaxSlots];
+  __shared__ int s_kind[kMaxSlots + 1];  // Kind of slot o; [O] the agent's own
+  __shared__ float s_p[kMaxSlots + 1][3], s_v[kMaxSlots + 1][3];
+  __shared__ float s_radius[kMaxSlots], s_max_acc[kMaxSlots];
   __shared__ bool s_is_agent[kMaxSlots];
-  __shared__ float s_radius[kMaxSlots];
-  __shared__ float s_max_acc[kMaxSlots];
 
-  for (int o = tid; o < O; o += kBlockThreads) {
-    const long long so = static_cast<long long>(ag) * O + o;
-    float r, dw, macc = 0.0f, pnow[3], goal[3];
-    bool v, is_agent;
-    if (o < OA) {
-      const long long at = static_cast<long long>(ag) * OA + o;
-      const long long src = P.order ? P.order[at] : at;
-      const float* prev = P.src_prev + src * MN3;
-      const float* p3 = P.src_pos + src * 3;
-      const float* v3 = P.src_vel + src * 3;
-      const bool hp = P.src_has_prev[src];
-      float e[3];
-      for (int d = 0; d < 3; ++d) e[d] = sub(predict_at(a, prev, hp, p3, v3, 0, 0, d), p3[d]);
-      s_src[o] = src;
-      s_has_prev[o] = hp;
-      s_kind[o] = norm64(e, 3) > a.reset ? kHold : kPred;  // the disturbance reset
-      v = P.slot_valid[at];
-      is_agent = true;
-      r = P.src_radius[src];
-      dw = P.src_downwash[src];
-      for (int d = 0; d < 3; ++d) {
-        pnow[d] = p3[d];
-        goal[d] = P.src_goal[src * 3 + d];
+  for (int e = tid; e < M * N; e += kBlockThreads) {
+    const int m = e / N;
+    s_t[e] = cv_time(m, e - m * N, a.n, a.dt);
+  }
+  if (substep)
+    for (int e = tid; e < N * N; e += kBlockThreads) s_sub[e] = P.sub[e];
+
+  // 1. the agent slots' sources: the block's own selection, or `order`
+  if constexpr (kSelect) {
+    if (OA > 0) {
+      const long long first = static_cast<long long>(s) * per;
+      select_nearest<K>(P.src_pos + first * 3, per, ag - s * per, OA, a.range, a.use_range != 0,
+                        s_u, s_top, s_key);
+      if (tid < OA) {
+        const u64 key = s_key[tid];
+        const long long at = static_cast<long long>(ag) * OA + tid;
+        s_src[tid] = P.order_out[at] = key_row(key, first);
+        s_valid[tid] = P.valid_out[at] = key_valid(key);
       }
-    } else if (a.OD > 0) {  // a dynamic obstacle of the agent's scenario
-      const long long di = static_cast<long long>(ag / (a.A / a.S)) * a.OD + (o - OA);
-      s_src[o] = di;
-      s_kind[o] = kDyn;
-      v = P.dyn_valid[di];
-      is_agent = false;
-      r = P.dyn_radius[di];
-      dw = P.dyn_downwash[di];
-      macc = P.dyn_max_acc[di];
-      for (int d = 0; d < 3; ++d) pnow[d] = goal[d] = P.dyn_pos[di * 3 + d];
-    } else {  // the single agent's padding slot
-      s_kind[o] = kPad;
-      v = false;
-      is_agent = false;
-      r = 0.1f;
-      dw = 1.0f;
-      for (int d = 0; d < 3; ++d) pnow[d] = goal[d] = 0.0f;
     }
-    s_is_agent[o] = is_agent;
-    s_radius[o] = r;
-    s_max_acc[o] = macc;
-    P.obs_valid[so] = v;
-    P.obs_is_agent[so] = is_agent;
-    P.obs_radius[so] = r;
-    P.obs_downwash[so] = dw;
-    P.obs_max_acc[so] = macc;
-    for (int d = 0; d < 3; ++d) {
-      P.obs_pos_now[so * 3 + d] = pnow[d];
-      P.obs_goal[so * 3 + d] = goal[d];
+  } else {
+    if (tid < OA) {
+      const long long at = static_cast<long long>(ag) * OA + tid;
+      s_src[tid] = P.order ? P.order[at] : at;
+      s_valid[tid] = P.slot_valid[at];
     }
   }
   __syncthreads();
 
-  // obs_pred, unit-stride over (slot, m, i, d)
-  float* out = P.obs_pred + static_cast<long long>(ag) * O * MN3;
-  for (int e = tid; e < O * MN3; e += kBlockThreads) {
-    const int o = e / MN3, r = e - o * MN3;
-    const int m = r / (N * 3), r2 = r - m * N * 3, i = r2 / 3, d = r2 - i * 3;
-    const long long src = s_src[o];
-    float x;
-    switch (s_kind[o]) {
-      case kPred:
-        x = predict_at(a, P.src_prev + src * MN3, s_has_prev[o], P.src_pos + src * 3,
-                       P.src_vel + src * 3, m, i, d);
-        break;
-      case kHold:  // const_vel_ctrl(pos, 0)
-        x = add(P.src_pos[src * 3 + d], mul(0.0f, cv_time(m, i, a.n, a.dt)));
-        break;
-      case kDyn:
-        x = add(P.dyn_pos[src * 3 + d], mul(P.dyn_vel[src * 3 + d], cv_time(m, i, a.n, a.dt)));
-        break;
-      default:
-        x = 0.0f;
+  // 2. the rows in flight (a warp a row) while the threads decide each
+  // slot's kind and write the slots' attributes
+  if (rows) {
+    for (int o = tid >> 5; o <= OA; o += kWarps) {
+      const float* g = o < OA ? P.src_prev + s_src[o] * MN3 : P.prev + static_cast<long long>(ag) * MN3;
+      stage_floats(s_u + o * MN3, g, MN3, lane, 32);
     }
-    out[e] = x;
   }
+  for (int o = tid; o <= O; o += kBlockThreads) {
+    int kind = kCv;
+    float p[3] = {0.0f, 0.0f, 0.0f}, v[3] = {0.0f, 0.0f, 0.0f};
+    if (o == O || o < OA) {  // the agent's own, or an agent slot
+      const long long src = o == O ? ag : s_src[o];
+      const float* p3 = (o == O ? P.pos : P.src_pos) + src * 3;
+      const float* v3 = (o == O ? P.vel : P.src_vel) + src * 3;
+      const bool hp = o == O ? P.has_prev[ag] : P.src_has_prev[src];
+      for (int d = 0; d < 3; ++d) p[d] = p3[d];
+      if ((o == O && P.disturbed[ag]) || a.mode == kBvc) {
+        kind = kCv;  // const_vel_ctrl(pos, 0)
+      } else if (a.mode == kRsfc || !hp) {
+        for (int d = 0; d < 3; ++d) v[d] = v3[d];
+      } else {
+        kind = kRow;
+      }
+      if (o < O) {
+        s_radius[o] = P.src_radius[src];
+        s_max_acc[o] = 0.0f;
+        s_is_agent[o] = true;
+      }
+    } else if (a.OD > 0) {  // a dynamic obstacle of the agent's scenario
+      const long long di = static_cast<long long>(s) * a.OD + (o - OA);
+      for (int d = 0; d < 3; ++d) {
+        p[d] = P.dyn_pos[di * 3 + d];
+        v[d] = P.dyn_vel[di * 3 + d];
+      }
+      s_radius[o] = P.dyn_radius[di];
+      s_max_acc[o] = P.dyn_max_acc[di];
+      s_is_agent[o] = false;
+    } else {  // the single agent's padding slot
+      kind = kPad;
+      s_radius[o] = 0.1f;
+      s_max_acc[o] = 0.0f;
+      s_is_agent[o] = false;
+    }
+    s_kind[o] = kind;
+    for (int d = 0; d < 3; ++d) {
+      s_p[o][d] = p[d];
+      s_v[o][d] = v[d];
+    }
+  }
+  // the attributes, a (slot, field) a thread, one pass at O <= 18: valid,
+  // is_agent, radius, downwash, max_acc, pos_now[3], goal[3]
+  for (int e = tid; e < O * 7; e += kBlockThreads) {
+    const int o = e / 7, f = e - o * 7;
+    const long long so = static_cast<long long>(ag) * O + o;
+    const bool agent = o < OA, dyn = !agent && a.OD > 0;
+    const long long src = agent ? s_src[o] : dyn ? static_cast<long long>(s) * a.OD + (o - OA) : 0;
+    switch (f) {
+      case 0: P.obs_valid[so] = agent ? s_valid[o] : dyn && P.dyn_valid[src]; break;
+      case 1: P.obs_is_agent[so] = agent; break;
+      case 2: P.obs_radius[so] = agent ? P.src_radius[src] : dyn ? P.dyn_radius[src] : 0.1f; break;
+      case 3:
+        P.obs_downwash[so] = agent ? P.src_downwash[src] : dyn ? P.dyn_downwash[src] : 1.0f;
+        break;
+      case 4: P.obs_max_acc[so] = dyn ? P.dyn_max_acc[src] : 0.0f; break;
+      default: {  // pos_now, goal: the source's, the obstacle's position (twice), or 0
+        const float* g = agent ? (f == 5 ? P.src_pos : P.src_goal) + src * 3
+                               : dyn ? P.dyn_pos + src * 3 : nullptr;
+        float* out = (f == 5 ? P.obs_pos_now : P.obs_goal) + so * 3;
+        const float x = g ? g[0] : 0.0f, y = g ? g[1] : 0.0f, z = g ? g[2] : 0.0f;
+        out[0] = x;
+        out[1] = y;
+        out[2] = z;
+      }
+    }
+  }
+  if (rows) cp_async_wait_all();
+  __syncthreads();
 
-  // the initial trajectory, held where the agent is disturbed
-  const float* p3 = P.pos + ag * 3;
-  const bool held = P.disturbed[ag];
-  float* init = P.initial + static_cast<long long>(ag) * MN3;
-  for (int e = tid; e < MN3; e += kBlockThreads) {
-    const int m = e / (N * 3), r2 = e - m * N * 3, i = r2 / 3, d = r2 - i * 3;
-    init[e] = held ? add(p3[d], mul(0.0f, cv_time(m, i, a.n, a.dt)))
-                   : predict_at(a, P.prev + static_cast<long long>(ag) * MN3, P.has_prev[ag], p3,
-                                P.vel + ag * 3, m, i, d);
+  // 3. the disturbance reset: a slot whose predicted first point is off its
+  // observed position by more than `reset` holds the position
+  if (tid < OA && s_kind[tid] == kRow) {
+    const float* row = s_u + tid * MN3;
+    float e[3];
+    for (int d = 0; d < 3; ++d)
+      e[d] = sub(row_value<NT>(row, s_sub, substep, N, MN3, d, d), s_p[tid][d]);
+    if (norm64(e, 3) > a.reset) {
+      s_kind[tid] = kCv;
+      for (int d = 0; d < 3; ++d) s_v[tid][d] = 0.0f;
+    }
   }
+  __syncthreads();
+
+  // 4. the outputs, four floats a thread: element r = 3*(m*N + i) + d of a
+  // slot's prediction
+  auto pred = [&](int o, int r) -> float {
+    const int q = r / 3, d = r - 3 * q;
+    switch (s_kind[o]) {
+      case kRow:
+        return row_value<NT>(s_u + (o == O ? OA : o) * MN3, s_sub, substep, N, MN3, r, d);
+      case kCv:
+        return add(s_p[o][d], mul(s_v[o][d], s_t[q]));
+      default:
+        return 0.0f;
+    }
+  };
+  // the shift's runs: four floats of a row, one segment on
+  auto shifted = [&](int o, int r, float (&v)[4]) {
+    if (substep || s_kind[o] != kRow || r + 4 > MN3 - N3) return false;
+    const float* row = s_u + (o == O ? OA : o) * MN3 + r + N3;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) v[q] = row[q];
+    return true;
+  };
+  auto none = [](int, int, float (&)[4]) { return false; };
+  store_runs(P.obs_pred + static_cast<long long>(ag) * O * MN3, O * MN3, MN3, pred, shifted);
+  store_runs(P.initial + static_cast<long long>(ag) * MN3, MN3, MN3,
+             [&](int, int r) { return pred(O, r); },
+             [&](int, int r, float (&v)[4]) { return shifted(O, r, v); });
 
   // the size prediction (plain LSC and RSFC read it)
   if (P.sizes != nullptr) {
@@ -358,14 +657,13 @@ __global__ void __launch_bounds__(kBlockThreads) step_front_kernel(FrontArgs a) 
       const float* v3 = P.vel + ag * 3;
       guard = div(mul(a.guard, dotn(v3, v3, 3)), P.max_acc[ag * 3]);
     }
-    float* sz = P.sizes + static_cast<long long>(ag) * O * M * N;
-    for (int e = tid; e < O * M * N; e += kBlockThreads) {
-      const int o = e / (M * N), mi = e - o * M * N;
+    const int MN = M * N;
+    store_runs(P.sizes + static_cast<long long>(ag) * O * MN, O * MN, MN, [&](int o, int mi) {
       float x = s_radius[o];
       if (a.size_growth && (!s_is_agent[o] || a.mode == kRsfc))
-        x = add(add(x, guard), mul(s_max_acc[o], P.growth[mi]));
-      sz[e] = x;
-    }
+        x = add(add(x, guard), mul(s_max_acc[o], __ldg(P.growth + mi)));
+      return x;
+    }, none);
   }
 }
 
@@ -543,44 +841,127 @@ __global__ void __launch_bounds__(kBlockThreads) goal_qp_inputs_kernel(GoalArgs 
   }
 }
 
+
 }  // namespace
 
+namespace {
+
+// opt in to more than the default 48 KB (static and dynamic together; the
+// kernels' static tables take under 8 KB)
+template <class T>
+cudaError_t allow_smem(T* kernel, size_t bytes) {
+  if (bytes > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
+  if (bytes <= 40 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+template <int K>
+int neighbor_go(const float* pos, int S, int A, int OA, float range, int use_range,
+                long long* order, bool* valid, cudaStream_t stream) {
+  const size_t bytes = sizeof(float) * select_floats(K);
+  const cudaError_t e = allow_smem(neighbor_slots_kernel<K>, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  neighbor_slots_kernel<K><<<S * A, kBlockThreads, bytes, stream>>>(pos, A, OA, range, use_range,
+                                                                     order, valid);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int NT, int K, bool kSelect>
+int front_go(const FrontArgs& a, cudaStream_t stream) {
+  const size_t bytes = sizeof(float) * front_smem(a.M, a.n + 1, a.OA, a.mode, K, kSelect).floats;
+  const cudaError_t e = allow_smem(step_front_kernel<NT, K, kSelect>, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  step_front_kernel<NT, K, kSelect><<<a.A, kBlockThreads, bytes, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int NT>
+int front_by_list(const FrontArgs& a, cudaStream_t stream) {
+  if (!a.select || a.OA == 0) return front_go<NT, 8, false>(a, stream);
+  switch (list_len(a.A / a.S, a.OA)) {
+    case 8: return front_go<NT, 8, true>(a, stream);
+    case 16: return front_go<NT, 16, true>(a, stream);
+    default: return front_go<NT, 32, true>(a, stream);
+  }
+}
+
+template <class T>
+int occupancy(T* kernel, int dyn_smem, int* blocks_per_sm) {
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, kBlockThreads, dyn_smem));
+}
+
+}  // namespace
+
+// S*A blocks, one an agent
 extern "C" int neighbor_slots_launch(const float* pos, int S, int A, int OA, float range,
                                      int use_range, long long* order, bool* valid,
                                      cudaStream_t stream) {
-  if (S < 1 || A < 2 || OA < 1 || OA > 32 || OA >= A) return cudaErrorInvalidValue;
-  const long long warps = static_cast<long long>(S) * A;
-  const long long blocks = (warps * 32 + kWarpThreads - 1) / kWarpThreads;
-  if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  if (OA <= 16)
-    neighbor_slots_kernel<16><<<static_cast<int>(blocks), kWarpThreads, 0, stream>>>(
-        pos, S, A, OA, range, use_range, order, valid);
-  else
-    neighbor_slots_kernel<32><<<static_cast<int>(blocks), kWarpThreads, 0, stream>>>(
-        pos, S, A, OA, range, use_range, order, valid);
-  return static_cast<int>(cudaGetLastError());
+  if (S < 1 || A < 2 || OA < 1 || OA > kMaxAgentSlots || OA >= A ||
+      static_cast<long long>(S) * A > INT_MAX)
+    return cudaErrorInvalidValue;
+  switch (list_len(A, OA)) {
+    case 8: return neighbor_go<8>(pos, S, A, OA, range, use_range, order, valid, stream);
+    case 16: return neighbor_go<16>(pos, S, A, OA, range, use_range, order, valid, stream);
+    default: return neighbor_go<32>(pos, S, A, OA, range, use_range, order, valid, stream);
+  }
 }
 
 // ptrs: FrontPtrs' fields in order; ints: A, S, O, OA, OD, M, n, mode,
-// size_growth, use_guard; flts: dt, reset, guard
+// size_growth, use_guard, select, use_range; flts: dt, reset, guard, range
 extern "C" int step_front_launch(void* const* ptrs, const int* ints, const float* flts,
                                  cudaStream_t stream) {
   FrontArgs a;
-  static_assert(sizeof(FrontPtrs) == 33 * sizeof(void*), "FrontPtrs: 33 pointers");
+  static_assert(sizeof(FrontPtrs) == 35 * sizeof(void*), "FrontPtrs: 35 pointers");
   memcpy(&a.p, ptrs, sizeof(FrontPtrs));
   a.A = ints[0]; a.S = ints[1]; a.O = ints[2]; a.OA = ints[3]; a.OD = ints[4];
   a.M = ints[5]; a.n = ints[6]; a.mode = ints[7]; a.size_growth = ints[8]; a.use_guard = ints[9];
-  a.dt = flts[0]; a.reset = flts[1]; a.guard = flts[2];
+  a.select = ints[10]; a.use_range = ints[11];
+  a.dt = flts[0]; a.reset = flts[1]; a.guard = flts[2]; a.range = flts[3];
   if (a.A < 1 || a.S < 1 || a.A % a.S || a.O < 1 || a.O > kMaxSlots || a.OA < 0 || a.OD < 0 ||
-      a.OA + a.OD > a.O || a.M < 1 || a.n < 1)
+      a.OA + a.OD > a.O || a.M < 1 || a.n < 1 ||
+      (a.select && a.OA > 0 && (a.OA > kMaxAgentSlots || a.OA >= a.A / a.S)))
     return cudaErrorInvalidValue;
-  step_front_kernel<<<a.A, kBlockThreads, 0, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  return a.n + 1 == 6 ? front_by_list<6>(a, stream) : front_by_list<0>(a, stream);
 }
 
-// ptrs: GoalPtrs' fields in order; ints: A, O, M, N, dim, phi, R, goal,
-// use_sfc, use_comm, past_seq; flts: dt, Mdt, tiny, qp_margin, comm_box,
-// comm_half, dl_vel
+// shared memory of a step_front_launch block, bytes: the dynamic part
+extern "C" int step_front_smem_bytes(int A, int S, int OA, int M, int n, int mode, int select) {
+  const int K = select && OA > 0 ? list_len(A / S, OA) : 8;
+  return static_cast<int>(sizeof(float)) *
+         front_smem(M, n + 1, OA, mode, K, select && OA > 0).floats;
+}
+
+// blocks an SM of a stage kernel at `dyn_smem` bytes of dynamic shared
+// memory: kernel 0 the neighbour selection (list K), 1 the prediction with
+// `order` given, 2 with its own selection (K), 3 the goal (n: the Bezier
+// degree, the prediction kernel's template)
+extern "C" int step_stages_occupancy(int kernel, int n, int K, int dyn_smem, int* blocks_per_sm) {
+  const bool six = n + 1 == 6;
+  switch (kernel) {
+    case 0:
+      return K == 8 ? occupancy(neighbor_slots_kernel<8>, dyn_smem, blocks_per_sm)
+             : K == 16 ? occupancy(neighbor_slots_kernel<16>, dyn_smem, blocks_per_sm)
+                       : occupancy(neighbor_slots_kernel<32>, dyn_smem, blocks_per_sm);
+    case 1:
+      return six ? occupancy(step_front_kernel<6, 8, false>, dyn_smem, blocks_per_sm)
+                 : occupancy(step_front_kernel<0, 8, false>, dyn_smem, blocks_per_sm);
+    case 2:
+      if (six)
+        return K == 8 ? occupancy(step_front_kernel<6, 8, true>, dyn_smem, blocks_per_sm)
+               : K == 16 ? occupancy(step_front_kernel<6, 16, true>, dyn_smem, blocks_per_sm)
+                         : occupancy(step_front_kernel<6, 32, true>, dyn_smem, blocks_per_sm);
+      return K == 8 ? occupancy(step_front_kernel<0, 8, true>, dyn_smem, blocks_per_sm)
+             : K == 16 ? occupancy(step_front_kernel<0, 16, true>, dyn_smem, blocks_per_sm)
+                       : occupancy(step_front_kernel<0, 32, true>, dyn_smem, blocks_per_sm);
+    case 3:
+      return occupancy(goal_qp_inputs_kernel, dyn_smem, blocks_per_sm);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 extern "C" int goal_qp_inputs_launch(void* const* ptrs, const int* ints, const float* flts,
                                      cudaStream_t stream) {
   GoalArgs a;

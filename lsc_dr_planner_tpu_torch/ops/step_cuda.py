@@ -3,11 +3,14 @@ prediction, goal and QP-input stages (`csrc/step_stages.cu`).
 
 - `neighbor_slots_cuda`: each agent's OA nearest other agents of its
   scenario (planner/stages.py::neighbor_slots; the JAX package's
-  lsc_dr_planner_tpu/planner/pipeline.py:226-252, `lax.top_k`), a warp
+  lsc_dr_planner_tpu/planner/pipeline.py:226-252, `lax.top_k`), a block
   an agent;
 - `step_front_cuda`: stages 1 and 2 with the neighbour gather
   (stages.step_front; pipeline.py:292-445 of the JAX package), a block
   an agent;
+- `front_with_neighbors_cuda`: the two in one launch
+  (stages.front_with_neighbors): each block selects its agent's
+  neighbours, then predicts from them;
 - `goal_qp_inputs_cuda`: stage 5 and the QP-input assembly of stage 6
   (stages.goal_qp_inputs; planner/goal.py:26-122 and pipeline.py:566-690
   of the JAX package), a block an agent.
@@ -21,8 +24,8 @@ configuration (kept in the planner's StageConfig.cache, by the fleet's
 size and which optional inputs are given); an input that is not
 contiguous is copied first (BVC's expanded margins). The source is
 compiled at first use by `cuda_build` into `build/` and loaded with
-ctypes. `neighbor_launches`, `front_launches` and `goal_launches` count
-each entry's launches since `reset_launches()`.
+ctypes. `neighbor_launches`, `front_launches`, `fused_launches` and
+`goal_launches` count each entry's launches since `reset_launches()`.
 """
 
 from __future__ import annotations
@@ -34,11 +37,13 @@ import torch
 from lsc_dr_planner_tpu_torch.ops import cuda_build
 
 SOURCE = cuda_build.CSRC / "step_stages.cu"
-MAX_AGENT_SLOTS = 32  # OA at most (the neighbour kernel's lists)
+MAX_AGENT_SLOTS = 32  # OA at most (a warp's lanes hold its nearest keys)
 MAX_SLOTS = 64  # O at most (the prediction kernel's shared slot table)
+BLOCK_THREADS = 128  # every stage kernel: one agent a block of 4 warps
 
 neighbor_launches = 0  # neighbor_slots kernel launches since the last reset
-front_launches = 0  # step_front kernel launches since the last reset
+front_launches = 0  # step_front kernel launches (slots given) since the last reset
+fused_launches = 0  # step_front kernel launches with its own selection since the last reset
 goal_launches = 0  # goal_qp_inputs kernel launches since the last reset
 _lib = None
 
@@ -52,6 +57,10 @@ def build(verbose: bool = False) -> ctypes.CDLL:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.neighbor_slots_launch.argtypes = [P, I, I, I, F, I, P, P, P]
     lib.neighbor_slots_launch.restype = I
+    lib.step_front_smem_bytes.argtypes = [I] * 7
+    lib.step_stages_occupancy.argtypes = [I, I, I, I, P]
+    for fn in (lib.step_front_smem_bytes, lib.step_stages_occupancy):
+        fn.restype = I
     for fn in (lib.step_front_launch, lib.goal_qp_inputs_launch):
         fn.argtypes = [P, P, P, P]
         fn.restype = I
@@ -60,8 +69,28 @@ def build(verbose: bool = False) -> ctypes.CDLL:
 
 
 def reset_launches():
-    global neighbor_launches, front_launches, goal_launches
-    neighbor_launches = front_launches = goal_launches = 0
+    global neighbor_launches, front_launches, fused_launches, goal_launches
+    neighbor_launches = front_launches = fused_launches = goal_launches = 0
+
+
+def list_len(A: int, OA: int) -> int:
+    """K, the keys each of the neighbour selection's 128 threads keeps
+    (the kernel's list_len): the least of 8, 16 and 32 that holds min(OA,
+    its ceil(A/128) candidates)."""
+    need = min(OA, -(-A // BLOCK_THREADS))
+    return 8 if need <= 8 else 16 if need <= 16 else 32
+
+
+def occupancy(kernel: int, n: int, K: int, smem_bytes: int) -> int:
+    """Blocks an SM of a stage kernel (0: the neighbour selection with
+    lists of K, 1: the prediction with its slots given, 2: with its own
+    selection, 3: the goal; n: the Bézier degree) at `smem_bytes` of
+    dynamic shared memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    out = ctypes.c_int(0)
+    rc = build().step_stages_occupancy(kernel, n, K, smem_bytes, ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"step_stages_occupancy failed: CUDA error {rc}")
+    return out.value
 
 
 def _outputs(dev, specs):
@@ -81,9 +110,17 @@ def _check(name, t, dtype, shape, dev):
 def _ptrs(tensors):
     """(the data pointers of `tensors` (None: a null pointer) as a C array,
     the tensors they point into): a tensor that is not contiguous is
-    copied first (queued on the current stream, before the launch) and
-    the copy kept alive with the launch's arguments."""
-    keep = [t if t is None or t.is_contiguous() else t.contiguous() for t in tensors]
+    copied first, once however often it is listed (queued on the current
+    stream, before the launch; 3-D's prev_ctrl, a permuted view, is both
+    the sources and the agents' own), and the copy kept alive with the
+    launch's arguments."""
+    keep, copies = [], {}
+    for t in tensors:
+        if t is not None and not t.is_contiguous():
+            if id(t) not in copies:
+                copies[id(t)] = t.contiguous()
+            t = copies[id(t)]
+        keep.append(t)
     return (ctypes.c_void_p * len(keep))(*(None if t is None else t.data_ptr()
                                             for t in keep)), keep
 
@@ -131,7 +168,8 @@ _FRONT_INPUTS = ("order", "slot_valid", "src_prev", "src_has_prev", "src_pos", "
                  "disturbed", "max_acc", "dyn_pos", "dyn_vel", "dyn_radius", "dyn_downwash",
                  "dyn_max_acc", "dyn_valid", "growth", "sub")
 _FRONT_OUTPUTS = ("obs_pred", "obs_valid", "obs_is_agent", "obs_radius", "obs_downwash",
-                  "obs_max_acc", "obs_pos_now", "obs_goal", "initial_ctrl", "obs_pred_sizes")
+                  "obs_max_acc", "obs_pos_now", "obs_goal", "initial_ctrl", "obs_pred_sizes",
+                  "order", "valid")
 
 
 def step_front_cuda(cfg, sc, fleet, inp, order, valid, neighbors, scenarios: int) -> dict:
@@ -142,6 +180,26 @@ def step_front_cuda(cfg, sc, fleet, inp, order, valid, neighbors, scenarios: int
     ...], then order and valid are None). Returns {name: tensor} of
     stages.Front's fields."""
     global front_launches
+    out = _front(cfg, sc, fleet, inp, order, valid, neighbors, scenarios, False)
+    front_launches += 1
+    return out
+
+
+def front_with_neighbors_cuda(cfg, sc, fleet, inp, scenarios: int) -> dict:
+    """Queue the neighbour selection and stages 1 and 2
+    (stages.front_with_neighbors) on the current stream: one launch, each
+    block selecting its agent's slots among inp.pos [S·A, 3] first.
+    Returns {name: tensor} of stages.Front's fields with `order` and
+    `valid` ([S·A, OA], as neighbor_slots_cuda's)."""
+    global fused_launches
+    out = _front(cfg, sc, fleet, inp, None, None, None, scenarios, True)
+    fused_launches += 1
+    return out
+
+
+def _front(cfg, sc, fleet, inp, order, valid, neighbors, scenarios: int, select: bool) -> dict:
+    """step_front_launch with the slots given (`order`, `valid` or
+    `neighbors`) or, with `select`, its own selection."""
     dev = inp.pos.device
     if dev.type != "cuda":
         raise ValueError(f"the prediction kernel needs CUDA tensors, got {dev}")
@@ -163,7 +221,7 @@ def step_front_cuda(cfg, sc, fleet, inp, order, valid, neighbors, scenarios: int
                disturbed=inp.is_disturbed, max_acc=fleet.max_acc, growth=cfg.growth, sub=cfg.sub,
                **({"dyn_" + k: getattr(inp, "dynobs_" + k) for k in (
                    "pos", "vel", "radius", "downwash", "max_acc", "valid")} if OD else {}))
-    key = ("front", A, S, nd is None, dev)
+    key = ("front", A, S, nd is None, select, dev)
     if key not in cfg.cache:
         lead = (A, OA) if nd is not None else (rows,)
         dyn = (S * OD,) if S > 1 else (OD,)
@@ -185,10 +243,14 @@ def step_front_cuda(cfg, sc, fleet, inp, order, valid, neighbors, scenarios: int
                 _check(name, t, dtype, shape, dev)
         if not 1 <= O <= MAX_SLOTS or S < 1 or A % S or cfg.n < 1:
             raise ValueError(f"prediction kernel: O = {O} (1..{MAX_SLOTS}), S = {S}, A = {A}")
-        cfg.cache[key] = ((ctypes.c_int * 10)(A, S, O, OA, OD, M, cfg.n, cfg.mode,
+        if select and not (0 <= OA <= MAX_AGENT_SLOTS and (OA == 0 or OA < A // S)):
+            raise ValueError(f"neighbour selection: S = {S}, S·A = {A}, OA = {OA}: need "
+                             f"0 <= OA < A, OA <= {MAX_AGENT_SLOTS}")
+        cfg.cache[key] = ((ctypes.c_int * 12)(A, S, O, OA, OD, M, cfg.n, cfg.mode,
                                               int(cfg.size_growth),
-                                              int(cfg.velocity_guard is not None)),
-                         (ctypes.c_float * 3)(sc["dt"], sc["reset"], sc["guard"]))
+                                              int(cfg.velocity_guard is not None), int(select),
+                                              int(cfg.comm_range > 0)),
+                         (ctypes.c_float * 4)(sc["dt"], sc["reset"], sc["guard"], sc["range"]))
     ints, flts = cfg.cache[key]
     spec = [("obs_pred", (A, O, M, N, 3), f32), ("obs_valid", (A, O), b),
             ("obs_is_agent", (A, O), b), ("obs_radius", (A, O), f32),
@@ -197,14 +259,15 @@ def step_front_cuda(cfg, sc, fleet, inp, order, valid, neighbors, scenarios: int
             ("initial_ctrl", (A, M, N, 3), f32)]
     if cfg.sizes:
         spec.append(("obs_pred_sizes", (A, O, M, N), f32))
+    if select:
+        spec += [("order", (A, OA), torch.int64), ("valid", (A, OA), b)]
     out = _outputs(dev, spec)
     out.setdefault("obs_pred_sizes", None)
     ptrs, _keep = _ptrs([ins.get(k) for k in _FRONT_INPUTS]
-                        + [out[k] for k in _FRONT_OUTPUTS])
+                        + [out.get(k) for k in _FRONT_OUTPUTS])
     rc = build().step_front_launch(ptrs, ints, flts, _stream(dev))
     if rc != 0:
         raise RuntimeError(f"step_front_launch failed: CUDA error {rc}")
-    front_launches += 1
     return out
 
 

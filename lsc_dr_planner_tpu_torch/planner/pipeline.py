@@ -233,14 +233,15 @@ class FleetPlanner:
         if neighbors is not None and scenarios > 1:
             raise ValueError("neighbors= plans one scenario; the scenarios= path "
                              "gathers its own neighbour slots")
+        # ---------- the neighbour slots and stages 1 and 2: obstacle
+        # prediction, initial trajectory (one launch on the card, the
+        # selection inside it: the neighbors and initial_traj marks read ~0)
+        self._mark("neighbors")
         order = valid = None
         if neighbors is None:
-            order, valid = self._neighbor_slots(inp, scenarios)
-        self._mark("neighbors")
-
-        # ---------- stages 1 and 2: obstacle prediction, initial trajectory
-        # (one launch on the card; the initial_traj mark reads ~0)
-        fr = stages.step_front(self.stage_cfg, fleet, inp, order, valid, neighbors, scenarios)
+            order, valid, fr = stages.front_with_neighbors(self.stage_cfg, fleet, inp, scenarios)
+        else:
+            fr = stages.step_front(self.stage_cfg, fleet, inp, None, None, neighbors, scenarios)
         obs_pred, obs_valid, obs_is_agent = fr.obs_pred, fr.obs_valid, fr.obs_is_agent
         obs_radius, obs_downwash, obs_goal = fr.obs_radius, fr.obs_downwash, fr.obs_goal
         initial_ctrl = fr.initial_ctrl

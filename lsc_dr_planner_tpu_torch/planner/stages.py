@@ -11,6 +11,10 @@ launch of a hand-written kernel (`csrc/step_stages.cu` through
   reset, dynamic obstacles, the padding slot, the size prediction), and
   stage 2, the initial trajectory (pipeline.py:292-445,
   ops/trajectory.py:22, 83, 99);
+- `front_with_neighbors`: the two above in one launch on the card (each
+  block selects its agent's neighbours, then predicts from them), the
+  step's own (`step_front` alone serves the multi-device steps' gathered
+  slots);
 - `goal_qp_inputs`: stage 5, the goal of every goal mode
   (planner/goal.py:26-122), and the QP-input assembly of stage 6
   (pipeline.py:566-690): terminal segments, LSC rows and their
@@ -41,6 +45,7 @@ from lsc_dr_planner_tpu_torch.planner import goal as goalmod
 
 neighbor_plain_on_cuda = 0  # plain neighbour selections run on CUDA tensors since the last reset
 front_plain_on_cuda = 0  # plain prediction and initial-trajectory bodies on CUDA tensors
+fused_plain_on_cuda = 0  # plain selection-and-prediction bodies on CUDA tensors
 goal_plain_on_cuda = 0  # plain goal and QP-input bodies on CUDA tensors
 
 # the kernels' codes of the planner's and goal's modes
@@ -49,8 +54,8 @@ GOAL_LP, GOAL_RIGHT_HAND, GOAL_HOST, GOAL_STATIC = 0, 1, 2, 3
 
 
 def reset_counts():
-    global neighbor_plain_on_cuda, front_plain_on_cuda, goal_plain_on_cuda
-    neighbor_plain_on_cuda = front_plain_on_cuda = goal_plain_on_cuda = 0
+    global neighbor_plain_on_cuda, front_plain_on_cuda, fused_plain_on_cuda, goal_plain_on_cuda
+    neighbor_plain_on_cuda = front_plain_on_cuda = fused_plain_on_cuda = goal_plain_on_cuda = 0
 
 
 @dataclasses.dataclass
@@ -259,6 +264,26 @@ def step_front(cfg: StageConfig, fleet, inp, order=None, valid=None, neighbors=N
         raise ValueError(f"no prediction stage for device {dev}")
     nd = neighbors if neighbors is not None else gather_neighbors(fleet, inp, order, valid)
     return _front_plain(cfg, fleet, inp, nd, scenarios)
+
+
+def front_with_neighbors(cfg: StageConfig, fleet, inp, scenarios: int = 1, plain: bool = False):
+    """`neighbor_slots` of inp.pos and `step_front` on its slots, in one:
+    (order [S·A, OA], valid [S·A, OA], Front). CUDA tensors go to the
+    kernel (one launch: each block selects its agent's slots, then
+    predicts from them), CPU tensors to the plain bodies; `plain` forces
+    the plain bodies."""
+    global fused_plain_on_cuda
+    dev = inp.pos.device
+    if dev.type == "cuda" and not plain:
+        out = step_cuda.front_with_neighbors_cuda(cfg, stage_scalars(cfg), fleet, inp, scenarios)
+        return out.pop("order"), out.pop("valid"), Front(**out)
+    if dev.type == "cuda":
+        fused_plain_on_cuda += 1
+    elif dev.type != "cpu":
+        raise ValueError(f"no prediction stage for device {dev}")
+    order, valid = _neighbor_slots_plain(inp.pos, scenarios, cfg.OA, cfg.comm_range)
+    return order, valid, _front_plain(cfg, fleet, inp, gather_neighbors(fleet, inp, order, valid),
+                                      scenarios)
 
 
 def _front_plain(cfg: StageConfig, fleet, inp, nd, S: int) -> Front:

@@ -15,6 +15,7 @@ run with `python -m pytest --noconftest -m cuda
 tests/test_torch_step_stages.py` (tests/conftest.py imports jax).
 """
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -112,9 +113,9 @@ def mode_state(name, A, device="cpu", steps=2):
 
 
 class Record:
-    """Records the calls of planner/stages.py's three entries."""
+    """Records the calls of planner/stages.py's four entries."""
 
-    NAMES = ("neighbor_slots", "step_front", "goal_qp_inputs")
+    NAMES = ("neighbor_slots", "step_front", "front_with_neighbors", "goal_qp_inputs")
 
     def __enter__(self):
         self.orig = {n: getattr(stages, n) for n in self.NAMES}
@@ -136,10 +137,30 @@ class Record:
             setattr(stages, n, f)
 
 
-def recorded(name, A, device="cpu"):
-    """The stage calls of one deferred step of `mode_state(name, A)`."""
+@contextlib.contextmanager
+def separate():
+    """For the duration, the step's front_with_neighbors as two launches:
+    neighbor_slots, then step_front on its slots (looked up at each call,
+    so that a Record sees both)."""
+    fused = stages.front_with_neighbors
+
+    def front(cfg, fleet, inp, scenarios=1):
+        order, valid = stages.neighbor_slots(inp.pos, scenarios, cfg)
+        return order, valid, stages.step_front(cfg, fleet, inp, order, valid, None, scenarios)
+
+    stages.front_with_neighbors = front
+    try:
+        yield
+    finally:
+        stages.front_with_neighbors = fused
+
+
+def recorded(name, A, device="cpu", fuse=True):
+    """The stage calls of one deferred step of `mode_state(name, A)`: the
+    neighbour selection inside the prediction's entry (front_with_neighbors),
+    or with `fuse` False neighbor_slots and then step_front (`separate`)."""
     planner, fleet, inp, S = mode_state(name, A, device)
-    with Record() as rec:
+    with Record() as rec, (contextlib.nullcontext() if fuse else separate()):
         planner._step_impl(fleet, inp, defer_qp=True, scenarios=S)
     return planner, rec.calls
 
@@ -175,35 +196,57 @@ def _fms(a, b, c, d):
     return F(np.float64(a) * np.float64(b) - np.float64(F(c * d)))
 
 
-def twin_neighbors(pos, S, OA, rng, use_range):
-    """neighbor_slots_kernel: per agent, 32 lanes each keeping its K
-    smallest (distance bits, index) keys, then OA rounds of the minimum
-    of the lanes' heads."""
+FULL = (1 << 64) - 1  # an exhausted list's key
+
+
+def twin_neighbors(pos, S, OA, rng, use_range, K=None, threads=step_cuda.BLOCK_THREADS,
+                   warp=32):
+    """select_nearest, a block an agent: thread t takes candidates t, t +
+    threads, ..., a tile of threads·K at a time, sorts each tile's K keys
+    (distance bits << 32 | index) and keeps the K smallest of its list and
+    them; each warp takes its lanes' OA smallest, a round a key (the
+    least head; the lanes that hold it pop); the warps' ascending lists
+    are merged by rank. K: the kernel's list_len unless given."""
     SA = pos.shape[0]
     A = SA // S
-    K = 16 if OA <= 16 else 32
+    K = K or step_cuda.list_len(A, OA)
+    tile = threads * K
     order = np.zeros((SA, OA), np.int64)
     valid = np.zeros((SA, OA), bool)
     for agent in range(SA):
         s, i = divmod(agent, A)
         p = pos[s * A:(s + 1) * A]
-        lanes = [[] for _ in range(32)]
-        for j in range(A):
-            d = max(max(abs(p[i, 0] - p[j, 0]), abs(p[i, 1] - p[j, 1])), abs(p[i, 2] - p[j, 2]))
-            if j == i:
-                d = d + F(1e9)
-            if use_range and not d < rng:
-                d = F(1e9)
-            lane = lanes[j % 32]
-            lane.append((int(np.asarray(d, F).view(np.uint32)) << 32) | j)
-            lane.sort()
-            del lane[K:]
-        for r in range(OA):
-            heads = [lane[0] if lane else 1 << 64 for lane in lanes]
-            m = min(heads)
-            lanes[heads.index(m)].pop(0)
-            order[agent, r] = (m & 0xFFFFFFFF) + s * A
-            valid[agent, r] = np.asarray(m >> 32, np.uint32).view(F) < F(1e8)
+        d = np.abs(p[i] - p).max(axis=1)
+        d[i] = d[i] + F(1e9)
+        if use_range:
+            d = np.where(d < rng, d, F(1e9)).astype(F)
+        keys = [(int(b) << 32) | j for j, b in enumerate(d.view(np.uint32))]
+        lists = []
+        for t in range(threads):
+            best = None
+            for t0 in range(0, A, tile):
+                c = sorted(keys[t0 + t:min(A, t0 + tile):threads] + [FULL] * K)[:K]
+                best = c if best is None else sorted(best + c)[:K]
+            lists.append(best)
+        tops = []
+        for w in range(threads // warp):
+            lanes = [list(x) for x in lists[w * warp:(w + 1) * warp]]
+            top = []
+            for _ in range(OA):
+                m = min(lane[0] if lane else FULL for lane in lanes)
+                top.append(m)
+                for lane in lanes:
+                    if lane and lane[0] == m:
+                        lane.pop(0)
+            tops.append(top)
+        out = [None] * OA
+        for w, top in enumerate(tops):
+            for r, x in enumerate(top):
+                rank = r + sum(y < x for v, other in enumerate(tops) if v != w for y in other)
+                if rank < OA:
+                    out[rank] = x
+        order[agent] = [(x & 0xFFFFFFFF) + s * A for x in out]
+        valid[agent] = [np.uint32(x >> 32).view(F) < F(1e8) for x in out]
     return order, valid
 
 
@@ -211,28 +254,33 @@ def _cv_time(m, i, n, dt):
     return F(F(m) + F(F(i) / F(n))) * dt
 
 
-def _predict(cfg, sc, sub, prev, has_prev, p3, v3, m, i, d):
-    """step_front_kernel's predict_at."""
-    N = cfg.n + 1
-    t = _cv_time(m, i, cfg.n, sc["dt"])
-    if cfg.mode == stages.MODE_BVC:
-        return p3[d] + F(F(0) * t)
-    if cfg.mode == stages.MODE_RSFC or not has_prev:
-        return p3[d] + F(v3[d] * t)
+KIND_ROW, KIND_CV, KIND_PAD = 0, 1, 2  # the kernel's Kind
+
+
+def _row_value(row, sub, N, MN3, r, m, i, d):
+    """row_value: element r = (m*N + i)*3 + d of the prediction from a
+    source's flat row: shifted one segment, the last point held; or (sub)
+    segment 0 re-parameterised left to right."""
     if sub is None:
-        return prev[m + 1, i, d] if m < cfg.M - 1 else prev[cfg.M - 1, N - 1, d]
+        return row[r + 3 * N] if r < MN3 - 3 * N else row[MN3 - 3 + d]
     if m > 0:
-        return prev[m, i, d]
-    acc = F(sub[0, i] * prev[0, 0, d])
+        return row[r]
+    acc = F(sub[0, i] * row[d])
     for k in range(1, N):
-        acc = acc + F(sub[k, i] * prev[0, k, d])
+        acc = acc + F(sub[k, i] * row[3 * k + d])
     return acc
 
 
 def twin_front(cfg, sc, fleet, inp, order, valid, nd, S):
-    """step_front_kernel, a slot and then an element at a time."""
+    """step_front_kernel, an agent at a time: each slot's kind and
+    (position, velocity) and the agent's own (slot O), the disturbance
+    reset from each row's first point, then every output element, in
+    flat order, from pred(slot, r) (the kernel writes them four at a
+    time)."""
     A, O, OA, OD, M, N = inp.pos.shape[0], cfg.O, cfg.OA, cfg.OD, cfg.M, cfg.n + 1
+    N3, MN3 = 3 * N, cfg.M * 3 * N
     sub = np32(cfg.sub)
+    tt = np.array([_cv_time(m, i, cfg.n, sc["dt"]) for m in range(M) for i in range(N)], F)
     if nd is not None:
         src = {k: np32(getattr(nd, k)).reshape(A * OA, *getattr(nd, k).shape[2:])
                for k in ("prev_ctrl", "has_prev", "pos", "vel", "radius", "downwash", "goal")}
@@ -257,62 +305,84 @@ def twin_front(cfg, sc, fleet, inp, order, valid, nd, S):
         out["obs_pred_sizes"] = np.zeros((A, O, M, N), F)
     pos, vel, prev = np32(inp.pos), np32(inp.vel), np32(inp.prev_ctrl)
     has_prev, disturbed, max_acc = np32(inp.has_prev), np32(inp.is_disturbed), np32(fleet.max_acc)
-    growth = np32(cfg.growth)
+    growth = np32(cfg.growth).reshape(-1)
+    zero = np.zeros(3, F)
     for a in range(A):
-        for o in range(O):
-            if o < OA:
-                r = order[a, o]
-                p3, v3, pv, hp = src["pos"][r], src["vel"][r], src["prev_ctrl"][r], \
-                    src["has_prev"][r]
-                e = [_predict(cfg, sc, sub, pv, hp, p3, v3, 0, 0, d) - p3[d] for d in range(3)]
-                held = _norm(e) > sc["reset"]
-                for m in range(M):
-                    for i in range(N):
-                        for d in range(3):
-                            t = _cv_time(m, i, cfg.n, sc["dt"])
-                            out["obs_pred"][a, o, m, i, d] = (
-                                p3[d] + F(F(0) * t) if held
-                                else _predict(cfg, sc, sub, pv, hp, p3, v3, m, i, d))
-                out["obs_valid"][a, o], out["obs_is_agent"][a, o] = valid[a, o], True
-                out["obs_radius"][a, o] = src["radius"][r]
-                out["obs_downwash"][a, o] = src["downwash"][r]
-                out["obs_pos_now"][a, o], out["obs_goal"][a, o] = p3, src["goal"][r]
+        s = a // (A // S)
+        kind, P, V, rows = {}, {}, {}, {}
+        for o in range(O + 1):
+            kind[o], P[o], V[o] = KIND_CV, zero, zero
+            if o == O or o < OA:
+                r = order[a, o] if o < O else None
+                p3, v3, hp, row = ((pos[a], vel[a], has_prev[a], prev[a]) if o == O else
+                                   (src["pos"][r], src["vel"][r], src["has_prev"][r],
+                                    src["prev_ctrl"][r]))
+                P[o], rows[o] = p3, row.reshape(-1)
+                if (o == O and disturbed[a]) or cfg.mode == stages.MODE_BVC:
+                    pass  # const_vel_ctrl(pos, 0)
+                elif cfg.mode == stages.MODE_RSFC or not hp:
+                    V[o] = v3
+                else:
+                    kind[o] = KIND_ROW
+                if o < O:
+                    out["obs_valid"][a, o], out["obs_is_agent"][a, o] = valid[a, o], True
+                    out["obs_radius"][a, o] = src["radius"][r]
+                    out["obs_downwash"][a, o] = src["downwash"][r]
+                    out["obs_pos_now"][a, o], out["obs_goal"][a, o] = p3, src["goal"][r]
             elif OD:
-                k = (a // (A // S)) * OD + o - OA
-                for m in range(M):
-                    for i in range(N):
-                        t = _cv_time(m, i, cfg.n, sc["dt"])
-                        for d in range(3):
-                            out["obs_pred"][a, o, m, i, d] = dyn["pos"][k, d] + F(
-                                dyn["vel"][k, d] * t)
+                k = s * OD + o - OA
+                P[o], V[o] = dyn["pos"][k], dyn["vel"][k]
                 out["obs_valid"][a, o] = dyn["valid"][k]
                 out["obs_radius"][a, o], out["obs_downwash"][a, o] = (dyn["radius"][k],
                                                                       dyn["downwash"][k])
                 out["obs_max_acc"][a, o] = dyn["max_acc"][k]
                 out["obs_pos_now"][a, o] = out["obs_goal"][a, o] = dyn["pos"][k]
             else:
+                kind[o] = KIND_PAD
                 out["obs_radius"][a, o], out["obs_downwash"][a, o] = F(0.1), F(1.0)
-        for m in range(M):
-            for i in range(N):
-                for d in range(3):
-                    t = _cv_time(m, i, cfg.n, sc["dt"])
-                    out["initial_ctrl"][a, m, i, d] = (
-                        pos[a, d] + F(F(0) * t) if disturbed[a]
-                        else _predict(cfg, sc, sub, prev[a], has_prev[a], pos[a], vel[a], m, i, d))
+        for o in range(OA):  # the disturbance reset
+            if kind[o] == KIND_ROW:
+                e = [_row_value(rows[o], sub, N, MN3, d, 0, 0, d) - P[o][d] for d in range(3)]
+                if _norm(e) > sc["reset"]:
+                    kind[o], V[o] = KIND_CV, zero
+
+        def pred(o, r):
+            m = r // N3
+            i = (r - m * N3) // 3
+            d = r - m * N3 - 3 * i
+            if kind[o] == KIND_ROW:
+                return _row_value(rows[o], sub, N, MN3, r, m, i, d)
+            if kind[o] == KIND_CV:
+                return P[o][d] + F(V[o][d] * tt[m * N + i])
+            return F(0)
+
+        flat = out["obs_pred"][a].reshape(-1)
+        for f in range(O * MN3):
+            flat[f] = pred(f // MN3, f % MN3)
+        flat = out["initial_ctrl"][a].reshape(-1)
+        for f in range(MN3):
+            flat[f] = pred(O, f)
         if cfg.sizes:
             guard = F(0)
             if cfg.velocity_guard is not None:
                 guard = F(F(sc["guard"] * _dotn(vel[a], vel[a], 3)) / max_acc[a, 0])
-            for o in range(O):
-                grow = cfg.size_growth and (not out["obs_is_agent"][a, o]
-                                            or cfg.mode == stages.MODE_RSFC)
-                for m in range(M):
-                    for i in range(N):
-                        x = out["obs_radius"][a, o]
-                        if grow:
-                            x = F(x + guard) + F(out["obs_max_acc"][a, o] * growth[m, i])
-                        out["obs_pred_sizes"][a, o, m, i] = x
+            flat = out["obs_pred_sizes"][a].reshape(-1)
+            for f in range(O * M * N):
+                o, mi = divmod(f, M * N)
+                x = out["obs_radius"][a, o]
+                if cfg.size_growth and (not out["obs_is_agent"][a, o]
+                                        or cfg.mode == stages.MODE_RSFC):
+                    x = F(x + guard) + F(out["obs_max_acc"][a, o] * growth[mi])
+                flat[f] = x
     return out
+
+
+def twin_fused(cfg, sc, fleet, inp, S):
+    """step_front_kernel with its own selection: select_nearest's slots,
+    then the prediction from them."""
+    order, valid = twin_neighbors(np32(inp.pos), S, cfg.OA, F(sc["range"]), cfg.comm_range > 0)
+    return order, valid, twin_front(cfg, sc, fleet, inp, torch.as_tensor(order),
+                                    torch.as_tensor(valid), None, S)
 
 
 def twin_goal(cfg, sc, fleet, inp, normals, anchors, margins, obs_valid, sfc_lo_w, sfc_hi_w,
@@ -429,15 +499,55 @@ def test_neighbor_twin_equals_plain(A, S, OA, rng):
     assert (d[:, 1:] == d[:, :-1]).any()
 
 
+@pytest.mark.parametrize("A,S,OA,rng,K,threads,warp", [
+    (72, 1, 20, 3.0, 32, 128, 32),  # the <32> lists, one tile
+    (40, 2, 16, -1.0, 16, 128, 32),  # the <16> lists, two scenarios, no range
+    (24, 1, 5, 3.0, 2, 8, 4),  # tiles of 16: a list merged with each tile's sorted keys
+    (37, 2, 7, -1.0, 4, 4, 2),  # tiles of 16, ragged; warps that run out of keys
+])
+def test_neighbor_twin_lists(A, S, OA, rng, K, threads, warp):
+    """The selection's algorithm with other lists and block shapes (the
+    kernel's K is list_len's; these reach its merges of tiles and warps
+    at A <= 72) equals the plain body on the tied lattice."""
+    pos = lattice(A, S)
+    order, valid = stages._neighbor_slots_plain(pos, S, OA, rng)
+    t_order, t_valid = twin_neighbors(pos.numpy(), S, OA, F(rng), rng > 0, K, threads, warp)
+    np.testing.assert_array_equal(t_order, order.numpy())
+    np.testing.assert_array_equal(t_valid, valid.numpy())
+
+
+@pytest.mark.parametrize("A,OA,K", [(2, 1, 8), (72, 20, 8), (1024, 32, 8), (1025, 8, 8),
+                                    (1025, 16, 16), (2048, 16, 16), (2049, 20, 32),
+                                    (8192, 32, 32)])
+def test_list_len(A, OA, K):
+    """A thread's list holds min(OA, its candidates): 8 up to A = 1,024."""
+    assert step_cuda.list_len(A, OA) == K
+
+
 @pytest.mark.parametrize("name", list(MODES))
 def test_front_twin_equals_plain(name):
-    planner, calls = recorded(name, 12)
+    planner, calls = recorded(name, 12, fuse=False)
     (a, _, got), = calls["step_front"]
     cfg, fleet, inp, order, valid, nd, S = a
     want = twin_front(cfg, stages.stage_scalars(cfg), fleet, inp, order, valid, nd, S)
     for field, v in want.items():
         assert_equal_by_value(v, np32(getattr(got, field)), f"{name} {field}")
     assert (got.obs_pred_sizes is not None) == cfg.sizes
+
+
+@pytest.mark.parametrize("name", list(MODES))
+def test_fused_twin_equals_plain(name):
+    """The prediction kernel with its own selection, in Python, equals
+    the plain neighbour selection and prediction of the step."""
+    planner, calls = recorded(name, 12)
+    assert not calls["neighbor_slots"] and not calls["step_front"]
+    (a, _, (order, valid, got)), = calls["front_with_neighbors"]
+    cfg, fleet, inp, S = a
+    t_order, t_valid, want = twin_fused(cfg, stages.stage_scalars(cfg), fleet, inp, S)
+    assert_equal_by_value(t_order, np32(order), f"{name} order")
+    assert_equal_by_value(t_valid, np32(valid), f"{name} valid")
+    for field, v in want.items():
+        assert_equal_by_value(v, np32(getattr(got, field)), f"{name} {field}")
 
 
 @pytest.mark.parametrize("name", list(MODES))
@@ -455,7 +565,7 @@ def test_cases_reach_every_branch():
     """The recorded states reset predictions, hold disturbed agents, find
     deadlocks and cut goals short on LSC rows and SFC faces."""
     _, calls = recorded("lsc_dr_2d", 12)
-    (a, _, fr), = calls["step_front"]
+    (a, _, (_, _, fr)), = calls["front_with_neighbors"]
     inp = a[2]
     # a held slot stays at the neighbour's position; the 0.7 m moves reset
     held = (fr.obs_pred - fr.obs_pos_now[..., None, None, :]).abs().amax((-1, -2, -3)) == 0
@@ -601,32 +711,40 @@ def test_neighbor_slots_match_lax_top_k(A, rng):
 
 
 # ---- dispatch ------------------------------------------------------------------
+def _counts():
+    return (step_cuda.neighbor_launches, step_cuda.front_launches, step_cuda.fused_launches,
+            step_cuda.goal_launches, stages.neighbor_plain_on_cuda, stages.front_plain_on_cuda,
+            stages.fused_plain_on_cuda, stages.goal_plain_on_cuda)
+
+
 def test_cpu_tensors_take_the_plain_bodies():
-    counts = (step_cuda.neighbor_launches, step_cuda.front_launches, step_cuda.goal_launches,
-              stages.neighbor_plain_on_cuda, stages.front_plain_on_cuda,
-              stages.goal_plain_on_cuda)
+    """One call of the fused entry and of the goal's a step (or of each
+    separate entry), all through the plain bodies: no launch, no plain
+    body counted as run on the card."""
+    counts = _counts()
     _, calls = recorded("lsc_dr_2d", 12)
-    assert all(len(c) == 1 for c in calls.values())
-    assert counts == (step_cuda.neighbor_launches, step_cuda.front_launches,
-                      step_cuda.goal_launches, stages.neighbor_plain_on_cuda,
-                      stages.front_plain_on_cuda, stages.goal_plain_on_cuda)
+    assert [len(calls[n]) for n in Record.NAMES] == [0, 0, 1, 1]
+    _, calls = recorded("lsc_dr_2d", 12, fuse=False)
+    assert [len(calls[n]) for n in Record.NAMES] == [1, 1, 0, 1]
+    assert counts == _counts()
 
 
 def test_kernel_entries_raise_on_cpu_tensors():
     planner, calls = recorded("lsc_dr_2d", 12)
     cfg = planner.stage_cfg
     sc = stages.stage_scalars(cfg)
-    (a, _, _), = calls["step_front"]
+    (a, _, (order, valid, _)), = calls["front_with_neighbors"]
     (g, _, _), = calls["goal_qp_inputs"]
-    launches = (step_cuda.neighbor_launches, step_cuda.front_launches, step_cuda.goal_launches)
+    launches = _counts()
     with pytest.raises(ValueError, match="CUDA"):
         step_cuda.neighbor_slots_cuda(cfg, sc, a[2].pos, 1)
     with pytest.raises(ValueError, match="CUDA"):
-        step_cuda.step_front_cuda(cfg, sc, a[1], a[2], a[3], a[4], None, 1)
+        step_cuda.step_front_cuda(cfg, sc, a[1], a[2], order, valid, None, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        step_cuda.front_with_neighbors_cuda(cfg, sc, a[1], a[2], 1)
     with pytest.raises(ValueError, match="CUDA"):
         step_cuda.goal_qp_inputs_cuda(cfg, sc, *g[1:])
-    assert launches == (step_cuda.neighbor_launches, step_cuda.front_launches,
-                        step_cuda.goal_launches)
+    assert launches == _counts()
 
 
 def test_outputs_have_their_shapes_and_types():
@@ -637,12 +755,34 @@ def test_outputs_have_their_shapes_and_types():
         ((3, 5), torch.float32, True), ((7,), torch.bool, True), ((2, 2), torch.int64, True)]
 
 
+def test_ptrs_copy_a_view_once():
+    """A non-contiguous input (3-D's prev_ctrl, a permuted view, passed as
+    the sources and as the agents' own) is copied once; contiguous ones
+    and None pass as they are."""
+    view = torch.arange(24.0).reshape(2, 3, 4).permute(0, 2, 1)
+    flat = torch.zeros(5)
+    ptrs, keep = step_cuda._ptrs([view, flat, None, view])
+    assert keep[0] is keep[3] and keep[0].is_contiguous() and keep[1] is flat and keep[2] is None
+    assert torch.equal(keep[0], view)
+    assert [ptrs[i] for i in range(4)] == [keep[0].data_ptr(), flat.data_ptr(), None,
+                                           keep[0].data_ptr()]
+
+
 # ---- on the card -----------------------------------------------------------------
 @pytest.fixture
 def cuda_dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the stage kernels have no CPU mode")
     return torch.device("cuda", 0)
+
+
+def _fields(entry, out):
+    """(name, tensor) of an entry's outputs."""
+    if entry == "neighbor_slots":
+        return list(zip(("order", "valid"), out))
+    if entry == "front_with_neighbors":
+        return [("order", out[0]), ("valid", out[1])] + _fields("step_front", out[2])
+    return [(f.name, getattr(out, f.name)) for f in dataclasses.fields(out)]
 
 
 def kernels_vs_plain(calls):
@@ -652,9 +792,8 @@ def kernels_vs_plain(calls):
     for entry, cs in calls.items():
         for a, k, got in cs:
             want = getattr(stages, entry)(*a, **k, plain=True)
-            pairs = (zip(("order", "valid"), got, want) if entry == "neighbor_slots" else
-                     ((f.name, getattr(got, f.name), getattr(want, f.name))
-                      for f in dataclasses.fields(got)))
+            pairs = ((name, x, y) for (name, x), (_, y) in zip(_fields(entry, got),
+                                                               _fields(entry, want)))
             for field, x, y in pairs:
                 assert (x is None) == (y is None), (entry, field)
                 if x is not None:
@@ -666,20 +805,26 @@ def kernels_vs_plain(calls):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", list(MODES))
 def test_kernels_equal_plain_on_card(cuda_dev, name):
+    """The step's stage calls, fused and then separate, each one launch,
+    equal to their plain bodies."""
     planner, fleet, inp, S = mode_state(name, 64, cuda_dev)
-    counts = (step_cuda.neighbor_launches, step_cuda.front_launches, step_cuda.goal_launches)
     with Record() as rec:
-        planner._step_impl(fleet, inp, defer_qp=True, scenarios=S)
-    torch.cuda.synchronize()
-    assert (step_cuda.neighbor_launches, step_cuda.front_launches,
-            step_cuda.goal_launches) == tuple(c + 1 for c in counts)
+        for route, added in ((contextlib.nullcontext(), (0, 0, 1, 1)), (separate(), (1, 1, 0, 1))):
+            counts = _counts()
+            with route:
+                planner._step_impl(fleet, inp, defer_qp=True, scenarios=S)
+            torch.cuda.synchronize()
+            assert _counts() == tuple(c + d for c, d in zip(counts, added + (0,) * 4))
     n = kernels_vs_plain(rec.calls)
     assert sorted(n) == sorted(Record.NAMES) and all(v > 0 for v in n.values()), n
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("A,S,OA,rng", [(1024, 1, 16, 3.0), (72, 1, 20, 3.0), (64, 8, 16, 3.0),
-                                         (30, 1, 8, -1.0)])
+                                         (30, 1, 8, -1.0),
+                                         # tiles: 3 of 1,024 (K 8), 3 of 2,048 (K 16)
+                                         (3000, 2, 8, 3.0), (5000, 1, 16, -1.0),
+                                         (2100, 1, 20, -1.0)])  # lists of 32
 def test_neighbor_kernel_on_lattice(cuda_dev, A, S, OA, rng):
     pos = lattice(A, S).to(cuda_dev)
     cfg = dataclasses.replace(recorded("lsc_dr_2d", 12)[0].stage_cfg, OA=OA, comm_range=rng,
@@ -694,4 +839,4 @@ def test_neighbor_kernel_on_lattice(cuda_dev, A, S, OA, rng):
 def test_kernels_on_main_path_state(cuda_dev):
     _, calls = recorded("lsc_dr_2d", 1024, cuda_dev)
     n = kernels_vs_plain(calls)
-    assert n["step_front"] > 1024 * 16 * 180
+    assert n["front_with_neighbors"] > 1024 * 16 * 180
