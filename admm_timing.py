@@ -179,7 +179,7 @@ def kernel_report(qp, qp_cuda, cfg, li):
     ts = qp.torch_statics(cfg, li.xi.device)
     shape = (cfg.dim, cfg.n_obs, cfg.M, cfg.N, ts["K"], ts["stencil"]["idx"].shape[0])
     return {"smem_bytes": lib.admm_smem_bytes(*shape),
-            "threads": lib.admm_threads(cfg.dim * ts["K"]),
+            "threads": lib.admm_threads(*shape),
             "blocks_per_sm": lib.admm_blocks_per_sm(*shape),
             "chunk_overhead": chunk_overhead(qp, qp_cuda, cfg, li)}
 

@@ -118,7 +118,24 @@ layer and audit, and the `sim.run` CLI) flying forest missions:
      other), convergence within 0.03 of the JAX package's on the CPU at the
      same shape and steps, and BVC's separation as above, RSFC's no more
      than 0.01 m under the JAX package's; and (e) `loop_check` alone on a
-     DLSC 3-D QP (90);
+     DLSC 3-D QP (90); (f) the main path at full width past the narrow
+     builds: `build_fleet(1024, world_dimension=3, M=12,
+     communication_range=5.0, max_obstacles=80)` (every agent within 5 m
+     an obstacle, as the reference plans: dim·K 102, OA = O = 80, the ADMM
+     kernel's memory build `<256,0>`, the selection's and the prediction's
+     wide builds), 2 warm-up and 5 timed steps checked as (b), with
+     `fused_check` and `goal_inputs_check` on its stage calls, one launch
+     a call of each stage entry, stage ms and `qp_split`, then one step
+     with the selection and the prediction as two wide launches
+     (`neighbor_check`, `front_check`); (g) the boundary shapes
+     (`phase8g`): DLSC 3-D at M = 12 (108), 3-D at M = 16 (138) and at M
+     = 28 with 160 slots (246: the preparation's global build, the loop's
+     rows and Kinv in global memory), each `prepare_check` and
+     `loop_check`; fleets with 64, 65, 80, 160 and 256 slots through
+     every stage entry, the gathered slots' included, each call held to
+     its plain body, `loop_check` at 256 (2-D rows past shared memory);
+     the selection alone at A 256, 1,024 and 5,000 and OA 32, 33, 80, 128
+     and 255 against the plain body;
   9. `forest_mission(10)` flown by `MultiSyncSimulator.run` in (a) DLSC
      sub-step mode, (b) 3-D and (c) with a spinning and a straight dynamic
      obstacle seen through 0.03 m observation noise: each flight passes
@@ -209,15 +226,18 @@ checks the shared and the per-agent images, `hull_check` build_lsc
 (phase 10) and the main path's 2-D and 8b's 3-D hulls.
 
 Prints the results and the wall time of each phase, a JSON line with one
-entry per build of the ADMM kernel (its dim·K range, launches on the
+entry per build of the ADMM kernel (its dim·K range, the memory build
+`<256,0>` any; launches on the
 paths of phases 5-14, largest error against the plain loop, and ms,
 plain ms and bound at its A=1024 shape), one per geometry kernel
 (sfc_expand, sfc_update_hull, hull_closest, clsc_build: its launches on
 those paths, the calls and items its check held to its plain version,
 ms, device ms, plain ms, bound and share on the main path's call, the
 SFC kernels' latency floor, ptxas's registers), one for qp_prepare
-(the same, with the library inverse's ms) and one per stage kernel
-(neighbor_slots, step_front, front_with_neighbors, goal_qp_inputs: the
+(the same, with the library inverse's ms; and its global build,
+`qp_prepare<4,global>`, timed at phase 8g's dim·K 246) and one per stage
+kernel (neighbor_slots, step_front, front_with_neighbors, goal_qp_inputs,
+and the first three's wide builds, `<wide>`, timed on phase 8f's calls: the
 same, with the host ms to issue a call, the phases checked, the kernel's
 template, its dynamic shared memory and blocks an SM), the card's name and
 power limit, and as the last line {"ok": true, "device": {...}}. Exits non-zero, with no result, without a
@@ -559,11 +579,12 @@ class Builds:
         self.qp_prepare_cuda, self.stages, self.step_cuda = qp_prepare_cuda, stages, step_cuda
         self.hull_cuda, self.geometry, self.lsc, self.sfc_ops = hull_cuda, geometry, lsc, sfc
         self.lib = qp_cuda.build()
-        self.rec = {}
-        for dk in range(1, self.lib.admm_max_dk() + 1):
-            r = self.rec.setdefault(qp_cuda.build_name(self.lib, dk), {
-                "dk": [dk, dk], "launches": 0, "max_abs_err": 0.0, "ms": None})
-            r["dk"][1] = dk
+        # the three builds (the library chooses one from the shape: the
+        # register builds up to dim·K 96, the memory build past them or
+        # where the rows pass shared memory); "dk": the least and largest
+        # dim·K this run's checks and timings held each to
+        self.rec = {name: {"dk": None, "launches": 0, "max_abs_err": 0.0, "ms": None}
+                    for name in ("<128,30>", "<256,48>", "<256,0>")}
         self.sfc = {"launches": 0, "max_abs_err": 0, "calls_checked": 0, "lanes_checked": 0,
                     "ms": None}
         self.sfc_hull = {"launches": 0, "max_abs_err": 0.0, "calls_checked": 0,
@@ -581,10 +602,25 @@ class Builds:
         self.stage = {e: {"launches": 0, "max_abs_err": 0.0, "calls_checked": 0,
                           "elements_checked": 0, "phases": [], "ms": None}
                       for e in STAGE_ENTRIES}
+        # the wide builds of the selection and the prediction (OA > 32 with
+        # the selection, O > 64), and the QP preparation's global build (its
+        # tiles past shared memory): the same records
+        self.wide = {e: {"launches": 0, "max_abs_err": 0.0, "calls_checked": 0,
+                         "elements_checked": 0, "phases": [], "ms": None}
+                     for e in WIDE_ENTRIES}
+        self.prep_global = {"launches": 0, "max_abs_err": 0.0, "calls_checked": 0,
+                            "agents_checked": 0, "elements_checked": 0,
+                            "max_share_of_tolerance": 0.0, "max_kinv_ratio": 0.0, "ms": None}
 
     def name(self, cfg):
-        return self.qp_cuda.build_name(
-            self.lib, cfg.dim * self.qp.torch_statics(cfg, self.dev)["K"])
+        return self.qp_cuda.build_name(self.lib, *admm_shape(self.qp, cfg, self.dev))
+
+    def build_rec(self, cfg):
+        """The record of cfg's build, its dim·K range widened to cfg's."""
+        r = self.rec[self.name(cfg)]
+        dk = cfg.dim * admm_shape(self.qp, cfg, self.dev)[4]
+        r["dk"] = [dk, dk] if r["dk"] is None else [min(r["dk"][0], dk), max(r["dk"][1], dk)]
+        return r
 
     def reset_launches(self):
         self.qp_cuda.reset_launches()
@@ -611,7 +647,10 @@ class Builds:
         ("neighbor_slots", "step_front", "front_with_neighbors",
         "goal_qp_inputs") with their plain bodies on CUDA tensors
         ("neighbor_plain_on_cuda", "front_plain_on_cuda",
-        "fused_plain_on_cuda", "goal_plain_on_cuda")."""
+        "fused_plain_on_cuda", "goal_plain_on_cuda"); and the launches of the
+        selection's and the prediction's wide builds among them
+        ("<entry>_wide") and of the preparation's global build
+        ("qp_prepare_global")."""
         out = dict(self.qp_cuda.build_launches)
         for name, n in out.items():
             self.rec[name]["launches"] += n
@@ -632,6 +671,12 @@ class Builds:
                        ("goal_qp_inputs", self.step_cuda.goal_launches)):
             out[key] = n
             self.stage[key]["launches"] += n
+        for key, n in self.step_cuda.wide_launches.items():
+            out[key + "_wide"] = n
+            self.wide[key]["launches"] += n
+        n = self.qp_prepare_cuda.build_launches.get("<4,global>", 0)
+        out["qp_prepare_global"] = n
+        self.prep_global["launches"] += n
         for key in ("neighbor_plain_on_cuda", "front_plain_on_cuda", "fused_plain_on_cuda",
                     "goal_plain_on_cuda"):
             out[key] = getattr(self.stages, key)
@@ -671,7 +716,7 @@ class Builds:
             assert launches[key] == 0, f"{what} ran a plain version on the card: {key}"
 
     def note_check(self, cfg, rec):
-        r = self.rec[self.name(cfg)]
+        r = self.build_rec(cfg)
         r["max_abs_err"] = max(r["max_abs_err"], rec["max_abs_err_chunk"])
 
     def note_hull_check(self, recs):
@@ -711,21 +756,27 @@ class Builds:
                 c["dims"].append(r["dim"])
 
     def note_prepare_check(self, recs):
-        c = self.prep
         for r in recs:
-            c["max_abs_err"] = max(c["max_abs_err"], r["max_abs_err"])
-            c["max_share_of_tolerance"] = max(c["max_share_of_tolerance"],
-                                              max(r["share_of_tolerance"].values()))
-            c["max_kinv_ratio"] = max(c["max_kinv_ratio"], r["kinv_ratio_max"])
-            c["calls_checked"] += 1
-            c["agents_checked"] += r["agents"]
-            c["elements_checked"] += r["elements"]
+            if r["build"] == "<4,global>":
+                self._note_prepare(self.prep_global, r)
+            self._note_prepare(self.prep, r)
+
+    @staticmethod
+    def _note_prepare(c, r):
+        c["max_abs_err"] = max(c["max_abs_err"], r["max_abs_err"])
+        c["max_share_of_tolerance"] = max(c["max_share_of_tolerance"],
+                                          max(r["share_of_tolerance"].values()))
+        c["max_kinv_ratio"] = max(c["max_kinv_ratio"], r["kinv_ratio_max"])
+        c["calls_checked"] += 1
+        c["agents_checked"] += r["agents"]
+        c["elements_checked"] += r["elements"]
+        if "dims" in c:
             c["max_agents"] = max(c["max_agents"], r["agents"])
             if r["dim"] not in c["dims"]:
                 c["dims"].append(r["dim"])
 
     def note_stage_check(self, rec, what):
-        r = self.stage[rec["entry"]]
+        r = (self.wide if rec.get("wide") else self.stage)[rec["entry"]]
         r["max_abs_err"] = max(r["max_abs_err"], rec["max_abs_err"])
         r["calls_checked"] += rec["calls"]
         r["elements_checked"] += rec["elements"]
@@ -733,7 +784,7 @@ class Builds:
             r["phases"].append(what)
 
     def note_timing(self, cfg, timing, plain_ms):
-        r = self.rec[self.name(cfg)]
+        r = self.build_rec(cfg)
         if r["ms"] is None:
             r.update(ms=timing["ms"], plain_ms=plain_ms, iters=timing["iters"],
                      A=timing["A"], R=timing["R"], bound_ms=timing["bound_ms"],
@@ -746,8 +797,39 @@ PLAIN_ON_CUDA = ("hull_plain_on_cuda", "clsc_plain_on_cuda", "sfc_hull_plain_on_
 # planner/stages.py's entries (the step calls the third, the multi-device
 # steps the second; `separate_launches` the first two in the third's place)
 STAGE_ENTRIES = ("neighbor_slots", "step_front", "front_with_neighbors", "goal_qp_inputs")
+WIDE_ENTRIES = STAGE_ENTRIES[:3]  # the entries with wide builds (step_cuda.wide_launches)
 NOT_ADMM = ("sfc_expand", "sfc_update_hull", "hull_closest", "clsc_build", "qp_prepare",
-            *STAGE_ENTRIES, *PLAIN_ON_CUDA)
+            "qp_prepare_global", *STAGE_ENTRIES, *(e + "_wide" for e in WIDE_ENTRIES),
+            *PLAIN_ON_CUDA)
+
+
+def admm_shape(qp, cfg, dev):
+    """(dim, O, M, N, K, R_stat) of cfg's QP: the ADMM builds' shape."""
+    K = qp.torch_statics(cfg, dev)["K"]
+    return cfg.dim, cfg.n_obs, cfg.M, cfg.N, K, qp.n_rows(cfg) - cfg.n_obs * cfg.M * cfg.N
+
+
+def stage_build(step_cuda, entry, a):
+    """The build a recorded stage call (its positional arguments `a`) took,
+    as its wrapper's query names it: the selection's list K, 8 for the
+    prediction without one, 0 for the wide builds; None for the goal
+    kernel (one build)."""
+    if entry == "goal_qp_inputs":
+        return None
+    if entry == "neighbor_slots":
+        pos, S, cfg = a[:3]
+        return step_cuda.selection_build(pos.shape[0] // S, cfg.OA)
+    cfg, inp = a[0], a[2]
+    fused = entry == "front_with_neighbors"
+    S = (a[3] if len(a) > 3 else 1) if fused else (a[6] if len(a) > 6 else 1)
+    return step_cuda.front_build(inp.pos.shape[0], S, cfg.O, cfg.OA, cfg.M, cfg.n, cfg.mode,
+                                 fused)
+
+
+def wide_call(step_cuda, entry, a):
+    """Whether a recorded stage call (its positional arguments `a`) took
+    a wide build."""
+    return stage_build(step_cuda, entry, a) == 0
 
 
 @contextlib.contextmanager
@@ -859,8 +941,10 @@ def stage_check(builds, calls, what):
     output equal element for element, by value (a NaN equal to a NaN).
     Returns the check's record, noted in `builds`."""
     entry = calls.name
+    wide = {wide_call(builds.step_cuda, entry, c[0]) for c in calls.calls}
+    assert len(wide) == 1, (what, entry, "narrow and wide calls in one check")
     rec = {"entry": entry, "calls": 0, "elements": 0, "differing": 0, "max_abs_err": 0.0,
-           "callers": sorted({c[3] for c in calls.calls})}
+           "callers": sorted({c[3] for c in calls.calls}), "wide": wide.pop()}
     for a, k, got, _ in calls.calls:
         assert not k.get("plain"), (what, entry)
         want = calls.orig(*a, **k, plain=True)
@@ -966,39 +1050,37 @@ def one_buffer_outputs(dev, specs):
 def stage_resources(step_cuda, entry, a):
     """The kernel a stage call launched (its name in ptxas's summary), its
     registers and static shared memory (ptxas, where this process built
-    the library), its dynamic shared memory a block and its blocks an SM
-    (an older tree's wrapper without the queries: the first two alone)."""
+    the library), its dynamic shared memory a block and its blocks an SM."""
     from lsc_dr_planner_tpu_torch.ops import cuda_build
 
+    lib = step_cuda.build()
     cfg = a[2] if entry == "neighbor_slots" else a[0]
     six = cfg.n == 5
-    K = 16  # an older tree's neighbour kernel (a warp an agent): <16> up to 16 slots
-    if hasattr(step_cuda, "list_len") and entry in ("neighbor_slots", "front_with_neighbors"):
-        A = a[0].shape[0] // a[1] if entry == "neighbor_slots" else a[2].pos.shape[0] // a[3]
-        K = step_cuda.list_len(A, cfg.OA)
     sel = entry == "front_with_neighbors" and cfg.OA > 0
+    K = stage_build(step_cuda, entry, a)
     kernel, query = {
         "neighbor_slots": (f"neighbor_slots_kernel<{K}>", 0),
         "step_front": ("step_front_kernel" + ("<6,8,0>" if six else "<0,8,0>"), 1),
         "front_with_neighbors": (f"step_front_kernel<{6 if six else 0},{K if sel else 8},"
                                  f"{int(sel)}>", 2 if sel else 1),
         "goal_qp_inputs": ("goal_qp_inputs_kernel", 3)}[entry]
-    if not hasattr(step_cuda, "list_len"):  # an older tree's: one prediction kernel
-        kernel = {"step_front": "step_front_kernel"}.get(entry, kernel)
+    if K == 0:
+        kernel = ("neighbor_slots_wide_kernel" if entry == "neighbor_slots"
+                  else f"step_front_wide_kernel<{6 if six else 0},{int(sel)}>")
     log = cuda_build.build_log.get("step_stages.cu")
     res = {"kernel": kernel, **(ptxas_summary(log[1]).get(kernel, {}) if log else {})}
-    if hasattr(step_cuda, "occupancy"):
-        if entry == "neighbor_slots":
-            dyn = 12 * step_cuda.BLOCK_THREADS * K
-        elif entry == "goal_qp_inputs":
-            dyn = 0
-        else:
-            inp = a[2]
-            S = a[3] if entry == "front_with_neighbors" else a[6]
-            dyn = step_cuda.build().step_front_smem_bytes(inp.pos.shape[0], S, cfg.OA, cfg.M,
-                                                          cfg.n, cfg.mode, int(sel))
-        res.update(dynamic_smem_bytes=dyn,
-                   blocks_per_sm=step_cuda.occupancy(query, cfg.n, K, dyn))
+    if entry == "neighbor_slots":
+        dyn = lib.neighbor_slots_smem_bytes(a[0].shape[0] // a[1], cfg.OA)
+    elif entry == "goal_qp_inputs":
+        dyn = 0
+    else:
+        inp = a[2]
+        fused = entry == "front_with_neighbors"
+        S = (a[3] if len(a) > 3 else 1) if fused else (a[6] if len(a) > 6 else 1)
+        dyn = lib.step_front_smem_bytes(inp.pos.shape[0], S, cfg.O, cfg.OA, cfg.M, cfg.n,
+                                        cfg.mode, int(sel))
+    res.update(dynamic_smem_bytes=dyn,
+               blocks_per_sm=step_cuda.occupancy(query, cfg.n, K or 0, dyn))
     return res
 
 
@@ -1035,8 +1117,9 @@ def stage_timing(builds, recorders, gpu, what):
         t["ms"] = t["queued_ms"]
         t["bound_share"] = t["bound_ms"] / t["ms"]
         t.update(stage_resources(builds.step_cuda, r.name, a))
+        t["wide"] = wide_call(builds.step_cuda, r.name, a)
         out[r.name] = t
-        builds.stage[r.name].update(t)
+        (getattr(builds, "wide", {}) if t["wide"] else builds.stage)[r.name].update(t)
     print(f"{what} stage kernel timing", json.dumps(out), f"[{gpu}]")
     return out
 
@@ -1059,7 +1142,7 @@ def stage_timing_main():
     dev, gpu = torch.device("cuda", 0), gpu_line()
     build_all(step_cuda)
     out = {"package": str(Path(step_cuda.__file__).resolve().parents[1]), "gpu": gpu}
-    for tag, overrides in (("main", {}), ("8b", dict(world_dimension=3))):
+    for tag, overrides in (("main", {}), ("8b", dict(world_dimension=3)), ("8f", P8F)):
         planner, fleet, inp = main_path_state(workload, dev, **overrides)
         for fuse in ((True, False) if hasattr(stages, "front_with_neighbors") else (False,)):
             recs = stage_recorders(stages)
@@ -1093,7 +1176,7 @@ def stage_sources_main(sources):
     dev, gpu = torch.device("cuda", 0), gpu_line()
     build_all()
     calls = {}
-    for tag, overrides in (("main", {}), ("8b", dict(world_dimension=3))):
+    for tag, overrides in (("main", {}), ("8b", dict(world_dimension=3)), ("8f", P8F)):
         planner, fleet, inp = main_path_state(workload, dev, **overrides)
         for fuse in (True, False):
             recs = stage_recorders(stages)
@@ -1146,6 +1229,49 @@ def front_host_main(rounds=6):
                 rec.setdefault("fused" if fuse else "separate", []).append(host_ms(front, 10))
     print("front host", json.dumps(rec))
     return rec
+
+
+def kernels_ab_main():
+    """For the checkout whose package is imported (the parent's or this
+    tree's, for an A/B in one call: import the package from its tree
+    before chip_smoke): its kernels built, then in the main path's layout
+    in 8b's (3-D) and in 8f's (3-D past the narrow builds), on one step's
+    calls after WARMUP evolving steps, the device ms of each kernel queued
+    back to back: the ADMM loop (`admm_timing.timed_call`, max_iter
+    iterations) and the build it took, the QP preparation kernel, and the
+    step's stage kernels. One JSON line."""
+    from lsc_dr_planner_tpu_torch import workload
+    from lsc_dr_planner_tpu_torch.ops import qp, qp_cuda, qp_prepare_cuda
+    from lsc_dr_planner_tpu_torch.planner import stages
+
+    dev, gpu = torch.device("cuda", 0), gpu_line()
+    build_all()
+    out = {"package": str(Path(qp_cuda.__file__).resolve().parents[1]), "gpu": gpu}
+    for tag, overrides in (("main", {}), ("8b", dict(world_dimension=3)), ("8f", P8F)):
+        planner, fleet, inp = main_path_state(workload, dev, **overrides)
+        recs = stage_recorders(stages)
+        with contextlib.ExitStack() as stack:
+            for r in recs:
+                stack.enter_context(r)
+            d = planner._step_impl(fleet, inp, defer_qp=True)
+        cfg, tol = planner.qp_cfg, planner.feas_tol
+        li = qp.prepare(cfg, d.qp_inp).loop
+        qp_cuda.reset_launches()
+        shape, lib = admm_shape(qp, cfg, dev), qp_cuda.build()
+        rec = {"admm": admm_timing.timed_call(qp, cfg, li, cfg.max_iter, tol, tag, 10),
+               "admm_builds": sorted(qp_cuda.build_launches),
+               "admm_smem_bytes": lib.admm_smem_bytes(*shape),
+               "admm_blocks_per_sm": lib.admm_blocks_per_sm(*shape)}
+        ts, sc = qp.torch_statics(cfg, dev), qp.prepare_scalars(cfg)
+        rec["qp_prepare_ms"] = queued_ms(
+            lambda: qp_prepare_cuda.prepare_cuda(cfg, ts, d.qp_inp, sc), KERNEL_REPS)
+        for r in recs:
+            if r.calls:
+                a, k = r.calls[0][:2]
+                rec[r.name + "_ms"] = queued_ms(lambda: r.orig(*a, **k), KERNEL_REPS)
+        out[tag] = rec
+    print("kernels ab", json.dumps(out))
+    return out
 
 
 def build_all(verbose=None):
@@ -1624,6 +1750,7 @@ def prepare_check(qp, qp_prepare_cuda, builds, calls, what):
         errs = [max_err(*(torch.where(fld(want, n).abs() < 1e19, fld(p, n), 0.0)
                           for p in (got, want))) for n in fields]
         rec.update(agents=A, dim=cfg.dim, dk=dk, O=cfg.n_obs, R=got.l.shape[1],
+                   build=qp_prepare_cuda.build_name(cfg.dim, cfg.n_obs, cfg.M, cfg.N, ts["K"]),
                    y0=inp.y0 is not None,
                    elements=sum(fld(want, n).numel() for n in fields) + A * dk * dk,
                    again_differing=sum(differing(again[n], fld(got, n))
@@ -2640,7 +2767,8 @@ def phase8_modes():
 
 
 def fused_mode(workload, qp, builds, dev, gpu, tag, overrides, steps=True,
-               float64_clause=False, l2_ns=None, moved_seeds=()):
+               float64_clause=False, l2_ns=None, moved_seeds=(), warmup=WARMUP, timed=TIMED8,
+               stage_recs=(), separate=0):
     """One planner mode at A=1024: loop_check on the QP after 3 evolving
     steps and on its compacted rescue (with `moved_seeds`, also on the
     QPs of that state moved by MOVE_M m, one state a seed: each state's
@@ -2652,13 +2780,19 @@ def fused_mode(workload, qp, builds, dev, gpu, tag, overrides, steps=True,
     'hull' mode, `sfc_check` in 'point' and 'substep') and timed on the
     first; with DR goals in the LSC family `clsc_check` on the same steps'
     CLSC constructions and the fused CLSC kernel timed on the first (BVC
-    and RSFC make none)."""
+    and RSFC make none). `warmup` and `timed`: the steps before the
+    checks and the timed steps (the first warm-up steps' count too);
+    `stage_recs`: the stage recorders, restarted before the timed steps,
+    held to one launch a call of each entry, then `stage_checks` and
+    `stage_timing` on their calls; `separate`: that many steps more with
+    the selection and the prediction as two launches (`separate_launches`),
+    checked and timed the same way."""
     from lsc_dr_planner_tpu_torch.config import GoalMode, PlannerMode
     from lsc_dr_planner_tpu_torch.ops import geometry, hull_cuda, lsc, sfc
 
     p, planner, fleet, inp = workload.build_fleet(A_MAIN, device=dev, timing=True, **overrides)
     step = workload.make_evolve_step(p, planner, fleet)
-    for _ in range(WARMUP):
+    for _ in range(warmup):
         inp, _ = step(inp)
     cfg, feas_tol = planner.qp_cfg, planner.feas_tol
     states = moved_states(planner, fleet, inp, moved_seeds)
@@ -2696,7 +2830,8 @@ def fused_mode(workload, qp, builds, dev, gpu, tag, overrides, steps=True,
     lib = builds.lib
     shape = (cfg.dim, cfg.n_obs, cfg.M, cfg.N, li.Pn.shape[-1], li.z.shape[1] - cfg.n_obs * cfg.M * cfg.N)
     res["timing"].update(smem_bytes=lib.admm_smem_bytes(*shape),
-                         threads=lib.admm_threads(res["dk"]),
+                         threads=lib.admm_threads(*shape),
+                         placement=builds.qp_cuda.placement(lib, *shape),
                          blocks_per_sm=lib.admm_blocks_per_sm(*shape))
     plain_ms = cuda_ms(lambda: qp.admm_loop_plain(cfg, li, cfg.max_iter, feas_tol), 2)
     res["timing"]["plain_ms"] = plain_ms
@@ -2706,11 +2841,12 @@ def fused_mode(workload, qp, builds, dev, gpu, tag, overrides, steps=True,
     if not steps:
         return res
 
-    for _ in range(WARMUP):
+    for _ in range(warmup):
         inp, _ = step(inp)
     torch.cuda.synchronize()
     builds.reset_launches()
     sfc.reset_counts()
+    restart(stage_recs, max(1, timed // 2))
     dists = []
 
     def check(inp):
@@ -2719,20 +2855,21 @@ def fused_mode(workload, qp, builds, dev, gpu, tag, overrides, steps=True,
         dists.append(min_pair_distance_now(inp.pos, p.world_dimension,
                                            float(fleet.downwash[0])))
 
-    recorders = path_calls(sfc, lsc, geometry, every=TIMED8 // 2)
+    every = max(1, timed // 2)
+    recorders = path_calls(sfc, lsc, geometry, every=every)
     sfcs, expands, clscs, hulls = recorders
-    with sfcs, expands, clscs, hulls, Calls(qp, "prepare", every=TIMED8 // 2) as preps:
-        inp, lat, stages, convs = admm_timing.timed_steps(step, planner, inp, TIMED8, check)
+    with sfcs, expands, clscs, hulls, Calls(qp, "prepare", every=every) as preps:
+        inp, lat, stages, convs = admm_timing.timed_steps(step, planner, inp, timed, check)
     launches = builds.add_path_launches()
     lane_trips = sfc.read_lane_trips()
     lat = np.asarray(lat)
-    res.update(steps=TIMED8, p50_ms=float(np.percentile(lat, 50) * 1e3),
+    res.update(steps=timed, p50_ms=float(np.percentile(lat, 50) * 1e3),
                p99_ms=float(np.percentile(lat, 99) * 1e3),
-               agent_steps_per_s=A_MAIN * TIMED8 / float(lat.sum()),
+               agent_steps_per_s=A_MAIN * timed / float(lat.sum()),
                qp_convergence=float(np.mean(convs)), min_pair_distance=min(dists),
                qp_convergence_per_step=convs, min_pair_distance_per_step=dists,
                kernel_launches=launches, stage_ms=admm_timing.mean_stages(stages), gpu=gpu,
-               sfc_trips_per_step=lane_trips / TIMED8, sfc_syncs_per_step=sfc.syncs / TIMED8,
+               sfc_trips_per_step=lane_trips / timed, sfc_syncs_per_step=sfc.syncs / timed,
                sfc_plain_trips=sfc.trips)
     print(f"phase{tag}", json.dumps({k: v for k, v in res.items()
                                       if k not in ("check", "rescue_check", "timing")}))
@@ -2740,18 +2877,19 @@ def fused_mode(workload, qp, builds, dev, gpu, tag, overrides, steps=True,
     dr = lsc_family and p.goal_mode == GoalMode.GRID_BASED_PLANNER
     builds.assert_launched(launches, f"phase {tag}", hull=lsc_family, clsc=dr,
                            sfc_hull=dr and not planner.substep)
-    assert_one_launch_a_call(launches, recorders, f"phase {tag}")
+    assert_one_launch_a_call(launches, recorders, f"phase {tag}", stage_recs)
     assert sfc.syncs == 0 and sfc.trips == 0, f"phase {tag}: the plain SFC loop ran"
-    assert sfcs.n + expands.n == TIMED8 and clscs.n == (TIMED8 if dr else 0), (tag, clscs.n)
+    assert sfcs.n + expands.n == timed and clscs.n == (timed if dr else 0), (tag, clscs.n)
     res["launches_per_call"] = {
         "clsc_build": launches["clsc_build"] / clscs.n if clscs.n else None,
         "sfc_update_hull": launches["sfc_update_hull"] / sfcs.n if sfcs.n else None,
         "sfc_expand": launches["sfc_expand"] / expands.n if expands.n else None}
-    assert preps.n == launches["qp_prepare"] == TIMED8, (tag, preps.n, launches["qp_prepare"])
+    assert preps.n == launches["qp_prepare"] == timed, (tag, preps.n, launches["qp_prepare"])
     res["prepare_check"] = prepare_check(qp, builds.qp_prepare_cuda, builds, preps, f"phase{tag}")
-    if tag == "8b":  # the 3-D shape: the preparation timed, the QP stage split
-        res["prepare_timing"] = prepare_timing(qp, builds.qp_prepare_cuda, preps, gpu, "phase8b")
-        res["qp_split"] = qp_split(workload, dev, gpu, overrides)
+    if tag in ("8b", "8f"):  # the 3-D shapes: the preparation timed, the QP stage split
+        res["prepare_timing"] = prepare_timing(qp, builds.qp_prepare_cuda, preps, gpu,
+                                               f"phase{tag}")
+        res["qp_split"] = qp_split(workload, dev, gpu, overrides, reps=10 if tag == "8b" else 4)
         assert res["qp_split"]["solve_under_sync_error_mode"] == "ok", res["qp_split"]
         assert res["qp_split"]["host_syncs_per_step"] == [0] * SYNC_COUNT_REPS, res["qp_split"]
     if sfcs.n:
@@ -2764,6 +2902,24 @@ def fused_mode(workload, qp, builds, dev, gpu, tag, overrides, steps=True,
         res["clsc_check"] = clsc_check(lsc, builds, clscs, f"phase{tag}")
         res["clsc_timing"], x = clsc_timing(lsc, hull_cuda, geometry, clscs, gpu, f"phase{tag}")
         res["hull_timing"] = hull_timing(geometry, hull_cuda, builds, x, gpu, f"phase{tag}")
+    if stage_recs:
+        res["stage_checks"] = stage_checks(builds, stage_recs, f"phase{tag}")
+        res["stage_timing"] = stage_timing(builds, stage_recs, gpu, f"phase{tag}")
+    if separate:
+        from lsc_dr_planner_tpu_torch.planner import stages as stage_ops
+
+        builds.reset_launches()
+        restart(stage_recs, 1)
+        with separate_launches(stage_ops):
+            for _ in range(separate):
+                inp, _ = step(inp)
+        sep_launches = builds.add_path_launches()
+        assert [sep_launches[r.name] for r in stage_recs] == [r.n for r in stage_recs] == [
+            separate, separate, 0, separate], [(r.name, r.n) for r in stage_recs]
+        res["separate"] = {
+            "steps": separate, "kernel_launches": sep_launches,
+            "stage_checks": stage_checks(builds, stage_recs, f"phase{tag} separate"),
+            "stage_timing": stage_timing(builds, stage_recs[:2], gpu, f"phase{tag} separate")}
     sep = 2 * 0.15 - feas_tol
     if tag in JAX_CPU_1024:
         conv_ref, sep_ref = JAX_CPU_1024[tag]
@@ -2774,6 +2930,150 @@ def fused_mode(workload, qp, builds, dev, gpu, tag, overrides, steps=True,
         assert res["qp_convergence"] > 0.9, (tag, res["qp_convergence"])
     assert res["min_pair_distance"] >= sep, (tag, res["min_pair_distance"], sep)
     return res
+
+
+# ---- phase 8f, 8g: the shapes past the narrow kernels' builds --------------
+# 8f: the main path with every agent within 5 m an obstacle, as the reference
+# plans (SURVEY §2.6: no cap on the neighbour set; 48-80 agents within 5 m of
+# an interior agent of the 1.2 m lattice), in 3-D at a horizon of 12 segments
+# (K = 34, dim·K 102): the ADMM kernel's memory build, the selection's and the
+# prediction's wide builds (OA = O = 80)
+P8F = dict(world_dimension=3, M=12, communication_range=5.0, max_obstacles=80)
+P8F_WARMUP, P8F_TIMED, P8F_SEPARATE = 2, 5, 1
+
+
+def phase8g_qp_cases():
+    """(tag, build_fleet overrides, agents) of 8g's QPs: DLSC in 3-D at M =
+    12 (dim·K 108), 3-D at M = 16 (138), and 3-D at M = 28 with 160 slots
+    (246: the KKT tiles, Kinv and the rows past shared memory)."""
+    from lsc_dr_planner_tpu_torch.config import PlannerMode
+
+    return (("dk108", dict(world_dimension=3, M=12, planner_mode=PlannerMode.DLSC), 64),
+            ("dk138", dict(world_dimension=3, M=16), 64),
+            ("dk246_O160", dict(world_dimension=3, M=28, communication_range=30.0,
+                                max_obstacles=160), 168))
+
+
+P8G_SLOTS = (64, 65, 80, 160, 256)  # O = OA, fleets of O + 6 agents within 20 m (2-D)
+P8G_SELECT = ((256, 1024, 5000), (32, 33, 80, 128, 255))  # A, OA on the 0.75 m lattice
+
+
+def square_lattice(A, dev):
+    """A square lattice of 0.75 m (exact in binary: its L∞ distances tie)."""
+    side = int(np.ceil(np.sqrt(A)))
+    ij = np.stack(np.meshgrid(np.arange(side), np.arange(side), indexing="ij"), -1)
+    pos = np.concatenate([ij.reshape(-1, 2)[:A] * 0.75, np.full((A, 1), 0.6)], 1)
+    return torch.as_tensor(pos, dtype=torch.float32, device=dev)
+
+
+def phase8g(workload, qp, builds, dev, gpu, srec):
+    """The boundary shapes: (a) 8g's QPs (phase8g_qp_cases): one evolving
+    step of each fleet, `prepare_check` on its preparation, `loop_check`
+    on the next step's QP (its float64 clause), the builds and placements
+    they took; the preparation's global build and the loop's memory build
+    at 246 timed; (b) fleets of O + 6 agents with O = OA slots of
+    P8G_SLOTS: a step through the fused entry, a step with the selection
+    and the prediction as two launches and the prediction on the
+    gathered slots (the multi-device steps' entry), each call held to its
+    plain body (`stage_checks`), `loop_check` at 256 slots (2-D rows past
+    shared memory); (c) the selection alone on the lattice at every A and
+    OA of P8G_SELECT, with and without a range, against the plain body."""
+    from lsc_dr_planner_tpu_torch.ops import qp_cuda, qp_prepare_cuda
+    from lsc_dr_planner_tpu_torch.planner import stages as stage_ops
+
+    out = {"qp": {}, "slots": {}, "selection": {}}
+    lib = qp_cuda.build()
+    for tag, over, A in phase8g_qp_cases():
+        p, planner, fleet, inp = workload.build_fleet(A, device=dev, **over)
+        step = workload.make_evolve_step(p, planner, fleet)
+        inp, _ = step(inp)
+        builds.reset_launches()
+        with Calls(qp, "prepare", keep=1) as preps:
+            inp, conv = step(inp)
+        launches = builds.add_path_launches()
+        cfg, feas_tol = planner.qp_cfg, planner.feas_tol
+        shape = admm_shape(qp, cfg, dev)
+        rec = out["qp"][tag] = {
+            "A": A, "dk": cfg.dim * shape[4], "R": qp.n_rows(cfg), "O": cfg.n_obs,
+            "admm_build": qp_cuda.build_name(lib, *shape),
+            "admm_placement": qp_cuda.placement(lib, *shape),
+            "admm_smem_bytes": lib.admm_smem_bytes(*shape),
+            "admm_blocks_per_sm": lib.admm_blocks_per_sm(*shape),
+            "prepare_build": qp_prepare_cuda.build_name(*shape[:5]),
+            "qp_convergence": float(conv.float().mean()), "kernel_launches": launches}
+        builds.assert_launched(launches, f"phase 8g {tag}")
+        assert launches[rec["admm_build"]] > 0 and launches["qp_prepare"] == 1, (tag, launches)
+        rec["prepare_check"] = prepare_check(qp, qp_prepare_cuda, builds, preps,
+                                             f"phase8g {tag}")
+        li = qp.prepare(cfg, planner._step_impl(fleet, inp, defer_qp=True).qp_inp).loop
+        rec["check"] = loop_check(qp, cfg, li, feas_tol, f"phase8g {tag}", float64_clause=True)
+        builds.note_check(cfg, rec["check"])
+        if tag == "dk246_O160":  # the global builds timed
+            rec["timing"] = admm_timing.timed_call(qp, cfg, li, cfg.max_iter, feas_tol, tag, 3)
+            rec["timing"]["plain_ms"] = cuda_ms(
+                lambda: qp.admm_loop_plain(cfg, li, cfg.max_iter, feas_tol), 1)
+            assert rec["prepare_build"] == "<4,global>", rec
+            t = prepare_kernel_record(qp, qp_prepare_cuda, cfg, preps.calls[0][0][1])
+            rec["prepare_timing"] = t
+            builds.prep_global.update({k: t[k] for k in (
+                "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "bound_share",
+                "library_ms", "smem_bytes", "blocks_per_sm")}, A=A, dk=rec["dk"])
+        print(f"phase8g {tag}", json.dumps({k: v for k, v in rec.items()
+                                            if k not in ("check", "prepare_check")}),
+              f"[{gpu}]")
+    assert out["qp"]["dk246_O160"]["admm_placement"] == {"rows": "global", "kinv": "global"}
+
+    for O in P8G_SLOTS:
+        p, planner, fleet, inp = workload.build_fleet(
+            O + 6, device=dev, max_obstacles=O, communication_range=20.0)
+        assert planner.O == planner.O_agents == O, (O, planner.O)
+        step = workload.make_evolve_step(p, planner, fleet)
+        inp, _ = step(inp)
+        builds.reset_launches()
+        restart(srec, 1)
+        inp, conv = step(inp)
+        with separate_launches(stage_ops):
+            d = planner._step_impl(fleet, inp, defer_qp=True)
+        order, valid = stage_ops.neighbor_slots(inp.pos, 1, planner.stage_cfg)
+        nd = stage_ops.gather_neighbors(fleet, inp, order, valid)
+        stage_ops.step_front(planner.stage_cfg, fleet, inp, neighbors=nd)
+        launches = builds.add_path_launches()
+        rec = out["slots"][O] = {
+            "A": O + 6, "O": O, "qp_convergence": float(conv.float().mean()),
+            "kernel_launches": launches, "stage_checks": stage_checks(builds, srec,
+                                                                      f"phase8g O={O}")}
+        assert launches["front_with_neighbors_wide"] == 1 and launches["neighbor_slots_wide"] == 2
+        assert launches["step_front_wide"] == (2 if O > 64 else 0), launches
+        if O == P8G_SLOTS[-1]:
+            cfg = planner.qp_cfg
+            shape = admm_shape(qp, cfg, dev)
+            rec["admm_placement"] = qp_cuda.placement(lib, *shape)
+            assert rec["admm_placement"]["rows"] == "global", rec
+            rec["check"] = loop_check(qp, cfg, qp.prepare(cfg, d.qp_inp).loop, planner.feas_tol,
+                                      f"phase8g O={O}")
+            builds.note_check(cfg, rec["check"])
+        print(f"phase8g O={O}", json.dumps({k: v for k, v in rec.items() if k != "check"}))
+
+    cfg0 = planner.stage_cfg
+    check = {"entry": "neighbor_slots", "calls": 0, "elements": 0, "max_abs_err": 0.0,
+             "wide": True}
+    for A in P8G_SELECT[0]:
+        pos = square_lattice(A, dev)
+        for OA in P8G_SELECT[1]:
+            for rng in (3.0, -1.0):
+                cfg = dataclasses.replace(cfg0, OA=OA, comm_range=rng, cache={})
+                got = stage_ops.neighbor_slots(pos, 1, cfg)
+                want = stage_ops.neighbor_slots(pos, 1, cfg, plain=True)
+                n = sum(differing(x, y) for x, y in zip(got, want))
+                out["selection"][f"A={A} OA={OA} range={rng}"] = n
+                assert n == 0, (A, OA, rng, n)
+                if OA > 32:
+                    check["calls"] += 1
+                    check["elements"] += sum(x.numel() for x in got)
+    torch.cuda.synchronize()
+    builds.note_stage_check(check, "phase8g lattice")
+    print("phase8g selection (differing elements)", json.dumps(out["selection"]))
+    return out
 
 
 # ---- phase 9: forest flights in the new modes ----------------------------
@@ -3448,7 +3748,7 @@ def main():
     print("ptxas", json.dumps(kernels_ptxas))
     builds = Builds(qp, qp_cuda, sfc_cuda, hull_cuda, geometry, lsc, sfc, dev, qp_prepare_cuda,
                     stage_ops, step_cuda)
-    print("builds", json.dumps({k: v["dk"] for k, v in builds.rec.items()}))
+    print("builds", json.dumps(list(builds.rec)))
     l2_ns = sfc_cuda.l2_round_trip_ns(dev)
     print(f"one L2 round trip (sfc_cuda.l2_round_trip_ns): {l2_ns:.1f} ns [{gpu}]")
     record["l2_round_trip_ns"] = l2_ns
@@ -3471,7 +3771,7 @@ def main():
     print(f"phase3 itdone agreement {itd_agree:.4f}, iters {int(got[4])} / {int(want[4])}")
     assert itd_agree >= 0.995, itd_agree
     record["phase3"] = {"max_abs_err": max_abs_err, "itdone_agreement": itd_agree}
-    builds.rec[builds.name(cfg)]["max_abs_err"] = max_abs_err
+    builds.build_rec(cfg)["max_abs_err"] = max_abs_err
 
     # many chunks, global exit before max_iter (A=37: no block multiple)
     cfg37, qp_inp37, tol37 = admm_timing.bench_qp(workload, 37, dev)
@@ -3776,6 +4076,20 @@ def main():
     record["phase8"]["8e"]["stage_checks"] = stage_checks(builds, srec, "phase8e")
     phase_done("8")
 
+    # ---- 8f, 8g: the shapes past the narrow kernels' builds ---------------
+    print("phase8f: LSC-DR 3-D, M=12, every agent within 5 m an obstacle (80 slots)", flush=True)
+    r = record["phase8"]["8f"] = fused_mode(
+        workload, qp, builds, dev, gpu, "8f", P8F, float64_clause=True, l2_ns=l2_ns,
+        warmup=P8F_WARMUP, timed=P8F_TIMED, stage_recs=srec, separate=P8F_SEPARATE)
+    assert r["build"] == "<256,0>" and r["dk"] == 102, (r["build"], r["dk"])
+    assert r["kernel_launches"]["<256,0>"] > 0, r["kernel_launches"]
+    assert r["kernel_launches"]["front_with_neighbors_wide"] == P8F_TIMED, r["kernel_launches"]
+    assert r["separate"]["kernel_launches"]["neighbor_slots_wide"] == P8F_SEPARATE
+    assert r["separate"]["kernel_launches"]["step_front_wide"] == P8F_SEPARATE
+    phase_done("8f")
+    record["phase8"]["8g"] = phase8g(workload, qp, builds, dev, gpu, srec)
+    phase_done("8g")
+
     # ---- 9. forest flights in the new modes ------------------------------
     record["phase9"] = {}
     for tag, overrides, obstacles, max_iter in phase9_flights():
@@ -3941,14 +4255,31 @@ def main():
         # torch.cholesky_inverse(torch.linalg.cholesky_ex(Kmat).L): the inverse alone
         "library_ms": r["library_ms"],
     })
+    r = builds.prep_global
+    print("qp_prepare<4,global>", json.dumps(r))
+    assert r["launches"] > 0 and r["ms"] is not None and r["calls_checked"] > 0, r
+    kernels.append({
+        "name": "qp_prepare<4,global>", "route": "cuda",
+        "source": "lsc_dr_planner_tpu_torch/csrc/qp_prepare.cu",
+        "replaces": "lsc_dr_planner_tpu/ops/qp.py:474",
+        **{k: r[k] for k in ("launches", "max_abs_err", "ms", "device_ms", "plain_ms",
+                             "bound_ms", "bound_by", "bound_share", "calls_checked",
+                             "agents_checked", "elements_checked", "max_share_of_tolerance",
+                             "max_kinv_ratio", "smem_bytes", "blocks_per_sm", "A", "dk")},
+        "ptxas": kernels_ptxas.get("qp_prepare_kernel<4,1>"),
+        "library_ms": r["library_ms"],
+    })
     for name, replaces in (
             # the JAX package's code each replaces, jnp and lax in its jitted step;
             # no Pallas original
             ("neighbor_slots", "lsc_dr_planner_tpu/planner/pipeline.py:226"),
             ("step_front", "lsc_dr_planner_tpu/planner/pipeline.py:292"),
             ("front_with_neighbors", "lsc_dr_planner_tpu/planner/pipeline.py:226-445"),
-            ("goal_qp_inputs", "lsc_dr_planner_tpu/planner/goal.py:26")):
-        r = builds.stage[name]
+            ("goal_qp_inputs", "lsc_dr_planner_tpu/planner/goal.py:26"),
+            ("neighbor_slots<wide>", "lsc_dr_planner_tpu/planner/pipeline.py:226"),
+            ("step_front<wide>", "lsc_dr_planner_tpu/planner/pipeline.py:292"),
+            ("front_with_neighbors<wide>", "lsc_dr_planner_tpu/planner/pipeline.py:226-445")):
+        r = builds.wide[name[:-6]] if name.endswith("<wide>") else builds.stage[name]
         print(name, json.dumps(r))
         assert r["launches"] > 0 and r["ms"] is not None and r["calls_checked"] > 0, (name, r)
         kernels.append({

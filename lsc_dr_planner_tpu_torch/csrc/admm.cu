@@ -37,29 +37,45 @@
 //
 // The layout. One agent per block, so that the small batches of the simulator
 // and the rescue (10–64 agents) run each iteration at one agent's latency, and
-// the A=1024 bench batch runs in one wave when 8 blocks fit on an SM. Kinv
-// lives in registers: thread 2i+h holds half h of row i, so a block of NT
-// threads takes dim·K ≤ NT/2 rows of up to KC columns each. Two builds:
+// the A=1024 bench batch runs in one wave when 8 blocks fit on an SM. Three
+// builds, chosen from the shape (admm_threads, admm_columns), never from a
+// failure:
 //   <128, 30>  dim·K ≤ 60: 2-D, 56 for LSC (K = 28, the terminal derivatives
-//              pinned) and 60 for DLSC, BVC and RSFC (K = 30); the Kinv loop
+//              pinned) and 60 for DLSC, BVC and RSFC (K = 30); Kinv in
+//              registers, thread 2i+h holding half h of row i; the Kinv loop
 //              stops at the row's own columns, so dim·K 56 runs the additions
 //              of a 28-column build in the same order;
 //   <256, 48>  dim·K ≤ 96: 3-D (84 for LSC, 90 for the other modes), 256
 //              threads with up to 48 Kinv registers each; __launch_bounds__
 //              asks for three blocks per SM, which caps a thread at 85
-//              registers (the 128-thread build asks for eight: 64).
-// A larger dim·K is refused (admm_threads returns 0). Per agent, shared
-// memory holds z, y, A·xi and l over all R rows, u over the static rows only
-// (the LSC rows are one-sided: prepare() makes their u +1e20 less an offset,
-// which no iterate reaches, so the kernel takes it as +inf), the normals and a
-// few dk- and dim·MN-vectors: 27.8 KB in the 2-D bench shape (dim=2, K=28,
-// dk=56, O=16, M=10, N=6, R=960+410), 34.0 KB in 3-D (dk=90, R=960+615). ρ is
-// one constant for the LSC rows and a shared row vector for the static rows
-// (the per-family ρ of _solver_statics, as the Pallas kernel takes it);
-// `scale` is read at the exit tests only. The shared operators (N3k and its
-// transpose, the stencil tables: 18 KB in 2-D) are read through L1 by every
-// block; copying them into each block's shared memory would cost the
-// residency they buy. The 3-D z stencils are rows of the same tables.
+//              registers (the 128-thread build asks for eight: 64);
+//   <256, 0>   any other shape (3-D from M = 11 on: dim·K 102 at M = 12,
+//              246 at M = 28; or rows past shared memory), the memory build:
+//              Kinv is read where it lies, from shared memory where it fits
+//              beside the rows (41.6 KB at dim·K 102), else through L1 and
+//              L2; a thread pair takes rows i, i + 128, ... of each product.
+//              The rows' state goes in shared memory where it fits (the
+//              limit the device reports, 227 KB on the H100), else it stays
+//              in global memory, updated in place in the loop's own z, y and
+//              A·xi buffers (l, u and the normals read where they lie). Two
+//              blocks per SM at most (128 registers). At dim·K 102 and 6,534
+//              rows (A=1024, 200 iterations; 166 KB a block, one block an
+//              SM) the shared copy of Kinv takes 45.0–45.1 ms on the H100
+//              against 48.0–48.1 ms for Kinv through L1 and L2 (PERF.md §6,
+//              the memory build's row and its placement A/B).
+// The first two need their rows in shared memory; a shape whose rows do not
+// fit there goes to the memory build. Per agent, shared memory holds z, y,
+// A·xi and l over all R rows, u over the static rows only (the LSC rows are
+// one-sided: prepare() makes their u +1e20 less an offset, which no iterate
+// reaches, so the kernel takes it as +inf), the normals and a few dk- and
+// dim·MN-vectors: 27.8 KB in the 2-D bench shape (dim=2, K=28, dk=56, O=16,
+// M=10, N=6, R=960+410), 34.0 KB in 3-D (dk=90, R=960+615). ρ is one
+// constant for the LSC rows and a shared row vector for the static rows (the
+// per-family ρ of _solver_statics, as the Pallas kernel takes it); `scale` is
+// read at the exit tests only. The shared operators (N3k and its transpose,
+// the stencil tables: 18 KB in 2-D) are read through L1 by every block;
+// copying them into each block's shared memory would cost the residency they
+// buy. The 3-D z stencils are rows of the same tables.
 //
 // Every phase spreads over the block: the Kinv matvec and the N3k adjoint
 // product run two threads per output, combined with one warp shuffle; the
@@ -109,7 +125,7 @@
 namespace {
 
 constexpr int kWidth = 3;  // stencil nonzeros per static row (qp.STENCIL_WIDTH)
-constexpr int kMaxDk = 96;  // the largest dim·K of any build
+constexpr int kMaxRegDk = 96;  // the largest dim·K of the register builds
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Args {
@@ -140,6 +156,7 @@ struct Args {
   int* itdone;            // [A] iteration count at the first exit test passed
   int* done_count;        // [n_chunks] agents done at each test, zeroed
   int dim, O, M, N, K, R_stat, max_iter, chunk;  // chunk: iterations between tests
+  int rows_smem, kinv_smem;  // the memory build's placement (see Place)
   float rho_lsc, stop_tol, sigma, alpha, one_minus_alpha, eps_abs;
 };
 
@@ -165,12 +182,19 @@ __host__ __device__ inline Dims make_dims(int dim, int O, int M, int N, int K,
   return D;
 }
 
-// VD [dim*MN doubles]; XTD [dk doubles]; Z, Y, AX, LN [R]; UN [R_stat];
-// NRM [O*M*dim]; XI, XIP, QN [dk]; VA [dim*MN]; RED [8 per warp]; MOF [MN]
-// (int).
-__host__ __device__ inline size_t smem_floats(const Dims& D, int threads) {
-  return 4 * (size_t)D.R + D.R_stat + (size_t)D.O * D.M * D.dim + 5 * (size_t)D.dk +
-         3 * (size_t)D.dim * D.MN + 8 * (threads / 32) + D.MN;
+// Where the memory build keeps an agent's rows and its Kinv: in shared memory
+// (1) or global memory (0). The register builds keep the rows in shared memory.
+struct Place {
+  int rows_smem, kinv_smem;
+};
+
+// VD [dim*MN doubles]; XTD [dk doubles]; with the rows in shared memory Z, Y,
+// AX, LN [R], UN [R_stat], NRM [O*M*dim]; XI, XIP, QN [dk]; VA [dim*MN]; RED
+// [8 per warp]; MOF [MN] (int); KI [dk*dk] where Kinv is in shared memory.
+__host__ __device__ inline size_t smem_floats(const Dims& D, int threads, Place P) {
+  const size_t rows = P.rows_smem ? 4 * (size_t)D.R + D.R_stat + (size_t)D.O * D.M * D.dim : 0;
+  return rows + 5 * (size_t)D.dk + 3 * (size_t)D.dim * D.MN + 8 * (threads / 32) + D.MN +
+         (P.kinv_smem ? (size_t)D.dk * D.dk : 0);
 }
 
 __host__ __device__ inline int admm_n_chunks(int max_iter, int chunk) {
@@ -251,12 +275,12 @@ __device__ void control_points(const Dims& D, const T* x, const float* __restric
 
 // Aᵀw for the row cotangent w = ρz − y (DUAL: w = y). The LSC rows through
 // the normals and the static rows through the transposed stencils go into one
-// control-point accumulator VA [dim*MN]; one N3k product then gives ξ-space.
-// Returns output ki (= threadIdx.x / 2) in double, on both threads of the
-// pair, 0 beyond dk.
+// control-point accumulator VA [dim*MN]; one N3k product then gives ξ-space
+// (adjoint_row). Ends with a barrier.
 template <int NT, bool DUAL>
-__device__ double adjoint(const Dims& D, const Args& a, const float* Z, const float* Y,
-                         const float* NRM, const int* MOF, float* VA, int ki, int kh) {
+__device__ __forceinline__ void adjoint_points(const Dims& D, const Args& a, const float* Z,
+                                               const float* Y, const float* NRM, const int* MOF,
+                                               float* VA) {
   const float* Zs = Z + D.R_lsc;
   const float* Ys = Y + D.R_lsc;
   for (int i = threadIdx.x; i < D.dim * D.MN; i += NT) {
@@ -276,6 +300,13 @@ __device__ double adjoint(const Dims& D, const Args& a, const float* Z, const fl
     VA[i] = (float)acc;
   }
   __syncthreads();
+}
+
+// Output ki of Aᵀw from VA, in double, on both threads of the pair (kh: the
+// thread's half of the control points), 0 beyond dk. Every lane of the warp
+// calls it (one shuffle).
+__device__ __forceinline__ double adjoint_row(const Dims& D, const Args& a, const float* VA,
+                                              int ki, int kh) {
   double acc = 0.;
   if (ki < D.dk) {
     const int d = ki / D.K, k = ki - d * D.K;
@@ -284,6 +315,14 @@ __device__ double adjoint(const Dims& D, const Args& a, const float* Z, const fl
     for (int mn = lo; mn < hi; ++mn) acc += (double)__ldg(a.N3kT + mn * D.K + k) * (double)va[mn];
   }
   return acc + __shfl_xor_sync(kFull, acc, 1);
+}
+
+// Output ki (= threadIdx.x / 2) of Aᵀw, in double (the register builds).
+template <int NT, bool DUAL>
+__device__ double adjoint(const Dims& D, const Args& a, const float* Z, const float* Y,
+                         const float* NRM, const int* MOF, float* VA, int ki, int kh) {
+  adjoint_points<NT, DUAL>(D, a, Z, Y, NRM, MOF, VA);
+  return adjoint_row(D, a, VA, ki, kh);
 }
 
 // v[0..6] maxima, v[7] a sum, over the block; every thread gets the result,
@@ -310,13 +349,16 @@ __device__ void block_reduce8(float (&v)[8], float* RED) {
 }
 
 // One chunk (a.chunk iterations and the exit tests) of every agent's loop,
-// one agent per block of NT threads; KC >= ceil(dk / 2) Kinv columns per
-// thread in registers (dk <= NT/2 and ceil(dk/2) <= KC). Launch ck starts from the inputs (ck = 0) or from the
-// state the previous launch stored. When every agent was done at the previous
-// test (the plain loop's global exit) it returns at once and marks its own
-// test done for the whole fleet too, so that no later launch resumes the loop.
+// one agent per block of NT threads. KC > 0: KC >= ceil(dk / 2) Kinv columns
+// per thread in registers (dk <= NT/2), the rows in shared memory; KC = 0:
+// the memory build (Kinv and the rows where a.kinv_smem and a.rows_smem put
+// them, any dk). Launch ck starts from the inputs (ck = 0) or from the state
+// the previous launch stored. When every agent was done at the previous test
+// (the plain loop's global exit) it returns at once and marks its own test
+// done for the whole fleet too, so that no later launch resumes the loop.
 template <int NT, int KC>
-__global__ void __launch_bounds__(NT, NT == 128 ? 8 : 3) admm_chunk_kernel(Args a, int ck) {
+__global__ void __launch_bounds__(NT, NT == 128 ? 8 : KC ? 3 : 2)
+admm_chunk_kernel(Args a, int ck) {
   if (ck > 0 && a.done_count[ck - 1] == (int)gridDim.x) {
     if (threadIdx.x == 0 && blockIdx.x == 0) a.done_count[ck] = gridDim.x;
     return;
@@ -325,6 +367,8 @@ __global__ void __launch_bounds__(NT, NT == 128 ? 8 : 3) admm_chunk_kernel(Args 
   const Dims D = make_dims(a.dim, a.O, a.M, a.N, a.K, a.R_stat);
   const int t = threadIdx.x;
   const size_t agent = blockIdx.x;
+  // the rows' state in shared memory (always in the register builds)
+  const bool rows_smem = KC > 0 || a.rows_smem;
 
   // The doubles first. From the adjoint to the Kinv product VD is free and
   // holds rhs (dk ≤ dim·MN: K ≤ MN, N3k being a basis of a subspace of the MN
@@ -334,31 +378,52 @@ __global__ void __launch_bounds__(NT, NT == 128 ? 8 : 3) admm_chunk_kernel(Args 
   double* XTD = VD + D.dim * D.MN;
   float* RHS = reinterpret_cast<float*>(XTD);
   float* XT = RHS + D.dk;
-  float* Z = XT + D.dk;
-  float* Y = Z + D.R;
-  float* AX = Y + D.R;
-  float* LN = AX + D.R;
-  float* UN = LN + D.R;  // static rows only
-  float* NRM = UN + D.R_stat;
-  float* XI = NRM + D.O * D.M * D.dim;
+  float* next = XT + D.dk;
+  float *Z, *Y, *AX, *LN, *UN, *NRM;  // UN: the static rows only
+  if (rows_smem) {
+    Z = next;
+    Y = Z + D.R;
+    AX = Y + D.R;
+    LN = AX + D.R;
+    UN = LN + D.R;
+    NRM = UN + D.R_stat;
+    next = NRM + D.O * D.M * D.dim;
+  } else {  // in place in global memory
+    Z = a.z + agent * D.R;
+    Y = a.y + agent * D.R;
+    AX = a.ax + agent * D.R;
+    LN = const_cast<float*>(a.ln) + agent * D.R;
+    UN = const_cast<float*>(a.un) + agent * D.R + D.R_lsc;
+    NRM = const_cast<float*>(a.normals) + agent * D.O * D.M * D.dim;
+  }
+  float* XI = next;
   float* XIP = XI + D.dk;
   float* QN = XIP + D.dk;
   float* VA = QN + D.dk;
   float* RED = VA + D.dim * D.MN;
   int* MOF = reinterpret_cast<int*>(RED + 8 * (NT / 32));
+  float* KI = reinterpret_cast<float*>(MOF + D.MN);  // the memory build's Kinv in shared memory
 
   const float* xi_in = ck == 0 ? a.xi0 : a.xi;
   const float* z_in = ck == 0 ? a.z0 : a.z;
   const float* y_in = ck == 0 ? a.y0 : a.y;
-  const float* nrm_g = a.normals + agent * D.O * D.M * D.dim;
-  for (int i = t; i < D.O * D.M * D.dim; i += NT) NRM[i] = nrm_g[i];
-  for (int r = t; r < D.R; r += NT) {
-    const size_t g = agent * D.R + r;
-    Z[r] = z_in[g];
-    Y[r] = y_in[g];
-    LN[r] = a.ln[g];
-    if (ck > 0) AX[r] = a.ax[g];
-    if (r >= D.R_lsc) UN[r - D.R_lsc] = a.un[g];
+  if (rows_smem) {
+    const float* nrm_g = a.normals + agent * D.O * D.M * D.dim;
+    for (int i = t; i < D.O * D.M * D.dim; i += NT) NRM[i] = nrm_g[i];
+    for (int r = t; r < D.R; r += NT) {
+      const size_t g = agent * D.R + r;
+      Z[r] = z_in[g];
+      Y[r] = y_in[g];
+      LN[r] = a.ln[g];
+      if (ck > 0) AX[r] = a.ax[g];
+      if (r >= D.R_lsc) UN[r - D.R_lsc] = a.un[g];
+    }
+  } else if (ck == 0) {
+    for (int r = t; r < D.R; r += NT) {
+      const size_t g = agent * D.R + r;
+      Z[r] = z_in[g];
+      Y[r] = y_in[g];
+    }
   }
   for (int j = t; j < D.dk; j += NT) {
     XI[j] = xi_in[agent * D.dk + j];
@@ -366,13 +431,25 @@ __global__ void __launch_bounds__(NT, NT == 128 ? 8 : 3) admm_chunk_kernel(Args 
     QN[j] = a.qn[agent * D.dk + j];
   }
   for (int mn = t; mn < D.MN; mn += NT) MOF[mn] = mn / D.N;
-  // Kinv row ki, columns [c0, c0 + ncols), in registers
+  // Kinv row ki, columns [c0, c0 + ncols): in registers (the register
+  // builds), or read from KI, rows ki, ki + NT/2, ... (the memory build)
   const int ki = t >> 1, kh = t & 1, c0 = kh * D.half;
-  const int ncols = ki < D.dk ? min(D.half, D.dk - c0) : 0;
-  const float* kinv_g = a.Kinv + agent * D.dk * D.dk + (size_t)ki * D.dk + c0;
-  float kin[KC];
+  const float* kinv_g = a.Kinv + agent * D.dk * D.dk;
+  float kin[KC > 0 ? KC : 1];
+  int ncols;
+  if constexpr (KC > 0) {
+    ncols = ki < D.dk ? min(D.half, D.dk - c0) : 0;
 #pragma unroll
-  for (int c = 0; c < KC; ++c) kin[c] = c < ncols ? kinv_g[c] : 0.f;
+    for (int c = 0; c < KC; ++c) kin[c] = c < ncols ? kinv_g[(size_t)ki * D.dk + c0 + c] : 0.f;
+  } else {
+    ncols = min(D.half, D.dk - c0);
+    if (a.kinv_smem) {
+      for (int i = t; i < D.dk * D.dk; i += NT) KI[i] = kinv_g[i];
+    } else {
+      KI = const_cast<float*>(kinv_g);
+    }
+  }
+  const int row_sets = KC > 0 ? 1 : (D.dk + NT / 2 - 1) / (NT / 2);  // rows a thread pair takes
   __syncthreads();
   if (ck == 0) {  // A·xi of the warm start
     control_points<NT>(D, XI, a.N3k, VD);
@@ -385,16 +462,42 @@ __global__ void __launch_bounds__(NT, NT == 128 ? 8 : 3) admm_chunk_kernel(Args 
   const float alpha = a.alpha, beta = a.one_minus_alpha;
   for (int it = 0; it < a.chunk; ++it) {
     // rhs = σξ − q + Aᵀ(ρz − y), in double: q and Aᵀ(ρz − y) cancel
-    const double g = adjoint<NT, false>(D, a, Z, Y, NRM, MOF, VA, ki, kh);
-    if (kh == 0 && ki < D.dk) RHSD[ki] = ((double)a.sigma * XI[ki] - (double)QN[ki]) + g;
+    if constexpr (KC > 0) {
+      const double g = adjoint<NT, false>(D, a, Z, Y, NRM, MOF, VA, ki, kh);
+      if (kh == 0 && ki < D.dk) RHSD[ki] = ((double)a.sigma * XI[ki] - (double)QN[ki]) + g;
+    } else {
+      adjoint_points<NT, false>(D, a, Z, Y, NRM, MOF, VA);
+      for (int u = 0; u < row_sets; ++u) {
+        const int k = ki + u * (NT / 2);
+        const double g = adjoint_row(D, a, VA, k, kh);
+        if (kh == 0 && k < D.dk) RHSD[k] = ((double)a.sigma * XI[k] - (double)QN[k]) + g;
+      }
+    }
     __syncthreads();
     // ξ̃ = Kinv·rhs, in double
-    double acc = 0.;
+    if constexpr (KC > 0) {
+      double acc = 0.;
 #pragma unroll
-    for (int c = 0; c < KC; ++c)
-      if (c < ncols) acc = fma(to_double_here(kin[c]), RHSD[c0 + c], acc);
-    acc += __shfl_xor_sync(kFull, acc, 1);
-    if (kh == 0 && ki < D.dk) XTD[ki] = acc;
+      for (int c = 0; c < KC; ++c)
+        if (c < ncols) acc = fma(to_double_here(kin[c]), RHSD[c0 + c], acc);
+      acc += __shfl_xor_sync(kFull, acc, 1);
+      if (kh == 0 && ki < D.dk) XTD[ki] = acc;
+    } else {
+      for (int u = 0; u < row_sets; ++u) {
+        const int k = ki + u * (NT / 2);
+        double acc = 0.;
+        if (k < D.dk) {
+          const float* kr = KI + (size_t)k * D.dk + c0;
+          if (a.kinv_smem) {
+            for (int c = 0; c < ncols; ++c) acc = fma((double)kr[c], RHSD[c0 + c], acc);
+          } else {
+            for (int c = 0; c < ncols; ++c) acc = fma((double)__ldg(kr + c), RHSD[c0 + c], acc);
+          }
+        }
+        acc += __shfl_xor_sync(kFull, acc, 1);
+        if (kh == 0 && k < D.dk) XTD[k] = acc;
+      }
+    }
     __syncthreads();
     // control points of ξ̃; ξ ← αξ̃ + (1 − α)ξ
     control_points<NT>(D, XTD, a.N3k, VD);
@@ -422,8 +525,17 @@ __global__ void __launch_bounds__(NT, NT == 128 ? 8 : 3) admm_chunk_kernel(Args 
     const float vr = fmaxf(fmaxf(LN[r] - axr, axr - hi), 0.f);
     v[0] = fmaxf(v[0], vr / scale_g[r]);
   }
-  const float aty_k = (float)adjoint<NT, true>(D, a, Z, Y, NRM, MOF, VA, ki, kh);  // Aᵀy
-  if (kh == 0 && ki < D.dk) RHS[ki] = aty_k;
+  if constexpr (KC > 0) {
+    const float aty_k = (float)adjoint<NT, true>(D, a, Z, Y, NRM, MOF, VA, ki, kh);  // Aᵀy
+    if (kh == 0 && ki < D.dk) RHS[ki] = aty_k;
+  } else {
+    adjoint_points<NT, true>(D, a, Z, Y, NRM, MOF, VA);
+    for (int u = 0; u < row_sets; ++u) {
+      const int k = ki + u * (NT / 2);
+      const float aty_k = (float)adjoint_row(D, a, VA, k, kh);
+      if (kh == 0 && k < D.dk) RHS[k] = aty_k;
+    }
+  }
   const float* pn_g = a.Pn + agent * D.K * D.K;
   for (int j = t; j < D.dk; j += NT) {  // P·ξ
     const int d = j / D.K, k = j - d * D.K;
@@ -448,11 +560,13 @@ __global__ void __launch_bounds__(NT, NT == 128 ? 8 : 3) admm_chunk_kernel(Args 
   const float dxi = v[5], xim = v[6], obj = v[7];
 
   for (int j = t; j < D.dk; j += NT) a.xi[agent * D.dk + j] = XI[j];
-  for (int r = t; r < D.R; r += NT) {
-    const size_t g = agent * D.R + r;
-    a.z[g] = Z[r];
-    a.y[g] = Y[r];
-    a.ax[g] = AX[r];
+  if (rows_smem) {
+    for (int r = t; r < D.R; r += NT) {
+      const size_t g = agent * D.R + r;
+      a.z[g] = Z[r];
+      a.y[g] = Y[r];
+      a.ax[g] = AX[r];
+    }
   }
   if (t == 0) {
     float best = ck == 0 ? INFINITY : a.best[agent];
@@ -506,26 +620,63 @@ int blocks_per_sm(size_t smem) {
   return err == cudaSuccess ? n : -(int)err;
 }
 
+// The opt-in shared memory a block may take on the current device, bytes.
+size_t smem_limit() {
+  int dev = 0, bytes = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
+    return 48 * 1024;
+  return (size_t)bytes;
+}
+
+// The build that takes a shape (see "The layout"): its threads, Kinv columns
+// in registers (0: the memory build) and placement, and its shared memory.
+struct Build {
+  int threads, columns;
+  Place place;
+  size_t smem;
+};
+
+Build build_for(const Dims& D) {
+  if (D.dk < 1) return Build{0, 0, {0, 0}, 0};
+  const size_t limit = smem_limit();
+  const Place rows{1, 0};
+  if (D.dk <= kMaxRegDk) {
+    const int threads = D.dk <= 60 ? 128 : 256;
+    const size_t smem = sizeof(float) * smem_floats(D, threads, rows);
+    if (smem <= limit) return Build{threads, D.dk <= 60 ? 30 : 48, rows, smem};
+  }
+  for (const Place p : {Place{1, 1}, rows, Place{0, 1}, Place{0, 0}}) {
+    const size_t smem = sizeof(float) * smem_floats(D, 256, p);
+    if (smem <= limit) return Build{256, 0, p, smem};
+  }
+  return Build{256, 0, {0, 0}, sizeof(float) * smem_floats(D, 256, Place{0, 0})};
+}
+
 }  // namespace
 
-// Threads per block of the build that takes dk = dim*K (see "The layout"),
-// or 0 if no build takes it.
-extern "C" int admm_threads(int dk) {
-  return dk < 1 ? 0 : dk <= 60 ? 128 : dk <= kMaxDk ? 256 : 0;
+// Threads per block of the build that takes the shape (dim, O, M, N, K,
+// R_stat) (see "The layout"), or 0 if dim·K < 1.
+extern "C" int admm_threads(int dim, int O, int M, int N, int K, int R_stat) {
+  return build_for(make_dims(dim, O, M, N, K, R_stat)).threads;
 }
 
-// Kinv columns per thread (registers) of that build, or 0.
-extern "C" int admm_columns(int dk) {
-  return dk < 1 ? 0 : dk <= 60 ? 30 : dk <= kMaxDk ? 48 : 0;
+// Kinv columns per thread (registers) of that build; 0 for the memory build.
+extern "C" int admm_columns(int dim, int O, int M, int N, int K, int R_stat) {
+  return build_for(make_dims(dim, O, M, N, K, R_stat)).columns;
 }
 
-// The largest dim*K any build takes.
-extern "C" int admm_max_dk() { return kMaxDk; }
+// The memory build's placement for the shape: 1 for the rows in shared
+// memory, plus 2 for Kinv in shared memory (the register builds: 1).
+extern "C" int admm_placement(int dim, int O, int M, int N, int K, int R_stat) {
+  const Place p = build_for(make_dims(dim, O, M, N, K, R_stat)).place;
+  return p.rows_smem + 2 * p.kinv_smem;
+}
 
 // Queues the whole loop on `stream`: one launch per chunk of `chunk` iterations,
 // one block per agent.
-// Returns the CUDA error code (0 on success, -1 for a dk the kernel does not
-// take). No synchronisation.
+// Returns the CUDA error code (0 on success, -1 for a dk < 1). No
+// synchronisation.
 extern "C" int admm_launch(const float* normals, const float* Kinv, const float* Pn,
                            const float* qn, const float* ln, const float* un,
                            const float* scale, const float* xi0, const float* z0,
@@ -537,36 +688,34 @@ extern "C" int admm_launch(const float* normals, const float* Kinv, const float*
                            int K, int R_stat, int max_iter, int chunk, float rho_lsc,
                            float stop_tol, float sigma, float alpha, float one_minus_alpha,
                            float eps_abs, void* stream) {
+  const Dims D = make_dims(dim, O, M, N, K, R_stat);
+  const Build b = build_for(D);
   Args a{normals, Kinv,    Pn,       qn,      ln,      un,   scale,      xi0,
          z0,      y0,      st_idx,   st_coef, rho_stat, adj_ptr, adj_row, adj_coef,
          N3k,     N3kT,    xi,       z,       y,       ax,   best,       noimp,
          itdone,  done_count, dim,   O,       M,       N,    K,          R_stat,
-         max_iter, chunk,  rho_lsc,  stop_tol, sigma,  alpha, one_minus_alpha, eps_abs};
-  const Dims D = make_dims(dim, O, M, N, K, R_stat);
-  const int threads = admm_threads(D.dk);
-  const size_t smem = sizeof(float) * smem_floats(D, threads);
+         max_iter, chunk, b.place.rows_smem, b.place.kinv_smem,
+         rho_lsc,  stop_tol, sigma,  alpha, one_minus_alpha, eps_abs};
   const cudaStream_t st = (cudaStream_t)stream;
-  switch (admm_columns(D.dk)) {
-    case 30: return launch_all<128, 30>(a, A, smem, st);
-    case 48: return launch_all<256, 48>(a, A, smem, st);
-    default: return -1;
+  switch (b.columns) {
+    case 30: return launch_all<128, 30>(a, A, b.smem, st);
+    case 48: return launch_all<256, 48>(a, A, b.smem, st);
+    default: return b.threads ? launch_all<256, 0>(a, A, b.smem, st) : -1;
   }
 }
 
 // Dynamic shared memory one block needs, in bytes (for reports and checks).
 extern "C" long long admm_smem_bytes(int dim, int O, int M, int N, int K, int R_stat) {
-  const Dims D = make_dims(dim, O, M, N, K, R_stat);
-  return (long long)(sizeof(float) * smem_floats(D, admm_threads(D.dk)));
+  return (long long)build_for(make_dims(dim, O, M, N, K, R_stat)).smem;
 }
 
 // Resident blocks (agents) per SM for this shape, from
 // cudaOccupancyMaxActiveBlocksPerMultiprocessor; negative: minus the CUDA error.
 extern "C" int admm_blocks_per_sm(int dim, int O, int M, int N, int K, int R_stat) {
-  const Dims D = make_dims(dim, O, M, N, K, R_stat);
-  const size_t smem = sizeof(float) * smem_floats(D, admm_threads(D.dk));
-  switch (admm_columns(D.dk)) {
-    case 30: return blocks_per_sm<128, 30>(smem);
-    case 48: return blocks_per_sm<256, 48>(smem);
-    default: return -1;
+  const Build b = build_for(make_dims(dim, O, M, N, K, R_stat));
+  switch (b.columns) {
+    case 30: return blocks_per_sm<128, 30>(b.smem);
+    case 48: return blocks_per_sm<256, 48>(b.smem);
+    default: return b.threads ? blocks_per_sm<256, 0>(b.smem) : -1;
   }
 }

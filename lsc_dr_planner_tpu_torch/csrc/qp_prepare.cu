@@ -78,6 +78,14 @@
 //   - The tiles are swizzled (column c of row r at c ^ 4·((r >> 1) & 1)), so
 //     the fragments' loads, a row of A or a column of B per quad, meet no
 //     bank conflict.
+// Three builds, chosen from the shape (kernel_for): <8> up to 8 tile rows,
+// <4> above while the tiles fit in shared memory (dim·K 102 at M = 12 in
+// 3-D: 13 tile rows, 62 KB a block, 3 blocks an SM), and <4, global> beyond
+// (from ~216 in 3-D: 254 KB of tiles at dim·K 246): the same algorithm on
+// the agent's tiles in a float64 workspace in global memory (the wrapper's,
+// A x 64·n_tiles doubles), read through L1 and L2, with the normals and Pn
+// read back from the agent's own outputs; shared memory keeps the staged
+// column, D⁻¹ and the float32 vectors. Device memory is the only limit.
 // After the float32 stages no block barrier is left but the one named
 // barrier: the factor warp waits only on itself, where a right-looking
 // factor and inverse a column at a time over the block take 2·dk block
@@ -99,7 +107,6 @@ constexpr int kThreads = 128;
 constexpr int kSmallTiles = 8;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBarJoin = 1;        // the factor and row warps' named barrier (0 is __syncthreads)
-constexpr int kMaxDk = 96;  // the largest dim·K taken (the ADMM kernel's)
 constexpr int kMaxDim = 3;
 constexpr int kSegRows = 8;  // z0's LSC rows of a segment, taken 8 at a time
 constexpr int kWidth = 3;   // stencil nonzeros per static row (qp.STENCIL_WIDTH)
@@ -152,6 +159,7 @@ struct PrepArgs {
   float* qflat;  // [A, dim, MN]
   int* info;     // [A]
   double* kmat;  // [A, dk, dk] the KKT matrix as assembled, or null
+  double* work;  // [A, 64·n_tiles] the tiles of the global build (else null)
   int A, dim, O, M, N, K, phi, R_stat, use_comm;
   // qp.prepare_scalars as float32
   float c_vel, c_acc, vcap, acap, tdiag, qcoef, rho_lsc, sigma;
@@ -192,11 +200,15 @@ __host__ __device__ inline int xb_doubles(const Dims& D) {
 
 // TL [n_tiles][64] (the lower tiles) and XB in double; S [M][dim][dim], INNER
 // [dim·MN], NRM [O·M·dim], XP [dim·MN], XI [dk], PINS [dim·3], TD [M] in
-// float; FAIL and POOL, ints.
-__host__ __device__ inline size_t smem_bytes(const Dims& D) {
-  const size_t doubles = 64 * (size_t)D.n_tiles + xb_doubles(D);
+// float; FAIL and POOL, ints. The global build (kGlobal) keeps TL in the
+// agent's workspace, NRM in its normals output and Pn_dim in its Pn output:
+// its XB holds STG and INVD alone.
+__host__ __device__ inline size_t smem_bytes(const Dims& D, bool global) {
+  const size_t doubles = global ? 64 * (size_t)(D.nT - 1) + D.dkp
+                                : 64 * (size_t)D.n_tiles + xb_doubles(D);
   const size_t floats = (size_t)D.M * D.dim * D.dim + 2 * (size_t)D.dim * D.MN +
-                        (size_t)D.O * D.M * D.dim + D.dk + (size_t)D.dim * kPhi + D.M + 2;
+                        (global ? 0 : (size_t)D.O * D.M * D.dim) + D.dk + (size_t)D.dim * kPhi +
+                        D.M + 2;
   return 8 * doubles + 4 * floats;
 }
 
@@ -548,21 +560,25 @@ __device__ void z0_pool(const PrepArgs& a, const Dims& D, const float* NRM, cons
   }
 }
 
-template <int kMinBlocks>
+// kGlobal: the tiles in the agent's workspace a.work, read through L1 and L2
+// (the shapes whose tiles do not fit in shared memory).
+template <int kMinBlocks, bool kGlobal>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) qp_prepare_kernel(PrepArgs a) {
   extern __shared__ double smem[];
   const Dims D = make_dims(a.dim, a.O, a.M, a.N, a.K, a.R_stat);
   const int t = threadIdx.x;
   const long long ag = blockIdx.x;
+  const int n_nrm = D.O * D.M * D.dim;
 
-  double* TL = smem;
-  double* STG = TL + 64 * D.n_tiles;
+  double* TL = kGlobal ? a.work + ag * 64 * D.n_tiles : smem;
+  double* STG = kGlobal ? smem : TL + 64 * D.n_tiles;
   double* INVD = STG + 64 * (D.nT - 1);
-  float* PN = reinterpret_cast<float*>(STG);  // until the factor warps start
-  float* S = reinterpret_cast<float*>(STG + xb_doubles(D));
+  // Pn_dim: in STG until the factor warps start, or the agent's Pn output
+  float* PN = kGlobal ? a.Pn + ag * D.K * D.K : reinterpret_cast<float*>(STG);
+  float* S = reinterpret_cast<float*>(kGlobal ? INVD + D.dkp : STG + xb_doubles(D));
   float* INNER = S + D.M * D.dim * D.dim;
-  float* NRM = INNER + D.dim * D.MN;
-  float* XP = NRM + D.O * D.M * D.dim;
+  float* NRM = kGlobal ? a.normals_out + ag * n_nrm : INNER + D.dim * D.MN;
+  float* XP = kGlobal ? INNER + D.dim * D.MN : NRM + n_nrm;
   float* XI = XP + D.dim * D.MN;
   float* PINS = XI + D.dk;
   float* TD = PINS + D.dim * kPhi;
@@ -570,12 +586,11 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) qp_prepare_kernel(PrepAr
   int* POOL = FAIL + 1;
 
   // ---- the agent's normals (written out contiguous), pins, terminal weights
-  const int n_nrm = D.O * D.M * D.dim;
   for (int i = t; i < n_nrm; i += kThreads) {
     const int d = i % D.dim, om = i / D.dim;
     const float v = in(a.normals, ag, om / D.M, om % D.M, d);
     NRM[i] = v;
-    a.normals_out[ag * n_nrm + i] = v;
+    if (!kGlobal) a.normals_out[ag * n_nrm + i] = v;
   }
   if (t < D.dim) {  // c0 = p, c1 = p + v·dt/n, c2 = a·dt²/(n(n−1)) + 2c1 − c0
     const float p = in(a.p0, ag, t), c1 = __fadd_rn(p, __fmul_rn(in(a.v0, ag, t), a.c_vel));
@@ -618,7 +633,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) qp_prepare_kernel(PrepAr
   for (int i = t; i < D.K * D.K; i += kThreads) {
     const float v = pn_entry(a, D, TD, i);
     PN[i] = v;
-    a.Pn[ag * D.K * D.K + i] = v;
+    if (!kGlobal) a.Pn[ag * D.K * D.K + i] = v;
   }
   __syncthreads();
 
@@ -707,29 +722,57 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) qp_prepare_kernel(PrepAr
   if (t == 0) a.info[ag] = fail;
 }
 
-// The build for this shape (see kSmallTiles).
+// The opt-in shared memory a block may take on the current device, bytes.
+size_t smem_limit() {
+  int dev = 0, bytes = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
+    return 48 * 1024;
+  return (size_t)bytes;
+}
+
+// The tiles in the agent's workspace where they do not fit in shared memory.
+bool global_tiles(const Dims& D) { return smem_bytes(D, false) > smem_limit(); }
+
+// The resident blocks an SM the shape's build is built for (see kSmallTiles).
+int min_blocks(const Dims& D) { return !global_tiles(D) && D.nT <= kSmallTiles ? 8 : 4; }
+
+// The build for this shape, and its shared memory.
 using Kernel = void (*)(PrepArgs);
 Kernel kernel_for(const Dims& D) {
-  return D.nT <= kSmallTiles ? qp_prepare_kernel<8> : qp_prepare_kernel<4>;
+  if (global_tiles(D)) return qp_prepare_kernel<4, true>;
+  return min_blocks(D) == 8 ? qp_prepare_kernel<8, false> : qp_prepare_kernel<4, false>;
 }
+
+size_t block_smem(const Dims& D) { return smem_bytes(D, global_tiles(D)); }
 
 }  // namespace
 
 // sizeof(PrepArgs), for the wrapper's check of its mirror of the layout.
 extern "C" long long qp_prepare_args_size() { return sizeof(PrepArgs); }
 
-// The largest dim*K taken.
-extern "C" int qp_prepare_max_dk() { return kMaxDk; }
+// Doubles of the workspace one agent's tiles take in global memory (0: the
+// tiles fit in shared memory and no workspace is read).
+extern "C" long long qp_prepare_work_doubles(int dim, int O, int M, int N, int K) {
+  const Dims D = make_dims(dim, O, M, N, K, 0);
+  return global_tiles(D) ? 64LL * D.n_tiles : 0;
+}
+
+// The build that takes the shape: its blocks an SM (qp_prepare_kernel's first
+// template argument: 8 or 4); qp_prepare_work_doubles tells the global build.
+extern "C" int qp_prepare_build(int dim, int O, int M, int N, int K) {
+  return min_blocks(make_dims(dim, O, M, N, K, 0));
+}
 
 // Dynamic shared memory of one block, in bytes.
 extern "C" long long qp_prepare_smem_bytes(int dim, int O, int M, int N, int K) {
-  return (long long)smem_bytes(make_dims(dim, O, M, N, K, 0));
+  return (long long)block_smem(make_dims(dim, O, M, N, K, 0));
 }
 
 // Resident blocks (agents) per SM for this shape; negative: minus the CUDA error.
 extern "C" int qp_prepare_blocks_per_sm(int dim, int O, int M, int N, int K) {
   const Dims D = make_dims(dim, O, M, N, K, 0);
-  const size_t smem = smem_bytes(D);
+  const size_t smem = block_smem(D);
   const Kernel k = kernel_for(D);
   cudaError_t err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   int n = 0;
@@ -739,16 +782,16 @@ extern "C" int qp_prepare_blocks_per_sm(int dim, int O, int M, int N, int K) {
 
 // Queues the preparation of the agents of `args` (a PrepArgs) on `stream`, one
 // block per agent. Returns the CUDA error code (0 on success; -1 for a shape
-// the kernel does not take). No synchronisation. (The struct is passed as
-// void*: a parameter of a type in the anonymous namespace would give the
-// entry internal linkage.)
+// the kernel does not take, or the global build without its workspace). No
+// synchronisation. (The struct is passed as void*: a parameter of a type in
+// the anonymous namespace would give the entry internal linkage.)
 extern "C" int qp_prepare_launch(const void* args, void* stream) {
   const PrepArgs& a = *static_cast<const PrepArgs*>(args);
   const Dims D = make_dims(a.dim, a.O, a.M, a.N, a.K, a.R_stat);
-  if (a.A < 1 || a.dim < 1 || D.dk > kMaxDk || a.K < 1 || a.O < 1 || a.phi != kPhi ||
-      D.n < 2 || a.M < 1)
+  if (a.A < 1 || a.dim < 1 || a.dim > kMaxDim || a.K < 1 || a.O < 1 || a.phi != kPhi ||
+      D.n < 2 || a.M < 1 || (global_tiles(D) && !a.work))
     return -1;
-  const size_t smem = smem_bytes(D);
+  const size_t smem = block_smem(D);
   const Kernel k = kernel_for(D);
   cudaError_t err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

@@ -60,6 +60,20 @@
 //   bytes. At A = 1,024, O = 16, M = 10, N = 6 it moves 14.1 MB (obs_pred
 //   11.8 MB written), 4.2 us at 3.35 TB/s; the sources it gathers are each
 //   agent's 720 B of points, 0.7 MB read once, L2-resident.
+// - the wide builds (neighbor_slots_wide_kernel, step_front_wide_kernel),
+//   for every shape past the narrow builds above (OA > 32 with a selection,
+//   O > 64, or rows past shared memory; the reference caps no neighbour
+//   set): select_wide, a radix select of the OA-th smallest distance over
+//   the block (four passes of 8 bits, a shared histogram each), the keys
+//   below it and the lowest indices at it placed in index order by ballot
+//   counts, and a bitonic sort of the OA keys in shared memory: exact as
+//   select_nearest; the prediction's slot tables in dynamic shared memory
+//   sized by O, and the source rows staged a chunk of slots at a time (as
+//   many as 64 KB hold), each chunk's reset and outputs done before the
+//   next is staged. Outputs bit for bit the plain bodies', as the narrow
+//   builds'. Their limits are shared memory's: the tables ~46 B a slot
+//   and one chunk's rows (O up to ~4,000 slots at M = 10), the sort's keys
+//   8 B an agent slot (OA up to ~27,000).
 // - goal_qp_inputs_launch (stages.goal_qp_inputs; planner/goal.py:26-122 and
 //   pipeline.py:566-690 of the JAX package). Stage 5: the goal of every goal
 //   mode (the closed-form goal LP over the O last-point LSC rows and the six
@@ -357,6 +371,138 @@ __device__ void select_nearest(const float* __restrict__ p, int A, int i, int OA
   __syncthreads();
 }
 
+// ---------------------------------------------------------------------------
+// neighbour selection for any OA (the wide builds)
+// ---------------------------------------------------------------------------
+
+// the sort's length for OA keys: the least power of two >= OA
+__host__ __device__ inline int sort_len(int OA) {
+  int P = 1;
+  while (P < OA) P <<= 1;
+  return P;
+}
+
+// floats of shared memory select_wide takes: the keys [sort_len(OA)] (u64),
+// the digit histogram [256], the warps' ballot counts [2][2][kWarps] and the
+// pass's digit and rank
+__host__ __device__ inline int select_wide_floats(int OA) {
+  return 2 * sort_len(OA) + 256 + 4 * kWarps + 4;
+}
+
+// The OA nearest keys of agent i among the A positions p [A, 3] (its
+// scenario's), ascending, into s_key[0, OA), by the whole block: a radix
+// select of the OA-th smallest distance (four passes of 8 bits over the
+// distance bits, a shared histogram each; integer counts, so the result does
+// not depend on the order of the atomics), then the keys below it and the
+// lowest indices at it, placed by block-wide ballot counts in index order,
+// then a bitonic sort of the OA keys in shared memory. Exact as
+// select_nearest: the same keys, the same order. s_u: select_wide_floats(OA)
+// floats of 16-B aligned shared memory (s_key is its start). Needs 1 <= OA <
+// A. Ends with a barrier.
+__device__ void select_wide(const float* __restrict__ p, int A, int i, int OA, float range,
+                            bool use_range, float* s_u) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int P = sort_len(OA);
+  u64* s_key = reinterpret_cast<u64*>(s_u);
+  unsigned* s_hist = reinterpret_cast<unsigned*>(s_key + P);
+  int* s_cnt = reinterpret_cast<int*>(s_hist + 256);  // [2][2][kWarps]
+  int* s_ctl = s_cnt + 4 * kWarps;                    // the pass's digit and rank
+  const float px = __ldg(p + 3 * i), py = __ldg(p + 3 * i + 1), pz = __ldg(p + 3 * i + 2);
+  auto bits_of = [&](int j) -> unsigned {
+    const float* q = p + 3 * j;
+    float d = fmaxf(fmaxf(fabsf(sub(px, __ldg(q))), fabsf(sub(py, __ldg(q + 1)))),
+                    fabsf(sub(pz, __ldg(q + 2))));
+    if (j == i) d = add(d, 1e9f);  // dist + eye * 1e9 (+0 elsewhere)
+    if (use_range && !(d < range)) d = 1e9f;
+    return __float_as_uint(d);
+  };
+
+  // the distance bits of the OA-th smallest key, 8 bits a pass; `need`: its
+  // rank among the keys of its distance (distances are never negative, so
+  // their bits order as unsigned integers)
+  unsigned prefix = 0, mask = 0;
+  int need = OA;
+  for (int shift = 24; shift >= 0; shift -= 8) {
+    for (int b = tid; b < 256; b += kBlockThreads) s_hist[b] = 0;
+    __syncthreads();
+    for (int j = tid; j < A; j += kBlockThreads) {
+      const unsigned b = bits_of(j);
+      if ((b & mask) == prefix) atomicAdd(s_hist + ((b >> shift) & 255), 1u);
+    }
+    __syncthreads();
+    if (warp == 0) {  // the digit whose bins hold the need-th key: a lane 8 bins
+      unsigned c[8], sum = 0;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) sum += c[k] = s_hist[8 * lane + k];
+      unsigned incl = sum;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const unsigned up = __shfl_up_sync(kFull, incl, off);
+        if (lane >= off) incl += up;
+      }
+      unsigned below = incl - sum;
+      if (below < static_cast<unsigned>(need) && static_cast<unsigned>(need) <= incl) {
+        int k = 0;
+        while (below + c[k] < static_cast<unsigned>(need)) below += c[k++];
+        s_ctl[0] = 8 * lane + k;
+        s_ctl[1] = need - static_cast<int>(below);
+      }
+    }
+    __syncthreads();
+    prefix |= static_cast<unsigned>(s_ctl[0]) << shift;
+    mask |= 255u << shift;
+    need = s_ctl[1];
+  }
+
+  // the keys below that distance (OA - need of them) and the `need` lowest
+  // indices at it, a tile of 128 candidates at a time in index order: a
+  // key's place is its rank among the tile's by ballots, plus the counts of
+  // the tiles before (s_cnt double-buffered: one barrier a tile)
+  const unsigned lt = (1u << lane) - 1;
+  int n_less = 0, n_tie = 0;
+  for (int t0 = 0, buf = 0; t0 < A; t0 += kBlockThreads, buf ^= 1) {
+    const int j = t0 + tid;
+    const unsigned b = j < A ? bits_of(j) : ~0u;
+    const bool less = b < prefix, tie = b == prefix;
+    const unsigned bl = __ballot_sync(kFull, less), bt = __ballot_sync(kFull, tie);
+    int* cnt = s_cnt + buf * 2 * kWarps;
+    if (lane == 0) {
+      cnt[warp] = __popc(bl);
+      cnt[kWarps + warp] = __popc(bt);
+    }
+    __syncthreads();
+    int less_at = n_less + __popc(bl & lt), tie_at = n_tie + __popc(bt & lt);
+    for (int w = 0; w < kWarps; ++w) {
+      if (w < warp) {
+        less_at += cnt[w];
+        tie_at += cnt[kWarps + w];
+      }
+      n_less += cnt[w];
+      n_tie += cnt[kWarps + w];
+    }
+    const u64 key = (static_cast<u64>(b) << 32) | static_cast<unsigned>(j);
+    if (less) s_key[less_at] = key;
+    else if (tie && tie_at < need) s_key[OA - need + tie_at] = key;
+    if (n_less == OA - need && n_tie >= need) break;  // every thread alike
+  }
+  for (int e = OA + tid; e < P; e += kBlockThreads) s_key[e] = ~0ull;
+  __syncthreads();
+  // ascending: a bitonic sort of the P keys, a pair a thread a step
+  for (int size = 2; size <= P; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int e = tid; e < P / 2; e += kBlockThreads) {
+        const int lo = 2 * stride * (e / stride) + (e % stride), hi = lo + stride;
+        const u64 x = s_key[lo], y = s_key[hi];
+        if ((x > y) == ((lo & size) == 0)) {
+          s_key[lo] = y;
+          s_key[hi] = x;
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
 // key -> (order into the flattened fleet, valid)
 __device__ __forceinline__ long long key_row(u64 key, long long first) {
   return static_cast<long long>(key & 0xffffffffull) + first;
@@ -382,6 +528,24 @@ neighbor_slots_kernel(const float* __restrict__ pos, int A, int OA, float range,
     const u64 key = s_key[tid];
     order[agent * OA + tid] = key_row(key, first);
     valid[agent * OA + tid] = key_valid(key);
+  }
+}
+
+// the wide build: select_wide, any OA < A
+__global__ void __launch_bounds__(kBlockThreads, 8)
+neighbor_slots_wide_kernel(const float* __restrict__ pos, int A, int OA, float range,
+                           int use_range, long long* __restrict__ order,
+                           bool* __restrict__ valid) {
+  extern __shared__ float4 smem4[];
+  const long long agent = blockIdx.x;
+  const int s = static_cast<int>(agent / A), i = static_cast<int>(agent - static_cast<long long>(s) * A);
+  const long long first = static_cast<long long>(s) * A;
+  select_wide(pos + first * 3, A, i, OA, range, use_range != 0, reinterpret_cast<float*>(smem4));
+  const u64* s_key = reinterpret_cast<const u64*>(smem4);
+  for (int o = threadIdx.x; o < OA; o += kBlockThreads) {
+    const u64 key = s_key[o];
+    order[agent * OA + o] = key_row(key, first);
+    valid[agent * OA + o] = key_valid(key);
   }
 }
 
@@ -432,6 +596,7 @@ struct FrontArgs {
   FrontPtrs p;
   int A, S, O, OA, OD, M, n, mode, size_growth, use_guard, select, use_range;
   float dt, reset, guard, range;
+  int chunk;  // the wide builds' slots staged at once (front_wide_smem)
 };
 
 // the dynamic shared memory of step_front_kernel, in floats: the points'
@@ -448,6 +613,50 @@ __host__ __device__ inline FrontSmem front_smem(int M, int N, int OA, int mode, 
   s.u = s.sub + ((N * N + 3) & ~3);
   const int rows = mode == kLsc ? (OA + 1) * M * N * 3 : 0;
   const int sel = select ? select_floats(K) : 0;
+  s.floats = s.u + (rows > sel ? rows : sel);
+  return s;
+}
+
+// the wide builds' dynamic shared memory, in floats (each part 16-B aligned):
+// the points' times [M*N] at 0, the sub-step matrix [N*N], the slot tables
+// sized by O (the narrow builds' static arrays), and at `u` the selection's
+// keys or, after it, `chunk` slots' LSC rows at a time
+struct WideSmem {
+  int sub, src, valid, kind, p, v, radius, max_acc, is_agent, u, floats, chunk;
+};
+
+constexpr int kWideRowBytes = 64 * 1024;  // the wide builds' staged rows at most
+
+__host__ __device__ inline int r4(int f) { return (f + 3) & ~3; }
+
+// chunk: slots whose rows are staged at once (0: as many as kWideRowBytes
+// and `limit` bytes of shared memory allow, at most O + 1, at least 1)
+__host__ __device__ inline WideSmem front_wide_smem(int M, int N, int O, int OA, int mode,
+                                                    bool select, int chunk, int limit) {
+  WideSmem s;
+  s.sub = r4(M * N);
+  s.src = s.sub + r4(N * N);
+  s.valid = s.src + r4(2 * O);  // long long [O]
+  s.kind = s.valid + r4((O + 3) / 4);  // bool [O]
+  s.p = s.kind + r4(O + 1);
+  s.v = s.p + r4(3 * (O + 1));
+  s.radius = s.v + r4(3 * (O + 1));
+  s.max_acc = s.radius + r4(O);
+  s.is_agent = s.max_acc + r4(O);
+  s.u = s.is_agent + r4((O + 3) / 4);
+  const int sel = select && OA > 0 ? select_wide_floats(OA) : 0;
+  const int MN3 = M * N * 3;
+  if (mode != kLsc) {
+    s.chunk = O + 1;
+  } else if (chunk == 0) {
+    const int room = limit / 4 - s.u, cap = kWideRowBytes / 4;
+    s.chunk = (room < cap ? room : cap) / MN3;
+    if (s.chunk > O + 1) s.chunk = O + 1;
+    if (s.chunk < 1) s.chunk = 1;
+  } else {
+    s.chunk = chunk;
+  }
+  const int rows = mode == kLsc ? s.chunk * MN3 : 0;
   s.floats = s.u + (rows > sel ? rows : sel);
   return s;
 }
@@ -667,6 +876,217 @@ __global__ void __launch_bounds__(kBlockThreads, K > 8 ? 4 : 8) step_front_kerne
   }
 }
 
+// The wide builds of stages 1 and 2 (step_front_kernel's work at any O and
+// OA): the slot tables in dynamic shared memory sized by O, the block's own
+// selection by select_wide, and the LSC family's source rows staged a.chunk
+// slots at a time, each chunk's reset and outputs done before the next is
+// staged (row o of the chunk [o0, o1) at s_u + (o - o0) * MN3; slot O the
+// agent's own). The same operations as step_front_kernel, element for
+// element.
+template <int NT, bool kSelect>
+__global__ void __launch_bounds__(kBlockThreads, 4) step_front_wide_kernel(FrontArgs a) {
+  const FrontPtrs& P = a.p;
+  const int ag = blockIdx.x, tid = threadIdx.x, lane = tid & 31;
+  const int O = a.O, OA = a.OA, M = a.M, N = NT ? NT : a.n + 1;
+  const int N3 = 3 * N, MN3 = M * N3;
+  const int per = a.A / a.S, s = ag / per;
+  const bool substep = P.sub != nullptr, rows = a.mode == kLsc;
+  extern __shared__ float4 smem4[];
+  float* s_t = reinterpret_cast<float*>(smem4);
+  const WideSmem L = front_wide_smem(M, N, O, OA, a.mode, kSelect, a.chunk, 0);
+  float* s_sub = s_t + L.sub;
+  float* s_u = s_t + L.u;
+  long long* s_src = reinterpret_cast<long long*>(s_t + L.src);  // the agent slots' source rows
+  bool* s_valid = reinterpret_cast<bool*>(s_t + L.valid);
+  int* s_kind = reinterpret_cast<int*>(s_t + L.kind);  // Kind of slot o; [O] the agent's own
+  float* s_p = s_t + L.p;  // [O + 1][3]
+  float* s_v = s_t + L.v;
+  float* s_radius = s_t + L.radius;
+  float* s_max_acc = s_t + L.max_acc;
+  bool* s_is_agent = reinterpret_cast<bool*>(s_t + L.is_agent);
+  const int chunk = L.chunk;
+
+  for (int e = tid; e < M * N; e += kBlockThreads) {
+    const int m = e / N;
+    s_t[e] = cv_time(m, e - m * N, a.n, a.dt);
+  }
+  if (substep)
+    for (int e = tid; e < N * N; e += kBlockThreads) s_sub[e] = P.sub[e];
+
+  // 1. the agent slots' sources: the block's own selection, or `order`
+  if constexpr (kSelect) {
+    const long long first = static_cast<long long>(s) * per;
+    select_wide(P.src_pos + first * 3, per, ag - s * per, OA, a.range, a.use_range != 0, s_u);
+    const u64* s_key = reinterpret_cast<const u64*>(s_u);
+    for (int o = tid; o < OA; o += kBlockThreads) {
+      const u64 key = s_key[o];
+      const long long at = static_cast<long long>(ag) * OA + o;
+      s_src[o] = P.order_out[at] = key_row(key, first);
+      s_valid[o] = P.valid_out[at] = key_valid(key);
+    }
+  } else {
+    for (int o = tid; o < OA; o += kBlockThreads) {
+      const long long at = static_cast<long long>(ag) * OA + o;
+      s_src[o] = P.order ? P.order[at] : at;
+      s_valid[o] = P.slot_valid[at];
+    }
+  }
+  __syncthreads();
+
+  // the rows of slots [o0, o1) in flight, a warp a row
+  auto stage_rows = [&](int o0, int o1) {
+    for (int o = o0 + (tid >> 5); o < o1; o += kWarps) {
+      if (o >= OA && o < O) continue;  // no row: a dynamic obstacle or the padding
+      const float* g = o < OA ? P.src_prev + s_src[o] * MN3 : P.prev + static_cast<long long>(ag) * MN3;
+      stage_floats(s_u + (o - o0) * MN3, g, MN3, lane, 32);
+    }
+  };
+  // 2. the first chunk's rows in flight while the threads decide each
+  // slot's kind and write the slots' attributes
+  if (rows) stage_rows(0, chunk < O + 1 ? chunk : O + 1);
+  for (int o = tid; o <= O; o += kBlockThreads) {
+    int kind = kCv;
+    float p[3] = {0.0f, 0.0f, 0.0f}, v[3] = {0.0f, 0.0f, 0.0f};
+    if (o == O || o < OA) {  // the agent's own, or an agent slot
+      const long long src = o == O ? ag : s_src[o];
+      const float* p3 = (o == O ? P.pos : P.src_pos) + src * 3;
+      const float* v3 = (o == O ? P.vel : P.src_vel) + src * 3;
+      const bool hp = o == O ? P.has_prev[ag] : P.src_has_prev[src];
+      for (int d = 0; d < 3; ++d) p[d] = p3[d];
+      if ((o == O && P.disturbed[ag]) || a.mode == kBvc) {
+        kind = kCv;  // const_vel_ctrl(pos, 0)
+      } else if (a.mode == kRsfc || !hp) {
+        for (int d = 0; d < 3; ++d) v[d] = v3[d];
+      } else {
+        kind = kRow;
+      }
+      if (o < O) {
+        s_radius[o] = P.src_radius[src];
+        s_max_acc[o] = 0.0f;
+        s_is_agent[o] = true;
+      }
+    } else if (a.OD > 0) {  // a dynamic obstacle of the agent's scenario
+      const long long di = static_cast<long long>(s) * a.OD + (o - OA);
+      for (int d = 0; d < 3; ++d) {
+        p[d] = P.dyn_pos[di * 3 + d];
+        v[d] = P.dyn_vel[di * 3 + d];
+      }
+      s_radius[o] = P.dyn_radius[di];
+      s_max_acc[o] = P.dyn_max_acc[di];
+      s_is_agent[o] = false;
+    } else {  // the single agent's padding slot
+      kind = kPad;
+      s_radius[o] = 0.1f;
+      s_max_acc[o] = 0.0f;
+      s_is_agent[o] = false;
+    }
+    s_kind[o] = kind;
+    for (int d = 0; d < 3; ++d) {
+      s_p[3 * o + d] = p[d];
+      s_v[3 * o + d] = v[d];
+    }
+  }
+  // the attributes, a (slot, field) a thread: valid, is_agent, radius,
+  // downwash, max_acc, pos_now[3], goal[3]
+  for (int e = tid; e < O * 7; e += kBlockThreads) {
+    const int o = e / 7, f = e - o * 7;
+    const long long so = static_cast<long long>(ag) * O + o;
+    const bool agent = o < OA, dyn = !agent && a.OD > 0;
+    const long long src = agent ? s_src[o] : dyn ? static_cast<long long>(s) * a.OD + (o - OA) : 0;
+    switch (f) {
+      case 0: P.obs_valid[so] = agent ? s_valid[o] : dyn && P.dyn_valid[src]; break;
+      case 1: P.obs_is_agent[so] = agent; break;
+      case 2: P.obs_radius[so] = agent ? P.src_radius[src] : dyn ? P.dyn_radius[src] : 0.1f; break;
+      case 3:
+        P.obs_downwash[so] = agent ? P.src_downwash[src] : dyn ? P.dyn_downwash[src] : 1.0f;
+        break;
+      case 4: P.obs_max_acc[so] = dyn ? P.dyn_max_acc[src] : 0.0f; break;
+      default: {  // pos_now, goal: the source's, the obstacle's position (twice), or 0
+        const float* g = agent ? (f == 5 ? P.src_pos : P.src_goal) + src * 3
+                               : dyn ? P.dyn_pos + src * 3 : nullptr;
+        float* out = (f == 5 ? P.obs_pos_now : P.obs_goal) + so * 3;
+        const float x = g ? g[0] : 0.0f, y = g ? g[1] : 0.0f, z = g ? g[2] : 0.0f;
+        out[0] = x;
+        out[1] = y;
+        out[2] = z;
+      }
+    }
+  }
+
+  // 3.-4. per chunk of slots [o0, o1): the disturbance reset, a slot whose
+  // predicted first point is off its observed position by more than
+  // `reset` holding the position; then the outputs, four floats a thread:
+  // element r = 3*(m*N + i) + d of a slot's prediction
+  for (int o0 = 0; o0 <= O; o0 += chunk) {
+    const int o1 = o0 + chunk < O + 1 ? o0 + chunk : O + 1;
+    if (o0 > 0) {
+      __syncthreads();  // the last chunk's rows are read
+      if (rows) stage_rows(o0, o1);
+    }
+    if (rows) cp_async_wait_all();
+    __syncthreads();
+    const int r1 = o1 < OA ? o1 : OA;
+    for (int o = o0 + tid; o < r1; o += kBlockThreads) {
+      if (s_kind[o] != kRow) continue;
+      const float* row = s_u + (o - o0) * MN3;
+      float e[3];
+      for (int d = 0; d < 3; ++d)
+        e[d] = sub(row_value<NT>(row, s_sub, substep, N, MN3, d, d), s_p[3 * o + d]);
+      if (norm64(e, 3) > a.reset) {
+        s_kind[o] = kCv;
+        for (int d = 0; d < 3; ++d) s_v[3 * o + d] = 0.0f;
+      }
+    }
+    __syncthreads();
+
+    auto pred = [&](int o, int r) -> float {
+      const int q = r / 3, d = r - 3 * q;
+      switch (s_kind[o]) {
+        case kRow:
+          return row_value<NT>(s_u + (o - o0) * MN3, s_sub, substep, N, MN3, r, d);
+        case kCv:
+          return add(s_p[3 * o + d], mul(s_v[3 * o + d], s_t[q]));
+        default:
+          return 0.0f;
+      }
+    };
+    // the shift's runs: four floats of a row, one segment on
+    auto shifted = [&](int o, int r, float (&v)[4]) {
+      if (substep || s_kind[o] != kRow || r + 4 > MN3 - N3) return false;
+      const float* row = s_u + (o - o0) * MN3 + r + N3;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) v[q] = row[q];
+      return true;
+    };
+    const int s1 = o1 < O ? o1 : O;  // the chunk's obstacle slots [o0, s1)
+    if (s1 > o0)
+      store_runs(P.obs_pred + (static_cast<long long>(ag) * O + o0) * MN3, (s1 - o0) * MN3, MN3,
+                 [&](int row, int r) { return pred(o0 + row, r); },
+                 [&](int row, int r, float (&v)[4]) { return shifted(o0 + row, r, v); });
+    if (o1 == O + 1)
+      store_runs(P.initial + static_cast<long long>(ag) * MN3, MN3, MN3,
+                 [&](int, int r) { return pred(O, r); },
+                 [&](int, int r, float (&v)[4]) { return shifted(O, r, v); });
+  }
+
+  // the size prediction (plain LSC and RSFC read it)
+  if (P.sizes != nullptr) {
+    float guard = 0.0f;
+    if (a.use_guard) {
+      const float* v3 = P.vel + ag * 3;
+      guard = div(mul(a.guard, dotn(v3, v3, 3)), P.max_acc[ag * 3]);
+    }
+    const int MN = M * N;
+    auto none = [](int, int, float (&)[4]) { return false; };
+    store_runs(P.sizes + static_cast<long long>(ag) * O * MN, O * MN, MN, [&](int o, int mi) {
+      float x = s_radius[o];
+      if (a.size_growth && (!s_is_agent[o] || a.mode == kRsfc))
+        x = add(add(x, guard), mul(s_max_acc[o], __ldg(P.growth + mi)));
+      return x;
+    }, none);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // stage 5 and the QP-input assembly
 // ---------------------------------------------------------------------------
@@ -856,6 +1276,10 @@ cudaError_t allow_smem(T* kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// the wide builds' share of kMaxSmem for their dynamic part (their static
+// arrays take under 0.1 KB)
+constexpr int kWideLimit = kMaxSmem - 1024;
+
 template <int K>
 int neighbor_go(const float* pos, int S, int A, int OA, float range, int use_range,
                 long long* order, bool* valid, cudaStream_t stream) {
@@ -864,6 +1288,16 @@ int neighbor_go(const float* pos, int S, int A, int OA, float range, int use_ran
   if (e != cudaSuccess) return static_cast<int>(e);
   neighbor_slots_kernel<K><<<S * A, kBlockThreads, bytes, stream>>>(pos, A, OA, range, use_range,
                                                                      order, valid);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int neighbor_wide_go(const float* pos, int S, int A, int OA, float range, int use_range,
+                     long long* order, bool* valid, cudaStream_t stream) {
+  const size_t bytes = sizeof(float) * select_wide_floats(OA);
+  const cudaError_t e = allow_smem(neighbor_slots_wide_kernel, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  neighbor_slots_wide_kernel<<<S * A, kBlockThreads, bytes, stream>>>(pos, A, OA, range,
+                                                                      use_range, order, valid);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -876,9 +1310,34 @@ int front_go(const FrontArgs& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int NT, bool kSelect>
+int front_wide_go(const FrontArgs& a, cudaStream_t stream) {
+  const size_t bytes =
+      sizeof(float) *
+      front_wide_smem(a.M, a.n + 1, a.O, a.OA, a.mode, kSelect, a.chunk, kWideLimit).floats;
+  const cudaError_t e = allow_smem(step_front_wide_kernel<NT, kSelect>, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  step_front_wide_kernel<NT, kSelect><<<a.A, kBlockThreads, bytes, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the narrow builds take O <= kMaxSlots, with their own selection OA <=
+// kMaxAgentSlots, and every row staged at once within kMaxSmem; the wide
+// builds every other shape
+__host__ inline bool front_is_wide(int A, int S, int O, int OA, int M, int n, int mode,
+                                   bool select) {
+  if (O > kMaxSlots || (select && OA > kMaxAgentSlots)) return true;
+  const int K = select && OA > 0 ? list_len(A / S, OA) : 8;
+  return sizeof(float) * front_smem(M, n + 1, OA, mode, K, select && OA > 0).floats + 8 * 1024 >
+         static_cast<size_t>(kMaxSmem);
+}
+
 template <int NT>
 int front_by_list(const FrontArgs& a, cudaStream_t stream) {
-  if (!a.select || a.OA == 0) return front_go<NT, 8, false>(a, stream);
+  const bool select = a.select && a.OA > 0;
+  if (front_is_wide(a.A, a.S, a.O, a.OA, a.M, a.n, a.mode, select))
+    return select ? front_wide_go<NT, true>(a, stream) : front_wide_go<NT, false>(a, stream);
+  if (!select) return front_go<NT, 8, false>(a, stream);
   switch (list_len(a.A / a.S, a.OA)) {
     case 8: return front_go<NT, 8, true>(a, stream);
     case 16: return front_go<NT, 16, true>(a, stream);
@@ -888,24 +1347,51 @@ int front_by_list(const FrontArgs& a, cudaStream_t stream) {
 
 template <class T>
 int occupancy(T* kernel, int dyn_smem, int* blocks_per_sm) {
+  const cudaError_t e = allow_smem(kernel, dyn_smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, kBlockThreads, dyn_smem));
 }
 
 }  // namespace
 
-// S*A blocks, one an agent
+// the build of a neighbor_slots_launch: its list K (select_nearest, OA <=
+// kMaxAgentSlots), 0 for the wide build (select_wide)
+extern "C" int neighbor_slots_build(int A, int OA) {
+  return OA > kMaxAgentSlots ? 0 : list_len(A, OA);
+}
+
+// S*A blocks, one an agent, of the build neighbor_slots_build names
 extern "C" int neighbor_slots_launch(const float* pos, int S, int A, int OA, float range,
                                      int use_range, long long* order, bool* valid,
                                      cudaStream_t stream) {
-  if (S < 1 || A < 2 || OA < 1 || OA > kMaxAgentSlots || OA >= A ||
-      static_cast<long long>(S) * A > INT_MAX)
+  if (S < 1 || A < 2 || OA < 1 || OA >= A || static_cast<long long>(S) * A > INT_MAX ||
+      sizeof(float) * select_wide_floats(OA) > static_cast<size_t>(kWideLimit))
     return cudaErrorInvalidValue;
-  switch (list_len(A, OA)) {
+  switch (neighbor_slots_build(A, OA)) {
+    case 0: return neighbor_wide_go(pos, S, A, OA, range, use_range, order, valid, stream);
     case 8: return neighbor_go<8>(pos, S, A, OA, range, use_range, order, valid, stream);
     case 16: return neighbor_go<16>(pos, S, A, OA, range, use_range, order, valid, stream);
     default: return neighbor_go<32>(pos, S, A, OA, range, use_range, order, valid, stream);
   }
+}
+
+// dynamic shared memory of a neighbor_slots_launch block, bytes
+extern "C" int neighbor_slots_smem_bytes(int A, int OA) {
+  const int K = neighbor_slots_build(A, OA);
+  return static_cast<int>(sizeof(float)) * (K ? select_floats(K) : select_wide_floats(OA));
+}
+
+// the build of a step_front_launch: its list K (8 without a selection), 0
+// for the wide builds; -1 for a shape no build takes (the wide builds'
+// tables and one chunk's rows past shared memory)
+extern "C" int step_front_build(int A, int S, int O, int OA, int M, int n, int mode, int select) {
+  const bool sel = select && OA > 0;
+  if (front_is_wide(A, S, O, OA, M, n, mode, sel)) {
+    const WideSmem w = front_wide_smem(M, n + 1, O, OA, mode, sel, 0, kWideLimit);
+    return sizeof(float) * w.floats <= static_cast<size_t>(kWideLimit) ? 0 : -1;
+  }
+  return sel ? list_len(A / S, OA) : 8;
 }
 
 // ptrs: FrontPtrs' fields in order; ints: A, S, O, OA, OD, M, n, mode,
@@ -919,40 +1405,57 @@ extern "C" int step_front_launch(void* const* ptrs, const int* ints, const float
   a.M = ints[5]; a.n = ints[6]; a.mode = ints[7]; a.size_growth = ints[8]; a.use_guard = ints[9];
   a.select = ints[10]; a.use_range = ints[11];
   a.dt = flts[0]; a.reset = flts[1]; a.guard = flts[2]; a.range = flts[3];
-  if (a.A < 1 || a.S < 1 || a.A % a.S || a.O < 1 || a.O > kMaxSlots || a.OA < 0 || a.OD < 0 ||
-      a.OA + a.OD > a.O || a.M < 1 || a.n < 1 ||
-      (a.select && a.OA > 0 && (a.OA > kMaxAgentSlots || a.OA >= a.A / a.S)))
+  if (a.A < 1 || a.S < 1 || a.A % a.S || a.O < 1 || a.OA < 0 || a.OD < 0 ||
+      a.OA + a.OD > a.O || a.M < 1 || a.n < 1 || (a.select && a.OA > 0 && a.OA >= a.A / a.S) ||
+      step_front_build(a.A, a.S, a.O, a.OA, a.M, a.n, a.mode, a.select) < 0)
     return cudaErrorInvalidValue;
+  a.chunk = front_wide_smem(a.M, a.n + 1, a.O, a.OA, a.mode, a.select && a.OA > 0, 0,
+                            kWideLimit).chunk;
   return a.n + 1 == 6 ? front_by_list<6>(a, stream) : front_by_list<0>(a, stream);
 }
 
 // shared memory of a step_front_launch block, bytes: the dynamic part
-extern "C" int step_front_smem_bytes(int A, int S, int OA, int M, int n, int mode, int select) {
-  const int K = select && OA > 0 ? list_len(A / S, OA) : 8;
-  return static_cast<int>(sizeof(float)) *
-         front_smem(M, n + 1, OA, mode, K, select && OA > 0).floats;
+extern "C" int step_front_smem_bytes(int A, int S, int O, int OA, int M, int n, int mode,
+                                     int select) {
+  const bool sel = select && OA > 0;
+  if (front_is_wide(A, S, O, OA, M, n, mode, sel))
+    return static_cast<int>(sizeof(float)) *
+           front_wide_smem(M, n + 1, O, OA, mode, sel, 0, kWideLimit).floats;
+  const int K = sel ? list_len(A / S, OA) : 8;
+  return static_cast<int>(sizeof(float)) * front_smem(M, n + 1, OA, mode, K, sel).floats;
+}
+
+// the wide builds' slots staged at once (O + 1: every row at once)
+extern "C" int step_front_chunk(int O, int OA, int M, int n, int mode, int select) {
+  return front_wide_smem(M, n + 1, O, OA, mode, select && OA > 0, 0, kWideLimit).chunk;
 }
 
 // blocks an SM of a stage kernel at `dyn_smem` bytes of dynamic shared
 // memory: kernel 0 the neighbour selection (list K), 1 the prediction with
 // `order` given, 2 with its own selection (K), 3 the goal (n: the Bezier
-// degree, the prediction kernel's template)
+// degree, the prediction kernel's template; K = 0: the wide builds)
 extern "C" int step_stages_occupancy(int kernel, int n, int K, int dyn_smem, int* blocks_per_sm) {
   const bool six = n + 1 == 6;
   switch (kernel) {
     case 0:
-      return K == 8 ? occupancy(neighbor_slots_kernel<8>, dyn_smem, blocks_per_sm)
+      return K == 0 ? occupancy(neighbor_slots_wide_kernel, dyn_smem, blocks_per_sm)
+             : K == 8 ? occupancy(neighbor_slots_kernel<8>, dyn_smem, blocks_per_sm)
              : K == 16 ? occupancy(neighbor_slots_kernel<16>, dyn_smem, blocks_per_sm)
                        : occupancy(neighbor_slots_kernel<32>, dyn_smem, blocks_per_sm);
     case 1:
+      if (K == 0)
+        return six ? occupancy(step_front_wide_kernel<6, false>, dyn_smem, blocks_per_sm)
+                   : occupancy(step_front_wide_kernel<0, false>, dyn_smem, blocks_per_sm);
       return six ? occupancy(step_front_kernel<6, 8, false>, dyn_smem, blocks_per_sm)
                  : occupancy(step_front_kernel<0, 8, false>, dyn_smem, blocks_per_sm);
     case 2:
       if (six)
-        return K == 8 ? occupancy(step_front_kernel<6, 8, true>, dyn_smem, blocks_per_sm)
+        return K == 0 ? occupancy(step_front_wide_kernel<6, true>, dyn_smem, blocks_per_sm)
+               : K == 8 ? occupancy(step_front_kernel<6, 8, true>, dyn_smem, blocks_per_sm)
                : K == 16 ? occupancy(step_front_kernel<6, 16, true>, dyn_smem, blocks_per_sm)
                          : occupancy(step_front_kernel<6, 32, true>, dyn_smem, blocks_per_sm);
-      return K == 8 ? occupancy(step_front_kernel<0, 8, true>, dyn_smem, blocks_per_sm)
+      return K == 0 ? occupancy(step_front_wide_kernel<0, true>, dyn_smem, blocks_per_sm)
+             : K == 8 ? occupancy(step_front_kernel<0, 8, true>, dyn_smem, blocks_per_sm)
              : K == 16 ? occupancy(step_front_kernel<0, 16, true>, dyn_smem, blocks_per_sm)
                        : occupancy(step_front_kernel<0, 32, true>, dyn_smem, blocks_per_sm);
     case 3:

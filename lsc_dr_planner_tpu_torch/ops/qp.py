@@ -597,7 +597,7 @@ def rescue_batch(cfg: QPConfig, li: LoopInputs, xi, z, y, feas_tol: float):
     the lower index first among ties, as lax.top_k does. Returns (idx
     [RESCUE], take [RESCUE] bool: the agent is still infeasible, the
     rescue's LoopInputs, starting from the iterate)."""
-    ts = torch_statics(cfg, li.xi.device)
+    ts = torch_statics(cfg, li.xi.device, li.xi.dtype)
     Axc = _fwd(cfg, ts, li.normals, xi)
     violc = torch.clamp(torch.maximum(li.ln - Axc, Axc - li.un), min=0.0)
     resc = (violc / li.scale).amax(dim=-1)
@@ -666,7 +666,7 @@ def kkt_matrix(cfg: QPConfig, inputs: QPInputs):
     dim·K, dim·K] with rows d·K + k, Pn_dim [A, K, K] the reduced cost's
     Hessian per dimension)."""
     dev, dtype = inputs.p0.device, inputs.p0.dtype
-    ts = torch_statics(cfg, dev)
+    ts = torch_statics(cfg, dev, dtype)
     A, dim, K = inputs.p0.shape[0], cfg.dim, ts["K"]
     tdiag = prepare_scalars(cfg)["tdiag"] * inputs.terminal_mask  # [A, M]
     Pn_dim = ts["Pn_base"][None] + torch.einsum("am,mkl->akl", tdiag, ts["T_term"])
@@ -684,9 +684,9 @@ def _prepare_plain(cfg: QPConfig, inputs: QPInputs) -> Prepared:
     """prepare's plain version (the torch body). A KKT matrix that is not
     positive definite gets a NaN inverse and its pivot's order in `info`,
     as jnp.linalg.cholesky gives NaN; nothing raises and nothing is read
-    back to the host."""
+    back to the host. Runs in the inputs' dtype."""
     dev, dtype = inputs.p0.device, inputs.p0.dtype
-    ts = torch_statics(cfg, dev)
+    ts = torch_statics(cfg, dev, dtype)
     sc = prepare_scalars(cfg)
     A = inputs.p0.shape[0]
     dim, M, n, N = cfg.dim, cfg.M, cfg.n, cfg.N
@@ -739,12 +739,13 @@ def solve(cfg: QPConfig, inputs: QPInputs, feas_tol: float = 5e-3,
     """Solve all agents' QPs in one batched ADMM, then rescue the
     stragglers (small fleets in place; above RESCUE agents the worst
     RESCUE are compacted into one batch). `plain` forces the plain
-    preparation and loop on any device, for comparisons."""
+    preparation and loop on any device, for comparisons; the plain path
+    runs in the inputs' dtype (float64: `qp_check.solve_f64`)."""
     pr = prepare(cfg, inputs, plain)
     li = pr.loop
     A = li.xi.shape[0]
     dim, M, N = cfg.dim, cfg.M, cfg.N
-    ts = torch_statics(cfg, li.xi.device)
+    ts = torch_statics(cfg, li.xi.device, li.xi.dtype)
 
     xi, z, y, itdone, iters = run_loop(cfg, li, cfg.max_iter, feas_tol, plain)
 

@@ -9,7 +9,8 @@
   `whole_run_f64`): two float32 loops that sum in different orders
   drift apart on ill-conditioned batches, so the loop kernel is held to
   the float64 plain loop, as far from it as F64_FACTOR times the float32
-  plain loop's own spread.
+  plain loop's own spread; and a whole solve's reference in float64
+  (`solve_f64`).
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ import dataclasses
 import torch
 
 from lsc_dr_planner_tpu_torch.ops.qp import (LoopInputs, Prepared, QPConfig, QPInputs,
-                                             admm_loop_plain, prepare_scalars, torch_statics)
+                                             QPResult, admm_loop_plain, prepare_scalars, solve,
+                                             torch_statics)
 
 # the float64 criterion, per agent: the kernel within F64_FACTOR times the
 # float32 plain loop's distance from float64 over ENVELOPE_RUNS runs
@@ -127,6 +129,19 @@ def agent_shares(a, b):
 
 def as_f64(li: LoopInputs) -> LoopInputs:
     return LoopInputs(*(getattr(li, f.name).double() for f in dataclasses.fields(li)))
+
+
+def solve_f64(cfg: QPConfig, inputs: QPInputs, feas_tol: float) -> QPResult:
+    """qp.solve's plain path in float64 on `inputs` taken to float64: the
+    preparation (the KKT inverse among it), the loop, the rescue and the
+    result. The reference for the float32 solves: the float32 plain
+    preparation inverts the KKT matrix in float32 (~cond·2⁻²⁴ relative
+    error), the kernel in double rounded once, and ADMM's fixed point
+    moves with the inverse it is given."""
+    f64 = {f.name: getattr(inputs, f.name) for f in dataclasses.fields(inputs)}
+    f64 = {k: v.double() if v is not None and v.is_floating_point() else v
+           for k, v in f64.items()}
+    return solve(cfg, QPInputs(**f64), feas_tol, plain=True)
 
 
 def float32_envelope(cfg: QPConfig, state: LoopInputs, iters: int, feas_tol: float, plain,

@@ -5,10 +5,14 @@ lsc_dr_planner_tpu/ops/qp_pallas.py::admm_loop_pallas: one launch per
 chunk of 8 ADMM iterations, one agent per block with the agent's rows in
 shared memory and its Kinv in registers, the static rows as stencils over
 the control points, and the plain loop's exit tests and global exit (see
-the note at the top of the source for what bounds it). Two template
-builds take every planner mode's QP: 128 threads for dim·K ≤ 60 (2-D:
-56 for LSC, 60 for DLSC, BVC and RSFC), 256 threads for dim·K ≤ 96
-(3-D: 84 and 90); a larger dim·K raises ValueError.
+the note at the top of the source for what bounds it). Three template
+builds, chosen from the shape: 128 threads with Kinv in registers for
+dim·K ≤ 60 (2-D: 56 for LSC, 60 for DLSC, BVC and RSFC), 256 threads
+for dim·K ≤ 96 (3-D: 84 and 90), and the memory build `<256,0>` for
+every other shape (3-D from M = 11 on, or rows past shared memory):
+Kinv read from shared memory or through L2, the rows' state in shared
+memory where it fits, else in global memory. Device memory is the
+only limit.
 
 The source is compiled at first use by `nvcc` for sm_90a into a shared
 library with a plain C entry point under `build/` at the checkout root
@@ -16,7 +20,8 @@ library with a plain C entry point under `build/` at the checkout root
 edited source is rebuilt), and loaded with ctypes. `admm_loop_cuda`
 takes CUDA tensors only and raises on anything else; `qp.run_loop`
 gives it CUDA tensors and CPU tensors to the plain loop. `launches` counts kernel launches,
-`build_launches` the launches of each build, keyed by `build_name`.
+`build_launches` the launches of each build, keyed by `build_name`
+(`<threads,columns>`).
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ SOURCE = cuda_build.CSRC / "admm.cu"
 STENCIL_WIDTH = 3  # nonzeros per static row at most (the acceleration stencil)
 
 launches = 0  # kernel launches (one per chunk) since the last reset
-build_launches = {}  # build_name(dk) -> its launches since the last reset
+build_launches = {}  # build_name(...) -> its launches since the last reset
 _lib = None
 
 
@@ -49,11 +54,9 @@ def build(verbose: bool = False) -> ctypes.CDLL:
     lib.admm_smem_bytes.restype = ctypes.c_longlong
     lib.admm_blocks_per_sm.argtypes = [I] * 6
     lib.admm_blocks_per_sm.restype = I
-    for fn in (lib.admm_threads, lib.admm_columns):
-        fn.argtypes = [I]
+    for fn in (lib.admm_threads, lib.admm_columns, lib.admm_placement):
+        fn.argtypes = [I] * 6
         fn.restype = I
-    lib.admm_max_dk.argtypes = []
-    lib.admm_max_dk.restype = I
     _lib = lib
     return lib
 
@@ -64,9 +67,20 @@ def reset_launches():
     build_launches.clear()
 
 
-def build_name(lib, dk: int) -> str:
-    """The template build that takes dk = dim·K: '<threads,columns>'."""
-    return f"<{lib.admm_threads(dk)},{lib.admm_columns(dk)}>"
+def build_name(lib, dim: int, O: int, M: int, N: int, K: int, R_stat: int) -> str:
+    """The template build that takes the shape: '<threads,columns>'
+    ('<256,0>': the memory build)."""
+    shape = (dim, O, M, N, K, R_stat)
+    return f"<{lib.admm_threads(*shape)},{lib.admm_columns(*shape)}>"
+
+
+def placement(lib, dim: int, O: int, M: int, N: int, K: int, R_stat: int) -> dict:
+    """Where the build keeps an agent's rows and its Kinv: {"rows":
+    "shared" or "global", "kinv": "registers", "shared" or "global"}."""
+    shape = (dim, O, M, N, K, R_stat)
+    p = lib.admm_placement(*shape)
+    kinv = ("registers" if lib.admm_columns(*shape) else "shared" if p & 2 else "global")
+    return {"rows": "shared" if p & 1 else "global", "kinv": kinv}
 
 
 def admm_loop_cuda(li, stencil, N3k, N3kT, rho_lsc: float, max_iter: int, chunk: int,
@@ -126,8 +140,6 @@ def admm_loop_cuda(li, stencil, N3k, N3kT, rho_lsc: float, max_iter: int, chunk:
         raise ValueError("empty batch")
 
     lib = build()
-    if lib.admm_threads(dk) == 0:
-        raise ValueError(f"the kernel takes dim*K <= {lib.admm_max_dk()}, got {dk}")
     n_chunks = max(1, -(-max_iter // chunk))
     xi = torch.empty_like(li.xi)
     z = torch.empty_like(li.z)
@@ -156,7 +168,7 @@ def admm_loop_cuda(li, stencil, N3k, N3kT, rho_lsc: float, max_iter: int, chunk:
     if rc != 0:
         raise RuntimeError(f"admm_launch failed: CUDA error {rc}")
     launches += n_chunks
-    name = build_name(lib, dk)
+    name = build_name(lib, dim, O, M, N, K, R_stat)
     build_launches[name] = build_launches.get(name, 0) + n_chunks
     # chunks run: through the first test every agent passed (every later
     # launch returned at once), else all

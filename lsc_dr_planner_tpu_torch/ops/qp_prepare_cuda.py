@@ -7,13 +7,18 @@ the KKT matrix and its inverse (in double), and the warm start. It
 replaces the pre-loop body of the JAX package's
 lsc_dr_planner_tpu/ops/qp.py::solve (:498-571, `jnp` with a batched
 Cholesky; no Pallas original); see the note at the top of the source
-for the layout and what bounds it.
+for the layout and what bounds it. The KKT matrix's tiles stay in
+shared memory while they fit there (dim·K up to ~216 in 3-D); above
+that the global build keeps them in a per-agent float64 workspace
+the wrapper allocates, the same algorithm. Device memory is the only limit
+on dim·K.
 
 `prepare_cuda` takes CUDA tensors only, of any strides, and raises
 ValueError on anything else; `qp.prepare` gives it CUDA tensors and CPU
 tensors to the plain body. The source is compiled at first use by
 `cuda_build` into `build/` and loaded with ctypes. `launches` counts
-kernel launches since `reset_launches()`.
+kernel launches since `reset_launches()`, `build_launches` those of
+each build, keyed by `build_name`.
 """
 
 from __future__ import annotations
@@ -27,7 +32,9 @@ from lsc_dr_planner_tpu_torch.ops import cuda_build
 SOURCE = cuda_build.CSRC / "qp_prepare.cu"
 
 launches = 0  # qp_prepare kernel launches since the last reset
+build_launches = {}  # build_name(...) -> its launches since the last reset
 _lib = None
+_builds = {}  # (dim, O, M, N, K) -> (workspace doubles an agent, build name)
 
 
 class _Tin(ctypes.Structure):
@@ -50,7 +57,7 @@ class _Args(ctypes.Structure):
     _fields_ = ([(name, _Tin) for name in _INPUTS]
                 + [(name, ctypes.c_void_p) for name in _STATICS]
                 + [(name, ctypes.c_void_p) for name in OUTPUTS]
-                + [("kmat", ctypes.c_void_p)]
+                + [("kmat", ctypes.c_void_p), ("work", ctypes.c_void_p)]
                 + [(name, ctypes.c_int) for name in _SIZES]
                 + [(name, ctypes.c_float) for name in _SCALARS])
 
@@ -65,7 +72,10 @@ def build(verbose: bool = False) -> ctypes.CDLL:
     lib.qp_prepare_launch.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
     lib.qp_prepare_launch.restype = I
     lib.qp_prepare_args_size.restype = ctypes.c_longlong
-    lib.qp_prepare_max_dk.restype = I
+    lib.qp_prepare_work_doubles.argtypes = [I] * 5
+    lib.qp_prepare_work_doubles.restype = ctypes.c_longlong
+    lib.qp_prepare_build.argtypes = [I] * 5
+    lib.qp_prepare_build.restype = I
     lib.qp_prepare_smem_bytes.argtypes = [I] * 5
     lib.qp_prepare_smem_bytes.restype = ctypes.c_longlong
     lib.qp_prepare_blocks_per_sm.argtypes = [I] * 5
@@ -80,6 +90,25 @@ def build(verbose: bool = False) -> ctypes.CDLL:
 def reset_launches():
     global launches
     launches = 0
+    build_launches.clear()
+
+
+def _build_of(dim: int, O: int, M: int, N: int, K: int):
+    key = (dim, O, M, N, K)
+    if key not in _builds:
+        lib = build()
+        n_work = lib.qp_prepare_work_doubles(*key)
+        blocks = lib.qp_prepare_build(*key)
+        name = f"<{blocks},global>" if n_work else f"<{blocks}>"
+        _builds[key] = (n_work, name)
+    return _builds[key]
+
+
+def build_name(dim: int, O: int, M: int, N: int, K: int) -> str:
+    """The template build that takes the shape: '<8>' (up to 8 tile rows),
+    '<4>' (above, the tiles in shared memory) or '<4,global>' (the tiles
+    in the workspace)."""
+    return _build_of(dim, O, M, N, K)[1]
 
 
 def _input(name, t, dtype, shape, dev):
@@ -128,8 +157,6 @@ def prepare_cuda(cfg, ts, inp, scalars, kmat=None):
             continue
         args[name] = _input(name, t, torch.bool if name == "lsc_active" else f32, shape, dev)
     lib = build()
-    if dk > lib.qp_prepare_max_dk():
-        raise ValueError(f"the kernel takes dim*K <= {lib.qp_prepare_max_dk()}, got {dk}")
     if dim not in (2, 3) or O < 1 or cfg.n < 2:
         raise ValueError(f"the kernel takes dim 2 or 3, O >= 1 and n >= 2, got dim = {dim}, "
                          f"O = {O}, n = {cfg.n}")
@@ -148,9 +175,14 @@ def prepare_cuda(cfg, ts, inp, scalars, kmat=None):
         _input("kmat", kmat, torch.float64, (A, dk, dk), dev)
         if not kmat.is_contiguous():
             raise ValueError("kmat: not contiguous")
+    # the global build's tiles (freed while the launch is in flight: the
+    # caching allocator reuses its memory only for later work on this stream)
+    n_work, name = _build_of(dim, O, M, N, K)
+    work = torch.empty((A, n_work), dtype=torch.float64, device=dev) if n_work else None
     a = _Args(**args, **{k: t.data_ptr() for k, t in statics.items()},
               **{k: t.data_ptr() for k, t in out.items()},
               kmat=None if kmat is None else kmat.data_ptr(),
+              work=None if work is None else work.data_ptr(),
               A=A, dim=dim, O=O, M=M, N=N, K=K, phi=cfg.phi, R_stat=R_stat,
               use_comm=int(cfg.use_comm), **{k: scalars[k] for k in _SCALARS})
     with torch.cuda.device(dev):
@@ -158,4 +190,5 @@ def prepare_cuda(cfg, ts, inp, scalars, kmat=None):
     if rc != 0:
         raise RuntimeError(f"qp_prepare_launch failed: CUDA error {rc}")
     launches += 1
+    build_launches[name] = build_launches.get(name, 0) + 1
     return out

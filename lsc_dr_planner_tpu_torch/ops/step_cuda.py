@@ -15,6 +15,15 @@ prediction, goal and QP-input stages (`csrc/step_stages.cu`).
   (stages.goal_qp_inputs; planner/goal.py:26-122 and pipeline.py:566-690
   of the JAX package), a block an agent.
 
+The selection and the prediction have narrow builds (OA <= 32, O <= 64,
+every source row staged in shared memory at once: the main path's) and
+wide builds for every other shape (`selection_build`, `front_build`):
+a block-wide radix select of the OA nearest and a bitonic sort of them,
+the slot tables in dynamic shared memory sized by O, the source rows
+staged a chunk of slots at a time. Device memory is the only limit on
+OA < A and O in practice (the wide tables take ~46 B a slot of the 227
+KB of shared memory: O up to ~4,000).
+
 None had a Pallas original. Each takes CUDA tensors only and raises on
 anything else (stages.py gives them CUDA tensors and CPU tensors to the
 plain bodies), queues one launch on the current stream and does not
@@ -25,7 +34,8 @@ size and which optional inputs are given); an input that is not
 contiguous is copied first (BVC's expanded margins). The source is
 compiled at first use by `cuda_build` into `build/` and loaded with
 ctypes. `neighbor_launches`, `front_launches`, `fused_launches` and
-`goal_launches` count each entry's launches since `reset_launches()`.
+`goal_launches` count each entry's launches since `reset_launches()`,
+`wide_launches` those of the three entries' wide builds among them.
 """
 
 from __future__ import annotations
@@ -37,14 +47,14 @@ import torch
 from lsc_dr_planner_tpu_torch.ops import cuda_build
 
 SOURCE = cuda_build.CSRC / "step_stages.cu"
-MAX_AGENT_SLOTS = 32  # OA at most (a warp's lanes hold its nearest keys)
-MAX_SLOTS = 64  # O at most (the prediction kernel's shared slot table)
 BLOCK_THREADS = 128  # every stage kernel: one agent a block of 4 warps
 
 neighbor_launches = 0  # neighbor_slots kernel launches since the last reset
 front_launches = 0  # step_front kernel launches (slots given) since the last reset
 fused_launches = 0  # step_front kernel launches with its own selection since the last reset
 goal_launches = 0  # goal_qp_inputs kernel launches since the last reset
+# launches of the wide builds since the last reset, per entry
+wide_launches = {"neighbor_slots": 0, "step_front": 0, "front_with_neighbors": 0}
 _lib = None
 
 
@@ -57,9 +67,14 @@ def build(verbose: bool = False) -> ctypes.CDLL:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.neighbor_slots_launch.argtypes = [P, I, I, I, F, I, P, P, P]
     lib.neighbor_slots_launch.restype = I
-    lib.step_front_smem_bytes.argtypes = [I] * 7
+    lib.step_front_smem_bytes.argtypes = [I] * 8
+    lib.step_front_build.argtypes = [I] * 8
+    lib.step_front_chunk.argtypes = [I] * 6
+    lib.neighbor_slots_smem_bytes.argtypes = [I] * 2
+    lib.neighbor_slots_build.argtypes = [I] * 2
     lib.step_stages_occupancy.argtypes = [I, I, I, I, P]
-    for fn in (lib.step_front_smem_bytes, lib.step_stages_occupancy):
+    for fn in (lib.step_front_smem_bytes, lib.step_stages_occupancy, lib.step_front_build,
+               lib.step_front_chunk, lib.neighbor_slots_smem_bytes, lib.neighbor_slots_build):
         fn.restype = I
     for fn in (lib.step_front_launch, lib.goal_qp_inputs_launch):
         fn.argtypes = [P, P, P, P]
@@ -71,14 +86,31 @@ def build(verbose: bool = False) -> ctypes.CDLL:
 def reset_launches():
     global neighbor_launches, front_launches, fused_launches, goal_launches
     neighbor_launches = front_launches = fused_launches = goal_launches = 0
+    for k in wide_launches:
+        wide_launches[k] = 0
 
 
 def list_len(A: int, OA: int) -> int:
-    """K, the keys each of the neighbour selection's 128 threads keeps
-    (the kernel's list_len): the least of 8, 16 and 32 that holds min(OA,
-    its ceil(A/128) candidates)."""
+    """K, the keys each of the narrow neighbour selection's 128 threads
+    keeps (the kernel's list_len): the least of 8, 16 and 32 that holds
+    min(OA, its ceil(A/128) candidates)."""
     need = min(OA, -(-A // BLOCK_THREADS))
     return 8 if need <= 8 else 16 if need <= 16 else 32
+
+
+def selection_build(A: int, OA: int) -> int:
+    """The neighbour selection's build for OA of A agents (the kernel's
+    neighbor_slots_build): its list K (list_len) for the narrow builds,
+    0 for the wide build."""
+    return build().neighbor_slots_build(A, OA)
+
+
+def front_build(A: int, S: int, O: int, OA: int, M: int, n: int, mode: int,
+                select: bool) -> int:
+    """The prediction kernel's build for the shape (the kernel's
+    step_front_build): its selection's list K (8 without one), 0 for the
+    wide builds, -1 for a shape no build takes."""
+    return build().step_front_build(A, S, O, OA, M, n, mode, int(select))
 
 
 def occupancy(kernel: int, n: int, K: int, smem_bytes: int) -> int:
@@ -143,11 +175,10 @@ def neighbor_slots_cuda(cfg, sc, pos, scenarios: int):
     key = ("neighbors", SA, scenarios, dev)
     if key not in cfg.cache:
         _check("pos", pos, torch.float32, (SA, 3), dev)
-        if scenarios < 1 or SA % scenarios or not 0 <= OA <= MAX_AGENT_SLOTS \
-                or OA >= SA // scenarios:
+        if scenarios < 1 or SA % scenarios or not 0 <= OA < SA // scenarios:
             raise ValueError(f"neighbour kernel: S = {scenarios}, S·A = {SA}, OA = {OA}: need "
-                             f"S | S·A and 0 <= OA < A, OA <= {MAX_AGENT_SLOTS}")
-        cfg.cache[key] = True
+                             f"S | S·A and 0 <= OA < A")
+        cfg.cache[key] = OA > 0 and selection_build(SA // scenarios, OA) == 0
     pos = pos.contiguous()
     out = _outputs(dev, (("order", (SA, OA), torch.int64), ("valid", (SA, OA), torch.bool)))
     if OA == 0:
@@ -159,6 +190,7 @@ def neighbor_slots_cuda(cfg, sc, pos, scenarios: int):
     if rc != 0:
         raise RuntimeError(f"neighbor_slots_launch failed: CUDA error {rc}")
     neighbor_launches += 1
+    wide_launches["neighbor_slots"] += cfg.cache[key]
     return out["order"], out["valid"]
 
 
@@ -180,8 +212,9 @@ def step_front_cuda(cfg, sc, fleet, inp, order, valid, neighbors, scenarios: int
     ...], then order and valid are None). Returns {name: tensor} of
     stages.Front's fields."""
     global front_launches
-    out = _front(cfg, sc, fleet, inp, order, valid, neighbors, scenarios, False)
+    out, wide = _front(cfg, sc, fleet, inp, order, valid, neighbors, scenarios, False)
     front_launches += 1
+    wide_launches["step_front"] += wide
     return out
 
 
@@ -192,14 +225,16 @@ def front_with_neighbors_cuda(cfg, sc, fleet, inp, scenarios: int) -> dict:
     Returns {name: tensor} of stages.Front's fields with `order` and
     `valid` ([S·A, OA], as neighbor_slots_cuda's)."""
     global fused_launches
-    out = _front(cfg, sc, fleet, inp, None, None, None, scenarios, True)
+    out, wide = _front(cfg, sc, fleet, inp, None, None, None, scenarios, True)
     fused_launches += 1
+    wide_launches["front_with_neighbors"] += wide
     return out
 
 
-def _front(cfg, sc, fleet, inp, order, valid, neighbors, scenarios: int, select: bool) -> dict:
+def _front(cfg, sc, fleet, inp, order, valid, neighbors, scenarios: int, select: bool) -> tuple:
     """step_front_launch with the slots given (`order`, `valid` or
-    `neighbors`) or, with `select`, its own selection."""
+    `neighbors`) or, with `select`, its own selection: (outputs, whether
+    a wide build took it)."""
     dev = inp.pos.device
     if dev.type != "cuda":
         raise ValueError(f"the prediction kernel needs CUDA tensors, got {dev}")
@@ -241,17 +276,21 @@ def _front(cfg, sc, fleet, inp, order, valid, neighbors, scenarios: int, select:
                 if name.startswith("dyn_") and S > 1:
                     t = t.reshape(-1, *t.shape[2:])
                 _check(name, t, dtype, shape, dev)
-        if not 1 <= O <= MAX_SLOTS or S < 1 or A % S or cfg.n < 1:
-            raise ValueError(f"prediction kernel: O = {O} (1..{MAX_SLOTS}), S = {S}, A = {A}")
-        if select and not (0 <= OA <= MAX_AGENT_SLOTS and (OA == 0 or OA < A // S)):
+        if O < 1 or S < 1 or A % S or cfg.n < 1:
+            raise ValueError(f"prediction kernel: O = {O}, S = {S}, A = {A}")
+        if select and not (0 <= OA and (OA == 0 or OA < A // S)):
             raise ValueError(f"neighbour selection: S = {S}, S·A = {A}, OA = {OA}: need "
-                             f"0 <= OA < A, OA <= {MAX_AGENT_SLOTS}")
-        cfg.cache[key] = ((ctypes.c_int * 12)(A, S, O, OA, OD, M, cfg.n, cfg.mode,
+                             f"0 <= OA < A")
+        fb = front_build(A, S, O, OA, M, cfg.n, cfg.mode, select)
+        if fb < 0:
+            raise ValueError(f"prediction kernel: O = {O} slots of {M}·{N}·3 floats: the slot "
+                             f"tables and one slot's rows pass shared memory")
+        cfg.cache[key] = (fb == 0, (ctypes.c_int * 12)(A, S, O, OA, OD, M, cfg.n, cfg.mode,
                                               int(cfg.size_growth),
                                               int(cfg.velocity_guard is not None), int(select),
                                               int(cfg.comm_range > 0)),
                          (ctypes.c_float * 4)(sc["dt"], sc["reset"], sc["guard"], sc["range"]))
-    ints, flts = cfg.cache[key]
+    wide, ints, flts = cfg.cache[key]
     spec = [("obs_pred", (A, O, M, N, 3), f32), ("obs_valid", (A, O), b),
             ("obs_is_agent", (A, O), b), ("obs_radius", (A, O), f32),
             ("obs_downwash", (A, O), f32), ("obs_max_acc", (A, O), f32),
@@ -268,7 +307,7 @@ def _front(cfg, sc, fleet, inp, order, valid, neighbors, scenarios: int, select:
     rc = build().step_front_launch(ptrs, ints, flts, _stream(dev))
     if rc != 0:
         raise RuntimeError(f"step_front_launch failed: CUDA error {rc}")
-    return out
+    return out, wide
 
 
 # the kernel's GoalPtrs, in order

@@ -152,6 +152,30 @@ def test_solve_cold_duals_and_short_budget():
     check_contract(out, ref, feas_tol, full_convergence=False)
 
 
+@pytest.mark.parametrize("A", [12, 72])
+def test_solve_f64_is_the_plain_solve_in_float64(A):
+    """`qp_check.solve_f64` (the float64 reference of the wide solves on
+    the card), with its in-place (A=12) and compacted (A=72) rescue: the
+    plain path in float64 throughout, which certifies as many agents as
+    the float32 plain solve and lies within 0.1 m of it where both
+    converged."""
+    from lsc_dr_planner_tpu_torch.ops import qp_check
+
+    p, planner, fleet, inp = workload.build_fleet(A, device="cpu")
+    step = workload.make_evolve_step(p, planner, fleet)
+    for _ in range(2):
+        inp, _ = step(inp)
+    cfg, feas_tol = planner.qp_cfg, planner.feas_tol
+    qp_inp = planner._step_impl(fleet, inp, defer_qp=True).qp_inp
+    out = tqp.solve(cfg, qp_inp, feas_tol)
+    exact = qp_check.solve_f64(cfg, qp_inp, feas_tol)
+    assert exact.x.dtype == exact.z.dtype == exact.objective.dtype == torch.float64
+    assert exact.converged.sum() >= out.converged.sum() - 1
+    both = out.converged & exact.converged
+    assert both.float().mean() > 0.9
+    assert (out.x.double() - exact.x).abs()[both].max() < 0.1
+
+
 def test_rescue_batch_takes_the_worst_agents_first():
     """`rescue_batch` (the compacted rescue of `solve`): the RESCUE most
     infeasible agents of the iterate, worst first, and the rescue's loop

@@ -495,11 +495,13 @@ def test_row_check_still_raises_without_a_valid_mark(loop_inputs, change):
 
 def test_args_mirror_the_kernels_layout():
     """ctypes' mirror of the kernel's argument struct is laid out as the
-    source's C struct: 15 strided inputs of 40 bytes, 30 pointers, 9 ints
-    and 8 floats, 912 bytes (the kernel checks its own size against it
-    when the library loads)."""
+    source's C struct: 15 strided inputs of 40 bytes, 31 pointers (the
+    last the global build's tile workspace), 9 ints and 8 floats, 920
+    bytes (the kernel checks its own size against it when the library
+    loads)."""
     assert qp_prepare_cuda._Args.kmat.offset == 15 * 40 + 29 * 8
-    assert qp_prepare_cuda.ctypes.sizeof(qp_prepare_cuda._Args) == 912
+    assert qp_prepare_cuda._Args.work.offset == 15 * 40 + 30 * 8
+    assert qp_prepare_cuda.ctypes.sizeof(qp_prepare_cuda._Args) == 920
 
 
 # ----------------------------------------------------------------------

@@ -125,8 +125,9 @@ def test_kinv_symmetric_and_an_indefinite_agent_alone(cuda_dev, layout):
 
 
 def test_cpu_tensors_and_large_dk_raise(cuda_dev):
-    """The kernel's entry refuses CPU tensors and a dim·K above 96 (dim 4,
-    K 28: 112), before it launches."""
+    """The kernel's entry refuses CPU tensors and a world of 4 dimensions
+    (dim·K 112; any dim·K of 2 or 3 dimensions has a build, see
+    tests/test_torch_cuda.py's WIDE shapes), before it launches."""
     rng = np.random.default_rng(0)
     cfg = dataclasses.replace(_fleet_qp(4)[0], dim=4)
     ts = qp.torch_statics(cfg, cuda_dev)
@@ -143,7 +144,7 @@ def test_cpu_tensors_and_large_dk_raise(cuda_dev):
                       ub=rnd(A, dim, M, N) + 5, comm_halfrange=torch.ones(A, device=cuda_dev),
                       x0=rnd(A, dim, M, N), y0=rnd(A, R))
     before = qp_prepare_cuda.launches
-    with pytest.raises(ValueError, match="<= 96"):
+    with pytest.raises(ValueError, match="dim 2 or 3"):
         qp.prepare(cfg, inp)
     cpu = qp.QPInputs(**{f.name: getattr(inp, f.name).cpu() for f in dataclasses.fields(inp)})
     with pytest.raises(ValueError, match="CUDA tensors"):

@@ -1,0 +1,480 @@
+"""The port at the shapes above its narrow kernels' builds, on the CPU:
+3-D at M = 12 and above (dim·K 102 to 246), neighbour sets of more than
+32 agents and more than 64 obstacle slots, as the reference plans them
+(every agent within communication range is an obstacle).
+
+- Teacher-forced steps of the port's plain path against the JAX package
+  at those shapes, with test_torch_pipeline.py's assertions (SFC boxes
+  equal, convergence equal, goal within 1e-4, control points within 0.1
+  m where both converged). The JAX side takes its Param overrides from
+  a patched `lsc_dr_planner_tpu.config.Param` (bench.build_fleet builds
+  its Param in-process).
+- The plain `qp.solve` against the JAX `solve` at dim·K 138 and 246.
+- Python twins of the wide builds of csrc/step_stages.cu (the radix
+  selection of any OA, the prediction with its slot tables sized by O
+  and its source rows staged a chunk of slots at a time) against the
+  plain bodies `stages._neighbor_slots_plain` and `stages._front_plain`,
+  bit for bit.
+
+The kernels themselves run on the card: tests/test_torch_cuda.py and
+tests/test_torch_step_stages.py (marked `cuda`).
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import bench
+from lsc_dr_planner_tpu_torch import convert, workload
+from lsc_dr_planner_tpu_torch.config import PlannerMode
+from lsc_dr_planner_tpu_torch.ops import qp as tqp
+from lsc_dr_planner_tpu_torch.ops import step_cuda, trajectory
+from lsc_dr_planner_tpu_torch.planner import stages
+from test_torch_step_stages import (
+    FULL, KIND_CV, KIND_PAD, KIND_ROW, F, _cv_time, _dotn, _norm, _row_value,
+    assert_equal_by_value, lattice, np32,
+)
+
+# One intra-op thread: the suite runs in several worker processes on a
+# shared CPU, and torch's spinning thread pool would starve the JAX
+# computations of the other workers (small tensors gain nothing from it).
+torch.set_num_threads(1)
+
+STEPS = 2
+# (agents, Param overrides): 3-D at M = 12 (K = 34, dim·K 102) with 40
+# slots; with every agent within 5 m an obstacle (66 slots); DLSC in 3-D
+# (K = 36, dim·K 108)
+CASES = {
+    "A48_3d_M12_40": (48, dict(world_dimension=3, M=12, max_obstacles=40)),
+    "A72_3d_M12_5m_66": (72, dict(world_dimension=3, M=12, communication_range=5.0,
+                                  max_obstacles=66)),
+    "dlsc_3d_M12": (24, dict(world_dimension=3, M=12, planner_mode=PlannerMode.DLSC)),
+}
+
+
+def _fields(obj):
+    return obj._asdict() if hasattr(obj, "_asdict") else vars(obj)
+
+
+def _jax_overrides(overrides):
+    """The overrides with the JAX package's enums."""
+    from lsc_dr_planner_tpu import config as jconfig
+
+    out = {}
+    for k, v in overrides.items():
+        if isinstance(v, PlannerMode):
+            v = jconfig.PlannerMode[v.name]
+        out[k] = v
+    return out
+
+
+def _jax_fleet(monkeypatch, A, overrides):
+    """bench.build_fleet(A) with the overrides set over its Param."""
+    from lsc_dr_planner_tpu import config as jconfig
+
+    base = jconfig.Param
+    over = _jax_overrides(overrides)
+    monkeypatch.setattr(jconfig, "Param", lambda **kw: base(**{**kw, **over}))
+    return bench.build_fleet(A)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_teacher_forced_steps_match_jax(monkeypatch, case):
+    A, overrides = CASES[case]
+    pj, plan_j, fleet_j, inp_j = _jax_fleet(monkeypatch, A, overrides)
+    step_j = bench.make_evolve_step(pj, plan_j, fleet_j)
+    p, plan_t, fleet_t, inp_t = workload.build_fleet(A, device="cpu", **overrides)
+    assert plan_t.O == plan_j.O and plan_t.qp_cfg.M == p.M == overrides["M"]
+    K = tqp.torch_statics(plan_t.qp_cfg, torch.device("cpu"))["K"]
+    assert 3 * K > 96, K  # above the register builds of the ADMM kernel
+    np.testing.assert_array_equal(inp_t.pos.numpy(), np.asarray(inp_j.pos))
+    fleet = convert.fleet_from_numpy(_fields(fleet_j), "cpu")
+    for s in range(STEPS):
+        out_j = plan_j.step(fleet_j, inp_j)
+        out_t = convert.outputs_to_numpy(
+            plan_t.step(fleet, convert.inputs_from_numpy(_fields(inp_j), "cpu")))
+        np.testing.assert_array_equal(out_t["sfc_lo"], np.asarray(out_j.sfc_lo))
+        np.testing.assert_array_equal(out_t["sfc_hi"], np.asarray(out_j.sfc_hi))
+        conv_j = np.asarray(out_j.qp_converged)
+        np.testing.assert_array_equal(out_t["qp_converged"], conv_j, err_msg=f"step {s}")
+        np.testing.assert_allclose(out_t["current_goal"], np.asarray(out_j.current_goal),
+                                   rtol=0, atol=1e-4)
+        dctrl = np.abs(out_t["desired_ctrl"] - np.asarray(out_j.desired_ctrl))[conv_j]
+        assert dctrl.max(initial=0.0) < 0.1, (s, dctrl.max())
+        inp_j, _ = step_j(inp_j)
+    assert conv_j.mean() > 0.9
+
+
+@pytest.mark.parametrize("M,dk", [(16, 138), (28, 246)])
+def test_plain_solve_matches_jax(monkeypatch, M, dk):
+    """The port's plain QP (its preparation body and loop) against the JAX
+    solve on the same QP of a 3-D fleet of 4 after 2 evolving steps, with
+    test_torch_qp.py's contract."""
+    from lsc_dr_planner_tpu.ops import qp as jqp
+    from test_torch_qp import check_contract, port_cfg, port_inputs
+
+    p, planner, fleet, inp = _jax_fleet(monkeypatch, 4, dict(world_dimension=3, M=M))
+    step = bench.make_evolve_step(p, planner, fleet)
+    for _ in range(2):
+        inp, _ = step(inp)
+    cfg, feas_tol = planner.qp_cfg, planner.feas_tol
+    qp_inp = planner._step_impl(fleet, inp, defer_qp=True).qp_inp
+    pcfg = port_cfg(cfg)
+    assert pcfg.dim * tqp.torch_statics(pcfg, torch.device("cpu"))["K"] == dk
+    ref = jqp.solve(cfg, qp_inp, feas_tol=feas_tol)
+    out = tqp.solve(pcfg, port_inputs(qp_inp), feas_tol=feas_tol)
+    check_contract(out, ref, feas_tol, full_convergence=False)
+
+
+def test_jax_plans_degree_8_and_pins_3_points(monkeypatch):
+    """The limits of the port's kernels that stay, held to the JAX
+    package: it plans Bézier segments of degree 8 (N = 9 points; the hull
+    kernels take N <= 8: open in ROADMAP Queue 3) and refuses any pin
+    count but 3 (the preparation kernel's phi = 3 is its own)."""
+    from lsc_dr_planner_tpu import config as jconfig
+
+    base = jconfig.Param
+    p, planner, fleet, inp = _jax_fleet(monkeypatch, 8, dict(n=8))
+    step = bench.make_evolve_step(p, planner, fleet)
+    inp, conv = step(inp)
+    assert np.isfinite(np.asarray(inp.prev_ctrl)).all() and np.asarray(conv).mean() > 0.5
+    monkeypatch.setattr(jconfig, "Param", base)
+    p, planner, fleet, inp = _jax_fleet(monkeypatch, 8, dict(phi=2))
+    with pytest.raises(ValueError):
+        bench.make_evolve_step(p, planner, fleet)(inp)
+
+
+# ---- the wide selection, in Python ------------------------------------------
+THREADS, WARP = step_cuda.BLOCK_THREADS, 32
+
+
+def sort_len(OA):
+    P = 1
+    while P < OA:
+        P <<= 1
+    return P
+
+
+def bitonic(keys):
+    """The kernel's block-wide bitonic sort: pair e of a step is (lo, lo +
+    stride), lo = 2·stride·(e // stride) + e % stride, ascending where lo
+    & size is 0."""
+    P = len(keys)
+    size = 2
+    while size <= P:
+        stride = size >> 1
+        while stride > 0:
+            for e in range(P // 2):
+                lo = 2 * stride * (e // stride) + e % stride
+                hi = lo + stride
+                if (keys[lo] > keys[hi]) == ((lo & size) == 0):
+                    keys[lo], keys[hi] = keys[hi], keys[lo]
+            stride >>= 1
+        size <<= 1
+    return keys
+
+
+def twin_select_wide(pos, S, OA, rng, use_range):
+    """select_wide, a block an agent: the OA-th smallest distance by four
+    radix passes of 8 bits over its bits (a histogram each, the digit whose
+    bins hold the need-th key), the keys below it and the `need` lowest
+    indices at it placed by the tiles' ballot ranks in index order, then
+    the bitonic sort of the sort_len(OA) keys."""
+    SA = pos.shape[0]
+    A = SA // S
+    P = sort_len(OA)
+    order = np.zeros((SA, OA), np.int64)
+    valid = np.zeros((SA, OA), bool)
+    for agent in range(SA):
+        s, i = divmod(agent, A)
+        p = pos[s * A:(s + 1) * A]
+        d = np.abs(p[i] - p).max(axis=1)
+        d[i] = d[i] + F(1e9)
+        if use_range:
+            d = np.where(d < rng, d, F(1e9)).astype(F)
+        bits = d.view(np.uint32).astype(np.int64)
+        prefix, mask, need = 0, 0, OA
+        for shift in (24, 16, 8, 0):
+            hist = np.bincount((bits[(bits & mask) == prefix] >> shift) & 255, minlength=256)
+            below, digit = 0, 0
+            while below + hist[digit] < need:
+                below += hist[digit]
+                digit += 1
+            prefix |= digit << shift
+            mask |= 255 << shift
+            need -= below
+        keys = [FULL] * P
+        n_less = n_tie = 0
+        for t0 in range(0, A, THREADS):
+            tile = np.array([bits[j] if j < A else 0xFFFFFFFF for j in range(t0, t0 + THREADS)])
+            less, tie = tile < prefix, tile == prefix
+            # a thread's ballot rank plus the counts of the warps before it:
+            # the tile's keys before it
+            less_at = n_less + np.cumsum(less) - less
+            tie_at = n_tie + np.cumsum(tie) - tie
+            for t in range(THREADS):
+                key = (int(tile[t]) << 32) | (t0 + t)
+                if less[t]:
+                    keys[less_at[t]] = key
+                elif tie[t] and tie_at[t] < need:
+                    keys[OA - need + tie_at[t]] = key
+            n_less += int(less.sum())
+            n_tie += int(tie.sum())
+            if n_less == OA - need and n_tie >= need:
+                break
+        out = bitonic(keys)[:OA]
+        order[agent] = [(x & 0xFFFFFFFF) + s * A for x in out]
+        valid[agent] = [np.uint32(x >> 32).view(F) < F(1e8) for x in out]
+    return order, valid
+
+
+@pytest.mark.parametrize("A,S,OA,rng", [(34, 1, 33, 3.0), (120, 1, 33, -1.0), (81, 1, 80, 3.0),
+                                         (300, 1, 80, 4.0), (129, 1, 128, -1.0),
+                                         (200, 1, 128, 5.0), (90, 2, 40, 3.0)])
+def test_wide_selection_twin_equals_plain(A, S, OA, rng):
+    """On the tied lattice (its L∞ distances tie exactly: the lower index
+    first), ties at the OA-th distance included."""
+    pos = lattice(A, S)
+    order, valid = stages._neighbor_slots_plain(pos, S, OA, rng)
+    t_order, t_valid = twin_select_wide(pos.numpy(), S, OA, F(rng), rng > 0)
+    np.testing.assert_array_equal(t_order, order.numpy())
+    np.testing.assert_array_equal(t_valid, valid.numpy())
+
+
+def test_bitonic_sorts_every_length():
+    rs = np.random.default_rng(0)
+    for P in (1, 2, 4, 64, 256):
+        keys = [int(x) for x in rs.integers(0, 1 << 62, P)]
+        assert bitonic(list(keys)) == sorted(keys)
+
+
+# ---- the wide prediction, in Python -----------------------------------------
+WIDE_LIMIT = 232448 - 1024  # the kernel's kWideLimit: kMaxSmem less the static arrays
+WIDE_ROW_BYTES = 64 * 1024  # the kernel's kWideRowBytes
+
+
+def r4(f):
+    return (f + 3) & ~3
+
+
+def select_wide_floats(OA):
+    return 2 * sort_len(OA) + 256 + 4 * (THREADS // WARP) + 4
+
+
+def wide_chunk(M, N, O, OA, lsc, select):
+    """front_wide_smem's chunk: the slots whose rows fit in
+    WIDE_ROW_BYTES and the shared memory left by the tables."""
+    u = r4(M * N) + r4(N * N) + r4(2 * O) + r4((O + 3) // 4) + r4(O + 1) + 2 * r4(3 * (O + 1)) \
+        + 2 * r4(O) + r4((O + 3) // 4)
+    if not lsc:
+        return O + 1
+    room = min(WIDE_LIMIT // 4 - u, WIDE_ROW_BYTES // 4)
+    return max(1, min(O + 1, room // (M * N * 3)))
+
+
+def twin_front_chunked(cfg, sc, fleet, inp, order, valid, chunk, agents):
+    """step_front_kernel's wide build for `agents`, one at a time (the
+    outputs of the others stay 0): each slot's kind
+    and (position, velocity) and the agent's own (slot O); then per chunk
+    of slots [o0, o1) (slot O the agent's own) the rows of its agent slots
+    staged into a buffer of `chunk` rows, row o at o − o0, the disturbance
+    reset of its slots from there, and its outputs in flat order."""
+    A, O, OA, M, N = inp.pos.shape[0], cfg.O, cfg.OA, cfg.M, cfg.n + 1
+    N3, MN3 = 3 * N, M * 3 * N
+    sub = np32(cfg.sub)
+    tt = np.array([_cv_time(m, i, cfg.n, sc["dt"]) for m in range(M) for i in range(N)], F)
+    prev, pos, vel = np32(inp.prev_ctrl), np32(inp.pos), np32(inp.vel)
+    has_prev, disturbed = np32(inp.has_prev), np32(inp.is_disturbed)
+    order, valid = np32(order), np32(valid)
+    radius, downwash = np32(fleet.radius), np32(fleet.downwash)
+    goal = np32(inp.current_goal)
+    out = dict(obs_pred=np.zeros((A, O, M, N, 3), F), obs_valid=np.zeros((A, O), bool),
+               obs_is_agent=np.zeros((A, O), bool), obs_radius=np.zeros((A, O), F),
+               obs_downwash=np.zeros((A, O), F), obs_max_acc=np.zeros((A, O), F),
+               obs_pos_now=np.zeros((A, O, 3), F), obs_goal=np.zeros((A, O, 3), F),
+               initial_ctrl=np.zeros((A, M, N, 3), F))
+    zero = np.zeros(3, F)
+    for a in agents:
+        kind, P, V = {}, {}, {}
+        for o in range(O + 1):
+            kind[o], P[o], V[o] = KIND_CV, zero, zero
+            if o == O or o < OA:
+                r = order[a, o] if o < O else a
+                P[o] = pos[r]
+                if (o == O and disturbed[a]) or cfg.mode == stages.MODE_BVC:
+                    pass
+                elif cfg.mode == stages.MODE_RSFC or not has_prev[r]:
+                    V[o] = vel[r]
+                else:
+                    kind[o] = KIND_ROW
+                if o < O:
+                    out["obs_valid"][a, o], out["obs_is_agent"][a, o] = valid[a, o], True
+                    out["obs_radius"][a, o], out["obs_downwash"][a, o] = radius[r], downwash[r]
+                    out["obs_pos_now"][a, o], out["obs_goal"][a, o] = pos[r], goal[r]
+            else:
+                kind[o] = KIND_PAD
+                out["obs_radius"][a, o], out["obs_downwash"][a, o] = F(0.1), F(1.0)
+        buf = np.zeros((chunk, MN3), F)
+        for o0 in range(0, O + 1, chunk):
+            o1 = min(o0 + chunk, O + 1)
+            for o in range(o0, o1):
+                if o < OA or o == O:
+                    buf[o - o0] = (prev[order[a, o]] if o < OA else prev[a]).reshape(-1)
+            for o in range(o0, min(o1, OA)):
+                if kind[o] == KIND_ROW:
+                    e = [_row_value(buf[o - o0], sub, N, MN3, d, 0, 0, d) - P[o][d]
+                         for d in range(3)]
+                    if _norm(e) > sc["reset"]:
+                        kind[o], V[o] = KIND_CV, zero
+
+            def pred(o, r):
+                m = r // N3
+                i = (r - m * N3) // 3
+                d = r - m * N3 - 3 * i
+                if kind[o] == KIND_ROW:
+                    return _row_value(buf[o - o0], sub, N, MN3, r, m, i, d)
+                if kind[o] == KIND_CV:
+                    return P[o][d] + F(V[o][d] * tt[m * N + i])
+                return F(0)
+
+            flat = out["obs_pred"][a].reshape(-1)
+            for f in range(o0 * MN3, min(o1, O) * MN3):
+                flat[f] = pred(f // MN3, f % MN3)
+            if o1 == O + 1:
+                flat = out["initial_ctrl"][a].reshape(-1)
+                for f in range(MN3):
+                    flat[f] = pred(O, f)
+    return out
+
+
+def wide_front_state(O, dim, substep=False, seed=0, device="cpu"):
+    """(planner, fleet, inp) of a fleet of O + 6 agents whose neighbour set
+    is every other agent within 20 m (O slots), with previous solutions:
+    constant-velocity plans from jittered positions, some agents without
+    one, some disturbed, some moved 0.7 m off their plans (the reset)."""
+    A = O + 6
+    over = dict(world_dimension=dim, max_obstacles=O, communication_range=20.0)
+    if substep:
+        over.update(planner_mode=PlannerMode.DLSC, multisim_time_step=0.1)
+    p, planner, fleet, inp = workload.build_fleet(A, device=device, **over)
+    rs = np.random.default_rng(seed)
+    vel = torch.as_tensor(rs.uniform(-0.5, 0.5, (A, 3)), dtype=torch.float32, device=device)
+    start = inp.pos + torch.as_tensor(rs.uniform(-0.05, 0.05, (A, 3)), dtype=torch.float32,
+                                      device=device)
+    prev = trajectory.const_vel_ctrl(start, vel, p.M, p.n, p.dt)
+    has_prev = torch.as_tensor(rs.random(A) < 0.8, device=device)
+    disturbed = torch.zeros(A, dtype=torch.bool, device=device)
+    disturbed[::9] = True
+    pos = inp.pos.clone()
+    pos[3::7, 0] += 0.7
+    inp = dataclasses.replace(inp, prev_ctrl=prev, has_prev=has_prev, is_disturbed=disturbed,
+                              pos=pos, vel=vel)
+    assert planner.O == O and planner.O_agents == O
+    return planner, fleet, inp
+
+
+@pytest.mark.parametrize("O,dim,substep,chunks", [(65, 2, False, (0, 7)), (160, 3, False, (0, 33)),
+                                                   (70, 2, True, (0,))])
+def test_wide_front_twin_equals_plain(O, dim, substep, chunks):
+    """The wide prediction, its rows staged `chunk` slots at a time (0:
+    the kernel's own chunk, wide_chunk), equals the plain selection's
+    slots predicted by the plain body; and the fused wide build (the
+    radix selection, then the prediction) equals the plain fused entry."""
+    planner, fleet, inp = wide_front_state(O, dim, substep)
+    cfg = planner.stage_cfg
+    sc = stages.stage_scalars(cfg)
+    order, valid, want = stages.front_with_neighbors(cfg, fleet, inp)
+    t_order, t_valid = twin_select_wide(np32(inp.pos), 1, cfg.OA, F(sc["range"]),
+                                        cfg.comm_range > 0)
+    np.testing.assert_array_equal(t_order, order.numpy())
+    np.testing.assert_array_equal(t_valid, valid.numpy())
+    # agents with and without a plan, disturbed, moved off their plans
+    agents = [0, 3, 5, 9, 10, O // 2, O + 5]
+    for chunk in chunks:
+        n = chunk or wide_chunk(cfg.M, cfg.n + 1, O, cfg.OA, cfg.mode == stages.MODE_LSC, True)
+        got = twin_front_chunked(cfg, sc, fleet, inp, order, valid, n, agents)
+        for field, v in got.items():
+            assert_equal_by_value(v[agents], np32(getattr(want, field))[agents],
+                                  f"O={O} chunk {n} {field}")
+    assert chunks[0] == 0 and wide_chunk(cfg.M, cfg.n + 1, O, cfg.OA, True, True) <= O + 1
+
+
+def test_wide_chunk_stages_160_slots_in_two():
+    """At 160 slots of M = 10, N = 6 (720 B a row) the rows take two
+    chunks of at most WIDE_ROW_BYTES; 80 slots at M = 12 (864 B a row, the
+    wide phase's shape) take one."""
+    assert wide_chunk(10, 6, 160, 160, True, True) == WIDE_ROW_BYTES // 720 == 91
+    assert wide_chunk(12, 6, 80, 80, True, True) == 75
+    assert wide_chunk(12, 6, 80, 80, False, True) == 81
+
+
+# ---- the wide builds on the card ---------------------------------------------
+@pytest.fixture(scope="module")
+def lattice_cfg():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the stage kernels have no CPU mode")
+    _, planner, _, _ = workload.build_fleet(12, device="cpu")
+    return planner.stage_cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("A", [256, 1024, 5000])
+@pytest.mark.parametrize("OA", [32, 33, 80, 128, 255])
+def test_wide_neighbor_kernel_on_lattice(lattice_cfg, A, OA):
+    """OA at the narrow build's 32 and above it (the wide build), on the
+    tied lattice with and without a range: equal to the plain body."""
+    pos = lattice(A).to("cuda")
+    assert (step_cuda.selection_build(A, OA) == 0) == (OA > 32)
+    for rng in (3.0, -1.0):
+        cfg = dataclasses.replace(lattice_cfg, OA=OA, comm_range=rng, cache={})
+        before = dict(step_cuda.wide_launches)
+        got = step_cuda.neighbor_slots_cuda(cfg, stages.stage_scalars(cfg), pos, 1)
+        want = stages._neighbor_slots_plain(pos, 1, OA, rng)
+        for x, y in zip(got, want):
+            assert_equal_by_value(np32(x), np32(y), f"A={A} OA={OA} range {rng}")
+        assert step_cuda.wide_launches["neighbor_slots"] - before["neighbor_slots"] == (OA > 32)
+
+
+def _fronts_equal(got, want, what):
+    for f in dataclasses.fields(want):
+        x, y = getattr(got, f.name), getattr(want, f.name)
+        assert (x is None) == (y is None), (what, f.name)
+        if x is not None:
+            assert_equal_by_value(np32(x), np32(y), f"{what} {f.name}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("O,dim,substep", [(64, 2, False), (65, 2, False), (80, 3, False),
+                                           (70, 2, True), (160, 2, False), (256, 2, False)])
+def test_wide_front_kernels_equal_plain_on_card(O, dim, substep):
+    """O slots, every one an agent: the fused entry and the selection alone
+    (wide builds: OA > 32), the prediction on its slots and on the
+    gathered slots (the multi-device steps' entry; wide above 64 slots),
+    each one launch, equal to their plain bodies; the kernel's chunk of
+    staged slots is wide_chunk's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the stage kernels have no CPU mode")
+    planner, fleet, inp = wide_front_state(O, dim, substep, device="cuda")
+    cfg = planner.stage_cfg
+    before = dict(step_cuda.wide_launches)
+    order, valid, got = stages.front_with_neighbors(cfg, fleet, inp)
+    p_order, p_valid, want = stages.front_with_neighbors(cfg, fleet, inp, plain=True)
+    assert_equal_by_value(np32(order), np32(p_order), "order")
+    assert_equal_by_value(np32(valid), np32(p_valid), "valid")
+    _fronts_equal(got, want, f"fused O={O}")
+    n_order, n_valid = stages.neighbor_slots(inp.pos, 1, cfg)
+    assert_equal_by_value(np32(n_order), np32(p_order), "neighbor_slots")
+    _fronts_equal(stages.step_front(cfg, fleet, inp, order, valid),
+                  stages.step_front(cfg, fleet, inp, order, valid, plain=True), "step_front")
+    nd = stages.gather_neighbors(fleet, inp, order, valid)
+    _fronts_equal(stages.step_front(cfg, fleet, inp, neighbors=nd),
+                  stages.step_front(cfg, fleet, inp, neighbors=nd, plain=True), "gathered")
+    torch.cuda.synchronize()
+    # the prediction on given slots stays narrow up to 64 slots
+    assert {k: v - before[k] for k, v in step_cuda.wide_launches.items()} == {
+        "neighbor_slots": 1, "step_front": 2 * (O > 64), "front_with_neighbors": 1}
+    lib = step_cuda.build()
+    assert lib.step_front_chunk(O, cfg.OA, cfg.M, cfg.n, cfg.mode, 1) == wide_chunk(
+        cfg.M, cfg.n + 1, O, cfg.OA, cfg.mode == stages.MODE_LSC, True)
