@@ -135,7 +135,17 @@ layer and audit, and the `sim.run` CLI) flying forest missions:
      every stage entry, the gathered slots' included, each call held to
      its plain body, `loop_check` at 256 (2-D rows past shared memory);
      the selection alone at A 256, 1,024 and 5,000 and OA 32, 33, 80, 128
-     and 255 against the plain body;
+     and 255 against the plain body; (h) the main path at Bézier degree 8
+     (`build_fleet(1024, n=8)`: N = 9 control points a segment, the hull
+     kernels' run-time builds; dim·K 116, the ADMM memory build), 2
+     warm-up and 5 timed steps checked as (f), `clsc_check` on the
+     run-time CLSC build, the CLSC and hull kernels timed on its call,
+     `qp_split`, QP convergence no worse than the JAX package's at n = 8
+     on the same layout, fleet and steps (JAX_CPU_CONV) less one
+     straggler a step; the kernel path's solve against the plain path's
+     and float64 (`solve_against_plain`); then plain LSC with static
+     goals at n = 8 for 2 steps (`phase8h_query`: build_lsc's hull
+     queries, one launch of the run-time query each, `hull_check`);
   9. `forest_mission(10)` flown by `MultiSyncSimulator.run` in (a) DLSC
      sub-step mode, (b) 3-D and (c) with a spinning and a straight dynamic
      obstacle seen through 0.03 m observation noise: each flight passes
@@ -230,7 +240,9 @@ entry per build of the ADMM kernel (its dim·K range, the memory build
 `<256,0>` any; launches on the
 paths of phases 5-14, largest error against the plain loop, and ms,
 plain ms and bound at its A=1024 shape), one per geometry kernel
-(sfc_expand, sfc_update_hull, hull_closest, clsc_build: its launches on
+(sfc_expand, sfc_update_hull, hull_closest, clsc_build, and the hull
+kernels' run-time builds hull_closest<rt> and clsc_build<rt>, timed at
+phase 8h's N = 9: its launches on
 those paths, the calls and items its check held to its plain version,
 ms, device ms, plain ms, bound and share on the main path's call, the
 SFC kernels' latency floor, ptxas's registers), one for qp_prepare
@@ -594,6 +606,13 @@ class Builds:
                      "callers": [], "dims": [], "ms": None}
         self.clsc = {"launches": 0, "max_abs_err": 0.0, "calls_checked": 0, "pairs_checked": 0,
                      "elements_checked": 0, "dims": [], "ms": None}
+        # the hull kernels' run-time builds (hull_query_rt: K > 8, and CLSC
+        # stages past 48 KB): the same records; `hull` and `clsc` keep the
+        # template builds' alone
+        self.hull_rt = {"launches": 0, "max_abs_err": 0.0, "calls_checked": 0,
+                        "hulls_checked": 0, "callers": [], "dims": [], "ms": None}
+        self.clsc_rt = {"launches": 0, "max_abs_err": 0.0, "calls_checked": 0,
+                        "pairs_checked": 0, "elements_checked": 0, "dims": [], "ms": None}
         self.prep = {"launches": 0, "max_abs_err": 0.0, "calls_checked": 0, "agents_checked": 0,
                      "elements_checked": 0, "max_share_of_tolerance": 0.0,
                      "max_kinv_ratio": 0.0, "dims": [], "max_agents": 0, "ms": None}
@@ -639,10 +658,11 @@ class Builds:
         of the SFC expansion ("sfc_expand"), the fused 'hull' SFC update
         ("sfc_update_hull"), the hull query ("hull_closest") and the fused
         CLSC construction ("clsc_build") and the QP preparation
-        ("qp_prepare"), and returns them with the plain versions run on
-        CUDA tensors: hull enumerations ("hull_plain_on_cuda"), CLSC
-        bodies ("clsc_plain_on_cuda"), 'hull' SFC bodies
-        ("sfc_hull_plain_on_cuda") and QP preparations
+        ("qp_prepare"), the launches of the hull kernels' run-time builds
+        among them ("hull_closest_rt", "clsc_build_rt"), and returns them
+        with the plain versions run on CUDA tensors: hull enumerations
+        ("hull_plain_on_cuda"), CLSC bodies ("clsc_plain_on_cuda"), 'hull'
+        SFC bodies ("sfc_hull_plain_on_cuda") and QP preparations
         ("prepare_plain_on_cuda"); and the step's stage kernels
         ("neighbor_slots", "step_front", "front_with_neighbors",
         "goal_qp_inputs") with their plain bodies on CUDA tensors
@@ -661,6 +681,12 @@ class Builds:
                             ("qp_prepare", self.qp_prepare_cuda.launches, self.prep)):
             out[key] = n
             rec["launches"] += n
+        for key, rec, template in (("hull_closest", self.hull_rt, self.hull),
+                                   ("clsc_build", self.clsc_rt, self.clsc)):
+            n = self.hull_cuda.rt_launches[key]
+            out[key + "_rt"] = n
+            rec["launches"] += n
+            template["launches"] -= n
         out["hull_plain_on_cuda"] = self.geometry.plain_cuda_calls
         out["clsc_plain_on_cuda"] = self.lsc.plain_cuda_calls
         out["sfc_hull_plain_on_cuda"] = self.sfc_ops.plain_cuda_calls
@@ -720,8 +746,8 @@ class Builds:
         r["max_abs_err"] = max(r["max_abs_err"], rec["max_abs_err_chunk"])
 
     def note_hull_check(self, recs):
-        h = self.hull
         for r in recs:
+            h = self.hull_rt if r["rt"] else self.hull
             h["max_abs_err"] = max(h["max_abs_err"], r["max_abs_err"])
             h["calls_checked"] += 1
             h["hulls_checked"] += r["hulls"]
@@ -746,8 +772,8 @@ class Builds:
                 h["per_agent_images"].append(r["per_agent_images"])
 
     def note_clsc_check(self, recs):
-        c = self.clsc
         for r in recs:
+            c = self.clsc_rt if r["rt"] else self.clsc
             c["max_abs_err"] = max(c["max_abs_err"], r["max_abs_err"])
             c["calls_checked"] += 1
             c["pairs_checked"] += r["pairs"]
@@ -798,9 +824,9 @@ PLAIN_ON_CUDA = ("hull_plain_on_cuda", "clsc_plain_on_cuda", "sfc_hull_plain_on_
 # steps the second; `separate_launches` the first two in the third's place)
 STAGE_ENTRIES = ("neighbor_slots", "step_front", "front_with_neighbors", "goal_qp_inputs")
 WIDE_ENTRIES = STAGE_ENTRIES[:3]  # the entries with wide builds (step_cuda.wide_launches)
-NOT_ADMM = ("sfc_expand", "sfc_update_hull", "hull_closest", "clsc_build", "qp_prepare",
-            "qp_prepare_global", *STAGE_ENTRIES, *(e + "_wide" for e in WIDE_ENTRIES),
-            *PLAIN_ON_CUDA)
+NOT_ADMM = ("sfc_expand", "sfc_update_hull", "hull_closest", "clsc_build", "hull_closest_rt",
+            "clsc_build_rt", "qp_prepare", "qp_prepare_global", *STAGE_ENTRIES,
+            *(e + "_wide" for e in WIDE_ENTRIES), *PLAIN_ON_CUDA)
 
 
 def admm_shape(qp, cfg, dev):
@@ -1238,21 +1264,26 @@ def kernels_ab_main():
     in 8b's (3-D) and in 8f's (3-D past the narrow builds), on one step's
     calls after WARMUP evolving steps, the device ms of each kernel queued
     back to back: the ADMM loop (`admm_timing.timed_call`, max_iter
-    iterations) and the build it took, the QP preparation kernel, and the
-    step's stage kernels. One JSON line."""
+    iterations) and the build it took, the QP preparation kernel, the
+    step's stage kernels, the fused CLSC kernel and the hull query on its
+    hulls; and ptxas's record of the hull kernels. One JSON line."""
     from lsc_dr_planner_tpu_torch import workload
-    from lsc_dr_planner_tpu_torch.ops import qp, qp_cuda, qp_prepare_cuda
+    from lsc_dr_planner_tpu_torch.ops import (
+        cuda_build, geometry, hull_cuda, lsc, qp, qp_cuda, qp_prepare_cuda,
+    )
     from lsc_dr_planner_tpu_torch.planner import stages
 
     dev, gpu = torch.device("cuda", 0), gpu_line()
-    build_all()
-    out = {"package": str(Path(qp_cuda.__file__).resolve().parents[1]), "gpu": gpu}
+    build_all(verbose=hull_cuda)
+    out = {"package": str(Path(qp_cuda.__file__).resolve().parents[1]), "gpu": gpu,
+           "hull_ptxas": ptxas_summary(cuda_build.build_log.get("hull_closest.cu", (0, ""))[1])}
     for tag, overrides in (("main", {}), ("8b", dict(world_dimension=3)), ("8f", P8F)):
         planner, fleet, inp = main_path_state(workload, dev, **overrides)
         recs = stage_recorders(stages)
         with contextlib.ExitStack() as stack:
             for r in recs:
                 stack.enter_context(r)
+            clscs = stack.enter_context(Calls(lsc, "build_clsc"))
             d = planner._step_impl(fleet, inp, defer_qp=True)
         cfg, tol = planner.qp_cfg, planner.feas_tol
         li = qp.prepare(cfg, d.qp_inp).loop
@@ -1269,6 +1300,12 @@ def kernels_ab_main():
             if r.calls:
                 a, k = r.calls[0][:2]
                 rec[r.name + "_ms"] = queued_ms(lambda: r.orig(*a, **k), KERNEL_REPS)
+        a, dim = clsc_args(clscs.calls[0])
+        a = tuple(t.contiguous() for t in a)
+        rec["clsc_build_ms"] = queued_ms(lambda: hull_cuda.build_clsc_cuda(*a, dim), KERNEL_REPS)
+        x = clsc_plain_query(lsc, geometry, a, dim)
+        rec["hull_closest_ms"] = queued_ms(
+            lambda: hull_cuda.closest_point_origin_to_hull_cuda(x), KERNEL_REPS)
         out[tag] = rec
     print("kernels ab", json.dumps(out))
     return out
@@ -1421,6 +1458,7 @@ def hull_record(geometry, hull_cuda, x, got, caller):
         differ |= ne(a, b)
     odd = ne(neg[0], -got[0]) | ne(neg[1], got[1])
     return {"caller": caller, "hulls": H, "K": x.shape[-2],
+            "rt": hull_cuda.hull_closest_plan(x.shape[-2])[0],
             "dim": 2 if not bool(x[..., 2].any()) else 3,
             "inside": int((want[1] == 0).sum()), "hulls_differing": int(differ.sum()),
             "not_odd": int(odd.sum()), "max_abs_err": max(max_err(a, b) for a, b in zip(got, want))}
@@ -1454,8 +1492,10 @@ def hull_timing(geometry, hull_cuda, builds, x, gpu, what):
     ms = queued_ms(lambda: hull_cuda.closest_point_origin_to_hull_cuda(x), KERNEL_REPS)
     device_ms, seen = profiled_ms(lambda: hull_cuda.closest_point_origin_to_hull_cuda(x), x.device)
     plain_ms = cuda_ms(lambda: geometry.closest_point_origin_to_hull(x, plain=True), 10)
+    rt, smem = hull_cuda.hull_closest_plan(x.shape[-2])
     rec = {"shape": list(x.shape), "dim": check["dim"], "ms": ms, "device_ms": device_ms,
-           "profiled_kernels": seen, "plain_ms": plain_ms, **hull_bound(x)}
+           "profiled_kernels": seen, "plain_ms": plain_ms, "rt": rt, "smem_bytes": smem,
+           **hull_bound(x)}
     rec["bound_share"] = rec["bound_ms"] / ms
     print(f"{what} hull timing", json.dumps(rec), f"[{gpu}]")
     return rec
@@ -1473,6 +1513,8 @@ def clsc_check(lsc, builds, calls, what):
     kernel's), one more launch and the plain body (plain=True) on the
     same inputs give equal normals, anchors and margins by value, element
     for element. Returns the per-call records."""
+    from lsc_dr_planner_tpu_torch.ops import hull_cuda
+
     assert calls.calls, f"{what}: no build_clsc call recorded"
     recs = []
     for call in calls.calls:
@@ -1486,6 +1528,7 @@ def clsc_check(lsc, builds, calls, what):
                      + differing(getattr(again, n), getattr(got, n)) for n in names)
         A, O, M, N = a[1].shape[:4]
         recs.append({"agents": A, "pairs": A * O, "hulls": A * O * M, "N": N, "dim": dim,
+                     "rt": hull_cuda.clsc_build_plan(A, O, M, N)[0],
                      "elements": sum(getattr(want, n).numel() for n in names),
                      "masked_pairs": int((~a[9]).sum()), "elements_differing": n_diff,
                      "max_abs_err": max(max_err(getattr(got, n), getattr(want, n))
@@ -1564,8 +1607,9 @@ def clsc_timing(lsc, hull_cuda, geometry, calls, gpu, what):
     device_ms, seen = profiled_ms(launch, a[1].device)
     plain_ms = cuda_ms(lambda: lsc.build_clsc(*a, world_dimension=dim, plain=True), 5)
     x = clsc_plain_query(lsc, geometry, a, dim)
+    rt, smem = hull_cuda.clsc_build_plan(*a[1].shape[:4])
     rec = {"shape": list(a[1].shape), "dim": dim, "ms": ms, "device_ms": device_ms,
-           "profiled_kernels": seen, "plain_ms": plain_ms,
+           "profiled_kernels": seen, "plain_ms": plain_ms, "rt": rt, "smem_bytes": smem,
            **clsc_bound(a, dim, x)}
     rec["bound_share"] = rec["bound_ms"] / ms
     print(f"{what} clsc timing", json.dumps(rec), f"[{gpu}]")
@@ -2744,6 +2788,14 @@ def unconverged_steps(qp, planner, fleet, states, convs, out_dir):
 # planar distance between two agents after them
 JAX_CPU_1024 = {"8c": (0.608008, 0.303347), "8d": (0.202930, 0.028253)}
 CONV_GAP, SEP_GAP = 0.03, 0.01
+# The JAX package on the CPU in a mode whose convergence phase 8 holds the
+# port to (no worse, less one straggler a step), on the same layout, fleet
+# and steps, planning along its own plan (tests/cpu_reference.py
+# convergence degree8 1024 9): mean QP convergence over the steps that phase
+# 8h times (5-9), and the fleet. Both packages rescue at most 64 agents
+# (qp.RESCUE), so the share depends on the fleet: at A=64 the JAX package
+# converges 0.8375 over the same steps (convergence degree8 64 9)
+JAX_CPU_CONV = {"8h": (0.105859375, 1024)}
 
 
 def phase8_modes():
@@ -2886,7 +2938,7 @@ def fused_mode(workload, qp, builds, dev, gpu, tag, overrides, steps=True,
         "sfc_expand": launches["sfc_expand"] / expands.n if expands.n else None}
     assert preps.n == launches["qp_prepare"] == timed, (tag, preps.n, launches["qp_prepare"])
     res["prepare_check"] = prepare_check(qp, builds.qp_prepare_cuda, builds, preps, f"phase{tag}")
-    if tag in ("8b", "8f"):  # the 3-D shapes: the preparation timed, the QP stage split
+    if tag in ("8b", "8f", "8h"):  # the preparation timed, the QP stage split
         res["prepare_timing"] = prepare_timing(qp, builds.qp_prepare_cuda, preps, gpu,
                                                f"phase{tag}")
         res["qp_split"] = qp_split(workload, dev, gpu, overrides, reps=10 if tag == "8b" else 4)
@@ -2926,6 +2978,12 @@ def fused_mode(workload, qp, builds, dev, gpu, tag, overrides, steps=True,
         res["jax_cpu"] = {"qp_convergence": conv_ref, "min_pair_distance": sep_ref}
         assert abs(res["qp_convergence"] - conv_ref) <= CONV_GAP, (tag, res, conv_ref)
         sep = min(sep, sep_ref - SEP_GAP)
+    elif tag in JAX_CPU_CONV:
+        conv_ref, A_ref = JAX_CPU_CONV[tag]
+        res["jax_cpu"] = {"qp_convergence": conv_ref, "agents": A_ref}
+        # no worse than the JAX package's, less one straggler a step
+        assert res["qp_convergence"] >= conv_ref - 1 / A_MAIN, (tag, res["qp_convergence"],
+                                                                 conv_ref)
     else:
         assert res["qp_convergence"] > 0.9, (tag, res["qp_convergence"])
     assert res["min_pair_distance"] >= sep, (tag, res["min_pair_distance"], sep)
@@ -2940,6 +2998,74 @@ def fused_mode(workload, qp, builds, dev, gpu, tag, overrides, steps=True,
 # prediction's wide builds (OA = O = 80)
 P8F = dict(world_dimension=3, M=12, communication_range=5.0, max_obstacles=80)
 P8F_WARMUP, P8F_TIMED, P8F_SEPARATE = 2, 5, 1
+# 8h: the main path at Bézier degree 8, which the JAX package plans (9
+# control points a segment: the hull kernels' run-time build; K = 58, dim·K
+# 116: the ADMM kernel's memory build); 8h's query: plain LSC (static goals,
+# build_lsc: the hull query alone) at degree 8, P8H_QUERY_STEPS steps
+P8H = dict(n=8)
+P8H_WARMUP, P8H_TIMED, P8H_QUERY_STEPS = 2, 5, 2
+
+
+def solve_against_plain(workload, qp, dev, gpu, overrides, what):
+    """The kernel path's solve (the preparation and loop kernels) against
+    the plain path's (qp.solve(plain=True)) on the QP after WARMUP
+    evolving steps of `build_fleet(A_MAIN, **overrides)`: the kernel
+    converges at least as many agents less 0.5 points (phase 4's
+    contract), and where the kernel, the plain path and the float64 plain
+    path (`qp_check.solve_f64`) converged, each agent's control points lie
+    within 0.1 m of float64 or no farther than F64_FACTOR times the
+    float32 plain path's (the float64 clause of
+    tests/test_torch_cuda.py)."""
+    from lsc_dr_planner_tpu_torch.ops import qp_check
+
+    planner, fleet, inp = main_path_state(workload, dev, **overrides)
+    cfg, tol = planner.qp_cfg, planner.feas_tol
+    qp_inp = planner._step_impl(fleet, inp, defer_qp=True).qp_inp
+    out, ref = qp.solve(cfg, qp_inp, tol), qp.solve(cfg, qp_inp, tol, plain=True)
+    exact = qp_check.solve_f64(cfg, qp_inp, tol)
+    both = out.converged & ref.converged & exact.converged
+    d_k, d_p = ((r.x.double() - exact.x).abs().flatten(1).amax(1)[both] for r in (out, ref))
+    ok = (d_k < 0.1) | (d_k <= qp_check.F64_FACTOR * d_p)
+    rec = {"converged_kernel": float(out.converged.float().mean()),
+           "converged_plain": float(ref.converged.float().mean()),
+           "converged_f64": float(exact.converged.float().mean()),
+           "agents_compared": int(both.sum()),
+           "kernel_vs_f64_max": float(d_k.max()), "plain_vs_f64_max": float(d_p.max()),
+           "agents_off_clause": int((~ok).sum())}
+    print(f"{what} solve against plain", json.dumps(rec), f"[{gpu}]")
+    assert rec["converged_kernel"] >= rec["converged_plain"] - 0.005, (what, rec)
+    assert both.any() and ok.all(), (what, rec)
+    return rec
+
+
+def phase8h_query(workload, builds, dev, gpu, steps=P8H_QUERY_STEPS):
+    """The hull query's run-time build on a path: plain LSC with static
+    goals (build_lsc queries the hulls on their own) at degree 8 and
+    A=1024, `steps` evolving steps, each query one launch of the run-time
+    build and no plain enumeration on the card; every query held to the
+    plain enumeration (`hull_check`), every output finite."""
+    from lsc_dr_planner_tpu_torch.config import GoalMode
+    from lsc_dr_planner_tpu_torch.ops import geometry, hull_cuda
+
+    p, planner, fleet, inp = workload.build_fleet(A_MAIN, device=dev, goal_mode=GoalMode.STATIC,
+                                                  **P8H)
+    step = workload.make_evolve_step(p, planner, fleet)
+    builds.reset_launches()
+    convs = []
+    with Calls(geometry, "closest_point_origin_to_hull", keep=steps) as hulls:
+        for _ in range(steps):
+            inp, conv = step(inp)
+            convs.append(float(conv.float().mean()))
+    launches = builds.add_path_launches()
+    for name in ("pos", "vel", "acc", "prev_ctrl"):
+        assert torch.isfinite(getattr(inp, name)).all(), ("phase 8h query", name)
+    res = {"steps": steps, "qp_convergence_per_step": convs, "kernel_launches": launches,
+           "hull_check": hull_check(geometry, hull_cuda, builds, hulls, "phase8h query")}
+    print("phase8h query", json.dumps({k: v for k, v in res.items() if k != "hull_check"}),
+          f"[{gpu}]")
+    assert hulls.n == launches["hull_closest"] == launches["hull_closest_rt"] == steps, launches
+    assert launches["hull_plain_on_cuda"] == 0 and launches["clsc_build"] == 0, launches
+    return res
 
 
 def phase8g_qp_cases():
@@ -4089,6 +4215,22 @@ def main():
     phase_done("8f")
     record["phase8"]["8g"] = phase8g(workload, qp, builds, dev, gpu, srec)
     phase_done("8g")
+    print("phase8h: LSC-DR 2-D, Bézier degree 8 (N = 9 control points a segment)", flush=True)
+    r = record["phase8"]["8h"] = fused_mode(
+        workload, qp, builds, dev, gpu, "8h", P8H, float64_clause=True, l2_ns=l2_ns,
+        warmup=P8H_WARMUP, timed=P8H_TIMED, stage_recs=srec)
+    assert r["build"] == "<256,0>" and r["dk"] == 116, (r["build"], r["dk"])
+    assert r["clsc_timing"]["N"] == 9 and r["hull_timing"]["K"] == 9, r["clsc_timing"]
+    assert r["kernel_launches"]["clsc_build_rt"] == r["kernel_launches"]["clsc_build"] \
+        == P8H_TIMED, r["kernel_launches"]
+    assert all(c["rt"] for c in r["clsc_check"]), r["clsc_check"]
+    for rec, t in ((builds.clsc_rt, r["clsc_timing"]), (builds.hull_rt, r["hull_timing"])):
+        rec.update({k: t[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                      "bound_share", "bytes_ms", "ops_ms", "hulls",
+                                      "ops_per_hull", "smem_bytes")})
+    r["solve"] = solve_against_plain(workload, qp, dev, gpu, P8H, "phase8h")
+    r["query"] = phase8h_query(workload, builds, dev, gpu)
+    phase_done("8h")
 
     # ---- 9. forest flights in the new modes ------------------------------
     record["phase9"] = {}
@@ -4221,6 +4363,13 @@ def main():
         ("clsc_build", builds.clsc, "hull_closest.cu",
          "lsc_dr_planner_tpu/ops/lsc.py:129",  # build_clsc, jnp; no Pallas original
          "clsc_build_kernel<6>", ("calls_checked", "pairs_checked", "elements_checked")),
+        # the run-time builds (K > 8; timed at phase 8h's N = 9)
+        ("hull_closest<rt>", builds.hull_rt, "hull_closest.cu",
+         "lsc_dr_planner_tpu/ops/geometry.py:192", "hull_closest_rt_kernel",
+         ("calls_checked", "hulls_checked", "smem_bytes")),
+        ("clsc_build<rt>", builds.clsc_rt, "hull_closest.cu",
+         "lsc_dr_planner_tpu/ops/lsc.py:129", "clsc_build_rt_kernel",
+         ("calls_checked", "pairs_checked", "elements_checked", "smem_bytes")),
     )
     for name, r, source, replaces, kernel, checked in geometry_kernels:
         print(name, json.dumps(r))

@@ -40,8 +40,16 @@
 // and computes only the point it selects. IEEE operations are odd under
 // points -> -points, so the query keeps the plain version's exact oddness.
 //
-// The layout. One thread per hull, its K points in registers (K is a template
-// parameter, 1..8, so no register array is indexed at run time). A block of
+// The layout. One thread per hull. Two kinds of build: a template build for
+// each K from 1 to 8, the hull's K points in registers (no register array is
+// indexed at run time; K = 8 already takes 202 and 222 registers), and one
+// run-time build for any K (hull_query_rt: the same loops at run time, the
+// points read from the block's shared stage, a row of 3K floats padded to an
+// odd count, so a warp's 32 rows fall in 32 banks; CLSC's relative points get
+// rows of their own there and its margins a row of K). The template takes K
+// <= 8 (CLSC: where its stage also fits in 48 KB), the run-time build every
+// other K, its shared memory sized at launch (opted in past 48 KB; a stage
+// past the card's 227 KB a block is refused). A block of
 // 128 hulls first stages its hulls' points (for CLSC the neighbours'
 // [hulls, K, 3] floats and the [M, K, 3] initial control points of the agents
 // the block spans, each agent's once) in shared memory with unit-stride,
@@ -69,7 +77,10 @@
 // take one instruction each where the peak counts a fused multiply-add as
 // two, each IEEE division is a multi-instruction sequence, 128 registers (K =
 // 6) leave 16 warps an SM, and a warp runs a tetrahedron's volumes as far as
-// its slowest hull's test goes.
+// its slowest hull's test goes. The run-time builds at N = 9 (phase 8h's call,
+// 163,840 2-D hulls: 36 edges, 84 triangles and 126 tetrahedra each): CLSC
+// 0.176 ms (7.6% of its 0.0134 ms bytes bound), the query 0.141 ms (4.3%),
+// 72 and 71 registers.
 
 #include <cuda_runtime.h>
 
@@ -390,6 +401,239 @@ __global__ void __launch_bounds__(kThreads) clsc_build_kernel(ClscArgs g) {
   for (int i = threadIdx.x; i < nh * 3; i += blockDim.x) nm[i] = normal_tile[i];
 }
 
+// ---- the run-time builds: any N, the points read from shared memory -----------
+// A hull's points stay in the block's stage and each is read from there where
+// the enumeration needs it (three shared loads a point; a register array of N
+// points is what caps the template builds). A hull's stage row is 3N floats,
+// padded to an odd count: the 32 threads of a warp then read 32 distinct banks.
+__host__ __device__ __forceinline__ int odd_floats(int f) { return f | 1; }
+
+__device__ __forceinline__ V3 point(const float* q, int i) {
+  return {q[3 * i], q[3 * i + 1], q[3 * i + 2]};
+}
+
+// hull_query over the K points at q, the loops at run time in the same
+// itertools.combinations order, the same device functions, the same first
+// minimum and the same early stop of the tetrahedra
+__device__ __forceinline__ void hull_query_rt(const float* q, int K, V3& closest, float& dist) {
+  const V3 p0 = point(q, 0);
+  Best best{p0, dot3(p0, p0)};
+  for (int i = 1; i < K; ++i) best.consider(point(q, i));
+  for (int i = 0; i < K; ++i) {
+    const V3 a = point(q, i);
+    for (int j = i + 1; j < K; ++j) best.consider(segment_closest(a, point(q, j)));
+  }
+  for (int i = 0; i < K; ++i) {
+    const V3 a = point(q, i);
+    for (int j = i + 1; j < K; ++j) {
+      const V3 b = point(q, j);
+      for (int k = j + 1; k < K; ++k) best.consider(triangle_closest(a, b, point(q, k)));
+    }
+  }
+  bool inside = false;
+  for (int i = 0; i < K && !inside; ++i) {
+    const V3 a = point(q, i);
+    for (int j = i + 1; j < K && !inside; ++j) {
+      const V3 b = point(q, j);
+      for (int k = j + 1; k < K && !inside; ++k) {
+        const V3 c = point(q, k);
+        for (int l = k + 1; l < K && !inside; ++l) inside = origin_in_tetra(a, b, c, point(q, l));
+      }
+    }
+  }
+  if (inside) best = {{0.f, 0.f, 0.f}, 0.f};
+  closest = best.p;
+  dist = __fsqrt_rn(best.d2);
+}
+
+// rows of `cols` floats from src (contiguous) into dst at a stride of `stride`
+__device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__ src, int rows,
+                                           int cols, int stride) {
+  for (int i = threadIdx.x; i < rows * cols; i += blockDim.x) {
+    const int r = i / cols;
+    dst[r * stride + i - r * cols] = __ldg(src + i);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    hull_closest_rt_kernel(const float* __restrict__ pts, long long H, int K,
+                           float* __restrict__ closest, float* __restrict__ dist) {
+  extern __shared__ float hull_tile[];  // [kThreads, S]
+  const int K3 = 3 * K, S = odd_floats(K3);
+  const long long h0 = static_cast<long long>(blockIdx.x) * kThreads;
+  const int n = static_cast<int>(min(static_cast<long long>(kThreads), H - h0));
+  stage_rows(hull_tile, pts + h0 * K3, n, K3, S);
+  __syncthreads();
+  if (static_cast<int>(threadIdx.x) >= n) return;
+  V3 c;
+  float d;
+  hull_query_rt(hull_tile + threadIdx.x * S, K, c, d);
+  const long long h = h0 + threadIdx.x;
+  closest[3 * h] = c.x;
+  closest[3 * h + 1] = c.y;
+  closest[3 * h + 2] = c.z;
+  dist[h] = d;
+}
+
+// the run-time CLSC build's shared memory, in floats: the hulls' points (then
+// their anchors) and their relative points, a row of S each; the margins, a
+// row of odd_floats(K) each; the normals; the initial points of the agents
+// the block spans, a row of S a segment
+struct ClscRtLayout {
+  int S, KS;
+  long long rel, margin, normal, init, floats;
+};
+
+__host__ __device__ inline ClscRtLayout clsc_rt_layout(int K, int M, long long na) {
+  ClscRtLayout l;
+  l.S = odd_floats(3 * K);
+  l.KS = odd_floats(K);
+  l.rel = static_cast<long long>(kThreads) * l.S;
+  l.margin = l.rel + static_cast<long long>(kThreads) * l.S;
+  l.normal = l.margin + static_cast<long long>(kThreads) * l.KS;
+  l.init = l.normal + kThreads * 3;
+  l.floats = l.init + na * M * l.S;
+  return l;
+}
+
+// clsc_build_kernel with the points read from shared memory: the same
+// operations in the same order (the relative points to the rel rows; each
+// margin to the margin rows where the template keeps it in a register)
+__global__ void __launch_bounds__(kThreads) clsc_build_rt_kernel(ClscArgs g, int K, int na_max) {
+  extern __shared__ float clsc_smem[];
+  const ClscRtLayout L = clsc_rt_layout(K, g.M, na_max);
+  const int S = L.S, KS = L.KS, K3 = 3 * K;
+  float* obs_tile = clsc_smem;  // the block's hulls, then their anchors
+  float* rel_tile = clsc_smem + L.rel;
+  float* margin_tile = clsc_smem + L.margin;
+  float* normal_tile = clsc_smem + L.normal;
+  float* init_tile = clsc_smem + L.init;
+
+  const long long OM = static_cast<long long>(g.O) * g.M;
+  const long long H = g.A * OM;
+  const long long h0 = static_cast<long long>(blockIdx.x) * kThreads;
+  const int nh = static_cast<int>(min(static_cast<long long>(kThreads), H - h0));
+  const int my = static_cast<int>(threadIdx.x) < nh ? static_cast<int>(threadIdx.x) : -1;
+  const long long a0 = h0 / OM;
+  const int na = static_cast<int>((h0 + nh - 1) / OM - a0 + 1);
+  stage_rows(obs_tile, g.obs + h0 * K3, nh, K3, S);
+  stage_rows(init_tile, g.init + a0 * g.M * K3, na * g.M, K3, S);
+  __syncthreads();
+
+  if (my >= 0) {
+    const long long h = h0 + my, pair = h / g.M, a = pair / g.O;
+    const int m = static_cast<int>(h - pair * g.M);
+    const float ar = __ldg(g.agent_radius + a), ad = __ldg(g.agent_downwash + a);
+    const float orad = __ldg(g.obs_radius + pair), od = __ldg(g.obs_downwash + pair);
+    const float den = add(ar, orad);
+    // downwash_between
+    const float dw = g.obs_is_agent[pair] ? div(add(mul(ad, ar), mul(od, orad)), den)
+                                          : div(add(ar, mul(od, orad)), den);
+    const bool d3 = g.dim3;
+    const float* ob = obs_tile + my * S;
+    const float* in = init_tile + ((a - a0) * g.M + m) * S;
+    float* rel = rel_tile + my * S;
+    float* marg = margin_tile + my * KS;
+    for (int k = 0; k < K; ++k) {
+      const V3 r = sub3(zscale(point(in, k), dw, d3), zscale(point(ob, k), dw, d3));
+      rel[3 * k] = r.x;
+      rel[3 * k + 1] = r.y;
+      rel[3 * k + 2] = r.z;
+    }
+    V3 closest;
+    float dist;
+    hull_query_rt(rel, K, closest, dist);
+    V3 normal = unit(closest, dist);
+    for (int k = 0; k < K; ++k) marg[k] = mul(0.5f, add(den, dot3(point(rel, k), normal)));
+
+    if (m == g.M - 1) {
+      // the last segment: (obs end → obs goal) against (agent end → agent goal)
+      const V3 obs_last = zscale(point(ob, K - 1), dw, d3);
+      const V3 agent_last = zscale(point(in, K - 1), dw, d3);
+      const V3 og = zscale(load3(g.obs_goal + 3 * pair), dw, d3);
+      const V3 cg = zscale(load3(g.current_goal + 3 * a), dw, d3);
+      V3 cp, cq;
+      float seg;
+      segments_closest(obs_last, og, agent_last, cg, cp, cq, seg);
+      const V3 nl = unit(sub3(cq, cp), seg);
+      const float ml = mul(0.5f, add(den, seg));
+      const float floor_ = sub(ml, kGuard);
+      bool ok = true;
+      for (int k = 0; k < K && ok; ++k)
+        ok = dot3(sub3(zscale(point(in, k), dw, d3), cp), nl) >= floor_;
+      if (ok) {  // clsc_ok: the segment plane, anchored at the obstacle-side point
+        normal = nl;
+        float* an = obs_tile + my * S;  // this thread's own row only
+        for (int k = 0; k < K; ++k) {
+          marg[k] = ml;
+          an[3 * k] = cp.x;
+          an[3 * k + 1] = cp.y;
+          an[3 * k + 2] = cp.z;
+        }
+      }
+    }
+    // _to_world_normal (the pair's own downwash), then the mask
+    const bool keep = g.obs_mask[pair];
+    normal_tile[3 * my] = keep ? normal.x : 0.f;
+    normal_tile[3 * my + 1] = keep ? normal.y : 0.f;
+    normal_tile[3 * my + 2] = keep ? div(normal.z, dw) : 0.f;
+  }
+  __syncthreads();
+  float* an = g.anchors + h0 * K3;
+  for (int i = threadIdx.x; i < nh * K3; i += blockDim.x) {
+    const int r = i / K3;
+    an[i] = obs_tile[r * S + i - r * K3];
+  }
+  float* mg = g.margins + h0 * K;
+  for (int i = threadIdx.x; i < nh * K; i += blockDim.x) {
+    const int r = i / K;
+    mg[i] = margin_tile[r * KS + i - r * K];
+  }
+  float* nm = g.normals + h0 * 3;
+  for (int i = threadIdx.x; i < nh * 3; i += blockDim.x) nm[i] = normal_tile[i];
+}
+
+// ---- launches ------------------------------------------------------------------
+constexpr size_t kStaticSmem = 48 * 1024;  // shared memory a block takes without opting in
+constexpr size_t kMaxSmem = 232448;        // and at most, opted in (227 KB on sm_90)
+constexpr int kTemplateMaxK = 8;           // the template builds: K = 1..8
+constexpr int kErrSmem = -1;  // the launch's return where the stage passes kMaxSmem
+
+// bytes of the run-time builds' dynamic shared memory, opted in past 48 KB
+int rt_smem(const void* kernel, size_t bytes) {
+  if (bytes > kMaxSmem) return kErrSmem;
+  if (bytes <= kStaticSmem) return cudaSuccess;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)));
+}
+
+size_t hull_rt_bytes(int K) {
+  return static_cast<size_t>(kThreads) * odd_floats(3 * K) * sizeof(float);
+}
+
+// agents a CLSC block spans at most: its hulls start anywhere in an agent's O·M
+long long clsc_span(const ClscArgs& g) {
+  const long long OM = static_cast<long long>(g.O) * g.M;
+  const long long span = (kThreads - 1) / OM + 2;
+  return span < g.A ? span : g.A;
+}
+
+// the template build's shared memory: its static tiles and the initial points
+size_t clsc_template_bytes(const ClscArgs& g, int K) {
+  const size_t smem = static_cast<size_t>(clsc_span(g)) * g.M * K * 3 * sizeof(float);
+  return smem + (kThreads * 3 * K + kThreads * K + kThreads * 3) * sizeof(float);
+}
+
+size_t clsc_rt_bytes(const ClscArgs& g, int K) {
+  return static_cast<size_t>(clsc_rt_layout(K, g.M, clsc_span(g)).floats) * sizeof(float);
+}
+
+// the template serves K <= 8 where its stage fits in 48 KB; the run-time
+// build every other shape
+bool clsc_is_rt(const ClscArgs& g, int K) {
+  return K > kTemplateMaxK || clsc_template_bytes(g, K) > kStaticSmem;
+}
+
 template <int K>
 void hull_launch(const float* pts, long long H, float* closest, float* dist, unsigned blocks,
                  cudaStream_t stream) {
@@ -397,28 +641,45 @@ void hull_launch(const float* pts, long long H, float* closest, float* dist, uns
 }
 
 template <int K>
-int clsc_launch(const ClscArgs& g, unsigned blocks, cudaStream_t stream) {
-  // agents a block spans at most: its hulls start anywhere in an agent's O·M
-  const long long OM = static_cast<long long>(g.O) * g.M;
-  const long long span = (kThreads - 1) / OM + 2;
-  const long long na = span < g.A ? span : g.A;
-  const size_t smem = static_cast<size_t>(na) * g.M * K * 3 * sizeof(float);
-  const size_t tiles = (kThreads * 3 * K + kThreads * K + kThreads * 3) * sizeof(float);
-  if (smem + tiles > 48 * 1024) return cudaErrorInvalidValue;  // M too large to stage
+void clsc_launch(const ClscArgs& g, unsigned blocks, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(clsc_span(g)) * g.M * K * 3 * sizeof(float);
   clsc_build_kernel<K><<<blocks, kThreads, smem, stream>>>(g);
-  return cudaSuccess;
 }
 
 }  // namespace
 
+// Shared memory bytes a block of the hull query of K-point hulls takes, and
+// (*rt) whether the run-time build takes them (K > 8).
+extern "C" long long hull_closest_smem(int K, int* rt) {
+  *rt = K > kTemplateMaxK;
+  return static_cast<long long>(*rt ? hull_rt_bytes(K) : kThreads * 3 * K * sizeof(float));
+}
+
+// Shared memory bytes a block of build_clsc takes at (A, O, M, N), and (*rt)
+// whether the run-time build takes the shape.
+extern "C" long long clsc_build_smem(long long A, int O, int M, int N, int* rt) {
+  ClscArgs g{};
+  g.A = A;
+  g.O = O;
+  g.M = M;
+  *rt = clsc_is_rt(g, N);
+  return static_cast<long long>(*rt ? clsc_rt_bytes(g, N) : clsc_template_bytes(g, N));
+}
+
+// The most shared memory a block may take (bytes): past it a launch returns -1.
+extern "C" long long hull_max_smem() { return static_cast<long long>(kMaxSmem); }
+
 // Queues the query of H hulls of K points (pts: [H, K, 3] float32, contiguous;
 // closest: [H, 3]; dist: [H]) on `stream`: one launch, no synchronisation.
-// Returns the CUDA error code (0 on success).
+// K <= 8 takes the template build of K, K > 8 the run-time build (*rt = 1).
+// Returns the CUDA error code (0 on success), or -1 where the run-time
+// build's stage passes the card's shared memory (hull_closest_smem).
 extern "C" int hull_closest_launch(const float* pts, long long H, int K, float* closest,
-                                   float* dist, void* stream) {
-  if (H < 1 || (H + kThreads - 1) / kThreads > INT_MAX) return cudaErrorInvalidValue;
+                                   float* dist, int* rt, void* stream) {
+  if (H < 1 || K < 1 || (H + kThreads - 1) / kThreads > INT_MAX) return cudaErrorInvalidValue;
   const unsigned blocks = static_cast<unsigned>((H + kThreads - 1) / kThreads);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  *rt = K > kTemplateMaxK;
   switch (K) {
     case 1: hull_launch<1>(pts, H, closest, dist, blocks, s); break;
     case 2: hull_launch<2>(pts, H, closest, dist, blocks, s); break;
@@ -428,23 +689,30 @@ extern "C" int hull_closest_launch(const float* pts, long long H, int K, float* 
     case 6: hull_launch<6>(pts, H, closest, dist, blocks, s); break;
     case 7: hull_launch<7>(pts, H, closest, dist, blocks, s); break;
     case 8: hull_launch<8>(pts, H, closest, dist, blocks, s); break;
-    default: return cudaErrorInvalidValue;
+    default: {
+      const size_t bytes = hull_rt_bytes(K);
+      const int rc = rt_smem(reinterpret_cast<const void*>(hull_closest_rt_kernel), bytes);
+      if (rc != cudaSuccess) return rc;
+      hull_closest_rt_kernel<<<blocks, kThreads, bytes, s>>>(pts, H, K, closest, dist);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // Queues build_clsc of A agents, O neighbour slots, M segments of N control
 // points (every array float32 or bool, contiguous, in build_clsc's shapes) on
-// `stream`: one launch, no synchronisation. Returns the CUDA error code (0 on
-// success).
+// `stream`: one launch, no synchronisation. The template build of N serves N
+// <= 8 where its stage fits in 48 KB, the run-time build every other shape
+// (*rt = 1). Returns the CUDA error code (0 on success), or -1 where the
+// run-time build's stage passes the card's shared memory (clsc_build_smem).
 extern "C" int clsc_build_launch(const float* init, const float* obs, const float* obs_goal,
                                  const float* agent_radius, const float* agent_downwash,
                                  const float* obs_radius, const float* obs_downwash,
                                  const unsigned char* obs_is_agent, const float* current_goal,
                                  const unsigned char* obs_mask, long long A, int O, int M, int N,
                                  int world_dimension, float* normals, float* anchors,
-                                 float* margins, void* stream) {
-  if (A < 1 || O < 1 || M < 1) return cudaErrorInvalidValue;
+                                 float* margins, int* rt, void* stream) {
+  if (A < 1 || O < 1 || M < 1 || N < 1) return cudaErrorInvalidValue;
   ClscArgs g{init, obs, obs_goal, agent_radius, agent_downwash, obs_radius, obs_downwash,
              obs_is_agent, current_goal, obs_mask, A, O, M, world_dimension == 3,
              normals, anchors, margins};
@@ -452,18 +720,23 @@ extern "C" int clsc_build_launch(const float* init, const float* obs, const floa
   const long long blocks = (A * O * M + kThreads - 1) / kThreads;
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
   const unsigned b = static_cast<unsigned>(blocks);
-  int rc;
-  switch (N) {
-    case 1: rc = clsc_launch<1>(g, b, s); break;
-    case 2: rc = clsc_launch<2>(g, b, s); break;
-    case 3: rc = clsc_launch<3>(g, b, s); break;
-    case 4: rc = clsc_launch<4>(g, b, s); break;
-    case 5: rc = clsc_launch<5>(g, b, s); break;
-    case 6: rc = clsc_launch<6>(g, b, s); break;
-    case 7: rc = clsc_launch<7>(g, b, s); break;
-    case 8: rc = clsc_launch<8>(g, b, s); break;
-    default: return cudaErrorInvalidValue;
+  *rt = clsc_is_rt(g, N);
+  if (*rt) {
+    const size_t bytes = clsc_rt_bytes(g, N);
+    const int rc = rt_smem(reinterpret_cast<const void*>(clsc_build_rt_kernel), bytes);
+    if (rc != cudaSuccess) return rc;
+    clsc_build_rt_kernel<<<b, kThreads, bytes, s>>>(g, N, static_cast<int>(clsc_span(g)));
+    return static_cast<int>(cudaGetLastError());
   }
-  if (rc != cudaSuccess) return rc;
+  switch (N) {
+    case 1: clsc_launch<1>(g, b, s); break;
+    case 2: clsc_launch<2>(g, b, s); break;
+    case 3: clsc_launch<3>(g, b, s); break;
+    case 4: clsc_launch<4>(g, b, s); break;
+    case 5: clsc_launch<5>(g, b, s); break;
+    case 6: clsc_launch<6>(g, b, s); break;
+    case 7: clsc_launch<7>(g, b, s); break;
+    case 8: clsc_launch<8>(g, b, s); break;
+  }
   return static_cast<int>(cudaGetLastError());
 }

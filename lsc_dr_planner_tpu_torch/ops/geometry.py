@@ -216,8 +216,9 @@ def closest_point_origin_to_hull(points, plain: bool = False):
 
     points: [..., K, 3] float32 → (closest_point [..., 3], dist [...]).
     Odd under points → −points, so a reciprocal pair gets mirrored
-    normals. CUDA tensors go to the kernel (contiguous, K ≤ 8; a failure
-    to build or launch raises), CPU tensors to the plain enumeration;
+    normals. CUDA tensors go to the kernel (contiguous, any K ≥ 1: the
+    template build of K up to 8, the run-time build above; a failure to
+    build or launch raises), CPU tensors to the plain enumeration;
     `plain` forces the plain enumeration on any device, for comparisons.
     Any other device raises.
     """

@@ -1,11 +1,14 @@
 """Wrappers of the hand-written Hopper hull kernels (`csrc/hull_closest.cu`).
 
-Two entries share one device function for the hull enumeration (the K
-vertices, edges and triangles with a running first minimum, then the
-tetrahedra, each stopped at its first failing sign test, all in
-registers), one thread per hull, a block's points staged through shared
-memory with coalesced loads (see the note at the top of the source for
-the layout and what bounds it):
+Two entries share one enumeration of the hull (the K vertices, edges and
+triangles with a running first minimum, then the tetrahedra, each
+stopped at its first failing sign test), one thread per hull, a block's
+points staged through shared memory with coalesced loads. Each entry has
+two kinds of build: a template build for each K from 1 to 8, the
+points in registers, and one run-time build for any K, the points read
+from the shared stage (every K above 8; and CLSC shapes whose template
+stage passes 48 KB). See the note at the top of the source for the
+layout and what bounds it:
 
 - `build_clsc_cuda`: the whole CLSC construction (`lsc.build_clsc`, the
   JAX package's lsc_dr_planner_tpu/ops/lsc.py:129; no Pallas original)
@@ -23,7 +26,8 @@ and `geometry.closest_point_origin_to_hull` give them CUDA tensors and
 CPU tensors to the plain versions. The source is compiled at first use
 by `cuda_build` into `build/` and loaded with ctypes. `launches` and
 `clsc_launches` count each entry's kernel launches since
-`reset_launches()`.
+`reset_launches()`; `rt_launches` counts the launches of each entry's
+run-time build among them.
 """
 
 from __future__ import annotations
@@ -35,10 +39,10 @@ import torch
 from lsc_dr_planner_tpu_torch.ops import cuda_build
 
 SOURCE = cuda_build.CSRC / "hull_closest.cu"
-MAX_K = 8  # points a hull at most (the kernel's template builds: K = 1..8)
 
 launches = 0  # hull_closest kernel launches since the last reset
 clsc_launches = 0  # clsc_build kernel launches since the last reset
+rt_launches = {"hull_closest": 0, "clsc_build": 0}  # of the run-time builds among them
 _lib = None
 
 
@@ -49,10 +53,14 @@ def build(verbose: bool = False) -> ctypes.CDLL:
         return _lib
     lib = ctypes.CDLL(str(cuda_build.compile_source(SOURCE, verbose)))
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.hull_closest_launch.argtypes = [P, LL, I, P, P, P]
+    lib.hull_closest_launch.argtypes = [P, LL, I, P, P, P, P]
     lib.hull_closest_launch.restype = I
-    lib.clsc_build_launch.argtypes = [P] * 10 + [LL] + [I] * 4 + [P] * 4
+    lib.clsc_build_launch.argtypes = [P] * 10 + [LL] + [I] * 4 + [P] * 5
     lib.clsc_build_launch.restype = I
+    lib.hull_closest_smem.argtypes = [I, P]
+    lib.clsc_build_smem.argtypes = [LL, I, I, I, P]
+    for f in (lib.hull_closest_smem, lib.clsc_build_smem, lib.hull_max_smem):
+        f.restype = LL
     _lib = lib
     return lib
 
@@ -60,20 +68,48 @@ def build(verbose: bool = False) -> ctypes.CDLL:
 def reset_launches():
     global launches, clsc_launches
     launches = clsc_launches = 0
+    for key in rt_launches:
+        rt_launches[key] = 0
+
+
+def hull_closest_plan(K: int):
+    """(whether the query of K-point hulls takes the run-time build, the
+    shared memory a block of it takes in bytes)."""
+    rt = ctypes.c_int()
+    smem = build().hull_closest_smem(K, ctypes.byref(rt))
+    return bool(rt.value), smem
+
+
+def clsc_build_plan(A: int, O: int, M: int, N: int):
+    """(whether build_clsc at this shape takes the run-time build, the
+    shared memory a block of it takes in bytes)."""
+    rt = ctypes.c_int()
+    smem = build().clsc_build_smem(A, O, M, N, ctypes.byref(rt))
+    return bool(rt.value), smem
+
+
+def _launch_failed(rc, entry, smem):
+    """Raise for a launch that returned `rc` (not 0): -1 where the run-time
+    build's stage passes the card's shared memory (`smem`: the bytes it
+    needs), else a CUDA error."""
+    if rc == -1:
+        raise ValueError(f"{entry}: the shape needs {smem} B of shared memory a block, past "
+                         f"the {build().hull_max_smem()} B a block may take on the card")
+    raise RuntimeError(f"{entry} failed: CUDA error {rc}")
 
 
 def closest_point_origin_to_hull_cuda(points):
     """Queue the query of every hull of `points` ([..., K, 3] float32,
-    contiguous, on a CUDA device, 1 ≤ K ≤ MAX_K) on the current stream:
-    one launch, no synchronisation (none for an empty batch). Returns
-    (closest [..., 3], dist [...]) as the plain enumeration does."""
+    contiguous, on a CUDA device, K ≥ 1) on the current stream: one
+    launch, no synchronisation (none for an empty batch); the template
+    build of K up to 8, the run-time build above. Returns (closest [...,
+    3], dist [...]) as the plain enumeration does."""
     global launches
     dev = points.device
     if points.dtype != torch.float32:
         raise ValueError(f"points: need float32, got {points.dtype}")
-    if points.dim() < 2 or points.shape[-1] != 3 or not 1 <= points.shape[-2] <= MAX_K:
-        raise ValueError(f"points: need [..., K, 3] with 1 <= K <= {MAX_K}, "
-                         f"got {tuple(points.shape)}")
+    if points.dim() < 2 or points.shape[-1] != 3 or points.shape[-2] < 1:
+        raise ValueError(f"points: need [..., K, 3] with K >= 1, got {tuple(points.shape)}")
     if not points.is_contiguous():
         raise ValueError("points: not contiguous")
     if dev.type != "cuda":
@@ -86,13 +122,15 @@ def closest_point_origin_to_hull_cuda(points):
     if H == 0:
         return closest, dist
     lib = build()
+    rt = ctypes.c_int()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.hull_closest_launch(points.data_ptr(), H, K, closest.data_ptr(),
-                                     dist.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"hull_closest_launch failed: CUDA error {rc}")
+                                     dist.data_ptr(), ctypes.byref(rt), stream)
+    if rc:
+        _launch_failed(rc, "hull_closest_launch", hull_closest_plan(K)[1])
     launches += 1
+    rt_launches["hull_closest"] += rt.value
     return closest, dist
 
 
@@ -103,16 +141,17 @@ def build_clsc_cuda(initial_ctrl, obs_ctrl, obs_goal, agent_radius, agent_downwa
     build_clsc's: initial_ctrl [A, M, N, 3], obs_ctrl [A, O, M, N, 3],
     obs_goal [A, O, 3], agent_radius, agent_downwash [A], obs_radius,
     obs_downwash [A, O], obs_is_agent, obs_mask bool [A, O], current_goal
-    [A, 3]; float32, contiguous, on one CUDA device, 1 ≤ N ≤ MAX_K.
-    Returns (normals [A, O, M, 3], anchors [A, O, M, N, 3], margins [A,
-    O, M, N])."""
+    [A, 3]; float32, contiguous, on one CUDA device, N ≥ 1. The
+    template build of N serves N ≤ 8 where its stage fits in 48 KB, the
+    run-time build every other shape. Returns (normals [A, O, M, 3],
+    anchors [A, O, M, N, 3], margins [A, O, M, N])."""
     global clsc_launches
     if obs_ctrl.dim() != 5 or obs_ctrl.shape[-1] != 3:
         raise ValueError(f"obs_ctrl: need [A, O, M, N, 3], got {tuple(obs_ctrl.shape)}")
     A, O, M, N, _ = obs_ctrl.shape
     dev = obs_ctrl.device
-    if not 1 <= N <= MAX_K:
-        raise ValueError(f"obs_ctrl: need 1 <= N <= {MAX_K} control points, got {N}")
+    if N < 1:
+        raise ValueError(f"obs_ctrl: need N >= 1 control points, got {N}")
     f32, b = torch.float32, torch.bool
     for name, t, dtype, shape in (
             ("initial_ctrl", initial_ctrl, f32, (A, M, N, 3)), ("obs_ctrl", obs_ctrl, f32, None),
@@ -135,6 +174,7 @@ def build_clsc_cuda(initial_ctrl, obs_ctrl, obs_goal, agent_radius, agent_downwa
     if normals.numel() == 0:
         return normals, anchors, margins
     lib = build()
+    rt = ctypes.c_int()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.clsc_build_launch(
@@ -142,8 +182,9 @@ def build_clsc_cuda(initial_ctrl, obs_ctrl, obs_goal, agent_radius, agent_downwa
                                      agent_downwash, obs_radius, obs_downwash, obs_is_agent,
                                      current_goal, obs_mask)),
             A, O, M, N, world_dimension, normals.data_ptr(),
-            anchors.data_ptr(), margins.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"clsc_build_launch failed: CUDA error {rc}")
+            anchors.data_ptr(), margins.data_ptr(), ctypes.byref(rt), stream)
+    if rc:
+        _launch_failed(rc, "clsc_build_launch", clsc_build_plan(A, O, M, N)[1])
     clsc_launches += 1
+    rt_launches["clsc_build"] += rt.value
     return normals, anchors, margins

@@ -16,6 +16,7 @@ tests do).
     JAX_PLATFORMS=cpu python tests/cpu_reference.py teacher circle A STEPS
     JAX_PLATFORMS=cpu python tests/cpu_reference.py freerun circle A STEPS
     JAX_PLATFORMS=cpu python tests/cpu_reference.py tools [CASE ...]
+    JAX_PLATFORMS=cpu python tests/cpu_reference.py qpf32 A STRIDE [THREADS]
 
 `flights`: `workload.forest_mission(10)` flown to its goals by the JAX
 simulator in the modes of chip_smoke.py phase 9 (`dlsc`: DLSC sub-step,
@@ -28,7 +29,8 @@ of the port (CPU) on the bench layout `workload.build_fleet(A)` in one
 planner mode of tests/test_torch_modes_pipeline.py (CONFIGS), both
 planning from the same state, which advances along the JAX plan; and
 the smallest planar distance between two agents of that state after
-each step.
+each step. NAME may also be `degree8` (Bézier degree 8, n = 8: phase
+8h's configuration).
 
 `local`: `workload.forest_mission(A, SEED)` flown by the JAX simulator
 in local-sensing mode (sensor range 3 m; chip_smoke.py phase 11), one
@@ -77,6 +79,20 @@ package's slow fuzz test; CASE may also name any other mission of
 dlsc_openworld's main (circle16, circle24, swap10_s0, swap14_s1,
 swap18_s2, swap22_s3). One JSON line each: flight time, planner steps,
 the audit, and `success` / `clean`.
+
+`qpf32`: the float32 solves against float64 on the state of chip_smoke.py
+phase 8g's widest QP (`build_fleet(A, world_dimension=3, M=28,
+communication_range=30.0, max_obstacles=160)`, dim·K 246, after 2
+evolving steps of the JAX package): the QP built once by the JAX package
+(`_step_impl(..., defer_qp=True)`), then in STRIDE slices of its agents
+(every STRIDE-th agent, offsets 0 to STRIDE − 1; each agent's QP is its
+own, and the loop's exit is global, so every solve of a slice takes the
+same agents) the JAX `solve`, the port's plain `qp.solve` and its float64
+reference `qp_check.solve_f64`. One JSON line a slice and one for all
+agents: per float32 solve, each agent's largest control-point distance
+from the float64 solve (max, p99, and the max over the agents that both
+converged) and the converged share of each solve. THREADS (default 4)
+sets torch's intra-op threads.
 
 `teacher circle` and `freerun circle` fly dlsc_openworld's circle{A}
 mission in its configuration (DLSC sub-step, PRIOR_BASED goals, no
@@ -142,10 +158,15 @@ def flight(name, log_dir):
     return {"flight": name, **{k: r[k] for k in keys}, "agents_home": home}
 
 
+# `convergence`'s configurations beyond tests/test_torch_modes_pipeline.py's:
+# Bézier degree 8 on the bench layout (chip_smoke.py phase 8h)
+CONVERGENCE_CONFIGS = {"degree8": dict(n=8)}
+
+
 def convergence(name, A, steps):
     import test_torch_modes_pipeline as T
 
-    ov = T.CONFIGS[name]
+    ov = {**T.CONFIGS, **CONVERGENCE_CONFIGS}[name]
     p, plan_t, fleet_t, inp_t = workload.build_fleet(A, device="cpu", **ov)
     _, _, boxes, wmin, wmax = workload.fleet_layout(A)
     pj = T._jax_param(ov)
@@ -498,6 +519,79 @@ def _dlsc_missions():
     return out
 
 
+def _slice(qp_inp, idx):
+    return type(qp_inp)(*(None if v is None else np.asarray(v)[idx] for v in qp_inp))
+
+
+def _gaps(x, x64, conv, conv64):
+    """Each agent's largest |x − x64| (control points): max, p99, and the
+    max over the agents that both converged."""
+    g = np.abs(np.asarray(x, np.float64) - x64).reshape(len(x64), -1).max(axis=1)
+    both = conv & conv64
+    return {"max": float(g.max()), "p99": float(np.percentile(g, 99)),
+            "max_both_converged": float(g[both].max(initial=0.0)),
+            "converged": float(conv.mean())}
+
+
+def qpf32(A, stride):
+    """See the module's note (`qpf32`)."""
+    import bench
+    from lsc_dr_planner_tpu import config as jconfig
+    from lsc_dr_planner_tpu.ops import qp as jqp
+    from lsc_dr_planner_tpu_torch.ops import qp as tqp
+    from lsc_dr_planner_tpu_torch.ops import qp_check
+    from test_torch_qp import port_cfg, port_inputs
+
+    over = dict(world_dimension=3, M=28, communication_range=30.0, max_obstacles=160)
+    base = jconfig.Param
+    jconfig.Param = lambda **kw: base(**{**kw, **over})
+    t0 = time.time()
+    try:
+        p, planner, fleet, inp = bench.build_fleet(A)
+        step = bench.make_evolve_step(p, planner, fleet)
+        for _ in range(2):
+            inp, _ = step(inp)
+        cfg, feas_tol = planner.qp_cfg, planner.feas_tol
+        qp_inp = planner._step_impl(fleet, inp, defer_qp=True).qp_inp
+    finally:
+        jconfig.Param = base
+    pcfg = port_cfg(cfg)
+    dk = pcfg.dim * tqp.torch_statics(pcfg, torch.device("cpu"))["K"]
+    print(json.dumps({"A": A, "dimK": dk, "O": planner.O, "state_s": time.time() - t0}),
+          flush=True)
+    rows, whole = [], {"jax": [], "port": [], "conv": {"jax": [], "port": [], "f64": []}}
+    for off in range(stride):
+        idx = np.arange(off, A, stride)
+        sub = _slice(qp_inp, idx)
+        t = time.time()
+        rj = jqp.solve(cfg, jqp.QPInputs(*(None if v is None else jnp.asarray(v) for v in sub)),
+                       feas_tol=feas_tol)
+        tj = time.time() - t
+        t = time.time()
+        rt = tqp.solve(pcfg, port_inputs(sub), feas_tol=feas_tol)
+        r64 = qp_check.solve_f64(pcfg, port_inputs(sub), feas_tol)
+        tt = time.time() - t
+        x64, c64 = r64.x.numpy(), r64.converged.numpy()
+        cj, ct = np.asarray(rj.converged), rt.converged.numpy()
+        row = {"offset": off, "agents": len(idx), "f64_converged": float(c64.mean()),
+               "jax_f32": _gaps(np.asarray(rj.x), x64, cj, c64),
+               "port_f32": _gaps(rt.x.numpy(), x64, ct, c64), "jax_s": tj, "port_s": tt}
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+        for name, x, c in (("jax", np.asarray(rj.x), cj), ("port", rt.x.numpy(), ct)):
+            whole[name].append(np.abs(np.asarray(x, np.float64) - x64)
+                               .reshape(len(idx), -1).max(axis=1))
+            whole["conv"][name].append(c)
+        whole["conv"]["f64"].append(c64)
+    out = {"all_agents": sum(r["agents"] for r in rows)}
+    for name in ("jax", "port"):
+        g = np.concatenate(whole[name])
+        out[f"{name}_f32"] = {"max": float(g.max()), "p99": float(np.percentile(g, 99)),
+                              "converged": float(np.concatenate(whole["conv"][name]).mean())}
+    out["f64_converged"] = float(np.concatenate(whole["conv"]["f64"]).mean())
+    return out
+
+
 def tool_case(name):
     if not name.startswith("fuzz"):
         from tools import dlsc_openworld
@@ -542,6 +636,9 @@ def main():
     elif what == "tools":
         for name in sys.argv[2:] or TOOL_CASES:
             print(json.dumps(tool_case(name)), flush=True)
+    elif what == "qpf32":
+        torch.set_num_threads(int(sys.argv[4]) if len(sys.argv) > 4 else 4)
+        print(json.dumps(qpf32(int(sys.argv[2]), int(sys.argv[3]))))
     elif what in ("local", "montecarlo"):
         log_dir = ROOT / "build" / "cpu_reference"
         log_dir.mkdir(parents=True, exist_ok=True)

@@ -7,10 +7,13 @@ raises on them, a scalar float32 twin of the kernel's thread (one
 (agent, neighbour, segment) hull at a time, in the kernel's order of
 operations) is held to the plain body bit for bit, and the plain body,
 whose rounding is pinned for the kernel, is held to the JAX package's
-build_clsc at ATOL. The `cuda` tests hold the kernel to the plain body
-on the card, bit for bit; they import neither jax nor the JAX package,
-so on the GPU machine they run with `python -m pytest --noconftest -m
-cuda tests/test_torch_clsc_kernel.py` (tests/conftest.py imports jax).
+build_clsc at ATOL; the cases include segments of 9 to 12 control
+points (the run-time build) and an evolving fleet of degree 8 (N = 9).
+The `cuda` tests hold the kernel to the plain body on the card, bit for
+bit, for every N from 1 to 16 and at stages past 48 KB of shared
+memory; they import neither jax nor the JAX package, so on the GPU
+machine they run with `python -m pytest --noconftest -m cuda
+tests/test_torch_clsc_kernel.py` (tests/conftest.py imports jax).
 """
 
 import functools
@@ -166,12 +169,13 @@ def clsc_inputs(seed, dim, A=5, O=4, M=10, N=6):
 
 
 @functools.lru_cache(maxsize=None)
-def fleet_inputs(A=32, steps=2, dim=2, device="cpu"):
-    """build_clsc's inputs on `workload.build_fleet(A)` after `steps`
-    evolving steps on `device` (numpy, by name), and the dimension."""
+def fleet_inputs(A=32, steps=2, dim=2, device="cpu", **over):
+    """build_clsc's inputs on `workload.build_fleet(A, **over)` after
+    `steps` evolving steps on `device` (numpy, by name), and the
+    dimension."""
     from lsc_dr_planner_tpu_torch import workload
 
-    p, planner, fleet, inp = workload.build_fleet(A, device=device, world_dimension=dim)
+    p, planner, fleet, inp = workload.build_fleet(A, device=device, world_dimension=dim, **over)
     step = workload.make_evolve_step(p, planner, fleet)
     for _ in range(steps):
         inp, _ = step(inp)
@@ -193,10 +197,13 @@ def fleet_inputs(A=32, steps=2, dim=2, device="cpu"):
 
 
 def named_inputs(what):
-    """(inputs, dim) of a case: "<dim>d-<seed>", "fleet-<dim>d" (a few
-    agents of an evolving fleet), or "nan" (NaN and infinite points)."""
+    """(inputs, dim) of a case: "<dim>d-<seed>" (N = 6) or
+    "<dim>d-<seed>-N<N>", "fleet-<dim>d" (a few agents of an evolving
+    fleet) or "fleet-<dim>d-n8" (of degree 8: N = 9), or "nan" (NaN and
+    infinite points)."""
     if what.startswith("fleet"):
-        x, dim = fleet_inputs(dim=int(what[-2]))
+        over = {"n": 8} if what.endswith("-n8") else {}
+        x, dim = fleet_inputs(dim=int(what.split("-")[1][0]), **over)
         return {k: v[:4] for k, v in x.items()}, dim
     if what == "nan":
         x = clsc_inputs(9, 3)
@@ -206,7 +213,8 @@ def named_inputs(what):
         x["obs_goal"][3, 2, 0] = np.nan
         return x, 3
     dim, seed = int(what[0]), int(what.split("-")[1])
-    return clsc_inputs(seed, dim), dim
+    N = int(what.split("-N")[1]) if "-N" in what else 6
+    return clsc_inputs(seed, dim, N=N), dim
 
 
 def plain(x, dim):
@@ -215,7 +223,9 @@ def plain(x, dim):
     return s.normals.numpy(), s.anchors.numpy(), s.margins.numpy()
 
 
-CASES = ["2d-0", "2d-1", "3d-0", "3d-1", "fleet-2d", "fleet-3d", "nan"]
+CASES = ["2d-0", "2d-1", "3d-0", "3d-1", "fleet-2d", "fleet-3d", "nan",
+         # the run-time build's N (> 8)
+         "2d-0-N9", "3d-1-N9", "3d-2-N10", "2d-3-N12", "fleet-2d-n8", "fleet-3d-n8"]
 
 
 # ---- on the CPU -------------------------------------------------------------
@@ -258,6 +268,28 @@ def test_plain_matches_jax(dim, seed):
     assert not got[0][~x["obs_mask"]].any()
 
 
+@pytest.mark.parametrize("dim", [2, 3])
+def test_plain_matches_jax_at_degree_8(dim):
+    """The plain body against the JAX package's build_clsc on segments
+    of 9 control points (Bézier degree 8), the masked slots included: the
+    synthetic pairs (their last segments mostly on the hull plane) and a
+    fleet of degree 8's (on the segment plane)."""
+    import jax.numpy as jnp
+
+    from lsc_dr_planner_tpu.ops import lsc as jlsc
+
+    seg = []
+    for x in (clsc_inputs(dim, dim, N=9), named_inputs(f"fleet-{dim}d-n8")[0]):
+        got = plain(x, dim)
+        s = jlsc.build_clsc(**{k: jnp.asarray(v) for k, v in x.items()}, world_dimension=dim)
+        for g, w in zip(got, (s.normals, s.anchors, s.margins)):
+            np.testing.assert_allclose(g, np.asarray(w), rtol=0, atol=ATOL)
+        assert not got[0][~x["obs_mask"]].any()
+        seg.append(np.isclose(got[1][:, :, -1, 0], got[1][:, :, -1, 1]).all(-1).ravel())
+    seg = np.concatenate(seg)
+    assert seg.any() and not seg.all()  # both branches of the guard
+
+
 def test_cpu_tensors_take_the_plain_body():
     """CPU tensors run the plain body: no kernel launch, no count of
     plain bodies on CUDA; plain=True gives the same result."""
@@ -288,8 +320,8 @@ def _bad(what):
         t["current_goal"] = t["current_goal"][:-1]
     elif what == "non_contiguous":
         t["obs_radius"] = t["obs_radius"].t().contiguous().t()
-    elif what == "N9":
-        t["obs_ctrl"] = torch.zeros(5, 4, 10, 9, 3)
+    elif what == "N0":
+        t["obs_ctrl"] = torch.zeros(5, 4, 10, 0, 3)
     elif what == "rank":
         t["obs_ctrl"] = t["obs_ctrl"][0]
     return t
@@ -297,7 +329,7 @@ def _bad(what):
 
 @pytest.mark.parametrize("what,match", [
     ("float64", "obs_goal: need torch.float32"), ("shape", "current_goal: shape"),
-    ("non_contiguous", "obs_radius: not contiguous"), ("N9", "1 <= N <= 8"),
+    ("non_contiguous", "obs_radius: not contiguous"), ("N0", "N >= 1"),
     ("rank", r"need \[A, O, M, N, 3\]"), ("cpu", "needs CUDA tensors"),
 ])
 def test_kernel_entry_raises(what, match):
@@ -322,11 +354,16 @@ def kernel_vs_plain(x, dim, dev):
     own) and the plain body on the card: (kernel, plain) as numpy."""
     t = {k: torch.as_tensor(v).to(dev) for k, v in x.items()}
     launches, hulls = hull_cuda.clsc_launches, hull_cuda.launches
+    rt = hull_cuda.rt_launches["clsc_build"]
     got = lsc.build_clsc(**t, world_dimension=dim)
     got = (got.normals, got.anchors, got.margins)
     torch.cuda.synchronize()
     assert hull_cuda.clsc_launches == launches + (t["obs_ctrl"].numel() > 0)
     assert hull_cuda.launches == hulls
+    A, O, M, N = t["obs_ctrl"].shape[:4]
+    if t["obs_ctrl"].numel():  # the run-time build takes N > 8 and stages past 48 KB
+        took_rt = hull_cuda.clsc_build_plan(A, O, M, N)[0]
+        assert hull_cuda.rt_launches["clsc_build"] - rt == took_rt
     want = lsc.build_clsc(**t, world_dimension=dim, plain=True)
     return (tuple(g.cpu().numpy() for g in got),
             tuple(getattr(want, n).cpu().numpy() for n in ("normals", "anchors", "margins")))
@@ -344,15 +381,46 @@ def test_kernel_equals_plain_on_card(cuda_dev, what):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N", range(1, 9))
+@pytest.mark.parametrize("N", range(1, 17))
 @pytest.mark.parametrize("dim", [2, 3])
 def test_kernel_each_N(cuda_dev, dim, N):
-    """Every template build (N = 1..8 control points a segment), M = 1
-    (the last segment alone) and M = 10."""
+    """Every template build (N = 1..8 control points a segment) and the
+    run-time build at N = 9..16, M = 1 (the last segment alone) and M = 10."""
     for M in (1, 10):
+        assert hull_cuda.clsc_build_plan(7, 5, M, N)[0] == (N > 8)
         x = clsc_inputs(30 + N, dim, A=7, O=5, M=M, N=N)
         got, want = kernel_vs_plain(x, dim, cuda_dev)
         assert_equal_by_value(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("A,O,M,N", [(7, 5, 10, 16), (3, 1, 300, 6), (2, 2, 90, 12)])
+def test_kernel_stage_past_48kb(cuda_dev, A, O, M, N):
+    """Shapes whose stage passes 48 KB of shared memory a block (N = 16;
+    a template N whose initial points pass it at M = 300) take the
+    run-time build, opted in to the shared memory they need, and equal
+    the plain body."""
+    rt, smem = hull_cuda.clsc_build_plan(A, O, M, N)
+    assert rt == 1 and 48 * 1024 < smem <= hull_cuda.build().hull_max_smem(), smem
+    for dim in (2, 3):
+        x = clsc_inputs(40 + N, dim, A=A, O=O, M=M, N=N)
+        got, want = kernel_vs_plain(x, dim, cuda_dev)
+        assert_equal_by_value(got, want)
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_a_stage_past_the_card(cuda_dev):
+    """A stage past the 227 KB a block may take (600 segments of 16
+    points) is the one shape the kernel refuses, and the message says why;
+    nothing is launched."""
+    rt, smem = hull_cuda.clsc_build_plan(2, 1, 600, 16)
+    assert rt == 1 and smem > hull_cuda.build().hull_max_smem()
+    t = {k: torch.as_tensor(v).to(cuda_dev)
+         for k, v in clsc_inputs(0, 3, A=2, O=1, M=600, N=16).items()}
+    launches = hull_cuda.clsc_launches
+    with pytest.raises(ValueError, match=f"needs {smem} B of shared memory a block, past"):
+        lsc.build_clsc(**t, world_dimension=3)
+    assert hull_cuda.clsc_launches == launches
 
 
 @pytest.mark.cuda
@@ -375,5 +443,16 @@ def test_kernel_on_main_path_inputs(cuda_dev, dim):
     """build_clsc's inputs on `build_fleet(1024)` on the card after three
     evolving steps (163,840 hulls)."""
     x, d = fleet_inputs(1024, 3, dim, "cuda")
+    got, want = kernel_vs_plain(x, d, cuda_dev)
+    assert_equal_by_value(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [2, 3])
+def test_kernel_on_degree_8_inputs(cuda_dev, dim):
+    """build_clsc's inputs on `build_fleet(1024, n=8)` on the card after
+    two evolving steps (163,840 hulls of 9 points: the run-time build)."""
+    x, d = fleet_inputs(1024, 2, dim, "cuda", n=8)
+    assert x["obs_ctrl"].shape[1:] == (16, 10, 9, 3)
     got, want = kernel_vs_plain(x, d, cuda_dev)
     assert_equal_by_value(got, want)

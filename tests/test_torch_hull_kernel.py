@@ -6,9 +6,11 @@ raises on them, and a scalar float32 twin of the kernel's thread (one
 hull at a time, the kernel's order of candidates and of operations) is
 held to the plain enumeration bit for bit, on degenerate hulls and on
 hulls sampled from the CLSC inputs of an evolving fleet, for K = 2, 3, 6
-and 8; the plain enumeration is held to the JAX package's at 1e-5. The
-`cuda` tests hold the kernel to the plain enumeration on the card, bit
-for bit; they import neither jax nor the JAX package, so on the GPU
+and 8 (the template builds) and 9, 10 and 12 (the run-time build, whose
+loops run in the same order; the hulls from a fleet of degree 8, N = 9);
+the plain enumeration is held to the JAX package's at 1e-5. The `cuda`
+tests hold the kernel to the plain enumeration on the card, bit for bit,
+for every K from 1 to 16; they import neither jax nor the JAX package, so on the GPU
 machine they run with `python -m pytest --noconftest -m cuda
 tests/test_torch_hull_kernel.py` (tests/conftest.py imports jax).
 """
@@ -29,7 +31,8 @@ torch.set_num_threads(1)
 F = np.float32
 EPS, VOL_EPS = F(1e-12), F(1e-10)  # geometry.py's clamps, as torch casts them to float32
 ATOL = 1e-5  # against the JAX package: the order of its 3-term sums is XLA's
-KS = [2, 3, 6, 8]
+KS = [2, 3, 6, 8, 9, 10, 12]
+RT_KS = [9, 10, 12]  # the run-time build's (K > 8)
 SAMPLES = 512
 
 
@@ -192,14 +195,14 @@ def nonfinite_hulls():
 
 
 @functools.lru_cache(maxsize=None)
-def clsc_rel(A=32, steps=2, device="cpu"):
+def clsc_rel(A=32, steps=2, device="cpu", **over):
     """The hull query's input of build_clsc ([A, O, M, N, 3]) on
-    `workload.build_fleet(A)` after `steps` evolving steps, as numpy
-    (the step's build_clsc runs its plain body, which queries the hulls
-    on their own; on the card the fused kernel queries them inside)."""
+    `workload.build_fleet(A, **over)` after `steps` evolving steps, as
+    numpy (the step's build_clsc runs its plain body, which queries the
+    hulls on their own; on the card the fused kernel queries them inside)."""
     from lsc_dr_planner_tpu_torch import workload
 
-    p, planner, fleet, inp = workload.build_fleet(A, device=device)
+    p, planner, fleet, inp = workload.build_fleet(A, device=device, **over)
     step = workload.make_evolve_step(p, planner, fleet)
     for _ in range(steps):
         inp, _ = step(inp)
@@ -221,14 +224,30 @@ def clsc_rel(A=32, steps=2, device="cpu"):
 
 
 def clsc_hulls(K, n=SAMPLES, seed=0):
-    """n hulls of K points sampled from build_clsc's input: the first K
-    of a hull's 6 points, or (K = 8) its 6 and the next hull's first 2."""
-    rel = clsc_rel()
+    """n hulls of K points sampled from build_clsc's input: up to K = 8
+    on the bench fleet (6 points a hull), from K = 9 on a fleet of degree
+    8 (9 points a hull): the first K of a hull's points, or all of them
+    and the next hull's first (K = 8: 6 and 2; K = 10, 12: 9 and 1, 3)."""
+    rel = clsc_rel(n=8) if K > 8 else clsc_rel()
     flat = rel.reshape(-1, rel.shape[-2], 3)
     idx = np.random.default_rng(seed).choice(len(flat) - 1, n, replace=False)
     if K <= flat.shape[1]:
         return np.ascontiguousarray(flat[idx, :K])
     return np.concatenate([flat[idx], flat[idx + 1, :K - flat.shape[1]]], axis=1)
+
+
+def degenerate_hulls(K, H, seed=None):
+    """H hulls of K points (seed 10 + K by default): generic, planar (the
+    first quarter), coincident, collinear and tiny (an eighth each)."""
+    rng = np.random.default_rng(10 + K if seed is None else seed)
+    pts = f32(rng, H, K, 3)
+    q, e = H // 4, H // 8
+    pts[:q, :, 2] = 0.0  # planar
+    pts[q:q + e] = pts[q:q + e, :1]  # coincident
+    pts[q + e:2 * q] = (pts[q + e:2 * q, :1] + np.linspace(0, 1, K, dtype=F)[None, :, None]
+                        * f32(rng, e, 1, 3))  # collinear
+    pts[2 * q:2 * q + e] *= 0.01  # tiny hulls
+    return pts
 
 
 def plain(points):
@@ -257,6 +276,20 @@ def test_twin_equals_plain_on_clsc_hulls(K):
     pts = clsc_hulls(K)
     assert pts.shape == (SAMPLES, K, 3) and not pts[..., 2].any()
     assert_equal_by_value(twin(pts), plain(pts))
+
+
+@pytest.mark.parametrize("K", RT_KS)
+def test_twin_equals_plain_on_degenerate_hulls(K):
+    """The run-time build's K: generic, planar, coincident, collinear,
+    tiny and origin-holding hulls, and hulls with a NaN or an infinite
+    coordinate, bit for bit."""
+    pts = degenerate_hulls(K, 256)
+    pts[::16, 1, 0] = np.nan
+    pts[5::32, K - 1, 2] = np.inf
+    pts[7::32, 0, 1] = -np.inf
+    c, d = plain(pts)
+    assert (d == 0).any() and (d > 0).any() and np.isnan(d).any()
+    assert_equal_by_value(twin(pts), (c, d))
 
 
 def named_hulls(what):
@@ -316,11 +349,11 @@ def test_other_devices_raise():
 @pytest.mark.parametrize("bad,match", [
     (lambda: torch.zeros(4, 6, 3, dtype=torch.float64), "need float32"),
     (lambda: torch.zeros(6, 4, 3).transpose(0, 1), "not contiguous"),
-    (lambda: torch.zeros(4, 9, 3), "1 <= K <= 8"),
-    (lambda: torch.zeros(4, 0, 3), "1 <= K <= 8"),
+    (lambda: torch.zeros(3), r"\[\.\.\., K, 3\] with K >= 1"),
+    (lambda: torch.zeros(4, 0, 3), "K >= 1"),
     (lambda: torch.zeros(4, 6, 2), r"\[\.\.\., K, 3\]"),
     (lambda: torch.zeros(4, 6, 3), "needs CUDA tensors"),
-], ids=["float64", "non_contiguous", "K9", "K0", "2d_points", "cpu"])
+], ids=["float64", "non_contiguous", "rank1", "K0", "2d_points", "cpu"])
 def test_kernel_entry_raises(bad, match):
     """No silent fallback: the kernel's entry refuses what it does not
     take before it builds anything."""
@@ -380,10 +413,12 @@ def kernel_vs_plain(points, dev):
     """The kernel (through the dispatch: one launch) and the plain
     enumeration on the card on the same hulls: (kernel, plain) as numpy."""
     x = torch.as_tensor(points).to(dev)
-    launches = hull_cuda.launches
+    launches, rt = hull_cuda.launches, hull_cuda.rt_launches["hull_closest"]
     got = geometry.closest_point_origin_to_hull(x)
     torch.cuda.synchronize()
     assert hull_cuda.launches == launches + (x.numel() > 0)
+    # the run-time build takes K > 8
+    assert hull_cuda.rt_launches["hull_closest"] == rt + (x.numel() > 0 and x.shape[-2] > 8)
     want = geometry.closest_point_origin_to_hull(x, plain=True)
     return tuple(t.cpu().numpy() for t in got), tuple(t.cpu().numpy() for t in want)
 
@@ -402,17 +437,12 @@ def test_kernel_equals_plain_on_card(cuda_dev, what):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("K", range(1, 9))
+@pytest.mark.parametrize("K", range(1, 17))
 def test_kernel_each_K(cuda_dev, K):
-    """Every template build, on generic, planar, coincident, collinear
-    and origin-holding hulls of K points."""
-    rng = np.random.default_rng(10 + K)
-    pts = f32(rng, 4096, K, 3)
-    pts[:1024, :, 2] = 0.0  # planar
-    pts[1024:1536] = pts[1024:1536, :1]  # coincident
-    pts[1536:2048] = (pts[1536:2048, :1] + np.linspace(0, 1, K, dtype=F)[None, :, None]
-                      * f32(rng, 512, 1, 3))  # collinear
-    pts[2048:2560] *= 0.01  # tiny hulls
+    """Every template build (K = 1..8) and the run-time build at K = 9..16,
+    on generic, planar, coincident, collinear and origin-holding hulls of
+    K points."""
+    pts = degenerate_hulls(K, 4096)
     got, want = kernel_vs_plain(pts, cuda_dev)
     assert_equal_by_value(got, want)
     neg, _ = kernel_vs_plain(-pts, cuda_dev)
@@ -438,6 +468,17 @@ def test_kernel_on_main_path_clsc(cuda_dev):
     after three evolving steps (163,840 hulls)."""
     rel = clsc_rel(1024, 3, "cuda")
     assert rel.shape[0] * rel.shape[1] * rel.shape[2] == 163840
+    got, want = kernel_vs_plain(rel, cuda_dev)
+    assert_equal_by_value(got, want)
+
+
+@pytest.mark.cuda
+def test_kernel_on_degree_8_clsc(cuda_dev):
+    """The hull query of build_clsc on `build_fleet(1024, n=8)` on the card
+    after two evolving steps (163,840 hulls of 9 points: the run-time
+    build)."""
+    rel = clsc_rel(1024, 2, "cuda", n=8)
+    assert rel.shape[1:] == (16, 10, 9, 3)
     got, want = kernel_vs_plain(rel, cuda_dev)
     assert_equal_by_value(got, want)
 

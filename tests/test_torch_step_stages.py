@@ -57,6 +57,7 @@ MODES = {
     "no_octomap": dict(world_use_octomap=False),
     "dynobs": dict(STATIC),
     "scenarios2": {},
+    "lsc_dr_n8": dict(n=8),  # Bézier degree 8: 9 control points a segment
 }
 OD = 2
 

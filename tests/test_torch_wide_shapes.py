@@ -28,7 +28,7 @@ import torch
 
 import bench
 from lsc_dr_planner_tpu_torch import convert, workload
-from lsc_dr_planner_tpu_torch.config import PlannerMode
+from lsc_dr_planner_tpu_torch.config import Param, PlannerMode
 from lsc_dr_planner_tpu_torch.ops import qp as tqp
 from lsc_dr_planner_tpu_torch.ops import step_cuda, trajectory
 from lsc_dr_planner_tpu_torch.planner import stages
@@ -45,12 +45,16 @@ torch.set_num_threads(1)
 STEPS = 2
 # (agents, Param overrides): 3-D at M = 12 (K = 34, dim·K 102) with 40
 # slots; with every agent within 5 m an obstacle (66 slots); DLSC in 3-D
-# (K = 36, dim·K 108)
+# (K = 36, dim·K 108); Bézier degree 8 (N = 9 control points: the hull
+# kernels' run-time build) in 2-D (K = 58, dim·K 116) and in DLSC sub-step
+# (its subSegment re-parameterisation depends on n)
 CASES = {
     "A48_3d_M12_40": (48, dict(world_dimension=3, M=12, max_obstacles=40)),
     "A72_3d_M12_5m_66": (72, dict(world_dimension=3, M=12, communication_range=5.0,
                                   max_obstacles=66)),
     "dlsc_3d_M12": (24, dict(world_dimension=3, M=12, planner_mode=PlannerMode.DLSC)),
+    "n8_2d": (32, dict(n=8)),
+    "n8_dlsc_substep": (24, dict(n=8, planner_mode=PlannerMode.DLSC, multisim_time_step=0.1)),
 }
 
 
@@ -80,13 +84,57 @@ def _jax_fleet(monkeypatch, A, overrides):
     return bench.build_fleet(A)
 
 
+# Degree 8's QPs are ill-conditioned for float32 ADMM: on the same QP inputs
+# (equal to ~1e-6 here) the JAX package's float32 solve lies up to 0.65 m from
+# the float64 solve (qp_check.solve_f64) and the port's up to 0.14 m (2-D, 32
+# agents, step 0; in DLSC sub-step 0.41 m and 0.21 m, and each float32 solve
+# leaves ~1 in 5 agents unconverged that float64 converges), and agent by agent
+# either may be the nearer, so two float32 solves cannot agree to 0.1 m. In
+# these cases the QP inputs are held to the JAX package's, the step's control
+# points to its QP's solution, and that float32 solve must be no less exact
+# than the JAX package's: its farthest agent from the float64 solve no
+# farther than the JAX solve's farthest (or within 0.1 m), over the agents
+# both converged; and the converged set may lose one straggler a step
+# (test_torch_qp.py's contract).
+F64_CASES = ("n8_2d", "n8_dlsc_substep")
+
+
+def _no_less_exact(plan_j, fleet_j, inp_j, qt, both):
+    """Asserts that the port's QP inputs `qt` are the JAX package's (rtol
+    1e-6, atol 1e-5); then the port's float32 solve of `qt` and the JAX
+    package's float32 solve against the float64 solve of the JAX
+    package's QP: (the port's farthest agent within 0.1 m or no farther
+    than the JAX solve's, over the agents `both`; the two distances; the
+    float64 solve's converged share; the port's solution [A, dim, M, N])."""
+    from lsc_dr_planner_tpu.ops import qp as jqp
+    from lsc_dr_planner_tpu_torch.ops import qp_check
+    from test_torch_qp import port_cfg, port_inputs
+
+    qj = plan_j._step_impl(fleet_j, inp_j, defer_qp=True).qp_inp
+    for k, v in qj._asdict().items():
+        if v is not None:
+            np.testing.assert_allclose(getattr(qt, k).numpy(), np.asarray(v), rtol=1e-6,
+                                       atol=1e-5, err_msg=k)
+    cfg, feas_tol = port_cfg(plan_j.qp_cfg), plan_j.feas_tol
+    exact = qp_check.solve_f64(cfg, port_inputs(qj), feas_tol)
+    x64 = exact.x.numpy()
+    A = len(both)
+    xt = tqp.solve(cfg, qt, feas_tol).x.numpy().astype(np.float64)
+    xj = np.asarray(jqp.solve(plan_j.qp_cfg, qj, feas_tol=feas_tol).x, np.float64)
+    d_t, d_j = (np.abs(x - x64).reshape(A, -1).max(1)[both].max(initial=0.0)
+                for x in (xt, xj))
+    return d_t <= max(0.1, d_j), (d_t, d_j), float(exact.converged.float().mean()), xt
+
+
 @pytest.mark.parametrize("case", list(CASES))
 def test_teacher_forced_steps_match_jax(monkeypatch, case):
     A, overrides = CASES[case]
     pj, plan_j, fleet_j, inp_j = _jax_fleet(monkeypatch, A, overrides)
     step_j = bench.make_evolve_step(pj, plan_j, fleet_j)
     p, plan_t, fleet_t, inp_t = workload.build_fleet(A, device="cpu", **overrides)
-    assert plan_t.O == plan_j.O and plan_t.qp_cfg.M == p.M == overrides["M"]
+    want = Param(**overrides)
+    assert plan_t.O == plan_j.O and plan_t.qp_cfg.M == p.M == plan_j.qp_cfg.M == want.M
+    assert plan_t.qp_cfg.n == p.n == plan_j.qp_cfg.n == want.n
     K = tqp.torch_statics(plan_t.qp_cfg, torch.device("cpu"))["K"]
     assert 3 * K > 96, K  # above the register builds of the ADMM kernel
     np.testing.assert_array_equal(inp_t.pos.numpy(), np.asarray(inp_j.pos))
@@ -97,14 +145,29 @@ def test_teacher_forced_steps_match_jax(monkeypatch, case):
             plan_t.step(fleet, convert.inputs_from_numpy(_fields(inp_j), "cpu")))
         np.testing.assert_array_equal(out_t["sfc_lo"], np.asarray(out_j.sfc_lo))
         np.testing.assert_array_equal(out_t["sfc_hi"], np.asarray(out_j.sfc_hi))
-        conv_j = np.asarray(out_j.qp_converged)
-        np.testing.assert_array_equal(out_t["qp_converged"], conv_j, err_msg=f"step {s}")
+        conv_j, conv_t = np.asarray(out_j.qp_converged), out_t["qp_converged"]
+        if case in F64_CASES:
+            assert conv_t.sum() >= conv_j.sum() - 1, (s, conv_t.mean(), conv_j.mean())
+        else:
+            np.testing.assert_array_equal(conv_t, conv_j, err_msg=f"step {s}")
         np.testing.assert_allclose(out_t["current_goal"], np.asarray(out_j.current_goal),
                                    rtol=0, atol=1e-4)
-        dctrl = np.abs(out_t["desired_ctrl"] - np.asarray(out_j.desired_ctrl))[conv_j]
-        assert dctrl.max(initial=0.0) < 0.1, (s, dctrl.max())
+        both = conv_t & conv_j
+        if case in F64_CASES:
+            qt = plan_t._step_impl(fleet, convert.inputs_from_numpy(_fields(inp_j), "cpu"),
+                                   defer_qp=True).qp_inp
+            ok, dists, conv64, xt = _no_less_exact(plan_j, fleet_j, inp_j, qt, both)
+            assert ok, (s, dists)
+            assert conv64 > 0.9, (s, conv64)
+            # the step's control points are its QP's solution
+            got = out_t["desired_ctrl"][..., :p.world_dimension]
+            np.testing.assert_array_equal(got[both], np.moveaxis(xt, 1, -1)[both])
+        else:
+            dctrl = np.abs(out_t["desired_ctrl"] - np.asarray(out_j.desired_ctrl))[conv_j]
+            assert dctrl.max(initial=0.0) < 0.1, (s, dctrl.max())
         inp_j, _ = step_j(inp_j)
-    assert conv_j.mean() > 0.9
+    if case not in F64_CASES:
+        assert conv_j.mean() > 0.9
 
 
 @pytest.mark.parametrize("M,dk", [(16, 138), (28, 246)])
@@ -129,10 +192,10 @@ def test_plain_solve_matches_jax(monkeypatch, M, dk):
 
 
 def test_jax_plans_degree_8_and_pins_3_points(monkeypatch):
-    """The limits of the port's kernels that stay, held to the JAX
-    package: it plans Bézier segments of degree 8 (N = 9 points; the hull
-    kernels take N <= 8: open in ROADMAP Queue 3) and refuses any pin
-    count but 3 (the preparation kernel's phi = 3 is its own)."""
+    """What the JAX package plans, for the port's kernels: Bézier segments
+    of degree 8 (N = 9 points; the hull kernels' run-time build takes
+    them, test_teacher_forced_steps_match_jax's n8 cases) and no pin count
+    but 3 (the preparation kernel's phi = 3 is its own)."""
     from lsc_dr_planner_tpu import config as jconfig
 
     base = jconfig.Param
@@ -478,3 +541,74 @@ def test_wide_front_kernels_equal_plain_on_card(O, dim, substep):
     lib = step_cuda.build()
     assert lib.step_front_chunk(O, cfg.OA, cfg.M, cfg.n, cfg.mode, 1) == wide_chunk(
         cfg.M, cfg.n + 1, O, cfg.OA, cfg.mode == stages.MODE_LSC, True)
+
+
+# ---- Bézier degree 8 on the card ---------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [2, 3])
+def test_degree_8_step_on_card(monkeypatch, dim):
+    """One step of `build_fleet(64, n=8)` on the card after two evolving
+    steps, each kernel of the step launched and each call held to its
+    plain body: build_clsc (the hull kernels' run-time build, N = 9) and
+    the 'hull' SFC update element for element, the stage entries
+    (front_with_neighbors, goal_qp_inputs) element for element, the QP
+    preparation by chip_smoke.py's prepare_check contract
+    (qp_check.prepare_agreement), the ADMM loop's memory build (dim·K 116
+    in 2-D, 174 in 3-D) for one chunk against the plain chunk
+    (test_torch_cuda.py's _chunk_held); every output finite."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from lsc_dr_planner_tpu_torch.ops import hull_cuda, lsc, qp_check, qp_cuda, sfc
+    from test_torch_cuda import _chunk_held, _shape
+    from test_torch_step_stages import Record, kernels_vs_plain
+
+    p, planner, fleet, inp = workload.build_fleet(64, device="cuda", n=8, world_dimension=dim)
+    step = workload.make_evolve_step(p, planner, fleet)
+    for _ in range(2):
+        inp, _ = step(inp)
+    seen = {}
+
+    def record(module, name):
+        orig = getattr(module, name)
+
+        def f(*a, **k):
+            out = orig(*a, **k)
+            seen.setdefault(name, []).append((a, k, out))
+            return out
+
+        monkeypatch.setattr(module, name, f)
+
+    for module, name in ((lsc, "build_clsc"), (sfc, "update_sfc"), (tqp, "prepare"),
+                         (tqp, "run_loop")):
+        record(module, name)
+    rt = hull_cuda.rt_launches["clsc_build"]
+    with Record() as stage_calls:
+        inp, conv = step(inp)
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    for name in ("pos", "vel", "acc", "prev_ctrl", "current_goal", "qp_y0"):
+        assert torch.isfinite(getattr(inp, name)).all(), name
+    assert hull_cuda.rt_launches["clsc_build"] == rt + 1
+    ((a, k, got),) = seen["build_clsc"]
+    assert a[1].shape[-2] == 9 and not k.get("plain")
+    want = lsc.build_clsc(*a, **k, plain=True)
+    for name in ("normals", "anchors", "margins"):
+        assert_equal_by_value(np32(getattr(got, name)), np32(getattr(want, name)), name)
+    ((a, k, got),) = seen["update_sfc"]
+    want = sfc.update_sfc(*a, **{**k, "plain": True})
+    for x, y in zip(got, want):
+        assert_equal_by_value(np32(x), np32(y), "update_sfc")
+    n = kernels_vs_plain(stage_calls.calls)
+    assert sorted(n) == ["front_with_neighbors", "goal_qp_inputs"], n
+    ((a, k, pr),) = seen["prepare"]
+    cfg, qp_inp = a[:2]
+    rec = qp_check.prepare_agreement(cfg, qp_inp, pr, tqp.prepare(cfg, qp_inp, plain=True))
+    assert all(v == 0 for v in rec["differing"].values()), rec
+    assert all(v <= 1.0 for v in rec["share_of_tolerance"].values()), rec
+    li = seen["run_loop"][0][0][1]
+    shape = _shape(cfg, li)
+    assert cfg.dim * shape[4] == {2: 116, 3: 174}[dim]
+    assert qp_cuda.build_name(qp_cuda.build(), *shape) == "<256,0>"
+    feas_tol = planner.feas_tol
+    out = tqp.run_loop(cfg, li, 8, feas_tol)
+    _chunk_held(cfg, li, out, tqp.admm_loop_plain(cfg, li, 8, feas_tol), feas_tol)
