@@ -41,6 +41,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 PEAK_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores (data sheet)
+PEAK_FLOPS64 = 34e12  # H100 SXM, float64 outside the tensor cores (data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 
 
@@ -66,14 +67,16 @@ def cuda_ms(fn, reps):
 
 def loop_bound(cfg, li, iters, chunk=8):
     """(bound_ms, bound_by, flops per agent-iteration) of `iters` ADMM
-    iterations of every agent of `li`, float32, with the static rows
-    counted as the stencils they are (≤ 3 nonzeros a row).
+    iterations of every agent of `li`, with the static rows counted as
+    the stencils they are (≤ 3 nonzeros a row).
 
-    Per agent-iteration: the LSC rows forward and adjoint (2·R_lsc·dim
-    FMA), the two N3k products (2·dim·MN·K), the Kinv matvec (dk²), the
-    static stencils forward and adjoint (2·nnz), 15 flops of row update
-    per row; the exit test (an adjoint, P·ξ, the feasibility and the
-    reductions) once per chunk. Bytes: every input of the loop read once
+    Per agent-iteration, in double (as the kernel sums them): the LSC rows
+    forward and adjoint (2·R_lsc·dim FMA), the two N3k products
+    (2·dim·MN·K), the Kinv matvec (dk²), the static stencils forward and
+    adjoint (2·nnz), at the FP64 rate outside the tensor cores; 15 float32
+    flops of row update per row at the float32 rate; the exit test once
+    per chunk (its adjoint in double; P·ξ, the feasibility and the
+    reductions in float32). Bytes: every input of the loop read once
     (normals, Kinv, Pn, qn, ln, un, rho, scale, xi, z, y), every output
     written once (xi, z, y, itdone)."""
     A, O, M, dim = li.normals.shape
@@ -84,10 +87,12 @@ def loop_bound(cfg, li, iters, chunk=8):
     per_dim = 2 * M * n + 3 * M * (n - 1) + (2 * (M * (M + 1) // 2) if cfg.use_comm else 0) + MN
     nnz = dim * per_dim
     fma = 2 * R_lsc * dim + 2 * dim * MN * K + dk * dk + 2 * nnz
-    fma_exit = R_lsc * dim + dim * MN * K + nnz + dim * K * K
-    flops = 2 * fma + 15 * R + (2 * fma_exit + 4 * R + 16 * dk) / chunk
+    fma_exit = R_lsc * dim + dim * MN * K + nnz
+    flops64 = 2 * fma + 2 * fma_exit / chunk
+    flops32 = 15 * R + (2 * dim * K * K + 4 * R + 16 * dk) / chunk
+    flops = flops64 + flops32
     nbytes = 4 * A * (dk * dk + K * K + O * M * dim + 2 * dk + 6 * R + dk + 2 * R + 1)
-    t_ops = A * iters * flops / PEAK_FLOPS
+    t_ops = A * iters * (flops64 / PEAK_FLOPS64 + flops32 / PEAK_FLOPS)
     t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), flops
 
@@ -170,17 +175,15 @@ def chunk_overhead(qp, qp_cuda, cfg, li):
 
 def kernel_report(qp, qp_cuda, cfg, li):
     """The kernel at li's shape: shared memory per block, threads per
-    block, agents resident per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
-    and the fixed cost of one launch. Empty for a tree whose kernel has no
-    such queries (the dense-An_stat kernel)."""
+    block, agents resident per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor;
+    `qp_cuda.launch_plan`) and the fixed cost of one launch."""
     lib = qp_cuda.build()
-    if not hasattr(lib, "admm_blocks_per_sm"):
-        return {}
     ts = qp.torch_statics(cfg, li.xi.device)
     shape = (cfg.dim, cfg.n_obs, cfg.M, cfg.N, ts["K"], ts["stencil"]["idx"].shape[0])
-    return {"smem_bytes": lib.admm_smem_bytes(*shape),
+    plan = qp_cuda.launch_plan(shape, li.xi.shape[0], li.xi.device)
+    return {"smem_bytes": plan["smem_bytes"],
             "threads": lib.admm_threads(*shape),
-            "blocks_per_sm": lib.admm_blocks_per_sm(*shape),
+            "blocks_per_sm": plan["ctas_per_sm"],
             "chunk_overhead": chunk_overhead(qp, qp_cuda, cfg, li)}
 
 

@@ -122,22 +122,25 @@ layer and audit, and the `sim.run` CLI) flying forest missions:
      builds: `build_fleet(1024, world_dimension=3, M=12,
      communication_range=5.0, max_obstacles=80)` (every agent within 5 m
      an obstacle, as the reference plans: dim·K 102, OA = O = 80, the ADMM
-     kernel's memory build `<256,0>`, the selection's and the prediction's
-     wide builds), 2 warm-up and 5 timed steps checked as (b), with
+     kernel's cluster build `<256,cluster>` (C = 2; its rescue too), the
+     selection's and the prediction's wide builds), 2 warm-up and 5 timed
+     steps checked as (b), with
      `fused_check` and `goal_inputs_check` on its stage calls, one launch
      a call of each stage entry, stage ms and `qp_split`, then one step
      with the selection and the prediction as two wide launches
      (`neighbor_check`, `front_check`); (g) the boundary shapes
      (`phase8g`): DLSC 3-D at M = 12 (108), 3-D at M = 16 (138) and at M
      = 28 with 160 slots (246: the preparation's global build, the loop's
-     rows and Kinv in global memory), each `prepare_check` and
-     `loop_check`; fleets with 64, 65, 80, 160 and 256 slots through
-     every stage entry, the gathered slots' included, each call held to
-     its plain body, `loop_check` at 256 (2-D rows past shared memory);
+     cluster build at C = 8), each `prepare_check` and `loop_check`, each
+     on the cluster build; fleets with 64, 65, 80, 160 and 256 slots
+     through every stage entry, the gathered slots' included, each call
+     held to its plain body, `loop_check` at 256 (2-D rows past one
+     block's shared memory: the cluster build);
      the selection alone at A 256, 1,024 and 5,000 and OA 32, 33, 80, 128
      and 255 against the plain body; (h) the main path at Bézier degree 8
      (`build_fleet(1024, n=8)`: N = 9 control points a segment, the hull
-     kernels' run-time builds; dim·K 116, the ADMM memory build), 2
+     kernels' run-time builds; dim·K 116: the ADMM memory build on the
+     main batch, the cluster build on its 64-agent rescue), 2
      warm-up and 5 timed steps checked as (f), `clsc_check` on the
      run-time CLSC build, the CLSC and hull kernels timed on its call,
      `qp_split`, QP convergence no worse than the JAX package's at n = 8
@@ -236,10 +239,12 @@ checks the shared and the per-agent images, `hull_check` build_lsc
 (phase 10) and the main path's 2-D and 8b's 3-D hulls.
 
 Prints the results and the wall time of each phase, a JSON line with one
-entry per build of the ADMM kernel (its dim·K range, the memory build
-`<256,0>` any; launches on the
+entry per build of the ADMM kernel (its dim·K range; launches on the
 paths of phases 5-14, largest error against the plain loop, and ms,
-plain ms and bound at its A=1024 shape), one per geometry kernel
+plain ms and bound at its first timed A=1024 shape, with ptxas's
+registers and spills; the memory build's and the cluster build's C,
+shared bytes a block or CTA, blocks an SM and resident clusters),
+one per geometry kernel
 (sfc_expand, sfc_update_hull, hull_closest, clsc_build, and the hull
 kernels' run-time builds hull_closest<rt> and clsc_build<rt>, timed at
 phase 8h's N = 9: its launches on
@@ -591,12 +596,15 @@ class Builds:
         self.qp_prepare_cuda, self.stages, self.step_cuda = qp_prepare_cuda, stages, step_cuda
         self.hull_cuda, self.geometry, self.lsc, self.sfc_ops = hull_cuda, geometry, lsc, sfc
         self.lib = qp_cuda.build()
-        # the three builds (the library chooses one from the shape: the
-        # register builds up to dim·K 96, the memory build past them or
-        # where the rows pass shared memory); "dk": the least and largest
-        # dim·K this run's checks and timings held each to
+        # the four builds (the register builds up to dim·K 96, chosen by the
+        # library from the shape; past them, or where the rows pass one
+        # block's shared memory, the memory build for a batch that fills
+        # the card twice over with two agents an SM, else the cluster build:
+        # qp_cuda.loop_plan); "dk": the least and largest dim·K this run's
+        # checks and timings held each to
         self.rec = {name: {"dk": None, "launches": 0, "max_abs_err": 0.0, "ms": None}
-                    for name in ("<128,30>", "<256,48>", "<256,0>")}
+                    for name in ("<128,30>", "<256,48>", qp_cuda.MEMORY_BUILD,
+                                 qp_cuda.CLUSTER_BUILD)}
         self.sfc = {"launches": 0, "max_abs_err": 0, "calls_checked": 0, "lanes_checked": 0,
                     "ms": None}
         self.sfc_hull = {"launches": 0, "max_abs_err": 0.0, "calls_checked": 0,
@@ -631,12 +639,13 @@ class Builds:
                             "agents_checked": 0, "elements_checked": 0,
                             "max_share_of_tolerance": 0.0, "max_kinv_ratio": 0.0, "ms": None}
 
-    def name(self, cfg):
-        return self.qp_cuda.build_name(self.lib, *admm_shape(self.qp, cfg, self.dev))
+    def name(self, cfg, A):
+        return self.qp_cuda.build_name(self.lib, *admm_shape(self.qp, cfg, self.dev), A)
 
-    def build_rec(self, cfg):
-        """The record of cfg's build, its dim·K range widened to cfg's."""
-        r = self.rec[self.name(cfg)]
+    def build_rec(self, cfg, A):
+        """The record of the build of a batch of A agents of cfg's shape,
+        its dim·K range widened to cfg's."""
+        r = self.rec[self.name(cfg, A)]
         dk = cfg.dim * admm_shape(self.qp, cfg, self.dev)[4]
         r["dk"] = [dk, dk] if r["dk"] is None else [min(r["dk"][0], dk), max(r["dk"][1], dk)]
         return r
@@ -742,7 +751,7 @@ class Builds:
             assert launches[key] == 0, f"{what} ran a plain version on the card: {key}"
 
     def note_check(self, cfg, rec):
-        r = self.build_rec(cfg)
+        r = self.build_rec(cfg, rec["A"])
         r["max_abs_err"] = max(r["max_abs_err"], rec["max_abs_err_chunk"])
 
     def note_hull_check(self, recs):
@@ -810,11 +819,16 @@ class Builds:
             r["phases"].append(what)
 
     def note_timing(self, cfg, timing, plain_ms):
-        r = self.build_rec(cfg)
+        """The build's first timing; with the launch the wrapper recorded
+        (`qp_cuda.last_launch`: cluster size C, shared bytes and CTAs an
+        SM, resident clusters)."""
+        r = self.build_rec(cfg, timing["A"])
         if r["ms"] is None:
             r.update(ms=timing["ms"], plain_ms=plain_ms, iters=timing["iters"],
                      A=timing["A"], R=timing["R"], bound_ms=timing["bound_ms"],
-                     bound_by=timing["bound_by"], bound_share=timing["bound_share"])
+                     bound_by=timing["bound_by"], bound_share=timing["bound_share"],
+                     **{k: timing[k] for k in ("C", "smem_bytes", "ctas_per_sm",
+                                               "active_clusters") if k in timing})
 
 
 PLAIN_ON_CUDA = ("hull_plain_on_cuda", "clsc_plain_on_cuda", "sfc_hull_plain_on_cuda",
@@ -1261,12 +1275,15 @@ def kernels_ab_main():
     """For the checkout whose package is imported (the parent's or this
     tree's, for an A/B in one call: import the package from its tree
     before chip_smoke): its kernels built, then in the main path's layout
-    in 8b's (3-D) and in 8f's (3-D past the narrow builds), on one step's
-    calls after WARMUP evolving steps, the device ms of each kernel queued
-    back to back: the ADMM loop (`admm_timing.timed_call`, max_iter
-    iterations) and the build it took, the QP preparation kernel, the
-    step's stage kernels, the fused CLSC kernel and the hull query on its
-    hulls; and ptxas's record of the hull kernels. One JSON line."""
+    in 8b's (3-D), in 8f's (3-D past the narrow builds) and in 8h's (Bézier
+    degree 8), on one step's calls after WARMUP evolving steps, the device
+    ms of each kernel queued back to back: the ADMM loop
+    (`admm_timing.timed_call`, max_iter iterations) and the build it took,
+    in 8f and 8h also on the compacted rescue batch of its iterate
+    (`qp.rescue_batch`, rescue_iter iterations; the wrapper's launch
+    record where the tree has one), the QP preparation kernel, the step's
+    stage kernels, the fused CLSC kernel and the hull query on its hulls;
+    and ptxas's record of the hull kernels. One JSON line."""
     from lsc_dr_planner_tpu_torch import workload
     from lsc_dr_planner_tpu_torch.ops import (
         cuda_build, geometry, hull_cuda, lsc, qp, qp_cuda, qp_prepare_cuda,
@@ -1277,7 +1294,8 @@ def kernels_ab_main():
     build_all(verbose=hull_cuda)
     out = {"package": str(Path(qp_cuda.__file__).resolve().parents[1]), "gpu": gpu,
            "hull_ptxas": ptxas_summary(cuda_build.build_log.get("hull_closest.cu", (0, ""))[1])}
-    for tag, overrides in (("main", {}), ("8b", dict(world_dimension=3)), ("8f", P8F)):
+    for tag, overrides in (("main", {}), ("8b", dict(world_dimension=3)), ("8f", P8F),
+                           ("8h", P8H)):
         planner, fleet, inp = main_path_state(workload, dev, **overrides)
         recs = stage_recorders(stages)
         with contextlib.ExitStack() as stack:
@@ -1290,9 +1308,16 @@ def kernels_ab_main():
         qp_cuda.reset_launches()
         shape, lib = admm_shape(qp, cfg, dev), qp_cuda.build()
         rec = {"admm": admm_timing.timed_call(qp, cfg, li, cfg.max_iter, tol, tag, 10),
-               "admm_builds": sorted(qp_cuda.build_launches),
-               "admm_smem_bytes": lib.admm_smem_bytes(*shape),
-               "admm_blocks_per_sm": lib.admm_blocks_per_sm(*shape)}
+               "admm_builds": sorted(qp_cuda.build_launches)}
+        rec["admm"].update(getattr(qp_cuda, "last_launch", None) or {
+            "smem_bytes": lib.admm_smem_bytes(*shape),
+            "ctas_per_sm": lib.admm_blocks_per_sm(*shape)})
+        if tag in ("8f", "8h"):
+            xi, z, y = qp.run_loop(cfg, li, cfg.max_iter, tol)[:3]
+            sub = qp.rescue_batch(cfg, li, xi, z, y, tol)[2]
+            rec["admm_rescue"] = admm_timing.timed_call(qp, cfg, sub, cfg.rescue_iter, tol,
+                                                        tag + " rescue", 10)
+            rec["admm_rescue"].update(getattr(qp_cuda, "last_launch", None) or {})
         ts, sc = qp.torch_statics(cfg, dev), qp.prepare_scalars(cfg)
         rec["qp_prepare_ms"] = queued_ms(
             lambda: qp_prepare_cuda.prepare_cuda(cfg, ts, d.qp_inp, sc), KERNEL_REPS)
@@ -2252,6 +2277,52 @@ def admm_sums_main(sources, seeds=MOVED_SEEDS):
         print("admm sums", json.dumps(rec), f"[{gpu}]", flush=True)
 
 
+def memory_build_main(sources, reps=5):
+    """The ADMM loop kernel built from each of `sources` (admm.cu files of
+    one Args layout: this tree's, variants of it), in the order given, on
+    the batches of the shapes past the register builds: 8f's and 8h's main
+    loop (A=1024, max_iter iterations, after WARMUP evolving steps) and
+    each one's compacted rescue (A = RESCUE, rescue_iter iterations, from
+    the main loop's iterate of the shipped build). Per source and batch:
+    the build that took it and the wrapper's launch record, one chunk's
+    largest |kernel − plain| and per-agent share of the tolerance, and the
+    loop timed (`admm_timing.timed_call`); ptxas's registers and spills.
+    One JSON line a source."""
+    from lsc_dr_planner_tpu_torch import workload
+    from lsc_dr_planner_tpu_torch.ops import qp, qp_cuda
+
+    dev, gpu = torch.device("cuda", 0), gpu_line()
+    build_all()
+    batches = []
+    for tag, overrides in (("8f", P8F), ("8h", P8H)):
+        planner, fleet, inp = main_path_state(workload, dev, **overrides)
+        cfg, tol = planner.qp_cfg, planner.feas_tol
+        li = qp.prepare(cfg, planner._step_impl(fleet, inp, defer_qp=True).qp_inp).loop
+        xi, z, y = qp.run_loop(cfg, li, cfg.max_iter, tol)[:3]
+        sub = qp.rescue_batch(cfg, li, xi, z, y, tol)[2]
+        batches += [(tag, cfg, tol, li, cfg.max_iter),
+                    (tag + " rescue", cfg, tol, sub, cfg.rescue_iter)]
+    torch.cuda.synchronize()
+    out = []
+    for src in sources:
+        with built_from(qp_cuda, src) as ptxas:
+            rec = {"source": str(src), "gpu": gpu, "ptxas": ptxas, "batches": {}}
+            for tag, cfg, tol, li, iters in batches:
+                got = qp.run_loop(cfg, li, 8, tol)
+                want = qp.admm_loop_plain(cfg, li, 8, tol)
+                r = admm_timing.timed_call(qp, cfg, li, iters, tol, tag, reps)
+                r.update(build=qp_cuda.build_name(qp_cuda.build(), *admm_shape(qp, cfg, dev),
+                                                  li.xi.shape[0]),
+                         chunk_max_abs_err=max((a - b).abs().max().item()
+                                               for a, b in zip(got[:3], want[:3])),
+                         chunk_share=max(shares(a, b)[1] for a, b in zip(got[:3], want[:3])))
+                r.update(getattr(qp_cuda, "last_launch", {}))
+                rec["batches"][tag] = r
+        print("memory build", json.dumps(rec), f"[{gpu}]", flush=True)
+        out.append(rec)
+    return out
+
+
 def rounding_check(dev, n=1 << 20, seed=0):
     """The rounding the plain versions pin is the same on `dev` as on the
     CPU, bit for bit, on n random float32 inputs (normal): the 3-term
@@ -2852,7 +2923,8 @@ def fused_mode(workload, qp, builds, dev, gpu, tag, overrides, steps=True,
         lis = [qp.prepare(cfg, qp_inp).loop for _, _, qp_inp in states]
     li = lis[0]
     res = {"mode": tag, "overrides": {k: getattr(v, "name", v) for k, v in overrides.items()},
-           "build": builds.name(cfg), "dk": cfg.dim * li.Pn.shape[-1], "R": li.z.shape[1],
+           "build": builds.name(cfg, li.xi.shape[0]), "dk": cfg.dim * li.Pn.shape[-1],
+           "R": li.z.shape[1],
            "feas_tol": feas_tol}
     res["check"] = loop_check(qp, cfg, li, feas_tol, f"phase{tag}",
                               float64_clause=float64_clause, strict=not moved_seeds)
@@ -2881,10 +2953,9 @@ def fused_mode(workload, qp, builds, dev, gpu, tag, overrides, steps=True,
     res["timing"] = admm_timing.timed_call(qp, cfg, li, cfg.max_iter, feas_tol, tag, 10)
     lib = builds.lib
     shape = (cfg.dim, cfg.n_obs, cfg.M, cfg.N, li.Pn.shape[-1], li.z.shape[1] - cfg.n_obs * cfg.M * cfg.N)
-    res["timing"].update(smem_bytes=lib.admm_smem_bytes(*shape),
-                         threads=lib.admm_threads(*shape),
+    res["timing"].update(builds.qp_cuda.last_launch, threads=lib.admm_threads(*shape),
                          placement=builds.qp_cuda.placement(lib, *shape),
-                         blocks_per_sm=lib.admm_blocks_per_sm(*shape))
+                         blocks_per_sm=builds.qp_cuda.last_launch["ctas_per_sm"])
     plain_ms = cuda_ms(lambda: qp.admm_loop_plain(cfg, li, cfg.max_iter, feas_tol), 2)
     res["timing"]["plain_ms"] = plain_ms
     builds.note_timing(cfg, res["timing"], plain_ms)
@@ -2994,13 +3065,14 @@ def fused_mode(workload, qp, builds, dev, gpu, tag, overrides, steps=True,
 # 8f: the main path with every agent within 5 m an obstacle, as the reference
 # plans (SURVEY §2.6: no cap on the neighbour set; 48-80 agents within 5 m of
 # an interior agent of the 1.2 m lattice), in 3-D at a horizon of 12 segments
-# (K = 34, dim·K 102): the ADMM kernel's memory build, the selection's and the
-# prediction's wide builds (OA = O = 80)
+# (K = 34, dim·K 102): the ADMM kernel's cluster build, the selection's and
+# the prediction's wide builds (OA = O = 80)
 P8F = dict(world_dimension=3, M=12, communication_range=5.0, max_obstacles=80)
 P8F_WARMUP, P8F_TIMED, P8F_SEPARATE = 2, 5, 1
 # 8h: the main path at Bézier degree 8, which the JAX package plans (9
 # control points a segment: the hull kernels' run-time build; K = 58, dim·K
-# 116: the ADMM kernel's memory build); 8h's query: plain LSC (static goals,
+# 116: the ADMM kernel's memory build, its rescue the cluster build); 8h's
+# query: plain LSC (static goals,
 # build_lsc: the hull query alone) at degree 8, P8H_QUERY_STEPS steps
 P8H = dict(n=8)
 P8H_WARMUP, P8H_TIMED, P8H_QUERY_STEPS = 2, 5, 2
@@ -3095,9 +3167,9 @@ def square_lattice(A, dev):
 def phase8g(workload, qp, builds, dev, gpu, srec):
     """The boundary shapes: (a) 8g's QPs (phase8g_qp_cases): one evolving
     step of each fleet, `prepare_check` on its preparation, `loop_check`
-    on the next step's QP (its float64 clause), the builds and placements
-    they took; the preparation's global build and the loop's memory build
-    at 246 timed; (b) fleets of O + 6 agents with O = OA slots of
+    on the next step's QP (its float64 clause), the builds they took (the
+    loop's cluster build and its cluster size); the preparation's global
+    build and the loop's cluster build at 246 timed; (b) fleets of O + 6 agents with O = OA slots of
     P8G_SLOTS: a step through the fused entry, a step with the selection
     and the prediction as two launches and the prediction on the
     gathered slots (the multi-device steps' entry), each call held to its
@@ -3121,10 +3193,8 @@ def phase8g(workload, qp, builds, dev, gpu, srec):
         shape = admm_shape(qp, cfg, dev)
         rec = out["qp"][tag] = {
             "A": A, "dk": cfg.dim * shape[4], "R": qp.n_rows(cfg), "O": cfg.n_obs,
-            "admm_build": qp_cuda.build_name(lib, *shape),
-            "admm_placement": qp_cuda.placement(lib, *shape),
-            "admm_smem_bytes": lib.admm_smem_bytes(*shape),
-            "admm_blocks_per_sm": lib.admm_blocks_per_sm(*shape),
+            "admm_build": qp_cuda.build_name(lib, *shape, A),
+            "admm_plan": qp_cuda.launch_plan(shape, A),
             "prepare_build": qp_prepare_cuda.build_name(*shape[:5]),
             "qp_convergence": float(conv.float().mean()), "kernel_launches": launches}
         builds.assert_launched(launches, f"phase 8g {tag}")
@@ -3147,7 +3217,9 @@ def phase8g(workload, qp, builds, dev, gpu, srec):
         print(f"phase8g {tag}", json.dumps({k: v for k, v in rec.items()
                                             if k not in ("check", "prepare_check")}),
               f"[{gpu}]")
-    assert out["qp"]["dk246_O160"]["admm_placement"] == {"rows": "global", "kinv": "global"}
+    for rec in out["qp"].values():  # past the register builds: the cluster build
+        assert rec["admm_build"] == qp_cuda.CLUSTER_BUILD, rec
+    assert out["qp"]["dk246_O160"]["admm_plan"]["C"] == 8, out["qp"]["dk246_O160"]
 
     for O in P8G_SLOTS:
         p, planner, fleet, inp = workload.build_fleet(
@@ -3173,8 +3245,8 @@ def phase8g(workload, qp, builds, dev, gpu, srec):
         if O == P8G_SLOTS[-1]:
             cfg = planner.qp_cfg
             shape = admm_shape(qp, cfg, dev)
-            rec["admm_placement"] = qp_cuda.placement(lib, *shape)
-            assert rec["admm_placement"]["rows"] == "global", rec
+            rec["admm_plan"] = qp_cuda.launch_plan(shape, O + 6)
+            assert rec["admm_plan"]["build"] == qp_cuda.CLUSTER_BUILD, rec
             rec["check"] = loop_check(qp, cfg, qp.prepare(cfg, d.qp_inp).loop, planner.feas_tol,
                                       f"phase8g O={O}")
             builds.note_check(cfg, rec["check"])
@@ -3251,7 +3323,7 @@ def fly(workload, qp, builds, dev, gpu, work, tag, overrides, obstacles, max_ite
     wall = time.perf_counter() - t0
     d_goal = np.linalg.norm(sim.pos - sim.desired_goal, axis=-1)
     res = {"phase": tag, "agents": 10, "dim": dim, "O": sim.planner.O,
-           "build": builds.name(sim.planner.qp_cfg), "feas_tol": sim.planner.feas_tol,
+           "build": builds.name(sim.planner.qp_cfg, 10), "feas_tol": sim.planner.feas_tol,
            "planner_steps": sim.planner_seq, "flight_time_s": r["total_flight_time"],
            "agents_home": int((d_goal <= param.goal_threshold).sum()),
            "step_p50_ms": r["step_time_p50_ms"], "step_p99_ms": r["step_time_p99_ms"],
@@ -3897,7 +3969,7 @@ def main():
     print(f"phase3 itdone agreement {itd_agree:.4f}, iters {int(got[4])} / {int(want[4])}")
     assert itd_agree >= 0.995, itd_agree
     record["phase3"] = {"max_abs_err": max_abs_err, "itdone_agreement": itd_agree}
-    builds.build_rec(cfg)["max_abs_err"] = max_abs_err
+    builds.build_rec(cfg, A_MAIN)["max_abs_err"] = max_abs_err
 
     # many chunks, global exit before max_iter (A=37: no block multiple)
     cfg37, qp_inp37, tol37 = admm_timing.bench_qp(workload, 37, dev)
@@ -4207,8 +4279,8 @@ def main():
     r = record["phase8"]["8f"] = fused_mode(
         workload, qp, builds, dev, gpu, "8f", P8F, float64_clause=True, l2_ns=l2_ns,
         warmup=P8F_WARMUP, timed=P8F_TIMED, stage_recs=srec, separate=P8F_SEPARATE)
-    assert r["build"] == "<256,0>" and r["dk"] == 102, (r["build"], r["dk"])
-    assert r["kernel_launches"]["<256,0>"] > 0, r["kernel_launches"]
+    assert r["build"] == qp_cuda.CLUSTER_BUILD and r["dk"] == 102, (r["build"], r["dk"])
+    assert r["kernel_launches"][qp_cuda.CLUSTER_BUILD] > 0, r["kernel_launches"]
     assert r["kernel_launches"]["front_with_neighbors_wide"] == P8F_TIMED, r["kernel_launches"]
     assert r["separate"]["kernel_launches"]["neighbor_slots_wide"] == P8F_SEPARATE
     assert r["separate"]["kernel_launches"]["step_front_wide"] == P8F_SEPARATE
@@ -4219,7 +4291,11 @@ def main():
     r = record["phase8"]["8h"] = fused_mode(
         workload, qp, builds, dev, gpu, "8h", P8H, float64_clause=True, l2_ns=l2_ns,
         warmup=P8H_WARMUP, timed=P8H_TIMED, stage_recs=srec)
-    assert r["build"] == "<256,0>" and r["dk"] == 116, (r["build"], r["dk"])
+    # the main batch (A=1024, two agents an SM) on the memory build, the
+    # 64-agent rescue on the cluster build
+    assert r["build"] == qp_cuda.MEMORY_BUILD and r["dk"] == 116, (r["build"], r["dk"])
+    assert r["kernel_launches"][qp_cuda.MEMORY_BUILD] > 0, r["kernel_launches"]
+    assert r["kernel_launches"][qp_cuda.CLUSTER_BUILD] > 0, r["kernel_launches"]
     assert r["clsc_timing"]["N"] == 9 and r["hull_timing"]["K"] == 9, r["clsc_timing"]
     assert r["kernel_launches"]["clsc_build_rt"] == r["kernel_launches"]["clsc_build"] \
         == P8H_TIMED, r["kernel_launches"]
@@ -4345,7 +4421,11 @@ def main():
             "dk": r["dk"], "launches": r["launches"], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "iters": r["iters"], "A": r["A"],
             "R": r["R"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "bound_share": r["bound_share"], "ptxas": kernels_ptxas.get(f"admm_chunk_kernel{name}"),
+            "bound_share": r["bound_share"],
+            "ptxas": kernels_ptxas.get("admm_cluster_kernel<256>" if name == qp_cuda.CLUSTER_BUILD
+                                       else f"admm_chunk_kernel{name}"),
+            # the cluster build: its cluster size, shared bytes and CTAs an SM
+            **{k: r[k] for k in ("C", "smem_bytes", "ctas_per_sm", "active_clusters") if k in r},
             "library_ms": None,  # no single PyTorch call computes the loop
         })
     geometry_kernels = (

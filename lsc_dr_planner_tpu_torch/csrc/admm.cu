@@ -12,8 +12,8 @@
 // away in control points, outside the solver's comparison contract.)
 //
 // Launches: one per chunk, queued back to back with no host synchronisation.
-// Each block counts itself into done_count[ck] when its agent passes the test;
-// when that count is the whole fleet, every later launch returns at once and
+// Each agent counts itself into done_count[ck] when it passes the test; when
+// that count is the whole fleet, every later launch returns at once and
 // carries the count on, so the stop holds to the end of the queue and xi, z and
 // y stay the iterate of the exit test. Between chunks xi, z, y, A·xi and the
 // gate state go to global memory.
@@ -35,55 +35,100 @@
 // on the H100 on one A=37 batch, this halved the kernel's per-chunk distance
 // to the float64 plain loop, to the float32 plain loop's own, for 4.5% of time.
 //
-// The layout. One agent per block, so that the small batches of the simulator
-// and the rescue (10–64 agents) run each iteration at one agent's latency, and
-// the A=1024 bench batch runs in one wave when 8 blocks fit on an SM. Three
-// builds, chosen from the shape (admm_threads, admm_columns), never from a
-// failure:
+// The layout. Four builds, chosen from the shape (admm_threads,
+// admm_columns) and, past the register builds, from the batch too
+// (qp_cuda.loop_plan, admm_launch's C), never from a failure:
 //   <128, 30>  dim·K ≤ 60: 2-D, 56 for LSC (K = 28, the terminal derivatives
-//              pinned) and 60 for DLSC, BVC and RSFC (K = 30); Kinv in
-//              registers, thread 2i+h holding half h of row i; the Kinv loop
-//              stops at the row's own columns, so dim·K 56 runs the additions
-//              of a 28-column build in the same order;
+//              pinned) and 60 for DLSC, BVC and RSFC (K = 30); one agent a
+//              block, Kinv in registers, thread 2i+h holding half h of row i;
+//              the Kinv loop stops at the row's own columns, so dim·K 56 runs
+//              the additions of a 28-column build in the same order;
 //   <256, 48>  dim·K ≤ 96: 3-D (84 for LSC, 90 for the other modes), 256
 //              threads with up to 48 Kinv registers each; __launch_bounds__
 //              asks for three blocks per SM, which caps a thread at 85
 //              registers (the 128-thread build asks for eight: 64);
-//   <256, 0>   any other shape (3-D from M = 11 on: dim·K 102 at M = 12,
-//              246 at M = 28; or rows past shared memory), the memory build:
-//              Kinv is read where it lies, from shared memory where it fits
-//              beside the rows (41.6 KB at dim·K 102), else through L1 and
-//              L2; a thread pair takes rows i, i + 128, ... of each product.
-//              The rows' state goes in shared memory where it fits (the
-//              limit the device reports, 227 KB on the H100), else it stays
-//              in global memory, updated in place in the loop's own z, y and
-//              A·xi buffers (l, u and the normals read where they lie). Two
-//              blocks per SM at most (128 registers). At dim·K 102 and 6,534
-//              rows (A=1024, 200 iterations; 166 KB a block, one block an
-//              SM) the shared copy of Kinv takes 45.0–45.1 ms on the H100
-//              against 48.0–48.1 ms for Kinv through L1 and L2 (PERF.md §6,
-//              the memory build's row and its placement A/B).
-// The first two need their rows in shared memory; a shape whose rows do not
-// fit there goes to the memory build. Per agent, shared memory holds z, y,
-// A·xi and l over all R rows, u over the static rows only (the LSC rows are
+//   <256, 0>   the memory build (C = 1): any other shape whose agent, rows
+//              and Kinv in shared memory, fits two blocks an SM, for a batch
+//              that fills every SM twice over (A ≥ 264: Bézier degree 8's
+//              main batch, 95 KB a block); a thread pair takes rows i, i +
+//              128, ... of the Kinv and N3k products;
+//   <256, cluster>  every other shape past the register builds, and those
+//              shapes in smaller batches (3-D from M = 11 on: dim·K 102 at M
+//              = 12, 246 at M = 28; degree 8's 64-agent rescue; rows past one
+//              block's shared memory): one agent on a thread-block cluster
+//              of C = 2, 4 or 8 CTAs of 256 threads (admm_cluster_kernel).
+// The one-block builds keep an agent's rows in the block's shared memory: z,
+// y, A·xi and l over all R rows, u over the static rows only (the LSC rows are
 // one-sided: prepare() makes their u +1e20 less an offset, which no iterate
 // reaches, so the kernel takes it as +inf), the normals and a few dk- and
 // dim·MN-vectors: 27.8 KB in the 2-D bench shape (dim=2, K=28, dk=56, O=16,
 // M=10, N=6, R=960+410), 34.0 KB in 3-D (dk=90, R=960+615). ρ is one
 // constant for the LSC rows and a shared row vector for the static rows (the
 // per-family ρ of _solver_statics, as the Pallas kernel takes it); `scale` is
-// read at the exit tests only. The shared operators (N3k and its transpose,
-// the stencil tables: 18 KB in 2-D) are read through L1 by every block;
-// copying them into each block's shared memory would cost the residency they
-// buy. The 3-D z stencils are rows of the same tables.
+// read at the exit tests only. They read the shared operators (N3k and its
+// transpose, the stencil tables: 18 KB in 2-D) through L1 from every block.
+// The 3-D z stencils are rows of the same tables.
 //
-// Every phase spreads over the block: the Kinv matvec and the N3k adjoint
-// product run two threads per output, combined with one warp shuffle; the
-// control points and the adjoint accumulator one thread per (d, mn); rows one
-// thread each; the exit test's eight reductions are one warp-shuffle pass and
-// one shared step. No float atomics: an agent's result does not depend on
-// which agents share the launch (the rescue compacts different agents each
-// step).
+// The cluster build. What held back the memory build (PERF.md §6, the
+// cluster build's step 0): an agent at dim·K 102 with 80 slots (6,534 rows,
+// Kinv 41.6 KB) took 166 KB, one block an SM: one agent on 8 warps, each
+// phase a dependent chain of 36–80 terms a thread; and the 64-agent rescue
+// filled half the SMs.
+// Twice the threads with chains halved took 34% off 8f; the operators in
+// shared memory 6.5%. Here agent a is the cluster of CTAs a·C .. a·C + C − 1:
+//   - the agent's LSC slots and static rows are cut into kGroups = 8 fixed
+//     groups (G = ⌈O/8⌉ slots, ⌈R_stat/8⌉ static rows a group, whatever C);
+//     CTA c holds the 8/C groups c·8/C .. (c+1)·8/C − 1: their rows' z, y,
+//     A·xi, l (and u), their slots' normals, their static rows' stencils and
+//     the groups' transposed stencils (qp_cuda.group_ptr, indices in 16 bits)
+//     in its own shared memory, and rows [c·⌈dk/C⌉, (c+1)·⌈dk/C⌉) of Kinv;
+//     N3k is staged once a CTA (rows padded to an odd stride, read by rows
+//     and by columns) where two CTAs still fit an SM with it, else read
+//     through L1; the state comes in by cp.async;
+//   - an iteration: (1) cluster barrier; every CTA adds the groups' partial
+//     Aᵀ(ρz − y), in double, over distributed shared memory in group order,
+//     holds the whole accumulator and forms the whole rhs in double; (2)
+//     each CTA forms its rows of ξ̃ = Kinv·rhs in double; (3) cluster
+//     barrier; all-gather of ξ̃; (4) each CTA forms the control points VD of
+//     ξ̃ in double and updates its own rows, a thread an item (group, control
+//     point, slot part), forming the next iteration's partials of its groups
+//     on the way (of y in the chunk's last iteration: the exit test's Aᵀy).
+//     Every dot product is split over threads (a pair for the adjoint and
+//     the control points; 2–8 for a Kinv row by dim·K) and four
+//     accumulators, combined in a fixed order;
+//   - the exit tests: each CTA reduces its rows' violation; CTA 0 reads the
+//     partials and the violations over the cluster, tests the agent (Pn
+//     staged in its free Kinv rows) and counts it once into done_count; a
+//     last cluster barrier keeps every CTA resident until CTA 0 has read its
+//     shared memory;
+//   - every sum runs over the fixed groups in the same order whichever CTA
+//     holds a group, so xi, z, y and itdone are the same bits at every C;
+//   - C (qp_cuda.cluster_plan, from the shape and the batch): the smallest of
+//     2, 4, 8 at which two CTAs fit an SM (8 where none does), then doubled
+//     while the batch has fewer than 132 CTAs, keeps at most 264, and its
+//     clusters all stay resident (cudaOccupancyMaxActiveClusters: 62 of 4
+//     on the H100, so the 64-agent rescue keeps C = 2 and one wave).
+//     admm_launch refuses a C whose CTA passes the device's shared memory or
+//     whose clusters cannot be resident; nothing falls back.
+// What bounds it: the latency of each CTA's chains at 16 warps an SM (two
+// CTAs of 115–123 registers) and the per-launch load and exit test (at 8f,
+// C = 2, an iteration ~33 k cycles: row updates with the partials 15.7 k,
+// rhs 5.9 k, control points 4.4 k, Kinv 2.6 k, two cluster barriers 3.1 k;
+// a launch's load 33 k and exit 36 k; `clock64` marks, PERF.md §6). Splitting
+// an agent halves the agents an SM holds where the memory build held two
+// (degree 8: 21.8 ms on the cluster build against 12.3 on the memory build
+// at A=1024), hence the memory build for full batches of such shapes.
+// Rows and Kinv of one agent must fit 8 CTAs' shared memory (~1.8 MB; 8g's
+// widest shape, dim·K 246 with 160 slots, takes 187 KB a CTA at C = 8): a
+// shape past that is refused by qp_cuda.cluster_plan.
+//
+// Every phase spreads over the block: in the register builds the Kinv matvec
+// and the N3k adjoint product run two threads per output, combined with one
+// warp shuffle; the control points and the adjoint accumulator one thread per
+// (d, mn); rows one thread each; the exit test's eight reductions are one
+// warp-shuffle pass and one shared step. No float atomics: an agent's result
+// does not depend on which agents share the launch (the rescue compacts
+// different agents each step).
 //
 // Precision. The loop's state (ξ, z, y) is float32, and so are the row
 // updates; what sets a dual's fixed point is in double. Per iteration, rhs =
@@ -105,28 +150,39 @@
 // 3-D (0 and 16 B spilled). Float32 sums one product at a time strayed 5–17
 // times the float32 plain loop's own spread on the same states.
 //
-// What bounds it on the H100: the float32 FMA pipes and the latency of five
-// barriers per iteration; the bound of the work itself (about 54 k flops per
-// agent-iteration, 67 TFLOP/s) is some 0.16 ms for 200 iterations at A=1024.
-// No tensor cores: the loop must stay float32 (TF32 breaks the ADMM algebra as
-// bf16 did on the TPU, and the exit gates are already noisier than their
-// thresholds in float32), its products are per-agent matvecs, and the FMA
-// bound is far below the kernel's time. A 3xTF32 or agent-batched mma.sync
-// path, and a persistent kernel that keeps the state in shared memory across
-// chunks, are later work (ROADMAP Queue 2).
+// What bounds it on the H100: the latency of each iteration's dependent
+// chains and barriers (five block barriers an iteration; the cluster build
+// two cluster barriers more), not the work: nearly all of an iteration's
+// FMAs are in double since the fixed points moved there, and at the FP64 rate
+// outside the tensor cores (34 TFLOP/s; the row updates at float32's 67) the
+// work of 200 iterations at A=1024 is some 0.3 ms in 2-D
+// (admm_timing.loop_bound). No tensor cores: the loop must stay float32 (TF32 breaks the
+// ADMM algebra as bf16 did on the TPU, and the exit gates are already noisier
+// than their thresholds in float32), its products are per-agent matvecs. A
+// persistent kernel that keeps the state in shared memory across chunks is
+// later work (ROADMAP Queue 2).
 //
 // Built by ops/qp_cuda.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
 // and called through the plain C entry point admm_launch (ctypes).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kWidth = 3;  // stencil nonzeros per static row (qp.STENCIL_WIDTH)
 constexpr int kMaxRegDk = 96;  // the largest dim·K of the register builds
+constexpr int kGroups = 8;  // the cluster build's fixed row groups (qp_cuda.GROUPS)
+constexpr int kClusterThreads = 256;  // threads of a CTA of the cluster build
 constexpr unsigned kFull = 0xffffffffu;
+// admm_launch's refusals of a cluster launch (CUDA's own errors are positive)
+constexpr int kBadClusterSize = -2;  // C is not 1 (the memory build), 2, 4 or 8
+constexpr int kPastSharedMemory = -3;  // a CTA needs more than the device's opt-in limit
+constexpr int kNotResident = -4;  // cudaOccupancyMaxActiveClusters gives 0
 
 struct Args {
   const float* normals;   // [A, O, M, dim]
@@ -145,6 +201,7 @@ struct Args {
   const int* adj_ptr;     // [dim*MN + 1] compressed columns of the stencils
   const int* adj_row;     // [nnz] static row
   const float* adj_coef;  // [nnz]
+  const int* grp_ptr;     // [(kGroups + 1) * dim*MN] group j's first entry of each column
   const float* N3k;       // [K, MN] shared nullspace basis
   const float* N3kT;      // [MN, K] its transpose
   float* xi;              // [A, dk] state between launches, then the result
@@ -155,8 +212,7 @@ struct Args {
   int* noimp;             // [A] chunks without improvement (scratch)
   int* itdone;            // [A] iteration count at the first exit test passed
   int* done_count;        // [n_chunks] agents done at each test, zeroed
-  int dim, O, M, N, K, R_stat, max_iter, chunk;  // chunk: iterations between tests
-  int rows_smem, kinv_smem;  // the memory build's placement (see Place)
+  int A, dim, O, M, N, K, R_stat, max_iter, chunk;  // chunk: iterations between tests
   float rho_lsc, stop_tol, sigma, alpha, one_minus_alpha, eps_abs;
 };
 
@@ -182,19 +238,13 @@ __host__ __device__ inline Dims make_dims(int dim, int O, int M, int N, int K,
   return D;
 }
 
-// Where the memory build keeps an agent's rows and its Kinv: in shared memory
-// (1) or global memory (0). The register builds keep the rows in shared memory.
-struct Place {
-  int rows_smem, kinv_smem;
-};
-
-// VD [dim*MN doubles]; XTD [dk doubles]; with the rows in shared memory Z, Y,
-// AX, LN [R], UN [R_stat], NRM [O*M*dim]; XI, XIP, QN [dk]; VA [dim*MN]; RED
-// [8 per warp]; MOF [MN] (int); KI [dk*dk] where Kinv is in shared memory.
-__host__ __device__ inline size_t smem_floats(const Dims& D, int threads, Place P) {
-  const size_t rows = P.rows_smem ? 4 * (size_t)D.R + D.R_stat + (size_t)D.O * D.M * D.dim : 0;
-  return rows + 5 * (size_t)D.dk + 3 * (size_t)D.dim * D.MN + 8 * (threads / 32) + D.MN +
-         (P.kinv_smem ? (size_t)D.dk * D.dk : 0);
+// One agent a block (the register builds and the memory build): VD [dim*MN
+// doubles]; XTD [dk doubles]; Z, Y, AX, LN [R], UN [R_stat], NRM [O*M*dim];
+// XI, XIP, QN [dk]; VA [dim*MN]; RED [8 per warp]; MOF [MN] (int); KI [dk*dk]
+// (the memory build's Kinv). Mirrored by qp_cuda.memory_block_bytes.
+__host__ __device__ inline size_t smem_floats(const Dims& D, int threads, bool kinv) {
+  return 4 * (size_t)D.R + D.R_stat + (size_t)D.O * D.M * D.dim + 5 * (size_t)D.dk +
+         3 * (size_t)D.dim * D.MN + 8 * (threads / 32) + D.MN + (kinv ? (size_t)D.dk * D.dk : 0);
 }
 
 __host__ __device__ inline int admm_n_chunks(int max_iter, int chunk) {
@@ -211,6 +261,17 @@ __device__ __forceinline__ double to_double_here(float x) {
   return d;
 }
 
+// A 4-byte copy from global to shared memory in flight (cp.async), and the
+// wait for all of a thread's copies.
+__device__ __forceinline__ void copy_async(void* smem_dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(smem_dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void copy_async_wait() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
 // One row's relaxation, projection onto [lo, hi] and dual update, in the
 // plain loop's order of operations.
 __device__ __forceinline__ void update_row(float zt, float& z, float& y, float& ax,
@@ -223,12 +284,13 @@ __device__ __forceinline__ void update_row(float zt, float& z, float& y, float& 
   ax = alpha * zt + beta * ax;
 }
 
-// f(r, o, mn) for this thread's LSC rows r = o*MN + mn (no division per row).
+// f(r, o, mn) for this thread's LSC rows r = o*MN + mn < n (no division per
+// row).
 template <int NT, class F>
-__device__ __forceinline__ void for_lsc_rows(const Dims& D, F f) {
+__device__ __forceinline__ void for_lsc_rows(const Dims& D, int n, F f) {
   int o = threadIdx.x / D.MN, mn = threadIdx.x % D.MN;
   const int step_o = NT / D.MN, step_mn = NT % D.MN;
-  for (int r = threadIdx.x; r < D.R_lsc; r += NT) {
+  for (int r = threadIdx.x; r < n; r += NT) {
     f(r, o, mn);
     o += step_o;
     mn += step_mn;
@@ -239,8 +301,8 @@ __device__ __forceinline__ void for_lsc_rows(const Dims& D, F f) {
   }
 }
 
-// Row value of LSC row (o, mn) and of static row s from the control points
-// VD, each taken in double and rounded once.
+// Row value of LSC row (o, mn) (o: the slot in NRM) and of static row s from
+// the control points VD, each taken in double and rounded once.
 __device__ __forceinline__ float lsc_row(const Dims& D, const float* NRM, const int* MOF,
                                          const double* VD, int o, int mn) {
   const float* nr = NRM + (o * D.M + MOF[mn]) * D.dim;
@@ -326,7 +388,7 @@ __device__ double adjoint(const Dims& D, const Args& a, const float* Z, const fl
 }
 
 // v[0..6] maxima, v[7] a sum, over the block; every thread gets the result,
-// combined in a fixed order (deterministic).
+// combined in a fixed order (deterministic). Uses RED[0 .. 8·NT/32).
 template <int NT>
 __device__ void block_reduce8(float (&v)[8], float* RED) {
 #pragma unroll
@@ -348,27 +410,76 @@ __device__ void block_reduce8(float (&v)[8], float* RED) {
   }
 }
 
+// The exit gates of one agent from its reductions v (block_reduce8's), in
+// the plain loop's order; thread 0 of the agent's (first) block only.
+__device__ void exit_gates(const Args& a, const float (&v)[8], size_t agent, int ck) {
+  const bool feas = v[0] < a.stop_tol;
+  const float rd = v[1], dmag = fmaxf(v[2], fmaxf(v[3], v[4]));
+  const float dxi = v[5], xim = v[6], obj = v[7];
+  float best = ck == 0 ? INFINITY : a.best[agent];
+  int noimp = ck == 0 ? 0 : a.noimp[agent];
+  int itdone = ck == 0 ? a.max_iter : a.itdone[agent];
+  const bool opt = rd < a.eps_abs + 1e-3f * dmag;
+  const bool stalled = dxi < 1e-4f * fmaxf(1.f, xim);
+  const bool improved = obj < best - 2e-4f * fmaxf(1.f, fabsf(obj));
+  if (feas && improved) best = obj;
+  noimp = (feas && !improved) ? noimp + 1 : 0;
+  const bool done = feas && (opt || stalled || noimp >= 2);
+  if (done && itdone == a.max_iter) itdone = (ck + 1) * a.chunk;
+  a.best[agent] = best;
+  a.noimp[agent] = noimp;
+  a.itdone[agent] = itdone;
+  if (done) atomicAdd(a.done_count + ck, 1);
+}
+
+// The exit test's dk-vectors into v[1..7] (this thread's share): P·ξ in PX,
+// Aᵀy in ATY.
+template <int NT>
+__device__ void dual_terms(const Dims& D, const float* PX, const float* ATY, const float* QN,
+                           const float* XI, const float* XIP, float (&v)[8]) {
+  for (int j = threadIdx.x; j < D.dk; j += NT) {
+    const float px = PX[j], aty = ATY[j], q = QN[j], x = XI[j];
+    v[1] = fmaxf(v[1], fabsf(px + q + aty));  // dual residual
+    v[2] = fmaxf(v[2], fabsf(px));
+    v[3] = fmaxf(v[3], fabsf(aty));
+    v[4] = fmaxf(v[4], fabsf(q));
+    v[5] = fmaxf(v[5], fabsf(x - XIP[j]));  // iterate change over the chunk
+    v[6] = fmaxf(v[6], fabsf(x));
+    v[7] += (0.5f * px + q) * x;  // objective
+  }
+}
+
+// P·ξ per dimension into PX (float, the plain loop's order of terms).
+template <int NT>
+__device__ void cost_product(const Dims& D, const float* pn_g, const float* XI, float* PX) {
+  for (int j = threadIdx.x; j < D.dk; j += NT) {
+    const int d = j / D.K, k = j - d * D.K;
+    float acc = 0.f;
+    for (int l = 0; l < D.K; ++l) acc += pn_g[k * D.K + l] * XI[d * D.K + l];
+    PX[j] = acc;
+  }
+}
+
 // One chunk (a.chunk iterations and the exit tests) of every agent's loop,
-// one agent per block of NT threads. KC > 0: KC >= ceil(dk / 2) Kinv columns
-// per thread in registers (dk <= NT/2), the rows in shared memory; KC = 0:
-// the memory build (Kinv and the rows where a.kinv_smem and a.rows_smem put
-// them, any dk). Launch ck starts from the inputs (ck = 0) or from the state
-// the previous launch stored. When every agent was done at the previous test
-// (the plain loop's global exit) it returns at once and marks its own test
-// done for the whole fleet too, so that no later launch resumes the loop.
+// one agent per block of NT threads, the rows in shared memory. KC > 0: KC >=
+// ceil(dk / 2) Kinv columns per thread in registers (dk <= NT/2); KC = 0: the
+// memory build, Kinv in shared memory too, a thread pair taking rows i, i +
+// NT/2, ... of the Kinv and N3k products. Launch ck starts from the inputs
+// (ck = 0) or from the state the previous launch stored. When every agent was
+// done at the previous test (the plain loop's global exit) it returns at once
+// and marks its own test done for the whole fleet too, so that no later
+// launch resumes the loop.
 template <int NT, int KC>
 __global__ void __launch_bounds__(NT, NT == 128 ? 8 : KC ? 3 : 2)
 admm_chunk_kernel(Args a, int ck) {
-  if (ck > 0 && a.done_count[ck - 1] == (int)gridDim.x) {
-    if (threadIdx.x == 0 && blockIdx.x == 0) a.done_count[ck] = gridDim.x;
+  if (ck > 0 && a.done_count[ck - 1] == a.A) {
+    if (threadIdx.x == 0 && blockIdx.x == 0) a.done_count[ck] = a.A;
     return;
   }
   extern __shared__ __align__(16) float smem[];
   const Dims D = make_dims(a.dim, a.O, a.M, a.N, a.K, a.R_stat);
   const int t = threadIdx.x;
   const size_t agent = blockIdx.x;
-  // the rows' state in shared memory (always in the register builds)
-  const bool rows_smem = KC > 0 || a.rows_smem;
 
   // The doubles first. From the adjoint to the Kinv product VD is free and
   // holds rhs (dk ≤ dim·MN: K ≤ MN, N3k being a basis of a subspace of the MN
@@ -378,52 +489,32 @@ admm_chunk_kernel(Args a, int ck) {
   double* XTD = VD + D.dim * D.MN;
   float* RHS = reinterpret_cast<float*>(XTD);
   float* XT = RHS + D.dk;
-  float* next = XT + D.dk;
-  float *Z, *Y, *AX, *LN, *UN, *NRM;  // UN: the static rows only
-  if (rows_smem) {
-    Z = next;
-    Y = Z + D.R;
-    AX = Y + D.R;
-    LN = AX + D.R;
-    UN = LN + D.R;
-    NRM = UN + D.R_stat;
-    next = NRM + D.O * D.M * D.dim;
-  } else {  // in place in global memory
-    Z = a.z + agent * D.R;
-    Y = a.y + agent * D.R;
-    AX = a.ax + agent * D.R;
-    LN = const_cast<float*>(a.ln) + agent * D.R;
-    UN = const_cast<float*>(a.un) + agent * D.R + D.R_lsc;
-    NRM = const_cast<float*>(a.normals) + agent * D.O * D.M * D.dim;
-  }
-  float* XI = next;
+  float* Z = XT + D.dk;
+  float* Y = Z + D.R;
+  float* AX = Y + D.R;
+  float* LN = AX + D.R;
+  float* UN = LN + D.R;  // the static rows only
+  float* NRM = UN + D.R_stat;
+  float* XI = NRM + D.O * D.M * D.dim;
   float* XIP = XI + D.dk;
   float* QN = XIP + D.dk;
   float* VA = QN + D.dk;
   float* RED = VA + D.dim * D.MN;
   int* MOF = reinterpret_cast<int*>(RED + 8 * (NT / 32));
-  float* KI = reinterpret_cast<float*>(MOF + D.MN);  // the memory build's Kinv in shared memory
+  float* KI = reinterpret_cast<float*>(MOF + D.MN);  // the memory build's Kinv
 
   const float* xi_in = ck == 0 ? a.xi0 : a.xi;
   const float* z_in = ck == 0 ? a.z0 : a.z;
   const float* y_in = ck == 0 ? a.y0 : a.y;
-  if (rows_smem) {
-    const float* nrm_g = a.normals + agent * D.O * D.M * D.dim;
-    for (int i = t; i < D.O * D.M * D.dim; i += NT) NRM[i] = nrm_g[i];
-    for (int r = t; r < D.R; r += NT) {
-      const size_t g = agent * D.R + r;
-      Z[r] = z_in[g];
-      Y[r] = y_in[g];
-      LN[r] = a.ln[g];
-      if (ck > 0) AX[r] = a.ax[g];
-      if (r >= D.R_lsc) UN[r - D.R_lsc] = a.un[g];
-    }
-  } else if (ck == 0) {
-    for (int r = t; r < D.R; r += NT) {
-      const size_t g = agent * D.R + r;
-      Z[r] = z_in[g];
-      Y[r] = y_in[g];
-    }
+  const float* nrm_g = a.normals + agent * D.O * D.M * D.dim;
+  for (int i = t; i < D.O * D.M * D.dim; i += NT) NRM[i] = nrm_g[i];
+  for (int r = t; r < D.R; r += NT) {
+    const size_t g = agent * D.R + r;
+    Z[r] = z_in[g];
+    Y[r] = y_in[g];
+    LN[r] = a.ln[g];
+    if (ck > 0) AX[r] = a.ax[g];
+    if (r >= D.R_lsc) UN[r - D.R_lsc] = a.un[g];
   }
   for (int j = t; j < D.dk; j += NT) {
     XI[j] = xi_in[agent * D.dk + j];
@@ -443,18 +534,16 @@ admm_chunk_kernel(Args a, int ck) {
     for (int c = 0; c < KC; ++c) kin[c] = c < ncols ? kinv_g[(size_t)ki * D.dk + c0 + c] : 0.f;
   } else {
     ncols = min(D.half, D.dk - c0);
-    if (a.kinv_smem) {
-      for (int i = t; i < D.dk * D.dk; i += NT) KI[i] = kinv_g[i];
-    } else {
-      KI = const_cast<float*>(kinv_g);
-    }
+    for (int i = t; i < D.dk * D.dk; i += NT) KI[i] = kinv_g[i];
   }
   const int row_sets = KC > 0 ? 1 : (D.dk + NT / 2 - 1) / (NT / 2);  // rows a thread pair takes
   __syncthreads();
   if (ck == 0) {  // A·xi of the warm start
     control_points<NT>(D, XI, a.N3k, VD);
     __syncthreads();
-    for_lsc_rows<NT>(D, [&](int r, int o, int mn) { AX[r] = lsc_row(D, NRM, MOF, VD, o, mn); });
+    for_lsc_rows<NT>(D, D.R_lsc, [&](int r, int o, int mn) {
+      AX[r] = lsc_row(D, NRM, MOF, VD, o, mn);
+    });
     for (int s = t; s < D.R_stat; s += NT) AX[D.R_lsc + s] = stat_row(a, VD, s);
     __syncthreads();
   }
@@ -488,11 +577,7 @@ admm_chunk_kernel(Args a, int ck) {
         double acc = 0.;
         if (k < D.dk) {
           const float* kr = KI + (size_t)k * D.dk + c0;
-          if (a.kinv_smem) {
-            for (int c = 0; c < ncols; ++c) acc = fma((double)kr[c], RHSD[c0 + c], acc);
-          } else {
-            for (int c = 0; c < ncols; ++c) acc = fma((double)__ldg(kr + c), RHSD[c0 + c], acc);
-          }
+          for (int c = 0; c < ncols; ++c) acc = fma((double)kr[c], RHSD[c0 + c], acc);
         }
         acc += __shfl_xor_sync(kFull, acc, 1);
         if (kh == 0 && k < D.dk) XTD[k] = acc;
@@ -504,7 +589,7 @@ admm_chunk_kernel(Args a, int ck) {
     for (int j = t; j < D.dk; j += NT) XI[j] = alpha * (float)XTD[j] + beta * XI[j];
     __syncthreads();
     // z̃ = A·ξ̃, over-relaxation, projection onto [l, u], dual update
-    for_lsc_rows<NT>(D, [&](int r, int o, int mn) {
+    for_lsc_rows<NT>(D, D.R_lsc, [&](int r, int o, int mn) {
       update_row(lsc_row(D, NRM, MOF, VD, o, mn), Z[r], Y[r], AX[r], LN[r], INFINITY,
                  a.rho_lsc, alpha, beta);
     });
@@ -536,54 +621,606 @@ admm_chunk_kernel(Args a, int ck) {
       if (kh == 0 && k < D.dk) RHS[k] = aty_k;
     }
   }
-  const float* pn_g = a.Pn + agent * D.K * D.K;
-  for (int j = t; j < D.dk; j += NT) {  // P·ξ
-    const int d = j / D.K, k = j - d * D.K;
-    float acc = 0.f;
-    for (int l = 0; l < D.K; ++l) acc += pn_g[k * D.K + l] * XI[d * D.K + l];
-    XT[j] = acc;
-  }
+  cost_product<NT>(D, a.Pn + agent * D.K * D.K, XI, XT);
   __syncthreads();
-  for (int j = t; j < D.dk; j += NT) {
-    const float px = XT[j], aty = RHS[j], q = QN[j], x = XI[j];
-    v[1] = fmaxf(v[1], fabsf(px + q + aty));  // dual residual
-    v[2] = fmaxf(v[2], fabsf(px));
-    v[3] = fmaxf(v[3], fabsf(aty));
-    v[4] = fmaxf(v[4], fabsf(q));
-    v[5] = fmaxf(v[5], fabsf(x - XIP[j]));  // iterate change over the chunk
-    v[6] = fmaxf(v[6], fabsf(x));
-    v[7] += (0.5f * px + q) * x;  // objective
-  }
+  dual_terms<NT>(D, XT, RHS, QN, XI, XIP, v);
   block_reduce8<NT>(v, RED);
-  const bool feas = v[0] < a.stop_tol;
-  const float rd = v[1], dmag = fmaxf(v[2], fmaxf(v[3], v[4]));
-  const float dxi = v[5], xim = v[6], obj = v[7];
 
   for (int j = t; j < D.dk; j += NT) a.xi[agent * D.dk + j] = XI[j];
-  if (rows_smem) {
-    for (int r = t; r < D.R; r += NT) {
-      const size_t g = agent * D.R + r;
-      a.z[g] = Z[r];
-      a.y[g] = Y[r];
-      a.ax[g] = AX[r];
+  for (int r = t; r < D.R; r += NT) {
+    const size_t g = agent * D.R + r;
+    a.z[g] = Z[r];
+    a.y[g] = Y[r];
+    a.ax[g] = AX[r];
+  }
+  if (t == 0) exit_gates(a, v, agent, ck);
+}
+
+// ---- the cluster build ------------------------------------------------
+
+// One CTA's share of an agent at cluster size C: gpc = 8/C groups of G slots
+// and GS static rows (G, GS fixed by the shape), kr rows of Kinv; n3k: N3k
+// staged in shared memory.
+struct Split {
+  int gpc, G, GS, slots, stat, kr, n3k;
+};
+
+__host__ __device__ inline Split make_split(const Dims& D, int C, int n3k) {
+  Split S;
+  S.gpc = kGroups / C;
+  S.G = (D.O + kGroups - 1) / kGroups;
+  S.GS = (D.R_stat + kGroups - 1) / kGroups;
+  S.slots = S.gpc * S.G;
+  S.stat = S.gpc * S.GS;
+  S.kr = (D.dk + C - 1) / C;
+  S.n3k = n3k;
+  return S;
+}
+
+// The odd row stride of the staged N3k: a warp reading a column (32 rows)
+// hits 32 banks.
+__host__ __device__ inline int n3k_stride(int MN) { return MN | 1; }
+
+// A CTA's shared memory, in floats (the doubles first): VD [dim*MN], RHSD
+// [dk], XTD [dk], PART [gpc][dim*MN], VA [dim*MN] (doubles); XI, XIP, QN [dk];
+// RED [8 per warp + 8]; Z, Y, AX, LN [slots*MN + stat]; UN [stat]; NRM
+// [slots*M*dim]; KI [kr*dk]; N3S [K*stride] where staged; the CTA's static
+// rows' stencils SCOEF [3*stat] and ρ SRHO [stat], its groups' transposed
+// stencils ECOEF [3*stat]; MOF [MN] (int); SIDX [3*stat], LGP
+// [(gpc+1)*dim*MN], EROW [3*stat] (16 bits). Mirrored by
+// qp_cuda.cluster_cta_bytes.
+__host__ __device__ inline size_t cluster_smem_floats(const Dims& D, const Split& S) {
+  const size_t nv = (size_t)D.dim * D.MN, rows = (size_t)S.slots * D.MN + S.stat;
+  const size_t halves = 6 * (size_t)S.stat + (S.gpc + 1) * nv;
+  return 2 * (nv * (2 + S.gpc) + 2 * (size_t)D.dk) + 3 * (size_t)D.dk +
+         8 * (kClusterThreads / 32) + 8 + 4 * rows + S.stat + (size_t)S.slots * D.M * D.dim +
+         (size_t)S.kr * D.dk + (S.n3k ? (size_t)D.K * n3k_stride(D.MN) : 0) + 7 * (size_t)S.stat +
+         D.MN + (halves + 1) / 2;
+}
+
+struct CSmem {
+  double *VD, *RHSD, *XTD, *PART, *VA;
+  float *XI, *XIP, *QN, *RED, *Z, *Y, *AX, *LN, *UN, *NRM, *KI, *N3S, *SCOEF, *SRHO, *ECOEF;
+  int* MOF;
+  unsigned short *SIDX, *LGP, *EROW;
+};
+
+__device__ inline CSmem cluster_layout(float* smem, const Dims& D, const Split& S) {
+  const int nv = D.dim * D.MN, rows = S.slots * D.MN + S.stat;
+  CSmem s;
+  s.VD = reinterpret_cast<double*>(smem);
+  s.RHSD = s.VD + nv;
+  s.XTD = s.RHSD + D.dk;
+  s.PART = s.XTD + D.dk;
+  s.VA = s.PART + S.gpc * nv;
+  s.XI = reinterpret_cast<float*>(s.VA + nv);
+  s.XIP = s.XI + D.dk;
+  s.QN = s.XIP + D.dk;
+  s.RED = s.QN + D.dk;
+  s.Z = s.RED + 8 * (kClusterThreads / 32) + 8;
+  s.Y = s.Z + rows;
+  s.AX = s.Y + rows;
+  s.LN = s.AX + rows;
+  s.UN = s.LN + rows;
+  s.NRM = s.UN + S.stat;
+  s.KI = s.NRM + S.slots * D.M * D.dim;
+  s.N3S = s.KI + S.kr * D.dk;
+  s.SCOEF = s.N3S + (S.n3k ? D.K * n3k_stride(D.MN) : 0);
+  s.SRHO = s.SCOEF + 3 * S.stat;
+  s.ECOEF = s.SRHO + S.stat;
+  s.MOF = reinterpret_cast<int*>(s.ECOEF + 3 * S.stat);
+  s.SIDX = reinterpret_cast<unsigned short*>(s.MOF + D.MN);
+  s.LGP = s.SIDX + 3 * S.stat;
+  s.EROW = s.LGP + (S.gpc + 1) * nv;
+  return s;
+}
+
+// The rows CTA `rank` holds: groups g0 .. g0 + gpc − 1, their slots [o0, o1)
+// (local LSC rows (o − o0)·MN + mn < nl) and static rows [s0, s1) (local rows
+// nl .. nl + ns − 1), and the Kinv rows [k0, k1).
+struct Own {
+  int g0, o0, o1, s0, s1, k0, k1, nl, ns;
+};
+
+__device__ inline Own own_rows(const Dims& D, const Split& S, int rank) {
+  Own w;
+  w.g0 = rank * S.gpc;
+  w.o0 = min(D.O, w.g0 * S.G);
+  w.o1 = min(D.O, w.o0 + S.slots);
+  w.s0 = min(D.R_stat, w.g0 * S.GS);
+  w.s1 = min(D.R_stat, w.s0 + S.stat);
+  w.k0 = min(D.dk, rank * S.kr);
+  w.k1 = min(D.dk, w.k0 + S.kr);
+  w.nl = (w.o1 - w.o0) * D.MN;
+  w.ns = w.s1 - w.s0;
+  return w;
+}
+
+// The agent's row of local row lr (the LSC rows first, then the static).
+__device__ __forceinline__ int agent_row(const Dims& D, const Own& w, int lr) {
+  return lr < w.nl ? w.o0 * D.MN + lr : D.R_lsc + w.s0 + lr - w.nl;
+}
+
+// f(i, h) for every i < n on groups of 2^lp consecutive threads (h: the
+// thread's part); every lane of a warp runs the same trips, so that the parts
+// combine by shuffles (i ≥ n: a lane that only takes part).
+template <int NT, class F>
+__device__ __forceinline__ void for_parts(int n, int lp, F f) {
+  const int n2 = ((n << lp) + 31) & ~31;
+  for (int i2 = threadIdx.x; i2 < n2; i2 += NT) f(i2 >> lp, i2 & ((1 << lp) - 1));
+}
+
+// p summed over the 2^lp threads of a part group, the same bits on each
+// (a butterfly: each addition's operands commute).
+__device__ __forceinline__ double sum_parts(double p, int lp) {
+  for (int off = 1; off < (1 << lp); off <<= 1) p += __shfl_xor_sync(kFull, p, off);
+  return p;
+}
+
+// Σ_{j0 ≤ j < j1} a(j)·b(j) in double over four accumulators (j − j0 mod 4),
+// added as (s0 + s1) + (s2 + s3): a fixed order for given (j0, j1), and four
+// independent chains.
+template <class F>
+__device__ __forceinline__ double dot4(int j0, int j1, F term) {
+  double s0 = 0., s1 = 0., s2 = 0., s3 = 0.;
+  int j = j0;
+  for (; j + 3 < j1; j += 4) {
+    const double2 t0 = term(j), t1 = term(j + 1), t2 = term(j + 2), t3 = term(j + 3);
+    s0 = fma(t0.x, t0.y, s0);
+    s1 = fma(t1.x, t1.y, s1);
+    s2 = fma(t2.x, t2.y, s2);
+    s3 = fma(t3.x, t3.y, s3);
+  }
+  if (j < j1) {
+    const double2 t0 = term(j);
+    s0 = fma(t0.x, t0.y, s0);
+  }
+  if (j + 1 < j1) {
+    const double2 t1 = term(j + 1);
+    s1 = fma(t1.x, t1.y, s1);
+  }
+  if (j + 2 < j1) {
+    const double2 t2 = term(j + 2);
+    s2 = fma(t2.x, t2.y, s2);
+  }
+  return (s0 + s1) + (s2 + s3);
+}
+
+// Σ_{k0 ≤ k < k1} x[k]·n3[k·ld + mn] in double (N3k by columns: control
+// points).
+template <class T>
+__device__ __forceinline__ double n3_col_dot(const T* x, const float* n3, int ld, int mn,
+                                             int k0, int k1) {
+  return dot4(k0, k1, [&](int k) { return make_double2((double)x[k], (double)n3[k * ld + mn]); });
+}
+
+// Σ_{m0 ≤ mn < m1} n3[k·ld + mn]·v[mn] in double (N3k by rows: the adjoint).
+__device__ __forceinline__ double n3_row_dot(const float* n3, int ld, int k, const double* v,
+                                             int m0, int m1) {
+  const float* row = n3 + k * ld;
+  return dot4(m0, m1, [&](int mn) { return make_double2((double)row[mn], v[mn]); });
+}
+
+// VD = the control points of x (every dimension), in double, on thread pairs.
+template <int NT, class T>
+__device__ void cluster_points(const Dims& D, const T* x, const float* n3, int ld, double* VD) {
+  const int nv = D.dim * D.MN, kh = (D.K + 1) / 2;
+  for_parts<NT>(nv, 1, [&](int i, int h) {
+    double p = 0.;
+    if (i < nv) {
+      const int d = i / D.MN, mn = i - d * D.MN;
+      p = n3_col_dot(x + d * D.K, n3, ld, mn, h ? kh : 0, h ? D.K : kh);
+    }
+    p = sum_parts(p, 1);
+    if (h == 0 && i < nv) VD[i] = p;
+  });
+}
+
+// out(k, Σ_mn N3k[k, mn]·VA[d·MN + mn]) for every k = d·K + k' < dk, in double,
+// on thread pairs.
+template <int NT, class F>
+__device__ void cluster_adjoint(const Dims& D, const float* n3, int ld, const double* VA, F out) {
+  const int mh = (D.MN + 1) / 2;
+  for_parts<NT>(D.dk, 1, [&](int k, int h) {
+    double p = 0.;
+    if (k < D.dk) {
+      const int d = k / D.K;
+      p = n3_row_dot(n3, ld, k - d * D.K, VA + d * D.MN, h ? mh : 0, h ? D.MN : mh);
+    }
+    p = sum_parts(p, 1);
+    if (h == 0 && k < D.dk) out(k, p);
+  });
+}
+
+// Static row q of the CTA (local) from the control points VD: stat_row's
+// arithmetic on the CTA's copy of its stencil.
+__device__ __forceinline__ float local_stat_row(const CSmem& s, int q) {
+  double acc = 0.;
+#pragma unroll
+  for (int e = 0; e < kWidth; ++e)
+    acc += (double)s.SCOEF[q * kWidth + e] * s.VD[s.SIDX[q * kWidth + e]];
+  return (float)acc;
+}
+
+// PART[jl·nv + i] += the static rows of group g0 + jl at control point i,
+// through the CTA's transposed stencils, in entry order.
+template <int NT, bool DUAL>
+__device__ void static_partials(const Dims& D, const Split& S, const Args& a, const Own& w,
+                                const CSmem& s) {
+  const int nv = D.dim * D.MN;
+  for (int it = threadIdx.x; it < S.gpc * nv; it += NT) {
+    const int jl = it / nv, i = it - jl * nv;
+    const int e1 = s.LGP[(jl + 1) * nv + i];
+    double acc = 0.;
+    for (int e = s.LGP[jl * nv + i]; e < e1; ++e) {
+      const int q = s.EROW[e], lr = w.nl + q;
+      const float ww = DUAL ? s.Y[lr] : s.SRHO[q] * s.Z[lr] - s.Y[lr];
+      acc = fma((double)s.ECOEF[e], (double)ww, acc);
+    }
+    s.PART[it] += acc;
+  }
+}
+
+// The slot parts of a group (2^lps threads share a (group, point) item of
+// the LSC partials and rows), by its slots G: chains of ≤ ~6 slots.
+__device__ __forceinline__ int slot_parts_log2(int G) { return G >= 12 ? 2 : G >= 6 ? 1 : 0; }
+
+// The LSC rows of item (jl, mn), slot part h of 2^lps: its group's slots
+// o = oa + h, oa + h + 2^lps, ... < ob (local row (o − o0)·MN + mn, the
+// normals of slot o and segment m at (o − o0)·M + m).
+struct LscItem {
+  int r, step, n, nstep;  // first local row and its stride; first NRM entry and its stride
+  int count;              // rows of this part
+};
+
+__device__ __forceinline__ LscItem lsc_item(const Dims& D, const Split& S, const Own& w,
+                                            const int* MOF, int jl, int mn, int h, int lps) {
+  const int j = w.g0 + jl, sp = 1 << lps;
+  const int oa = min(D.O, j * S.G), ob = min(D.O, oa + S.G);
+  LscItem it;
+  it.count = oa + h < ob ? (ob - oa - h + sp - 1) >> lps : 0;
+  it.r = (oa + h - w.o0) * D.MN + mn;
+  it.step = sp * D.MN;
+  it.n = ((oa + h - w.o0) * D.M + MOF[mn]) * D.dim;
+  it.nstep = sp * D.M * D.dim;
+  return it;
+}
+
+// PART[jl·nv + i]: group g0 + jl's part of Aᵀw at control point i, in double,
+// for the row cotangent w = ρz − y (DUAL: w = y): its slots through the
+// normals (each slot part in slot order, the parts added by a butterfly),
+// then its static rows through the transposed stencils (the CTA's copy of
+// qp_cuda.group_ptr's entries), in that order. The iteration's fused row
+// update (cluster_rows) forms the same sums.
+template <int NT, bool DUAL>
+__device__ void group_partials(const Dims& D, const Split& S, const Args& a, const Own& w,
+                               const CSmem& s) {
+  const int nv = D.dim * D.MN, lps = slot_parts_log2(S.G), n_items = S.gpc * D.MN;
+  for_parts<NT>(n_items, lps, [&](int item, int h) {
+    double p[3] = {0., 0., 0.};
+    const bool live = item < n_items;
+    const int jl = live ? item / D.MN : 0, mn = live ? item - jl * D.MN : 0;
+    if (live) {
+      const LscItem it = lsc_item(D, S, w, s.MOF, jl, mn, h, lps);
+      for (int u = 0, r = it.r, n = it.n; u < it.count; ++u, r += it.step, n += it.nstep) {
+        const double ww = (double)(DUAL ? s.Y[r] : a.rho_lsc * s.Z[r] - s.Y[r]);
+#pragma unroll
+        for (int d = 0; d < 3; ++d)
+          if (d < D.dim) p[d] = fma((double)s.NRM[n + d], ww, p[d]);
+      }
+    }
+#pragma unroll
+    for (int d = 0; d < 3; ++d) p[d] = sum_parts(p[d], lps);
+    if (live && h == 0)
+#pragma unroll
+      for (int d = 0; d < 3; ++d)  // constant indices: p stays in registers
+        if (d < D.dim) s.PART[jl * nv + d * D.MN + mn] = p[d];
+  });
+  __syncthreads();
+  static_partials<NT, DUAL>(D, S, a, w, s);
+}
+
+// Step (5)'s row updates: this CTA's LSC rows by group_partials' items (the
+// item's control points in registers), each row's z̃ in double from VD and
+// rounded once, over-relaxed, projected and its dual updated, and the next
+// iteration's partials of ρz − y (`dual`, the chunk's last iteration: of y,
+// for the exit test's Aᵀy) formed from the updated rows on the way
+// (group_partials' sums); then its static rows and their partials. Ends
+// with the static partials written (no barrier).
+template <int NT>
+__device__ void cluster_rows(const Dims& D, const Split& S, const Args& a, const Own& w,
+                             const CSmem& s, float alpha, float beta, bool dual) {
+  const int nv = D.dim * D.MN, lps = slot_parts_log2(S.G), n_items = S.gpc * D.MN;
+  for_parts<NT>(n_items, lps, [&](int item, int h) {
+    double p[3] = {0., 0., 0.};
+    const bool live = item < n_items;
+    const int jl = live ? item / D.MN : 0, mn = live ? item - jl * D.MN : 0;
+    if (live) {
+      const LscItem it = lsc_item(D, S, w, s.MOF, jl, mn, h, lps);
+      double vd[3];
+#pragma unroll
+      for (int d = 0; d < 3; ++d) vd[d] = d < D.dim ? s.VD[d * D.MN + mn] : 0.;
+#pragma unroll 2
+      for (int u = 0; u < it.count; ++u) {
+        const int r = it.r + u * it.step, n = it.n + u * it.nstep;
+        double nd[3];  // the row's normal, read and converted once
+        double zt = 0.;
+#pragma unroll
+        for (int d = 0; d < 3; ++d) {
+          nd[d] = d < D.dim ? (double)s.NRM[n + d] : 0.;
+          if (d < D.dim) zt += nd[d] * vd[d];
+        }
+        float z = s.Z[r], y = s.Y[r], ax = s.AX[r];
+        update_row((float)zt, z, y, ax, s.LN[r], INFINITY, a.rho_lsc, alpha, beta);
+        s.Z[r] = z;
+        s.Y[r] = y;
+        s.AX[r] = ax;
+        const double ww = (double)(dual ? y : a.rho_lsc * z - y);
+#pragma unroll
+        for (int d = 0; d < 3; ++d)
+          if (d < D.dim) p[d] = fma(nd[d], ww, p[d]);
+      }
+    }
+#pragma unroll
+    for (int d = 0; d < 3; ++d) p[d] = sum_parts(p[d], lps);
+    if (live && h == 0)
+#pragma unroll
+      for (int d = 0; d < 3; ++d)  // constant indices: p stays in registers
+        if (d < D.dim) s.PART[jl * nv + d * D.MN + mn] = p[d];
+  });
+  for (int q = threadIdx.x; q < w.ns; q += NT) {
+    const int r = w.nl + q;
+    update_row(local_stat_row(s, q), s.Z[r], s.Y[r], s.AX[r], s.LN[r], s.UN[q], s.SRHO[q],
+               alpha, beta);
+  }
+  __syncthreads();
+  if (dual)
+    static_partials<NT, true>(D, S, a, w, s);
+  else
+    static_partials<NT, false>(D, S, a, w, s);
+}
+
+// VA = Σ_j PART_j over the cluster, in group order j = 0 .. 7, rounded once.
+template <int NT>
+__device__ void reduce_partials(const Dims& D, const Split& S, const cg::cluster_group& cl,
+                                const CSmem& s) {
+  const int nv = D.dim * D.MN;
+  for (int i = threadIdx.x; i < nv; i += NT) {
+    double v[kGroups];
+#pragma unroll
+    for (int j = 0; j < kGroups; ++j)
+      v[j] = cl.map_shared_rank(s.PART, j / S.gpc)[(j % S.gpc) * nv + i];
+    double acc = v[0];
+#pragma unroll
+    for (int j = 1; j < kGroups; ++j) acc += v[j];
+    s.VA[i] = (double)(float)acc;  // rounded once, as the register builds' accumulator
+  }
+}
+
+// P·ξ per dimension into PX (float), four threads an output, each a quarter
+// of the terms, added in a fixed order (CTA 0 of the cluster build).
+template <int NT>
+__device__ void cost_product_parts(const Dims& D, const float* pn, const float* XI,
+                                   float* PX) {
+  const int q = (D.K + 3) / 4;
+  for_parts<NT>(D.dk, 2, [&](int j, int h) {
+    float acc = 0.f;
+    if (j < D.dk) {
+      const int d = j / D.K, k = j - d * D.K;
+      const int l1 = min(D.K, (h + 1) * q);
+      for (int l = min(D.K, h * q); l < l1; ++l) acc += pn[k * D.K + l] * XI[d * D.K + l];
+    }
+    acc += __shfl_xor_sync(kFull, acc, 1);
+    acc += __shfl_xor_sync(kFull, acc, 2);
+    if (h == 0 && j < D.dk) PX[j] = acc;
+  });
+}
+
+// Threads a Kinv row takes (2^lp), by dim·K: chains of ≤ 16 terms a thread
+// with two accumulators.
+__device__ __forceinline__ int kinv_parts_log2(int dk) {
+  return dk <= 64 ? 1 : dk <= 128 ? 2 : 3;
+}
+
+// One chunk of every agent's loop, one agent per cluster of C CTAs of NT
+// threads (see "The cluster build"); the early return and the launches as in
+// admm_chunk_kernel.
+template <int NT>
+__global__ void __launch_bounds__(NT, 2)
+admm_cluster_kernel(Args a, int ck, int C, int n3k) {
+  if (ck > 0 && a.done_count[ck - 1] == a.A) {  // every CTA of a cluster, or none
+    if (threadIdx.x == 0 && blockIdx.x == 0) a.done_count[ck] = a.A;
+    return;
+  }
+  extern __shared__ __align__(16) float smem[];
+  const cg::cluster_group cl = cg::this_cluster();
+  const int rank = (int)cl.block_rank();
+  const size_t agent = blockIdx.x / C;
+  const Dims D = make_dims(a.dim, a.O, a.M, a.N, a.K, a.R_stat);
+  const Split S = make_split(D, C, n3k);
+  const CSmem s = cluster_layout(smem, D, S);
+  const Own w = own_rows(D, S, rank);
+  const int t = threadIdx.x, nrows = w.nl + w.ns;
+  const int ld = n3k ? n3k_stride(D.MN) : D.MN;
+  const float* n3 = n3k ? s.N3S : a.N3k;
+
+  const float* xi_in = ck == 0 ? a.xi0 : a.xi;
+  const float* z_in = ck == 0 ? a.z0 : a.z;
+  const float* y_in = ck == 0 ? a.y0 : a.y;
+  // the state, the normals, Kinv, N3k and the coefficients copied in flight
+  // (cp.async), the 16-bit indices read meanwhile
+  for (int lr = t; lr < nrows; lr += NT) {
+    const size_t g = agent * D.R + agent_row(D, w, lr);
+    copy_async(s.Z + lr, z_in + g);
+    copy_async(s.Y + lr, y_in + g);
+    copy_async(s.LN + lr, a.ln + g);
+    if (ck > 0) copy_async(s.AX + lr, a.ax + g);
+    if (lr >= w.nl) copy_async(s.UN + lr - w.nl, a.un + g);
+  }
+  const float* nrm_g = a.normals + (agent * D.O + w.o0) * D.M * D.dim;
+  for (int i = t; i < (w.o1 - w.o0) * D.M * D.dim; i += NT) copy_async(s.NRM + i, nrm_g + i);
+  const float* kinv_g = a.Kinv + (agent * D.dk + w.k0) * D.dk;
+  for (int i = t; i < (w.k1 - w.k0) * D.dk; i += NT) copy_async(s.KI + i, kinv_g + i);
+  if (n3k)
+    for (int i = t; i < D.K * D.MN; i += NT) {
+      const int k = i / D.MN;
+      copy_async(s.N3S + k * ld + i - k * D.MN, a.N3k + i);
+    }
+  for (int j = t; j < D.dk; j += NT) {
+    copy_async(s.XI + j, xi_in + agent * D.dk + j);
+    copy_async(s.XIP + j, xi_in + agent * D.dk + j);
+    copy_async(s.QN + j, a.qn + agent * D.dk + j);
+  }
+  // this CTA's static rows' stencils and ρ, by local row q
+  for (int q = t; q < w.ns; q += NT) {
+    const int st = w.s0 + q;
+#pragma unroll
+    for (int e = 0; e < kWidth; ++e)
+      copy_async(s.SCOEF + q * kWidth + e, a.st_coef + st * kWidth + e);
+    copy_async(s.SRHO + q, a.rho_stat + st);
+  }
+  for (int mn = t; mn < D.MN; mn += NT) s.MOF[mn] = mn / D.N;
+#pragma unroll 4
+  for (int i = t; i < w.ns * kWidth; i += NT)
+    s.SIDX[i] = (unsigned short)__ldg(a.st_idx + w.s0 * kWidth + i);
+  // its groups' transposed stencils: the global group pointers of groups
+  // g0 .. g0 + gpc, then column i's entries of its groups packed at base[i]
+  // (a prefix sum over the columns in warp 0, into VD's space), group jl's
+  // from LGP[jl·nv + i] to LGP[(jl + 1)·nv + i], the rows local
+  const int nv = D.dim * D.MN;
+  const int* gp0 = a.grp_ptr + w.g0 * nv;
+#pragma unroll 4
+  for (int i = t; i < (S.gpc + 1) * nv; i += NT) s.LGP[i] = (unsigned short)__ldg(gp0 + i);
+  copy_async_wait();
+  __syncthreads();
+  int* base = reinterpret_cast<int*>(s.VD);  // free until the control points
+  if (t < 32) {
+    int run = 0;
+    for (int b = 0; b < nv; b += 32) {
+      const int i = b + t;
+      const int n = i < nv ? s.LGP[S.gpc * nv + i] - s.LGP[i] : 0;
+      int incl = n;
+      for (int off = 1; off < 32; off <<= 1) {
+        const int u = __shfl_up_sync(kFull, incl, off);
+        if (t >= off) incl += u;
+      }
+      if (i < nv) base[i] = run + incl - n;
+      run += __shfl_sync(kFull, incl, 31);
     }
   }
-  if (t == 0) {
-    float best = ck == 0 ? INFINITY : a.best[agent];
-    int noimp = ck == 0 ? 0 : a.noimp[agent];
-    int itdone = ck == 0 ? a.max_iter : a.itdone[agent];
-    const bool opt = rd < a.eps_abs + 1e-3f * dmag;
-    const bool stalled = dxi < 1e-4f * fmaxf(1.f, xim);
-    const bool improved = obj < best - 2e-4f * fmaxf(1.f, fabsf(obj));
-    if (feas && improved) best = obj;
-    noimp = (feas && !improved) ? noimp + 1 : 0;
-    const bool done = feas && (opt || stalled || noimp >= 2);
-    if (done && itdone == a.max_iter) itdone = (ck + 1) * a.chunk;
-    a.best[agent] = best;
-    a.noimp[agent] = noimp;
-    a.itdone[agent] = itdone;
-    if (done) atomicAdd(a.done_count + ck, 1);
+  __syncthreads();
+  for (int i = t; i < nv; i += NT) {
+    const int e0 = s.LGP[i], e1 = s.LGP[S.gpc * nv + i], b = base[i];
+#pragma unroll 4
+    for (int e = e0; e < e1; ++e) {
+      s.EROW[b + e - e0] = (unsigned short)(__ldg(a.adj_row + e) - w.s0);
+      s.ECOEF[b + e - e0] = __ldg(a.adj_coef + e);
+    }
+    for (int jl = 0; jl <= S.gpc; ++jl)
+      s.LGP[jl * nv + i] = (unsigned short)(b + s.LGP[jl * nv + i] - e0);
   }
+  __syncthreads();
+  group_partials<NT, false>(D, S, a, w, s);  // of the state loaded
+  if (ck == 0) {  // A·xi of the warm start
+    cluster_points<NT>(D, s.XI, n3, ld, s.VD);
+    __syncthreads();
+    for_lsc_rows<NT>(D, w.nl, [&](int r, int o, int mn) {
+      s.AX[r] = lsc_row(D, s.NRM, s.MOF, s.VD, o, mn);
+    });
+    for (int q = t; q < w.ns; q += NT) s.AX[w.nl + q] = local_stat_row(s, q);
+    __syncthreads();
+  }
+
+  const float alpha = a.alpha, beta = a.one_minus_alpha;
+  const int lp = kinv_parts_log2(D.dk), part = (D.dk + (1 << lp) - 1) >> lp;
+  const int nk = w.k1 - w.k0;
+  for (int it = 0; it < a.chunk; ++it) {
+    // (1) the partials of Aᵀ(ρz − y) of this CTA's groups: formed by the
+    // previous iteration's row updates (the first by the load)
+    cl.sync();
+    // (2) the whole accumulator; rhs = σξ − q + Aᵀ(ρz − y), in double
+    reduce_partials<NT>(D, S, cl, s);
+    __syncthreads();
+    cluster_adjoint<NT>(D, n3, ld, s.VA, [&](int k, double g) {
+      s.RHSD[k] = ((double)a.sigma * s.XI[k] - (double)s.QN[k]) + g;
+    });
+    __syncthreads();
+    // (3) this CTA's rows of ξ̃ = Kinv·rhs, in double
+    for_parts<NT>(nk, lp, [&](int r, int h) {
+      double p = 0.;
+      if (r < nk) {
+        const float* kr = s.KI + r * D.dk;
+        p = dot4(min(D.dk, h * part), min(D.dk, (h + 1) * part),
+                 [&](int c) { return make_double2((double)kr[c], s.RHSD[c]); });
+      }
+      p = sum_parts(p, lp);
+      if (h == 0 && r < nk) s.XTD[w.k0 + r] = p;
+    });
+    cl.sync();
+    // (4) the other CTAs' rows of ξ̃
+    for (int k = t; k < D.dk; k += NT) {
+      const int owner = k / S.kr;
+      if (owner != rank) s.XTD[k] = cl.map_shared_rank(s.XTD, owner)[k];
+    }
+    __syncthreads();
+    // (5) control points of ξ̃; ξ ← αξ̃ + (1 − α)ξ; this CTA's rows
+    cluster_points<NT>(D, s.XTD, n3, ld, s.VD);
+    for (int j = t; j < D.dk; j += NT) s.XI[j] = alpha * (float)s.XTD[j] + beta * s.XI[j];
+    __syncthreads();
+    cluster_rows<NT>(D, S, a, w, s, alpha, beta, it == a.chunk - 1);
+  }
+  __syncthreads();
+
+  // ---- exit tests on the actual iterate ----
+  const float* scale_g = a.scale + agent * D.R;
+  float viol = 0.f;
+#pragma unroll 4
+  for (int lr = t; lr < nrows; lr += NT) {
+    const float axr = s.AX[lr];
+    const float hi = lr < w.nl ? INFINITY : s.UN[lr - w.nl];
+    const float vr = fmaxf(fmaxf(s.LN[lr] - axr, axr - hi), 0.f);
+    viol = fmaxf(viol, vr / scale_g[agent_row(D, w, lr)]);
+  }
+  // PART holds the partials of Aᵀy (the last iteration's row updates)
+  for (int off = 16; off > 0; off >>= 1) viol = fmaxf(viol, __shfl_xor_sync(kFull, viol, off));
+  float* VIOL = s.RED + 8 * (NT / 32);  // this CTA's largest violation, read by CTA 0
+  if ((t & 31) == 0) s.RED[t >> 5] = viol;
+  __syncthreads();
+  if (t == 0) {
+    float m = s.RED[0];
+    for (int u = 1; u < NT / 32; ++u) m = fmaxf(m, s.RED[u]);
+    *VIOL = m;
+  }
+#pragma unroll 4
+  for (int lr = t; lr < nrows; lr += NT) {
+    const size_t g = agent * D.R + agent_row(D, w, lr);
+    a.z[g] = s.Z[lr];
+    a.y[g] = s.Y[lr];
+    a.ax[g] = s.AX[lr];
+  }
+  cl.sync();
+  if (rank == 0) {  // uniform over the CTA: its barriers are the CTA's own
+    reduce_partials<NT>(D, S, cl, s);
+    const float* pn = a.Pn + agent * D.K * D.K;  // into the free Kinv rows where it fits
+    if (D.K * D.K <= S.kr * D.dk) {
+#pragma unroll 4
+      for (int i = t; i < D.K * D.K; i += NT) s.KI[i] = pn[i];
+      pn = s.KI;
+    }
+    float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    for (int u = 0; u < C; ++u) v[0] = fmaxf(v[0], *cl.map_shared_rank(VIOL, u));
+    __syncthreads();
+    float* PX = reinterpret_cast<float*>(s.RHSD);  // rhs is free here
+    float* ATY = PX + D.dk;
+    cluster_adjoint<NT>(D, n3, ld, s.VA, [&](int k, double g) { ATY[k] = (float)g; });
+    cost_product_parts<NT>(D, pn, s.XI, PX);
+    __syncthreads();
+    dual_terms<NT>(D, PX, ATY, s.QN, s.XI, s.XIP, v);
+    block_reduce8<NT>(v, s.RED);
+    for (int j = t; j < D.dk; j += NT) a.xi[agent * D.dk + j] = s.XI[j];
+    if (t == 0) exit_gates(a, v, agent, ck);
+  }
+  cl.sync();  // no CTA leaves while CTA 0 may still read its shared memory
 }
 
 template <int NT, int KC>
@@ -629,93 +1266,197 @@ size_t smem_limit() {
   return (size_t)bytes;
 }
 
-// The build that takes a shape (see "The layout"): its threads, Kinv columns
-// in registers (0: the memory build) and placement, and its shared memory.
+// The build that takes a shape (see "The layout"): its threads and Kinv
+// columns in registers (0: the cluster build), and a block's shared memory
+// (the register builds).
 struct Build {
   int threads, columns;
-  Place place;
   size_t smem;
 };
 
 Build build_for(const Dims& D) {
-  if (D.dk < 1) return Build{0, 0, {0, 0}, 0};
-  const size_t limit = smem_limit();
-  const Place rows{1, 0};
+  if (D.dk < 1) return Build{0, 0, 0};
   if (D.dk <= kMaxRegDk) {
     const int threads = D.dk <= 60 ? 128 : 256;
-    const size_t smem = sizeof(float) * smem_floats(D, threads, rows);
-    if (smem <= limit) return Build{threads, D.dk <= 60 ? 30 : 48, rows, smem};
+    const size_t smem = sizeof(float) * smem_floats(D, threads, false);
+    if (smem <= smem_limit()) return Build{threads, D.dk <= 60 ? 30 : 48, smem};
   }
-  for (const Place p : {Place{1, 1}, rows, Place{0, 1}, Place{0, 0}}) {
-    const size_t smem = sizeof(float) * smem_floats(D, 256, p);
-    if (smem <= limit) return Build{256, 0, p, smem};
+  return Build{kClusterThreads, 0, sizeof(float) * smem_floats(D, 256, true)};
+}
+
+// A CTA's shared memory at cluster size C, or 0 for a C other than 2, 4, 8.
+size_t cluster_smem(const Dims& D, int C, int n3k) {
+  if (C != 2 && C != 4 && C != 8) return 0;
+  return sizeof(float) * cluster_smem_floats(D, make_split(D, C, n3k));
+}
+
+// The cluster kernel's attributes for CTAs of `smem` bytes: 0, or a refusal
+// (kBadClusterSize, kPastSharedMemory) or a CUDA error. The carveout asks
+// for the shared memory of the CTAs an SM holds (two, the most its
+// registers allow, or one) and leaves the rest of the SM's 256 KB to L1.
+int cluster_prepare(size_t smem) {
+  if (smem == 0) return kBadClusterSize;
+  if (smem > smem_limit()) return kPastSharedMemory;
+  const auto kern = admm_cluster_kernel<kClusterThreads>;
+  int dev = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (err == cudaSuccess && smem > 48 * 1024)
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) {
+    const size_t cta = smem + 1024, need = ((size_t)per_sm >= 2 * cta ? 2 : 1) * cta;
+    const int pct = (int)((100 * need + per_sm - 1) / per_sm);
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               pct < 100 ? pct : 100);
   }
-  return Build{256, 0, {0, 0}, sizeof(float) * smem_floats(D, 256, Place{0, 0})};
+  return (int)err;
+}
+
+// A launch of A clusters of C CTAs; `attr` holds the cluster dimension.
+cudaLaunchConfig_t cluster_config(int A, int C, size_t smem, cudaStream_t stream,
+                                  cudaLaunchAttribute* attr) {
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(A * C);
+  cfg.blockDim = dim3(kClusterThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Clusters of C CTAs resident on the device at once
+// (cudaOccupancyMaxActiveClusters), or a refusal or minus a CUDA error.
+int active_clusters(const Dims& D, int A, int C, int n3k) {
+  const size_t smem = cluster_smem(D, C, n3k);
+  const int rc = cluster_prepare(smem);
+  if (rc != 0) return rc < 0 ? rc : -rc;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(A, C, smem, 0, attr);
+  int n = 0;
+  const cudaError_t err =
+      cudaOccupancyMaxActiveClusters(&n, admm_cluster_kernel<kClusterThreads>, &cfg);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
+int launch_cluster(const Args& a, int C, int n3k, cudaStream_t stream, int* clusters) {
+  const Dims D = make_dims(a.dim, a.O, a.M, a.N, a.K, a.R_stat);
+  const int n = active_clusters(D, a.A, C, n3k);
+  *clusters = n;
+  if (n < 0) return n == kBadClusterSize || n == kPastSharedMemory ? n : -n;
+  if (n == 0) return kNotResident;
+  const size_t smem = cluster_smem(D, C, n3k);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(a.A, C, smem, stream, attr);
+  const int n_chunks = admm_n_chunks(a.max_iter, a.chunk);
+  for (int ck = 0; ck < n_chunks; ++ck) {
+    cudaError_t err = cudaLaunchKernelEx(&cfg, admm_cluster_kernel<kClusterThreads>, a, ck, C, n3k);
+    if (err == cudaSuccess) err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 }  // namespace
 
-// Threads per block of the build that takes the shape (dim, O, M, N, K,
-// R_stat) (see "The layout"), or 0 if dim·K < 1.
+// Threads per block (per CTA) of the build that takes the shape (dim, O, M,
+// N, K, R_stat) (see "The layout"), or 0 if dim·K < 1.
 extern "C" int admm_threads(int dim, int O, int M, int N, int K, int R_stat) {
   return build_for(make_dims(dim, O, M, N, K, R_stat)).threads;
 }
 
-// Kinv columns per thread (registers) of that build; 0 for the memory build.
+// Kinv columns per thread (registers) of that build; 0 past the register
+// builds (the memory build or the cluster build, by the batch: admm_launch's C).
 extern "C" int admm_columns(int dim, int O, int M, int N, int K, int R_stat) {
   return build_for(make_dims(dim, O, M, N, K, R_stat)).columns;
 }
 
-// The memory build's placement for the shape: 1 for the rows in shared
-// memory, plus 2 for Kinv in shared memory (the register builds: 1).
-extern "C" int admm_placement(int dim, int O, int M, int N, int K, int R_stat) {
-  const Place p = build_for(make_dims(dim, O, M, N, K, R_stat)).place;
-  return p.rows_smem + 2 * p.kinv_smem;
+// The opt-in shared memory a block may take on the current device, bytes.
+extern "C" long long admm_smem_limit() { return (long long)smem_limit(); }
+
+// Dynamic shared memory of one block of the shape's build, bytes: past the
+// register builds, the memory build's block (C = 1) or a CTA of the cluster
+// build at cluster size C with N3k staged or not (n3k; both ignored by the
+// register builds; 0 for a C other than 1, 2, 4, 8).
+extern "C" long long admm_smem_bytes(int dim, int O, int M, int N, int K, int R_stat, int C,
+                                     int n3k) {
+  const Dims D = make_dims(dim, O, M, N, K, R_stat);
+  const Build b = build_for(D);
+  return (long long)(b.columns || C == 1 ? b.smem : cluster_smem(D, C, n3k));
 }
 
-// Queues the whole loop on `stream`: one launch per chunk of `chunk` iterations,
-// one block per agent.
-// Returns the CUDA error code (0 on success, -1 for a dk < 1). No
-// synchronisation.
+// Resident blocks (agents of the register builds and of the memory build, C
+// = 1; CTAs of the cluster build at C, n3k) per SM, from
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor; negative: a refusal or minus
+// the CUDA error.
+extern "C" int admm_blocks_per_sm(int dim, int O, int M, int N, int K, int R_stat, int C,
+                                  int n3k) {
+  const Dims D = make_dims(dim, O, M, N, K, R_stat);
+  const Build b = build_for(D);
+  switch (b.columns) {
+    case 30: return blocks_per_sm<128, 30>(b.smem);
+    case 48: return blocks_per_sm<256, 48>(b.smem);
+    default: break;
+  }
+  if (!b.threads) return -1;
+  if (C == 1) return b.smem <= smem_limit() ? blocks_per_sm<256, 0>(b.smem) : kPastSharedMemory;
+  const size_t smem = cluster_smem(D, C, n3k);
+  const int rc = cluster_prepare(smem);
+  if (rc != 0) return rc < 0 ? rc : -rc;
+  int n = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, admm_cluster_kernel<kClusterThreads>, kClusterThreads, smem);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
+// Clusters of C CTAs (one agent each) resident on the device at once for a
+// batch of A agents of the shape (cudaOccupancyMaxActiveClusters); negative:
+// a refusal or minus the CUDA error.
+extern "C" int admm_active_clusters(int dim, int O, int M, int N, int K, int R_stat, int A,
+                                    int C, int n3k) {
+  return active_clusters(make_dims(dim, O, M, N, K, R_stat), A, C, n3k);
+}
+
+// Queues the whole loop on `stream`: one launch per chunk of `chunk`
+// iterations, one block per agent (the register builds; past them the memory
+// build, C = 1) or one cluster of C CTAs per agent with N3k staged or not
+// (n3k; the cluster build, whose resident clusters go to *clusters). Returns
+// 0, a CUDA error code, -1 for a dk < 1, or a refusal: -2 for a C other than
+// 1, 2, 4, 8, -3 for a block or CTA past the device's shared memory, -4 for
+// clusters that cannot be resident. No synchronisation.
 extern "C" int admm_launch(const float* normals, const float* Kinv, const float* Pn,
                            const float* qn, const float* ln, const float* un,
                            const float* scale, const float* xi0, const float* z0,
                            const float* y0, const int* st_idx, const float* st_coef,
                            const float* rho_stat, const int* adj_ptr, const int* adj_row,
-                           const float* adj_coef, const float* N3k, const float* N3kT,
-                           float* xi, float* z, float* y, float* ax, float* best, int* noimp,
-                           int* itdone, int* done_count, int A, int dim, int O, int M, int N,
-                           int K, int R_stat, int max_iter, int chunk, float rho_lsc,
-                           float stop_tol, float sigma, float alpha, float one_minus_alpha,
-                           float eps_abs, void* stream) {
+                           const float* adj_coef, const int* grp_ptr, const float* N3k,
+                           const float* N3kT, float* xi, float* z, float* y, float* ax,
+                           float* best, int* noimp, int* itdone, int* done_count, int A, int dim,
+                           int O, int M, int N, int K, int R_stat, int max_iter, int chunk, int C,
+                           int n3k, float rho_lsc, float stop_tol, float sigma, float alpha,
+                           float one_minus_alpha, float eps_abs, void* stream, int* clusters) {
   const Dims D = make_dims(dim, O, M, N, K, R_stat);
   const Build b = build_for(D);
-  Args a{normals, Kinv,    Pn,       qn,      ln,      un,   scale,      xi0,
+  Args a{normals, Kinv,    Pn,       qn,      ln,       un,      scale,   xi0,
          z0,      y0,      st_idx,   st_coef, rho_stat, adj_ptr, adj_row, adj_coef,
-         N3k,     N3kT,    xi,       z,       y,       ax,   best,       noimp,
-         itdone,  done_count, dim,   O,       M,       N,    K,          R_stat,
-         max_iter, chunk, b.place.rows_smem, b.place.kinv_smem,
-         rho_lsc,  stop_tol, sigma,  alpha, one_minus_alpha, eps_abs};
+         grp_ptr, N3k,     N3kT,     xi,      z,        y,       ax,      best,
+         noimp,   itdone,  done_count, A,     dim,      O,       M,       N,
+         K,       R_stat,  max_iter, chunk,   rho_lsc,  stop_tol, sigma,  alpha,
+         one_minus_alpha, eps_abs};
   const cudaStream_t st = (cudaStream_t)stream;
+  *clusters = 0;
   switch (b.columns) {
     case 30: return launch_all<128, 30>(a, A, b.smem, st);
     case 48: return launch_all<256, 48>(a, A, b.smem, st);
-    default: return b.threads ? launch_all<256, 0>(a, A, b.smem, st) : -1;
+    default: break;
   }
-}
-
-// Dynamic shared memory one block needs, in bytes (for reports and checks).
-extern "C" long long admm_smem_bytes(int dim, int O, int M, int N, int K, int R_stat) {
-  return (long long)build_for(make_dims(dim, O, M, N, K, R_stat)).smem;
-}
-
-// Resident blocks (agents) per SM for this shape, from
-// cudaOccupancyMaxActiveBlocksPerMultiprocessor; negative: minus the CUDA error.
-extern "C" int admm_blocks_per_sm(int dim, int O, int M, int N, int K, int R_stat) {
-  const Build b = build_for(make_dims(dim, O, M, N, K, R_stat));
-  switch (b.columns) {
-    case 30: return blocks_per_sm<128, 30>(b.smem);
-    case 48: return blocks_per_sm<256, 48>(b.smem);
-    default: return b.threads ? blocks_per_sm<256, 0>(b.smem) : -1;
-  }
+  if (!b.threads) return -1;
+  if (C == 1)
+    return b.smem <= smem_limit() ? launch_all<256, 0>(a, A, b.smem, st) : kPastSharedMemory;
+  return launch_cluster(a, C, n3k, st, clusters);
 }

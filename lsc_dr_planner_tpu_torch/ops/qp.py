@@ -334,7 +334,8 @@ def stencil_table(cfg: QPConfig):
     unused slots have coefficient 0. `rho` [R_stat] is each row's ρ. The
     adjoint reads the transpose as compressed columns: the rows of
     control point c are adj_row[adj_ptr[c]:adj_ptr[c+1]], with
-    coefficients adj_coef."""
+    coefficients adj_coef; `grp_ptr` restricts those columns to each of
+    the CUDA kernel's fixed row groups (`qp_cuda.group_ptr`)."""
     st = _solver_statics(cfg)
     A_dim, MN = st["A_dim"], cfg.M * cfg.N
     stat_d, stat_rr = st["stat_d"], st["stat_rr"]
@@ -354,7 +355,8 @@ def stencil_table(cfg: QPConfig):
     adj_row = np.asarray([s for c in cols for s, _ in c], np.int32)
     adj_coef = np.asarray([v for c in cols for _, v in c])
     return {"idx": idx, "coef": coef, "rho": st["rho_dim"][stat_rr],
-            "adj_ptr": adj_ptr, "adj_row": adj_row, "adj_coef": adj_coef}
+            "adj_ptr": adj_ptr, "adj_row": adj_row, "adj_coef": adj_coef,
+            "grp_ptr": qp_cuda.group_ptr(adj_ptr, adj_row, R_stat)}
 
 
 @functools.lru_cache(maxsize=None)

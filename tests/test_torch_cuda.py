@@ -121,27 +121,29 @@ def _per_agent_close(a, b):
     return bool((d.amax(1) <= 1e-5 + 1e-4 * m.amax(1)).all())
 
 
-# QPs past the register builds (dim·K > 96) and past shared memory: (Param
-# overrides of build_fleet, agents, the ADMM build and its placement of the
-# rows and of Kinv, the preparation's build)
+# QPs past the register builds (dim·K > 96) and past one block's shared
+# memory: (Param overrides of build_fleet, agents, the ADMM build and its
+# placement of the rows and of Kinv, the preparation's build). The cluster
+# build splits an agent's rows and Kinv over its CTAs' shared memory.
+CLUSTER = qp_cuda.CLUSTER_BUILD
 WIDE = {
     # 3-D at M = 12, 40 slots within 5 m: dim·K 102 (chip_smoke.py's 8f shape)
     "dk102": (dict(world_dimension=3, M=12, communication_range=5.0, max_obstacles=40), 48,
-              "<256,0>", "shared", "shared", "<4>"),
+              CLUSTER, "shared", "shared", "<4>"),
     # DLSC in 3-D at M = 12: dim·K 108
     "dk108": (dict(world_dimension=3, M=12, planner_mode=PlannerMode.DLSC), 37,
-              "<256,0>", "shared", "shared", "<4>"),
+              CLUSTER, "shared", "shared", "<4>"),
     # 3-D at M = 16: dim·K 138
-    "dk138": (dict(world_dimension=3, M=16), 37, "<256,0>", "shared", "shared", "<4>"),
-    # 3-D at M = 28: dim·K 246, Kinv (242 KB) and the KKT tiles past shared memory
-    "dk246": (dict(world_dimension=3, M=28), 37, "<256,0>", "shared", "global", "<4,global>"),
-    # and 160 slots: the rows (~29,400 a agent) past shared memory too
+    "dk138": (dict(world_dimension=3, M=16), 37, CLUSTER, "shared", "shared", "<4>"),
+    # 3-D at M = 28: dim·K 246, Kinv (242 KB) and the KKT tiles past one block
+    "dk246": (dict(world_dimension=3, M=28), 37, CLUSTER, "shared", "shared", "<4,global>"),
+    # and 160 slots: the rows (~29,400 a agent) too (8 CTAs an agent)
     "dk246_O160": (dict(world_dimension=3, M=28, communication_range=30.0, max_obstacles=160),
-                   168, "<256,0>", "global", "global", "<4,global>"),
+                   168, CLUSTER, "shared", "shared", "<4,global>"),
     # Bézier degree 8 (N = 9 control points, K = 58): dim·K 116 in 2-D
     # (chip_smoke.py's 8h shape) and 174 in 3-D
-    "dk116_n8": (dict(n=8), 64, "<256,0>", "shared", "shared", "<4>"),
-    "dk174_n8_3d": (dict(n=8, world_dimension=3), 64, "<256,0>", "shared", "shared", "<4>"),
+    "dk116_n8": (dict(n=8), 64, CLUSTER, "shared", "shared", "<4>"),
+    "dk174_n8_3d": (dict(n=8, world_dimension=3), 64, CLUSTER, "shared", "shared", "<4>"),
 }
 # Degree 8's QPs are ill-conditioned for float32 ADMM: two float32 solves
 # scatter 0-0.5 m from float64, agent by agent either the nearer (the
@@ -219,9 +221,9 @@ def test_wide_qp_takes_its_builds_and_matches_plain(wide_qp):
     assert cfg.dim * shape[4] > 96
     assert qp_prepare_cuda.build_name(*shape[:5]) == prep_build
     lib = qp_cuda.build()
-    assert qp_cuda.build_name(lib, *shape) == build
+    assert qp_cuda.build_name(lib, *shape, li.xi.shape[0]) == build
     assert qp_cuda.placement(lib, *shape) == {"rows": rows, "kinv": kinv}
-    assert lib.admm_blocks_per_sm(*shape) > 0
+    assert qp_cuda.launch_plan(shape, li.xi.shape[0])["ctas_per_sm"] > 0
     before = dict(qp_cuda.build_launches)
     out = qp.run_loop(cfg, li, 8, feas_tol)
     torch.cuda.synchronize()
@@ -313,7 +315,7 @@ def test_mode_qp_one_chunk_matches_plain_loop(mode_qp):
     before = dict(qp_cuda.build_launches)
     got = qp.run_loop(cfg, li, 8, feas_tol)
     torch.cuda.synchronize()
-    name = qp_cuda.build_name(qp_cuda.build(), *_shape(cfg, li))
+    name = qp_cuda.build_name(qp_cuda.build(), *_shape(cfg, li), li.xi.shape[0])
     assert name == {60: "<128,30>", 84: "<256,48>", 90: "<256,48>"}[cfg.dim * li.Pn.shape[-1]]
     assert qp_cuda.build_launches[name] == before.get(name, 0) + 1
     want = qp.admm_loop_plain(cfg, li, 8, feas_tol)
@@ -693,3 +695,175 @@ def test_montecarlo_flattened_qp_matches_plain_loop(montecarlo_qp):
     assert out.converged.float().mean() >= ref.converged.float().mean() - 0.005
     both = out.converged & ref.converged
     assert (out.x - ref.x).abs()[both].max() < 0.1
+
+
+# ---- the cluster build ----------------------------------------------------
+
+
+def _cluster_run(cfg, li, max_iter, feas_tol, C):
+    """The whole loop on the cluster build at cluster size C."""
+    ts = qp.torch_statics(cfg, li.xi.device)
+    qp.check_kernel_rows(cfg, li)
+    return qp_cuda.admm_loop_cuda(li, ts["stencil"], ts["N3k"], ts["N3kT"],
+                                  cfg.rho * qp._RHO_SCALE["lsc"], max_iter, qp.CHUNK,
+                                  0.6 * feas_tol, cfg.sigma, cfg.alpha, cfg.eps_abs, C=C)
+
+
+@pytest.mark.parametrize("name", ["dk102", "dk116_n8", "dk246"])
+def test_cluster_result_does_not_depend_on_C(name):
+    """xi, z, y, itdone and the exit of the whole loop are the same bits at
+    every cluster size whose CTA fits the device and whose clusters can be
+    resident (every sum runs over the fixed groups in one order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    over, A = WIDE[name][:2]
+    p, planner, fleet, inp = workload.build_fleet(A, device="cuda", **over)
+    step = workload.make_evolve_step(p, planner, fleet)
+    inp, _ = step(inp)
+    cfg = planner.qp_cfg
+    li = qp.prepare(cfg, planner._step_impl(fleet, inp, defer_qp=True).qp_inp).loop
+    lib = qp_cuda.build()
+    shape = _shape(cfg, li)
+    limit = lib.admm_smem_limit()
+    sizes = [C for C in qp_cuda.CLUSTER_SIZES
+             if lib.admm_active_clusters(*shape, A, C,
+                                         int(qp_cuda.stage_n3k(shape, C, limit))) > 0]
+    assert len(sizes) >= 2, sizes
+    runs = {}
+    for C in sizes:
+        runs[C] = _cluster_run(cfg, li, cfg.max_iter, planner.feas_tol, C)
+        torch.cuda.synchronize()
+        assert qp_cuda.last_launch["C"] == C and qp_cuda.last_launch["active_clusters"] > 0
+    for C in sizes[1:]:
+        for a, b in zip(runs[sizes[0]], runs[C]):
+            assert torch.equal(a, b), (name, sizes[0], C)
+
+
+@pytest.mark.parametrize("name", ["8f", "8h"])
+def test_cluster_rescue_batch(name):
+    """The compacted rescue (RESCUE = 64 agents, 800 iterations) at 8f's
+    shape (3-D, M = 12, 80 slots within 5 m) and 8h's (Bézier degree 8):
+    one main step of a fleet of 128, as in qp.solve; the rescue's cluster
+    size; its run to its exit bitwise its chain of single chunks, each
+    held to the plain chunk (`_chunk_held`: per agent within the
+    tolerance, or by the float64 clause)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    over = {"8f": dict(world_dimension=3, M=12, communication_range=5.0, max_obstacles=80),
+            "8h": dict(n=8)}[name]
+    p, planner, fleet, inp = workload.build_fleet(128, device="cuda", **over)
+    step = workload.make_evolve_step(p, planner, fleet)
+    inp, _ = step(inp)
+    cfg, feas_tol = planner.qp_cfg, planner.feas_tol
+    main = qp.prepare(cfg, planner._step_impl(fleet, inp, defer_qp=True).qp_inp).loop
+    xi, z, y = qp.run_loop(cfg, main, cfg.max_iter, feas_tol)[:3]
+    li = qp.rescue_batch(cfg, main, xi, z, y, feas_tol)[2]
+    assert li.xi.shape[0] == qp.RESCUE
+    got = qp.run_loop(cfg, li, cfg.rescue_iter, feas_tol)
+    torch.cuda.synchronize()
+    plan = qp_cuda.last_launch
+    assert plan["build"] == CLUSTER and plan["active_clusters"] > 0, plan
+    state = li
+    for _ in range(int(got[4]) // 8):
+        k = qp.run_loop(cfg, state, 8, feas_tol)
+        _chunk_held(cfg, state, k, qp.admm_loop_plain(cfg, state, 8, feas_tol), feas_tol)
+        state = dataclasses.replace(state, xi=k[0], z=k[1], y=k[2])
+    for a, b in zip(got[:3], (state.xi, state.z, state.y)):
+        assert torch.equal(a, b)
+
+
+def test_cluster_exit_at_the_first_test():
+    """A batch whose every agent passes the exit test at chunk 1: the
+    dk102 fleet's agents that pass a test within the rescue's 800
+    iterations from the main loop's iterate, resumed from there, and of
+    those the ones that pass at chunk 1 (an agent's iterate does not depend
+    on the batch). The loop reports 8 iterations, the later launches
+    return at once (the whole call costs less than four single-chunk
+    calls) and leave the state of chunk 1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    over, A = WIDE["dk102"][:2]
+    p, planner, fleet, inp = workload.build_fleet(A, device="cuda", **over)
+    step = workload.make_evolve_step(p, planner, fleet)
+    inp, _ = step(inp)
+    cfg, feas_tol = planner.qp_cfg, planner.feas_tol
+    li = qp.prepare(cfg, planner._step_impl(fleet, inp, defer_qp=True).qp_inp).loop
+    first = qp.run_loop(cfg, li, cfg.max_iter, feas_tol)
+    second = qp.run_loop(cfg, li.resume(*first[:3]), cfg.rescue_iter, feas_tol)
+    idx = (second[3] < cfg.rescue_iter).nonzero()[:, 0]
+    sub = li.take(idx).resume(*(t[idx] for t in second[:3]))
+    third = qp.run_loop(cfg, sub, cfg.max_iter, feas_tol)
+    keep = (third[3] == 8).nonzero()[:, 0]
+    assert keep.numel() >= 4, (idx.numel(), third[3])
+    done = sub.take(keep)
+    got = qp.run_loop(cfg, done, cfg.max_iter, feas_tol)
+    one = qp.run_loop(cfg, done, 8, feas_tol)
+    torch.cuda.synchronize()
+    assert qp_cuda.last_launch["build"] == CLUSTER
+    assert int(got[4]) == 8 and (got[3] == 8).all(), (int(got[4]), got[3])
+    for a, b in zip(got, one):
+        assert torch.equal(a, b)
+
+    def ms(iters):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(5):
+            qp.run_loop(cfg, done, iters, feas_tol)
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1) / 5
+
+    full, chunk = ms(cfg.max_iter), ms(8)
+    assert full < 4 * chunk, (full, chunk)
+
+
+def test_memory_build_on_a_full_batch():
+    """Past the register builds, a batch that fills every SM twice over
+    with two agents an SM (Bézier degree 8 at A = 264) takes the memory
+    build, one agent a block: one chunk held to the plain chunk
+    (`_chunk_held`), and the run to its exit bitwise its chain of chunks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    p, planner, fleet, inp = workload.build_fleet(2 * qp_cuda.SMS, device="cuda", n=8)
+    step = workload.make_evolve_step(p, planner, fleet)
+    inp, _ = step(inp)
+    cfg, feas_tol = planner.qp_cfg, planner.feas_tol
+    li = qp.prepare(cfg, planner._step_impl(fleet, inp, defer_qp=True).qp_inp).loop
+    before = dict(qp_cuda.build_launches)
+    k = qp.run_loop(cfg, li, 8, feas_tol)
+    torch.cuda.synchronize()
+    assert qp_cuda.last_launch["build"] == qp_cuda.MEMORY_BUILD, qp_cuda.last_launch
+    assert qp_cuda.build_launches[qp_cuda.MEMORY_BUILD] == before.get(qp_cuda.MEMORY_BUILD, 0) + 1
+    _chunk_held(cfg, li, k, qp.admm_loop_plain(cfg, li, 8, feas_tol), feas_tol)
+    got = qp.run_loop(cfg, li, cfg.max_iter, feas_tol)
+    state = li
+    for _ in range(int(got[4]) // 8):
+        k = qp.run_loop(cfg, state, 8, feas_tol)
+        state = dataclasses.replace(state, xi=k[0], z=k[1], y=k[2])
+    for a, b in zip(got[:3], (state.xi, state.z, state.y)):
+        assert torch.equal(a, b)
+
+
+def test_cluster_launch_refusals():
+    """The wrapper's library refuses a cluster size other than 2, 4, 8 (1:
+    the memory build) and agrees with `qp_cuda.cluster_plan` on a CTA's
+    bytes and with `memory_block_bytes` on a block's; a shape past the
+    cluster build's reach is refused by the plan, before any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    lib = qp_cuda.build()
+    shape_8f, shape_8h = (3, 80, 12, 6, 34, 774), (2, 16, 10, 9, 58, 590)
+    assert lib.admm_smem_bytes(*shape_8f, 3, 0) == 0
+    assert lib.admm_blocks_per_sm(*shape_8f, 3, 0) == -2
+    assert lib.admm_active_clusters(*shape_8f, 64, 16, 0) == -2
+    assert lib.admm_smem_bytes(*shape_8h, 1, 0) == qp_cuda.memory_block_bytes(*shape_8h)
+    assert lib.admm_blocks_per_sm(*shape_8h, 1, 0) == 2
+    assert lib.admm_blocks_per_sm(*shape_8f, 1, 0) == 1
+    for shape in (shape_8f, shape_8h, (3, 160, 28, 6, 82, 2478)):
+        for A in (1024, 64):
+            C, n3k, nbytes = qp_cuda.cluster_plan(shape, A, lib.admm_smem_limit())
+            assert lib.admm_smem_bytes(*shape, C, int(n3k)) == nbytes
+            assert lib.admm_active_clusters(*shape, A, C, int(n3k)) > 0
+            assert lib.admm_blocks_per_sm(*shape, C, int(n3k)) > 0
+    with pytest.raises(ValueError, match="reach"):
+        qp_cuda.launch_plan((3, 640, 28, 6, 82, 2478), 1024)

@@ -553,7 +553,7 @@ def test_degree_8_step_on_card(monkeypatch, dim):
     the 'hull' SFC update element for element, the stage entries
     (front_with_neighbors, goal_qp_inputs) element for element, the QP
     preparation by chip_smoke.py's prepare_check contract
-    (qp_check.prepare_agreement), the ADMM loop's memory build (dim·K 116
+    (qp_check.prepare_agreement), the ADMM loop's cluster build (dim·K 116
     in 2-D, 174 in 3-D) for one chunk against the plain chunk
     (test_torch_cuda.py's _chunk_held); every output finite."""
     if not torch.cuda.is_available():
@@ -608,7 +608,7 @@ def test_degree_8_step_on_card(monkeypatch, dim):
     li = seen["run_loop"][0][0][1]
     shape = _shape(cfg, li)
     assert cfg.dim * shape[4] == {2: 116, 3: 174}[dim]
-    assert qp_cuda.build_name(qp_cuda.build(), *shape) == "<256,0>"
+    assert qp_cuda.build_name(qp_cuda.build(), *shape, li.xi.shape[0]) == qp_cuda.CLUSTER_BUILD
     feas_tol = planner.feas_tol
     out = tqp.run_loop(cfg, li, 8, feas_tol)
     _chunk_held(cfg, li, out, tqp.admm_loop_plain(cfg, li, 8, feas_tol), feas_tol)
