@@ -132,7 +132,10 @@ layer and audit, and the `sim.run` CLI) flying forest missions:
      (`phase8g`): DLSC 3-D at M = 12 (108), 3-D at M = 16 (138) and at M
      = 28 with 160 slots (246: the preparation's global build, the loop's
      cluster build at C = 8), each `prepare_check` and `loop_check`, each
-     on the cluster build; fleets with 64, 65, 80, 160 and 256 slots
+     on the cluster build; at M = 28 with 480 slots (481 agents: rows and
+     Kinv past 8 CTAs, which the cluster build refuses) the loop's global
+     build `<256,0,global>`, timed, its `loop_check` with the float64
+     clause; fleets with 64, 65, 80, 160 and 256 slots
      through every stage entry, the gathered slots' included, each call
      held to its plain body, `loop_check` at 256 (2-D rows past one
      block's shared memory: the cluster build);
@@ -242,8 +245,10 @@ Prints the results and the wall time of each phase, a JSON line with one
 entry per build of the ADMM kernel (its dim·K range; launches on the
 paths of phases 5-14, largest error against the plain loop, and ms,
 plain ms and bound at its first timed A=1024 shape, with ptxas's
-registers and spills; the memory build's and the cluster build's C,
-shared bytes a block or CTA, blocks an SM and resident clusters),
+registers and spills, the calls its `loop_check` held; the memory
+build's, the cluster build's and the global build's C, shared bytes a
+block or CTA, blocks an SM and resident clusters; the global build
+timed at phase 8g's 480 slots, with its device ms),
 one per geometry kernel
 (sfc_expand, sfc_update_hull, hull_closest, clsc_build, and the hull
 kernels' run-time builds hull_closest<rt> and clsc_build<rt>, timed at
@@ -252,7 +257,7 @@ those paths, the calls and items its check held to its plain version,
 ms, device ms, plain ms, bound and share on the main path's call, the
 SFC kernels' latency floor, ptxas's registers), one for qp_prepare
 (the same, with the library inverse's ms; and its global build,
-`qp_prepare<4,global>`, timed at phase 8g's dim·K 246) and one per stage
+`qp_prepare<2,global>`, timed at phase 8g's dim·K 246) and one per stage
 kernel (neighbor_slots, step_front, front_with_neighbors, goal_qp_inputs,
 and the first three's wide builds, `<wide>`, timed on phase 8f's calls: the
 same, with the host ms to issue a call, the phases checked, the kernel's
@@ -596,15 +601,17 @@ class Builds:
         self.qp_prepare_cuda, self.stages, self.step_cuda = qp_prepare_cuda, stages, step_cuda
         self.hull_cuda, self.geometry, self.lsc, self.sfc_ops = hull_cuda, geometry, lsc, sfc
         self.lib = qp_cuda.build()
-        # the four builds (the register builds up to dim·K 96, chosen by the
+        # the five builds (the register builds up to dim·K 96, chosen by the
         # library from the shape; past them, or where the rows pass one
         # block's shared memory, the memory build for a batch that fills
-        # the card twice over with two agents an SM, else the cluster build:
+        # the card twice over with two agents an SM, else the cluster build,
+        # and the global build for the shapes the cluster build cannot take:
         # qp_cuda.loop_plan); "dk": the least and largest dim·K this run's
         # checks and timings held each to
-        self.rec = {name: {"dk": None, "launches": 0, "max_abs_err": 0.0, "ms": None}
+        self.rec = {name: {"dk": None, "launches": 0, "max_abs_err": 0.0, "calls_checked": 0,
+                           "ms": None}
                     for name in ("<128,30>", "<256,48>", qp_cuda.MEMORY_BUILD,
-                                 qp_cuda.CLUSTER_BUILD)}
+                                 qp_cuda.CLUSTER_BUILD, qp_cuda.GLOBAL_BUILD)}
         self.sfc = {"launches": 0, "max_abs_err": 0, "calls_checked": 0, "lanes_checked": 0,
                     "ms": None}
         self.sfc_hull = {"launches": 0, "max_abs_err": 0.0, "calls_checked": 0,
@@ -709,7 +716,7 @@ class Builds:
         for key, n in self.step_cuda.wide_launches.items():
             out[key + "_wide"] = n
             self.wide[key]["launches"] += n
-        n = self.qp_prepare_cuda.build_launches.get("<4,global>", 0)
+        n = self.qp_prepare_cuda.build_launches.get(self.qp_prepare_cuda.GLOBAL_BUILD, 0)
         out["qp_prepare_global"] = n
         self.prep_global["launches"] += n
         for key in ("neighbor_plain_on_cuda", "front_plain_on_cuda", "fused_plain_on_cuda",
@@ -753,6 +760,7 @@ class Builds:
     def note_check(self, cfg, rec):
         r = self.build_rec(cfg, rec["A"])
         r["max_abs_err"] = max(r["max_abs_err"], rec["max_abs_err_chunk"])
+        r["calls_checked"] += 1
 
     def note_hull_check(self, recs):
         for r in recs:
@@ -792,7 +800,7 @@ class Builds:
 
     def note_prepare_check(self, recs):
         for r in recs:
-            if r["build"] == "<4,global>":
+            if r["build"] == self.qp_prepare_cuda.GLOBAL_BUILD:
                 self._note_prepare(self.prep_global, r)
             self._note_prepare(self.prep, r)
 
@@ -824,13 +832,18 @@ class Builds:
         SM, resident clusters)."""
         r = self.build_rec(cfg, timing["A"])
         if r["ms"] is None:
-            r.update(ms=timing["ms"], plain_ms=plain_ms, iters=timing["iters"],
+            r.update(ms=timing["ms"], device_ms=timing.get("device_ms"), plain_ms=plain_ms,
+                     iters=timing["iters"],
                      A=timing["A"], R=timing["R"], bound_ms=timing["bound_ms"],
                      bound_by=timing["bound_by"], bound_share=timing["bound_share"],
                      **{k: timing[k] for k in ("C", "smem_bytes", "ctas_per_sm",
                                                "active_clusters") if k in timing})
 
 
+# each ADMM build's kernel in ptxas's summary (`kernel_name`)
+ADMM_PTXAS = {"<128,30>": "admm_chunk_kernel<128,30,0>", "<256,48>": "admm_chunk_kernel<256,48,0>",
+              "<256,0>": "admm_chunk_kernel<256,0,0>", "<256,cluster>": "admm_cluster_kernel<256>",
+              "<256,0,global>": "admm_chunk_kernel<256,0,1>"}
 PLAIN_ON_CUDA = ("hull_plain_on_cuda", "clsc_plain_on_cuda", "sfc_hull_plain_on_cuda",
                  "prepare_plain_on_cuda", "neighbor_plain_on_cuda", "front_plain_on_cuda",
                  "fused_plain_on_cuda", "goal_plain_on_cuda")
@@ -1283,7 +1296,14 @@ def kernels_ab_main():
     (`qp.rescue_batch`, rescue_iter iterations; the wrapper's launch
     record where the tree has one), the QP preparation kernel, the step's
     stage kernels, the fused CLSC kernel and the hull query on its hulls;
-    and ptxas's record of the hull kernels. One JSON line."""
+    the QP preparation kernel on 8g's dim·K 246 batch (A = 168, 160 slots:
+    the global build) and on the first step's QP of the other global-build
+    shapes of P8G_PREP_AB; the fused CLSC kernel on 8h's layout in 3-D and
+    on scattered pairs of CLSC_AB_N points a segment in 2-D and 3-D
+    (`clsc_scattered`), each held to the plain body element for element;
+    in a tree with the loop's global build, that build on 8g's 480 slots
+    (`global_loop_timing`); and ptxas's record of the hull kernels and of
+    the preparation's. One JSON line."""
     from lsc_dr_planner_tpu_torch import workload
     from lsc_dr_planner_tpu_torch.ops import (
         cuda_build, geometry, hull_cuda, lsc, qp, qp_cuda, qp_prepare_cuda,
@@ -1291,9 +1311,50 @@ def kernels_ab_main():
     from lsc_dr_planner_tpu_torch.planner import stages
 
     dev, gpu = torch.device("cuda", 0), gpu_line()
-    build_all(verbose=hull_cuda)
+    build_all(hull_cuda, qp_prepare_cuda)
     out = {"package": str(Path(qp_cuda.__file__).resolve().parents[1]), "gpu": gpu,
            "hull_ptxas": ptxas_summary(cuda_build.build_log.get("hull_closest.cu", (0, ""))[1])}
+    out["prepare_ptxas"] = ptxas_summary(cuda_build.build_log.get("qp_prepare.cu", (0, ""))[1])
+    over, A = next((o, a) for t, o, a in phase8g_qp_cases() if t == "dk246_O160")
+    p, planner, fleet, inp = workload.build_fleet(A, device=dev, **over)
+    inp, _ = workload.make_evolve_step(p, planner, fleet)(inp)
+    cfg, qin = planner.qp_cfg, planner._step_impl(fleet, inp, defer_qp=True).qp_inp
+    ts, sc = qp.torch_statics(cfg, dev), qp.prepare_scalars(cfg)
+    out["8g_dk246"] = {"A": A, "qp_prepare_ms": queued_ms(
+        lambda: qp_prepare_cuda.prepare_cuda(cfg, ts, qin, sc), KERNEL_REPS)}
+    for tag, over, A in P8G_PREP_AB:
+        p, planner, fleet, inp = workload.build_fleet(A, device=dev, **over)
+        cfg, qin = planner.qp_cfg, planner._step_impl(fleet, inp, defer_qp=True).qp_inp
+        ts, sc = qp.torch_statics(cfg, dev), qp.prepare_scalars(cfg)
+        shape = admm_shape(qp, cfg, dev)
+        out[tag] = {"A": A, "dk": cfg.dim * shape[4],
+                    "build": qp_prepare_cuda.build_name(*shape[:5]),
+                    "qp_prepare_ms": queued_ms(
+                        lambda: qp_prepare_cuda.prepare_cuda(cfg, ts, qin, sc), KERNEL_REPS)}
+    planner, fleet, inp = main_path_state(workload, dev, **dict(P8H, world_dimension=3))
+    with Calls(lsc, "build_clsc") as clscs:
+        planner._step_impl(fleet, inp, defer_qp=True)
+    cases = {"8h_3d": clsc_args(clscs.calls[0])}
+    cases.update({f"N{N}_{dim}d": (clsc_scattered(50 + N, dim, N, dev), dim)
+                  for N in CLSC_AB_N for dim in (2, 3)})
+    for tag, (a, dim) in cases.items():
+        a = tuple(t.contiguous() for t in a)
+        want = lsc.build_clsc(*a, world_dimension=dim, plain=True)
+        got = hull_cuda.build_clsc_cuda(*a, dim)
+        out["clsc_" + tag] = {
+            "ms": queued_ms(lambda: hull_cuda.build_clsc_cuda(*a, dim), KERNEL_REPS),
+            "differing": sum(differing(g, w) for g, w in zip(
+                got, (want.normals, want.anchors, want.margins)))}
+    if hasattr(qp_cuda, "GLOBAL_BUILD"):
+        over, A = next((o, a) for t, o, a in phase8g_qp_cases() if t == P8G_GLOBAL)
+        p, planner, fleet, inp = workload.build_fleet(A, device=dev, **over)
+        step = workload.make_evolve_step(p, planner, fleet)
+        for _ in range(2):
+            inp, _ = step(inp)
+        cfg = planner.qp_cfg
+        li = qp.prepare(cfg, planner._step_impl(fleet, inp, defer_qp=True).qp_inp).loop
+        out["8g_" + P8G_GLOBAL + "_loop"] = global_loop_timing(
+            qp, qp_cuda, cfg, li, planner.feas_tol, dev, P8G_GLOBAL)
     for tag, overrides in (("main", {}), ("8b", dict(world_dimension=3)), ("8f", P8F),
                            ("8h", P8H)):
         planner, fleet, inp = main_path_state(workload, dev, **overrides)
@@ -1336,9 +1397,46 @@ def kernels_ab_main():
     return out
 
 
-def build_all(verbose=None):
+# 8g's preparation at its other global-build shapes, on the first step's QP
+# (the parent's loop refuses 480 slots, so no evolving step): 481 agents at
+# 480 slots, past the 264 blocks of 512 threads the card holds at once; 3-D
+# at M = 25 (dim·K 219), the shortest horizon that takes the global build,
+# at 168 and 1,024 agents
+P8G_PREP_AB = (("8g_dk246_O480", dict(world_dimension=3, M=28, communication_range=30.0,
+                                      max_obstacles=480), 481),
+               ("8g_dk219", dict(world_dimension=3, M=25), 168),
+               ("8g_dk219_A1024", dict(world_dimension=3, M=25), 1024))
+CLSC_AB_N = (9, 10, 11, 12)  # the CLSC run-time build's N in the `cuda` tests
+
+
+def clsc_scattered(seed, dim, N, dev, A=256, O=16, M=10):
+    """build_clsc's ten inputs on `dev`, from `seed`: A agents' M segments
+    of N control points, O neighbours each scattered about them (some of
+    them obstacles, some slots masked), goals beside the last segments so
+    that the last segment's guard holds for some pairs; in 2-D every point
+    at z = 0.6 (the spread of tests/test_torch_clsc_kernel.py's `clsc_inputs`)."""
+    rng = np.random.default_rng(seed)
+
+    def f32(*shape, scale=1.0):
+        return (rng.normal(size=shape) * scale).astype(np.float32)
+
+    init = f32(A, M, N, 3)
+    obs = init[:, None] + 0.8 + f32(A, O, M, N, 3, scale=0.5)
+    obs_goal = f32(A, O, 3)
+    if dim == 2:
+        init[..., 2] = obs[..., 2] = obs_goal[..., 2] = 0.6
+    x = (init, obs, obs_goal, 0.15 + f32(A, scale=0.01), np.full(A, 2.0, np.float32),
+         0.15 + f32(A, O, scale=0.02),
+         np.where(rng.uniform(size=(A, O)) < 0.5, 2.0, 1.0).astype(np.float32),
+         rng.uniform(size=(A, O)) < 0.7,
+         (init[:, -1, -1] + 3.0 * (init[:, -1, -1] - obs[:, 0, -1, -1])).astype(np.float32),
+         rng.uniform(size=(A, O)) < 0.7)
+    return tuple(torch.as_tensor(v).to(dev) for v in x)
+
+
+def build_all(*verbose):
     """Builds the imported package's kernel libraries, one nvcc each, all
-    at once (the wrapper `verbose` names keeps ptxas's record)."""
+    at once (the wrappers `verbose` names keep ptxas's record)."""
     from lsc_dr_planner_tpu_torch.ops import hull_cuda, qp_cuda, qp_prepare_cuda, sfc_cuda
 
     wrappers = [qp_cuda, sfc_cuda, hull_cuda, qp_prepare_cuda]
@@ -1348,7 +1446,7 @@ def build_all(verbose=None):
     except ImportError:  # a tree without the stage kernels
         pass
     with ThreadPoolExecutor(len(wrappers)) as pool:
-        for done in [pool.submit(w.build, w is verbose) for w in wrappers]:
+        for done in [pool.submit(w.build, w in verbose) for w in wrappers]:
             done.result()
 
 
@@ -3142,14 +3240,56 @@ def phase8h_query(workload, builds, dev, gpu, steps=P8H_QUERY_STEPS):
 
 def phase8g_qp_cases():
     """(tag, build_fleet overrides, agents) of 8g's QPs: DLSC in 3-D at M =
-    12 (dim·K 108), 3-D at M = 16 (138), and 3-D at M = 28 with 160 slots
-    (246: the KKT tiles, Kinv and the rows past shared memory)."""
+    12 (dim·K 108), 3-D at M = 16 (138), 3-D at M = 28 with 160 slots
+    (246: the KKT tiles, Kinv and the rows past shared memory), and with
+    480 slots (246: an agent's rows and Kinv past 8 CTAs' shared memory,
+    which the cluster build refuses: the loop's global build; 481 agents,
+    the fewest that give 480 slots, each slot another agent)."""
     from lsc_dr_planner_tpu_torch.config import PlannerMode
 
     return (("dk108", dict(world_dimension=3, M=12, planner_mode=PlannerMode.DLSC), 64),
             ("dk138", dict(world_dimension=3, M=16), 64),
             ("dk246_O160", dict(world_dimension=3, M=28, communication_range=30.0,
-                                max_obstacles=160), 168))
+                                max_obstacles=160), 168),
+            (P8G_GLOBAL, dict(world_dimension=3, M=28, communication_range=30.0,
+                              max_obstacles=480), 481))
+
+
+P8G_GLOBAL = "dk246_O480"  # 8g's QP past the cluster build's reach
+GLOBAL_LOOP_REPS = 3  # the loop's global build: calls timed (~0.2-0.5 s each)
+
+
+def global_loop_timing(qp, qp_cuda, cfg, li, feas_tol, dev, what):
+    """The loop's global build on `li` (one call: `timed_call`, mean ms by
+    CUDA events over GLOBAL_LOOP_REPS calls), the same calls queued behind
+    a sleep kernel (`queued_ms`), and GLOBAL_LOOP_REPS calls under
+    torch.profiler: the ADMM kernels it saw a call (it may miss some
+    ctypes launches: on the H100 it saw 25 and 19.7 of a call's 25 in two
+    runs), those that ran iterations (longer than 0.1 ms), their mean
+    device ms, and `device_ms`, that mean times the launches the wrapper
+    counted a call; the iterations of each call and whether the calls'
+    iterates are the same bits."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    t = admm_timing.timed_call(qp, cfg, li, cfg.max_iter, feas_tol, what, GLOBAL_LOOP_REPS)
+    t.update(qp_cuda.last_launch)
+    t["queued_ms"] = queued_ms(lambda: qp.run_loop(cfg, li, cfg.max_iter, feas_tol),
+                               GLOBAL_LOOP_REPS)
+    outs = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(GLOBAL_LOOP_REPS):
+            outs.append(qp.run_loop(cfg, li, cfg.max_iter, feas_tol))
+        torch.cuda.synchronize(dev)
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA and "admm_chunk_kernel" in e.name]
+    t["profiled_kernels"] = len(us) / GLOBAL_LOOP_REPS
+    t["profiled_working_launches"] = sum(u > 100 for u in us) / GLOBAL_LOOP_REPS
+    t["profiled_kernel_ms"] = sum(us) / 1e3 / len(us) if us else None
+    t["device_ms"] = t["profiled_kernel_ms"] * t["launches"] if us else None
+    t["iters_each"] = [int(o[4]) for o in outs]
+    t["same_bits"] = all(differing(a, b) == 0 for o in outs[1:] for a, b in zip(o[:4], outs[0][:4]))
+    return t
 
 
 P8G_SLOTS = (64, 65, 80, 160, 256)  # O = OA, fleets of O + 6 agents within 20 m (2-D)
@@ -3204,11 +3344,16 @@ def phase8g(workload, qp, builds, dev, gpu, srec):
         li = qp.prepare(cfg, planner._step_impl(fleet, inp, defer_qp=True).qp_inp).loop
         rec["check"] = loop_check(qp, cfg, li, feas_tol, f"phase8g {tag}", float64_clause=True)
         builds.note_check(cfg, rec["check"])
+        if tag == P8G_GLOBAL:  # the loop's global build timed
+            assert rec["admm_build"] == qp_cuda.GLOBAL_BUILD, rec
+            t = rec["timing"] = global_loop_timing(qp, qp_cuda, cfg, li, feas_tol, dev, tag)
+            plain_ms = cuda_ms(lambda: qp.admm_loop_plain(cfg, li, cfg.max_iter, feas_tol), 1)
+            builds.note_timing(cfg, t, plain_ms)
         if tag == "dk246_O160":  # the global builds timed
             rec["timing"] = admm_timing.timed_call(qp, cfg, li, cfg.max_iter, feas_tol, tag, 3)
             rec["timing"]["plain_ms"] = cuda_ms(
                 lambda: qp.admm_loop_plain(cfg, li, cfg.max_iter, feas_tol), 1)
-            assert rec["prepare_build"] == "<4,global>", rec
+            assert rec["prepare_build"] == qp_prepare_cuda.GLOBAL_BUILD, rec
             t = prepare_kernel_record(qp, qp_prepare_cuda, cfg, preps.calls[0][0][1])
             rec["prepare_timing"] = t
             builds.prep_global.update({k: t[k] for k in (
@@ -3217,8 +3362,9 @@ def phase8g(workload, qp, builds, dev, gpu, srec):
         print(f"phase8g {tag}", json.dumps({k: v for k, v in rec.items()
                                             if k not in ("check", "prepare_check")}),
               f"[{gpu}]")
-    for rec in out["qp"].values():  # past the register builds: the cluster build
-        assert rec["admm_build"] == qp_cuda.CLUSTER_BUILD, rec
+    for tag, rec in out["qp"].items():  # past the register builds: the cluster build
+        assert rec["admm_build"] == (qp_cuda.GLOBAL_BUILD if tag == P8G_GLOBAL
+                                     else qp_cuda.CLUSTER_BUILD), rec
     assert out["qp"]["dk246_O160"]["admm_plan"]["C"] == 8, out["qp"]["dk246_O160"]
 
     for O in P8G_SLOTS:
@@ -4421,11 +4567,14 @@ def main():
             "dk": r["dk"], "launches": r["launches"], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "iters": r["iters"], "A": r["A"],
             "R": r["R"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "bound_share": r["bound_share"],
-            "ptxas": kernels_ptxas.get("admm_cluster_kernel<256>" if name == qp_cuda.CLUSTER_BUILD
-                                       else f"admm_chunk_kernel{name}"),
-            # the cluster build: its cluster size, shared bytes and CTAs an SM
-            **{k: r[k] for k in ("C", "smem_bytes", "ctas_per_sm", "active_clusters") if k in r},
+            "bound_share": r["bound_share"], "calls_checked": r["calls_checked"],
+            "ptxas": kernels_ptxas.get(ADMM_PTXAS[name]),
+            # past the register builds: the cluster size (0: the global
+            # build), shared bytes, blocks or CTAs an SM; the global build's
+            # device ms a call (`global_loop_timing`: the profiler's mean ms
+            # a launch times the call's launches)
+            **{k: r[k] for k in ("C", "smem_bytes", "ctas_per_sm", "active_clusters",
+                                 "device_ms") if r.get(k) is not None},
             "library_ms": None,  # no single PyTorch call computes the loop
         })
     geometry_kernels = (
@@ -4485,17 +4634,17 @@ def main():
         "library_ms": r["library_ms"],
     })
     r = builds.prep_global
-    print("qp_prepare<4,global>", json.dumps(r))
+    print(f"qp_prepare{qp_prepare_cuda.GLOBAL_BUILD}", json.dumps(r))
     assert r["launches"] > 0 and r["ms"] is not None and r["calls_checked"] > 0, r
     kernels.append({
-        "name": "qp_prepare<4,global>", "route": "cuda",
+        "name": f"qp_prepare{qp_prepare_cuda.GLOBAL_BUILD}", "route": "cuda",
         "source": "lsc_dr_planner_tpu_torch/csrc/qp_prepare.cu",
         "replaces": "lsc_dr_planner_tpu/ops/qp.py:474",
         **{k: r[k] for k in ("launches", "max_abs_err", "ms", "device_ms", "plain_ms",
                              "bound_ms", "bound_by", "bound_share", "calls_checked",
                              "agents_checked", "elements_checked", "max_share_of_tolerance",
                              "max_kinv_ratio", "smem_bytes", "blocks_per_sm", "A", "dk")},
-        "ptxas": kernels_ptxas.get("qp_prepare_kernel<4,1>"),
+        "ptxas": kernels_ptxas.get("qp_prepare_kernel<2,1>"),
         "library_ms": r["library_ms"],
     })
     for name, replaces in (

@@ -35,7 +35,7 @@
 // on the H100 on one A=37 batch, this halved the kernel's per-chunk distance
 // to the float64 plain loop, to the float32 plain loop's own, for 4.5% of time.
 //
-// The layout. Four builds, chosen from the shape (admm_threads,
+// The layout. Five builds, chosen from the shape (admm_threads,
 // admm_columns) and, past the register builds, from the batch too
 // (qp_cuda.loop_plan, admm_launch's C), never from a failure:
 //   <128, 30>  dim·K ≤ 60: 2-D, 56 for LSC (K = 28, the terminal derivatives
@@ -56,7 +56,16 @@
 //              shapes in smaller batches (3-D from M = 11 on: dim·K 102 at M
 //              = 12, 246 at M = 28; degree 8's 64-agent rescue; rows past one
 //              block's shared memory): one agent on a thread-block cluster
-//              of C = 2, 4 or 8 CTAs of 256 threads (admm_cluster_kernel).
+//              of C = 2, 4 or 8 CTAs of 256 threads (admm_cluster_kernel);
+//   <256, 0, global>  the shapes the cluster build cannot take (C = 0 in
+//              admm_launch): one agent a block as in the memory build, its
+//              rows' state updated in place in the loop's own z, y and A·xi
+//              buffers in global memory, l, u, the normals and Kinv read where
+//              they lie (through L1 and L2), the stencils in their 32-bit
+//              tables; shared memory keeps the dk- and dim·MN-vectors alone.
+//              Device memory is its only limit (3-D at M = 28 from 432 slots,
+//              where an agent's rows and Kinv pass 8 CTAs; a CTA's stencil
+//              tables past 16-bit indices).
 // The one-block builds keep an agent's rows in the block's shared memory: z,
 // y, A·xi and l over all R rows, u over the static rows only (the LSC rows are
 // one-sided: prepare() makes their u +1e20 less an offset, which no iterate
@@ -119,8 +128,9 @@
 // (degree 8: 21.8 ms on the cluster build against 12.3 on the memory build
 // at A=1024), hence the memory build for full batches of such shapes.
 // Rows and Kinv of one agent must fit 8 CTAs' shared memory (~1.8 MB; 8g's
-// widest shape, dim·K 246 with 160 slots, takes 187 KB a CTA at C = 8): a
-// shape past that is refused by qp_cuda.cluster_plan.
+// widest cluster shape, dim·K 246 with 160 slots, takes 187 KB a CTA at C =
+// 8), and a CTA's stencil tables 16-bit indices: qp_cuda.loop_plan sends a
+// shape past either to <256, 0, global>.
 //
 // Every phase spreads over the block: in the register builds the Kinv matvec
 // and the N3k adjoint product run two threads per output, combined with one
@@ -180,7 +190,7 @@ constexpr int kGroups = 8;  // the cluster build's fixed row groups (qp_cuda.GRO
 constexpr int kClusterThreads = 256;  // threads of a CTA of the cluster build
 constexpr unsigned kFull = 0xffffffffu;
 // admm_launch's refusals of a cluster launch (CUDA's own errors are positive)
-constexpr int kBadClusterSize = -2;  // C is not 1 (the memory build), 2, 4 or 8
+constexpr int kBadClusterSize = -2;  // C is not 0 (the global build), 1 (the memory build), 2, 4 or 8
 constexpr int kPastSharedMemory = -3;  // a CTA needs more than the device's opt-in limit
 constexpr int kNotResident = -4;  // cudaOccupancyMaxActiveClusters gives 0
 
@@ -239,12 +249,15 @@ __host__ __device__ inline Dims make_dims(int dim, int O, int M, int N, int K,
 }
 
 // One agent a block (the register builds and the memory build): VD [dim*MN
-// doubles]; XTD [dk doubles]; Z, Y, AX, LN [R], UN [R_stat], NRM [O*M*dim];
-// XI, XIP, QN [dk]; VA [dim*MN]; RED [8 per warp]; MOF [MN] (int); KI [dk*dk]
-// (the memory build's Kinv). Mirrored by qp_cuda.memory_block_bytes.
-__host__ __device__ inline size_t smem_floats(const Dims& D, int threads, bool kinv) {
-  return 4 * (size_t)D.R + D.R_stat + (size_t)D.O * D.M * D.dim + 5 * (size_t)D.dk +
-         3 * (size_t)D.dim * D.MN + 8 * (threads / 32) + D.MN + (kinv ? (size_t)D.dk * D.dk : 0);
+// doubles]; XTD [dk doubles]; Z, Y, AX, LN [R], UN [R_stat], NRM [O*M*dim]
+// (not `rows`: the global build's, in global memory); XI, XIP, QN [dk]; VA
+// [dim*MN]; RED [8 per warp]; MOF [MN] (int); KI [dk*dk] (the memory build's
+// Kinv). Mirrored by qp_cuda.memory_block_bytes and global_block_bytes.
+__host__ __device__ inline size_t smem_floats(const Dims& D, int threads, bool kinv,
+                                              bool rows = true) {
+  return (rows ? 4 * (size_t)D.R + D.R_stat + (size_t)D.O * D.M * D.dim : 0) +
+         5 * (size_t)D.dk + 3 * (size_t)D.dim * D.MN + 8 * (threads / 32) + D.MN +
+         (kinv ? (size_t)D.dk * D.dk : 0);
 }
 
 __host__ __device__ inline int admm_n_chunks(int max_iter, int chunk) {
@@ -464,12 +477,14 @@ __device__ void cost_product(const Dims& D, const float* pn_g, const float* XI, 
 // one agent per block of NT threads, the rows in shared memory. KC > 0: KC >=
 // ceil(dk / 2) Kinv columns per thread in registers (dk <= NT/2); KC = 0: the
 // memory build, Kinv in shared memory too, a thread pair taking rows i, i +
-// NT/2, ... of the Kinv and N3k products. Launch ck starts from the inputs
-// (ck = 0) or from the state the previous launch stored. When every agent was
-// done at the previous test (the plain loop's global exit) it returns at once
-// and marks its own test done for the whole fleet too, so that no later
-// launch resumes the loop.
-template <int NT, int KC>
+// NT/2, ... of the Kinv and N3k products. GLOBAL (with KC = 0): the global
+// build, the rows' state in place in a.z, a.y, a.ax, and l, u, the normals and
+// Kinv read from their inputs. Launch ck starts from the inputs (ck = 0) or
+// from the state the previous launch stored. When every agent was done at the
+// previous test (the plain loop's global exit) it returns at once and marks
+// its own test done for the whole fleet too, so that no later launch resumes
+// the loop.
+template <int NT, int KC, bool GLOBAL = false>
 __global__ void __launch_bounds__(NT, NT == 128 ? 8 : KC ? 3 : 2)
 admm_chunk_kernel(Args a, int ck) {
   if (ck > 0 && a.done_count[ck - 1] == a.A) {
@@ -489,13 +504,25 @@ admm_chunk_kernel(Args a, int ck) {
   double* XTD = VD + D.dim * D.MN;
   float* RHS = reinterpret_cast<float*>(XTD);
   float* XT = RHS + D.dk;
-  float* Z = XT + D.dk;
-  float* Y = Z + D.R;
-  float* AX = Y + D.R;
-  float* LN = AX + D.R;
-  float* UN = LN + D.R;  // the static rows only
-  float* NRM = UN + D.R_stat;
-  float* XI = NRM + D.O * D.M * D.dim;
+  float *Z, *Y, *AX, *LN, *UN, *NRM;  // UN: the static rows only
+  float* XI;
+  if constexpr (GLOBAL) {  // in place in global memory
+    Z = a.z + agent * D.R;
+    Y = a.y + agent * D.R;
+    AX = a.ax + agent * D.R;
+    LN = const_cast<float*>(a.ln) + agent * D.R;
+    UN = const_cast<float*>(a.un) + agent * D.R + D.R_lsc;
+    NRM = const_cast<float*>(a.normals) + agent * D.O * D.M * D.dim;
+    XI = XT + D.dk;
+  } else {
+    Z = XT + D.dk;
+    Y = Z + D.R;
+    AX = Y + D.R;
+    LN = AX + D.R;
+    UN = LN + D.R;
+    NRM = UN + D.R_stat;
+    XI = NRM + D.O * D.M * D.dim;
+  }
   float* XIP = XI + D.dk;
   float* QN = XIP + D.dk;
   float* VA = QN + D.dk;
@@ -506,15 +533,23 @@ admm_chunk_kernel(Args a, int ck) {
   const float* xi_in = ck == 0 ? a.xi0 : a.xi;
   const float* z_in = ck == 0 ? a.z0 : a.z;
   const float* y_in = ck == 0 ? a.y0 : a.y;
-  const float* nrm_g = a.normals + agent * D.O * D.M * D.dim;
-  for (int i = t; i < D.O * D.M * D.dim; i += NT) NRM[i] = nrm_g[i];
-  for (int r = t; r < D.R; r += NT) {
-    const size_t g = agent * D.R + r;
-    Z[r] = z_in[g];
-    Y[r] = y_in[g];
-    LN[r] = a.ln[g];
-    if (ck > 0) AX[r] = a.ax[g];
-    if (r >= D.R_lsc) UN[r - D.R_lsc] = a.un[g];
+  if constexpr (GLOBAL) {
+    if (ck == 0)
+      for (int r = t; r < D.R; r += NT) {
+        Z[r] = z_in[agent * D.R + r];
+        Y[r] = y_in[agent * D.R + r];
+      }
+  } else {
+    const float* nrm_g = a.normals + agent * D.O * D.M * D.dim;
+    for (int i = t; i < D.O * D.M * D.dim; i += NT) NRM[i] = nrm_g[i];
+    for (int r = t; r < D.R; r += NT) {
+      const size_t g = agent * D.R + r;
+      Z[r] = z_in[g];
+      Y[r] = y_in[g];
+      LN[r] = a.ln[g];
+      if (ck > 0) AX[r] = a.ax[g];
+      if (r >= D.R_lsc) UN[r - D.R_lsc] = a.un[g];
+    }
   }
   for (int j = t; j < D.dk; j += NT) {
     XI[j] = xi_in[agent * D.dk + j];
@@ -534,7 +569,11 @@ admm_chunk_kernel(Args a, int ck) {
     for (int c = 0; c < KC; ++c) kin[c] = c < ncols ? kinv_g[(size_t)ki * D.dk + c0 + c] : 0.f;
   } else {
     ncols = min(D.half, D.dk - c0);
-    for (int i = t; i < D.dk * D.dk; i += NT) KI[i] = kinv_g[i];
+    if constexpr (GLOBAL) {
+      KI = const_cast<float*>(kinv_g);
+    } else {
+      for (int i = t; i < D.dk * D.dk; i += NT) KI[i] = kinv_g[i];
+    }
   }
   const int row_sets = KC > 0 ? 1 : (D.dk + NT / 2 - 1) / (NT / 2);  // rows a thread pair takes
   __syncthreads();
@@ -577,7 +616,11 @@ admm_chunk_kernel(Args a, int ck) {
         double acc = 0.;
         if (k < D.dk) {
           const float* kr = KI + (size_t)k * D.dk + c0;
-          for (int c = 0; c < ncols; ++c) acc = fma((double)kr[c], RHSD[c0 + c], acc);
+          if constexpr (GLOBAL) {
+            for (int c = 0; c < ncols; ++c) acc = fma((double)__ldg(kr + c), RHSD[c0 + c], acc);
+          } else {
+            for (int c = 0; c < ncols; ++c) acc = fma((double)kr[c], RHSD[c0 + c], acc);
+          }
         }
         acc += __shfl_xor_sync(kFull, acc, 1);
         if (kh == 0 && k < D.dk) XTD[k] = acc;
@@ -627,11 +670,13 @@ admm_chunk_kernel(Args a, int ck) {
   block_reduce8<NT>(v, RED);
 
   for (int j = t; j < D.dk; j += NT) a.xi[agent * D.dk + j] = XI[j];
-  for (int r = t; r < D.R; r += NT) {
-    const size_t g = agent * D.R + r;
-    a.z[g] = Z[r];
-    a.y[g] = Y[r];
-    a.ax[g] = AX[r];
+  if constexpr (!GLOBAL) {
+    for (int r = t; r < D.R; r += NT) {
+      const size_t g = agent * D.R + r;
+      a.z[g] = Z[r];
+      a.y[g] = Y[r];
+      a.ax[g] = AX[r];
+    }
   }
   if (t == 0) exit_gates(a, v, agent, ck);
 }
@@ -1223,9 +1268,9 @@ admm_cluster_kernel(Args a, int ck, int C, int n3k) {
   cl.sync();  // no CTA leaves while CTA 0 may still read its shared memory
 }
 
-template <int NT, int KC>
+template <int NT, int KC, bool GLOBAL = false>
 cudaError_t prepare_kernel(size_t smem) {
-  const auto kern = admm_chunk_kernel<NT, KC>;
+  const auto kern = admm_chunk_kernel<NT, KC, GLOBAL>;
   cudaError_t err = cudaSuccess;
   if (smem > 48 * 1024)
     err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1235,25 +1280,26 @@ cudaError_t prepare_kernel(size_t smem) {
   return err;
 }
 
-template <int NT, int KC>
+template <int NT, int KC, bool GLOBAL = false>
 int launch_all(const Args& a, int A, size_t smem, cudaStream_t stream) {
-  cudaError_t err = prepare_kernel<NT, KC>(smem);
+  cudaError_t err = prepare_kernel<NT, KC, GLOBAL>(smem);
   if (err != cudaSuccess) return (int)err;
   const int n_chunks = admm_n_chunks(a.max_iter, a.chunk);
   for (int ck = 0; ck < n_chunks; ++ck) {
-    admm_chunk_kernel<NT, KC><<<A, NT, smem, stream>>>(a, ck);
+    admm_chunk_kernel<NT, KC, GLOBAL><<<A, NT, smem, stream>>>(a, ck);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   return 0;
 }
 
-template <int NT, int KC>
+template <int NT, int KC, bool GLOBAL = false>
 int blocks_per_sm(size_t smem) {
-  cudaError_t err = prepare_kernel<NT, KC>(smem);
+  cudaError_t err = prepare_kernel<NT, KC, GLOBAL>(smem);
   int n = 0;
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, admm_chunk_kernel<NT, KC>, NT, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, admm_chunk_kernel<NT, KC, GLOBAL>,
+                                                        NT, smem);
   return err == cudaSuccess ? n : -(int)err;
 }
 
@@ -1282,6 +1328,11 @@ Build build_for(const Dims& D) {
     if (smem <= smem_limit()) return Build{threads, D.dk <= 60 ? 30 : 48, smem};
   }
   return Build{kClusterThreads, 0, sizeof(float) * smem_floats(D, 256, true)};
+}
+
+// A block of the global build: the vectors alone.
+size_t global_smem(const Dims& D) {
+  return sizeof(float) * smem_floats(D, kClusterThreads, false, false);
 }
 
 // A CTA's shared memory at cluster size C, or 0 for a C other than 2, 4, 8.
@@ -1380,18 +1431,20 @@ extern "C" int admm_columns(int dim, int O, int M, int N, int K, int R_stat) {
 extern "C" long long admm_smem_limit() { return (long long)smem_limit(); }
 
 // Dynamic shared memory of one block of the shape's build, bytes: past the
-// register builds, the memory build's block (C = 1) or a CTA of the cluster
-// build at cluster size C with N3k staged or not (n3k; both ignored by the
-// register builds; 0 for a C other than 1, 2, 4, 8).
+// register builds, the memory build's block (C = 1), the global build's (C
+// = 0) or a CTA of the cluster build at cluster size C with N3k staged or not
+// (n3k; both ignored by the register builds; 0 for a C other than 0, 1, 2,
+// 4, 8).
 extern "C" long long admm_smem_bytes(int dim, int O, int M, int N, int K, int R_stat, int C,
                                      int n3k) {
   const Dims D = make_dims(dim, O, M, N, K, R_stat);
   const Build b = build_for(D);
+  if (!b.columns && C == 0) return (long long)global_smem(D);
   return (long long)(b.columns || C == 1 ? b.smem : cluster_smem(D, C, n3k));
 }
 
-// Resident blocks (agents of the register builds and of the memory build, C
-// = 1; CTAs of the cluster build at C, n3k) per SM, from
+// Resident blocks (agents of the register builds, of the memory build, C = 1,
+// and of the global build, C = 0; CTAs of the cluster build at C, n3k) per SM, from
 // cudaOccupancyMaxActiveBlocksPerMultiprocessor; negative: a refusal or minus
 // the CUDA error.
 extern "C" int admm_blocks_per_sm(int dim, int O, int M, int N, int K, int R_stat, int C,
@@ -1405,6 +1458,7 @@ extern "C" int admm_blocks_per_sm(int dim, int O, int M, int N, int K, int R_sta
   }
   if (!b.threads) return -1;
   if (C == 1) return b.smem <= smem_limit() ? blocks_per_sm<256, 0>(b.smem) : kPastSharedMemory;
+  if (C == 0) return blocks_per_sm<256, 0, true>(global_smem(D));
   const size_t smem = cluster_smem(D, C, n3k);
   const int rc = cluster_prepare(smem);
   if (rc != 0) return rc < 0 ? rc : -rc;
@@ -1424,11 +1478,12 @@ extern "C" int admm_active_clusters(int dim, int O, int M, int N, int K, int R_s
 
 // Queues the whole loop on `stream`: one launch per chunk of `chunk`
 // iterations, one block per agent (the register builds; past them the memory
-// build, C = 1) or one cluster of C CTAs per agent with N3k staged or not
-// (n3k; the cluster build, whose resident clusters go to *clusters). Returns
-// 0, a CUDA error code, -1 for a dk < 1, or a refusal: -2 for a C other than
-// 1, 2, 4, 8, -3 for a block or CTA past the device's shared memory, -4 for
-// clusters that cannot be resident. No synchronisation.
+// build, C = 1, or the global build, C = 0) or one cluster of C CTAs per agent
+// with N3k staged or not (n3k; the cluster build, whose resident clusters go
+// to *clusters). Returns 0, a CUDA error code, -1 for a dk < 1, or a refusal:
+// -2 for a C other than 0, 1, 2, 4, 8, -3 for a block or CTA past the
+// device's shared memory, -4 for clusters that cannot be resident. No
+// synchronisation.
 extern "C" int admm_launch(const float* normals, const float* Kinv, const float* Pn,
                            const float* qn, const float* ln, const float* un,
                            const float* scale, const float* xi0, const float* z0,
@@ -1458,5 +1513,9 @@ extern "C" int admm_launch(const float* normals, const float* Kinv, const float*
   if (!b.threads) return -1;
   if (C == 1)
     return b.smem <= smem_limit() ? launch_all<256, 0>(a, A, b.smem, st) : kPastSharedMemory;
+  if (C == 0) {
+    const size_t smem = global_smem(D);
+    return smem <= smem_limit() ? launch_all<256, 0, true>(a, A, smem, st) : kPastSharedMemory;
+  }
   return launch_cluster(a, C, n3k, st, clusters);
 }

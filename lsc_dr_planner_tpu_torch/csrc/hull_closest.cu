@@ -40,17 +40,19 @@
 // and computes only the point it selects. IEEE operations are odd under
 // points -> -points, so the query keeps the plain version's exact oddness.
 //
-// The layout. One thread per hull. Two kinds of build: a template build for
-// each K from 1 to 8, the hull's K points in registers (no register array is
+// The layout. Two kinds of build: a template build for each K from 1 to 8,
+// one thread per hull, the hull's K points in registers (no register array is
 // indexed at run time; K = 8 already takes 202 and 222 registers), and one
-// run-time build for any K (hull_query_rt: the same loops at run time, the
-// points read from the block's shared stage, a row of 3K floats padded to an
-// odd count, so a warp's 32 rows fall in 32 banks; CLSC's relative points get
-// rows of their own there and its margins a row of K). The template takes K
-// <= 8 (CLSC: where its stage also fits in 48 KB), the run-time build every
-// other K, its shared memory sized at launch (opted in past 48 KB; a stage
-// past the card's 227 KB a block is refused). A block of
-// 128 hulls first stages its hulls' points (for CLSC the neighbours'
+// run-time build for any K, the points read from the block's shared stage, a
+// row of 3K floats padded to an odd count, so a warp's 32 rows fall in 32
+// banks (CLSC's relative points get rows of their own there and its margins a
+// row of K), one thread per hull too (hull_query_rt: the same loops at run
+// time). In 2-D (every relative z = 0) CLSC's run-time build tests no
+// tetrahedron: each would fail at its first volume (flat_hull). The template
+// takes K <= 8 (CLSC: where its stage also fits in 48 KB), the run-time
+// build every other K, its shared memory sized at launch (opted in past 48
+// KB; a stage past the card's 227 KB a block is refused). A block of 128
+// hulls first stages its hulls' points (for CLSC the neighbours'
 // [hulls, K, 3] floats and the [M, K, 3] initial control points of the agents
 // the block spans, each agent's once) in shared memory with unit-stride,
 // coalesced loads, where a hull's own loads would stride 12·K bytes from
@@ -78,9 +80,17 @@
 // two, each IEEE division is a multi-instruction sequence, 128 registers (K =
 // 6) leave 16 warps an SM, and a warp runs a tetrahedron's volumes as far as
 // its slowest hull's test goes. The run-time builds at N = 9 (phase 8h's call,
-// 163,840 2-D hulls: 36 edges, 84 triangles and 126 tetrahedra each): CLSC
-// 0.176 ms (7.6% of its 0.0134 ms bytes bound), the query 0.141 ms (4.3%),
-// 72 and 71 registers.
+// 163,840 2-D hulls: 36 edges, 84 triangles and 126 tetrahedra each): the
+// query 0.141 ms (4.3% of its bytes bound), 71 registers; CLSC 0.176 ms
+// (7.6% of its 0.0134 ms bytes bound), 72 registers, a third of it the 126
+// tetrahedra, each a cross product through float64 (12 conversions) that
+// fails at its first volume in 2-D. Left out (hull_query_rt<true>, the 2-D
+// hulls' own copy of the query), CLSC takes 0.121 ms; 80 registers and 196 B
+// of spills. A group of 4 lanes a hull took 0.142 ms there, and 11% more
+// than the thread a hull on the 3-D fleet's hulls at N = 9 (a group's lanes
+// share a warp instruction's 32 slots among 8 hulls, so a hull's own work
+// costs 4 of them), so the run-time build keeps a thread a hull (PERF.md
+// section 6).
 
 #include <cuda_runtime.h>
 
@@ -412,9 +422,21 @@ __device__ __forceinline__ V3 point(const float* q, int i) {
   return {q[3 * i], q[3 * i + 1], q[3 * i + 2]};
 }
 
+// Whether every one of the K points at q has z = ±0 (2-D). Then every tetrahedron's volume is ±0 or NaN (the x and y
+// parts of the cross product are ±0·y or NaN), so every origin_in_tetra
+// fails at its first volume, and leaving the tests out changes no result.
+__device__ __forceinline__ bool flat_hull(const float* q, int K) {
+  bool flat = true;
+  for (int i = 0; i < K; ++i) flat = flat && q[3 * i + 2] == 0.f;
+  return flat;
+}
+
 // hull_query over the K points at q, the loops at run time in the same
 // itertools.combinations order, the same device functions, the same first
-// minimum and the same early stop of the tetrahedra
+// minimum and the same early stop of the tetrahedra. SkipFlat (CLSC in
+// 2-D): where every point has z = ±0, no tetrahedron is tested (every test
+// would fail at its first volume: see flat_hull).
+template <bool SkipFlat = false>
 __device__ __forceinline__ void hull_query_rt(const float* q, int K, V3& closest, float& dist) {
   const V3 p0 = point(q, 0);
   Best best{p0, dot3(p0, p0)};
@@ -431,7 +453,8 @@ __device__ __forceinline__ void hull_query_rt(const float* q, int K, V3& closest
     }
   }
   bool inside = false;
-  for (int i = 0; i < K && !inside; ++i) {
+  const bool skip = SkipFlat && flat_hull(q, K);
+  for (int i = 0; i < K && !inside && !skip; ++i) {
     const V3 a = point(q, i);
     for (int j = i + 1; j < K && !inside; ++j) {
       const V3 b = point(q, j);
@@ -496,9 +519,10 @@ __host__ __device__ inline ClscRtLayout clsc_rt_layout(int K, int M, long long n
   return l;
 }
 
-// clsc_build_kernel with the points read from shared memory: the same
-// operations in the same order (the relative points to the rel rows; each
-// margin to the margin rows where the template keeps it in a register)
+// clsc_build_kernel with the points read from shared memory, a thread a hull:
+// the same operations in the same order (the relative points to the rel
+// rows; each margin to the margin rows where the template keeps it in a
+// register); in 2-D the flat hulls' tetrahedra left out (flat_hull)
 __global__ void __launch_bounds__(kThreads) clsc_build_rt_kernel(ClscArgs g, int K, int na_max) {
   extern __shared__ float clsc_smem[];
   const ClscRtLayout L = clsc_rt_layout(K, g.M, na_max);
@@ -542,7 +566,10 @@ __global__ void __launch_bounds__(kThreads) clsc_build_rt_kernel(ClscArgs g, int
     }
     V3 closest;
     float dist;
-    hull_query_rt(rel, K, closest, dist);
+    if (d3)
+      hull_query_rt(rel, K, closest, dist);
+    else
+      hull_query_rt<true>(rel, K, closest, dist);
     V3 normal = unit(closest, dist);
     for (int k = 0; k < K; ++k) marg[k] = mul(0.5f, add(den, dot3(point(rel, k), normal)));
 

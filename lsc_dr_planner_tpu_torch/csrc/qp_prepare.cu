@@ -80,16 +80,26 @@
 //     bank conflict.
 // Three builds, chosen from the shape (kernel_for): <8> up to 8 tile rows,
 // <4> above while the tiles fit in shared memory (dim·K 102 at M = 12 in
-// 3-D: 13 tile rows, 62 KB a block, 3 blocks an SM), and <4, global> beyond
-// (from ~216 in 3-D: 254 KB of tiles at dim·K 246): the same algorithm on
-// the agent's tiles in a float64 workspace in global memory (the wrapper's,
-// A x 64·n_tiles doubles), read through L1 and L2, with the normals and Pn
-// read back from the agent's own outputs; shared memory keeps the staged
-// column, D⁻¹ and the float32 vectors. Device memory is the only limit.
-// After the float32 stages no block barrier is left but the one named
-// barrier: the factor warp waits only on itself, where a right-looking
-// factor and inverse a column at a time over the block take 2·dk block
-// barriers (112 in 2-D).
+// 3-D: 13 tile rows, 62 KB a block, 3 blocks an SM), and <2, global> beyond
+// (from ~216 in 3-D: 254 KB of tiles at dim·K 246). In <8> and <4>, after
+// the float32 stages no block barrier is left but the one named barrier:
+// the factor warp waits only on itself, where a right-looking factor and
+// inverse a column at a time over the block take 2·dk block barriers (112
+// in 2-D).
+// The global build keeps the agent's tiles in a float64 workspace in global
+// memory (the wrapper's, A x 64·n_tiles doubles), the normals and Pn in the
+// agent's own outputs. Its first form ran the <4> algorithm there, and
+// `clock64` marks on the H100 (dim·K 246, A = 168; PERF.md §6) showed every
+// stage waiting on L2 with 4 warps a block: the float32 stages 0.79 M
+// cycles, the factor warp 2.41 M and the inverse 0.95 M, the row warps 1.03
+// M for the rows and 2.43 M for z0, the product 0.45 M. So it runs a block of
+// 512 threads, two an SM (a batch of up to 264 agents resident at once), and
+// every warp takes every stage in turn: the float32 stages, the rows and qn,
+// z0's chunks, then the factor and the inverse panel by panel
+// (factor_and_invert_block: each panel's L in shared memory, the trailing
+// tiles a pair a warp, W's tiles a warp each, a tile's operations those of
+// factor_and_invert, so Kinv is the same bits), then the product. Device
+// memory is the only limit.
 //
 // Built by ops/qp_prepare_cuda.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
@@ -105,7 +115,11 @@ constexpr int kThreads = 128;
 // to kSmallTiles tile rows (2-D), 4 above, where shared memory allows no more
 // than 5 and the factor warp takes up to 128 registers instead of 64.
 constexpr int kSmallTiles = 8;
-constexpr int kWarps = kThreads / 32;
+// The global build: a block of kGlobalThreads, two an SM (at most 64
+// registers a thread), so that a batch of up to 264 agents is resident at
+// once; every warp takes the factor's, the inverse's and the product's tiles.
+constexpr int kGlobalThreads = 512;
+constexpr int kGlobalBlocks = 2;
 constexpr int kBarJoin = 1;        // the factor and row warps' named barrier (0 is __syncthreads)
 constexpr int kMaxDim = 3;
 constexpr int kSegRows = 8;  // z0's LSC rows of a segment, taken 8 at a time
@@ -202,9 +216,10 @@ __host__ __device__ inline int xb_doubles(const Dims& D) {
 // [dim·MN], NRM [O·M·dim], XP [dim·MN], XI [dk], PINS [dim·3], TD [M] in
 // float; FAIL and POOL, ints. The global build (kGlobal) keeps TL in the
 // agent's workspace, NRM in its normals output and Pn_dim in its Pn output:
-// its XB holds STG and INVD alone.
+// its doubles are the panel (then the inverse's staged column) PNL
+// [nT − 1][64], INVD [dkp] and the diagonal tile DT [64].
 __host__ __device__ inline size_t smem_bytes(const Dims& D, bool global) {
-  const size_t doubles = global ? 64 * (size_t)(D.nT - 1) + D.dkp
+  const size_t doubles = global ? 64 * (size_t)D.nT + D.dkp
                                 : 64 * (size_t)D.n_tiles + xb_doubles(D);
   const size_t floats = (size_t)D.M * D.dim * D.dim + 2 * (size_t)D.dim * D.MN +
                         (global ? 0 : (size_t)D.O * D.M * D.dim) + D.dk + (size_t)D.dim * kPhi +
@@ -415,6 +430,172 @@ __device__ int factor_and_invert(const Dims& D, double* TL, double* STG, double*
   return 0;
 }
 
+// The global build's K = L D Lᵀ and W = L⁻¹ on the tiles in the workspace, over
+// every warp of the block, each tile's arithmetic as factor_and_invert's (the
+// same operations in the same order, so the same bits). A panel p: (a) warp 0
+// factors the diagonal tile in shared memory (DT); (b) a thread a row of the
+// panel below it, written to its tile and to the shared panel PNL; (c) warp 0
+// inverts DT's unit lower part and writes the tile back, while (d) every warp
+// takes trailing tile pairs (I, J), J ≤ I, their L operands from PNL and the
+// pivots from DT's diagonal. W block column by block column from the last:
+// the staged column over the warps into PNL, then W[I][J] a warp a tile, the
+// longest chains first. Returns 0 or the order of the first non-positive
+// pivot, in every thread.
+template <int NT>
+__device__ int factor_and_invert_block(const Dims& D, double* TL, double* PNL, double* INVD,
+                                       double* DT, int* FAIL, int warp, int lane) {
+  constexpr int NW = NT / 32;
+  const int g = lane >> 2, q = lane & 3, nT = D.nT;
+  int ei[2], el[2];
+  for (int s = 0; s < 2; ++s) tile_of(lane + 32 * s, ei[s], el[s]);
+  const int n_e = lane < 4 ? 2 : 1;
+  // warp 0 takes the trailing jobs last in each round: it starts them late
+  const int wj = warp == 0 ? NW - 1 : warp - 1;
+
+  for (int p = 0; p < nT; ++p) {
+    // (a) the diagonal tile, column by column: L's column times d_j, d_j
+    if (warp == 0) {
+      const double* Tg = tile(TL, p, p);
+      DT[lane] = Tg[lane];
+      DT[lane + 32] = Tg[lane + 32];
+      __syncwarp();
+      int fail = 0;
+      for (int j = 0; j < 8; ++j) {
+        const double dj = DT[sw(j, j)];
+        if (!(dj > 0.)) {  // not positive definite (or NaN): every lane
+          fail = 8 * p + j + 1;
+          break;
+        }
+        const double rj = __drcp_rn(dj);
+        if (lane == 0) INVD[8 * p + j] = rj;
+        for (int s = 0; s < n_e; ++s)
+          if (el[s] > j) DT[sw(ei[s], el[s])] -= (DT[sw(ei[s], j)] * rj) * DT[sw(el[s], j)];
+        __syncwarp();
+      }
+      if (lane == 0) *FAIL = fail;
+    }
+    __syncthreads();
+    if (*FAIL) return *FAIL;
+    // (b) the panel's rows below the diagonal tile, a thread a row: L[i][j] =
+    // (K[i][j] − Σ_{l<j} L[i][l]·T[j][l])/d_j
+    for (int row = 8 * (p + 1) + (int)threadIdx.x; row < D.dkp; row += NT) {
+      double* R = tile(TL, row >> 3, p);
+      double* P = PNL + 64 * ((row >> 3) - p - 1);
+      const int r = row & 7;
+      double lr[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        double s = R[sw(r, j)];
+#pragma unroll
+        for (int l = 0; l < j; ++l) s -= lr[l] * DT[sw(j, l)];
+        lr[j] = s * INVD[8 * p + j];
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        R[sw(r, j)] = lr[j];
+        P[sw(r, j)] = lr[j];
+      }
+    }
+    __syncthreads();
+    // (c) the diagonal tile's unit lower inverse in place, a lane a column
+    if (warp == 0) {
+      const int c = lane;
+      double w[8];
+      if (c < 8) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          double s = i == c ? 1. : 0.;
+#pragma unroll
+          for (int k = 0; k < i; ++k)
+            if (k >= c) s -= (DT[sw(i, k)] * INVD[8 * p + k]) * w[k];
+          w[i] = s;
+        }
+      }
+      __syncwarp();
+      if (c < 8) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          if (i > c) DT[sw(i, c)] = w[i];
+      }
+      __syncwarp();
+      double* Tg = tile(TL, p, p);
+      Tg[lane] = DT[lane];
+      Tg[lane + 32] = DT[lane + 32];
+    }
+    // (d) the trailing tiles (I, J), p < J ≤ I: K[I][J] −= L[I][p]·(L[J][p]·D_p)ᵀ,
+    // two tiles (J, J + 1) a job, row I holding (I − p + 1)/2 jobs; the
+    // pivots from DT's diagonal, which (c) does not write
+    const double d0 = DT[sw(q, q)], d1 = DT[sw(4 + q, 4 + q)];
+    int I = p + 1, jj = wj;
+    for (;;) {
+      while (I < nT && jj >= (I - p + 1) / 2) jj -= (I - p + 1) / 2, ++I;
+      if (I >= nT) break;
+      const int J = p + 1 + 2 * jj;
+      const bool two = J < I;
+      const double* LI = PNL + 64 * (I - p - 1);
+      const double a0 = -LI[sw(g, q)], a1 = -LI[sw(g, 4 + q)];
+      double* C0 = tile(TL, I, J);
+      double* C1 = C0 + 64;  // tile (I, J + 1)
+      const double* L0 = PNL + 64 * (J - p - 1);
+      const double* L1 = PNL + 64 * (J + two - p - 1);
+      double c0 = C0[sw(g, 2 * q)], c1 = C0[sw(g, 2 * q + 1)], e0 = 0., e1 = 0.;
+      double f0 = 0., f1 = 0., h0 = 0., h1 = 0.;
+      const double b0 = d0 * L0[sw(g, q)], b1 = d1 * L0[sw(g, 4 + q)];
+      const double b2 = d0 * L1[sw(g, q)], b3 = d1 * L1[sw(g, 4 + q)];
+      if (two) {
+        f0 = C1[sw(g, 2 * q)];
+        f1 = C1[sw(g, 2 * q + 1)];
+      }
+      dmma(c0, c1, a0, b0);
+      dmma(e0, e1, a1, b1);
+      if (two) {
+        dmma(f0, f1, a0, b2);
+        dmma(h0, h1, a1, b3);
+      }
+      C0[sw(g, 2 * q)] = c0 + e0;
+      C0[sw(g, 2 * q + 1)] = c1 + e1;
+      if (two) {
+        C1[sw(g, 2 * q)] = f0 + h0;
+        C1[sw(g, 2 * q + 1)] = f1 + h1;
+      }
+      jj += NW;
+    }
+    __syncthreads();
+  }
+
+  // ---- W = L⁻¹ in place, block column by block column from the last
+  for (int J = nT - 2; J >= 0; --J) {
+    const double* Wjj = tile(TL, J, J);
+    const int m = nT - 1 - J;
+    for (int u = warp; u < m; u += NW) {  // staged[K] = L[K][J]·W[J][J], K = J + 1 + u
+      const double* L = tile(TL, J + 1 + u, J);
+      double c0 = 0., c1 = 0., e0 = 0., e1 = 0.;
+      dmma(c0, c1, L[sw(g, q)], w_at(Wjj, true, q, g));
+      dmma(e0, e1, L[sw(g, 4 + q)], w_at(Wjj, true, 4 + q, g));
+      double* St = PNL + 64 * u;
+      St[sw(g, 2 * q)] = c0 + e0;
+      St[sw(g, 2 * q + 1)] = c1 + e1;
+    }
+    __syncthreads();
+    for (int u = warp; u < m; u += NW) {  // W[I][J] = −Σ_{K=J+1..I} W[I][K]·staged[K]
+      const int I = nT - 1 - u;           // the longest chains first
+      double c0 = 0., c1 = 0., e0 = 0., e1 = 0.;
+#pragma unroll 4
+      for (int K = J + 1; K <= I; ++K) {
+        const double* Wik = tile(TL, I, K);
+        const double* St = PNL + 64 * (K - J - 1);
+        dmma(c0, c1, -w_at(Wik, K == I, g, q), St[sw(q, g)]);
+        dmma(e0, e1, -w_at(Wik, K == I, g, 4 + q), St[sw(4 + q, g)]);
+      }
+      double* Wij = tile(TL, I, J);
+      Wij[sw(g, 2 * q)] = c0 + e0;
+      Wij[sw(g, 2 * q + 1)] = c1 + e1;
+    }
+    __syncthreads();
+  }
+  return 0;
+}
+
 // Kinv = Wᵀ D⁻¹ W: each lower tile once, K ascending, rounded once and written
 // to (i, j) and (j, i); warp w of nw takes every nw-th tile.
 __device__ void product(const PrepArgs& a, const Dims& D, const double* TL, const double* INVD,
@@ -518,7 +699,8 @@ __device__ void rows_and_qn(const PrepArgs& a, const Dims& D, const float* INNER
 // shared counter POOL: first the LSC segments (o, m), a lane a segment and
 // its N rows (o, m, i), each Σ_k N3[m][i][k]·(Σ_d n[o][m][d]·ξ[d][k]); then the
 // static rows, a lane a row s of dimension d, Σ_k An_stat[s][d·K + k]·ξ[d][k]
-// (its other dimensions' entries are zeros).
+// (its other dimensions' entries are zeros), U of its loads in flight.
+template <int U>
 __device__ void z0_pool(const PrepArgs& a, const Dims& D, const float* NRM, const float* XI,
                         int* POOL, int lane, long long ag) {
   const int n_seg = D.O * D.M;
@@ -552,7 +734,7 @@ __device__ void z0_pool(const PrepArgs& a, const Dims& D, const float* NRM, cons
       const int d = __ldg(a.st_idx + s * kWidth) / D.MN;  // the row's dimension
       const float* an = a.An_statT + (size_t)d * D.K * D.R_stat + s;
       float acc = 0.f;
-#pragma unroll 4
+#pragma unroll U
       for (int k = 0; k < D.K; ++k)
         acc = __fmaf_rn(XI[d * D.K + k], __ldg(an + (size_t)k * D.R_stat), acc);
       a.z[ag * D.R + D.R_lsc + s] = acc;
@@ -561,9 +743,12 @@ __device__ void z0_pool(const PrepArgs& a, const Dims& D, const float* NRM, cons
 }
 
 // kGlobal: the tiles in the agent's workspace a.work, read through L1 and L2
-// (the shapes whose tiles do not fit in shared memory).
+// (the shapes whose tiles do not fit in shared memory), a block of
+// kGlobalThreads whose warps all take every stage in turn.
 template <int kMinBlocks, bool kGlobal>
-__global__ void __launch_bounds__(kThreads, kMinBlocks) qp_prepare_kernel(PrepArgs a) {
+__global__ void __launch_bounds__(kGlobal ? kGlobalThreads : kThreads, kMinBlocks)
+    qp_prepare_kernel(PrepArgs a) {
+  constexpr int NT = kGlobal ? kGlobalThreads : kThreads;
   extern __shared__ double smem[];
   const Dims D = make_dims(a.dim, a.O, a.M, a.N, a.K, a.R_stat);
   const int t = threadIdx.x;
@@ -573,9 +758,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) qp_prepare_kernel(PrepAr
   double* TL = kGlobal ? a.work + ag * 64 * D.n_tiles : smem;
   double* STG = kGlobal ? smem : TL + 64 * D.n_tiles;
   double* INVD = STG + 64 * (D.nT - 1);
+  double* DT = INVD + D.dkp;  // the global build's diagonal tile
   // Pn_dim: in STG until the factor warps start, or the agent's Pn output
   float* PN = kGlobal ? a.Pn + ag * D.K * D.K : reinterpret_cast<float*>(STG);
-  float* S = reinterpret_cast<float*>(kGlobal ? INVD + D.dkp : STG + xb_doubles(D));
+  float* S = reinterpret_cast<float*>(kGlobal ? DT + 64 : STG + xb_doubles(D));
   float* INNER = S + D.M * D.dim * D.dim;
   float* NRM = kGlobal ? a.normals_out + ag * n_nrm : INNER + D.dim * D.MN;
   float* XP = kGlobal ? INNER + D.dim * D.MN : NRM + n_nrm;
@@ -586,7 +772,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) qp_prepare_kernel(PrepAr
   int* POOL = FAIL + 1;
 
   // ---- the agent's normals (written out contiguous), pins, terminal weights
-  for (int i = t; i < n_nrm; i += kThreads) {
+  for (int i = t; i < n_nrm; i += NT) {
     const int d = i % D.dim, om = i / D.dim;
     const float v = in(a.normals, ag, om / D.M, om % D.M, d);
     NRM[i] = v;
@@ -599,7 +785,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) qp_prepare_kernel(PrepAr
     PINS[t * kPhi + 2] =
         __fsub_rn(__fadd_rn(__fmul_rn(in(a.a0, ag, t), a.c_acc), __fmul_rn(2.f, c1)), p);
   }
-  for (int m = t; m < D.M; m += kThreads) TD[m] = __fmul_rn(a.tdiag, in(a.tmask, ag, m));
+  for (int m = t; m < D.M; m += NT) TD[m] = __fmul_rn(a.tdiag, in(a.tmask, ag, m));
   if (t == 0) *POOL = 0;
   __syncthreads();
 
@@ -610,7 +796,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) qp_prepare_kernel(PrepAr
 
   // ---- particular solution xpart = X_pin·pins; tvec and qflat; the LSC Gram
   // S[m] = Σ_o n nᵀ
-  for (int i = t; i < D.dim * D.MN; i += kThreads) {
+  for (int i = t; i < D.dim * D.MN; i += NT) {
     const int d = i / D.MN, v = i - d * D.MN, m = v / D.N;
     float xp = 0.f;
     for (int p = 0; p < kPhi; ++p) xp = __fmaf_rn(__ldg(a.X_pin + v * kPhi + p), PINS[d * kPhi + p], xp);
@@ -621,16 +807,24 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) qp_prepare_kernel(PrepAr
     a.qflat[g] = term ? __fmul_rn(__fmul_rn(a.qcoef, in(a.tmask, ag, m)), in(a.goal, ag, d)) : 0.f;
     if (d == 0) a.tvec[ag * D.MN + v] = term ? TD[m] : 0.f;
   }
-  for (int i = t; i < D.M * D.dim * D.dim; i += kThreads) {
+  // (the global build reads its normals from global memory: its chains'
+  // loads unrolled, the chains' order kept)
+  for (int i = t; i < D.M * D.dim * D.dim; i += NT) {
     const int e = i % D.dim, d = (i / D.dim) % D.dim, m = i / (D.dim * D.dim);
     float acc = __fmul_rn(NRM[m * D.dim + d], NRM[m * D.dim + e]);
-    for (int o = 1; o < D.O; ++o) {
+    auto gram_term = [&](int o) {
       const float* nr = NRM + (o * D.M + m) * D.dim;
       acc = __fadd_rn(acc, __fmul_rn(nr[d], nr[e]));
+    };
+    if constexpr (kGlobal) {
+#pragma unroll 8
+      for (int o = 1; o < D.O; ++o) gram_term(o);
+    } else {
+      for (int o = 1; o < D.O; ++o) gram_term(o);
     }
     S[i] = acc;
   }
-  for (int i = t; i < D.K * D.K; i += kThreads) {
+  for (int i = t; i < D.K * D.K; i += NT) {
     const float v = pn_entry(a, D, TD, i);
     PN[i] = v;
     if (!kGlobal) a.Pn[ag * D.K * D.K + i] = v;
@@ -639,7 +833,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) qp_prepare_kernel(PrepAr
 
   // ---- qflat + (P_base·xpart + tvec∘xpart) (P_base = I_M ⊗ P_blk: the
   // segment's block)
-  for (int i = t; i < D.dim * D.MN; i += kThreads) {
+  for (int i = t; i < D.dim * D.MN; i += NT) {
     const int d = i / D.MN, v = i - d * D.MN, m = v / D.N, k = v - m * D.N;
     const bool term = k == D.n;
     const float* x = XP + d * D.MN + m * D.N;  // segment m's points
@@ -651,7 +845,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) qp_prepare_kernel(PrepAr
     INNER[i] = __fadd_rn(q, acc);
   }
   // ---- warm start ξ0 = N_nullᵀ(x0 − xpart)
-  for (int i = t; i < D.dk; i += kThreads) {
+  for (int i = t; i < D.dk; i += NT) {
     const int d = i / D.K, k = i - d * D.K;
     float acc = 0.f;
 #pragma unroll 4
@@ -665,15 +859,15 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) qp_prepare_kernel(PrepAr
   // ρ_lsc·Σ_m S[m][d][e]·T_lsc[m][k][l], plus (Pn + G_stat) + σ on the
   // diagonal blocks, a thread an (k, l) for every (d, e), e ≤ d; the padding
   // rows an identity (the diagonal tiles' upper parts are never read)
-  for (int x = t; D.dkp > D.dk && x < 64 * D.nT; x += kThreads) {
+  for (int x = t; D.dkp > D.dk && x < 64 * D.nT; x += NT) {
     const int r = (x >> 3) & 7, i = 8 * (D.nT - 1) + r;
     const int j = 8 * (x >> 6) + ((x & 7) ^ ((r & 2) << 1));  // sw(r, c) inverted
     if (i >= D.dk) tile(TL, D.nT - 1, x >> 6)[x & 63] = i == j ? 1. : 0.;
   }
-  for (int kl = t; kl < D.K * D.K; kl += kThreads) {
+  for (int kl = t; kl < D.K * D.K; kl += NT) {
     const int k = kl / D.K, l = kl - k * D.K;
     float g[kMaxDim * (kMaxDim + 1) / 2] = {};
-    for (int m = 0; m < D.M; ++m) {
+    auto kkt_term = [&](int m) {
       const float tl = __ldg(a.T_lsc + m * D.K * D.K + kl);
       const float* Sm = S + m * D.dim * D.dim;
 #pragma unroll
@@ -682,6 +876,12 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) qp_prepare_kernel(PrepAr
         for (int e = 0; e <= d; ++e)
           if (d < D.dim)
             g[d * (d + 1) / 2 + e] = __fmaf_rn(Sm[d * D.dim + e], tl, g[d * (d + 1) / 2 + e]);
+    };
+    if constexpr (kGlobal) {  // T_lsc's loads unrolled, the chains' order kept
+#pragma unroll 4
+      for (int m = 0; m < D.M; ++m) kkt_term(m);
+    } else {
+      for (int m = 0; m < D.M; ++m) kkt_term(m);
     }
     const float diag = __fadd_rn(__fadd_rn(PN[kl], __ldg(a.G_stat + kl)), k == l ? a.sigma : 0.f);
 #pragma unroll
@@ -701,23 +901,31 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) qp_prepare_kernel(PrepAr
   }
   __syncthreads();
 
-  // ---- warp 0 factors and inverts, the others write the rows and qn; then
-  // each takes z0's chunks while any are left, and all meet for the product
   const int warp = t >> 5, lane = t & 31;
-  if (warp == 0) {
-    const int fail = factor_and_invert(D, TL, STG, INVD, lane);
-    if (lane == 0) *FAIL = fail;
+  int fail;
+  if constexpr (kGlobal) {
+    // ---- every warp: the rows and qn, z0's chunks, the factor and inverse
+    rows_and_qn(a, D, INNER, NRM, XP, t, NT, ag);
+    z0_pool<8>(a, D, NRM, XI, POOL, lane, ag);
+    fail = factor_and_invert_block<NT>(D, TL, STG, INVD, DT, FAIL, warp, lane);
   } else {
-    rows_and_qn(a, D, INNER, NRM, XP, t - 32, kThreads - 32, ag);
+    // ---- warp 0 factors and inverts, the others write the rows and qn; then
+    // each takes z0's chunks while any are left, and all meet for the product
+    if (warp == 0) {
+      const int f = factor_and_invert(D, TL, STG, INVD, lane);
+      if (lane == 0) *FAIL = f;
+    } else {
+      rows_and_qn(a, D, INNER, NRM, XP, t - 32, kThreads - 32, ag);
+    }
+    z0_pool<4>(a, D, NRM, XI, POOL, lane, ag);
+    join_all();
+    fail = *FAIL;
   }
-  z0_pool(a, D, NRM, XI, POOL, lane, ag);
-  join_all();
-  const int fail = *FAIL;
   if (fail) {
     float* kinv = a.Kinv + ag * D.dk * D.dk;
-    for (int i = t; i < D.dk * D.dk; i += kThreads) kinv[i] = __int_as_float(0x7fc00000);
+    for (int i = t; i < D.dk * D.dk; i += NT) kinv[i] = __int_as_float(0x7fc00000);
   } else {
-    product(a, D, TL, INVD, warp, kWarps, lane, ag);
+    product(a, D, TL, INVD, warp, NT / 32, lane, ag);
   }
   if (t == 0) a.info[ag] = fail;
 }
@@ -734,15 +942,20 @@ size_t smem_limit() {
 // The tiles in the agent's workspace where they do not fit in shared memory.
 bool global_tiles(const Dims& D) { return smem_bytes(D, false) > smem_limit(); }
 
-// The resident blocks an SM the shape's build is built for (see kSmallTiles).
-int min_blocks(const Dims& D) { return !global_tiles(D) && D.nT <= kSmallTiles ? 8 : 4; }
+// The resident blocks an SM the shape's build is built for (see kSmallTiles,
+// kGlobalBlocks).
+int min_blocks(const Dims& D) {
+  return global_tiles(D) ? kGlobalBlocks : D.nT <= kSmallTiles ? 8 : 4;
+}
 
-// The build for this shape, and its shared memory.
+// The build for this shape, its threads and its shared memory.
 using Kernel = void (*)(PrepArgs);
 Kernel kernel_for(const Dims& D) {
-  if (global_tiles(D)) return qp_prepare_kernel<4, true>;
+  if (global_tiles(D)) return qp_prepare_kernel<kGlobalBlocks, true>;
   return min_blocks(D) == 8 ? qp_prepare_kernel<8, false> : qp_prepare_kernel<4, false>;
 }
+
+int block_threads(const Dims& D) { return global_tiles(D) ? kGlobalThreads : kThreads; }
 
 size_t block_smem(const Dims& D) { return smem_bytes(D, global_tiles(D)); }
 
@@ -759,7 +972,8 @@ extern "C" long long qp_prepare_work_doubles(int dim, int O, int M, int N, int K
 }
 
 // The build that takes the shape: its blocks an SM (qp_prepare_kernel's first
-// template argument: 8 or 4); qp_prepare_work_doubles tells the global build.
+// template argument: 8, 4, or kGlobalBlocks); qp_prepare_work_doubles tells
+// the global build.
 extern "C" int qp_prepare_build(int dim, int O, int M, int N, int K) {
   return min_blocks(make_dims(dim, O, M, N, K, 0));
 }
@@ -776,7 +990,8 @@ extern "C" int qp_prepare_blocks_per_sm(int dim, int O, int M, int N, int K) {
   const Kernel k = kernel_for(D);
   cudaError_t err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   int n = 0;
-  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, k, kThreads, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, k, block_threads(D), smem);
   return err == cudaSuccess ? n : -(int)err;
 }
 
@@ -795,6 +1010,6 @@ extern "C" int qp_prepare_launch(const void* args, void* stream) {
   const Kernel k = kernel_for(D);
   cudaError_t err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  k<<<a.A, kThreads, smem, (cudaStream_t)stream>>>(a);
+  k<<<a.A, block_threads(D), smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -2,13 +2,14 @@
 
 Two entries share one enumeration of the hull (the K vertices, edges and
 triangles with a running first minimum, then the tetrahedra, each
-stopped at its first failing sign test), one thread per hull, a block's
-points staged through shared memory with coalesced loads. Each entry has
-two kinds of build: a template build for each K from 1 to 8, the
-points in registers, and one run-time build for any K, the points read
-from the shared stage (every K above 8; and CLSC shapes whose template
-stage passes 48 KB). See the note at the top of the source for the
-layout and what bounds it:
+stopped at its first failing sign test), a block's points staged through
+shared memory with coalesced loads. Each entry has two kinds of build: a
+template build for each K from 1 to 8, one thread per hull, the points
+in registers, and one run-time build for any K, one thread per hull too,
+the points read from the shared stage (every K above 8; and CLSC shapes
+whose template stage passes 48 KB); in 2-D CLSC's run-time build tests
+no tetrahedron (every one fails at its first volume there). See the note
+at the top of the source for the layout and what bounds it:
 
 - `build_clsc_cuda`: the whole CLSC construction (`lsc.build_clsc`, the
   JAX package's lsc_dr_planner_tpu/ops/lsc.py:129; no Pallas original)

@@ -4,7 +4,7 @@ The kernel replaces the TPU kernel
 lsc_dr_planner_tpu/ops/qp_pallas.py::admm_loop_pallas: one launch per
 chunk of 8 ADMM iterations, the static rows as stencils over the control
 points, and the plain loop's exit tests and global exit (see the note at
-the top of the source for what bounds it). Four builds: one agent a
+the top of the source for what bounds it). Five builds: one agent a
 block with its rows in shared memory and its Kinv in registers, 128
 threads for dim·K ≤ 60 (2-D: 56 for LSC, 60 for DLSC, BVC and RSFC) and
 256 threads for dim·K ≤ 96 (3-D: 84 and 90), chosen from the shape; past
@@ -18,8 +18,11 @@ and static rows cut into GROUPS fixed groups, each CTA holding 8/C of
 them and 1/C of Kinv's rows in its own shared memory, the partial sums
 exchanged over distributed shared memory; its result does not depend on
 C. `cluster_plan` chooses C from the shape, the batch and the device's
-shared memory and resident clusters; a shape whose rows and Kinv pass 8
-CTAs is refused.
+shared memory and resident clusters. A shape the cluster build cannot
+take (its rows and Kinv past 8 CTAs, or a CTA's stencil tables past
+16-bit indices) goes to the global build `<256,0,global>`: one agent a
+block, its rows' state and Kinv in global memory. Device memory is the
+only limit.
 
 The source is compiled at first use by `nvcc` for sm_90a into a shared
 library with a plain C entry point under `build/` at the checkout root
@@ -29,9 +32,9 @@ takes CUDA tensors only and raises on anything else, a refused launch
 among it (nothing falls back); `qp.run_loop` gives it CUDA tensors and
 CPU tensors to the plain loop. `launches` counts kernel launches,
 `build_launches` the launches of each build, keyed by `build_name`
-(`<threads,columns>`, `<256,cluster>`), and `last_launch` records the
-last call's build, C, shared bytes a block or CTA, blocks an SM and
-resident clusters (cudaOccupancyMaxActiveClusters).
+(`<threads,columns>`, `<256,cluster>`, `<256,0,global>`), and
+`last_launch` records the last call's build, C, shared bytes a block or
+CTA, blocks an SM and resident clusters (cudaOccupancyMaxActiveClusters).
 """
 
 from __future__ import annotations
@@ -53,8 +56,10 @@ CLUSTER_THREADS = 256  # threads of a CTA of the cluster build
 SMS = 132  # streaming multiprocessors of the H100
 CLUSTER_BUILD = "<256,cluster>"
 MEMORY_BUILD = "<256,0>"  # one agent a block, its rows and Kinv in shared memory
+GLOBAL_BUILD = "<256,0,global>"  # one agent a block, its rows and Kinv in global memory
 # admm_launch's refusals of a cluster launch
-REFUSALS = {-2: "a cluster size other than 1 (the memory build), 2, 4 or 8",
+REFUSALS = {-2: "a cluster size other than 0 (the global build), 1 (the memory build), 2, 4 "
+                "or 8",
             -3: "a block or CTA past the device's shared memory",
             -4: "clusters that cannot be resident (cudaOccupancyMaxActiveClusters 0)"}
 
@@ -96,8 +101,8 @@ def reset_launches():
 
 def build_name(lib, dim: int, O: int, M: int, N: int, K: int, R_stat: int, A: int) -> str:
     """The build that takes a batch of A agents of the shape:
-    '<threads,columns>' (the register builds), MEMORY_BUILD or
-    CLUSTER_BUILD (`loop_plan`)."""
+    '<threads,columns>' (the register builds), MEMORY_BUILD,
+    CLUSTER_BUILD or GLOBAL_BUILD (`loop_plan`)."""
     shape = (dim, O, M, N, K, R_stat)
     columns = lib.admm_columns(*shape)
     if columns:
@@ -106,11 +111,17 @@ def build_name(lib, dim: int, O: int, M: int, N: int, K: int, R_stat: int, A: in
 
 
 def placement(lib, dim: int, O: int, M: int, N: int, K: int, R_stat: int) -> dict:
-    """Where the build keeps an agent's rows and its Kinv: {"rows":
-    "shared", "kinv": "registers" or "shared"} (the memory build: one
-    block's; the cluster build: split over its CTAs' shared memory)."""
-    kinv = "registers" if lib.admm_columns(dim, O, M, N, K, R_stat) else "shared"
-    return {"rows": "shared", "kinv": kinv}
+    """Where the shape's builds keep an agent's rows and its Kinv, whatever
+    the batch: {"rows": "shared", "kinv": "registers"} (the register
+    builds), {"rows": "shared", "kinv": "shared"} (the memory build: one
+    block's; the cluster build: split over its CTAs' shared memory) or
+    {"rows": "global", "kinv": "global"} (the global build: the shapes the
+    cluster build cannot take, `cluster_reach`)."""
+    shape = (dim, O, M, N, K, R_stat)
+    if lib.admm_columns(*shape):
+        return {"rows": "shared", "kinv": "registers"}
+    where = "shared" if cluster_reach(shape, lib.admm_smem_limit()) else "global"
+    return {"rows": where, "kinv": where}
 
 
 # ---- the cluster build's plan (pure Python: the CPU tests check it) ----------
@@ -196,6 +207,26 @@ def cluster_plan(shape, A: int, smem_limit: int, sms: int = SMS, resident=None):
     return C, n3k, nbytes
 
 
+def global_block_bytes(dim: int, O: int, M: int, N: int, K: int, R_stat: int) -> int:
+    """Dynamic shared memory of one block of the global build: admm.cu's
+    smem_floats without the rows and Kinv, in bytes (the dk- and
+    dim·MN-vectors, the reductions, the segment of each control point)."""
+    MN, dk = M * N, dim * K
+    return 4 * (5 * dk + 3 * dim * MN + 8 * (CLUSTER_THREADS // 32) + MN)
+
+
+def cluster_reach(shape, smem_limit: int) -> bool:
+    """Whether the cluster build takes `shape` at all, which no batch
+    changes: `cluster_plan` refuses a shape whose CTA passes `smem_limit`
+    even at C = 8 or whose stencil tables pass 16-bit indices, for every
+    batch alike."""
+    try:
+        cluster_plan(shape, 1, smem_limit)
+    except ValueError:
+        return False
+    return True
+
+
 def loop_plan(shape, A: int, smem_limit: int, sms: int = SMS, resident=None):
     """(build, C, n3k, bytes a block) of a batch of A agents of `shape`
     past the register builds: the memory build (C = 1) where one agent's
@@ -203,10 +234,13 @@ def loop_plan(shape, A: int, smem_limit: int, sms: int = SMS, resident=None):
     there, splitting an agent over a cluster halves the agents an SM holds,
     and Bézier degree 8's 1,024 agents ran 12.1 ms on the memory build
     against 21.8 ms on the cluster build on the H100; PERF.md §6); else the
-    cluster build at `cluster_plan`'s C."""
+    cluster build at `cluster_plan`'s C; and where `cluster_plan` refuses
+    the shape, the global build (C = 0), which takes any shape."""
     nbytes = memory_block_bytes(*shape)
     if A >= 2 * sms and ctas_per_sm(nbytes, smem_limit) >= 2:
         return MEMORY_BUILD, 1, False, nbytes
+    if not cluster_reach(shape, smem_limit):
+        return GLOBAL_BUILD, 0, False, global_block_bytes(*shape)
     return (CLUSTER_BUILD, *cluster_plan(shape, A, smem_limit, sms, resident))
 
 
@@ -254,9 +288,9 @@ def _plan_record(shape, A: int, device_index: int):
         else:
             name, C, n3k, _ = loop_plan(shape, A, limit, resident=resident)
         if name != CLUSTER_BUILD:
-            return {"build": name, "C": 1, "n3k": False,
-                    "smem_bytes": lib.admm_smem_bytes(*shape, 1, 0),
-                    "ctas_per_sm": lib.admm_blocks_per_sm(*shape, 1, 0), "active_clusters": None}
+            return {"build": name, "C": C, "n3k": False,
+                    "smem_bytes": lib.admm_smem_bytes(*shape, C, 0),
+                    "ctas_per_sm": lib.admm_blocks_per_sm(*shape, C, 0), "active_clusters": None}
         nbytes = cluster_cta_bytes(*shape, C, n3k)
         return {"build": name, "C": C, "n3k": n3k, "smem_bytes": nbytes,
                 "ctas_per_sm": lib.admm_blocks_per_sm(*shape, C, int(n3k)),
@@ -266,7 +300,8 @@ def _plan_record(shape, A: int, device_index: int):
 def launch_plan(shape, A: int, device=None) -> dict:
     """The build that takes a batch of A agents of `shape` (dim, O, M, N,
     K, R_stat) on the current (or the given) CUDA device: {"build", "C"
-    (1: one agent a block), "n3k", "smem_bytes" a block or CTA (the
+    (1: one agent a block; 0: the global build's block), "n3k",
+    "smem_bytes" a block or CTA (the
     kernel library's own count), "ctas_per_sm" (blocks an SM: agents of
     one-block builds, CTAs of the cluster build), "active_clusters"
     (cudaOccupancyMaxActiveClusters; None for one-block builds)}."""
@@ -281,9 +316,9 @@ def admm_loop_cuda(li, stencil, N3k, N3kT, rho_lsc: float, max_iter: int, chunk:
     `stencil` the static rows as `qp.stencil_table` tensors (idx, coef,
     rho, adj_ptr, adj_row, adj_coef, grp_ptr), `N3k` [K, M*N] and `N3kT`
     its transpose, shared by the fleet. `C` sets the build past the
-    register builds in place of `loop_plan`'s (for comparisons: 1 the
-    memory build, 2, 4, 8 the cluster build's cluster size, N3k then
-    staged as `stage_n3k` says for that C).
+    register builds in place of `loop_plan`'s (for comparisons: 0 the
+    global build, 1 the memory build, 2, 4, 8 the cluster build's cluster
+    size, N3k then staged as `stage_n3k` says for that C).
 
     ρ is the solver's per-family ρ: `rho_lsc` for every LSC row and
     stencil["rho"] for the static rows (li.rho itself is not read). The
@@ -338,7 +373,8 @@ def admm_loop_cuda(li, stencil, N3k, N3kT, rho_lsc: float, max_iter: int, chunk:
     plan = launch_plan(shape, A, dev)
     if C is not None and not lib.admm_columns(*shape):
         n3k = C > 1 and stage_n3k(shape, C, lib.admm_smem_limit())
-        plan.update(build=MEMORY_BUILD if C == 1 else CLUSTER_BUILD, C=C, n3k=n3k,
+        name = {0: GLOBAL_BUILD, 1: MEMORY_BUILD}.get(C, CLUSTER_BUILD)
+        plan.update(build=name, C=C, n3k=n3k,
                     smem_bytes=lib.admm_smem_bytes(*shape, C, int(n3k)),
                     ctas_per_sm=lib.admm_blocks_per_sm(*shape, C, int(n3k)),
                     active_clusters=None)

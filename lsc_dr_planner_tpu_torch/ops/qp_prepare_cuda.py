@@ -9,9 +9,10 @@ lsc_dr_planner_tpu/ops/qp.py::solve (:498-571, `jnp` with a batched
 Cholesky; no Pallas original); see the note at the top of the source
 for the layout and what bounds it. The KKT matrix's tiles stay in
 shared memory while they fit there (dim·K up to ~216 in 3-D); above
-that the global build keeps them in a per-agent float64 workspace
-the wrapper allocates, the same algorithm. Device memory is the only limit
-on dim·K.
+that the global build (`GLOBAL_BUILD`: blocks of 512 threads, two an
+SM, every warp on every stage) keeps them in a per-agent float64
+workspace the wrapper allocates. Device memory is the only limit on
+dim·K.
 
 `prepare_cuda` takes CUDA tensors only, of any strides, and raises
 ValueError on anything else; `qp.prepare` gives it CUDA tensors and CPU
@@ -33,6 +34,8 @@ SOURCE = cuda_build.CSRC / "qp_prepare.cu"
 
 launches = 0  # qp_prepare kernel launches since the last reset
 build_launches = {}  # build_name(...) -> its launches since the last reset
+GLOBAL_BUILD = "<2,global>"  # the tiles in the workspace, two blocks an SM
+SMEM_OPTIN = 232448  # bytes of shared memory a block may opt in to on the H100
 _lib = None
 _builds = {}  # (dim, O, M, N, K) -> (workspace doubles an agent, build name)
 
@@ -104,9 +107,22 @@ def _build_of(dim: int, O: int, M: int, N: int, K: int):
     return _builds[key]
 
 
+def tiles_in_workspace(dim: int, O: int, M: int, N: int, K: int,
+                       smem_limit: int = SMEM_OPTIN) -> bool:
+    """Whether the shape takes the global build: a `<8>` or `<4>` block
+    (qp_prepare.cu's smem_bytes: the lower tiles and the staged column in
+    double, the float32 vectors) passes `smem_limit` bytes of shared
+    memory. Pure Python; the library's qp_prepare_work_doubles decides."""
+    MN, dk = M * N, dim * K
+    nT = -(-dk // 8)
+    xb = max(64 * (nT - 1) + 8 * nT, (K * K + 1) // 2)
+    floats = M * dim * dim + 2 * dim * MN + O * M * dim + dk + 3 * dim + M + 2
+    return 8 * (64 * nT * (nT + 1) // 2 + xb) + 4 * floats > smem_limit
+
+
 def build_name(dim: int, O: int, M: int, N: int, K: int) -> str:
     """The template build that takes the shape: '<8>' (up to 8 tile rows),
-    '<4>' (above, the tiles in shared memory) or '<4,global>' (the tiles
+    '<4>' (above, the tiles in shared memory) or GLOBAL_BUILD (the tiles
     in the workspace)."""
     return _build_of(dim, O, M, N, K)[1]
 

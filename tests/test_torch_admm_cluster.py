@@ -126,6 +126,38 @@ def test_cluster_plan_small_batches_and_reach():
         qp_cuda.cluster_plan((3, 640, 28, 6, 82, 2478), 1024, H100_SMEM_OPTIN)
 
 
+# (dim, O, M, N, K, R_stat) of shapes the cluster build cannot take: ROADMAP's
+# 640 slots at M = 28 in 3-D and chip_smoke.py 8g's 480 (rows and Kinv past 8
+# CTAs), 3-D at M = 110 (K = 328: 23,265 static rows, past 16-bit stencil
+# indices and past 8 CTAs), and static rows past 16-bit indices alone
+# (a made-up R_stat on 8f's horizon: 180 KB a CTA at C = 8)
+PAST_CLUSTER = {"O640_M28": (3, 640, 28, 6, 82, 2478), "O480_M28": (3, 480, 28, 6, 82, 2478),
+                "M110": (3, 1, 110, 6, 328, 23265), "stencil16": (3, 1, 12, 6, 34, 22000)}
+
+
+@pytest.mark.parametrize("name", sorted(PAST_CLUSTER))
+def test_loop_plan_global_past_the_cluster_reach(name):
+    """Where `cluster_plan` refuses a shape (for every batch), `loop_plan`
+    returns the global build (C = 0, one agent a block, rows and Kinv in
+    global memory, a block's shared memory the vectors alone) and raises
+    for no batch; `cluster_reach` tells those shapes, and every shape the
+    cluster build takes (SHAPES) stays in its reach."""
+    shape = PAST_CLUSTER[name]
+    dim, O, M, N, K, R_stat = shape
+    assert (3 * R_stat >= 1 << 16
+            or qp_cuda.cluster_cta_bytes(*shape, 8, False) > H100_SMEM_OPTIN)
+    assert not qp_cuda.cluster_reach(shape, H100_SMEM_OPTIN)
+    for A in (1, 4, 64, 481, 1024):
+        with pytest.raises(ValueError, match="cluster build's reach"):
+            qp_cuda.cluster_plan(shape, A, H100_SMEM_OPTIN, resident=H100_RESIDENT.get)
+        got = qp_cuda.loop_plan(shape, A, H100_SMEM_OPTIN, resident=H100_RESIDENT.get)
+        assert got == (qp_cuda.GLOBAL_BUILD, 0, False, qp_cuda.global_block_bytes(*shape))
+    MN, dk = M * N, dim * K
+    assert qp_cuda.global_block_bytes(*shape) == 4 * (5 * dk + 3 * dim * MN + 64 + MN)
+    assert qp_cuda.global_block_bytes(*shape) < qp_cuda.memory_block_bytes(*shape) // 10
+    assert all(qp_cuda.cluster_reach(s, H100_SMEM_OPTIN) for s in SHAPES.values())
+
+
 @pytest.mark.parametrize("O,R_stat", [(80, 774), (16, 590), (160, 2478), (9, 410), (5, 30)])
 def test_groups_partition_the_rows_at_every_C(O, R_stat):
     """At C = 2, 4, 8 the CTAs' slots and static rows are disjoint,

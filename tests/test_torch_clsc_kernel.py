@@ -199,14 +199,26 @@ def fleet_inputs(A=32, steps=2, dim=2, device="cpu", **over):
 def named_inputs(what):
     """(inputs, dim) of a case: "<dim>d-<seed>" (N = 6) or
     "<dim>d-<seed>-N<N>", "fleet-<dim>d" (a few agents of an evolving
-    fleet) or "fleet-<dim>d-n8" (of degree 8: N = 9), or "nan" (NaN and
-    infinite points)."""
+    fleet) or "fleet-<dim>d-n8" (of degree 8: N = 9), "nan" or "nan-N9"
+    (NaN and infinite points), or "tie-N9" (hulls whose candidates tie:
+    vertices, edges and triangles of equal squared norms, and a hull of
+    nine equal points)."""
     if what.startswith("fleet"):
         over = {"n": 8} if what.endswith("-n8") else {}
         x, dim = fleet_inputs(dim=int(what.split("-")[1][0]), **over)
         return {k: v[:4] for k, v in x.items()}, dim
-    if what == "nan":
-        x = clsc_inputs(9, 3)
+    if what == "tie-N9":
+        x = clsc_inputs(11, 3, N=9)
+        # relative points exactly these: 0 − (−P) (z: 0 / dw − (−0 / dw))
+        ring = np.asarray([[3, 4, 0], [4, 3, 0], [5, 0, 0], [4, -3, 0], [3, -4, 0],
+                           [-3, 4, 0], [-4, 3, 0], [0, 5, 0], [0, -5, 0]], F)
+        x["initial_ctrl"][0, 3] = x["initial_ctrl"][1, 2] = 0.0
+        x["obs_ctrl"][0, :, 3] = -ring
+        x["obs_ctrl"][1, 0, 2] = -ring[0]
+        x["obs_ctrl"][1, 1, 2] = -ring[[0, 1, 0, 1, 0, 1, 0, 1, 0]]
+        return x, 3
+    if what.startswith("nan"):
+        x = clsc_inputs(9, 3, N=9 if what.endswith("-N9") else 6)
         x["obs_ctrl"][0, 1, 2, 3, 0] = np.nan
         x["obs_ctrl"][1, 0, -1, -1, 2] = np.nan  # the last segment's end
         x["initial_ctrl"][2, 4, 0, 1] = np.inf
@@ -225,7 +237,8 @@ def plain(x, dim):
 
 CASES = ["2d-0", "2d-1", "3d-0", "3d-1", "fleet-2d", "fleet-3d", "nan",
          # the run-time build's N (> 8)
-         "2d-0-N9", "3d-1-N9", "3d-2-N10", "2d-3-N12", "fleet-2d-n8", "fleet-3d-n8"]
+         "2d-0-N9", "3d-1-N9", "3d-2-N10", "2d-3-N12", "fleet-2d-n8", "fleet-3d-n8", "nan-N9",
+         "tie-N9"]
 
 
 # ---- on the CPU -------------------------------------------------------------
@@ -237,8 +250,29 @@ def test_twin_equals_plain(what):
     x, dim = named_inputs(what)
     got, want = twin(x, dim), plain(x, dim)
     assert_equal_by_value(got, want)
-    if what != "nan":
+    if not what.startswith("nan"):
         assert np.isfinite(want[0]).all()
+
+
+def test_flat_hulls_fail_every_tetrahedron():
+    """Points all at z = ±0 (CLSC's relative points in 2-D), finite or not
+    in x and y: every tetrahedron's first volume is ±0 or NaN, so every
+    `_in_tetra` fails, which lets the run-time build leave the tests out
+    (flat_hull in csrc/hull_closest.cu)."""
+    import itertools
+
+    rng = np.random.default_rng(6)
+    for trial in range(40):
+        p = rng.normal(size=(7, 3)).astype(F) * F(3)
+        p[:, 2] = np.where(rng.random(7) < 0.5, F(0), F(-0.0))
+        if trial % 4 == 1:
+            p[rng.integers(7), rng.integers(2)] = np.inf
+        elif trial % 4 == 2:
+            p[rng.integers(7), rng.integers(2)] = np.nan
+        pts = [tuple(r) for r in p]
+        with np.errstate(all="ignore"):
+            assert not any(_in_tetra(*(pts[i] for i in c))
+                           for c in itertools.combinations(range(7), 4))
 
 
 @pytest.mark.parametrize("dim", [2, 3])

@@ -14,7 +14,7 @@ import torch
 
 from lsc_dr_planner_tpu_torch import workload
 from lsc_dr_planner_tpu_torch.config import GoalMode, PlannerMode
-from lsc_dr_planner_tpu_torch.ops import qp, qp_check, qp_cuda
+from lsc_dr_planner_tpu_torch.ops import qp, qp_check, qp_cuda, qp_prepare_cuda
 
 pytestmark = pytest.mark.cuda
 
@@ -126,6 +126,7 @@ def _per_agent_close(a, b):
 # placement of the rows and of Kinv, the preparation's build). The cluster
 # build splits an agent's rows and Kinv over its CTAs' shared memory.
 CLUSTER = qp_cuda.CLUSTER_BUILD
+GLOBAL_PREP = qp_prepare_cuda.GLOBAL_BUILD  # the preparation's tiles in the workspace
 WIDE = {
     # 3-D at M = 12, 40 slots within 5 m: dim·K 102 (chip_smoke.py's 8f shape)
     "dk102": (dict(world_dimension=3, M=12, communication_range=5.0, max_obstacles=40), 48,
@@ -136,10 +137,10 @@ WIDE = {
     # 3-D at M = 16: dim·K 138
     "dk138": (dict(world_dimension=3, M=16), 37, CLUSTER, "shared", "shared", "<4>"),
     # 3-D at M = 28: dim·K 246, Kinv (242 KB) and the KKT tiles past one block
-    "dk246": (dict(world_dimension=3, M=28), 37, CLUSTER, "shared", "shared", "<4,global>"),
+    "dk246": (dict(world_dimension=3, M=28), 37, CLUSTER, "shared", "shared", GLOBAL_PREP),
     # and 160 slots: the rows (~29,400 a agent) too (8 CTAs an agent)
     "dk246_O160": (dict(world_dimension=3, M=28, communication_range=30.0, max_obstacles=160),
-                   168, CLUSTER, "shared", "shared", "<4,global>"),
+                   168, CLUSTER, "shared", "shared", GLOBAL_PREP),
     # Bézier degree 8 (N = 9 control points, K = 58): dim·K 116 in 2-D
     # (chip_smoke.py's 8h shape) and 174 in 3-D
     "dk116_n8": (dict(n=8), 64, CLUSTER, "shared", "shared", "<4>"),
@@ -206,8 +207,6 @@ def test_wide_qp_takes_its_builds_and_matches_plain(wide_qp):
     """The preparation kernel equals its plain body (prepare_check's
     contract), and the loop kernel's build and placement are the shape's;
     one chunk of it held to the plain chunk (`_chunk_held`)."""
-    from lsc_dr_planner_tpu_torch.ops import qp_prepare_cuda
-
     name, cfg, qp_inp, feas_tol = wide_qp
     build, rows, kinv, prep_build = WIDE[name][2:]
     got = qp.prepare(cfg, qp_inp)
@@ -846,9 +845,10 @@ def test_memory_build_on_a_full_batch():
 
 def test_cluster_launch_refusals():
     """The wrapper's library refuses a cluster size other than 2, 4, 8 (1:
-    the memory build) and agrees with `qp_cuda.cluster_plan` on a CTA's
-    bytes and with `memory_block_bytes` on a block's; a shape past the
-    cluster build's reach is refused by the plan, before any launch."""
+    the memory build, 0: the global build) and agrees with
+    `qp_cuda.cluster_plan` on a CTA's bytes, with `memory_block_bytes` on
+    a block's and with `global_block_bytes` on the global build's; a shape
+    past the cluster build's reach is planned on the global build."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     lib = qp_cuda.build()
@@ -865,5 +865,79 @@ def test_cluster_launch_refusals():
             assert lib.admm_smem_bytes(*shape, C, int(n3k)) == nbytes
             assert lib.admm_active_clusters(*shape, A, C, int(n3k)) > 0
             assert lib.admm_blocks_per_sm(*shape, C, int(n3k)) > 0
+    shape = (3, 640, 28, 6, 82, 2478)
     with pytest.raises(ValueError, match="reach"):
-        qp_cuda.launch_plan((3, 640, 28, 6, 82, 2478), 1024)
+        qp_cuda.cluster_plan(shape, 1024, lib.admm_smem_limit())
+    plan = qp_cuda.launch_plan(shape, 1024)
+    assert plan["build"] == qp_cuda.GLOBAL_BUILD and plan["C"] == 0, plan
+    assert plan["smem_bytes"] == qp_cuda.global_block_bytes(*shape) == lib.admm_smem_bytes(
+        *shape, 0, 0)
+    assert plan["ctas_per_sm"] == lib.admm_blocks_per_sm(*shape, 0, 0) >= 2
+
+
+def _random_qp_inputs(cfg, A, seed):
+    """QP inputs of A agents from a numpy seed, shaped as the pipeline's:
+    positions within 20 m of the origin, unit normals with masked slots,
+    LSC rows active where the slot is, the first segment's pinned points
+    inactive, world-sized bounds, a warm start near the agent, duals."""
+    rng = np.random.default_rng(seed)
+    dim, O, M, N = cfg.dim, cfg.n_obs, cfg.M, cfg.N
+    p0 = rng.uniform(-20, 20, (A, dim))
+    nrm = rng.standard_normal((A, O, M, dim))
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    mask = rng.random((A, O)) < 0.8
+    nrm *= mask[..., None, None]
+    active = np.broadcast_to(mask[..., None, None], (A, O, M, N)).copy()
+    active &= rng.random((A, O, M, N)) < 0.9
+    active[:, :, 0, :cfg.phi] = False
+    centre = p0[:, :, None, None]
+    arrays = dict(
+        p0=p0, v0=rng.uniform(-1, 1, (A, dim)), a0=rng.uniform(-2, 2, (A, dim)),
+        goal=p0 + rng.uniform(-3, 3, (A, dim)),
+        terminal_mask=(np.arange(M) >= rng.integers(1, M, A)[:, None]), lsc_normals=nrm,
+        lsc_rhs=rng.uniform(-2, 2, (A, O, M, N)), lsc_active=active,
+        vmax=rng.uniform(1, 3, (A, dim)), amax=rng.uniform(2, 5, (A, dim)),
+        lb=centre - rng.uniform(2, 6, (A, dim, M, N)),
+        ub=centre + rng.uniform(2, 6, (A, dim, M, N)),
+        comm_halfrange=rng.uniform(1, 2, A), x0=centre + rng.uniform(-1, 1, (A, dim, M, N)),
+        y0=0.1 * rng.standard_normal((A, qp.n_rows(cfg))))
+    return qp.QPInputs(**{k: torch.as_tensor(v, dtype=torch.bool if k == "lsc_active"
+                                              else torch.float32, device="cuda")
+                          for k, v in arrays.items()})
+
+
+def test_global_build_past_the_cluster_reach():
+    """A shape the cluster build refuses (3-D at M = 28 with 480 slots:
+    an agent's rows and Kinv past 8 CTAs' shared memory), on a few
+    agents of random QPs: the loop takes the global build, rows and Kinv
+    in global memory; one chunk held to the plain chunk (`_chunk_held`:
+    the float64 clause), the run to its exit bitwise its chain of chunks
+    and held to the float64 plain loop (`qp_check.whole_run_f64`)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    cfg = qp.QPConfig(dim=3, M=28, n=5, phi=3, n_obs=480, use_comm=True, stop_at_horizon=True,
+                      dt=0.2, control_input_weight=0.01, terminal_weight=1.0, rho=1.0,
+                      sigma=1e-6, alpha=1.6, max_iter=200, eps_abs=1e-3, rescue_iter=800)
+    feas_tol = 5e-3
+    li = qp.prepare(cfg, _random_qp_inputs(cfg, 5, seed=4)).loop
+    shape = _shape(cfg, li)
+    lib = qp_cuda.build()
+    assert shape == (3, 480, 28, 6, 82, 2478)
+    assert not qp_cuda.cluster_reach(shape, lib.admm_smem_limit())
+    assert qp_cuda.build_name(lib, *shape, 5) == qp_cuda.GLOBAL_BUILD
+    assert qp_cuda.placement(lib, *shape) == {"rows": "global", "kinv": "global"}
+    before = dict(qp_cuda.build_launches)
+    k = qp.run_loop(cfg, li, 8, feas_tol)
+    torch.cuda.synchronize()
+    assert qp_cuda.last_launch["build"] == qp_cuda.GLOBAL_BUILD and qp_cuda.last_launch["C"] == 0
+    assert qp_cuda.build_launches[qp_cuda.GLOBAL_BUILD] == before.get(qp_cuda.GLOBAL_BUILD, 0) + 1
+    _chunk_held(cfg, li, k, qp.admm_loop_plain(cfg, li, 8, feas_tol), feas_tol)
+    got = qp.run_loop(cfg, li, cfg.max_iter, feas_tol)
+    state = li
+    for _ in range(int(got[4]) // 8):
+        k = qp.run_loop(cfg, state, 8, feas_tol)
+        state = dataclasses.replace(state, xi=k[0], z=k[1], y=k[2])
+    for a, b in zip(got[:3], (state.xi, state.z, state.y)):
+        assert torch.equal(a, b)
+    rec = qp_check.whole_run_f64(cfg, li, got)
+    assert rec["agents_failed"] == 0, rec

@@ -31,7 +31,25 @@ LAYOUTS = {
     "no_comm": dict(planner_mode=PlannerMode.BVC, goal_mode=GoalMode.STATIC,
                     communication_range=-1.0),  # dim·K 60, no comm rows
     "3d_dk90": dict(world_dimension=3, planner_mode=PlannerMode.DLSC),  # dim·K 90, padded to 96
+    # dim·K 246 (31 tile rows): the global build, the tiles in the workspace
+    "3d_M28": dict(world_dimension=3, M=28),
 }
+
+
+def _global_min_layout():
+    """The layout (3-D, the shortest horizon M) whose QP is the smallest
+    that takes the global build."""
+    for M in range(17, 29):
+        cfg = _fleet_cfg(M)
+        ts = qp.torch_statics(cfg, torch.device("cuda"))
+        if qp_prepare_cuda.build_name(3, cfg.n_obs, M, cfg.N, ts["K"]) == \
+                qp_prepare_cuda.GLOBAL_BUILD:
+            return dict(world_dimension=3, M=M)
+    raise AssertionError("no horizon up to M = 28 takes the global build")
+
+
+def _fleet_cfg(M):
+    return workload.build_fleet(37, device="cuda", world_dimension=3, M=M)[1].qp_cfg
 
 
 def _fleet_qp(A, **overrides):
@@ -61,16 +79,20 @@ def cuda_dev():
 
 
 @pytest.fixture(scope="module",
-                params=["2d", "3d", "no_comm", "3d_dk90", "O9", "A1", "A133", "A8192"])
+                params=["2d", "3d", "no_comm", "3d_dk90", "O9", "A1", "A133", "A8192",
+                        "3d_M28", "global_min"])
 def case_qp(request, cuda_dev):
     """The QP of a fleet after 3 evolving steps: a ragged 2-D fleet (A=37),
     3-D (dim·K 84), comm rows off, DLSC 3-D (dim·K 90), 10 agents (O = 9
     slots), one agent of the 2-D fleet, 133 agents (one an SM of the
-    H100's 132, and one more), and the 1024-agent fleet's QP eight times
-    over (A = 8,192, mc_pod_bench's batch)."""
+    H100's 132, and one more), the 1024-agent fleet's QP eight times
+    over (A = 8,192, mc_pod_bench's batch), and the global build's: 3-D
+    at M = 28 (dim·K 246) and at the shortest horizon that takes it."""
     name = request.param
     if name in LAYOUTS:
         return _fleet_qp(37, **LAYOUTS[name])
+    if name == "global_min":
+        return _fleet_qp(37, **_global_min_layout())
     if name == "O9":
         return _fleet_qp(10)
     if name == "A133":
@@ -86,6 +108,8 @@ def test_kernel_matches_plain_body(case_qp):
     cfg, inp, _ = case_qp
     ts = qp.torch_statics(cfg, inp.p0.device)
     A, dk = inp.p0.shape[0], cfg.dim * ts["K"]
+    name = qp_prepare_cuda.build_name(cfg.dim, cfg.n_obs, cfg.M, cfg.N, ts["K"])
+    assert (name == qp_prepare_cuda.GLOBAL_BUILD) == (dk > 200), (name, dk)
     got = qp.prepare(cfg, inp)
     want = qp.prepare(cfg, inp, plain=True)
     rec = qp_check.prepare_agreement(cfg, inp, got, want)
@@ -102,7 +126,7 @@ def test_kernel_matches_plain_body(case_qp):
     assert got.loop.kernel_rows_marked() and got.loop.take(torch.tensor([0])).kernel_rows_marked()
 
 
-@pytest.mark.parametrize("layout", ["2d", "3d"])
+@pytest.mark.parametrize("layout", ["2d", "3d", "3d_M28"])
 def test_kinv_symmetric_and_an_indefinite_agent_alone(cuda_dev, layout):
     """Kinv is exactly symmetric. An agent whose KKT matrix is made
     indefinite (its 5th segment's terminal weight -1e5) gets info > 0
@@ -151,6 +175,24 @@ def test_cpu_tensors_and_large_dk_raise(cuda_dev):
         qp_prepare_cuda.prepare_cuda(cfg, qp.torch_statics(cfg, torch.device("cpu")), cpu,
                                      qp.prepare_scalars(cfg))
     assert qp_prepare_cuda.launches == before
+
+
+def test_workspace_choice_mirrors_the_library(cuda_dev):
+    """`qp_prepare_cuda.tiles_in_workspace` (pure Python, the CPU tests'
+    choice of the global build) agrees with the library at every 3-D
+    horizon from M = 10 to 30 and with 4 to 480 slots, and on the card's
+    opt-in limit; the global build is GLOBAL_BUILD."""
+    lib = qp_prepare_cuda.build()
+    for M in range(10, 31):
+        cfg = qp.QPConfig(dim=3, M=M, n=5, phi=3, n_obs=4, use_comm=True, stop_at_horizon=True,
+                          dt=0.2, control_input_weight=0.01, terminal_weight=1.0, rho=1.0,
+                          sigma=1e-6, alpha=1.6, max_iter=200, eps_abs=1e-3, rescue_iter=800)
+        K = qp.torch_statics(cfg, cuda_dev)["K"]
+        for O in (4, 36, 160, 480):
+            work = lib.qp_prepare_work_doubles(3, O, M, 6, K) > 0
+            assert work == qp_prepare_cuda.tiles_in_workspace(3, O, M, 6, K), (M, O, K)
+            assert (qp_prepare_cuda.build_name(3, O, M, 6, K) == qp_prepare_cuda.GLOBAL_BUILD) \
+                == work
 
 
 @pytest.mark.parametrize("A", [37, 72])
