@@ -601,16 +601,17 @@ class Builds:
         self.qp_prepare_cuda, self.stages, self.step_cuda = qp_prepare_cuda, stages, step_cuda
         self.hull_cuda, self.geometry, self.lsc, self.sfc_ops = hull_cuda, geometry, lsc, sfc
         self.lib = qp_cuda.build()
-        # the five builds (the register builds up to dim·K 96, chosen by the
-        # library from the shape; past them, or where the rows pass one
-        # block's shared memory, the memory build for a batch that fills
-        # the card twice over with two agents an SM, else the cluster build,
-        # and the global build for the shapes the cluster build cannot take:
-        # qp_cuda.loop_plan); "dk": the least and largest dim·K this run's
-        # checks and timings held each to
+        # the six builds (the register builds up to dim·K 96, chosen by the
+        # library from the shape: <128,30> to 60, the triple build's
+        # nine-warp width to 90 and its ten-warp width above; past them, or
+        # where the rows pass one block's shared memory, the memory build
+        # for a batch that fills the card twice over with two agents an SM,
+        # else the cluster build, and the global build for the shapes the
+        # cluster build cannot take: qp_cuda.loop_plan); "dk": the least and
+        # largest dim·K this run's checks and timings held each to
         self.rec = {name: {"dk": None, "launches": 0, "max_abs_err": 0.0, "calls_checked": 0,
                            "ms": None}
-                    for name in ("<128,30>", "<256,48>", qp_cuda.MEMORY_BUILD,
+                    for name in ("<128,30>", "<288,30>", "<320,32>", qp_cuda.MEMORY_BUILD,
                                  qp_cuda.CLUSTER_BUILD, qp_cuda.GLOBAL_BUILD)}
         self.sfc = {"launches": 0, "max_abs_err": 0, "calls_checked": 0, "lanes_checked": 0,
                     "ms": None}
@@ -840,10 +841,18 @@ class Builds:
                                                "active_clusters") if k in timing})
 
 
-# each ADMM build's kernel in ptxas's summary (`kernel_name`)
-ADMM_PTXAS = {"<128,30>": "admm_chunk_kernel<128,30,0>", "<256,48>": "admm_chunk_kernel<256,48,0>",
-              "<256,0>": "admm_chunk_kernel<256,0,0>", "<256,cluster>": "admm_cluster_kernel<256>",
-              "<256,0,global>": "admm_chunk_kernel<256,0,1>"}
+def admm_ptxas(qp_cuda, name):
+    """The kernel of ADMM build `name` in ptxas's summary (`kernel_name`):
+    the triple build's template holds its Kinv columns less those in
+    shared memory."""
+    S = qp_cuda.TRIPLE_SHARED_COLUMNS
+    return {"<128,30>": "admm_chunk_kernel<128,30,0>",
+            "<288,30>": f"admm_triple_kernel<9,{30 - S}>",
+            "<320,32>": f"admm_triple_kernel<10,{32 - S}>",
+            "<256,0>": "admm_chunk_kernel<256,0,0>", "<256,cluster>": "admm_cluster_kernel<256>",
+            "<256,0,global>": "admm_chunk_kernel<256,0,1>"}[name]
+
+
 PLAIN_ON_CUDA = ("hull_plain_on_cuda", "clsc_plain_on_cuda", "sfc_hull_plain_on_cuda",
                  "prepare_plain_on_cuda", "neighbor_plain_on_cuda", "front_plain_on_cuda",
                  "fused_plain_on_cuda", "goal_plain_on_cuda")
@@ -1288,11 +1297,12 @@ def kernels_ab_main():
     """For the checkout whose package is imported (the parent's or this
     tree's, for an A/B in one call: import the package from its tree
     before chip_smoke): its kernels built, then in the main path's layout
-    in 8b's (3-D), in 8f's (3-D past the narrow builds) and in 8h's (Bézier
-    degree 8), on one step's calls after WARMUP evolving steps, the device
-    ms of each kernel queued back to back: the ADMM loop
-    (`admm_timing.timed_call`, max_iter iterations) and the build it took,
-    in 8f and 8h also on the compacted rescue batch of its iterate
+    in 8b's (3-D), in 8e's (DLSC in 3-D), in 8f's (3-D past the narrow
+    builds) and in 8h's (Bézier degree 8), on one step's calls after
+    WARMUP evolving steps, the device ms of each kernel queued back to
+    back: the ADMM loop (`admm_timing.timed_call`, max_iter iterations)
+    and the build it took, in 8b, 8e, 8f and 8h also on the compacted
+    rescue batch of its iterate
     (`qp.rescue_batch`, rescue_iter iterations; the wrapper's launch
     record where the tree has one), the QP preparation kernel, the step's
     stage kernels, the fused CLSC kernel and the hull query on its hulls;
@@ -1302,7 +1312,8 @@ def kernels_ab_main():
     on scattered pairs of CLSC_AB_N points a segment in 2-D and 3-D
     (`clsc_scattered`), each held to the plain body element for element;
     in a tree with the loop's global build, that build on 8g's 480 slots
-    (`global_loop_timing`); and ptxas's record of the hull kernels and of
+    (`global_loop_timing`); the ADMM loop on the triple build's other
+    shapes (`triple_ab_cases`); and ptxas's record of the hull kernels and of
     the preparation's. One JSON line."""
     from lsc_dr_planner_tpu_torch import workload
     from lsc_dr_planner_tpu_torch.ops import (
@@ -1355,8 +1366,11 @@ def kernels_ab_main():
         li = qp.prepare(cfg, planner._step_impl(fleet, inp, defer_qp=True).qp_inp).loop
         out["8g_" + P8G_GLOBAL + "_loop"] = global_loop_timing(
             qp, qp_cuda, cfg, li, planner.feas_tol, dev, P8G_GLOBAL)
-    for tag, overrides in (("main", {}), ("8b", dict(world_dimension=3)), ("8f", P8F),
-                           ("8h", P8H)):
+    from lsc_dr_planner_tpu_torch.config import PlannerMode
+
+    for tag, overrides in (("main", {}), ("8b", dict(world_dimension=3)),
+                           ("8e", dict(world_dimension=3, planner_mode=PlannerMode.DLSC)),
+                           ("8f", P8F), ("8h", P8H)):
         planner, fleet, inp = main_path_state(workload, dev, **overrides)
         recs = stage_recorders(stages)
         with contextlib.ExitStack() as stack:
@@ -1373,7 +1387,7 @@ def kernels_ab_main():
         rec["admm"].update(getattr(qp_cuda, "last_launch", None) or {
             "smem_bytes": lib.admm_smem_bytes(*shape),
             "ctas_per_sm": lib.admm_blocks_per_sm(*shape)})
-        if tag in ("8f", "8h"):
+        if tag != "main":
             xi, z, y = qp.run_loop(cfg, li, cfg.max_iter, tol)[:3]
             sub = qp.rescue_batch(cfg, li, xi, z, y, tol)[2]
             rec["admm_rescue"] = admm_timing.timed_call(qp, cfg, sub, cfg.rescue_iter, tol,
@@ -1393,8 +1407,33 @@ def kernels_ab_main():
         rec["hull_closest_ms"] = queued_ms(
             lambda: hull_cuda.closest_point_origin_to_hull_cuda(x), KERNEL_REPS)
         out[tag] = rec
+    for tag, overrides, A in triple_ab_cases():
+        p, planner, fleet, inp = workload.build_fleet(A, device=dev, **overrides)
+        step = workload.make_evolve_step(p, planner, fleet)
+        for _ in range(WARMUP):
+            inp, _ = step(inp)
+        cfg, tol = planner.qp_cfg, planner.feas_tol
+        li = qp.prepare(cfg, planner._step_impl(fleet, inp, defer_qp=True).qp_inp).loop
+        qp_cuda.reset_launches()
+        rec = admm_timing.timed_call(qp, cfg, li, cfg.max_iter, tol, tag, 10)
+        rec.update(getattr(qp_cuda, "last_launch", None) or {}, A=A,
+                   dk=cfg.dim * admm_shape(qp, cfg, dev)[4], builds=sorted(qp_cuda.build_launches))
+        out[tag] = {"admm": rec}
     print("kernels ab", json.dumps(out))
     return out
+
+
+def triple_ab_cases():
+    """(tag, build_fleet overrides, agents) of `kernels_ab_main`'s other
+    shapes of the triple build's range (dim·K 61–96): 3-D at M = 11 (dim·K
+    93, the ten-warp width) at 8g's 64 agents and at 1,024, and 2-D at M =
+    12 (68) and in DLSC at M = 16 (96, the ten-warp width) at 1,024."""
+    from lsc_dr_planner_tpu_torch.config import PlannerMode
+
+    return (("8g_dk93", dict(world_dimension=3, M=11), 64),
+            ("dk93", dict(world_dimension=3, M=11), A_MAIN),
+            ("2d_dk68", dict(M=12), A_MAIN),
+            ("2d_dk96", dict(M=16, planner_mode=PlannerMode.DLSC), A_MAIN))
 
 
 # 8g's preparation at its other global-build shapes, on the first step's QP
@@ -2375,25 +2414,37 @@ def admm_sums_main(sources, seeds=MOVED_SEEDS):
         print("admm sums", json.dumps(rec), f"[{gpu}]", flush=True)
 
 
-def memory_build_main(sources, reps=5):
+def build_sources_main(sources, tags, reps=5):
     """The ADMM loop kernel built from each of `sources` (admm.cu files of
-    one Args layout: this tree's, variants of it), in the order given, on
-    the batches of the shapes past the register builds: 8f's and 8h's main
-    loop (A=1024, max_iter iterations, after WARMUP evolving steps) and
-    each one's compacted rescue (A = RESCUE, rescue_iter iterations, from
-    the main loop's iterate of the shipped build). Per source and batch:
-    the build that took it and the wrapper's launch record, one chunk's
-    largest |kernel − plain| and per-agent share of the tolerance, and the
-    loop timed (`admm_timing.timed_call`); ptxas's registers and spills.
-    One JSON line a source."""
+    one Args layout: this tree's, an older tree's, variants of it), in the
+    order given, on the batches of `tags` ("8b", "8e" and the tags of
+    `triple_ab_cases` for the triple build, "8f" and "8h" for the shapes
+    past the register builds): each main loop (A=1024 or the case's
+    agents, max_iter iterations, after WARMUP evolving steps) and its
+    compacted rescue (A = RESCUE,
+    rescue_iter iterations, from the main loop's iterate of the shipped
+    build). Per source and batch: the build that took it and the
+    wrapper's launch record, one chunk's largest |kernel − plain| and
+    per-agent share of the tolerance, and the loop timed
+    (`admm_timing.timed_call`); ptxas's registers and spills. One JSON
+    line a source."""
     from lsc_dr_planner_tpu_torch import workload
+    from lsc_dr_planner_tpu_torch.config import PlannerMode
     from lsc_dr_planner_tpu_torch.ops import qp, qp_cuda
 
     dev, gpu = torch.device("cuda", 0), gpu_line()
     build_all()
+    cases = {"8b": (dict(world_dimension=3), A_MAIN),
+             "8e": (dict(world_dimension=3, planner_mode=PlannerMode.DLSC), A_MAIN),
+             "8f": (P8F, A_MAIN), "8h": (P8H, A_MAIN)}
+    cases.update({tag: (over, A) for tag, over, A in triple_ab_cases()})
     batches = []
-    for tag, overrides in (("8f", P8F), ("8h", P8H)):
-        planner, fleet, inp = main_path_state(workload, dev, **overrides)
+    for tag in tags:
+        over, A = cases[tag]
+        p, planner, fleet, inp = workload.build_fleet(A, device=dev, **over)
+        step = workload.make_evolve_step(p, planner, fleet)
+        for _ in range(WARMUP):
+            inp, _ = step(inp)
         cfg, tol = planner.qp_cfg, planner.feas_tol
         li = qp.prepare(cfg, planner._step_impl(fleet, inp, defer_qp=True).qp_inp).loop
         xi, z, y = qp.run_loop(cfg, li, cfg.max_iter, tol)[:3]
@@ -2416,7 +2467,7 @@ def memory_build_main(sources, reps=5):
                          chunk_share=max(shares(a, b)[1] for a, b in zip(got[:3], want[:3])))
                 r.update(getattr(qp_cuda, "last_launch", {}))
                 rec["batches"][tag] = r
-        print("memory build", json.dumps(rec), f"[{gpu}]", flush=True)
+        print("build sources", json.dumps(rec), f"[{gpu}]", flush=True)
         out.append(rec)
     return out
 
@@ -3113,6 +3164,10 @@ def fused_mode(workload, qp, builds, dev, gpu, tag, overrides, steps=True,
         res["qp_split"] = qp_split(workload, dev, gpu, overrides, reps=10 if tag == "8b" else 4)
         assert res["qp_split"]["solve_under_sync_error_mode"] == "ok", res["qp_split"]
         assert res["qp_split"]["host_syncs_per_step"] == [0] * SYNC_COUNT_REPS, res["qp_split"]
+        ms = res["qp_split"]["ms"]
+        print(f"phase{tag} QP split", json.dumps({k: ms.get(k) for k in (
+            "assembly", "prepare", "main_loop", "rescue_batch", "rescue_loop", "finish",
+            "stage")}), f"[{gpu}]")
     if sfcs.n:
         res["sfc_hull_check"] = sfc_hull_check(sfc, builds, sfcs, f"phase{tag}")
         res["sfc_hull_timing"] = sfc_hull_timing(sfc, sfcs, l2_ns, gpu, f"phase{tag}")
@@ -3239,15 +3294,17 @@ def phase8h_query(workload, builds, dev, gpu, steps=P8H_QUERY_STEPS):
 
 
 def phase8g_qp_cases():
-    """(tag, build_fleet overrides, agents) of 8g's QPs: DLSC in 3-D at M =
-    12 (dim·K 108), 3-D at M = 16 (138), 3-D at M = 28 with 160 slots
+    """(tag, build_fleet overrides, agents) of 8g's QPs: 3-D at M = 11
+    (dim·K 93: the triple build's ten-warp width), DLSC in 3-D at M =
+    12 (108), 3-D at M = 16 (138), 3-D at M = 28 with 160 slots
     (246: the KKT tiles, Kinv and the rows past shared memory), and with
     480 slots (246: an agent's rows and Kinv past 8 CTAs' shared memory,
     which the cluster build refuses: the loop's global build; 481 agents,
     the fewest that give 480 slots, each slot another agent)."""
     from lsc_dr_planner_tpu_torch.config import PlannerMode
 
-    return (("dk108", dict(world_dimension=3, M=12, planner_mode=PlannerMode.DLSC), 64),
+    return ((P8G_TRIPLE10, dict(world_dimension=3, M=11), 64),
+            ("dk108", dict(world_dimension=3, M=12, planner_mode=PlannerMode.DLSC), 64),
             ("dk138", dict(world_dimension=3, M=16), 64),
             ("dk246_O160", dict(world_dimension=3, M=28, communication_range=30.0,
                                 max_obstacles=160), 168),
@@ -3256,6 +3313,7 @@ def phase8g_qp_cases():
 
 
 P8G_GLOBAL = "dk246_O480"  # 8g's QP past the cluster build's reach
+P8G_TRIPLE10 = "dk93"  # 8g's QP on the triple build's ten-warp width
 GLOBAL_LOOP_REPS = 3  # the loop's global build: calls timed (~0.2-0.5 s each)
 
 
@@ -3344,6 +3402,11 @@ def phase8g(workload, qp, builds, dev, gpu, srec):
         li = qp.prepare(cfg, planner._step_impl(fleet, inp, defer_qp=True).qp_inp).loop
         rec["check"] = loop_check(qp, cfg, li, feas_tol, f"phase8g {tag}", float64_clause=True)
         builds.note_check(cfg, rec["check"])
+        if tag == P8G_TRIPLE10:  # the triple build's ten-warp width timed
+            t = rec["timing"] = admm_timing.timed_call(qp, cfg, li, cfg.max_iter, feas_tol, tag, 5)
+            t.update(qp_cuda.last_launch)
+            builds.note_timing(cfg, t, cuda_ms(
+                lambda: qp.admm_loop_plain(cfg, li, cfg.max_iter, feas_tol), 1))
         if tag == P8G_GLOBAL:  # the loop's global build timed
             assert rec["admm_build"] == qp_cuda.GLOBAL_BUILD, rec
             t = rec["timing"] = global_loop_timing(qp, qp_cuda, cfg, li, feas_tol, dev, tag)
@@ -3363,8 +3426,8 @@ def phase8g(workload, qp, builds, dev, gpu, srec):
                                             if k not in ("check", "prepare_check")}),
               f"[{gpu}]")
     for tag, rec in out["qp"].items():  # past the register builds: the cluster build
-        assert rec["admm_build"] == (qp_cuda.GLOBAL_BUILD if tag == P8G_GLOBAL
-                                     else qp_cuda.CLUSTER_BUILD), rec
+        want = {P8G_GLOBAL: qp_cuda.GLOBAL_BUILD, P8G_TRIPLE10: "<320,32>"}
+        assert rec["admm_build"] == want.get(tag, qp_cuda.CLUSTER_BUILD), rec
     assert out["qp"]["dk246_O160"]["admm_plan"]["C"] == 8, out["qp"]["dk246_O160"]
 
     for O in P8G_SLOTS:
@@ -4568,7 +4631,7 @@ def main():
             "ms": r["ms"], "plain_ms": r["plain_ms"], "iters": r["iters"], "A": r["A"],
             "R": r["R"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "bound_share": r["bound_share"], "calls_checked": r["calls_checked"],
-            "ptxas": kernels_ptxas.get(ADMM_PTXAS[name]),
+            "ptxas": kernels_ptxas.get(admm_ptxas(qp_cuda, name)),
             # past the register builds: the cluster size (0: the global
             # build), shared bytes, blocks or CTAs an SM; the global build's
             # device ms a call (`global_loop_timing`: the profiler's mean ms

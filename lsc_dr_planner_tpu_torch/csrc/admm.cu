@@ -35,7 +35,7 @@
 // on the H100 on one A=37 batch, this halved the kernel's per-chunk distance
 // to the float64 plain loop, to the float32 plain loop's own, for 4.5% of time.
 //
-// The layout. Five builds, chosen from the shape (admm_threads,
+// The layout. Six builds, chosen from the shape (admm_threads,
 // admm_columns) and, past the register builds, from the batch too
 // (qp_cuda.loop_plan, admm_launch's C), never from a failure:
 //   <128, 30>  dim·K ≤ 60: 2-D, 56 for LSC (K = 28, the terminal derivatives
@@ -43,10 +43,12 @@
 //              block, Kinv in registers, thread 2i+h holding half h of row i;
 //              the Kinv loop stops at the row's own columns, so dim·K 56 runs
 //              the additions of a 28-column build in the same order;
-//   <256, 48>  dim·K ≤ 96: 3-D (84 for LSC, 90 for the other modes), 256
-//              threads with up to 48 Kinv registers each; __launch_bounds__
-//              asks for three blocks per SM, which caps a thread at 85
-//              registers (the 128-thread build asks for eight: 64);
+//   <288, 30>, <320, 32>  the triple build, dim·K 61–96: 3-D (84 for LSC,
+//              90 for the other modes) and 2-D from M = 11; one agent a
+//              block of nine warps up to dim·K 90 (four blocks an SM: 56
+//              registers a thread) and ten above (three blocks), each Kinv
+//              row, adjoint row and control point on three threads
+//              (admm_triple_kernel);
 //   <256, 0>   the memory build (C = 1): any other shape whose agent, rows
 //              and Kinv in shared memory, fits two blocks an SM, for a batch
 //              that fills every SM twice over (A ≥ 264: Bézier degree 8's
@@ -132,6 +134,33 @@
 // 8), and a CTA's stencil tables 16-bit indices: qp_cuda.loop_plan sends a
 // shape past either to <256, 0, global>.
 //
+// The triple build. What held back <256,48>, the build it replaced (PERF.md
+// §6, the triple build's step 0: `clock64` marks at 8b, dim·K 84, A =
+// 1,024, on an NVIDIA H100 80GB HBM3 at 700 W): three blocks an SM (80
+// registers a thread), so 1,024 agents ran in three rounds; an iteration
+// ~24.0 k cycles, the Kinv product its shortest phase (2.1 k), the adjoint
+// points (5.7 k), the adjoint rows (4.5 k), the control points (3.5 k) and
+// the rows (6.8 k) longer, each waiting on L1 and L2: with the carveout at
+// all shared memory the SM kept 28 KB of L1 for the tables all its blocks
+// read.
+// Here: nine warps a block and four blocks an SM (56 registers: 528
+// agents resident, 1,024 in two rounds); each Kinv row, adjoint row and
+// control point on a triple of lanes (chains of ⌈dk/3⌉, ⌈MN/3⌉, ⌈K/3⌉
+// terms), the adjoint points a thread a point (split over a triple they
+// took two rounds and ran slower); 8 of a thread's 30 Kinv columns in
+// shared memory, and each phase's pointers and indices derived afresh
+// (TripleView), for 0 B spilled (a Kinv column spilled to local memory is
+// re-read from L2 every iteration); the division y / ρ through a double
+// reciprocal, the same bits as the float division without its slow-path
+// call; the state loaded by cp.async; and a carveout of the blocks' shared
+// memory alone, which leaves 60 KB of L1. 8b's main loop 8.45–8.64 →
+// 6.82–6.87 ms; an iteration takes ~25.0 k cycles at four blocks an SM
+// and 15.0 k alone on its SM: what the blocks contend for (L1, the FP64
+// pipe, the shared-memory ports) is untraced (PERF.md §6, §7). The
+// ten-warp width (dim·K 91–96, three blocks an SM) pads rhs and ξ̃ in
+// shared memory by part, where the three parts' doubles would share a bank
+// (see TripleView::xpad).
+//
 // Every phase spreads over the block: in the register builds the Kinv matvec
 // and the N3k adjoint product run two threads per output, combined with one
 // warp shuffle; the control points and the adjoint accumulator one thread per
@@ -186,6 +215,8 @@ namespace {
 
 constexpr int kWidth = 3;  // stencil nonzeros per static row (qp.STENCIL_WIDTH)
 constexpr int kMaxRegDk = 96;  // the largest dim·K of the register builds
+constexpr int kTripleDk = 90;  // the largest dim·K of the triple build's 9-warp width
+constexpr int kTripleShared = 8;  // a triple thread's Kinv columns in shared memory
 constexpr int kGroups = 8;  // the cluster build's fixed row groups (qp_cuda.GROUPS)
 constexpr int kClusterThreads = 256;  // threads of a CTA of the cluster build
 constexpr unsigned kFull = 0xffffffffu;
@@ -350,12 +381,13 @@ __device__ void control_points(const Dims& D, const T* x, const float* __restric
 
 // Aᵀw for the row cotangent w = ρz − y (DUAL: w = y). The LSC rows through
 // the normals and the static rows through the transposed stencils go into one
-// control-point accumulator VA [dim*MN]; one N3k product then gives ξ-space
-// (adjoint_row). Ends with a barrier.
-template <int NT, bool DUAL>
+// control-point accumulator VA [dim*MN], each point rounded to float32 once
+// (a double VA keeps the rounded value: the triple build's); one N3k product
+// then gives ξ-space (adjoint_row, adjoint_row3). Ends with a barrier.
+template <int NT, bool DUAL, class TV>
 __device__ __forceinline__ void adjoint_points(const Dims& D, const Args& a, const float* Z,
                                                const float* Y, const float* NRM, const int* MOF,
-                                               float* VA) {
+                                               TV* VA) {
   const float* Zs = Z + D.R_lsc;
   const float* Ys = Y + D.R_lsc;
   for (int i = threadIdx.x; i < D.dim * D.MN; i += NT) {
@@ -372,7 +404,7 @@ __device__ __forceinline__ void adjoint_points(const Dims& D, const Args& a, con
       const float w = DUAL ? Ys[s] : __ldg(a.rho_stat + s) * Zs[s] - Ys[s];
       acc += (double)__ldg(a.adj_coef + e) * (double)w;
     }
-    VA[i] = (float)acc;
+    VA[i] = (TV)(float)acc;
   }
   __syncthreads();
 }
@@ -485,7 +517,7 @@ __device__ void cost_product(const Dims& D, const float* pn_g, const float* XI, 
 // its own test done for the whole fleet too, so that no later launch resumes
 // the loop.
 template <int NT, int KC, bool GLOBAL = false>
-__global__ void __launch_bounds__(NT, NT == 128 ? 8 : KC ? 3 : 2)
+__global__ void __launch_bounds__(NT, NT == 128 ? 8 : 2)
 admm_chunk_kernel(Args a, int ck) {
   if (ck > 0 && a.done_count[ck - 1] == a.A) {
     if (threadIdx.x == 0 && blockIdx.x == 0) a.done_count[ck] = a.A;
@@ -677,6 +709,333 @@ admm_chunk_kernel(Args a, int ck) {
       a.y[g] = Y[r];
       a.ax[g] = AX[r];
     }
+  }
+  if (t == 0) exit_gates(a, v, agent, ck);
+}
+
+// ---- the triple build (dim·K 61–96) ------------------------------------
+
+// Lanes 0..29 of each warp of the triple build are ten triples: triple g =
+// 10·warp + lane / 3 takes one output at a time (a Kinv row, an adjoint row,
+// a control point), part p = lane % 3 a third of its terms; lanes 30 and 31
+// take none (g = kIdle). combine3 adds the triple's three partials in one
+// fixed order, (p0 + p1) + p2, on all three lanes; every lane of the warp
+// calls it.
+constexpr int kIdle = 1 << 20;
+
+__device__ __forceinline__ double combine3(double v, int base) {
+  const double v0 = __shfl_sync(kFull, v, base);
+  const double v1 = __shfl_sync(kFull, v, base + 1);
+  const double v2 = __shfl_sync(kFull, v, base + 2);
+  return (v0 + v1) + v2;
+}
+
+// A double within an ulp of 1/b (b > 0, normal): the hardware's
+// approximation and two Newton steps.
+__device__ __forceinline__ double recip(float b) {
+  const double bd = b;
+  double r;
+  asm("rcp.approx.ftz.f64 %0, %1;" : "=d"(r) : "d"(bd));
+  r = fma(r, fma(-bd, r, 1.), r);
+  return fma(r, fma(-bd, r, 1.), r);
+}
+
+// update_row with y / rho as (float)(y · rinv), rinv = recip(rho): the same
+// bits as the float division, without its slow-path call (the call's saved
+// registers cost the triple build its registers). A float quotient that is
+// not the midpoint of two floats lies at least 2^-49 (relative) from one,
+// and y · rinv is within 1.5·2^-52 of y / rho, so both round to the same
+// float; a midpoint quotient needs rho a power of two, whose rinv is exact.
+__device__ __forceinline__ void update_row_rcp(float zt, float& z, float& y, float& ax,
+                                               float lo, float hi, float rho, double rinv,
+                                               float alpha, float beta) {
+  const float zmix = alpha * zt + beta * z;
+  const float zn = fminf(fmaxf(zmix + (float)((double)y * rinv), lo), hi);
+  y = y + rho * (zmix - zn);
+  z = zn;
+  ax = alpha * zt + beta * ax;
+}
+
+// The shared memory of a block of the triple build of W warps, in floats:
+// doubles VD [dim*MN] (rhs in its first dk; the exit tests' reductions
+// RED), XTD [dk] (ξ̃; the exit tests' Aᵀy and P·ξ as floats), VAD
+// [dim*MN], the ten-warp width padded (TripleView::xpad): VD [dim*MN + 2],
+// XTD [dim*(K + 3)]; floats NRM [O*M*dim], Z, Y, AX, LN [R], UN [R_stat],
+// XI, XIP, QN [dk]; MOF [MN] (int); KIS [kTripleShared * 30W] (the Kinv
+// columns past a thread's registers). Mirrored by qp_cuda.triple_block_bytes.
+__host__ __device__ inline size_t triple_smem_floats(const Dims& D, int W) {
+  const size_t pad = W == 10 ? 2 + 3 * (size_t)D.dim : 0;
+  return 2 * (2 * (size_t)D.dim * D.MN + D.dk + pad) + (size_t)D.O * D.M * D.dim +
+         4 * (size_t)D.R + D.R_stat + 3 * (size_t)D.dk + D.MN +
+         (size_t)kTripleShared * 30 * W;
+}
+
+// Output ki of Aᵀw from VAD in double, on all three lanes of triple ki (part
+// p over its third of the control points); 0 beyond dk.
+__device__ __forceinline__ double adjoint_row3(const Dims& D, const Args& a, const double* VAD,
+                                               int ki, int p, int base) {
+  double acc = 0.;
+  if (ki < D.dk) {
+    const int d = ki / D.K, k = ki - d * D.K;
+    const int M3 = (D.MN + 2) / 3, lo = p * M3, hi = min(D.MN, lo + M3);
+    const double* va = VAD + d * D.MN;
+    for (int mn = lo; mn < hi; ++mn) acc += (double)__ldg(a.N3kT + mn * D.K + k) * va[mn];
+  }
+  return combine3(acc, base);
+}
+
+// VD[d*MN + mn] = Σ_k x[d*K + k]·N3k[k, mn] in double (x float: the warm
+// start; double: ξ̃): a triple a point, part p over its third of k, in
+// rounds of G points. PAD: x laid out as TripleView::xpad says.
+template <int G, bool PAD, class T>
+__device__ __forceinline__ void points3(const Dims& D, const T* x, const float* N3k,
+                                        double* VD, int g, int p, int base) {
+  const int n = D.dim * D.MN, K3 = (D.K + 2) / 3, k0 = p * K3, k1 = min(D.K, k0 + K3);
+  for (int i0 = 0; i0 < n; i0 += G) {
+    const int i = i0 + g;
+    double acc = 0.;
+    if (i < n) {
+      const int d = i / D.MN, mn = i - d * D.MN;
+      const T* xd = PAD ? x + d * (D.K + 3) + p : x + d * D.K;
+      for (int k = k0; k < k1; ++k) acc += (double)xd[k] * (double)__ldg(N3k + k * D.MN + mn);
+    }
+    acc = combine3(acc, base);
+    if (p == 0 && i < n) VD[i] = acc;
+  }
+}
+
+// A value the compiler must take as new here: what is derived from it is
+// computed again, not held in a register from one phase to the next.
+__device__ __forceinline__ int fresh(int v) {
+  asm volatile("" : "+r"(v));
+  return v;
+}
+
+// The triple build's view of its block, derived afresh in each phase (its
+// registers are the Kinv columns' and a phase's own): the shape, the shared
+// arrays, and the thread's triple g, part p, the triple's first lane base.
+template <int W>
+struct TripleView {
+  Dims D;
+  double *VD, *XTD, *VAD;
+  float *NRM, *Z, *Y, *AX, *LN, *UN, *XI, *XIP, *QN, *KIS;
+  int* MOF;
+  int t, g, p, base;
+
+  __device__ __forceinline__ TripleView(const Args& a, float* smem) {
+    D = make_dims(fresh(a.dim), fresh(a.O), fresh(a.M), fresh(a.N), fresh(a.K),
+                  fresh(a.R_stat));
+    t = fresh(threadIdx.x);
+    const int lane = t & 31;
+    p = lane < 30 ? lane % 3 : 0;
+    g = lane < 30 ? (t >> 5) * 10 + lane / 3 : kIdle;
+    base = lane < 30 ? lane - p : 30;
+    VD = reinterpret_cast<double*>(smem);
+    XTD = VD + D.dim * D.MN + (W == 10 ? 2 : 0);
+    VAD = XTD + (W == 10 ? D.dim * (D.K + 3) : D.dk);
+    NRM = reinterpret_cast<float*>(VAD + D.dim * D.MN);
+    Z = NRM + D.O * D.M * D.dim;
+    Y = Z + D.R;
+    AX = Y + D.R;
+    LN = AX + D.R;
+    UN = LN + D.R;
+    XI = UN + D.R_stat;
+    XIP = XI + D.dk;
+    QN = XIP + D.dk;
+    MOF = reinterpret_cast<int*>(QN + D.dk);
+    KIS = reinterpret_cast<float*>(MOF + D.MN) + (t >> 5) * 30 + lane;
+  }
+  // Kinv row g's columns [c0, c0 + ncols) of this thread, and the first of
+  // them in the agent's Kinv
+  __device__ __forceinline__ int c0() const { return p * ((D.dk + 2) / 3); }
+  __device__ __forceinline__ int ncols() const {
+    return g < D.dk ? max(0, min((D.dk + 2) / 3, D.dk - c0())) : 0;
+  }
+  __device__ __forceinline__ const float* kinv(const Args& a) const {
+    return a.Kinv + ((size_t)blockIdx.x * D.dk + (g < D.dk ? g : 0)) * D.dk + c0();
+  }
+  // The ten-warp width's padding (PAD in admm_triple_kernel): where a
+  // triple's three parts read doubles 16·8·q bytes apart, its lanes wait
+  // on one bank three times over (2-D at M = 16: ⌈dk/3⌉ = 32, ⌈K/3⌉ = 16).
+  // rhs's thirds lie one double apart where ⌈dk/3⌉ is a multiple of 8
+  // (rhs entry j at j + shift()·(its third)), ξ̃'s at xpad: each dim's K
+  // entries, then 3 of padding, each third shifted by one double more.
+  __device__ __forceinline__ int shift() const { return (((D.dk + 2) / 3) & 7) == 0; }
+  __device__ __forceinline__ int rhs_at(int j) const {
+    const int third = (D.dk + 2) / 3;
+    return j + shift() * ((j >= third) + (j >= 2 * third));
+  }
+  __device__ __forceinline__ int xpad(int j) const {
+    const int d = (j >= D.K) + (j >= 2 * D.K), k = j - d * D.K, k3 = (D.K + 2) / 3;
+    return d * (D.K + 3) + k + (k >= k3) + (k >= 2 * k3);
+  }
+};
+
+// One chunk of every agent's loop at dim·K 61–96, one agent a block of W
+// warps (W = 9 up to dim·K 90, four blocks an SM; 10 above, three), the rows
+// in shared memory as in admm_chunk_kernel. Triple g holds its third of
+// Kinv row g (⌈dk/3⌉ ≤ KC + KS columns: KC in registers, KS in KIS); the
+// Kinv product, the adjoint rows and the control points run a triple an
+// output (see combine3), the adjoint points a thread a point
+// (adjoint_points). Each phase takes its view of the block afresh
+// (TripleView), so that the registers the Kinv columns leave suffice
+// without spilling. The ten-warp width pads rhs and ξ̃ by part (PAD: 2-D at
+// M = 16, A = 1,024, ran 13.0 ms unpadded against <256,48>'s 11.9 on an
+// NVIDIA H100 80GB HBM3 at 700 W; the padding's index arithmetic cost the
+// nine-warp width 1–5% there: PERF.md §6). Launch ck as in
+// admm_chunk_kernel.
+template <int W, int KC>
+__global__ void __launch_bounds__(32 * W, W <= 9 ? 4 : 3)
+admm_triple_kernel(Args a, int ck) {
+  constexpr int NT = 32 * W, G = 10 * W, KS = kTripleShared;
+  constexpr bool PAD = W == 10;
+  if (ck > 0 && a.done_count[ck - 1] == a.A) {
+    if (threadIdx.x == 0 && blockIdx.x == 0) a.done_count[ck] = a.A;
+    return;
+  }
+  extern __shared__ __align__(16) float smem[];
+  {
+    const TripleView<W> s(a, smem);
+    const Dims& D = s.D;
+    const size_t agent = blockIdx.x;
+    const int t = s.t;
+    const float* xi_in = ck == 0 ? a.xi0 : a.xi;
+    const float* z_in = ck == 0 ? a.z0 : a.z;
+    const float* y_in = ck == 0 ? a.y0 : a.y;
+    // the agent's state and rows, every copy in flight at once (cp.async)
+    const float* nrm_g = a.normals + agent * D.O * D.M * D.dim;
+    for (int i = t; i < D.O * D.M * D.dim; i += NT) copy_async(s.NRM + i, nrm_g + i);
+    const size_t g0 = agent * D.R;
+    for (int r = t; r < D.R; r += NT) {
+      copy_async(s.Z + r, z_in + g0 + r);
+      copy_async(s.Y + r, y_in + g0 + r);
+      copy_async(s.LN + r, a.ln + g0 + r);
+      if (ck > 0) copy_async(s.AX + r, a.ax + g0 + r);
+    }
+    for (int i = t; i < D.R_stat; i += NT) copy_async(s.UN + i, a.un + g0 + D.R_lsc + i);
+    for (int j = t; j < D.dk; j += NT) {
+      copy_async(s.XI + j, xi_in + agent * D.dk + j);
+      copy_async(s.XIP + j, xi_in + agent * D.dk + j);
+      copy_async(s.QN + j, a.qn + agent * D.dk + j);
+    }
+    if ((t & 31) < 30) {
+      const int ncols = s.ncols();
+      const float* kr = s.kinv(a);
+      for (int j = 0; j < KS; ++j) {
+        if (KC + j < ncols)
+          copy_async(s.KIS + j * 30 * W, kr + KC + j);
+        else
+          s.KIS[j * 30 * W] = 0.f;
+      }
+    }
+    for (int mn = t; mn < D.MN; mn += NT) s.MOF[mn] = mn / D.N;
+    copy_async_wait();
+  }
+  __syncthreads();
+  if (ck == 0) {  // A·xi of the warm start
+    {
+      const TripleView<W> s(a, smem);
+      points3<G, false>(s.D, s.XI, a.N3k, s.VD, s.g, s.p, s.base);
+    }
+    __syncthreads();
+    const TripleView<W> s(a, smem);
+    for_lsc_rows<NT>(s.D, s.D.R_lsc, [&](int r, int o, int mn) {
+      s.AX[r] = lsc_row(s.D, s.NRM, s.MOF, s.VD, o, mn);
+    });
+    for (int i = s.t; i < s.D.R_stat; i += NT) s.AX[s.D.R_lsc + i] = stat_row(a, s.VD, i);
+    __syncthreads();
+  }
+  // Kinv row g, the first KC of its columns (the next KS are in KIS)
+  float kin[KC];
+  {
+    const TripleView<W> s(a, smem);
+    const int ncols = s.ncols();
+    const float* kr = s.kinv(a);
+#pragma unroll
+    for (int c = 0; c < KC; ++c) kin[c] = c < ncols ? kr[c] : 0.f;
+  }
+
+  for (int it = 0; it < a.chunk; ++it) {
+    {  // rhs = σξ − q + Aᵀ(ρz − y), in double: q and Aᵀ(ρz − y) cancel
+      const TripleView<W> s(a, smem);
+      adjoint_points<NT, false>(s.D, a, s.Z, s.Y, s.NRM, s.MOF, s.VAD);
+    }
+    {
+      const TripleView<W> s(a, smem);
+      const double gr = adjoint_row3(s.D, a, s.VAD, s.g, s.p, s.base);
+      if (s.p == 0 && s.g < s.D.dk)
+        s.VD[PAD ? s.rhs_at(s.g) : s.g] =
+            ((double)a.sigma * s.XI[s.g] - (double)s.QN[s.g]) + gr;
+    }
+    __syncthreads();
+    {  // ξ̃ = Kinv·rhs, in double (rhs in VD)
+      const TripleView<W> s(a, smem);
+      const int c0 = s.c0() + (PAD ? s.p * s.shift() : 0), ncols = s.ncols();
+      double acc = 0.;
+#pragma unroll
+      for (int c = 0; c < KC; ++c)
+        if (c < ncols) acc = fma(to_double_here(kin[c]), s.VD[c0 + c], acc);
+      for (int j = 0; j < KS; ++j)
+        if (KC + j < ncols) acc = fma((double)s.KIS[j * 30 * W], s.VD[c0 + KC + j], acc);
+      acc = combine3(acc, s.base);
+      if (s.p == 0 && s.g < s.D.dk) s.XTD[PAD ? s.xpad(s.g) : s.g] = acc;
+    }
+    __syncthreads();
+    {  // control points of ξ̃; ξ ← αξ̃ + (1 − α)ξ
+      const TripleView<W> s(a, smem);
+      points3<G, PAD>(s.D, s.XTD, a.N3k, s.VD, s.g, s.p, s.base);
+      for (int j = s.t; j < s.D.dk; j += NT)
+        s.XI[j] = a.alpha * (float)s.XTD[PAD ? s.xpad(j) : j] + a.one_minus_alpha * s.XI[j];
+    }
+    __syncthreads();
+    {  // z̃ = A·ξ̃, over-relaxation, projection onto [l, u], dual update
+      const TripleView<W> s(a, smem);
+      const float alpha = a.alpha, beta = a.one_minus_alpha;
+      const double rinv_lsc = recip(a.rho_lsc);
+      for_lsc_rows<NT>(s.D, s.D.R_lsc, [&](int r, int o, int mn) {
+        update_row_rcp(lsc_row(s.D, s.NRM, s.MOF, s.VD, o, mn), s.Z[r], s.Y[r], s.AX[r],
+                       s.LN[r], INFINITY, a.rho_lsc, rinv_lsc, alpha, beta);
+      });
+      for (int i = s.t; i < s.D.R_stat; i += NT) {
+        const int r = s.D.R_lsc + i;
+        const float rho = __ldg(a.rho_stat + i);
+        update_row_rcp(stat_row(a, s.VD, i), s.Z[r], s.Y[r], s.AX[r], s.LN[r], s.UN[i], rho,
+                       recip(rho), alpha, beta);
+      }
+    }
+    __syncthreads();
+  }
+
+  // ---- exit tests on the actual iterate ----
+  const TripleView<W> s(a, smem);
+  const Dims& D = s.D;
+  const int t = s.t;
+  const size_t agent = blockIdx.x;
+  float* RED = reinterpret_cast<float*>(s.VD);  // the reductions
+  float* RHS = reinterpret_cast<float*>(s.XTD);  // Aᵀy and P·ξ
+  float* XT = RHS + D.dk;
+  const float* scale_g = a.scale + agent * D.R;
+  float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int r = t; r < D.R; r += NT) {
+    const float axr = s.AX[r];
+    const float hi = r < D.R_lsc ? INFINITY : s.UN[r - D.R_lsc];
+    const float vr = fmaxf(fmaxf(s.LN[r] - axr, axr - hi), 0.f);
+    v[0] = fmaxf(v[0], vr / scale_g[r]);
+  }
+  adjoint_points<NT, true>(D, a, s.Z, s.Y, s.NRM, s.MOF, s.VAD);
+  const float aty = (float)adjoint_row3(D, a, s.VAD, s.g, s.p, s.base);  // Aᵀy
+  if (s.p == 0 && s.g < D.dk) RHS[s.g] = aty;
+  cost_product<NT>(D, a.Pn + agent * D.K * D.K, s.XI, XT);
+  __syncthreads();
+  dual_terms<NT>(D, XT, RHS, s.QN, s.XI, s.XIP, v);
+  block_reduce8<NT>(v, RED);
+
+  for (int j = t; j < D.dk; j += NT) a.xi[agent * D.dk + j] = s.XI[j];
+  for (int r = t; r < D.R; r += NT) {
+    const size_t gi = agent * D.R + r;
+    a.z[gi] = s.Z[r];
+    a.y[gi] = s.Y[r];
+    a.ax[gi] = s.AX[r];
   }
   if (t == 0) exit_gates(a, v, agent, ck);
 }
@@ -1268,38 +1627,72 @@ admm_cluster_kernel(Args a, int ck, int C, int n3k) {
   cl.sync();  // no CTA leaves while CTA 0 may still read its shared memory
 }
 
-template <int NT, int KC, bool GLOBAL = false>
+// The one-block builds' kernels: the chunk kernel, its threads and its launch.
+template <int NT, int KC, bool GLOBAL>
+struct OneBlock {
+  static constexpr auto kern = admm_chunk_kernel<NT, KC, GLOBAL>;
+  static constexpr int threads = NT;
+  static constexpr int blocks = 0;  // the carveout: all shared
+  static void launch(const Args& a, int ck, int A, size_t smem, cudaStream_t stream) {
+    admm_chunk_kernel<NT, KC, GLOBAL><<<A, NT, smem, stream>>>(a, ck);
+  }
+};
+template <int W, int KC>
+struct Triple {
+  static constexpr auto kern = admm_triple_kernel<W, KC>;
+  static constexpr int threads = 32 * W;
+  static constexpr int blocks = W <= 9 ? 4 : 3;  // __launch_bounds__'s
+  static void launch(const Args& a, int ck, int A, size_t smem, cudaStream_t stream) {
+    admm_triple_kernel<W, KC><<<A, 32 * W, smem, stream>>>(a, ck);
+  }
+};
+
+// The kernel's attributes for blocks of `smem` bytes. The carveout: all of
+// the SM's shared memory for the one-block builds; for the triple build the
+// shared memory of the blocks it holds an SM (B::blocks, each with 1 KB
+// reserved) and the rest of the SM's 256 KB as L1, which holds the stencil
+// tables and N3k all its blocks read (the parent's 3-D build, at 28 KB of
+// L1, spent 13–22% of its time more than with 124 KB: PERF.md §6).
+template <class B>
 cudaError_t prepare_kernel(size_t smem) {
-  const auto kern = admm_chunk_kernel<NT, KC, GLOBAL>;
+  const auto kern = B::kern;
   cudaError_t err = cudaSuccess;
   if (smem > 48 * 1024)
     err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int pct = (int)cudaSharedmemCarveoutMaxShared;
+  if (B::blocks > 0 && err == cudaSuccess) {
+    int dev = 0, per_sm = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+    const size_t need = (size_t)B::blocks * (smem + 1024);
+    pct = (int)((100 * need + per_sm - 1) / per_sm);
+    pct = pct < 100 ? pct : 100;
+  }
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
-                               (int)cudaSharedmemCarveoutMaxShared);
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout, pct);
   return err;
 }
 
-template <int NT, int KC, bool GLOBAL = false>
+template <class B>
 int launch_all(const Args& a, int A, size_t smem, cudaStream_t stream) {
-  cudaError_t err = prepare_kernel<NT, KC, GLOBAL>(smem);
+  cudaError_t err = prepare_kernel<B>(smem);
   if (err != cudaSuccess) return (int)err;
   const int n_chunks = admm_n_chunks(a.max_iter, a.chunk);
   for (int ck = 0; ck < n_chunks; ++ck) {
-    admm_chunk_kernel<NT, KC, GLOBAL><<<A, NT, smem, stream>>>(a, ck);
+    B::launch(a, ck, A, smem, stream);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   return 0;
 }
 
-template <int NT, int KC, bool GLOBAL = false>
+template <class B>
 int blocks_per_sm(size_t smem) {
-  cudaError_t err = prepare_kernel<NT, KC, GLOBAL>(smem);
+  cudaError_t err = prepare_kernel<B>(smem);
   int n = 0;
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, admm_chunk_kernel<NT, KC, GLOBAL>,
-                                                        NT, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, B::kern, B::threads, smem);
   return err == cudaSuccess ? n : -(int)err;
 }
 
@@ -1323,11 +1716,25 @@ struct Build {
 Build build_for(const Dims& D) {
   if (D.dk < 1) return Build{0, 0, 0};
   if (D.dk <= kMaxRegDk) {
-    const int threads = D.dk <= 60 ? 128 : 256;
-    const size_t smem = sizeof(float) * smem_floats(D, threads, false);
-    if (smem <= smem_limit()) return Build{threads, D.dk <= 60 ? 30 : 48, smem};
+    Build b{128, 30, sizeof(float) * smem_floats(D, 128, false)};
+    if (D.dk > 60) {
+      const int W = D.dk <= kTripleDk ? 9 : 10;
+      b = Build{32 * W, W == 9 ? 30 : 32, sizeof(float) * triple_smem_floats(D, W)};
+    }
+    if (b.smem <= smem_limit()) return b;
   }
   return Build{kClusterThreads, 0, sizeof(float) * smem_floats(D, 256, true)};
+}
+
+// The register builds' launch (the triple build's two widths, <288,30> and
+// <320,32>, and <128,30>); -1 for any other build.
+int launch_registers(const Build& b, const Args& a, int A, cudaStream_t st) {
+  switch (b.threads) {
+    case 128: return launch_all<OneBlock<128, 30, false>>(a, A, b.smem, st);
+    case 288: return launch_all<Triple<9, 30 - kTripleShared>>(a, A, b.smem, st);
+    case 320: return launch_all<Triple<10, 32 - kTripleShared>>(a, A, b.smem, st);
+    default: return -1;
+  }
 }
 
 // A block of the global build: the vectors alone.
@@ -1451,14 +1858,18 @@ extern "C" int admm_blocks_per_sm(int dim, int O, int M, int N, int K, int R_sta
                                   int n3k) {
   const Dims D = make_dims(dim, O, M, N, K, R_stat);
   const Build b = build_for(D);
-  switch (b.columns) {
-    case 30: return blocks_per_sm<128, 30>(b.smem);
-    case 48: return blocks_per_sm<256, 48>(b.smem);
-    default: break;
+  if (b.columns) {
+    switch (b.threads) {
+      case 128: return blocks_per_sm<OneBlock<128, 30, false>>(b.smem);
+      case 288: return blocks_per_sm<Triple<9, 30 - kTripleShared>>(b.smem);
+      default: return blocks_per_sm<Triple<10, 32 - kTripleShared>>(b.smem);
+    }
   }
   if (!b.threads) return -1;
-  if (C == 1) return b.smem <= smem_limit() ? blocks_per_sm<256, 0>(b.smem) : kPastSharedMemory;
-  if (C == 0) return blocks_per_sm<256, 0, true>(global_smem(D));
+  if (C == 1)
+    return b.smem <= smem_limit() ? blocks_per_sm<OneBlock<256, 0, false>>(b.smem)
+                                  : kPastSharedMemory;
+  if (C == 0) return blocks_per_sm<OneBlock<256, 0, true>>(global_smem(D));
   const size_t smem = cluster_smem(D, C, n3k);
   const int rc = cluster_prepare(smem);
   if (rc != 0) return rc < 0 ? rc : -rc;
@@ -1505,17 +1916,15 @@ extern "C" int admm_launch(const float* normals, const float* Kinv, const float*
          one_minus_alpha, eps_abs};
   const cudaStream_t st = (cudaStream_t)stream;
   *clusters = 0;
-  switch (b.columns) {
-    case 30: return launch_all<128, 30>(a, A, b.smem, st);
-    case 48: return launch_all<256, 48>(a, A, b.smem, st);
-    default: break;
-  }
+  if (b.columns) return launch_registers(b, a, A, st);
   if (!b.threads) return -1;
   if (C == 1)
-    return b.smem <= smem_limit() ? launch_all<256, 0>(a, A, b.smem, st) : kPastSharedMemory;
+    return b.smem <= smem_limit() ? launch_all<OneBlock<256, 0, false>>(a, A, b.smem, st)
+                                  : kPastSharedMemory;
   if (C == 0) {
     const size_t smem = global_smem(D);
-    return smem <= smem_limit() ? launch_all<256, 0, true>(a, A, smem, st) : kPastSharedMemory;
+    return smem <= smem_limit() ? launch_all<OneBlock<256, 0, true>>(a, A, smem, st)
+                                : kPastSharedMemory;
   }
   return launch_cluster(a, C, n3k, st, clusters);
 }

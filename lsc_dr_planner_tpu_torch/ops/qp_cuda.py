@@ -4,12 +4,14 @@ The kernel replaces the TPU kernel
 lsc_dr_planner_tpu/ops/qp_pallas.py::admm_loop_pallas: one launch per
 chunk of 8 ADMM iterations, the static rows as stencils over the control
 points, and the plain loop's exit tests and global exit (see the note at
-the top of the source for what bounds it). Five builds: one agent a
+the top of the source for what bounds it). Six builds: one agent a
 block with its rows in shared memory and its Kinv in registers, 128
 threads for dim·K ≤ 60 (2-D: 56 for LSC, 60 for DLSC, BVC and RSFC) and
-256 threads for dim·K ≤ 96 (3-D: 84 and 90), chosen from the shape; past
-them (3-D from M = 11 on, Bézier degree 8, or rows past one block's
-shared memory) `loop_plan` chooses from the shape and the batch: the
+the triple build for dim·K 61–96 (3-D: 84 and 90), each Kinv row and
+each N3k product's output on three threads, 288 threads up to dim·K 90
+(four blocks an SM) and 320 above (`triple_plan`), chosen from the
+shape; past them (3-D from M = 11 on, Bézier degree 8, or rows past one
+block's shared memory) `loop_plan` chooses from the shape and the batch: the
 memory build `<256,0>` (one agent a block, its rows and Kinv in shared
 memory) where two such blocks fit an SM and the batch fills every SM
 twice, else the cluster build `<256,cluster>`: one agent on a
@@ -32,7 +34,8 @@ takes CUDA tensors only and raises on anything else, a refused launch
 among it (nothing falls back); `qp.run_loop` gives it CUDA tensors and
 CPU tensors to the plain loop. `launches` counts kernel launches,
 `build_launches` the launches of each build, keyed by `build_name`
-(`<threads,columns>`, `<256,cluster>`, `<256,0,global>`), and
+(`<threads,columns>`: `<128,30>`, the triple build's `<288,30>` and
+`<320,32>`; `<256,0>`, `<256,cluster>`, `<256,0,global>`), and
 `last_launch` records the last call's build, C, shared bytes a block or
 CTA, blocks an SM and resident clusters (cudaOccupancyMaxActiveClusters).
 """
@@ -50,6 +53,8 @@ from lsc_dr_planner_tpu_torch.ops import cuda_build
 SOURCE = cuda_build.CSRC / "admm.cu"
 
 STENCIL_WIDTH = 3  # nonzeros per static row at most (the acceleration stencil)
+TRIPLE_DK = 90  # the largest dim·K of the triple build's nine-warp width (admm.cu kTripleDk)
+TRIPLE_SHARED_COLUMNS = 8  # Kinv columns a thread of the triple build reads from shared memory
 GROUPS = 8  # the cluster build's fixed groups of LSC slots and static rows (admm.cu kGroups)
 CLUSTER_SIZES = (2, 4, 8)  # the portable cluster sizes
 CLUSTER_THREADS = 256  # threads of a CTA of the cluster build
@@ -108,6 +113,41 @@ def build_name(lib, dim: int, O: int, M: int, N: int, K: int, R_stat: int, A: in
     if columns:
         return f"<{lib.admm_threads(*shape)},{columns}>"
     return loop_plan(shape, A, lib.admm_smem_limit())[0]
+
+
+def triple_block_bytes(dim: int, O: int, M: int, N: int, K: int, R_stat: int) -> int:
+    """Dynamic shared memory of one block of the triple build: admm.cu's
+    triple_smem_floats, in bytes (doubles: the control points and rhs, ξ̃
+    and the adjoint points, the ten-warp width's rhs and ξ̃ padded by 2 +
+    3·dim; the normals; the rows' z, y, A·xi, l and the static rows' u;
+    the dk-vectors; the segment of each control point; the Kinv columns
+    past the threads' registers, TRIPLE_SHARED_COLUMNS a thread of each
+    triple)."""
+    MN, dk = M * N, dim * K
+    R = O * MN + R_stat
+    W = 9 if dk <= TRIPLE_DK else 10
+    pad = 2 + 3 * dim if W == 10 else 0
+    return 4 * (2 * (2 * dim * MN + dk + pad) + O * M * dim + 4 * R + R_stat + 3 * dk + MN
+                + TRIPLE_SHARED_COLUMNS * 30 * W)
+
+
+def triple_plan(dim: int, O: int, M: int, N: int, K: int, R_stat: int) -> dict:
+    """The triple build's block for a shape of dim·K 61–96 (admm.cu's
+    build_for and admm_triple_kernel): its threads (nine warps up to
+    dim·K 90, ten above), the threads of each Kinv row (three: lanes 0..29
+    of each warp, ten triples a warp), the Kinv columns of each thread
+    (⌈dk/3⌉), the build's columns a thread (30, 32: its name's), of which
+    TRIPLE_SHARED_COLUMNS in shared memory and the rest in registers,
+    and its shared bytes (`triple_block_bytes`). Raises ValueError
+    outside dim·K 61–96."""
+    dk = dim * K
+    if not 60 < dk <= 96:
+        raise ValueError(f"dim·K {dk}: the triple build takes 61–96")
+    W = 9 if dk <= TRIPLE_DK else 10
+    return {"threads": 32 * W, "threads_a_row": 3, "rows_in_registers": 10 * W,
+            "columns": -(-dk // 3), "build_columns": 30 if W == 9 else 32,
+            "shared_columns": TRIPLE_SHARED_COLUMNS,
+            "smem_bytes": triple_block_bytes(dim, O, M, N, K, R_stat)}
 
 
 def placement(lib, dim: int, O: int, M: int, N: int, K: int, R_stat: int) -> dict:

@@ -315,7 +315,7 @@ def test_mode_qp_one_chunk_matches_plain_loop(mode_qp):
     got = qp.run_loop(cfg, li, 8, feas_tol)
     torch.cuda.synchronize()
     name = qp_cuda.build_name(qp_cuda.build(), *_shape(cfg, li), li.xi.shape[0])
-    assert name == {60: "<128,30>", 84: "<256,48>", 90: "<256,48>"}[cfg.dim * li.Pn.shape[-1]]
+    assert name == {60: "<128,30>", 84: "<288,30>", 90: "<288,30>"}[cfg.dim * li.Pn.shape[-1]]
     assert qp_cuda.build_launches[name] == before.get(name, 0) + 1
     want = qp.admm_loop_plain(cfg, li, 8, feas_tol)
     for a, b in zip(got[:3], want[:3]):
@@ -356,6 +356,79 @@ def test_mode_qp_whole_run_matches_plain_loop(mode_qp):
         p64 = max(_share(b.double(), e) for b, e in zip(want[:3], exact[:3]))
         assert k64 <= p64, (share, k64, p64)
 
+
+# The triple build's shapes (dim·K 61–96; no shape has dim·K 61, a prime):
+# 2-D LSC at M = 11 (62) and 12 (68), 3-D LSC (84) and DLSC (90) at M = 10,
+# and 2-D DLSC at M = 16 (96: the ten-warp width)
+TRIPLE = {62: dict(M=11), 68: dict(M=12), 84: dict(world_dimension=3),
+          90: dict(world_dimension=3, planner_mode=PlannerMode.DLSC),
+          96: dict(M=16, planner_mode=PlannerMode.DLSC)}
+
+
+@pytest.fixture(scope="module", params=sorted(TRIPLE))
+def triple_qp(request):
+    """A ragged fleet (A=37) of each TRIPLE shape after 3 evolving steps, on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    p, planner, fleet, inp = workload.build_fleet(37, device="cuda", **TRIPLE[request.param])
+    step = workload.make_evolve_step(p, planner, fleet)
+    for _ in range(3):
+        inp, _ = step(inp)
+    cfg = planner.qp_cfg
+    assert cfg.dim * qp.torch_statics(cfg, torch.device("cuda"))["K"] == request.param
+    return request.param, cfg, planner._step_impl(fleet, inp, defer_qp=True).qp_inp, \
+        planner.feas_tol
+
+
+def test_triple_build_matches_plain_and_float64(triple_qp):
+    """The triple build takes the shape as `qp_cuda.triple_plan` plans it
+    (threads, shared bytes; four blocks an SM up to dim·K 90, three
+    above, for a batch of 37 and of 1,024); one chunk held to the plain chunk (`_chunk_held`); the run to
+    its exit bitwise its chain of single chunks, each held to the plain
+    chunk, and its whole run held to the float64 plain loop
+    (`qp_check.whole_run_f64`)."""
+    dk, cfg, qp_inp, feas_tol = triple_qp
+    li = qp.prepare(cfg, qp_inp).loop
+    shape = _shape(cfg, li)
+    plan = qp_cuda.triple_plan(*shape)
+    lib = qp_cuda.build()
+    name = qp_cuda.build_name(lib, *shape, li.xi.shape[0])
+    assert name == f"<{plan['threads']},{plan['build_columns']}>"
+    assert lib.admm_smem_bytes(*shape, 1, 0) == plan["smem_bytes"]
+    assert lib.admm_blocks_per_sm(*shape, 1, 0) >= (4 if dk <= 90 else 3)
+    full = qp_cuda.launch_plan(shape, 1024)  # the bench's batch: 4 agents an SM at 84, 90
+    assert full["ctas_per_sm"] == lib.admm_blocks_per_sm(*shape, 1, 0)
+    assert full["smem_bytes"] == plan["smem_bytes"]
+    assert qp_cuda.placement(lib, *shape) == {"rows": "shared", "kinv": "registers"}
+    before = dict(qp_cuda.build_launches)
+    k = qp.run_loop(cfg, li, 8, feas_tol)
+    torch.cuda.synchronize()
+    assert qp_cuda.build_launches[name] == before.get(name, 0) + 1
+    _chunk_held(cfg, li, k, qp.admm_loop_plain(cfg, li, 8, feas_tol), feas_tol)
+    got = qp.run_loop(cfg, li, cfg.max_iter, feas_tol)
+    state = li
+    for _ in range(int(got[4]) // 8):
+        k = qp.run_loop(cfg, state, 8, feas_tol)
+        _chunk_held(cfg, state, k, qp.admm_loop_plain(cfg, state, 8, feas_tol), feas_tol)
+        state = dataclasses.replace(state, xi=k[0], z=k[1], y=k[2])
+    for a, b in zip(got[:3], (state.xi, state.z, state.y)):
+        assert torch.equal(a, b)
+    rec = qp_check.whole_run_f64(cfg, li, got)
+    assert rec["agents_failed"] == 0, rec
+
+
+def test_triple_build_agent_alone_same_bits():
+    """An agent's chunk does not depend on its batch: agents of 8b's
+    1,024-agent 3-D batch, each alone, give the same bits as in the batch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    cfg, qp_inp, feas_tol = _fleet_qp(1024, 84)
+    li = qp.prepare(cfg, qp_inp).loop
+    batch = qp.run_loop(cfg, li, 8, feas_tol)
+    for j in (0, 511, 1023):
+        alone = qp.run_loop(cfg, li.take(torch.tensor([j], device="cuda")), 8, feas_tol)
+        for a, b in zip(alone[:4], batch[:4]):
+            assert torch.equal(a[0], b[j]), j
 
 def test_3d_compacted_rescue():
     """The compacted rescue (RESCUE = 64 agents, 800 iterations) at dim·K
