@@ -838,7 +838,12 @@ class Builds:
                      A=timing["A"], R=timing["R"], bound_ms=timing["bound_ms"],
                      bound_by=timing["bound_by"], bound_share=timing["bound_share"],
                      **{k: timing[k] for k in ("C", "smem_bytes", "ctas_per_sm",
-                                               "active_clusters") if k in timing})
+                                               "active_clusters") + GLOBAL_KEYS
+                        if k in timing})
+
+
+# the global build's timing beside its bounds (`global_loop_timing`)
+GLOBAL_KEYS = ("queued_ms", "floor_gb", "floor_ms", "floor_share", "moved_gb", "moved_tb_per_s")
 
 
 def admm_ptxas(qp_cuda, name):
@@ -846,11 +851,11 @@ def admm_ptxas(qp_cuda, name):
     the triple build's template holds its Kinv columns less those in
     shared memory."""
     S = qp_cuda.TRIPLE_SHARED_COLUMNS
-    return {"<128,30>": "admm_chunk_kernel<128,30,0>",
+    return {"<128,30>": "admm_chunk_kernel<128,30>",
             "<288,30>": f"admm_triple_kernel<9,{30 - S}>",
             "<320,32>": f"admm_triple_kernel<10,{32 - S}>",
-            "<256,0>": "admm_chunk_kernel<256,0,0>", "<256,cluster>": "admm_cluster_kernel<256>",
-            "<256,0,global>": "admm_chunk_kernel<256,0,1>"}[name]
+            "<256,0>": "admm_chunk_kernel<256,0>", "<256,cluster>": "admm_cluster_kernel<256>",
+            "<256,0,global>": "admm_global_kernel<256>"}[name]
 
 
 PLAIN_ON_CUDA = ("hull_plain_on_cuda", "clsc_plain_on_cuda", "sfc_hull_plain_on_cuda",
@@ -1312,9 +1317,10 @@ def kernels_ab_main():
     on scattered pairs of CLSC_AB_N points a segment in 2-D and 3-D
     (`clsc_scattered`), each held to the plain body element for element;
     in a tree with the loop's global build, that build on 8g's 480 slots
-    (`global_loop_timing`); the ADMM loop on the triple build's other
-    shapes (`triple_ab_cases`); and ptxas's record of the hull kernels and of
-    the preparation's. One JSON line."""
+    (`global_loop_timing`), at A = 481 and on its first qp.RESCUE agents;
+    the ADMM loop on the triple build's other shapes (`triple_ab_cases`);
+    and ptxas's record of the ADMM kernels, the hull kernels and the
+    preparation's. One JSON line."""
     from lsc_dr_planner_tpu_torch import workload
     from lsc_dr_planner_tpu_torch.ops import (
         cuda_build, geometry, hull_cuda, lsc, qp, qp_cuda, qp_prepare_cuda,
@@ -1322,9 +1328,10 @@ def kernels_ab_main():
     from lsc_dr_planner_tpu_torch.planner import stages
 
     dev, gpu = torch.device("cuda", 0), gpu_line()
-    build_all(hull_cuda, qp_prepare_cuda)
+    build_all(hull_cuda, qp_prepare_cuda, qp_cuda)
     out = {"package": str(Path(qp_cuda.__file__).resolve().parents[1]), "gpu": gpu,
            "hull_ptxas": ptxas_summary(cuda_build.build_log.get("hull_closest.cu", (0, ""))[1])}
+    out["admm_ptxas"] = ptxas_summary(cuda_build.build_log.get("admm.cu", (0, ""))[1])
     out["prepare_ptxas"] = ptxas_summary(cuda_build.build_log.get("qp_prepare.cu", (0, ""))[1])
     over, A = next((o, a) for t, o, a in phase8g_qp_cases() if t == "dk246_O160")
     p, planner, fleet, inp = workload.build_fleet(A, device=dev, **over)
@@ -1366,6 +1373,9 @@ def kernels_ab_main():
         li = qp.prepare(cfg, planner._step_impl(fleet, inp, defer_qp=True).qp_inp).loop
         out["8g_" + P8G_GLOBAL + "_loop"] = global_loop_timing(
             qp, qp_cuda, cfg, li, planner.feas_tol, dev, P8G_GLOBAL)
+        sub = li.take(torch.arange(qp.RESCUE, device=dev))  # a rescue-sized batch
+        out["8g_" + P8G_GLOBAL + f"_loop_A{qp.RESCUE}"] = global_loop_timing(
+            qp, qp_cuda, cfg, sub, planner.feas_tol, dev, P8G_GLOBAL + f" A={qp.RESCUE}")
     from lsc_dr_planner_tpu_torch.config import PlannerMode
 
     for tag, overrides in (("main", {}), ("8b", dict(world_dimension=3)),
@@ -3313,8 +3323,34 @@ def phase8g_qp_cases():
 
 
 P8G_GLOBAL = "dk246_O480"  # 8g's QP past the cluster build's reach
+# (tag, build_fleet overrides, agents) where the global build, forced, is held
+# to the cluster build bit for bit: 8f's shape (C = 2) and 8g's 160 slots (C = 8)
+P8G_BITS_CASES = (("8f", dict(world_dimension=3, M=12, communication_range=5.0,
+                              max_obstacles=80), 64),
+                  ("dk246_O160", dict(world_dimension=3, M=28, communication_range=30.0,
+                                      max_obstacles=160), 168))
 P8G_TRIPLE10 = "dk93"  # 8g's QP on the triple build's ten-warp width
 GLOBAL_LOOP_REPS = 3  # the loop's global build: calls timed (~0.2-0.5 s each)
+
+
+def global_loop_bytes(qp_cuda, li, iters, chunk=8):
+    """The global build's bytes a call of `iters` iterations: `floor_gb`,
+    what any design of the loop must move at this shape, one pass over an
+    agent's rows an iteration (z, y, A·xi and l in, z, y and A·xi out: 28
+    B a row), its Kinv and its normals read once an iteration; and, where
+    the package has `qp_cuda.global_tile_plan` (the streamed build),
+    `moved_gb`, what that build moves: those passes, each launch's first
+    pass (z, y and the normals in), the chunk's last pass's scale (4 B a
+    row) and the first launch's copy of the warm start (z, y and A·xi
+    out); None otherwise."""
+    A, O, M, dim = li.normals.shape
+    R, dk = li.z.shape[1], li.Kinv.shape[-1]
+    nrm, launches = 4 * O * M * dim, -(-iters // chunk)
+    per_iter = 28 * R + 4 * dk * dk + nrm
+    out = {"floor_gb": A * iters * per_iter / 1e9, "moved_gb": None}
+    if hasattr(qp_cuda, "global_tile_plan"):
+        out["moved_gb"] = A * (iters * per_iter + launches * (8 * R + nrm + 4 * R) + 12 * R) / 1e9
+    return out
 
 
 def global_loop_timing(qp, qp_cuda, cfg, li, feas_tol, dev, what):
@@ -3326,9 +3362,15 @@ def global_loop_timing(qp, qp_cuda, cfg, li, feas_tol, dev, what):
     runs), those that ran iterations (longer than 0.1 ms), their mean
     device ms, and `device_ms`, that mean times the launches the wrapper
     counted a call; the iterations of each call and whether the calls'
-    iterates are the same bits."""
+    iterates are the same bits; the bytes a call (`global_loop_bytes`),
+    the one-pass floor's ms at the card's 3.35 TB/s and its share of the
+    call's ms, the rate of the bytes the build moves, and the kernel's
+    registers and spills where this process built it with ptxas's
+    record."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from lsc_dr_planner_tpu_torch.ops import cuda_build
 
     t = admm_timing.timed_call(qp, cfg, li, cfg.max_iter, feas_tol, what, GLOBAL_LOOP_REPS)
     t.update(qp_cuda.last_launch)
@@ -3339,15 +3381,59 @@ def global_loop_timing(qp, qp_cuda, cfg, li, feas_tol, dev, what):
         for _ in range(GLOBAL_LOOP_REPS):
             outs.append(qp.run_loop(cfg, li, cfg.max_iter, feas_tol))
         torch.cuda.synchronize(dev)
+    # the streamed build's kernel, or an older tree's one-block kernel
     us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == DeviceType.CUDA and "admm_chunk_kernel" in e.name]
+          if e.device_type == DeviceType.CUDA
+          and ("admm_global_kernel" in e.name or "admm_chunk_kernel" in e.name)]
     t["profiled_kernels"] = len(us) / GLOBAL_LOOP_REPS
     t["profiled_working_launches"] = sum(u > 100 for u in us) / GLOBAL_LOOP_REPS
     t["profiled_kernel_ms"] = sum(us) / 1e3 / len(us) if us else None
     t["device_ms"] = t["profiled_kernel_ms"] * t["launches"] if us else None
     t["iters_each"] = [int(o[4]) for o in outs]
     t["same_bits"] = all(differing(a, b) == 0 for o in outs[1:] for a, b in zip(o[:4], outs[0][:4]))
+    t.update(global_loop_bytes(qp_cuda, li, t["iters"]))
+    t["floor_ms"] = t["floor_gb"] / admm_timing.PEAK_BYTES * 1e12
+    t["floor_share"] = t["floor_ms"] / t["ms"]
+    t["floor_tb_per_s"] = t["floor_gb"] / t["ms"]
+    t["moved_tb_per_s"] = t["moved_gb"] / t["ms"] if t["moved_gb"] else None
+    log = cuda_build.build_log.get("admm.cu")
+    t["ptxas"] = ptxas_summary(log[1]).get(admm_ptxas(qp_cuda, qp_cuda.GLOBAL_BUILD)) \
+        if log else None
     return t
+
+
+def global_bits_check(workload, qp, qp_cuda, dev, gpu, tag, overrides, A):
+    """The global build forced (`admm_loop_cuda(..., C=0)`) against the
+    build `loop_plan` gives the batch (the cluster build at the shapes
+    where both run), on the QP after one evolving step of
+    `build_fleet(A, **overrides)`: one chunk and the run to its exit, xi,
+    z, y, itdone and the iterations the same bits (both run the cluster
+    build's order of operations). Launches outside any path's window."""
+    p, planner, fleet, inp = workload.build_fleet(A, device=dev, **overrides)
+    inp, _ = workload.make_evolve_step(p, planner, fleet)(inp)
+    cfg, tol = planner.qp_cfg, planner.feas_tol
+    li = qp.prepare(cfg, planner._step_impl(fleet, inp, defer_qp=True).qp_inp).loop
+    ts = qp.torch_statics(cfg, dev)
+    plan = qp_cuda.launch_plan(admm_shape(qp, cfg, dev), A)
+
+    def run(iters, C):
+        return qp_cuda.admm_loop_cuda(li, ts["stencil"], ts["N3k"], ts["N3kT"],
+                                      cfg.rho * qp._RHO_SCALE["lsc"], iters, qp.CHUNK,
+                                      0.6 * tol, cfg.sigma, cfg.alpha, cfg.eps_abs, C=C)
+
+    rec = {"A": A, "dk": cfg.dim * ts["K"], "R": li.z.shape[1], "build": plan["build"],
+           "C": plan["C"]}
+    for iters in (qp.CHUNK, cfg.max_iter):
+        g, c = run(iters, 0), run(iters, plan["C"])
+        torch.cuda.synchronize(dev)
+        rec[f"differing_{iters}"] = [differing(a, b) for a, b in zip(g, c)]
+        rec[f"iters_{iters}"] = int(g[4])
+    print(f"global build against {plan['build']} at C = {plan['C']}, {tag}", json.dumps(rec),
+          f"[{gpu}]", flush=True)
+    assert plan["build"] == qp_cuda.CLUSTER_BUILD, rec
+    assert not any(rec[f"differing_{n}"][i] for n in (qp.CHUNK, cfg.max_iter)
+                   for i in range(5)), (tag, rec)
+    return rec
 
 
 P8G_SLOTS = (64, 65, 80, 160, 256)  # O = OA, fleets of O + 6 agents within 20 m (2-D)
@@ -3429,6 +3515,9 @@ def phase8g(workload, qp, builds, dev, gpu, srec):
         want = {P8G_GLOBAL: qp_cuda.GLOBAL_BUILD, P8G_TRIPLE10: "<320,32>"}
         assert rec["admm_build"] == want.get(tag, qp_cuda.CLUSTER_BUILD), rec
     assert out["qp"]["dk246_O160"]["admm_plan"]["C"] == 8, out["qp"]["dk246_O160"]
+    # the global build's bits against the cluster build's where both run
+    out["global_bits"] = {tag: global_bits_check(workload, qp, qp_cuda, dev, gpu, tag, over, A)
+                          for tag, over, A in P8G_BITS_CASES}
 
     for O in P8G_SLOTS:
         p, planner, fleet, inp = workload.build_fleet(
@@ -4635,9 +4724,10 @@ def main():
             # past the register builds: the cluster size (0: the global
             # build), shared bytes, blocks or CTAs an SM; the global build's
             # device ms a call (`global_loop_timing`: the profiler's mean ms
-            # a launch times the call's launches)
+            # a launch times the call's launches), its queued ms, bytes a
+            # call and the one-pass floor (`global_loop_bytes`)
             **{k: r[k] for k in ("C", "smem_bytes", "ctas_per_sm", "active_clusters",
-                                 "device_ms") if r.get(k) is not None},
+                                 "device_ms") + GLOBAL_KEYS if r.get(k) is not None},
             "library_ms": None,  # no single PyTorch call computes the loop
         })
     geometry_kernels = (

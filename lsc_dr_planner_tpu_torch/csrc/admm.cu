@@ -60,14 +60,12 @@
 //              block's shared memory): one agent on a thread-block cluster
 //              of C = 2, 4 or 8 CTAs of 256 threads (admm_cluster_kernel);
 //   <256, 0, global>  the shapes the cluster build cannot take (C = 0 in
-//              admm_launch): one agent a block as in the memory build, its
-//              rows' state updated in place in the loop's own z, y and A·xi
-//              buffers in global memory, l, u, the normals and Kinv read where
-//              they lie (through L1 and L2), the stencils in their 32-bit
-//              tables; shared memory keeps the dk- and dim·MN-vectors alone.
-//              Device memory is its only limit (3-D at M = 28 from 432 slots,
-//              where an agent's rows and Kinv pass 8 CTAs; a CTA's stencil
-//              tables past 16-bit indices).
+//              admm_launch; 3-D at M = 28 from 432 slots, where an agent's
+//              rows and Kinv pass 8 CTAs; a CTA's stencil tables past 16-bit
+//              indices): one agent a block of 256 threads, two blocks an SM,
+//              its rows and Kinv streamed from global memory through shared
+//              memory once an iteration, in the cluster build's order of
+//              operations (admm_global_kernel; see "The global build").
 // The one-block builds keep an agent's rows in the block's shared memory: z,
 // y, A·xi and l over all R rows, u over the static rows only (the LSC rows are
 // one-sided: prepare() makes their u +1e20 less an offset, which no iterate
@@ -133,6 +131,47 @@
 // widest cluster shape, dim·K 246 with 160 slots, takes 187 KB a CTA at C =
 // 8), and a CTA's stencil tables 16-bit indices: qp_cuda.loop_plan sends a
 // shape past either to <256, 0, global>.
+//
+// The global build. What held back its first version (one agent a block,
+// the rows' state updated in place in global memory, l, u, the normals and
+// Kinv read where they lie; 442.5 ms for 8g's 480 slots at A = 481 on the
+// H100, PERF.md §6): two passes over an agent's 83,118 rows an iteration
+// (the adjoint's, then the row updates'), ~36 B a row, as dependent load
+// chains of 16 warps an SM: 0.77 TB/s. An agent's state at that shape (1.76
+// MB) cannot stay on chip, so every iteration streams it; the least any
+// design moves is one pass: 28 B a row (z, y, A·xi and l in; z, y and A·xi
+// out), Kinv and the normals once (2.73 MB an agent-iteration).
+// Here: the cluster build's order of operations in one block, as a cluster
+// of C = 1 would run it (its 8 fixed groups in turn, the same bits at every
+// shape both builds take), one pass over the rows an iteration:
+//   - each group's LSC rows in tiles of whole slots, then its static rows,
+//     and Kinv in tiles of rows (qp_cuda.global_tile_plan), streamed through
+//     a ring of kGlobalStages stages in shared memory by the tensor memory
+//     accelerator: bulk copies counted on an mbarrier a stage, issued two
+//     tiles ahead by the warps in turn; a source's floats before its first
+//     16-B boundary and past its last (an odd agent's rows start 8 B past
+//     one at 8g) by 4-B cp.async;
+//   - a tile's rows updated in the cluster build's item order (a thread a
+//     control point and slot part), z, y and A·xi stored to global memory
+//     and the next iteration's group partials formed on the way, an item's
+//     partial carried across its group's tiles in shared memory; the static
+//     rows updated in their stage, as the cluster build updates them in
+//     shared memory (updated in registers, they came out an ulp apart);
+//   - the group partials summed in group order as each group completes: the
+//     running sum is the cluster build's reduce_partials' additions, so
+//     shared memory keeps dim·MN doubles of partials, not 8·dim·MN;
+//   - each launch's first pass forms the partials of the state loaded (z, y
+//     and the normals in) and, at ck 0, copies the warm start's z, y and
+//     A·xi into the loop's buffers; the chunk's last pass reads scale for
+//     the exit test's violations; the exit test is the cluster build's;
+//   - the rows' stores are fenced from the bulk copies that read them again
+//     (another proxy) at the end of each group.
+// What bounds it on the H100 (`clock64` marks, PERF.md §6): not the bytes in
+// flight (a tile waits ~0.1 k cycles for its copies) but each tile's work:
+// an LSC tile of 6 slots takes ~4.2 k cycles (its rows' conversions to and
+// from double, loads and stores), the static tiles and the group sums wait
+// on L2 for the stencil tables; the block barrier a tile costs ~2% (full
+// and empty mbarriers in its place: 139.7 against 143.0 ms at 8g).
 //
 // The triple build. What held back <256,48>, the build it replaced (PERF.md
 // §6, the triple build's step 0: `clock64` marks at 8b, dim·K 84, A =
@@ -208,6 +247,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace cg = cooperative_groups;
 
@@ -280,15 +320,12 @@ __host__ __device__ inline Dims make_dims(int dim, int O, int M, int N, int K,
 }
 
 // One agent a block (the register builds and the memory build): VD [dim*MN
-// doubles]; XTD [dk doubles]; Z, Y, AX, LN [R], UN [R_stat], NRM [O*M*dim]
-// (not `rows`: the global build's, in global memory); XI, XIP, QN [dk]; VA
-// [dim*MN]; RED [8 per warp]; MOF [MN] (int); KI [dk*dk] (the memory build's
-// Kinv). Mirrored by qp_cuda.memory_block_bytes and global_block_bytes.
-__host__ __device__ inline size_t smem_floats(const Dims& D, int threads, bool kinv,
-                                              bool rows = true) {
-  return (rows ? 4 * (size_t)D.R + D.R_stat + (size_t)D.O * D.M * D.dim : 0) +
-         5 * (size_t)D.dk + 3 * (size_t)D.dim * D.MN + 8 * (threads / 32) + D.MN +
-         (kinv ? (size_t)D.dk * D.dk : 0);
+// doubles]; XTD [dk doubles]; Z, Y, AX, LN [R], UN [R_stat], NRM [O*M*dim];
+// XI, XIP, QN [dk]; VA [dim*MN]; RED [8 per warp]; MOF [MN] (int); KI [dk*dk]
+// (the memory build's Kinv). Mirrored by qp_cuda.memory_block_bytes.
+__host__ __device__ inline size_t smem_floats(const Dims& D, int threads, bool kinv) {
+  return 4 * (size_t)D.R + D.R_stat + (size_t)D.O * D.M * D.dim + 5 * (size_t)D.dk +
+         3 * (size_t)D.dim * D.MN + 8 * (threads / 32) + D.MN + (kinv ? (size_t)D.dk * D.dk : 0);
 }
 
 __host__ __device__ inline int admm_n_chunks(int max_iter, int chunk) {
@@ -509,14 +546,12 @@ __device__ void cost_product(const Dims& D, const float* pn_g, const float* XI, 
 // one agent per block of NT threads, the rows in shared memory. KC > 0: KC >=
 // ceil(dk / 2) Kinv columns per thread in registers (dk <= NT/2); KC = 0: the
 // memory build, Kinv in shared memory too, a thread pair taking rows i, i +
-// NT/2, ... of the Kinv and N3k products. GLOBAL (with KC = 0): the global
-// build, the rows' state in place in a.z, a.y, a.ax, and l, u, the normals and
-// Kinv read from their inputs. Launch ck starts from the inputs (ck = 0) or
+// NT/2, ... of the Kinv and N3k products. Launch ck starts from the inputs (ck = 0) or
 // from the state the previous launch stored. When every agent was done at the
 // previous test (the plain loop's global exit) it returns at once and marks
 // its own test done for the whole fleet too, so that no later launch resumes
 // the loop.
-template <int NT, int KC, bool GLOBAL = false>
+template <int NT, int KC>
 __global__ void __launch_bounds__(NT, NT == 128 ? 8 : 2)
 admm_chunk_kernel(Args a, int ck) {
   if (ck > 0 && a.done_count[ck - 1] == a.A) {
@@ -536,25 +571,13 @@ admm_chunk_kernel(Args a, int ck) {
   double* XTD = VD + D.dim * D.MN;
   float* RHS = reinterpret_cast<float*>(XTD);
   float* XT = RHS + D.dk;
-  float *Z, *Y, *AX, *LN, *UN, *NRM;  // UN: the static rows only
-  float* XI;
-  if constexpr (GLOBAL) {  // in place in global memory
-    Z = a.z + agent * D.R;
-    Y = a.y + agent * D.R;
-    AX = a.ax + agent * D.R;
-    LN = const_cast<float*>(a.ln) + agent * D.R;
-    UN = const_cast<float*>(a.un) + agent * D.R + D.R_lsc;
-    NRM = const_cast<float*>(a.normals) + agent * D.O * D.M * D.dim;
-    XI = XT + D.dk;
-  } else {
-    Z = XT + D.dk;
-    Y = Z + D.R;
-    AX = Y + D.R;
-    LN = AX + D.R;
-    UN = LN + D.R;
-    NRM = UN + D.R_stat;
-    XI = NRM + D.O * D.M * D.dim;
-  }
+  float* Z = XT + D.dk;
+  float* Y = Z + D.R;
+  float* AX = Y + D.R;
+  float* LN = AX + D.R;
+  float* UN = LN + D.R;  // the static rows only
+  float* NRM = UN + D.R_stat;
+  float* XI = NRM + D.O * D.M * D.dim;
   float* XIP = XI + D.dk;
   float* QN = XIP + D.dk;
   float* VA = QN + D.dk;
@@ -565,23 +588,15 @@ admm_chunk_kernel(Args a, int ck) {
   const float* xi_in = ck == 0 ? a.xi0 : a.xi;
   const float* z_in = ck == 0 ? a.z0 : a.z;
   const float* y_in = ck == 0 ? a.y0 : a.y;
-  if constexpr (GLOBAL) {
-    if (ck == 0)
-      for (int r = t; r < D.R; r += NT) {
-        Z[r] = z_in[agent * D.R + r];
-        Y[r] = y_in[agent * D.R + r];
-      }
-  } else {
-    const float* nrm_g = a.normals + agent * D.O * D.M * D.dim;
-    for (int i = t; i < D.O * D.M * D.dim; i += NT) NRM[i] = nrm_g[i];
-    for (int r = t; r < D.R; r += NT) {
-      const size_t g = agent * D.R + r;
-      Z[r] = z_in[g];
-      Y[r] = y_in[g];
-      LN[r] = a.ln[g];
-      if (ck > 0) AX[r] = a.ax[g];
-      if (r >= D.R_lsc) UN[r - D.R_lsc] = a.un[g];
-    }
+  const float* nrm_g = a.normals + agent * D.O * D.M * D.dim;
+  for (int i = t; i < D.O * D.M * D.dim; i += NT) NRM[i] = nrm_g[i];
+  for (int r = t; r < D.R; r += NT) {
+    const size_t g = agent * D.R + r;
+    Z[r] = z_in[g];
+    Y[r] = y_in[g];
+    LN[r] = a.ln[g];
+    if (ck > 0) AX[r] = a.ax[g];
+    if (r >= D.R_lsc) UN[r - D.R_lsc] = a.un[g];
   }
   for (int j = t; j < D.dk; j += NT) {
     XI[j] = xi_in[agent * D.dk + j];
@@ -601,11 +616,7 @@ admm_chunk_kernel(Args a, int ck) {
     for (int c = 0; c < KC; ++c) kin[c] = c < ncols ? kinv_g[(size_t)ki * D.dk + c0 + c] : 0.f;
   } else {
     ncols = min(D.half, D.dk - c0);
-    if constexpr (GLOBAL) {
-      KI = const_cast<float*>(kinv_g);
-    } else {
-      for (int i = t; i < D.dk * D.dk; i += NT) KI[i] = kinv_g[i];
-    }
+    for (int i = t; i < D.dk * D.dk; i += NT) KI[i] = kinv_g[i];
   }
   const int row_sets = KC > 0 ? 1 : (D.dk + NT / 2 - 1) / (NT / 2);  // rows a thread pair takes
   __syncthreads();
@@ -648,11 +659,7 @@ admm_chunk_kernel(Args a, int ck) {
         double acc = 0.;
         if (k < D.dk) {
           const float* kr = KI + (size_t)k * D.dk + c0;
-          if constexpr (GLOBAL) {
-            for (int c = 0; c < ncols; ++c) acc = fma((double)__ldg(kr + c), RHSD[c0 + c], acc);
-          } else {
-            for (int c = 0; c < ncols; ++c) acc = fma((double)kr[c], RHSD[c0 + c], acc);
-          }
+          for (int c = 0; c < ncols; ++c) acc = fma((double)kr[c], RHSD[c0 + c], acc);
         }
         acc += __shfl_xor_sync(kFull, acc, 1);
         if (kh == 0 && k < D.dk) XTD[k] = acc;
@@ -702,13 +709,11 @@ admm_chunk_kernel(Args a, int ck) {
   block_reduce8<NT>(v, RED);
 
   for (int j = t; j < D.dk; j += NT) a.xi[agent * D.dk + j] = XI[j];
-  if constexpr (!GLOBAL) {
-    for (int r = t; r < D.R; r += NT) {
-      const size_t g = agent * D.R + r;
-      a.z[g] = Z[r];
-      a.y[g] = Y[r];
-      a.ax[g] = AX[r];
-    }
+  for (int r = t; r < D.R; r += NT) {
+    const size_t g = agent * D.R + r;
+    a.z[g] = Z[r];
+    a.y[g] = Y[r];
+    a.ax[g] = AX[r];
   }
   if (t == 0) exit_gates(a, v, agent, ck);
 }
@@ -1267,7 +1272,7 @@ __device__ void static_partials(const Dims& D, const Split& S, const Args& a, co
 
 // The slot parts of a group (2^lps threads share a (group, point) item of
 // the LSC partials and rows), by its slots G: chains of ≤ ~6 slots.
-__device__ __forceinline__ int slot_parts_log2(int G) { return G >= 12 ? 2 : G >= 6 ? 1 : 0; }
+__host__ __device__ inline int slot_parts_log2(int G) { return G >= 12 ? 2 : G >= 6 ? 1 : 0; }
 
 // The LSC rows of item (jl, mn), slot part h of 2^lps: its group's slots
 // o = oa + h, oa + h + 2^lps, ... < ob (local row (o − o0)·MN + mn, the
@@ -1627,15 +1632,653 @@ admm_cluster_kernel(Args a, int ck, int C, int n3k) {
   cl.sync();  // no CTA leaves while CTA 0 may still read its shared memory
 }
 
+// ---- the global build -------------------------------------------------
+
+// One agent a block of kGlobalThreads, its rows and Kinv streamed from
+// global memory through a ring of kGlobalStages stages in shared memory
+// (see "The global build" at the top). The stage sizes: what leaves two
+// blocks an SM in the H100's shared memory (one, where two never fit), at
+// most kGlobalStageCap floats.
+constexpr int kGlobalThreads = 256;
+constexpr int kGlobalStages = 3;
+constexpr int kGlobalStageCap = 8192;  // floats a stage (32 KB)
+constexpr int kTileRanges = 6;  // copies a tile at most (z, y, A·xi, l, u or scale, normals)
+constexpr size_t kOneBlockBytes = 232448;  // the H100's opt-in shared memory a block
+constexpr size_t kTwoBlockBytes = (kOneBlockBytes + 1024) / 2 - 1024;  // 1 KB reserved a block
+
+// The global build's tiles for a shape (mirrored by qp_cuda.global_tile_plan):
+// G slots and GS static rows a group; 2^lps threads an LSC item, n2
+// thread-items of a group's LSC partial in ntrips trips of the block; T
+// slots an LSC tile, ST rows a static tile, KT rows a Kinv tile; the floats
+// of a stage (0: no tile fits) and of what precedes the ring; nK Kinv tiles
+// and nR row tiles a pass.
+struct GPlan {
+  int G, GS, lps, n2, ntrips, T, ST, KT, stage, resident, nK, nR;
+};
+
+__host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
+
+// A stage's floats for an LSC tile of t slots: z, y, A·xi, l and scale of
+// its rows and its slots' normals, each region 16-B aligned with room for
+// a head of up to 3 floats (issue_copy); a static tile of n rows: z, y,
+// A·xi, l, u and scale; a Kinv tile of k rows.
+__host__ __device__ inline int lsc_tile_floats(const Dims& D, int t) {
+  return 5 * round4(t * D.MN + 3) + round4(t * D.M * D.dim + 3);
+}
+__host__ __device__ inline int stat_tile_floats(int n) { return 6 * round4(n + 3); }
+__host__ __device__ inline int kinv_tile_floats(const Dims& D, int k) {
+  return round4(k * D.dk + 3);
+}
+
+// Group j's slots [oa, ob) and static rows [sa, sb), and its row tiles.
+__host__ __device__ inline int group_o0(const Dims& D, const GPlan& P, int j) {
+  return min(D.O, j * P.G);
+}
+__host__ __device__ inline int group_o1(const Dims& D, const GPlan& P, int j) {
+  return min(D.O, group_o0(D, P, j) + P.G);
+}
+__host__ __device__ inline int group_s0(const Dims& D, const GPlan& P, int j) {
+  return min(D.R_stat, j * P.GS);
+}
+__host__ __device__ inline int group_s1(const Dims& D, const GPlan& P, int j) {
+  return min(D.R_stat, group_s0(D, P, j) + P.GS);
+}
+__host__ __device__ inline int group_lsc_tiles(const Dims& D, const GPlan& P, int j) {
+  return (group_o1(D, P, j) - group_o0(D, P, j) + P.T - 1) / P.T;
+}
+__host__ __device__ inline int group_tiles(const Dims& D, const GPlan& P, int j) {
+  return group_lsc_tiles(D, P, j) + (group_s1(D, P, j) - group_s0(D, P, j) + P.ST - 1) / P.ST;
+}
+
+GPlan global_plan(const Dims& D) {
+  GPlan P{};
+  P.G = (D.O + kGroups - 1) / kGroups;
+  P.GS = (D.R_stat + kGroups - 1) / kGroups;
+  P.lps = slot_parts_log2(P.G);
+  P.n2 = ((D.MN << P.lps) + 31) & ~31;
+  P.ntrips = (P.n2 + kGlobalThreads - 1) / kGlobalThreads;
+  const int nv = D.dim * D.MN;
+  P.resident = round4(2 * (4 * nv + 2 * D.dk + 3 * kGlobalThreads * P.ntrips + kGlobalStages) +
+                      3 * D.dk + P.GS + 8 * (kGlobalThreads / 32) + D.MN + 2 * kGroups + 1);
+  const int need = max(lsc_tile_floats(D, 1), max(stat_tile_floats(1), kinv_tile_floats(D, 1)));
+  const size_t budgets[2] = {kTwoBlockBytes, kOneBlockBytes};
+  for (const size_t budget : budgets) {
+    const long s = ((long)(budget / 4) - P.resident) / kGlobalStages;
+    const int stage = (int)(s < kGlobalStageCap ? s : kGlobalStageCap) & ~3;
+    if (stage >= need) {
+      P.stage = stage;
+      break;
+    }
+  }
+  if (!P.stage) return P;
+  P.T = 1;
+  while (P.T < P.G && lsc_tile_floats(D, P.T + 1) <= P.stage) ++P.T;
+  P.ST = 1;
+  while (P.ST < P.GS && stat_tile_floats(P.ST + 1) <= P.stage) ++P.ST;
+  P.KT = 1;
+  while (P.KT < D.dk && kinv_tile_floats(D, P.KT + 1) <= P.stage) ++P.KT;
+  P.nK = (D.dk + P.KT - 1) / P.KT;
+  P.nR = 0;
+  for (int j = 0; j < kGroups; ++j) P.nR += group_tiles(D, P, j);
+  // a row is read again only after the tile that wrote it and its group's
+  // proxy fence (global_row_pass): at least kGlobalStages − 1 tiles a pass
+  // outside any one group's
+  for (int j = 0; j < kGroups; ++j)
+    if (P.nK + P.nR - group_tiles(D, P, j) < kGlobalStages - 1) P.stage = 0;
+  return P;
+}
+
+// The block's shared memory, bytes; 0 for a shape no block holds.
+size_t global_smem(const Dims& D) {
+  const GPlan P = global_plan(D);
+  return P.stage ? sizeof(float) * ((size_t)P.resident + (size_t)kGlobalStages * P.stage) : 0;
+}
+
+// The block's arrays before the ring (floats; the doubles first): VD, SUM
+// (the running sum of the group partials), GP (the group's partial), VA
+// [dim*MN] and RHSD, XTD [dk] (doubles); IACC [3 · NT · ntrips] (doubles:
+// each thread-item's LSC partial across the group's tiles); BAR
+// [kGlobalStages] (the stages' mbarriers); XI, XIP, QN [dk]; WS [GS] (the
+// group's static-row cotangents); RED [8 per warp]; MOF [MN], TT [2·8 + 1]
+// (int: each group's first row tile and, from TT[9], its LSC tiles).
+// Derived afresh where it is used, from the block's dynamic shared memory.
+struct GSmem {
+  double *VD, *SUM, *GP, *VA, *RHSD, *XTD, *IACC;
+  unsigned long long* BAR;
+  float *XI, *XIP, *QN, *WS, *RED, *RING;
+  int *MOF, *TT;
+};
+
+template <int NT>
+__device__ __forceinline__ GSmem gview(const Dims& D, const GPlan& P) {
+  extern __shared__ __align__(16) float g_smem[];
+  const int nv = D.dim * D.MN;
+  GSmem s;
+  s.VD = reinterpret_cast<double*>(g_smem);
+  s.SUM = s.VD + nv;
+  s.GP = s.SUM + nv;
+  s.VA = s.GP + nv;
+  s.RHSD = s.VA + nv;
+  s.XTD = s.RHSD + D.dk;
+  s.IACC = s.XTD + D.dk;
+  s.BAR = reinterpret_cast<unsigned long long*>(s.IACC + 3 * NT * P.ntrips);
+  s.XI = reinterpret_cast<float*>(s.BAR + kGlobalStages);
+  s.XIP = s.XI + D.dk;
+  s.QN = s.XIP + D.dk;
+  s.WS = s.QN + D.dk;
+  s.RED = s.WS + P.GS;
+  s.MOF = reinterpret_cast<int*>(s.RED + 8 * (NT / 32));
+  s.TT = s.MOF + D.MN;
+  s.RING = g_smem + P.resident;
+  return s;
+}
+
+// Where n floats at src lie in a 16-B aligned region of a stage: `head`
+// floats in, so that source and copy agree modulo 16 B.
+__device__ __forceinline__ int head_of(const float* src) {
+  return (int)((reinterpret_cast<uintptr_t>(src) >> 2) & 3);
+}
+__device__ __forceinline__ const float* staged(const float* region, const float* src) {
+  return region + head_of(src);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// The stages' mbarriers: one arrival (the tile's expected bytes) a phase.
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+// Waits for the phase of the given parity to complete; a wait past ~10^9
+// polls (seconds) traps, so that a lost copy fails the launch.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  const unsigned b = smem_addr(bar);
+  for (long long polls = 0;; ++polls) {
+    unsigned done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(b), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls > (1ll << 30)) __trap();
+  }
+}
+
+// A bulk copy (the tensor memory accelerator) of `bytes` (a multiple of 16,
+// both ends 16-B aligned) from global to shared memory, counted on `bar`.
+__device__ __forceinline__ void copy_bulk(void* dst, const void* src, unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Orders this thread's earlier stores to global memory before the bulk
+// copies (another proxy) issued after the next block barrier.
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// Copy k of tile n of the launch's stream: the first pass's row tiles (z
+// and y of the state loaded, the normals), then per iteration the Kinv
+// tiles and the row tiles (z, y, A·xi, l, u of the static rows, the
+// normals; scale in the chunk's last iteration, for the exit test): its
+// source, its floats (0: none) and its region's offset in the stage
+// (lsc_region, stat_region).
+struct TileCopy {
+  const float* src;
+  int n, off;
+};
+
+// An LSC tile's regions: z, y, A·xi, l, scale (c = round4(T·MN + 3) floats
+// each), the normals from 5c; a static tile's: z, y, A·xi, l, u, scale
+// (round4(ST + 3) each).
+__device__ __forceinline__ int lsc_region(const Dims& D, const GPlan& P) {
+  return round4(P.T * D.MN + 3);
+}
+__device__ __forceinline__ int stat_region(const GPlan& P) { return round4(P.ST + 3); }
+
+__device__ __forceinline__ TileCopy tile_copy(const Args& a, const Dims& D, const GPlan& P,
+                                              const int* TT, size_t agent, int ck, int n, int k) {
+  const TileCopy none{nullptr, 0, 0};
+  const bool first = n < P.nR;
+  int it = 0, m = n;
+  if (!first) {
+    n -= P.nR;
+    it = n / (P.nK + P.nR);
+    m = n - it * (P.nK + P.nR);
+    if (m < P.nK) {
+      const int k0 = m * P.KT;
+      return k ? none
+               : TileCopy{a.Kinv + (agent * D.dk + k0) * D.dk, (min(D.dk, k0 + P.KT) - k0) * D.dk, 0};
+    }
+    m -= P.nK;
+  }
+  int j = 0;
+  while (m >= TT[j + 1]) ++j;
+  m -= TT[j];
+  const bool last = !first && it == a.chunk - 1;
+  const float* z = first && ck == 0 ? a.z0 : a.z;
+  const float* y = first && ck == 0 ? a.y0 : a.y;
+  if (m < TT[kGroups + 1 + j]) {  // an LSC tile: slots [lo, hi); k: z, y, A·xi, l, scale, normals
+    if ((first && k >= 2 && k <= 4) || (k == 4 && !last)) return none;
+    const int lo = group_o0(D, P, j) + m * P.T, hi = min(group_o1(D, P, j), lo + P.T);
+    const int c = lsc_region(D, P);
+    if (k == 5)
+      return TileCopy{a.normals + (agent * D.O + lo) * D.M * D.dim, (hi - lo) * D.M * D.dim, 5 * c};
+    const float* src = k == 0 ? z : k == 1 ? y : k == 2 ? a.ax : k == 3 ? a.ln : a.scale;
+    return TileCopy{src + agent * D.R + (size_t)lo * D.MN, (hi - lo) * D.MN, k * c};
+  }
+  m -= TT[kGroups + 1 + j];  // a static tile: rows [lo, hi); k: z, y, A·xi, l, u, scale
+  if ((first && k >= 2) || (k == 5 && !last)) return none;
+  const int lo = group_s0(D, P, j) + m * P.ST, hi = min(group_s1(D, P, j), lo + P.ST);
+  const float* src = k == 0 ? z : k == 1 ? y : k == 2 ? a.ax : k == 3 ? a.ln : k == 4 ? a.un
+                                                                                   : a.scale;
+  return TileCopy{src + agent * D.R + D.R_lsc + lo, hi - lo, k * stat_region(P)};
+}
+
+// Copy `lane` of tile n into its stage (n % kGlobalStages), by a lane of
+// the warp whose turn it is (the warps take the tiles in turn, n % 8):
+// lane k expects copy k's 16-B body on the stage's mbarrier and issues it
+// as a bulk copy, and copies the floats before its source's first 16-B
+// boundary and past its last 4 B at a time (cp.async; qp_cuda.copy_split);
+// then lane 0 arrives, once a phase. `r` is tile_copy's, decoded before
+// the stage is free.
+__device__ __forceinline__ void issue_copy(const GPlan& P, const GSmem& s, int n, TileCopy r) {
+  const int lane = threadIdx.x & 31;
+  float* st = s.RING + (n % kGlobalStages) * P.stage;
+  unsigned long long* bar = s.BAR + n % kGlobalStages;
+  if (r.n) {
+    const int head = head_of(r.src), pre = min(r.n, (4 - head) & 3);
+    const int body = (r.n - pre) >> 2;
+    float* dst = st + r.off + head;
+    if (body) {
+      mbar_expect(bar, 16u * body);
+      copy_bulk(dst + pre, r.src + pre, 16u * body, bar);
+    }
+    for (int e = 0; e < pre; ++e) copy_async(dst + e, r.src + e);
+    for (int e = pre + 4 * body; e < r.n; ++e) copy_async(dst + e, r.src + e);
+  }
+  __syncwarp();
+  if (lane == 0) mbar_arrive(bar);
+}
+
+// Whether this thread's warp issues tile n, and its lane's copy of it.
+__device__ __forceinline__ TileCopy my_copy(const Args& a, const Dims& D, const GPlan& P,
+                                            const GSmem& s, size_t agent, int ck, int n,
+                                            bool& mine) {
+  mine = n < P.nR + a.chunk * (P.nK + P.nR) &&
+         (threadIdx.x >> 5) == n % (kGlobalThreads / 32);
+  const int lane = threadIdx.x & 31;
+  return mine && lane < kTileRanges ? tile_copy(a, D, P, s.TT, agent, ck, n, lane)
+                                    : TileCopy{nullptr, 0, 0};
+}
+
+// The ring: tile `next` is consumed from stage next % kGlobalStages while
+// the kGlobalStages − 1 tiles after it are in flight. acquire() decodes
+// the tile kGlobalStages − 1 ahead (on the warp whose turn it is), waits
+// for tile `next` (the thread's 4-B copies, then the stage's mbarrier at
+// the tile's phase) and fences the thread's writes to shared memory (those
+// copies, the static rows updated in their stage) from the bulk copies;
+// then a block barrier makes every thread's copies visible and frees the
+// stage of the tile before it, whose consumption every thread has
+// finished, and the warp refills that stage with the tile ahead (a commit
+// group a thread, empty but for the issuing warp's 4-B copies).
+struct Ring {
+  int next;
+};
+
+__device__ __forceinline__ const float* ring_acquire(Ring& R, const Args& a, const Dims& D,
+                                                     const GPlan& P, const GSmem& s,
+                                                     size_t agent, int ck) {
+  const int n = R.next++, ahead = n + kGlobalStages - 1;
+  bool mine;
+  const TileCopy r = my_copy(a, D, P, s, agent, ck, ahead, mine);
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kGlobalStages - 2) : "memory");
+  mbar_wait(s.BAR + n % kGlobalStages, (n / kGlobalStages) & 1);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  if (mine) issue_copy(P, s, ahead, r);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  return s.RING + (n % kGlobalStages) * P.stage;
+}
+
+// Pass mode: the launch's first pass (the partials of the state loaded;
+// at ck 0 the state and A·xi of the warm start into the loop's buffers),
+// or an iteration's row updates; `last`: the chunk's last iteration (its
+// partials are of y, for the exit test's Aᵀy, and it reads scale).
+struct PassMode {
+  bool first, last;
+};
+
+// One LSC tile, slots [u0, u1) of a group whose slots start at oa: each
+// thread-item (control point mn, slot part h) takes its slots o ≡ oa + h
+// (mod 2^lps) of the tile in slot order, its partial carried across the
+// group's tiles in IACC (`fresh`: the group's first tile).
+template <int NT>
+__device__ __forceinline__ void global_lsc_tile(const Args& a, const Dims& D, const GPlan& P,
+                                                size_t agent, int ck, const float* st, int oa,
+                                                int u0, int u1, bool fresh, PassMode pm,
+                                                float alpha, float beta, float& viol) {
+  const GSmem s = gview<NT>(D, P);
+  const int sp = 1 << P.lps, c = lsc_region(D, P);
+  const size_t rb = agent * D.R + (size_t)u0 * D.MN;
+  const float* Zs = staged(st, (pm.first && ck == 0 ? a.z0 : a.z) + rb);
+  const float* Ys = staged(st + c, (pm.first && ck == 0 ? a.y0 : a.y) + rb);
+  const float* AXs = staged(st + 2 * c, a.ax + rb);
+  const float* LNs = staged(st + 3 * c, a.ln + rb);
+  const float* SCs = staged(st + 4 * c, a.scale + rb);
+  const float* NRs = staged(st + 5 * c, a.normals + (agent * D.O + u0) * D.M * D.dim);
+  float* zg = a.z + rb;
+  float* yg = a.y + rb;
+  float* axg = a.ax + rb;
+  const double rinv = recip(a.rho_lsc);
+  for (int k = 0; k < P.ntrips; ++k) {
+    const int i2 = threadIdx.x + k * NT, mn = i2 >> P.lps, h = i2 & (sp - 1);
+    if (i2 >= P.n2 || mn >= D.MN) continue;
+    double* acc = s.IACC + 3 * k * NT + threadIdx.x;
+    double p[3];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) p[d] = fresh ? 0. : acc[d * NT];
+    int o = oa + h;
+    if (o < u0) o += ((u0 - o + sp - 1) >> P.lps) << P.lps;
+    const int m = s.MOF[mn];
+    if (pm.first) {
+      for (; o < u1; o += sp) {
+        const int r = (o - u0) * D.MN + mn, n = ((o - u0) * D.M + m) * D.dim;
+        const float z = Zs[r], y = Ys[r];
+        const double ww = (double)(a.rho_lsc * z - y);
+#pragma unroll
+        for (int d = 0; d < 3; ++d)
+          if (d < D.dim) p[d] = fma((double)NRs[n + d], ww, p[d]);
+        if (ck == 0) {
+          zg[r] = z;
+          yg[r] = y;
+          axg[r] = lsc_row(D, NRs, s.MOF, s.VD, o - u0, mn);
+        }
+      }
+    } else {
+      double vd[3];
+#pragma unroll
+      for (int d = 0; d < 3; ++d) vd[d] = d < D.dim ? s.VD[d * D.MN + mn] : 0.;
+      for (; o < u1; o += sp) {
+        const int r = (o - u0) * D.MN + mn, n = ((o - u0) * D.M + m) * D.dim;
+        double nd[3];  // the row's normal, read and converted once
+        double zt = 0.;
+#pragma unroll
+        for (int d = 0; d < 3; ++d) {
+          nd[d] = d < D.dim ? (double)NRs[n + d] : 0.;
+          if (d < D.dim) zt += nd[d] * vd[d];
+        }
+        float z = Zs[r], y = Ys[r], ax = AXs[r];
+        const float lo = LNs[r];
+        update_row_rcp((float)zt, z, y, ax, lo, INFINITY, a.rho_lsc, rinv, alpha, beta);
+        zg[r] = z;
+        yg[r] = y;
+        axg[r] = ax;
+        if (pm.last) {
+          const float vr = fmaxf(fmaxf(lo - ax, ax - INFINITY), 0.f);
+          viol = fmaxf(viol, vr / SCs[r]);
+        }
+        const double ww = (double)(pm.last ? y : a.rho_lsc * z - y);
+#pragma unroll
+        for (int d = 0; d < 3; ++d)
+          if (d < D.dim) p[d] = fma(nd[d], ww, p[d]);
+      }
+    }
+#pragma unroll
+    for (int d = 0; d < 3; ++d) acc[d * NT] = p[d];
+  }
+}
+
+// The group's LSC partial from the thread-items' partials (zero where the
+// group has no slot: `fresh`), the slot parts added by a butterfly, into
+// GP. Every lane of a warp with a trip runs it (n2 is a multiple of 32).
+template <int NT>
+__device__ __forceinline__ void global_lsc_partial(const Dims& D, const GPlan& P, bool fresh) {
+  const GSmem s = gview<NT>(D, P);
+  for (int k = 0; k < P.ntrips; ++k) {
+    const int i2 = threadIdx.x + k * NT, mn = i2 >> P.lps, h = i2 & ((1 << P.lps) - 1);
+    if (i2 >= P.n2) break;
+    const bool live = mn < D.MN;
+    double p[3] = {0., 0., 0.};
+    if (live && !fresh)
+#pragma unroll
+      for (int d = 0; d < 3; ++d) p[d] = s.IACC[(3 * k + d) * NT + threadIdx.x];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) p[d] = sum_parts(p[d], P.lps);
+    if (live && h == 0)
+#pragma unroll
+      for (int d = 0; d < 3; ++d)  // constant indices: p stays in registers
+        if (d < D.dim) s.GP[d * D.MN + mn] = p[d];
+  }
+}
+
+// One static tile, rows [q0, q1) of a group whose static rows start at sa:
+// a thread a row; each row's cotangent (ρz − y, or y) into WS.
+template <int NT>
+__device__ __forceinline__ void global_stat_tile(const Args& a, const Dims& D, const GPlan& P,
+                                                 size_t agent, int ck, const float* st, int sa,
+                                                 int q0, int q1, PassMode pm, float alpha,
+                                                 float beta, float& viol) {
+  const GSmem s = gview<NT>(D, P);
+  const int c = stat_region(P);
+  const size_t rb = agent * D.R + D.R_lsc + q0;
+  const float* Zs = staged(st, (pm.first && ck == 0 ? a.z0 : a.z) + rb);
+  const float* Ys = staged(st + c, (pm.first && ck == 0 ? a.y0 : a.y) + rb);
+  const float* AXs = staged(st + 2 * c, a.ax + rb);
+  const float* LNs = staged(st + 3 * c, a.ln + rb);
+  const float* UNs = staged(st + 4 * c, a.un + rb);
+  const float* SCs = staged(st + 5 * c, a.scale + rb);
+  for (int q = threadIdx.x; q < q1 - q0; q += NT) {
+    const int sr = q0 + q;
+    const float rho = __ldg(a.rho_stat + sr);
+    if (pm.first) {
+      const float z = Zs[q], y = Ys[q];
+      if (ck == 0) {
+        a.z[rb + q] = z;
+        a.y[rb + q] = y;
+        a.ax[rb + q] = stat_row(a, s.VD, sr);
+      }
+      s.WS[sr - sa] = rho * z - y;
+      continue;
+    }
+    // in place in the stage, as the cluster build updates its rows in
+    // shared memory
+    float* Zq = const_cast<float*>(Zs) + q;
+    float* Yq = const_cast<float*>(Ys) + q;
+    float* AXq = const_cast<float*>(AXs) + q;
+    update_row(stat_row(a, s.VD, sr), *Zq, *Yq, *AXq, LNs[q], UNs[q], rho, alpha, beta);
+    const float z = *Zq, y = *Yq, ax = *AXq;
+    a.z[rb + q] = z;
+    a.y[rb + q] = y;
+    a.ax[rb + q] = ax;
+    if (pm.last) {
+      const float vr = fmaxf(fmaxf(LNs[q] - ax, ax - UNs[q]), 0.f);
+      viol = fmaxf(viol, vr / SCs[q]);
+    }
+    s.WS[sr - sa] = pm.last ? y : rho * z - y;
+  }
+}
+
+// Group j's static partials (its entries of each transposed-stencil
+// column, in entry order) added to its LSC partial, and the group's whole
+// partial added to the running sum in group order (group 0 starts it):
+// the cluster build's reduce_partials sums. Reads GP and WS behind a
+// barrier.
+template <int NT>
+__device__ __forceinline__ void global_group_sum(const Args& a, const Dims& D, const GPlan& P,
+                                                 int j, int sa) {
+  const GSmem s = gview<NT>(D, P);
+  const int nv = D.dim * D.MN;
+  const int* gp = a.grp_ptr + j * nv;
+  for (int i = threadIdx.x; i < nv; i += NT) {
+    const int e1 = __ldg(gp + nv + i);
+    double acc = 0.;
+    for (int e = __ldg(gp + i); e < e1; ++e)
+      acc = fma((double)__ldg(a.adj_coef + e), (double)s.WS[__ldg(a.adj_row + e) - sa], acc);
+    const double p = s.GP[i] + acc;
+    s.SUM[i] = j == 0 ? p : s.SUM[i] + p;
+  }
+}
+
+// One pass over the agent's rows, group by group: its LSC tiles, its LSC
+// partial, its static tiles, its partial into the running sum. Each
+// thread's stores of the group's rows are fenced from the bulk copies
+// that read them again in the next pass (issued after a later barrier).
+template <int NT>
+__device__ __forceinline__ void global_row_pass(const Args& a, const Dims& D, const GPlan& P,
+                                                Ring& R, size_t agent, int ck, PassMode pm,
+                                                float alpha, float beta, float& viol) {
+  for (int j = 0; j < kGroups; ++j) {
+    const int oa = group_o0(D, P, j), ob = group_o1(D, P, j);
+    for (int u0 = oa; u0 < ob; u0 += P.T) {
+      const float* st = ring_acquire(R, a, D, P, gview<NT>(D, P), agent, ck);
+      global_lsc_tile<NT>(a, D, P, agent, ck, st, oa, u0, min(ob, u0 + P.T), u0 == oa, pm, alpha,
+                          beta, viol);
+    }
+    global_lsc_partial<NT>(D, P, ob == oa);
+    const int sa = group_s0(D, P, j), sb = group_s1(D, P, j);
+    for (int q0 = sa; q0 < sb; q0 += P.ST) {
+      const float* st = ring_acquire(R, a, D, P, gview<NT>(D, P), agent, ck);
+      global_stat_tile<NT>(a, D, P, agent, ck, st, sa, q0, min(sb, q0 + P.ST), pm, alpha, beta,
+                           viol);
+    }
+    fence_proxy_async_global();
+    __syncthreads();
+    global_group_sum<NT>(a, D, P, j, sa);
+    __syncthreads();
+  }
+}
+
+// One chunk of every agent's loop on the global build: the cluster build's
+// order of operations (its fixed groups, partials, Kinv parts and exit
+// test) in one block, the rows and Kinv streamed through the ring; the
+// early return and the launches as in admm_chunk_kernel.
+template <int NT>
+__global__ void __launch_bounds__(NT, 2)
+admm_global_kernel(Args a, int ck, GPlan P) {
+  if (ck > 0 && a.done_count[ck - 1] == a.A) {
+    if (threadIdx.x == 0 && blockIdx.x == 0) a.done_count[ck] = a.A;
+    return;
+  }
+  const Dims D = make_dims(a.dim, a.O, a.M, a.N, a.K, a.R_stat);
+  const int t = threadIdx.x, nv = D.dim * D.MN;
+  const size_t agent = blockIdx.x;
+  {
+    const GSmem s = gview<NT>(D, P);
+    if (t == 0) {  // the row tiles' table; the stages' mbarriers
+      int n = 0;
+      for (int j = 0; j < kGroups; ++j) {
+        s.TT[j] = n;
+        s.TT[kGroups + 1 + j] = group_lsc_tiles(D, P, j);
+        n += group_tiles(D, P, j);
+      }
+      s.TT[kGroups] = n;
+      for (int k = 0; k < kGlobalStages; ++k) mbar_init(s.BAR + k);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    for (int n = 0; n < kGlobalStages - 1; ++n) {  // the first tiles
+      bool mine;
+      const TileCopy r = my_copy(a, D, P, s, agent, ck, n, mine);
+      if (mine) issue_copy(P, s, n, r);
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    }
+    const float* xi_in = ck == 0 ? a.xi0 : a.xi;
+    for (int j = t; j < D.dk; j += NT) {
+      s.XI[j] = xi_in[agent * D.dk + j];
+      s.XIP[j] = s.XI[j];
+      s.QN[j] = a.qn[agent * D.dk + j];
+    }
+    for (int mn = t; mn < D.MN; mn += NT) s.MOF[mn] = mn / D.N;
+    __syncthreads();
+    if (ck == 0) cluster_points<NT>(D, s.XI, a.N3k, D.MN, s.VD);  // A·xi of the warm start
+  }
+  Ring R{0};
+  float viol = 0.f;
+  const float alpha = a.alpha, beta = a.one_minus_alpha;
+  global_row_pass<NT>(a, D, P, R, agent, ck, PassMode{true, false}, alpha, beta, viol);
+
+  const int lp = kinv_parts_log2(D.dk), part = (D.dk + (1 << lp) - 1) >> lp;
+  for (int it = 0; it < a.chunk; ++it) {
+    {  // the accumulator, rounded once; rhs = σξ − q + Aᵀ(ρz − y), in double
+      const GSmem s = gview<NT>(D, P);
+      for (int i = t; i < nv; i += NT) s.VA[i] = (double)(float)s.SUM[i];
+      __syncthreads();
+      cluster_adjoint<NT>(D, a.N3k, D.MN, s.VA, [&](int k, double g) {
+        s.RHSD[k] = ((double)a.sigma * s.XI[k] - (double)s.QN[k]) + g;
+      });
+    }
+    // ξ̃ = Kinv·rhs in double, Kinv a tile of rows at a time
+    for (int k0 = 0; k0 < D.dk; k0 += P.KT) {
+      const GSmem s = gview<NT>(D, P);
+      const int nk = min(D.dk, k0 + P.KT) - k0;
+      const float* KI = staged(ring_acquire(R, a, D, P, s, agent, ck),
+                               a.Kinv + (agent * D.dk + k0) * D.dk);
+      for_parts<NT>(nk, lp, [&](int r, int h) {
+        double p = 0.;
+        if (r < nk) {
+          const float* kr = KI + r * D.dk;
+          p = dot4(min(D.dk, h * part), min(D.dk, (h + 1) * part),
+                   [&](int c) { return make_double2((double)kr[c], s.RHSD[c]); });
+        }
+        p = sum_parts(p, lp);
+        if (h == 0 && r < nk) s.XTD[k0 + r] = p;
+      });
+    }
+    __syncthreads();
+    {  // control points of ξ̃; ξ ← αξ̃ + (1 − α)ξ; the rows
+      const GSmem s = gview<NT>(D, P);
+      cluster_points<NT>(D, s.XTD, a.N3k, D.MN, s.VD);
+      for (int j = t; j < D.dk; j += NT) s.XI[j] = alpha * (float)s.XTD[j] + beta * s.XI[j];
+    }
+    const bool last = it == a.chunk - 1;
+    global_row_pass<NT>(a, D, P, R, agent, ck, PassMode{false, last}, alpha, beta, viol);
+  }
+
+  // ---- exit tests on the actual iterate (the last pass's partials: of y) ----
+  const GSmem s = gview<NT>(D, P);
+  for (int i = t; i < nv; i += NT) s.VA[i] = (double)(float)s.SUM[i];
+  __syncthreads();
+  float* PX = reinterpret_cast<float*>(s.RHSD);  // rhs is free here
+  float* ATY = PX + D.dk;
+  cluster_adjoint<NT>(D, a.N3k, D.MN, s.VA, [&](int k, double g) { ATY[k] = (float)g; });
+  cost_product_parts<NT>(D, a.Pn + agent * D.K * D.K, s.XI, PX);
+  __syncthreads();
+  float v[8] = {viol, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  dual_terms<NT>(D, PX, ATY, s.QN, s.XI, s.XIP, v);
+  block_reduce8<NT>(v, s.RED);
+  for (int j = t; j < D.dk; j += NT) a.xi[agent * D.dk + j] = s.XI[j];
+  if (t == 0) exit_gates(a, v, agent, ck);
+}
+
 // The one-block builds' kernels: the chunk kernel, its threads and its launch.
-template <int NT, int KC, bool GLOBAL>
+template <int NT, int KC>
 struct OneBlock {
-  static constexpr auto kern = admm_chunk_kernel<NT, KC, GLOBAL>;
+  static constexpr auto kern = admm_chunk_kernel<NT, KC>;
   static constexpr int threads = NT;
   static constexpr int blocks = 0;  // the carveout: all shared
   static void launch(const Args& a, int ck, int A, size_t smem, cudaStream_t stream) {
-    admm_chunk_kernel<NT, KC, GLOBAL><<<A, NT, smem, stream>>>(a, ck);
+    admm_chunk_kernel<NT, KC><<<A, NT, smem, stream>>>(a, ck);
   }
+};
+struct GlobalBuild {
+  static constexpr auto kern = admm_global_kernel<kGlobalThreads>;
+  static constexpr int threads = kGlobalThreads;
+  static constexpr int blocks = 0;  // the carveout: all shared (its two blocks take 226 KB)
 };
 template <int W, int KC>
 struct Triple {
@@ -1730,16 +2373,29 @@ Build build_for(const Dims& D) {
 // <320,32>, and <128,30>); -1 for any other build.
 int launch_registers(const Build& b, const Args& a, int A, cudaStream_t st) {
   switch (b.threads) {
-    case 128: return launch_all<OneBlock<128, 30, false>>(a, A, b.smem, st);
+    case 128: return launch_all<OneBlock<128, 30>>(a, A, b.smem, st);
     case 288: return launch_all<Triple<9, 30 - kTripleShared>>(a, A, b.smem, st);
     case 320: return launch_all<Triple<10, 32 - kTripleShared>>(a, A, b.smem, st);
     default: return -1;
   }
 }
 
-// A block of the global build: the vectors alone.
-size_t global_smem(const Dims& D) {
-  return sizeof(float) * smem_floats(D, kClusterThreads, false, false);
+// The global build's launches (see launch_all), or a refusal of a shape
+// whose block passes the device's shared memory.
+int launch_global(const Args& a, int A, cudaStream_t stream) {
+  const Dims D = make_dims(a.dim, a.O, a.M, a.N, a.K, a.R_stat);
+  const GPlan P = global_plan(D);
+  const size_t smem = global_smem(D);
+  if (!smem || smem > smem_limit()) return kPastSharedMemory;
+  cudaError_t err = prepare_kernel<GlobalBuild>(smem);
+  if (err != cudaSuccess) return (int)err;
+  const int n_chunks = admm_n_chunks(a.max_iter, a.chunk);
+  for (int ck = 0; ck < n_chunks; ++ck) {
+    admm_global_kernel<kGlobalThreads><<<A, kGlobalThreads, smem, stream>>>(a, ck, P);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 // A CTA's shared memory at cluster size C, or 0 for a C other than 2, 4, 8.
@@ -1860,16 +2516,19 @@ extern "C" int admm_blocks_per_sm(int dim, int O, int M, int N, int K, int R_sta
   const Build b = build_for(D);
   if (b.columns) {
     switch (b.threads) {
-      case 128: return blocks_per_sm<OneBlock<128, 30, false>>(b.smem);
+      case 128: return blocks_per_sm<OneBlock<128, 30>>(b.smem);
       case 288: return blocks_per_sm<Triple<9, 30 - kTripleShared>>(b.smem);
       default: return blocks_per_sm<Triple<10, 32 - kTripleShared>>(b.smem);
     }
   }
   if (!b.threads) return -1;
   if (C == 1)
-    return b.smem <= smem_limit() ? blocks_per_sm<OneBlock<256, 0, false>>(b.smem)
+    return b.smem <= smem_limit() ? blocks_per_sm<OneBlock<256, 0>>(b.smem)
                                   : kPastSharedMemory;
-  if (C == 0) return blocks_per_sm<OneBlock<256, 0, true>>(global_smem(D));
+  if (C == 0) {
+    const size_t smem = global_smem(D);
+    return smem && smem <= smem_limit() ? blocks_per_sm<GlobalBuild>(smem) : kPastSharedMemory;
+  }
   const size_t smem = cluster_smem(D, C, n3k);
   const int rc = cluster_prepare(smem);
   if (rc != 0) return rc < 0 ? rc : -rc;
@@ -1919,12 +2578,8 @@ extern "C" int admm_launch(const float* normals, const float* Kinv, const float*
   if (b.columns) return launch_registers(b, a, A, st);
   if (!b.threads) return -1;
   if (C == 1)
-    return b.smem <= smem_limit() ? launch_all<OneBlock<256, 0, false>>(a, A, b.smem, st)
+    return b.smem <= smem_limit() ? launch_all<OneBlock<256, 0>>(a, A, b.smem, st)
                                   : kPastSharedMemory;
-  if (C == 0) {
-    const size_t smem = global_smem(D);
-    return smem <= smem_limit() ? launch_all<OneBlock<256, 0, true>>(a, A, smem, st)
-                                : kPastSharedMemory;
-  }
+  if (C == 0) return launch_global(a, A, st);
   return launch_cluster(a, C, n3k, st, clusters);
 }

@@ -23,8 +23,10 @@ C. `cluster_plan` chooses C from the shape, the batch and the device's
 shared memory and resident clusters. A shape the cluster build cannot
 take (its rows and Kinv past 8 CTAs, or a CTA's stencil tables past
 16-bit indices) goes to the global build `<256,0,global>`: one agent a
-block, its rows' state and Kinv in global memory. Device memory is the
-only limit.
+block, two blocks an SM, its rows and Kinv streamed from global memory
+through a ring of tiles in shared memory (`global_tile_plan`), one pass
+over the rows an iteration, in the cluster build's order of operations:
+its result is the cluster build's bits at every shape both take.
 
 The source is compiled at first use by `nvcc` for sm_90a into a shared
 library with a plain C entry point under `build/` at the checkout root
@@ -59,6 +61,11 @@ GROUPS = 8  # the cluster build's fixed groups of LSC slots and static rows (adm
 CLUSTER_SIZES = (2, 4, 8)  # the portable cluster sizes
 CLUSTER_THREADS = 256  # threads of a CTA of the cluster build
 SMS = 132  # streaming multiprocessors of the H100
+H100_BLOCK_OPTIN = 232448  # shared bytes a block may opt in to on the H100 (227 KB)
+# a block's shared bytes when two share an SM: the SM's 228 KB less 1 KB reserved a block
+TWO_BLOCK_BYTES = (H100_BLOCK_OPTIN + 1024) // 2 - 1024
+GLOBAL_STAGES = 3  # the global build's ring of tiles (admm.cu kGlobalStages)
+GLOBAL_STAGE_CAP = 8192  # floats a stage at most (admm.cu kGlobalStageCap)
 CLUSTER_BUILD = "<256,cluster>"
 MEMORY_BUILD = "<256,0>"  # one agent a block, its rows and Kinv in shared memory
 GLOBAL_BUILD = "<256,0,global>"  # one agent a block, its rows and Kinv in global memory
@@ -156,7 +163,8 @@ def placement(lib, dim: int, O: int, M: int, N: int, K: int, R_stat: int) -> dic
     builds), {"rows": "shared", "kinv": "shared"} (the memory build: one
     block's; the cluster build: split over its CTAs' shared memory) or
     {"rows": "global", "kinv": "global"} (the global build: the shapes the
-    cluster build cannot take, `cluster_reach`)."""
+    cluster build cannot take, `cluster_reach`; streamed through shared
+    memory a tile at a time)."""
     shape = (dim, O, M, N, K, R_stat)
     if lib.admm_columns(*shape):
         return {"rows": "shared", "kinv": "registers"}
@@ -247,12 +255,97 @@ def cluster_plan(shape, A: int, smem_limit: int, sms: int = SMS, resident=None):
     return C, n3k, nbytes
 
 
+def slot_parts_log2(G: int) -> int:
+    """Threads (2^lps) that share one (group, control point) item of the
+    LSC rows when a group holds G slots (admm.cu's slot_parts_log2)."""
+    return 2 if G >= 12 else 1 if G >= 6 else 0
+
+
+def _r4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def _lsc_tile_floats(dim, M, MN, slots):
+    """A ring stage's floats for an LSC tile of `slots` slots: z, y, A·xi,
+    l and scale of its rows and its slots' normals, each region 16-B
+    aligned with room for a head of up to 3 floats."""
+    return 5 * _r4(slots * MN + 3) + _r4(slots * M * dim + 3)
+
+
+def global_tile_plan(dim: int, O: int, M: int, N: int, K: int, R_stat: int) -> dict:
+    """The global build's tiles (admm.cu's global_plan). A block streams
+    one agent's rows and Kinv from global memory through a ring of
+    GLOBAL_STAGES stages in shared memory, in the cluster build's GROUPS
+    fixed groups (G = ⌈O/8⌉ slots and GS = ⌈R_stat/8⌉ static rows a
+    group): each group's LSC rows in tiles of T whole slots, then its
+    static rows in tiles of ST; Kinv in tiles of KT rows. What stays in
+    shared memory (`resident` floats): the control points, the running sum
+    of the group partials, the group's partial and the accumulator (dim·MN
+    doubles each), rhs and ξ̃ (dk doubles), the LSC items' partials across
+    tiles (3 doubles a thread-item, `ntrips` a thread), the stages'
+    mbarriers, the dk-vectors, the group's static-row cotangents, the
+    reductions, the segment of each control point and the groups' tile
+    table. A stage takes what leaves two blocks an SM in the
+    H100's shared memory (one, where two never fit), at most
+    GLOBAL_STAGE_CAP floats. Raises ValueError for a shape whose block
+    cannot hold one slot's tile."""
+    MN, dk, nv = M * N, dim * K, dim * M * N
+    G, GS = -(-O // GROUPS), -(-R_stat // GROUPS)
+    lps = slot_parts_log2(G)
+    n2 = ((MN << lps) + 31) & ~31
+    ntrips = -(-n2 // CLUSTER_THREADS)
+    resident = _r4(2 * (4 * nv + 2 * dk + 3 * CLUSTER_THREADS * ntrips + GLOBAL_STAGES) + 3 * dk
+                   + GS + 8 * (CLUSTER_THREADS // 32) + MN + 2 * GROUPS + 1)
+    need = max(_lsc_tile_floats(dim, M, MN, 1), 6 * _r4(1 + 3), _r4(dk + 3))
+    for blocks, budget in ((2, TWO_BLOCK_BYTES), (1, H100_BLOCK_OPTIN)):
+        stage = min(GLOBAL_STAGE_CAP, (budget // 4 - resident) // GLOBAL_STAGES) & ~3
+        if stage >= need:
+            break
+    else:
+        raise ValueError(f"ADMM shape {(dim, O, M, N, K, R_stat)}: one slot's tile does not fit "
+                         "a block beside what the global build keeps in shared memory")
+    T = max(t for t in range(1, G + 1) if _lsc_tile_floats(dim, M, MN, t) <= stage)
+    ST = max(s for s in range(1, GS + 1) if 6 * _r4(s + 3) <= stage)
+    KT = max(k for k in range(1, dk + 1) if _r4(k * dk + 3) <= stage)
+    jobs, per_group = [], []
+    for j in range(GROUPS):
+        oa = min(O, j * G)
+        ob = min(O, oa + G)
+        sa = min(R_stat, j * GS)
+        sb = min(R_stat, sa + GS)
+        tiles = ([(j, "lsc", u, min(ob, u + T)) for u in range(oa, ob, T)]
+                 + [(j, "static", q, min(sb, q + ST)) for q in range(sa, sb, ST)])
+        jobs += tiles
+        per_group.append(len(tiles))
+    n_kinv = -(-dk // KT)
+    # a row is read again only after its group's tiles are done (and their
+    # stores fenced): GLOBAL_STAGES − 1 tiles a pass outside any one group
+    if n_kinv + len(jobs) - max(per_group) < GLOBAL_STAGES - 1:
+        raise ValueError(f"ADMM shape {(dim, O, M, N, K, R_stat)}: too few tiles a pass "
+                         "outside one group for the ring's stages")
+    return {"G": G, "GS": GS, "lps": lps, "n2": n2, "ntrips": ntrips, "T": T, "ST": ST,
+            "KT": KT, "stage": stage, "stages": GLOBAL_STAGES, "resident": resident,
+            "n_kinv": n_kinv, "row_jobs": jobs, "blocks_per_sm": blocks,
+            "smem_bytes": 4 * (resident + GLOBAL_STAGES * stage)}
+
+
+def copy_split(offset: int, n: int):
+    """How the global build copies n floats that start `offset` floats
+    past a 16-B boundary into a 16-B aligned region of a stage (admm.cu's
+    issue_copy): the data at `head` = offset mod 4 floats into the region
+    (so that source and destination agree mod 16 B), `pre` floats copied
+    4 B at a time up to the source's next 16-B boundary, `body` 16-B units
+    in one bulk copy (aligned at both ends), `tail` floats of 4 B. Returns
+    (head, pre, body, tail)."""
+    head = offset & 3
+    pre = min(n, (4 - head) & 3)
+    return head, pre, (n - pre) >> 2, (n - pre) & 3
+
+
 def global_block_bytes(dim: int, O: int, M: int, N: int, K: int, R_stat: int) -> int:
-    """Dynamic shared memory of one block of the global build: admm.cu's
-    smem_floats without the rows and Kinv, in bytes (the dk- and
-    dim·MN-vectors, the reductions, the segment of each control point)."""
-    MN, dk = M * N, dim * K
-    return 4 * (5 * dk + 3 * dim * MN + 8 * (CLUSTER_THREADS // 32) + MN)
+    """Dynamic shared memory of one block of the global build: what it
+    keeps and its ring's stages (`global_tile_plan`), in bytes."""
+    return global_tile_plan(dim, O, M, N, K, R_stat)["smem_bytes"]
 
 
 def cluster_reach(shape, smem_limit: int) -> bool:
@@ -275,7 +368,9 @@ def loop_plan(shape, A: int, smem_limit: int, sms: int = SMS, resident=None):
     and Bézier degree 8's 1,024 agents ran 12.1 ms on the memory build
     against 21.8 ms on the cluster build on the H100; PERF.md §6); else the
     cluster build at `cluster_plan`'s C; and where `cluster_plan` refuses
-    the shape, the global build (C = 0), which takes any shape."""
+    the shape, the global build (C = 0), which takes any shape whose block
+    holds one slot's tile (`global_tile_plan` raises ValueError past
+    that)."""
     nbytes = memory_block_bytes(*shape)
     if A >= 2 * sms and ctas_per_sm(nbytes, smem_limit) >= 2:
         return MEMORY_BUILD, 1, False, nbytes

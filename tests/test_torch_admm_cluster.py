@@ -139,9 +139,11 @@ PAST_CLUSTER = {"O640_M28": (3, 640, 28, 6, 82, 2478), "O480_M28": (3, 480, 28, 
 def test_loop_plan_global_past_the_cluster_reach(name):
     """Where `cluster_plan` refuses a shape (for every batch), `loop_plan`
     returns the global build (C = 0, one agent a block, rows and Kinv in
-    global memory, a block's shared memory the vectors alone) and raises
-    for no batch; `cluster_reach` tells those shapes, and every shape the
-    cluster build takes (SHAPES) stays in its reach."""
+    global memory, streamed through a ring of GLOBAL_STAGES stages: a
+    block's shared memory what it keeps and the ring,
+    `qp_cuda.global_tile_plan`) and raises for no batch; `cluster_reach`
+    tells those shapes, and every shape the cluster build takes (SHAPES)
+    stays in its reach."""
     shape = PAST_CLUSTER[name]
     dim, O, M, N, K, R_stat = shape
     assert (3 * R_stat >= 1 << 16
@@ -152,9 +154,17 @@ def test_loop_plan_global_past_the_cluster_reach(name):
             qp_cuda.cluster_plan(shape, A, H100_SMEM_OPTIN, resident=H100_RESIDENT.get)
         got = qp_cuda.loop_plan(shape, A, H100_SMEM_OPTIN, resident=H100_RESIDENT.get)
         assert got == (qp_cuda.GLOBAL_BUILD, 0, False, qp_cuda.global_block_bytes(*shape))
-    MN, dk = M * N, dim * K
-    assert qp_cuda.global_block_bytes(*shape) == 4 * (5 * dk + 3 * dim * MN + 64 + MN)
-    assert qp_cuda.global_block_bytes(*shape) < qp_cuda.memory_block_bytes(*shape) // 10
+    MN, dk, nv = M * N, dim * K, dim * M * N
+    plan = qp_cuda.global_tile_plan(*shape)
+    # doubles: 4 dim·MN-vectors, 2 dk-vectors, 3 a thread-item of the LSC
+    # partials, an mbarrier a stage; floats: 3 dk-vectors, the group's static
+    # rows, the reductions, the segments, the groups' tile table; the ring
+    resident = (2 * (4 * nv + 2 * dk + 3 * 256 * plan["ntrips"] + 3) + 3 * dk + plan["GS"] + 64
+                + MN + 17)
+    assert plan["resident"] == (resident + 3) & ~3
+    assert qp_cuda.global_block_bytes(*shape) == 4 * (plan["resident"] + 3 * plan["stage"])
+    assert qp_cuda.global_block_bytes(*shape) < qp_cuda.memory_block_bytes(*shape)
+    assert qp_cuda.global_block_bytes(*shape) <= H100_SMEM_OPTIN
     assert all(qp_cuda.cluster_reach(s, H100_SMEM_OPTIN) for s in SHAPES.values())
 
 

@@ -948,11 +948,12 @@ def test_cluster_launch_refusals():
     assert plan["ctas_per_sm"] == lib.admm_blocks_per_sm(*shape, 0, 0) >= 2
 
 
-def _random_qp_inputs(cfg, A, seed):
+def _random_qp_inputs(cfg, A, seed, device="cuda"):
     """QP inputs of A agents from a numpy seed, shaped as the pipeline's:
     positions within 20 m of the origin, unit normals with masked slots,
     LSC rows active where the slot is, the first segment's pinned points
-    inactive, world-sized bounds, a warm start near the agent, duals."""
+    inactive, world-sized bounds, a warm start near the agent, duals; on
+    `device`."""
     rng = np.random.default_rng(seed)
     dim, O, M, N = cfg.dim, cfg.n_obs, cfg.M, cfg.N
     p0 = rng.uniform(-20, 20, (A, dim))
@@ -975,7 +976,7 @@ def _random_qp_inputs(cfg, A, seed):
         comm_halfrange=rng.uniform(1, 2, A), x0=centre + rng.uniform(-1, 1, (A, dim, M, N)),
         y0=0.1 * rng.standard_normal((A, qp.n_rows(cfg))))
     return qp.QPInputs(**{k: torch.as_tensor(v, dtype=torch.bool if k == "lsc_active"
-                                              else torch.float32, device="cuda")
+                                              else torch.float32, device=device)
                           for k, v in arrays.items()})
 
 
@@ -1014,3 +1015,69 @@ def test_global_build_past_the_cluster_reach():
         assert torch.equal(a, b)
     rec = qp_check.whole_run_f64(cfg, li, got)
     assert rec["agents_failed"] == 0, rec
+
+
+# (build_fleet overrides, agents, the cluster size loop_plan gives the batch)
+# of the shapes where the global build, forced, runs beside the cluster build:
+# chip_smoke.py's 8f (3-D at M = 12, 80 slots) and 8g's 160 slots at M = 28
+GLOBAL_BESIDE_CLUSTER = {
+    "8f": (dict(world_dimension=3, M=12, communication_range=5.0, max_obstacles=80), 64, 2),
+    "dk246_O160": (WIDE["dk246_O160"][0], WIDE["dk246_O160"][1], 8),
+}
+
+
+@pytest.mark.parametrize("name", sorted(GLOBAL_BESIDE_CLUSTER))
+def test_global_build_is_the_cluster_bits(name):
+    """The global build forced (C = 0) against the cluster build at the
+    batch's cluster size: xi, z, y, itdone and the iterations the same
+    bits for one chunk and for the run to its exit (the global build runs
+    the cluster build's order of operations in one block)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    over, A, C = GLOBAL_BESIDE_CLUSTER[name]
+    p, planner, fleet, inp = workload.build_fleet(A, device="cuda", **over)
+    step = workload.make_evolve_step(p, planner, fleet)
+    inp, _ = step(inp)
+    cfg, feas_tol = planner.qp_cfg, planner.feas_tol
+    li = qp.prepare(cfg, planner._step_impl(fleet, inp, defer_qp=True).qp_inp).loop
+    shape = _shape(cfg, li)
+    assert qp_cuda.launch_plan(shape, A)["C"] == C
+    for iters in (qp.CHUNK, cfg.max_iter):
+        got = _cluster_run(cfg, li, iters, feas_tol, 0)
+        torch.cuda.synchronize()
+        assert qp_cuda.last_launch["build"] == qp_cuda.GLOBAL_BUILD
+        want = _cluster_run(cfg, li, iters, feas_tol, C)
+        torch.cuda.synchronize()
+        assert qp_cuda.last_launch["C"] == C
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), (name, iters)
+
+
+def test_global_build_rescue_sized_batch():
+    """The 480-slot shape of test_global_build_past_the_cluster_reach on a
+    rescue-sized batch (qp.RESCUE = 64 agents of random QPs, 64 blocks on
+    132 SMs): the global build; one chunk held to the plain chunk
+    (`_chunk_held`), the run to its exit bitwise its chain of chunks, each
+    agent's run the same bits as that agent alone."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    cfg = qp.QPConfig(dim=3, M=28, n=5, phi=3, n_obs=480, use_comm=True, stop_at_horizon=True,
+                      dt=0.2, control_input_weight=0.01, terminal_weight=1.0, rho=1.0,
+                      sigma=1e-6, alpha=1.6, max_iter=200, eps_abs=1e-3, rescue_iter=800)
+    feas_tol = 5e-3
+    li = qp.prepare(cfg, _random_qp_inputs(cfg, qp.RESCUE, seed=5)).loop
+    k = qp.run_loop(cfg, li, 8, feas_tol)
+    torch.cuda.synchronize()
+    assert qp_cuda.last_launch["build"] == qp_cuda.GLOBAL_BUILD
+    _chunk_held(cfg, li, k, qp.admm_loop_plain(cfg, li, 8, feas_tol), feas_tol)
+    got = qp.run_loop(cfg, li, cfg.max_iter, feas_tol)
+    state = li
+    for _ in range(int(got[4]) // 8):
+        k = qp.run_loop(cfg, state, 8, feas_tol)
+        state = dataclasses.replace(state, xi=k[0], z=k[1], y=k[2])
+    for a, b in zip(got[:3], (state.xi, state.z, state.y)):
+        assert torch.equal(a, b)
+    idx = torch.tensor([7], device="cuda")
+    alone = qp.run_loop(cfg, li.take(idx), int(got[4]), 0.0)
+    for a, b in zip(qp.run_loop(cfg, li, int(got[4]), 0.0)[:3], alone[:3]):
+        assert torch.equal(a[idx], b)
