@@ -47,8 +47,9 @@ layer and audit, and the `sim.run` CLI) flying forest missions:
      of two timed steps: the fused kernels' normals, anchors and margins,
      and lattice boxes, world boxes and lanes, equal their plain bodies'
      on the card, element for element; each kernel timed on the first
-     (queued back to back, by CUDA events and the profiler's device
-     time) beside its plain version and its bound (`clsc_bound`: bytes
+     (its own device ms a launch by the profiler's events of that
+     kernel, and a call's ms queued back to back by CUDA events) beside
+     its plain version and its bound (`clsc_bound`: bytes
      and least operations, `hull_ops` extended; `trip_bounds`: bytes,
      operations and the latency floor); the expansion entry and the hull query timed
      on the same call's lanes and hulls (and the query held to the plain
@@ -76,7 +77,7 @@ layer and audit, and the `sim.run` CLI) flying forest missions:
      kernel a step (planner/stages.py's entries: front_with_neighbors,
      the neighbour selection inside the prediction's launch, and
      goal_qp_inputs; `assert_one_launch_a_call`), no plain stage body on
-     the card, and `stage_timing` (ms queued, device ms, host ms, plain
+     the card, and `stage_timing` (own device ms, ms queued, host ms, plain
      ms, bytes bound, registers, shared memory, blocks an SM) on the
      first recorded call; then SEPARATE_STEPS steps with the two as
      separate launches (`separate_launches`), one launch of
@@ -254,27 +255,33 @@ one per geometry kernel
 kernels' run-time builds hull_closest<rt> and clsc_build<rt>, timed at
 phase 8h's N = 9: its launches on
 those paths, the calls and items its check held to its plain version,
-ms, device ms, plain ms, bound and share on the main path's call, the
-SFC kernels' latency floor, ptxas's registers), one for qp_prepare
-(the same, with the library inverse's ms; and its global build,
-`qp_prepare<2,global>`, timed at phase 8g's dim·K 246) and one per stage
-kernel (neighbor_slots, step_front, front_with_neighbors, goal_qp_inputs,
-and the first three's wide builds, `<wide>`, timed on phase 8f's calls: the
-same, with the host ms to issue a call, the phases checked, the kernel's
-template, its dynamic shared memory and blocks an SM), the card's name and
-power limit, and as the last line {"ok": true, "device": {...}}. Exits non-zero, with no result, without a
-CUDA device or outside a checkout of the repository. Writes the full
-record to chiprun_out/chip_smoke.json.
+ms (the kernel's own device ms a launch: `profiled_ms`, which times the
+named kernel's events alone), a call's ms queued back to back, plain
+ms, bound and share on the main path's call, the SFC kernels' latency
+floor, ptxas's registers and spills, shared memory and blocks an SM),
+one for qp_prepare (the same, with the library inverse's ms; and its
+global build, `qp_prepare<2,global>`, timed at phase 8g's dim·K 246)
+and one per stage kernel (neighbor_slots, step_front,
+front_with_neighbors, goal_qp_inputs, and the first three's wide builds,
+`<wide>`, timed on phase 8f's calls: the same, with the host ms to issue
+a call, the phases checked, the kernel's template, its dynamic shared
+memory, blocks an SM and, for the wide prediction, its blocks an
+agent), the card's name and power limit, and as the last line {"ok":
+true, "device": {...}}. Exits non-zero, with no result, without a CUDA
+device or outside a checkout of the repository. Writes the full record
+to chiprun_out/chip_smoke.json.
 """
 
 import contextlib
 import dataclasses
+import functools
 import json
 import re
 import shutil
 import subprocess
 import sys
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -1148,13 +1155,15 @@ def stage_resources(step_cuda, entry, a):
                                         cfg.mode, int(sel))
     res.update(dynamic_smem_bytes=dyn,
                blocks_per_sm=step_cuda.occupancy(query, cfg.n, K or 0, dyn))
+    if K == 0 and entry != "neighbor_slots" and hasattr(lib, "step_front_parts"):
+        res["blocks_an_agent"] = lib.step_front_parts(a[2].pos.shape[0])
     return res
 
 
 def stage_timing(builds, recorders, gpu, what):
     """Each stage kernel on its first recorded call (of the entries that
-    were called): ms a call queued back to back (CUDA events) and its
-    device ms (profiler), the host ms to issue a call (also with
+    were called): its own device ms a launch and a call's ms queued back
+    to back (`kernel_times`), the host ms to issue a call (also with
     `one_buffer_outputs`), its plain body's ms on the card, its bound
     (bytes at HBM_BYTES_PER_S, operations at FP32_OPS_PER_S, `stage_io`),
     registers, shared memory and blocks an SM (`stage_resources`)."""
@@ -1166,7 +1175,9 @@ def stage_timing(builds, recorders, gpu, what):
         fn = lambda: r.orig(*a, **k)  # noqa: E731
         nbytes, ops = stage_io(r.name, a, k, got)
         bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
-        t = {"queued_ms": queued_ms(fn, KERNEL_REPS), "host_ms": host_ms(fn, KERNEL_REPS),
+        res = stage_resources(builds.step_cuda, r.name, a)
+        t = {**kernel_times(fn, builds.dev, res["kernel"].split("<")[0]),
+             "host_ms": host_ms(fn, KERNEL_REPS),
              "plain_ms": cuda_ms(lambda: r.orig(*a, **k, plain=True), 5), "bytes": nbytes,
              "ops": ops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
              "bound_ms": max(bytes_ms, ops_ms),
@@ -1180,10 +1191,8 @@ def stage_timing(builds, recorders, gpu, what):
         finally:
             builds.step_cuda._outputs = outputs
         t["host_ms_again"] = host_ms(fn, KERNEL_REPS)
-        t["device_ms"], t["device_launches_seen"] = profiled_ms(fn, builds.dev)
-        t["ms"] = t["queued_ms"]
         t["bound_share"] = t["bound_ms"] / t["ms"]
-        t.update(stage_resources(builds.step_cuda, r.name, a))
+        t.update(res)
         t["wide"] = wide_call(builds.step_cuda, r.name, a)
         out[r.name] = t
         (getattr(builds, "wide", {}) if t["wide"] else builds.stage)[r.name].update(t)
@@ -1200,8 +1209,6 @@ def stage_timing_main():
     separate launches (`separate_launches`; a tree without the fused
     entry: its own two launches).
     One JSON line."""
-    import types
-
     from lsc_dr_planner_tpu_torch import workload
     from lsc_dr_planner_tpu_torch.ops import step_cuda
     from lsc_dr_planner_tpu_torch.planner import stages
@@ -1227,24 +1234,28 @@ def stage_timing_main():
     return out
 
 
-def stage_sources_main(sources):
-    """The neighbour selection and the prediction kernels built from other
-    `step_stages.cu` sources (of this tree's argument layout) on the same
-    calls, in the order given: the calls of one step after WARMUP evolving
-    steps at A=1024 in the main path's layout (2-D) and in 8b's (3-D),
-    fused and separate; per source ptxas, each call's ms queued back to
-    back and device ms (profiler), and its elements that differ from the
-    plain body's (a variant with a part cut out, a timing breakdown, may
-    differ). One JSON line a source."""
-    from lsc_dr_planner_tpu_torch import workload
-    from lsc_dr_planner_tpu_torch.ops import step_cuda
-    from lsc_dr_planner_tpu_torch.planner import stages
+def front_states(workload, dev, tags, slots):
+    """[(tag, (planner, fleet, inp))]: the main path's layouts of `tags`
+    ("main", "8b": 3-D, "8f": P8F) after WARMUP evolving steps, and 8g's
+    2-D fleets of O + 6 agents with O = OA slots for O in `slots` after
+    one ("8g O=..")."""
+    layouts = {"main": {}, "8b": dict(world_dimension=3), "8f": P8F}
+    states = [(tag, main_path_state(workload, dev, **layouts[tag])) for tag in tags]
+    for O in slots:
+        p, planner, fleet, inp = workload.build_fleet(O + 6, device=dev, max_obstacles=O,
+                                                      communication_range=20.0)
+        inp, _ = workload.make_evolve_step(p, planner, fleet)(inp)
+        states.append((f"8g O={O}", (planner, fleet, inp)))
+    return states
 
-    dev, gpu = torch.device("cuda", 0), gpu_line()
-    build_all()
+
+def recorded_front_calls(stages, states):
+    """{"<tag> <entry>": (recorder, its first call)} of the selection and
+    prediction entries on each state's step to qp.solve's entry, with the
+    selection inside the prediction's launch and as two launches
+    (`separate_launches`)."""
     calls = {}
-    for tag, overrides in (("main", {}), ("8b", dict(world_dimension=3)), ("8f", P8F)):
-        planner, fleet, inp = main_path_state(workload, dev, **overrides)
+    for tag, (planner, fleet, inp) in states:
         for fuse in (True, False):
             recs = stage_recorders(stages)
             with contextlib.ExitStack() as stack:
@@ -1253,9 +1264,50 @@ def stage_sources_main(sources):
                 if not fuse:
                     stack.enter_context(separate_launches(stages))
                 planner._step_impl(fleet, inp, defer_qp=True)
-            for r in recs:
-                if r.calls and r.name != "goal_qp_inputs":
+            for r in recs[:3]:
+                if r.calls:
                     calls[f"{tag} {r.name}"] = (r, r.calls[0])
+    return calls
+
+
+def lattice_selections(stages, cfg, dev, As, OAs):
+    """{"select A=.. OA=.. range=..": (recorder-like, call)} of the
+    selection alone on the 0.75 m lattice (`square_lattice`) at each A and
+    OA, with a 3 m range and without, on `cfg` (a StageConfig)."""
+    selection = types.SimpleNamespace(name="neighbor_slots", orig=stages.neighbor_slots)
+    calls = {}
+    for A in As:
+        pos = square_lattice(A, dev)
+        for OA in OAs:
+            for rng in (3.0, -1.0):
+                c = dataclasses.replace(cfg, OA=OA, comm_range=rng, cache={})
+                calls[f"select A={A} OA={OA} range={rng}"] = (selection,
+                                                              ((pos, 1, c), {}, None, None))
+    return calls
+
+
+def stage_sources_main(sources):
+    """The neighbour selection and the prediction kernels built from other
+    `step_stages.cu` sources (of this tree's argument layout) on the same
+    calls, in the order given: the calls of one step after WARMUP evolving
+    steps at A=1024 in the main path's layout (2-D), in 8b's (3-D) and in
+    8f's, and after one on 8g's fleets of 65 and 256 slots, fused and
+    separate, and the selection alone on the 0.75 m lattice at A = 1,024
+    and 5,000 (OA = 80 and 255, with and without a 3 m range); per
+    source ptxas, each call's ms queued back to back and device ms
+    (profiler), and its elements that differ from the plain body's (a
+    variant with a part cut out, a timing breakdown, may differ). One
+    JSON line a source."""
+    from lsc_dr_planner_tpu_torch import workload
+    from lsc_dr_planner_tpu_torch.ops import step_cuda
+    from lsc_dr_planner_tpu_torch.planner import stages
+
+    dev, gpu = torch.device("cuda", 0), gpu_line()
+    build_all()
+    states = front_states(workload, dev, ("main", "8b", "8f"), (P8G_SLOTS[1], P8G_SLOTS[-1]))
+    calls = recorded_front_calls(stages, states)
+    calls.update(lattice_selections(stages, states[-1][1][0].stage_cfg, dev, (1024, 5000),
+                                    (80, 255)))
     out = []
     for src in sources:
         with built_from(step_cuda, src) as ptxas:
@@ -1264,9 +1316,10 @@ def stage_sources_main(sources):
                 fn = lambda: r.orig(*a, **k)  # noqa: E731
                 got, want = fn(), r.orig(*a, **k, plain=True)
                 torch.cuda.synchronize()
+                kernel = stage_resources(step_cuda, r.name, a)["kernel"].split("<")[0]
                 rec[what] = {
                     "queued_ms": queued_ms(fn, KERNEL_REPS),
-                    "device_ms": profiled_ms(fn, dev)[0],
+                    "device_ms": profiled_ms(fn, dev, kernel)["own_ms"],
                     "differing": sum(differing(x, y) for (_, x), (_, y) in zip(
                         _stage_fields(r.name, got), _stage_fields(r.name, want))
                         if x is not None)}
@@ -1316,6 +1369,8 @@ def kernels_ab_main():
     shapes of P8G_PREP_AB; the fused CLSC kernel on 8h's layout in 3-D and
     on scattered pairs of CLSC_AB_N points a segment in 2-D and 3-D
     (`clsc_scattered`), each held to the plain body element for element;
+    the wide fronts, the wide selection and the hull query's run-time
+    build on their own calls (`fronts_ab`);
     in a tree with the loop's global build, that build on 8g's 480 slots
     (`global_loop_timing`), at A = 481 and on its first qp.RESCUE agents;
     the ADMM loop on the triple build's other shapes (`triple_ab_cases`);
@@ -1323,14 +1378,15 @@ def kernels_ab_main():
     preparation's. One JSON line."""
     from lsc_dr_planner_tpu_torch import workload
     from lsc_dr_planner_tpu_torch.ops import (
-        cuda_build, geometry, hull_cuda, lsc, qp, qp_cuda, qp_prepare_cuda,
+        cuda_build, geometry, hull_cuda, lsc, qp, qp_cuda, qp_prepare_cuda, step_cuda,
     )
     from lsc_dr_planner_tpu_torch.planner import stages
 
     dev, gpu = torch.device("cuda", 0), gpu_line()
-    build_all(hull_cuda, qp_prepare_cuda, qp_cuda)
+    build_all(hull_cuda, qp_prepare_cuda, qp_cuda, step_cuda)
     out = {"package": str(Path(qp_cuda.__file__).resolve().parents[1]), "gpu": gpu,
-           "hull_ptxas": ptxas_summary(cuda_build.build_log.get("hull_closest.cu", (0, ""))[1])}
+           "hull_ptxas": ptxas_summary(cuda_build.build_log.get("hull_closest.cu", (0, ""))[1]),
+           "stage_ptxas": ptxas_summary(cuda_build.build_log.get("step_stages.cu", (0, ""))[1])}
     out["admm_ptxas"] = ptxas_summary(cuda_build.build_log.get("admm.cu", (0, ""))[1])
     out["prepare_ptxas"] = ptxas_summary(cuda_build.build_log.get("qp_prepare.cu", (0, ""))[1])
     over, A = next((o, a) for t, o, a in phase8g_qp_cases() if t == "dk246_O160")
@@ -1429,7 +1485,283 @@ def kernels_ab_main():
         rec.update(getattr(qp_cuda, "last_launch", None) or {}, A=A,
                    dk=cfg.dim * admm_shape(qp, cfg, dev)[4], builds=sorted(qp_cuda.build_launches))
         out[tag] = {"admm": rec}
+    out["fronts"] = fronts_ab(dev)
     print("kernels ab", json.dumps(out))
+    return out
+
+
+P8G_SELECT_AB = (33, 80, 128, 255)  # the wide selection's OA of P8G_SELECT
+
+
+def stage_ab_record(step_cuda, entry, a, fn, plain_fn, dev):
+    """One stage call's A/B record: its kernel's own device ms a launch and
+    the call's (`kernel_times`), the kernel and its build's name, and the
+    elements that differ from the plain body's on the same inputs."""
+    kernel = stage_resources(step_cuda, entry, a)["kernel"]
+    got, want = fn(), plain_fn()
+    torch.cuda.synchronize()
+    rec = {"kernel": kernel, **kernel_times(fn, dev, kernel.split("<")[0]),
+           "differing": sum(differing(x, y) for (_, x), (_, y) in zip(
+               _stage_fields(entry, got), _stage_fields(entry, want)) if x is not None)}
+    return rec
+
+
+def fronts_ab(dev):
+    """For the checkout whose package is imported, on one step's calls:
+    the wide prediction and the wide fused front (the selection inside
+    the prediction's launch, and as two launches: `separate_launches`) at
+    8f after WARMUP evolving steps (and the narrow builds at 8b's, 3-D)
+    and at 8g's 2-D fleets of O + 6 agents
+    with O = OA slots (P8G_SLOTS) after one; the wide selection alone on
+    the 0.75 m lattice at P8G_SELECT's A and P8G_SELECT_AB's OA, with and
+    without a 3 m range; and the hull query's run-time build on the hulls
+    of 8h's plain-LSC query (build_fleet(1024, n=8) with static goals,
+    the step after WARMUP evolving steps). Each: `stage_ab_record` (the
+    hull query: its own device ms, the call's, the hulls that differ from
+    the plain enumeration's)."""
+    from lsc_dr_planner_tpu_torch import workload
+    from lsc_dr_planner_tpu_torch.ops import geometry, hull_cuda, step_cuda
+    from lsc_dr_planner_tpu_torch.planner import stages
+
+    out = {}
+    states = front_states(workload, dev, ("8b", "8f"), P8G_SLOTS)
+    calls = recorded_front_calls(stages, states)
+    calls.update(lattice_selections(stages, states[-1][1][0].stage_cfg, dev, P8G_SELECT[0],
+                                    P8G_SELECT_AB))
+    for what, (r, (a, k, _, _)) in calls.items():
+        out[what] = stage_ab_record(step_cuda, r.name, a, lambda: r.orig(*a, **k),
+                                    lambda: r.orig(*a, **k, plain=True), dev)
+    x = p8h_query_hulls(workload, dev)
+    out["8h query"] = hull_ab_record(hull_cuda, geometry, x, dev)
+    return out
+
+
+def source_variant(src, subs, name):
+    """A copy of the kernel source `src` under build/variants/, named
+    `name`, with each (pattern, replacement) of `subs` made once."""
+    text = Path(src).read_text()
+    for pattern, replacement in subs:
+        text, n = re.subn(pattern, replacement, text)
+        assert n == 1, (name, pattern, n)
+    path = ROOT / "build" / "variants" / name
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(text)
+    return path
+
+
+# the wide prediction's stream with other runs of four a thread in flight
+# (kUnroll); the wide selection with eight candidates' loads at once
+# (kBitsUnroll), and with one atomic a distinct digit a warp in its later
+# passes too (hist_add, not one a lane)
+STAGE_VARIANTS = {
+    **{f"unroll{u}": ((r"constexpr int kUnroll = \d+;", f"constexpr int kUnroll = {u};"),)
+       for u in (1, 4)},
+    "bits8": ((r"constexpr int kBitsUnroll = \d+;", "constexpr int kBitsUnroll = 8;"),),
+    "warp_atomics": ((r"if \(in\) atomicAdd\(hist \+ \(\(b >> shift\) & 255\), 1u\);",
+                      "hist_add(hist, (b >> shift) & 255, in, lane);"),)}
+
+
+def stage_variants_main(variants=STAGE_VARIANTS):
+    """`stage_sources_main` on this tree's csrc/step_stages.cu and on its
+    copies with the substitutions of `variants` (`source_variant`)."""
+    from lsc_dr_planner_tpu_torch.ops import step_cuda
+
+    return stage_sources_main([step_cuda.SOURCE] + [
+        source_variant(step_cuda.SOURCE, subs, f"step_stages_{name}.cu")
+        for name, subs in variants.items()])
+
+
+# clock64 marks in a copy of csrc/step_stages.cu (`front_marks_main`): thread
+# 0 of each block of the wide prediction stores clock64() at these points
+# into g_marks[block][point]
+FRONT_MARKS = ("entry", "bits", "passes", "placed", "selected", "slots", "attributes",
+               "predictions", "end")
+
+
+def front_marks_source():
+    """A copy of csrc/step_stages.cu under build/variants/ whose wide
+    prediction kernel (and select_wide) stores clock64() at FRONT_MARKS
+    into a device array while marking is on (front_marks_read(zeros, n,
+    1) clears it and turns it on, front_marks_read(buf, n, 0) reads it
+    and turns it off); a barrier before the last mark, so that it is the
+    block's end."""
+    from lsc_dr_planner_tpu_torch.ops import step_cuda
+
+    def mark(k):
+        return (f"if (threadIdx.x == 0 && g_marking) g_marks[blockIdx.x * {len(FRONT_MARKS)} + "
+                f"{k}] = clock64();\n")
+
+    at = {name: k for k, name in enumerate(FRONT_MARKS)}
+    subs = (
+        (r"(namespace \{\n\nconstexpr int kBlockThreads)",
+         r"__device__ long long g_marks[" + str(len(FRONT_MARKS)) + r" * 65536];\n"
+         r"__device__ int g_marking;\n\1"),
+        (r"(  // the distance bits of the OA-th smallest key: `prefix` its bits under)",
+         "  " + mark(at["bits"]) + r"\1"),
+        (r"(  // the keys below the threshold \(OA - need of them\) and the `need` lowest)",
+         "  " + mark(at["passes"]) + r"\1"),
+        (r"(  // ascending\. Where the threshold is one distance)",
+         "  " + mark(at["placed"]) + r"\1"),
+        (r"(step_front_wide_kernel\(FrontArgs a\) \{\n)", r"\1  " + mark(at["entry"])),
+        (r"(    const u64\* s_key = select_wide\(P.src_pos \+ first \* 3, per, ag - s \* per, "
+         r"OA, a.range,\n\s+a.use_range != 0, s_t \+ L.u\);\n)", r"\1    " + mark(at["selected"])),
+        (r"(  // 2. one thread a slot)", "  " + mark(at["slots"]) + r"\1"),
+        (r"(  const u64\* s_key = select_wide\(pos \+ first \* 3, A, i, OA, range, use_range != 0,"
+         r"\n\s+reinterpret_cast<float\*>\(smem4\)\);\n)",
+         "  " + mark(at["entry"]) + r"\1  " + mark(at["selected"])),
+        (r"(  // 3. the attributes from the tables)", "  " + mark(at["attributes"]) + r"\1"),
+        (r"(  // 4. the predictions)", "  " + mark(at["predictions"]) + r"\1"),
+        (r"(    \}, none\);\n  \}\n)(\}\n\n// -+\n// stage 5)",
+         r"\1  __syncthreads();\n  " + mark(at["end"]) + r"\2"),
+        (r"(extern \"C\" int goal_qp_inputs_launch)",
+         r'extern "C" int front_marks_read(long long* host, int n, int on) {\n'
+         r"  if (cudaMemcpyToSymbol(g_marking, &on, sizeof(int)) != cudaSuccess) return -1;\n"
+         r"  const size_t bytes = n * sizeof(long long);\n"
+         r"  return static_cast<int>(on ? cudaMemcpyToSymbol(g_marks, host, bytes)\n"
+         r"                             : cudaMemcpyFromSymbol(host, g_marks, bytes));\n}\n\n\1"))
+    return source_variant(step_cuda.SOURCE, subs, "step_stages_marks.cu")
+
+
+def front_marks_main():
+    """The wide fused front, the wide prediction alone and the wide
+    selection alone at 8f (after WARMUP evolving steps) and at 8g's 65
+    and 256 slots, and the selection on the 0.75 m lattice at A = 1,024
+    and 5,000 (OA = 80 and 255, with and without a 3 m range), built from
+    `front_marks_source`: per call, each FRONT_MARKS point's clock64
+    cycles after the block's entry, the mean and the largest over the
+    blocks (clock64 counts an SM's cycles: each block's marks against
+    its own entry); the call's own device ms beside the unmarked
+    kernel's (`profiled_ms`). One JSON line."""
+    import ctypes
+
+    from lsc_dr_planner_tpu_torch import workload
+    from lsc_dr_planner_tpu_torch.ops import step_cuda
+    from lsc_dr_planner_tpu_torch.planner import stages
+
+    dev, gpu = torch.device("cuda", 0), gpu_line()
+    src = front_marks_source()
+    states = front_states(workload, dev, ("8f",), (P8G_SLOTS[1], P8G_SLOTS[-1]))
+    recorded = recorded_front_calls(stages, states)
+    recorded.update(lattice_selections(stages, states[-1][1][0].stage_cfg, dev, (1024, 5000),
+                                       (80, 255)))
+    lib = step_cuda.build()
+    calls = {}  # what: (fn, blocks of its launch, kernel)
+    for what, (r, (a, k, _, _)) in recorded.items():
+        alone = r.name == "neighbor_slots"
+        A = a[0].shape[0] if alone else a[2].pos.shape[0]
+        calls[what] = (functools.partial(r.orig, *a, **k),
+                       A if alone else A * lib.step_front_parts(A),
+                       "neighbor_slots_wide_kernel" if alone else "step_front_wide_kernel")
+    rec = {"gpu": gpu}
+    for what, (fn, _, kernel) in calls.items():
+        rec[what] = {"unmarked_ms": profiled_ms(fn, dev, kernel)["own_ms"]}
+    P = len(FRONT_MARKS)
+    with built_from(step_cuda, src) as ptxas:
+        lib = step_cuda.build()
+        lib.front_marks_read.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+        for what, (fn, blocks, kernel) in calls.items():
+            rec[what]["marked_ms"] = profiled_ms(fn, dev, kernel)["own_ms"]
+            buf = np.zeros(blocks * P, np.int64)
+            torch.cuda.synchronize()
+            assert lib.front_marks_read(buf.ctypes.data, blocks * P, 1) == 0
+            fn()
+            torch.cuda.synchronize()
+            assert lib.front_marks_read(buf.ctypes.data, blocks * P, 0) == 0
+            m = buf.reshape(blocks, P)
+            assert (m[:, 0] > 0).all(), what
+            hit = m > 0
+            rel = m - m[:, :1]
+            rec[what].update(
+                blocks=blocks,
+                cycles_mean={name: float(rel[hit[:, i], i].mean())
+                             for i, name in enumerate(FRONT_MARKS) if hit[:, i].any()},
+                cycles_max={name: int(rel[hit[:, i], i].max())
+                            for i, name in enumerate(FRONT_MARKS) if hit[:, i].any()})
+        rec["ptxas"] = {key: v for key, v in ptxas.items() if "wide" in key}
+    print("front marks", json.dumps(rec))
+    return rec
+
+
+def p8h_query_hulls(workload, dev):
+    """The hulls of 8h's plain-LSC query (build_lsc's, [A, O, M, 9, 3]):
+    build_fleet(1024, n=8) with static goals, the step after WARMUP
+    evolving steps."""
+    from lsc_dr_planner_tpu_torch.config import GoalMode
+    from lsc_dr_planner_tpu_torch.ops import geometry
+
+    p, planner, fleet, inp = workload.build_fleet(A_MAIN, device=dev,
+                                                  goal_mode=GoalMode.STATIC, **P8H)
+    step = workload.make_evolve_step(p, planner, fleet)
+    for _ in range(WARMUP):
+        inp, _ = step(inp)
+    with Calls(geometry, "closest_point_origin_to_hull") as hulls:
+        planner._step_impl(fleet, inp, defer_qp=True)
+    return hulls.calls[0][0][0]
+
+
+def hull_ab_record(hull_cuda, geometry, x, dev):
+    """The hull query's kernel on the hulls x: its own device ms a launch
+    and the call's (`kernel_times`), and the hulls that differ from the
+    plain enumeration's."""
+    rt = hull_cuda.hull_closest_plan(x.shape[-2])[0]
+    fn = lambda: hull_cuda.closest_point_origin_to_hull_cuda(x)  # noqa: E731
+    got, want = fn(), geometry.closest_point_origin_to_hull(x, plain=True)
+    torch.cuda.synchronize()
+    H = want[1].numel()
+    rec = {"shape": list(x.shape),
+           **kernel_times(fn, dev, "hull_closest_rt_kernel" if rt else "hull_closest_kernel"),
+           "hulls_differing": int(sum(((g != w) & ~(g.isnan() & w.isnan())).view(H, -1).any(1)
+                                      for g, w in zip(got, want)).bool().sum())}
+    return rec
+
+
+# the query's run-time build in other layouts: (hulls a block, the blocks an
+# SM its __launch_bounds__ caps the registers for)
+HULL_RT_VARIANTS = ((128, 10), (128, 8), (128, 1), (96, 14), (64, 20), (64, 16))
+
+
+def hull_rt_variants_main(variants=HULL_RT_VARIANTS):
+    """The hull query's run-time build from copies of csrc/hull_closest.cu
+    under build/variants/ with other hulls a block and __launch_bounds__
+    minimum blocks (its kRtHulls, kRtMinBlocks), built together, on the
+    hulls of 8h's plain-LSC query (`p8h_query_hulls`): per variant
+    ptxas's registers and spills, hulls a block and blocks an SM, and
+    `hull_ab_record`. One JSON line."""
+    from lsc_dr_planner_tpu_torch import workload
+    from lsc_dr_planner_tpu_torch.ops import cuda_build, geometry, hull_cuda
+
+    dev, gpu = torch.device("cuda", 0), gpu_line()
+    paths = [source_variant(hull_cuda.SOURCE, (
+        (r"constexpr int kRtHulls = \d+;", f"constexpr int kRtHulls = {hulls};"),
+        (r"constexpr int kRtMinBlocks = \d+;", f"constexpr int kRtMinBlocks = {blocks};")),
+        f"hull_closest_h{hulls}_b{blocks}.cu") for hulls, blocks in variants]
+    with ThreadPoolExecutor(len(paths)) as pool:
+        list(pool.map(lambda path: cuda_build.compile_source(path, True), paths))
+    x = p8h_query_hulls(workload, dev)
+    rec = {"gpu": gpu}
+    for (hulls, blocks), path in zip(variants, paths):
+        with built_from(hull_cuda, path) as ptxas:
+            rec[f"{hulls}x{blocks}"] = {
+                "ptxas": ptxas.get("hull_closest_rt_kernel"),
+                "hulls_a_block, blocks_per_sm": hull_cuda.hull_closest_occupancy(x.shape[-2]),
+                **hull_ab_record(hull_cuda, geometry, x, dev)}
+    print("hull rt variants", json.dumps(rec))
+    return rec
+
+
+def fronts_ab_main():
+    """`fronts_ab` alone, for the checkout whose package is imported (as
+    `kernels_ab_main`), with ptxas's record of the stage and hull kernels.
+    One JSON line."""
+    from lsc_dr_planner_tpu_torch.ops import cuda_build, hull_cuda, step_cuda
+
+    dev, gpu = torch.device("cuda", 0), gpu_line()
+    build_all(hull_cuda, step_cuda)
+    out = {"package": str(Path(step_cuda.__file__).resolve().parents[1]), "gpu": gpu,
+           **{f"{src}_ptxas": ptxas_summary(cuda_build.build_log.get(src + ".cu", (0, ""))[1])
+              for src in ("step_stages", "hull_closest")},
+           **fronts_ab(dev)}
+    print("fronts ab", json.dumps(out))
     return out
 
 
@@ -1639,38 +1971,101 @@ def hull_record(geometry, hull_cuda, x, got, caller):
 KERNEL_REPS = 50  # launches of a kernel timed back to back
 
 
-def profiled_ms(fn, dev, reps=KERNEL_REPS):
-    """Device ms a kernel launch under torch.profiler, the mean over the
-    launches of `reps` calls of fn() that it saw (it may miss some
-    ctypes launches; None where it saw none), and how many it saw."""
-    from lsc_dr_planner_tpu_torch.tools import sfc_bench
+# profiles of a call before `profiled_ms` gives up on the named kernel (on the
+# H100 the profiler has once seen none of a call's 50 ctypes launches)
+PROFILE_TRIES = 3
 
-    prof = sfc_bench.launch_counts(lambda: [fn() for _ in range(reps)], dev)
-    seen = prof["device_kernels"]
-    return (prof["device_busy_ms"] / seen if seen else None), seen
+
+def device_event_name(name):
+    """A device event's kernel name without its namespace, template
+    arguments and parameters (e.g. step_front_wide_kernel); a copy's
+    event name as it is."""
+    m = re.search(r"(?:^|::|\s)(\w+)[<(]", name)
+    return m.group(1) if m else name
+
+
+def profiled_ms(fn, dev, kernel, reps=KERNEL_REPS):
+    """`reps` calls of fn() under torch.profiler: "own_ms", the device ms
+    of one launch of `kernel` (its name without template arguments), the
+    mean over that kernel's own events (None where the profiler saw none;
+    it may miss some ctypes launches, so this is not a busy time over the
+    launches); "call_device_ms", the device ms a call of every kernel and
+    copy the calls ran; "kernels_a_call", each kernel's and copy's events
+    a call by name (profiled again, PROFILE_TRIES times at most, where the
+    kernel was not seen). A wrapper that copies an input first (3-D's
+    prev_ctrl, a permuted view) shows the copy's kernel beside its own."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize(dev)
+        own, busy_us, seen = [], 0.0, {}
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            us = e.time_range.elapsed_us()
+            busy_us += us
+            name = device_event_name(e.name)
+            seen[name] = seen.get(name, 0) + 1 / reps
+            if name == kernel:
+                own.append(us)
+        if own:
+            break
+    return {"own_ms": sum(own) / len(own) / 1e3 if own else None,
+            "call_device_ms": busy_us / reps / 1e3, "kernels_a_call": seen}
+
+
+def kernel_times(fn, dev, kernel, reps=KERNEL_REPS):
+    """A kernel's times on the calls fn(): "ms" and "device_ms", its own
+    device ms a launch (`profiled_ms`; asserted seen); "queued_ms", a call's
+    ms queued back to back (CUDA events: every kernel and copy of the
+    call, `queued_ms`); "call_device_ms" and "kernels_a_call" as
+    `profiled_ms` gives them."""
+    prof = profiled_ms(fn, dev, kernel, reps)
+    assert prof["own_ms"] is not None, (kernel, prof["kernels_a_call"])
+    return {"ms": prof["own_ms"], "device_ms": prof["own_ms"],
+            "queued_ms": queued_ms(fn, reps), "call_device_ms": prof["call_device_ms"],
+            "kernels_a_call": prof["kernels_a_call"]}
 
 
 def hull_timing(geometry, hull_cuda, builds, x, gpu, what):
     """The hull kernel (hull_closest, build_lsc's query) on the hulls `x`
     of a path's CLSC construction (its plain body's query): the kernel
     against the plain enumeration (`hull_record`, noted as a check), its
-    ms a call by CUDA events over KERNEL_REPS launches queued back to
-    back, its device ms under torch.profiler, the plain enumeration's ms
-    on the card, and the bound of this call's work (`hull_bound`)."""
+    own device ms a launch and a call's ms queued back to back
+    (`kernel_times`), the plain enumeration's ms on the card, its
+    registers, spills, shared memory and blocks an SM (`hull_resources`)
+    and the bound of this call's work (`hull_bound`)."""
     got = hull_cuda.closest_point_origin_to_hull_cuda(x)
     check = hull_record(geometry, hull_cuda, x, got, "build_clsc (plain body)")
     assert check["hulls_differing"] == 0 and check["not_odd"] == 0, (what, check)
     builds.note_hull_check([check])
-    ms = queued_ms(lambda: hull_cuda.closest_point_origin_to_hull_cuda(x), KERNEL_REPS)
-    device_ms, seen = profiled_ms(lambda: hull_cuda.closest_point_origin_to_hull_cuda(x), x.device)
+    rt = hull_cuda.hull_closest_plan(x.shape[-2])[0]
+    t = kernel_times(lambda: hull_cuda.closest_point_origin_to_hull_cuda(x), x.device,
+                     "hull_closest_rt_kernel" if rt else "hull_closest_kernel")
     plain_ms = cuda_ms(lambda: geometry.closest_point_origin_to_hull(x, plain=True), 10)
-    rt, smem = hull_cuda.hull_closest_plan(x.shape[-2])
-    rec = {"shape": list(x.shape), "dim": check["dim"], "ms": ms, "device_ms": device_ms,
-           "profiled_kernels": seen, "plain_ms": plain_ms, "rt": rt, "smem_bytes": smem,
-           **hull_bound(x)}
-    rec["bound_share"] = rec["bound_ms"] / ms
+    rec = {"shape": list(x.shape), "dim": check["dim"], **t, "plain_ms": plain_ms, "rt": rt,
+           **hull_resources(hull_cuda, x.shape[-2]), **hull_bound(x)}
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
     print(f"{what} hull timing", json.dumps(rec), f"[{gpu}]")
     return rec
+
+
+def hull_resources(hull_cuda, K):
+    """The hull query's build for K-point hulls: its registers and spills
+    (ptxas, where this process built the library), its shared memory and
+    hulls a block, and its blocks an SM."""
+    from lsc_dr_planner_tpu_torch.ops import cuda_build
+
+    rt, smem = hull_cuda.hull_closest_plan(K)
+    hulls, blocks = hull_cuda.hull_closest_occupancy(K)
+    log = cuda_build.build_log.get("hull_closest.cu")
+    kernel = "hull_closest_rt_kernel" if rt else f"hull_closest_kernel<{K}>"
+    return {"kernel": kernel, "ptxas": ptxas_summary(log[1]).get(kernel) if log else None,
+            "smem_bytes": smem, "hulls_a_block": hulls, "blocks_per_sm": blocks}
 
 
 def clsc_args(call):
@@ -1764,9 +2159,9 @@ def clsc_bound(a, dim, x):
 
 
 def clsc_timing(lsc, hull_cuda, geometry, calls, gpu, what):
-    """The fused CLSC kernel on the first recorded build_clsc call: its ms
-    a call by CUDA events over KERNEL_REPS launches queued back to back,
-    its device ms under torch.profiler, the plain body's ms on the card,
+    """The fused CLSC kernel on the first recorded build_clsc call: its own
+    device ms a launch and a call's ms queued back to back
+    (`kernel_times`), the plain body's ms on the card,
     and the bound of this call's work (`clsc_bound`). Returns the record
     and the hulls' points (for `hull_timing`)."""
     a, dim = clsc_args(calls.calls[0])
@@ -1775,15 +2170,14 @@ def clsc_timing(lsc, hull_cuda, geometry, calls, gpu, what):
     def launch():
         return hull_cuda.build_clsc_cuda(*a, dim)
 
-    ms = queued_ms(launch, KERNEL_REPS)
-    device_ms, seen = profiled_ms(launch, a[1].device)
+    rt, smem = hull_cuda.clsc_build_plan(*a[1].shape[:4])
+    t = kernel_times(launch, a[1].device, "clsc_build_rt_kernel" if rt else "clsc_build_kernel")
     plain_ms = cuda_ms(lambda: lsc.build_clsc(*a, world_dimension=dim, plain=True), 5)
     x = clsc_plain_query(lsc, geometry, a, dim)
-    rt, smem = hull_cuda.clsc_build_plan(*a[1].shape[:4])
-    rec = {"shape": list(a[1].shape), "dim": dim, "ms": ms, "device_ms": device_ms,
-           "profiled_kernels": seen, "plain_ms": plain_ms, "rt": rt, "smem_bytes": smem,
+    rec = {"shape": list(a[1].shape), "dim": dim, **t, "plain_ms": plain_ms, "rt": rt,
+           "smem_bytes": smem, "blocks_per_sm": hull_cuda.clsc_build_occupancy(*a[1].shape[:4]),
            **clsc_bound(a, dim, x)}
-    rec["bound_share"] = rec["bound_ms"] / ms
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
     print(f"{what} clsc timing", json.dumps(rec), f"[{gpu}]")
     return rec, x
 
@@ -2041,10 +2435,10 @@ def prepare_timing(qp, qp_prepare_cuda, calls, gpu, what):
 
 
 def prepare_kernel_record(qp, qp_prepare_cuda, cfg, inp, library=True):
-    """The QP preparation kernel on `inp`: its ms a call by CUDA events
-    over KERNEL_REPS launches queued back to back, its device ms under
-    torch.profiler, the plain body's ms on the card (plain=True), the
-    library call beside it (`torch.cholesky_inverse` of
+    """The QP preparation kernel on `inp`: its own device ms a launch and a
+    call's ms queued back to back (`kernel_times`), the plain body's ms on
+    the card (plain=True), the library call beside it
+    (`torch.cholesky_inverse` of
     `torch.linalg.cholesky_ex` on the plain body's KKT matrix in float64:
     the inverse alone, in the kernel's precision, which the port never
     calls; and in float32; not with `library` False), the bound of this
@@ -2056,12 +2450,10 @@ def prepare_kernel_record(qp, qp_prepare_cuda, cfg, inp, library=True):
     def launch():
         return qp_prepare_cuda.prepare_cuda(cfg, ts, inp, sc)
 
-    ms = queued_ms(launch, KERNEL_REPS)
-    device_ms, seen = profiled_ms(launch, dev)
     lib = qp_prepare_cuda.build()
     shape = (cfg.dim, cfg.n_obs, cfg.M, cfg.N, ts["K"])
-    rec = {"dim": cfg.dim, "O": cfg.n_obs, "ms": ms, "device_ms": device_ms,
-           "profiled_kernels": seen, "smem_bytes": lib.qp_prepare_smem_bytes(*shape),
+    rec = {"dim": cfg.dim, "O": cfg.n_obs, **kernel_times(launch, dev, "qp_prepare_kernel"),
+           "smem_bytes": lib.qp_prepare_smem_bytes(*shape),
            "blocks_per_sm": lib.qp_prepare_blocks_per_sm(*shape), **prepare_bound(qp, cfg, inp)}
     if library:
         kmat32 = qp.kkt_matrix(cfg, inp)[0]
@@ -2072,7 +2464,7 @@ def prepare_kernel_record(qp, qp_prepare_cuda, cfg, inp, library=True):
                 lambda: torch.cholesky_inverse(torch.linalg.cholesky_ex(kmat).L), 20),
             library_ms_float32=queued_ms(
                 lambda: torch.cholesky_inverse(torch.linalg.cholesky_ex(kmat32).L), 20))
-    rec["bound_share"] = rec["bound_ms"] / ms
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
     return rec
 
 
@@ -2693,10 +3085,10 @@ def hull_bound(x):
 
 def sfc_timing(sfc, lanes, l2_ns, gpu, what):
     """The SFC expansion kernel (sfc_expand) on the lanes `lanes` = (args,
-    kwargs) of an expand_box call: its ms a call by CUDA events over
-    KERNEL_REPS launches queued back to back (`sfc.expand_box_kernel`,
-    the launch without expand_box's trip count), its device ms under
-    torch.profiler, the plain loop's ms on the card on the same lanes,
+    kwargs) of an expand_box call: its own device ms a launch and a
+    call's ms queued back to back (`kernel_times`, on
+    `sfc.expand_box_kernel`, the launch without expand_box's trip
+    count), the plain loop's ms on the card on the same lanes,
     and the bounds of this call's work: the bytes
     (`sfc_bench.bound_bytes`: each lane's 8-corner seed query, at most 4
     new corners per live lane-trip, each lane's seed, order and result
@@ -2709,8 +3101,7 @@ def sfc_timing(sfc, lanes, l2_ns, gpu, what):
 
     a, k = lanes
     k = {x: v for x, v in k.items() if x != "plain"}
-    ms = queued_ms(lambda: sfc.expand_box_kernel(*a, **k), KERNEL_REPS)
-    device_ms, seen = profiled_ms(lambda: sfc.expand_box_kernel(*a, **k), a[1].device)
+    t = kernel_times(lambda: sfc.expand_box_kernel(*a, **k), a[1].device, "sfc_expand_kernel")
     plain_ms = cuda_ms(lambda: sfc.expand_box(*a, **k, plain=True), 2)
     live = sfc.lane_trips(a[1], a[2], *sfc.expand_box_kernel(*a, **k))
     lanes_n, lane_total, longest = len(live), int(live.sum()), int(live.max())
@@ -2720,11 +3111,17 @@ def sfc_timing(sfc, lanes, l2_ns, gpu, what):
     bytes_ = sfc_bench.bound_bytes(lanes_n, lane_total)
     rec = {"lanes": lanes_n, "radius": k.get("max_radius_cells", 0),
            "per_agent_images": k.get("agent") is not None, "lane_trips": lane_total,
-           "longest_lane_trips": longest, "ms": ms, "device_ms": device_ms,
-           "profiled_kernels": seen, "plain_ms": plain_ms,
-           **trip_bounds(bytes_, SFC_OPS_PER_TRIP * lane_total, outcomes, l2_ns, ms)}
+           "longest_lane_trips": longest, **t, "plain_ms": plain_ms,
+           "blocks_per_sm": sfc_occupancy(0),
+           **trip_bounds(bytes_, SFC_OPS_PER_TRIP * lane_total, outcomes, l2_ns, t["ms"])}
     print(f"{what} sfc timing", json.dumps(rec), f"[{gpu}]")
     return rec
+
+
+def sfc_occupancy(kernel):
+    from lsc_dr_planner_tpu_torch.ops import sfc_cuda
+
+    return sfc_cuda.occupancy(kernel)
 
 
 def lane_outcomes(gw, lo, hi, order, r, agent, i):
@@ -2824,8 +3221,8 @@ SFC_AGENT_OPS = 54 + 36
 
 def sfc_hull_timing(sfc, calls, l2_ns, gpu, what):
     """The fused 'hull' SFC kernel on the first recorded 'hull' update: its
-    ms a call by CUDA events over KERNEL_REPS launches queued back to back
-    (through sfc.update_sfc), its device ms under torch.profiler, the
+    own device ms a launch and a call's ms queued back to back
+    (`kernel_times`, through sfc.update_sfc), the
     plain body's ms on the card, and the bounds of this call's work
     (`trip_bounds`: the expansion's bytes and operations as sfc_timing
     counts them, without a lane's seed and order read, plus the agents'
@@ -2833,8 +3230,7 @@ def sfc_hull_timing(sfc, calls, l2_ns, gpu, what):
     from lsc_dr_planner_tpu_torch.tools import sfc_bench
 
     a, k = sfc_update_args(calls.calls[0])
-    ms = queued_ms(lambda: sfc.update_sfc(*a, **k), KERNEL_REPS)
-    device_ms, seen = profiled_ms(lambda: sfc.update_sfc(*a, **k), a[2].device)
+    t = kernel_times(lambda: sfc.update_sfc(*a, **k), a[2].device, "sfc_update_hull_kernel")
     plain_ms = cuda_ms(lambda: sfc.update_sfc(*a, **k, plain=True), 2)
     (gw, lo, hi, order), lk = fused_lanes(sfc, calls.calls[0])
     live = sfc.lane_trips(*sfc.last_lanes)
@@ -2848,9 +3244,9 @@ def sfc_hull_timing(sfc, calls, l2_ns, gpu, what):
     ops = SFC_OPS_PER_TRIP * lane_total + A * (SFC_AGENT_OPS + 18 * M)
     rec = {"agents": A, "lanes": lanes_n, "radius": k.get("max_radius_cells", 0),
            "per_agent_images": a[0].blocked_cumsum.dim() == 4, "lane_trips": lane_total,
-           "longest_lane_trips": longest, "ms": ms, "device_ms": device_ms,
-           "profiled_kernels": seen, "plain_ms": plain_ms,
-           **trip_bounds(bytes_, ops, outcomes, l2_ns, ms)}
+           "longest_lane_trips": longest, **t, "plain_ms": plain_ms,
+           "blocks_per_sm": sfc_occupancy(1),
+           **trip_bounds(bytes_, ops, outcomes, l2_ns, t["ms"])}
     print(f"{what} sfc_hull timing", json.dumps(rec), f"[{gpu}]")
     return rec
 
@@ -4449,7 +4845,8 @@ def main():
             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "bound_share", "bytes_ms",
             "ops_ms", *(k for k in ("hulls", "ops_per_hull", "lanes", "library_ms",
                                     "lane_trips", "longest_lane_trips", "latency_floor_ms",
-                                    "floor_share", "host_ms", "blocks_per_sm", "smem_bytes")
+                                    "floor_share", "host_ms", "blocks_per_sm", "smem_bytes",
+                                    "queued_ms", "hulls_a_block")
                                 if k in t))})
     print(f"phase5 CLSC stage {stage_ms.get('lsc')} ms, SFC stage {stage_ms.get('sfc')} ms "
           f"a step [{gpu}]")
@@ -4599,9 +4996,10 @@ def main():
         == P8H_TIMED, r["kernel_launches"]
     assert all(c["rt"] for c in r["clsc_check"]), r["clsc_check"]
     for rec, t in ((builds.clsc_rt, r["clsc_timing"]), (builds.hull_rt, r["hull_timing"])):
-        rec.update({k: t[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-                                      "bound_share", "bytes_ms", "ops_ms", "hulls",
-                                      "ops_per_hull", "smem_bytes")})
+        rec.update({k: t[k] for k in ("ms", "device_ms", "queued_ms", "plain_ms", "bound_ms",
+                                      "bound_by", "bound_share", "bytes_ms", "ops_ms", "hulls",
+                                      "ops_per_hull", "smem_bytes", "blocks_per_sm")})
+        rec.update({k: t[k] for k in ("hulls_a_block",) if k in t})
     r["solve"] = solve_against_plain(workload, qp, dev, gpu, P8H, "phase8h")
     r["query"] = phase8h_query(workload, builds, dev, gpu)
     phase_done("8h")
@@ -4762,7 +5160,8 @@ def main():
             "replaces": replaces, "launches": r["launches"], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "bound_share": r["bound_share"],
-            **{k: r[k] for k in ("latency_floor_ms", "floor_share") if k in r},
+            **{k: r[k] for k in ("latency_floor_ms", "floor_share", "queued_ms", "smem_bytes",
+                                 "blocks_per_sm", "hulls_a_block") if k in r},
             **{k: r[k] for k in checked}, "ptxas": kernels_ptxas.get(kernel),
             "library_ms": None,  # no PyTorch call computes it
         })
@@ -4817,10 +5216,11 @@ def main():
             "name": name, "route": "cuda",
             "source": "lsc_dr_planner_tpu_torch/csrc/step_stages.cu", "replaces": replaces,
             "launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            **{k: r[k] for k in ("queued_ms", "device_ms", "host_ms", "host_ms_one_buffer",
-                                 "plain_ms", "bound_ms", "bound_by", "bound_share", "bytes",
-                                 "calls_checked", "elements_checked", "phases", "kernel",
-                                 "dynamic_smem_bytes", "blocks_per_sm")},
+            **{k: r[k] for k in ("queued_ms", "device_ms", "call_device_ms", "host_ms",
+                                 "host_ms_one_buffer", "plain_ms", "bound_ms", "bound_by",
+                                 "bound_share", "bytes", "calls_checked", "elements_checked",
+                                 "phases", "kernel", "dynamic_smem_bytes", "blocks_per_sm")},
+            **{k: r[k] for k in ("blocks_an_agent",) if k in r},
             "ptxas": kernels_ptxas.get(r["kernel"]),
             "library_ms": None,  # no single PyTorch call computes it
         })

@@ -47,50 +47,53 @@
 // row of 3K floats padded to an odd count, so a warp's 32 rows fall in 32
 // banks (CLSC's relative points get rows of their own there and its margins a
 // row of K), one thread per hull too (hull_query_rt: the same loops at run
-// time). In 2-D (every relative z = 0) CLSC's run-time build tests no
-// tetrahedron: each would fail at its first volume (flat_hull). The template
-// takes K <= 8 (CLSC: where its stage also fits in 48 KB), the run-time
-// build every other K, its shared memory sized at launch (opted in past 48
-// KB; a stage past the card's 227 KB a block is refused). A block of 128
-// hulls first stages its hulls' points (for CLSC the neighbours'
-// [hulls, K, 3] floats and the [M, K, 3] initial control points of the agents
-// the block spans, each agent's once) in shared memory with unit-stride,
-// coalesced loads, where a hull's own loads would stride 12·K bytes from
-// thread to thread; CLSC's outputs go back through shared memory too (the
-// anchors are the neighbours' points, overwritten for segment M−1 where the
-// guard holds), so every global store is unit-stride. A thread per hull,
-// not a warp per (agent, neighbour) pair: a pair has M = 10 hulls, so a warp
-// per pair leaves 22 of 32 lanes idle through the enumeration; measured and
-// dropped, it ran 2.0x slower (0.112 against 0.055 ms at the main path's
-// call, PERF.md section 6).
+// time). The run-time builds test no tetrahedron of a flat hull (every
+// relative z = ±0): each would fail at its first volume (flat_hull). The
+// query's build makes that test per hull, so a batch of 2-D and 3-D hulls
+// takes both; CLSC's makes it for the launch, in 2-D. The template takes K
+// <= 8 (CLSC: where its stage also fits in 48 KB), the run-time build every
+// other K, its shared memory sized at launch (opted in past 48 KB; a stage
+// past the card's 227 KB a block is refused). A block of 128 hulls first
+// stages its hulls' points (for CLSC the neighbours' [hulls, K, 3] floats and
+// the [M, K, 3] initial control points of the agents the block spans, each
+// agent's once) in shared memory with unit-stride, coalesced loads, where a
+// hull's own loads would stride 12·K bytes from thread to thread; CLSC's
+// outputs go back through shared memory too (the anchors are the
+// neighbours' points, overwritten for segment M−1 where the guard holds), so
+// every global store is unit-stride. A thread per hull, not a warp per
+// (agent, neighbour) pair: a pair has M = 10 hulls, so a warp per pair leaves
+// 22 of 32 lanes idle through the enumeration; measured and dropped, it ran
+// 2.0x slower (0.112 against 0.055 ms at the main path's call, PERF.md
+// section 6).
 //
 // What bounds it, measured on an NVIDIA H100 80GB HBM3 at 700.00 W (nvidia-smi
-// --query-gpu=name,power.limit; chip_smoke.py's clsc_timing and hull_timing;
-// PERF.md section 6). CLSC at the main path's call (A = 1024, O = 16, M = 10,
-// N = 6): each of 16,384 pairs reads 720 B of neighbour points and writes
-// 1,080 B of anchors, normals and margins, each of 1,024 agents reads 720 B
-// once: ~30.6 MB, 0.0091 ms at 3.35 TB/s; its least operations (670 a hull,
-// chip_smoke.py::clsc_bound) take 0.0016 ms. The kernel takes 0.055 ms (16.5%
-// of the bound; 0.071 ms in 3-D), where the earlier construction (the query's
-// launch among ~106 torch ops) took ~2 ms, most of it the host issuing ops for
-// 0.41 ms of device work. The query alone takes 0.032 ms on the
-// same 2-D hulls (0.0043 ms bound: 88 bytes a hull) and 0.044 ms in 3-D. Both
-// do more than the least work by design: the operations rounded on their own
-// take one instruction each where the peak counts a fused multiply-add as
-// two, each IEEE division is a multi-instruction sequence, 128 registers (K =
-// 6) leave 16 warps an SM, and a warp runs a tetrahedron's volumes as far as
-// its slowest hull's test goes. The run-time builds at N = 9 (phase 8h's call,
-// 163,840 2-D hulls: 36 edges, 84 triangles and 126 tetrahedra each): the
-// query 0.141 ms (4.3% of its bytes bound), 71 registers; CLSC 0.176 ms
-// (7.6% of its 0.0134 ms bytes bound), 72 registers, a third of it the 126
-// tetrahedra, each a cross product through float64 (12 conversions) that
-// fails at its first volume in 2-D. Left out (hull_query_rt<true>, the 2-D
-// hulls' own copy of the query), CLSC takes 0.121 ms; 80 registers and 196 B
-// of spills. A group of 4 lanes a hull took 0.142 ms there, and 11% more
-// than the thread a hull on the 3-D fleet's hulls at N = 9 (a group's lanes
-// share a warp instruction's 32 slots among 8 hulls, so a hull's own work
-// costs 4 of them), so the run-time build keeps a thread a hull (PERF.md
-// section 6).
+// --query-gpu=name,power.limit; chip_smoke.py's clsc_timing, hull_timing and
+// fronts_ab; PERF.md section 6). CLSC at the main path's call (A = 1024, O =
+// 16, M = 10, N = 6): each of 16,384 pairs reads 720 B of neighbour points
+// and writes 1,080 B of anchors, normals and margins, each of 1,024 agents
+// reads 720 B once: ~30.6 MB, 0.0091 ms at 3.35 TB/s; its least operations
+// (670 a hull, chip_smoke.py::clsc_bound) take 0.0016 ms. The kernel takes
+// 0.055 ms (16.5% of the bound; 0.071 ms in 3-D), where the earlier
+// construction (the query's launch among ~106 torch ops) took ~2 ms, most of
+// it the host issuing ops for 0.41 ms of device work. The query alone takes
+// 0.032 ms on the same 2-D hulls (0.0043 ms bound: 88 bytes a hull) and
+// 0.044 ms in 3-D. Both do more than the least work by design: the
+// operations rounded on their own take one instruction each where the peak
+// counts a fused multiply-add as two, each IEEE division is a
+// multi-instruction sequence, 128 registers (K = 6) leave 16 warps an SM, and
+// a warp runs a tetrahedron's volumes as far as its slowest hull's test goes.
+// The run-time builds at N = 9 (phase 8h, 163,840 2-D hulls: 36 edges, 84
+// triangles and 126 tetrahedra each, every tetrahedron a cross product
+// through float64 that fails at its first volume in 2-D): CLSC 0.121 ms with
+// them left out (0.176 with them; 80 registers and 196 B of spills); the
+// query 0.078 ms with them left out (0.138 with them), its registers capped
+// at 64 by 8 blocks of 128 an SM, where 1,280 blocks then run in 1.2 rounds
+// (48 registers and 10 blocks, one round: 0.082 ms with 460 B of spills; 64
+// hulls a block, 16 an SM: 0.078; chip_smoke.py::hull_rt_variants_main). A
+// group of 4 lanes a hull took 0.142 ms in CLSC's build, and 11% more than
+// the thread a hull on the 3-D fleet's hulls at N = 9 (a group's lanes share
+// a warp instruction's 32 slots among 8 hulls, so a hull's own work costs 4
+// of them), so the run-time builds keep a thread a hull (PERF.md section 6).
 
 #include <cuda_runtime.h>
 
@@ -99,6 +102,10 @@
 namespace {
 
 constexpr int kThreads = 128;     // hulls per block (thread per hull)
+// the query's run-time build: hulls a block, and the blocks an SM its
+// registers are capped for (__launch_bounds__: 64 registers, no spill)
+constexpr int kRtHulls = 128;
+constexpr int kRtMinBlocks = 8;
 constexpr float kEps = 1e-12f;    // geometry.py's _EPS, as torch casts it to float32
 constexpr float kVolEps = 1e-10f; // _origin_in_tetra's volume test
 constexpr float kEpsF = 1e-6f;    // lsc.py's _EPS_F
@@ -433,9 +440,10 @@ __device__ __forceinline__ bool flat_hull(const float* q, int K) {
 
 // hull_query over the K points at q, the loops at run time in the same
 // itertools.combinations order, the same device functions, the same first
-// minimum and the same early stop of the tetrahedra. SkipFlat (CLSC in
-// 2-D): where every point has z = ±0, no tetrahedron is tested (every test
-// would fail at its first volume: see flat_hull).
+// minimum and the same early stop of the tetrahedra. SkipFlat (the query's
+// run-time build, and CLSC's in 2-D): where every point has z = ±0, no
+// tetrahedron is tested (every test would fail at its first volume: see
+// flat_hull).
 template <bool SkipFlat = false>
 __device__ __forceinline__ void hull_query_rt(const float* q, int K, V3& closest, float& dist) {
   const V3 p0 = point(q, 0);
@@ -478,19 +486,22 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// the query's run-time build: a thread a hull, each hull's tetrahedra left
+// out where it is flat (flat_hull: a test per hull, so a batch of 2-D and
+// 3-D hulls takes both)
+__global__ void __launch_bounds__(kRtHulls, kRtMinBlocks)
     hull_closest_rt_kernel(const float* __restrict__ pts, long long H, int K,
                            float* __restrict__ closest, float* __restrict__ dist) {
-  extern __shared__ float hull_tile[];  // [kThreads, S]
+  extern __shared__ float hull_tile[];  // [kRtHulls, S]
   const int K3 = 3 * K, S = odd_floats(K3);
-  const long long h0 = static_cast<long long>(blockIdx.x) * kThreads;
-  const int n = static_cast<int>(min(static_cast<long long>(kThreads), H - h0));
+  const long long h0 = static_cast<long long>(blockIdx.x) * kRtHulls;
+  const int n = static_cast<int>(min(static_cast<long long>(kRtHulls), H - h0));
   stage_rows(hull_tile, pts + h0 * K3, n, K3, S);
   __syncthreads();
   if (static_cast<int>(threadIdx.x) >= n) return;
   V3 c;
   float d;
-  hull_query_rt(hull_tile + threadIdx.x * S, K, c, d);
+  hull_query_rt<true>(hull_tile + threadIdx.x * S, K, c, d);
   const long long h = h0 + threadIdx.x;
   closest[3 * h] = c.x;
   closest[3 * h + 1] = c.y;
@@ -635,7 +646,7 @@ int rt_smem(const void* kernel, size_t bytes) {
 }
 
 size_t hull_rt_bytes(int K) {
-  return static_cast<size_t>(kThreads) * odd_floats(3 * K) * sizeof(float);
+  return static_cast<size_t>(kRtHulls) * odd_floats(3 * K) * sizeof(float);
 }
 
 // agents a CLSC block spans at most: its hulls start anywhere in an agent's O·M
@@ -667,6 +678,14 @@ void hull_launch(const float* pts, long long H, float* closest, float* dist, uns
   hull_closest_kernel<K><<<blocks, kThreads, 0, stream>>>(pts, H, closest, dist);
 }
 
+// blocks an SM of `kernel` at `threads` a block and `dyn` bytes of dynamic
+// shared memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+template <class T>
+int blocks_an_sm(T* kernel, size_t dyn, int* blocks_per_sm, int threads = kThreads) {
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, threads, dyn));
+}
+
 template <int K>
 void clsc_launch(const ClscArgs& g, unsigned blocks, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(clsc_span(g)) * g.M * K * 3 * sizeof(float);
@@ -696,6 +715,56 @@ extern "C" long long clsc_build_smem(long long A, int O, int M, int N, int* rt) 
 // The most shared memory a block may take (bytes): past it a launch returns -1.
 extern "C" long long hull_max_smem() { return static_cast<long long>(kMaxSmem); }
 
+// Blocks an SM of the query's build for K-point hulls (*hulls: the hulls a
+// block), as cudaOccupancyMaxActiveBlocksPerMultiprocessor gives them.
+extern "C" int hull_closest_occupancy(int K, int* hulls, int* blocks_per_sm) {
+  if (K < 1) return cudaErrorInvalidValue;
+  *hulls = K > kTemplateMaxK ? kRtHulls : kThreads;
+  switch (K) {
+    case 1: return blocks_an_sm(hull_closest_kernel<1>, 0, blocks_per_sm);
+    case 2: return blocks_an_sm(hull_closest_kernel<2>, 0, blocks_per_sm);
+    case 3: return blocks_an_sm(hull_closest_kernel<3>, 0, blocks_per_sm);
+    case 4: return blocks_an_sm(hull_closest_kernel<4>, 0, blocks_per_sm);
+    case 5: return blocks_an_sm(hull_closest_kernel<5>, 0, blocks_per_sm);
+    case 6: return blocks_an_sm(hull_closest_kernel<6>, 0, blocks_per_sm);
+    case 7: return blocks_an_sm(hull_closest_kernel<7>, 0, blocks_per_sm);
+    case 8: return blocks_an_sm(hull_closest_kernel<8>, 0, blocks_per_sm);
+    default: {
+      const size_t bytes = hull_rt_bytes(K);
+      const int rc = rt_smem(reinterpret_cast<const void*>(hull_closest_rt_kernel), bytes);
+      if (rc != cudaSuccess) return rc;
+      return blocks_an_sm(hull_closest_rt_kernel, bytes, blocks_per_sm, kRtHulls);
+    }
+  }
+}
+
+// Blocks an SM of build_clsc's build at (A, O, M, N), as
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor gives them.
+extern "C" int clsc_build_occupancy(long long A, int O, int M, int N, int* blocks_per_sm) {
+  if (A < 1 || O < 1 || M < 1 || N < 1) return cudaErrorInvalidValue;
+  ClscArgs g{};
+  g.A = A;
+  g.O = O;
+  g.M = M;
+  if (clsc_is_rt(g, N)) {
+    const size_t bytes = clsc_rt_bytes(g, N);
+    const int rc = rt_smem(reinterpret_cast<const void*>(clsc_build_rt_kernel), bytes);
+    if (rc != cudaSuccess) return rc;
+    return blocks_an_sm(clsc_build_rt_kernel, bytes, blocks_per_sm);
+  }
+  const size_t dyn = static_cast<size_t>(clsc_span(g)) * M * N * 3 * sizeof(float);
+  switch (N) {
+    case 1: return blocks_an_sm(clsc_build_kernel<1>, dyn, blocks_per_sm);
+    case 2: return blocks_an_sm(clsc_build_kernel<2>, dyn, blocks_per_sm);
+    case 3: return blocks_an_sm(clsc_build_kernel<3>, dyn, blocks_per_sm);
+    case 4: return blocks_an_sm(clsc_build_kernel<4>, dyn, blocks_per_sm);
+    case 5: return blocks_an_sm(clsc_build_kernel<5>, dyn, blocks_per_sm);
+    case 6: return blocks_an_sm(clsc_build_kernel<6>, dyn, blocks_per_sm);
+    case 7: return blocks_an_sm(clsc_build_kernel<7>, dyn, blocks_per_sm);
+    default: return blocks_an_sm(clsc_build_kernel<8>, dyn, blocks_per_sm);
+  }
+}
+
 // Queues the query of H hulls of K points (pts: [H, K, 3] float32, contiguous;
 // closest: [H, 3]; dist: [H]) on `stream`: one launch, no synchronisation.
 // K <= 8 takes the template build of K, K > 8 the run-time build (*rt = 1).
@@ -705,6 +774,7 @@ extern "C" int hull_closest_launch(const float* pts, long long H, int K, float* 
                                    float* dist, int* rt, void* stream) {
   if (H < 1 || K < 1 || (H + kThreads - 1) / kThreads > INT_MAX) return cudaErrorInvalidValue;
   const unsigned blocks = static_cast<unsigned>((H + kThreads - 1) / kThreads);
+  const unsigned rt_blocks = static_cast<unsigned>((H + kRtHulls - 1) / kRtHulls);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   *rt = K > kTemplateMaxK;
   switch (K) {
@@ -720,7 +790,7 @@ extern "C" int hull_closest_launch(const float* pts, long long H, int K, float* 
       const size_t bytes = hull_rt_bytes(K);
       const int rc = rt_smem(reinterpret_cast<const void*>(hull_closest_rt_kernel), bytes);
       if (rc != cudaSuccess) return rc;
-      hull_closest_rt_kernel<<<blocks, kThreads, bytes, s>>>(pts, H, K, closest, dist);
+      hull_closest_rt_kernel<<<rt_blocks, kRtHulls, bytes, s>>>(pts, H, K, closest, dist);
     }
   }
   return static_cast<int>(cudaGetLastError());

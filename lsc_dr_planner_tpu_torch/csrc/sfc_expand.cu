@@ -520,6 +520,18 @@ extern "C" int sfc_update_hull_launch(
   return static_cast<int>(cudaGetLastError());
 }
 
+// Blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor) of kernel 0,
+// the expansion, or 1, the 'hull'-mode SFC update.
+extern "C" int sfc_occupancy(int kernel, int* blocks_per_sm) {
+  if (kernel == 0)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, sfc_expand_kernel,
+                                                         kWarps * 32, 0);
+  if (kernel == 1)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, sfc_update_hull_kernel,
+                                                         96, 0);
+  return cudaErrorInvalidValue;
+}
+
 // Queues the measurement chase: `hops` dependent L2 reads from next[0].
 extern "C" int sfc_l2_chase_launch(const int* next, int hops, int* out, void* stream) {
   l2_chase_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(next, hops, out);

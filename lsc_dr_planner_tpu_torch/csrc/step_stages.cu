@@ -5,8 +5,10 @@
 // one jitted step; the port ran them as ~125 small torch kernels a step, each
 // issued by the host (~25-30 us apiece on the card's host) while the device
 // waited, whatever the fleet's size. Every kernel runs one agent a block of
-// 128 threads (4 warps): at <= 64 registers 8 blocks fit an SM, so the main
-// path's 1,024 agents are all resident at once on the H100's 132 SMs.
+// 128 threads (4 warps; the wide prediction of a fleet too small to fill the
+// card, an agent over several blocks): at <= 64 registers 8 blocks fit an
+// SM, so the main path's 1,024 agents are all resident at once on the H100's
+// 132 SMs.
 //
 // - select_nearest, the neighbour selection (stages.neighbor_slots; the JAX
 //   package's lsc_dr_planner_tpu/planner/pipeline.py:226-252, lax.top_k at
@@ -60,20 +62,32 @@
 //   bytes. At A = 1,024, O = 16, M = 10, N = 6 it moves 14.1 MB (obs_pred
 //   11.8 MB written), 4.2 us at 3.35 TB/s; the sources it gathers are each
 //   agent's 720 B of points, 0.7 MB read once, L2-resident.
-// - the wide builds (neighbor_slots_wide_kernel, step_front_wide_kernel),
-//   for every shape past the narrow builds above (OA > 32 with a selection,
-//   O > 64, or rows past shared memory; the reference caps no neighbour
-//   set): select_wide, a radix select of the OA-th smallest distance over
-//   the block (four passes of 8 bits, a shared histogram each), the keys
-//   below it and the lowest indices at it placed in index order by ballot
-//   counts, and a bitonic sort of the OA keys in shared memory: exact as
-//   select_nearest; the prediction's slot tables in dynamic shared memory
-//   sized by O, and the source rows staged a chunk of slots at a time (as
-//   many as 64 KB hold), each chunk's reset and outputs done before the
-//   next is staged. Outputs bit for bit the plain bodies', as the narrow
-//   builds'. Their limits are shared memory's: the tables ~46 B a slot
-//   and one chunk's rows (O up to ~4,000 slots at M = 10), the sort's keys
-//   8 B an agent slot (OA up to ~27,000).
+// - the wide builds (neighbor_slots_wide_kernel, step_front_wide_kernel), for
+//   every shape past the narrow builds above (OA > 32 with a selection, O >
+//   64, or rows past shared memory; the reference caps no neighbour set).
+//   select_wide: every candidate's distance bits once into shared memory, then
+//   a radix select of the OA-th smallest over them (8 bits a pass, stopped
+//   where the chosen bin holds exactly the keys still needed or where the
+//   prefix's candidates are one distance), the keys below it and the lowest
+//   indices at it placed in index order by ballot counts, and a sort by rank
+//   (or a bitonic sort past 256 keys): exact as select_nearest. The
+//   prediction, a store stream: the slot tables in dynamic shared memory sized
+//   by O; a thread a slot decides its kind and tests the reset from its row's
+//   first point in global memory; every output goes out in 16-B stores, a
+//   shifted row's four floats read straight from the source row (L2-resident),
+//   two runs of four a thread in flight; a fleet too small to fill the card at
+//   8 blocks an SM splits each agent's predictions over several blocks
+//   (front_parts). Outputs bit for bit the plain bodies', as the narrow
+//   builds'. Their limits are shared memory's: the tables ~62 B a slot and the
+//   selection 4 B a candidate and 16 B an agent slot (O up to ~3,500 slots, A
+//   up to ~55,000 agents). On an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md
+//   section 6, chip_smoke.py's fronts_ab) at phase 8f's 1,024 agents, 80
+//   slots, M = 12 (3-D): the prediction 0.048 ms against its 0.0228 ms bytes
+//   bound (obs_pred's 71 MB written; the staged build took 0.080), the fused
+//   launch 0.058 (0.112), the selection alone 0.011 (0.0185). clock64 marks
+//   (chip_smoke.py::front_marks_main) put 83% of the prediction's block in the
+//   stream (~1.8 TB/s written, as much read from L2) and ~20 k of the fused
+//   block's ~94 k cycles in the selection.
 // - goal_qp_inputs_launch (stages.goal_qp_inputs; planner/goal.py:26-122 and
 //   pipeline.py:566-690 of the JAX package). Stage 5: the goal of every goal
 //   mode (the closed-form goal LP over the O last-point LSC rows and the six
@@ -375,6 +389,8 @@ __device__ void select_nearest(const float* __restrict__ p, int A, int i, int OA
 // neighbour selection for any OA (the wide builds)
 // ---------------------------------------------------------------------------
 
+__host__ __device__ inline int r4(int f) { return (f + 3) & ~3; }
+
 // the sort's length for OA keys: the least power of two >= OA
 __host__ __device__ inline int sort_len(int OA) {
   int P = 1;
@@ -382,79 +398,183 @@ __host__ __device__ inline int sort_len(int OA) {
   return P;
 }
 
-// floats of shared memory select_wide takes: the keys [sort_len(OA)] (u64),
-// the digit histogram [256], the warps' ballot counts [2][2][kWarps] and the
-// pass's digit and rank
-__host__ __device__ inline int select_wide_floats(int OA) {
-  return 2 * sort_len(OA) + 256 + 4 * kWarps + 4;
+// select_wide sorts its keys by rank (each key's place its count of smaller
+// keys, one barrier) up to this many, by a bitonic network above
+constexpr int kRankSortMax = 256;
+
+// select_wide's shared memory, in floats from a 16-B aligned start: the
+// candidates' distance bits [A] at 0, the selected keys (u64) [OA] or, for
+// the bitonic sort, [sort_len(OA)] at `key`, the rank sort's output [OA] at
+// `out`, two digit histograms [2][256] at `hist`, then the warps' counts of
+// two tiles [2][2][kWarps], the pass's digit, rank and bin count [4] and two
+// (min, max) pairs of the candidates of the pass's prefix [2][2] at `cnt`
+struct SelectWide {
+  int key, out, hist, cnt, floats;
+};
+
+__host__ __device__ inline SelectWide select_wide_layout(int A, int OA) {
+  SelectWide l;
+  l.key = r4(A);
+  l.out = l.key + 2 * (OA <= kRankSortMax ? OA : sort_len(OA));
+  l.hist = r4(l.out + 2 * OA);
+  l.cnt = l.hist + 2 * 256;
+  l.floats = r4(l.cnt + 4 * kWarps + 8);
+  return l;
+}
+
+// hist[digit] += 1 for every lane with `in`: one shared atomic for the warp
+// where every such lane has one digit (the first pass, over distances of a
+// few octaves, mostly), else one a lane; every lane of the warp calls it
+__device__ __forceinline__ void hist_add(unsigned* hist, unsigned digit, bool in, int lane) {
+  const unsigned act = __ballot_sync(kFull, in);
+  if (act == 0) return;
+  const int lead = __ffs(act) - 1;
+  const unsigned d0 = __shfl_sync(kFull, digit, lead);
+  if (__all_sync(kFull, !in || digit == d0)) {
+    if (lane == lead) atomicAdd(hist + d0, static_cast<unsigned>(__popc(act)));
+  } else if (in) {
+    atomicAdd(hist + digit, 1u);
+  }
+}
+
+// The digit whose bins of `hist` hold the need-th key, by warp 0 (a lane 8
+// bins): ctl[0] the digit, ctl[1] the key's rank among the digit's, ctl[2]
+// the digit's count
+__device__ __forceinline__ void hist_digit(const unsigned* hist, int need, int lane, int* ctl) {
+  unsigned c[8], sum = 0;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) sum += c[k] = hist[8 * lane + k];
+  unsigned incl = sum;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const unsigned up = __shfl_up_sync(kFull, incl, off);
+    if (lane >= off) incl += up;
+  }
+  unsigned below = incl - sum;
+  if (below < static_cast<unsigned>(need) && static_cast<unsigned>(need) <= incl) {
+    int k = 0;
+    while (below + c[k] < static_cast<unsigned>(need)) below += c[k++];
+    ctl[0] = 8 * lane + k;
+    ctl[1] = need - static_cast<int>(below);
+    ctl[2] = static_cast<int>(c[k]);
+  }
 }
 
 // The OA nearest keys of agent i among the A positions p [A, 3] (its
-// scenario's), ascending, into s_key[0, OA), by the whole block: a radix
-// select of the OA-th smallest distance (four passes of 8 bits over the
-// distance bits, a shared histogram each; integer counts, so the result does
-// not depend on the order of the atomics), then the keys below it and the
-// lowest indices at it, placed by block-wide ballot counts in index order,
-// then a bitonic sort of the OA keys in shared memory. Exact as
-// select_nearest: the same keys, the same order. s_u: select_wide_floats(OA)
-// floats of 16-B aligned shared memory (s_key is its start). Needs 1 <= OA <
-// A. Ends with a barrier.
-__device__ void select_wide(const float* __restrict__ p, int A, int i, int OA, float range,
-                            bool use_range, float* s_u) {
+// scenario's), ascending, by the whole block; returns where they are in s_u
+// (select_wide_layout(A, OA).floats floats of 16-B aligned shared memory).
+// Each candidate's distance bits computed once (distances are never negative,
+// so their bits order as unsigned integers) into shared memory, kBitsUnroll
+// candidates a thread in flight, with the first pass's histogram (hist_add);
+// then a radix select of the OA-th smallest over them, 8 bits a pass (a
+// histogram each, a shared atomic a lane after the first, the next pass's
+// zeroed while warp 0 scans this one's): integer counts, so the result does
+// not depend on the order of the atomics. A pass stops the select where the
+// chosen digit's bin holds exactly the keys still needed, or where every
+// candidate of its prefix has one distance (their least and largest bits,
+// taken in the same loop, equal: a tie, as at the out-of-range 1e9), which is
+// then the threshold. The keys below the threshold and the lowest indices at
+// it are placed a tile of 128 candidates at a time in index order by ballot
+// counts (a barrier a tile), stopped once all are placed; then sorted: by rank
+// up to kRankSortMax keys (where the threshold is one distance, only the keys
+// below it: its ties are in place), by a bitonic network above. Exact as
+// select_nearest: the same keys, the same order. Needs 1 <= OA < A. Ends with
+// a barrier.
+__device__ const u64* select_wide(const float* __restrict__ p, int A, int i, int OA, float range,
+                                  bool use_range, float* s_u) {
+  constexpr int kBitsUnroll = 4;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int P = sort_len(OA);
-  u64* s_key = reinterpret_cast<u64*>(s_u);
-  unsigned* s_hist = reinterpret_cast<unsigned*>(s_key + P);
-  int* s_cnt = reinterpret_cast<int*>(s_hist + 256);  // [2][2][kWarps]
-  int* s_ctl = s_cnt + 4 * kWarps;                    // the pass's digit and rank
+  const SelectWide L = select_wide_layout(A, OA);
+  unsigned* s_bits = reinterpret_cast<unsigned*>(s_u);
+  u64* s_key = reinterpret_cast<u64*>(s_u + L.key);
+  unsigned* s_hist = reinterpret_cast<unsigned*>(s_u + L.hist);  // [2][256]
+  int* s_cnt = reinterpret_cast<int*>(s_u + L.cnt);              // [2][2][kWarps]
+  int* s_ctl = s_cnt + 4 * kWarps;  // the pass's digit, rank in it, bin count
+  unsigned* s_mm = reinterpret_cast<unsigned*>(s_ctl + 4);  // [2][min, max]
   const float px = __ldg(p + 3 * i), py = __ldg(p + 3 * i + 1), pz = __ldg(p + 3 * i + 2);
-  auto bits_of = [&](int j) -> unsigned {
-    const float* q = p + 3 * j;
-    float d = fmaxf(fmaxf(fabsf(sub(px, __ldg(q))), fabsf(sub(py, __ldg(q + 1)))),
-                    fabsf(sub(pz, __ldg(q + 2))));
+  // candidate j's distance bits from its position
+  auto bits = [&](int j, float qx, float qy, float qz) {
+    float d = fmaxf(fmaxf(fabsf(sub(px, qx)), fabsf(sub(py, qy))), fabsf(sub(pz, qz)));
     if (j == i) d = add(d, 1e9f);  // dist + eye * 1e9 (+0 elsewhere)
     if (use_range && !(d < range)) d = 1e9f;
     return __float_as_uint(d);
   };
 
-  // the distance bits of the OA-th smallest key, 8 bits a pass; `need`: its
-  // rank among the keys of its distance (distances are never negative, so
-  // their bits order as unsigned integers)
+  for (int b = tid; b < 2 * 256; b += kBlockThreads) s_hist[b] = 0;
+  if (tid < 4) s_mm[tid] = tid & 1 ? 0u : ~0u;
+  __syncthreads();
+  // the distance bits, kBitsUnroll candidates' loads at once, with the
+  // first pass's histogram of their top 8 bits and their least and largest
+  unsigned lo = ~0u, hi = 0u;
+  for (int j0 = tid; j0 - tid < A; j0 += kBlockThreads * kBitsUnroll) {
+    float q[kBitsUnroll][3];
+#pragma unroll
+    for (int u = 0; u < kBitsUnroll; ++u) {
+      const int j = j0 + kBlockThreads * u;
+      if (j < A)
+        for (int d = 0; d < 3; ++d) q[u][d] = __ldg(p + 3 * j + d);
+    }
+#pragma unroll
+    for (int u = 0; u < kBitsUnroll; ++u) {
+      const int j = j0 + kBlockThreads * u;
+      unsigned b = 0;
+      if (j < A) {
+        b = bits(j, q[u][0], q[u][1], q[u][2]);
+        s_bits[j] = b;
+        lo = min(lo, b);
+        hi = max(hi, b);
+      }
+      if (j - tid < A) hist_add(s_hist, b >> 24, j < A, lane);  // the warp alike
+    }
+  }
+
+  // the distance bits of the OA-th smallest key: `prefix` its bits under
+  // `mask`, `need` its rank among the keys of that prefix
   unsigned prefix = 0, mask = 0;
   int need = OA;
-  for (int shift = 24; shift >= 0; shift -= 8) {
-    for (int b = tid; b < 256; b += kBlockThreads) s_hist[b] = 0;
-    __syncthreads();
-    for (int j = tid; j < A; j += kBlockThreads) {
-      const unsigned b = bits_of(j);
-      if ((b & mask) == prefix) atomicAdd(s_hist + ((b >> shift) & 255), 1u);
+  for (int pass = 0, shift = 24; shift >= 0; ++pass, shift -= 8) {
+    unsigned* hist = s_hist + 256 * (pass & 1);
+    unsigned* mm = s_mm + 2 * (pass & 1);
+    if (pass > 0) {
+      lo = ~0u;
+      hi = 0u;
+      for (int j0 = 0; j0 < A; j0 += kBlockThreads) {
+        const int j = j0 + tid;
+        const unsigned b = j < A ? s_bits[j] : 0u;
+        const bool in = j < A && (b & mask) == prefix;
+        if (in) {
+          lo = min(lo, b);
+          hi = max(hi, b);
+        }
+        if (in) atomicAdd(hist + ((b >> shift) & 255), 1u);
+      }
+    }
+    lo = __reduce_min_sync(kFull, lo);
+    hi = __reduce_max_sync(kFull, hi);
+    if (lane == 0) {
+      atomicMin(mm, lo);
+      atomicMax(mm + 1, hi);
     }
     __syncthreads();
-    if (warp == 0) {  // the digit whose bins hold the need-th key: a lane 8 bins
-      unsigned c[8], sum = 0;
-#pragma unroll
-      for (int k = 0; k < 8; ++k) sum += c[k] = s_hist[8 * lane + k];
-      unsigned incl = sum;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const unsigned up = __shfl_up_sync(kFull, incl, off);
-        if (lane >= off) incl += up;
-      }
-      unsigned below = incl - sum;
-      if (below < static_cast<unsigned>(need) && static_cast<unsigned>(need) <= incl) {
-        int k = 0;
-        while (below + c[k] < static_cast<unsigned>(need)) below += c[k++];
-        s_ctl[0] = 8 * lane + k;
-        s_ctl[1] = need - static_cast<int>(below);
-      }
+    if (mm[0] == mm[1]) {  // one distance: the threshold; every thread alike
+      prefix = mm[0];
+      mask = ~0u;
+      break;
+    }
+    if (warp == 0) {
+      hist_digit(hist, need, lane, s_ctl);
+    } else {  // the next pass's histogram and (min, max) reset meanwhile
+      unsigned* next = s_hist + 256 * ((pass + 1) & 1);
+      for (int b = tid - 32; b < 256; b += kBlockThreads - 32) next[b] = 0;
+      if (tid < 34) s_mm[2 * ((pass + 1) & 1) + tid - 32] = tid == 32 ? ~0u : 0u;
     }
     __syncthreads();
     prefix |= static_cast<unsigned>(s_ctl[0]) << shift;
     mask |= 255u << shift;
     need = s_ctl[1];
+    if (s_ctl[2] == need) break;  // the bin's keys are all taken: every thread alike
   }
-
-  // the keys below that distance (OA - need of them) and the `need` lowest
+  // the keys below the threshold (OA - need of them) and the `need` lowest
   // indices at it, a tile of 128 candidates at a time in index order: a
   // key's place is its rank among the tile's by ballots, plus the counts of
   // the tiles before (s_cnt double-buffered: one barrier a tile)
@@ -462,8 +582,8 @@ __device__ void select_wide(const float* __restrict__ p, int A, int i, int OA, f
   int n_less = 0, n_tie = 0;
   for (int t0 = 0, buf = 0; t0 < A; t0 += kBlockThreads, buf ^= 1) {
     const int j = t0 + tid;
-    const unsigned b = j < A ? bits_of(j) : ~0u;
-    const bool less = b < prefix, tie = b == prefix;
+    const unsigned b = j < A ? s_bits[j] : 0u;
+    const bool less = j < A && (b & mask) < prefix, tie = j < A && (b & mask) == prefix;
     const unsigned bl = __ballot_sync(kFull, less), bt = __ballot_sync(kFull, tie);
     int* cnt = s_cnt + buf * 2 * kWarps;
     if (lane == 0) {
@@ -485,6 +605,31 @@ __device__ void select_wide(const float* __restrict__ p, int A, int i, int OA, f
     else if (tie && tie_at < need) s_key[OA - need + tie_at] = key;
     if (n_less == OA - need && n_tie >= need) break;  // every thread alike
   }
+  __syncthreads();
+  // ascending. Where the threshold is one distance (mask all ones), its
+  // ties are its lowest indices in index order, after every key below it:
+  // in place already, so only the OA - need keys below it are sorted
+  const int n_sort = mask == ~0u ? OA - need : OA;
+  if (n_sort <= kRankSortMax) {  // by rank (keys are unique), two keys a thread
+    u64* s_out = reinterpret_cast<u64*>(s_u + L.out);
+    for (int e = tid; e < n_sort; e += 2 * kBlockThreads) {
+      const bool two = e + kBlockThreads < n_sort;
+      const u64 k0 = s_key[e], k1 = two ? s_key[e + kBlockThreads] : 0ull;
+      int r0 = 0, r1 = 0;
+#pragma unroll 4
+      for (int j = 0; j < n_sort; ++j) {
+        const u64 x = s_key[j];
+        r0 += x < k0;
+        r1 += x < k1;
+      }
+      s_out[r0] = k0;
+      if (two) s_out[r1] = k1;
+    }
+    for (int e = n_sort + tid; e < OA; e += kBlockThreads) s_out[e] = s_key[e];
+    __syncthreads();
+    return s_out;
+  }
+  const int P = sort_len(OA);
   for (int e = OA + tid; e < P; e += kBlockThreads) s_key[e] = ~0ull;
   __syncthreads();
   // ascending: a bitonic sort of the P keys, a pair a thread a step
@@ -501,6 +646,7 @@ __device__ void select_wide(const float* __restrict__ p, int A, int i, int OA, f
       __syncthreads();
     }
   }
+  return s_key;
 }
 
 // key -> (order into the flattened fleet, valid)
@@ -540,8 +686,8 @@ neighbor_slots_wide_kernel(const float* __restrict__ pos, int A, int OA, float r
   const long long agent = blockIdx.x;
   const int s = static_cast<int>(agent / A), i = static_cast<int>(agent - static_cast<long long>(s) * A);
   const long long first = static_cast<long long>(s) * A;
-  select_wide(pos + first * 3, A, i, OA, range, use_range != 0, reinterpret_cast<float*>(smem4));
-  const u64* s_key = reinterpret_cast<const u64*>(smem4);
+  const u64* s_key = select_wide(pos + first * 3, A, i, OA, range, use_range != 0,
+                                 reinterpret_cast<float*>(smem4));
   for (int o = threadIdx.x; o < OA; o += kBlockThreads) {
     const u64 key = s_key[o];
     order[agent * OA + o] = key_row(key, first);
@@ -596,7 +742,7 @@ struct FrontArgs {
   FrontPtrs p;
   int A, S, O, OA, OD, M, n, mode, size_growth, use_guard, select, use_range;
   float dt, reset, guard, range;
-  int chunk;  // the wide builds' slots staged at once (front_wide_smem)
+  int parts;  // the wide prediction's blocks an agent (front_parts)
 };
 
 // the dynamic shared memory of step_front_kernel, in floats: the points'
@@ -617,47 +763,32 @@ __host__ __device__ inline FrontSmem front_smem(int M, int N, int OA, int mode, 
   return s;
 }
 
-// the wide builds' dynamic shared memory, in floats (each part 16-B aligned):
-// the points' times [M*N] at 0, the sub-step matrix [N*N], the slot tables
-// sized by O (the narrow builds' static arrays), and at `u` the selection's
-// keys or, after it, `chunk` slots' LSC rows at a time
+// the wide prediction's dynamic shared memory, in floats (each part 16-B
+// aligned): the points' times [M*N] at 0, the sub-step matrix [N*N], the
+// slot tables sized by O (the agent slots' source rows, each slot's kind,
+// position and velocity with the agent's own at [O], goal, radius,
+// downwash, max_acc, validity and is_agent), and at `u` the selection's
+// (select_wide_layout over the scenario's A agents; 0 without it)
 struct WideSmem {
-  int sub, src, valid, kind, p, v, radius, max_acc, is_agent, u, floats, chunk;
+  int sub, src, kind, p, v, goal, radius, downwash, max_acc, valid, is_agent, u, floats;
 };
 
-constexpr int kWideRowBytes = 64 * 1024;  // the wide builds' staged rows at most
-
-__host__ __device__ inline int r4(int f) { return (f + 3) & ~3; }
-
-// chunk: slots whose rows are staged at once (0: as many as kWideRowBytes
-// and `limit` bytes of shared memory allow, at most O + 1, at least 1)
-__host__ __device__ inline WideSmem front_wide_smem(int M, int N, int O, int OA, int mode,
-                                                    bool select, int chunk, int limit) {
+__host__ __device__ inline WideSmem front_wide_smem(int M, int N, int O, int OA, int A,
+                                                    bool select) {
   WideSmem s;
   s.sub = r4(M * N);
   s.src = s.sub + r4(N * N);
-  s.valid = s.src + r4(2 * O);  // long long [O]
-  s.kind = s.valid + r4((O + 3) / 4);  // bool [O]
+  s.kind = s.src + r4(2 * OA);  // long long [OA]
   s.p = s.kind + r4(O + 1);
   s.v = s.p + r4(3 * (O + 1));
-  s.radius = s.v + r4(3 * (O + 1));
-  s.max_acc = s.radius + r4(O);
-  s.is_agent = s.max_acc + r4(O);
+  s.goal = s.v + r4(3 * (O + 1));
+  s.radius = s.goal + r4(3 * O);
+  s.downwash = s.radius + r4(O);
+  s.max_acc = s.downwash + r4(O);
+  s.valid = s.max_acc + r4(O);
+  s.is_agent = s.valid + r4((O + 3) / 4);  // bool [O]
   s.u = s.is_agent + r4((O + 3) / 4);
-  const int sel = select && OA > 0 ? select_wide_floats(OA) : 0;
-  const int MN3 = M * N * 3;
-  if (mode != kLsc) {
-    s.chunk = O + 1;
-  } else if (chunk == 0) {
-    const int room = limit / 4 - s.u, cap = kWideRowBytes / 4;
-    s.chunk = (room < cap ? room : cap) / MN3;
-    if (s.chunk > O + 1) s.chunk = O + 1;
-    if (s.chunk < 1) s.chunk = 1;
-  } else {
-    s.chunk = chunk;
-  }
-  const int rows = mode == kLsc ? s.chunk * MN3 : 0;
-  s.floats = s.u + (rows > sel ? rows : sel);
+  s.floats = s.u + (select && OA > 0 ? select_wide_layout(A, OA).floats : 0);
   return s;
 }
 
@@ -675,17 +806,103 @@ enum Kind { kRow = 0, kCv = 1, kPad = 2 };
 // row shifted one segment, the last point held; or (sub) segment 0
 // re-parameterised, sum_k S[k, i] * c_k left to right, the rest as it is
 // (r < 3N: segment 0, point i = r / 3)
-template <int NT>
+// (kGlobal: the row in global memory, read by the non-coherent path; else
+// in shared memory)
+template <int NT, bool kGlobal = false>
 __device__ __forceinline__ float row_value(const float* __restrict__ row,
                                            const float* __restrict__ s_sub, bool substep, int N,
                                            int MN3, int r, int d) {
-  if (!substep) return r < MN3 - 3 * N ? row[r + 3 * N] : row[MN3 - 3 + d];
-  if (r >= 3 * N) return row[r];
+  auto at = [row](int e) { return kGlobal ? __ldg(row + e) : row[e]; };
+  if (!substep) return r < MN3 - 3 * N ? at(r + 3 * N) : at(MN3 - 3 + d);
+  if (r >= 3 * N) return at(r);
   const int i = r / 3;
-  float acc = mul(s_sub[i], row[d]);
+  float acc = mul(s_sub[i], at(d));
 #pragma unroll
-  for (int k = 1; k < (NT ? NT : N); ++k) acc = add(acc, mul(s_sub[k * N + i], row[3 * k + d]));
+  for (int k = 1; k < (NT ? NT : N); ++k) acc = add(acc, mul(s_sub[k * N + i], at(3 * k + d)));
   return acc;
+}
+
+// v <- g[0, 4) from global memory by the non-coherent path: one 16-B load
+// where g is 16-B aligned, two of 8 B where it is 8-B aligned, else four
+__device__ __forceinline__ void load4(const float* __restrict__ g, float (&v)[4]) {
+  const uintptr_t at = reinterpret_cast<uintptr_t>(g) & 15;
+  if (at == 0) {
+    const float4 x = __ldg(reinterpret_cast<const float4*>(g));
+    v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+  } else if (at == 8) {
+    const float2 x = __ldg(reinterpret_cast<const float2*>(g));
+    const float2 y = __ldg(reinterpret_cast<const float2*>(g + 2));
+    v[0] = x.x, v[1] = x.y, v[2] = y.x, v[3] = y.y;
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) v[q] = __ldg(g + q);
+  }
+}
+
+// out[first, last) of this agent (first a multiple of 4), rows of `span`
+// floats, as store_runs, with kUnroll runs of four a thread computed (their
+// loads in flight together) before any is stored; a run's row and column
+// advanced by additions
+constexpr int kUnroll = 2;
+
+template <class F, class G>
+__device__ __forceinline__ void stream_runs(float* __restrict__ out, int first, int last, int span,
+                                            F value, G run) {
+  constexpr int kStep = 4 * kBlockThreads;  // floats between a thread's runs
+  const bool vec = (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  const int step_rows = kStep / span, step_r = kStep - step_rows * span;
+  int row0 = (first + 4 * threadIdx.x) / span, r0 = first + 4 * threadIdx.x - row0 * span;
+  for (int f0 = first + 4 * threadIdx.x; f0 < last; f0 += kStep * kUnroll) {
+    float v[kUnroll][4];
+    int row = row0, r = r0;
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int f = f0 + kStep * u;
+      if (f < last && !(f + 4 <= last && r + 4 <= span && run(row, r, v[u]))) {
+        int ro = row, rr = r;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          v[u][q] = f + q < last ? value(ro, rr) : 0.0f;
+          if (++rr == span) {
+            rr = 0;
+            ++ro;
+          }
+        }
+      }
+      row += step_rows;
+      r += step_r;
+      if (r >= span) {
+        r -= span;
+        ++row;
+      }
+    }
+    row0 = row;
+    r0 = r;
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int f = f0 + kStep * u;
+      if (vec && f + 4 <= last) {
+        *reinterpret_cast<float4*>(out + f) = make_float4(v[u][0], v[u][1], v[u][2], v[u][3]);
+      } else {
+        for (int q = 0; q < 4 && f + q < last; ++q) out[f + q] = v[u][q];
+      }
+    }
+  }
+}
+
+// A fleet too small to fill the card at kFillBlocks blocks an SM (the wide
+// prediction's __launch_bounds__) takes that many blocks in all, up to
+// kMaxParts an agent: each computes the agent's selection and slot tables
+// and streams its part of the predictions (a block alone would leave its
+// SM's memory pipes idle between its rounds)
+constexpr int kFillBlocks = 8;
+constexpr int kMaxParts = 16;
+
+// [first, last) of part `part` of `parts` of n floats, a multiple of 4 apart
+__device__ __forceinline__ void part_range(int n, int part, int parts, int& first, int& last) {
+  const int chunk = ((n + parts - 1) / parts + 3) & ~3;
+  first = min(n, part * chunk);
+  last = min(n, first + chunk);
 }
 
 template <int NT, int K, bool kSelect>
@@ -877,34 +1094,40 @@ __global__ void __launch_bounds__(kBlockThreads, K > 8 ? 4 : 8) step_front_kerne
 }
 
 // The wide builds of stages 1 and 2 (step_front_kernel's work at any O and
-// OA): the slot tables in dynamic shared memory sized by O, the block's own
-// selection by select_wide, and the LSC family's source rows staged a.chunk
-// slots at a time, each chunk's reset and outputs done before the next is
-// staged (row o of the chunk [o0, o1) at s_u + (o - o0) * MN3; slot O the
-// agent's own). The same operations as step_front_kernel, element for
+// OA), a store stream: the slot tables in dynamic shared memory sized by O,
+// the block's own selection by select_wide; then one thread a slot decides
+// its kind and fills the tables, the disturbance reset from its row's first
+// point read from global memory; then every output written four floats a
+// thread with 16-B stores, the attributes from the tables, a shifted row's
+// four floats read straight from the source row in global memory (L2-
+// resident: each row is read by its neighbours' blocks), kUnroll runs a
+// thread in flight. An agent's blocks (a.parts of them, front_parts) each
+// select and fill the tables, and stream their part of the predictions;
+// the first writes the selection and the attributes, the last the initial
+// trajectory. The same operations as step_front_kernel, element for
 // element.
 template <int NT, bool kSelect>
-__global__ void __launch_bounds__(kBlockThreads, 4) step_front_wide_kernel(FrontArgs a) {
+__global__ void __launch_bounds__(kBlockThreads, kFillBlocks) step_front_wide_kernel(FrontArgs a) {
   const FrontPtrs& P = a.p;
-  const int ag = blockIdx.x, tid = threadIdx.x, lane = tid & 31;
+  const int ag = blockIdx.x / a.parts, part = blockIdx.x - ag * a.parts, tid = threadIdx.x;
   const int O = a.O, OA = a.OA, M = a.M, N = NT ? NT : a.n + 1;
   const int N3 = 3 * N, MN3 = M * N3;
   const int per = a.A / a.S, s = ag / per;
-  const bool substep = P.sub != nullptr, rows = a.mode == kLsc;
+  const bool substep = P.sub != nullptr;
   extern __shared__ float4 smem4[];
   float* s_t = reinterpret_cast<float*>(smem4);
-  const WideSmem L = front_wide_smem(M, N, O, OA, a.mode, kSelect, a.chunk, 0);
+  const WideSmem L = front_wide_smem(M, N, O, OA, per, kSelect);
   float* s_sub = s_t + L.sub;
-  float* s_u = s_t + L.u;
   long long* s_src = reinterpret_cast<long long*>(s_t + L.src);  // the agent slots' source rows
-  bool* s_valid = reinterpret_cast<bool*>(s_t + L.valid);
   int* s_kind = reinterpret_cast<int*>(s_t + L.kind);  // Kind of slot o; [O] the agent's own
   float* s_p = s_t + L.p;  // [O + 1][3]
   float* s_v = s_t + L.v;
+  float* s_goal = s_t + L.goal;  // [O][3]
   float* s_radius = s_t + L.radius;
+  float* s_downwash = s_t + L.downwash;
   float* s_max_acc = s_t + L.max_acc;
+  bool* s_valid = reinterpret_cast<bool*>(s_t + L.valid);
   bool* s_is_agent = reinterpret_cast<bool*>(s_t + L.is_agent);
-  const int chunk = L.chunk;
 
   for (int e = tid; e < M * N; e += kBlockThreads) {
     const int m = e / N;
@@ -916,13 +1139,17 @@ __global__ void __launch_bounds__(kBlockThreads, 4) step_front_wide_kernel(Front
   // 1. the agent slots' sources: the block's own selection, or `order`
   if constexpr (kSelect) {
     const long long first = static_cast<long long>(s) * per;
-    select_wide(P.src_pos + first * 3, per, ag - s * per, OA, a.range, a.use_range != 0, s_u);
-    const u64* s_key = reinterpret_cast<const u64*>(s_u);
+    const u64* s_key = select_wide(P.src_pos + first * 3, per, ag - s * per, OA, a.range,
+                                   a.use_range != 0, s_t + L.u);
     for (int o = tid; o < OA; o += kBlockThreads) {
       const u64 key = s_key[o];
       const long long at = static_cast<long long>(ag) * OA + o;
-      s_src[o] = P.order_out[at] = key_row(key, first);
-      s_valid[o] = P.valid_out[at] = key_valid(key);
+      s_src[o] = key_row(key, first);
+      s_valid[o] = key_valid(key);
+      if (part == 0) {
+        P.order_out[at] = s_src[o];
+        P.valid_out[at] = s_valid[o];
+      }
     }
   } else {
     for (int o = tid; o < OA; o += kBlockThreads) {
@@ -933,17 +1160,15 @@ __global__ void __launch_bounds__(kBlockThreads, 4) step_front_wide_kernel(Front
   }
   __syncthreads();
 
-  // the rows of slots [o0, o1) in flight, a warp a row
-  auto stage_rows = [&](int o0, int o1) {
-    for (int o = o0 + (tid >> 5); o < o1; o += kWarps) {
-      if (o >= OA && o < O) continue;  // no row: a dynamic obstacle or the padding
-      const float* g = o < OA ? P.src_prev + s_src[o] * MN3 : P.prev + static_cast<long long>(ag) * MN3;
-      stage_floats(s_u + (o - o0) * MN3, g, MN3, lane, 32);
-    }
+  // the source row of a kRow slot (slot O: the agent's own)
+  auto row_of = [&](int o) {
+    return o == O ? P.prev + static_cast<long long>(ag) * MN3 : P.src_prev + s_src[o] * MN3;
   };
-  // 2. the first chunk's rows in flight while the threads decide each
-  // slot's kind and write the slots' attributes
-  if (rows) stage_rows(0, chunk < O + 1 ? chunk : O + 1);
+
+  // 2. one thread a slot: its kind, position and velocity, its attributes
+  // into the tables, and the disturbance reset: an agent slot whose
+  // predicted first point is off its observed position by more than
+  // `reset` holds the position
   for (int o = tid; o <= O; o += kBlockThreads) {
     int kind = kCv;
     float p[3] = {0.0f, 0.0f, 0.0f}, v[3] = {0.0f, 0.0f, 0.0f};
@@ -961,23 +1186,42 @@ __global__ void __launch_bounds__(kBlockThreads, 4) step_front_wide_kernel(Front
         kind = kRow;
       }
       if (o < O) {
+        const float* g3 = P.src_goal + src * 3;
+        for (int d = 0; d < 3; ++d) s_goal[3 * o + d] = g3[d];
         s_radius[o] = P.src_radius[src];
+        s_downwash[o] = P.src_downwash[src];
         s_max_acc[o] = 0.0f;
         s_is_agent[o] = true;
+      }
+      if (kind == kRow && o < OA) {
+        const float* row = row_of(o);
+        float e[3];
+        for (int d = 0; d < 3; ++d)
+          e[d] = sub(row_value<NT, true>(row, s_sub, substep, N, MN3, d, d), p[d]);
+        if (norm64(e, 3) > a.reset) {
+          kind = kCv;
+          for (int d = 0; d < 3; ++d) v[d] = 0.0f;
+        }
       }
     } else if (a.OD > 0) {  // a dynamic obstacle of the agent's scenario
       const long long di = static_cast<long long>(s) * a.OD + (o - OA);
       for (int d = 0; d < 3; ++d) {
         p[d] = P.dyn_pos[di * 3 + d];
         v[d] = P.dyn_vel[di * 3 + d];
+        s_goal[3 * o + d] = p[d];
       }
       s_radius[o] = P.dyn_radius[di];
+      s_downwash[o] = P.dyn_downwash[di];
       s_max_acc[o] = P.dyn_max_acc[di];
+      s_valid[o] = P.dyn_valid[di];
       s_is_agent[o] = false;
     } else {  // the single agent's padding slot
       kind = kPad;
+      for (int d = 0; d < 3; ++d) s_goal[3 * o + d] = 0.0f;
       s_radius[o] = 0.1f;
+      s_downwash[o] = 1.0f;
       s_max_acc[o] = 0.0f;
+      s_valid[o] = false;
       s_is_agent[o] = false;
     }
     s_kind[o] = kind;
@@ -986,88 +1230,61 @@ __global__ void __launch_bounds__(kBlockThreads, 4) step_front_wide_kernel(Front
       s_v[3 * o + d] = v[d];
     }
   }
-  // the attributes, a (slot, field) a thread: valid, is_agent, radius,
-  // downwash, max_acc, pos_now[3], goal[3]
-  for (int e = tid; e < O * 7; e += kBlockThreads) {
-    const int o = e / 7, f = e - o * 7;
-    const long long so = static_cast<long long>(ag) * O + o;
-    const bool agent = o < OA, dyn = !agent && a.OD > 0;
-    const long long src = agent ? s_src[o] : dyn ? static_cast<long long>(s) * a.OD + (o - OA) : 0;
-    switch (f) {
-      case 0: P.obs_valid[so] = agent ? s_valid[o] : dyn && P.dyn_valid[src]; break;
-      case 1: P.obs_is_agent[so] = agent; break;
-      case 2: P.obs_radius[so] = agent ? P.src_radius[src] : dyn ? P.dyn_radius[src] : 0.1f; break;
-      case 3:
-        P.obs_downwash[so] = agent ? P.src_downwash[src] : dyn ? P.dyn_downwash[src] : 1.0f;
-        break;
-      case 4: P.obs_max_acc[so] = dyn ? P.dyn_max_acc[src] : 0.0f; break;
-      default: {  // pos_now, goal: the source's, the obstacle's position (twice), or 0
-        const float* g = agent ? (f == 5 ? P.src_pos : P.src_goal) + src * 3
-                               : dyn ? P.dyn_pos + src * 3 : nullptr;
-        float* out = (f == 5 ? P.obs_pos_now : P.obs_goal) + so * 3;
-        const float x = g ? g[0] : 0.0f, y = g ? g[1] : 0.0f, z = g ? g[2] : 0.0f;
-        out[0] = x;
-        out[1] = y;
-        out[2] = z;
-      }
+  __syncthreads();
+
+  // 3. the attributes from the tables, unit-stride (the agent's first
+  // part): pos_now is the slot's position (the source's, the obstacle's, or
+  // 0)
+  const long long so = static_cast<long long>(ag) * O;
+  auto none = [](int, int, float (&)[4]) { return false; };
+  if (part == 0) {
+    auto flat = [&](float* out, int n, const float* table) {
+      stream_runs(out, 0, n, n, [&](int, int e) { return table[e]; }, none);
+    };
+    flat(P.obs_radius + so, O, s_radius);
+    flat(P.obs_downwash + so, O, s_downwash);
+    flat(P.obs_max_acc + so, O, s_max_acc);
+    flat(P.obs_pos_now + so * 3, 3 * O, s_p);
+    flat(P.obs_goal + so * 3, 3 * O, s_goal);
+    for (int o = tid; o < O; o += kBlockThreads) {
+      P.obs_valid[so + o] = s_valid[o];
+      P.obs_is_agent[so + o] = s_is_agent[o];
     }
   }
 
-  // 3.-4. per chunk of slots [o0, o1): the disturbance reset, a slot whose
-  // predicted first point is off its observed position by more than
-  // `reset` holding the position; then the outputs, four floats a thread:
-  // element r = 3*(m*N + i) + d of a slot's prediction
-  for (int o0 = 0; o0 <= O; o0 += chunk) {
-    const int o1 = o0 + chunk < O + 1 ? o0 + chunk : O + 1;
-    if (o0 > 0) {
-      __syncthreads();  // the last chunk's rows are read
-      if (rows) stage_rows(o0, o1);
+  // 4. the predictions: element r = 3*(m*N + i) + d of a slot's
+  auto pred = [&](int o, int r) -> float {
+    const int q = r / 3, d = r - 3 * q;
+    switch (s_kind[o]) {
+      case kRow:
+        return row_value<NT, true>(row_of(o), s_sub, substep, N, MN3, r, d);
+      case kCv:
+        return add(s_p[3 * o + d], mul(s_v[3 * o + d], s_t[q]));
+      default:
+        return 0.0f;
     }
-    if (rows) cp_async_wait_all();
-    __syncthreads();
-    const int r1 = o1 < OA ? o1 : OA;
-    for (int o = o0 + tid; o < r1; o += kBlockThreads) {
-      if (s_kind[o] != kRow) continue;
-      const float* row = s_u + (o - o0) * MN3;
-      float e[3];
-      for (int d = 0; d < 3; ++d)
-        e[d] = sub(row_value<NT>(row, s_sub, substep, N, MN3, d, d), s_p[3 * o + d]);
-      if (norm64(e, 3) > a.reset) {
-        s_kind[o] = kCv;
-        for (int d = 0; d < 3; ++d) s_v[3 * o + d] = 0.0f;
-      }
-    }
-    __syncthreads();
-
-    auto pred = [&](int o, int r) -> float {
-      const int q = r / 3, d = r - 3 * q;
-      switch (s_kind[o]) {
-        case kRow:
-          return row_value<NT>(s_u + (o - o0) * MN3, s_sub, substep, N, MN3, r, d);
-        case kCv:
-          return add(s_p[3 * o + d], mul(s_v[3 * o + d], s_t[q]));
-        default:
-          return 0.0f;
-      }
-    };
-    // the shift's runs: four floats of a row, one segment on
-    auto shifted = [&](int o, int r, float (&v)[4]) {
-      if (substep || s_kind[o] != kRow || r + 4 > MN3 - N3) return false;
-      const float* row = s_u + (o - o0) * MN3 + r + N3;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) v[q] = row[q];
+  };
+  // a row's runs of four: the shift (one segment on) and the last point
+  // held, or in the sub-step the segments past the first as they are
+  auto copied = [&](int o, int r, float (&v)[4]) {
+    if (s_kind[o] != kRow) return false;
+    const float* row = row_of(o);
+    if (substep || r + 4 <= MN3 - N3) {
+      if (substep && r < N3) return false;
+      load4(row + (substep ? r : r + N3), v);
       return true;
-    };
-    const int s1 = o1 < O ? o1 : O;  // the chunk's obstacle slots [o0, s1)
-    if (s1 > o0)
-      store_runs(P.obs_pred + (static_cast<long long>(ag) * O + o0) * MN3, (s1 - o0) * MN3, MN3,
-                 [&](int row, int r) { return pred(o0 + row, r); },
-                 [&](int row, int r, float (&v)[4]) { return shifted(o0 + row, r, v); });
-    if (o1 == O + 1)
-      store_runs(P.initial + static_cast<long long>(ag) * MN3, MN3, MN3,
-                 [&](int, int r) { return pred(O, r); },
-                 [&](int, int r, float (&v)[4]) { return shifted(O, r, v); });
-  }
+    }
+    if (r < MN3 - N3) return false;  // the run straddles the last segment
+    for (int q = 0, d = r % 3; q < 4; ++q, d = d == 2 ? 0 : d + 1) v[q] = __ldg(row + MN3 - 3 + d);
+    return true;
+  };
+  int first, last;  // this part's floats of the agent's obs_pred
+  part_range(O * MN3, part, a.parts, first, last);
+  stream_runs(P.obs_pred + so * MN3, first, last, MN3, pred, copied);
+  if (part == a.parts - 1)
+    stream_runs(P.initial + static_cast<long long>(ag) * MN3, 0, MN3, MN3,
+                [&](int, int r) { return pred(O, r); },
+                [&](int, int r, float (&v)[4]) { return copied(O, r, v); });
 
   // the size prediction (plain LSC and RSFC read it)
   if (P.sizes != nullptr) {
@@ -1077,8 +1294,8 @@ __global__ void __launch_bounds__(kBlockThreads, 4) step_front_wide_kernel(Front
       guard = div(mul(a.guard, dotn(v3, v3, 3)), P.max_acc[ag * 3]);
     }
     const int MN = M * N;
-    auto none = [](int, int, float (&)[4]) { return false; };
-    store_runs(P.sizes + static_cast<long long>(ag) * O * MN, O * MN, MN, [&](int o, int mi) {
+    part_range(O * MN, part, a.parts, first, last);
+    stream_runs(P.sizes + so * MN, first, last, MN, [&](int o, int mi) {
       float x = s_radius[o];
       if (a.size_growth && (!s_is_agent[o] || a.mode == kRsfc))
         x = add(add(x, guard), mul(s_max_acc[o], __ldg(P.growth + mi)));
@@ -1293,7 +1510,7 @@ int neighbor_go(const float* pos, int S, int A, int OA, float range, int use_ran
 
 int neighbor_wide_go(const float* pos, int S, int A, int OA, float range, int use_range,
                      long long* order, bool* valid, cudaStream_t stream) {
-  const size_t bytes = sizeof(float) * select_wide_floats(OA);
+  const size_t bytes = sizeof(float) * select_wide_layout(A, OA).floats;
   const cudaError_t e = allow_smem(neighbor_slots_wide_kernel, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   neighbor_slots_wide_kernel<<<S * A, kBlockThreads, bytes, stream>>>(pos, A, OA, range,
@@ -1310,14 +1527,32 @@ int front_go(const FrontArgs& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// the card's SMs (cached: one card a process)
+int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      sms = 1;
+  }
+  return sms;
+}
+
+// the wide prediction's blocks an agent for A agents (kFillBlocks)
+int front_parts(int A) {
+  const long long fill = static_cast<long long>(kFillBlocks) * sm_count();
+  return static_cast<int>(fill / A < 1 ? 1 : fill / A < kMaxParts ? fill / A : kMaxParts);
+}
+
 template <int NT, bool kSelect>
-int front_wide_go(const FrontArgs& a, cudaStream_t stream) {
+int front_wide_go(FrontArgs a, cudaStream_t stream) {
   const size_t bytes =
-      sizeof(float) *
-      front_wide_smem(a.M, a.n + 1, a.O, a.OA, a.mode, kSelect, a.chunk, kWideLimit).floats;
+      sizeof(float) * front_wide_smem(a.M, a.n + 1, a.O, a.OA, a.A / a.S, kSelect).floats;
   const cudaError_t e = allow_smem(step_front_wide_kernel<NT, kSelect>, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  step_front_wide_kernel<NT, kSelect><<<a.A, kBlockThreads, bytes, stream>>>(a);
+  a.parts = front_parts(a.A);
+  step_front_wide_kernel<NT, kSelect><<<a.A * a.parts, kBlockThreads, bytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1366,7 +1601,7 @@ extern "C" int neighbor_slots_launch(const float* pos, int S, int A, int OA, flo
                                      int use_range, long long* order, bool* valid,
                                      cudaStream_t stream) {
   if (S < 1 || A < 2 || OA < 1 || OA >= A || static_cast<long long>(S) * A > INT_MAX ||
-      sizeof(float) * select_wide_floats(OA) > static_cast<size_t>(kWideLimit))
+      sizeof(float) * select_wide_layout(A, OA).floats > static_cast<size_t>(kWideLimit))
     return cudaErrorInvalidValue;
   switch (neighbor_slots_build(A, OA)) {
     case 0: return neighbor_wide_go(pos, S, A, OA, range, use_range, order, valid, stream);
@@ -1376,19 +1611,23 @@ extern "C" int neighbor_slots_launch(const float* pos, int S, int A, int OA, flo
   }
 }
 
+// the wide prediction's blocks an agent at A agents in all (front_parts)
+extern "C" int step_front_parts(int A) { return A < 1 ? 0 : front_parts(A); }
+
 // dynamic shared memory of a neighbor_slots_launch block, bytes
 extern "C" int neighbor_slots_smem_bytes(int A, int OA) {
   const int K = neighbor_slots_build(A, OA);
-  return static_cast<int>(sizeof(float)) * (K ? select_floats(K) : select_wide_floats(OA));
+  return static_cast<int>(sizeof(float)) *
+         (K ? select_floats(K) : select_wide_layout(A, OA).floats);
 }
 
 // the build of a step_front_launch: its list K (8 without a selection), 0
 // for the wide builds; -1 for a shape no build takes (the wide builds'
-// tables and one chunk's rows past shared memory)
+// tables and selection past shared memory)
 extern "C" int step_front_build(int A, int S, int O, int OA, int M, int n, int mode, int select) {
   const bool sel = select && OA > 0;
   if (front_is_wide(A, S, O, OA, M, n, mode, sel)) {
-    const WideSmem w = front_wide_smem(M, n + 1, O, OA, mode, sel, 0, kWideLimit);
+    const WideSmem w = front_wide_smem(M, n + 1, O, OA, A / S, sel);
     return sizeof(float) * w.floats <= static_cast<size_t>(kWideLimit) ? 0 : -1;
   }
   return sel ? list_len(A / S, OA) : 8;
@@ -1409,8 +1648,6 @@ extern "C" int step_front_launch(void* const* ptrs, const int* ints, const float
       a.OA + a.OD > a.O || a.M < 1 || a.n < 1 || (a.select && a.OA > 0 && a.OA >= a.A / a.S) ||
       step_front_build(a.A, a.S, a.O, a.OA, a.M, a.n, a.mode, a.select) < 0)
     return cudaErrorInvalidValue;
-  a.chunk = front_wide_smem(a.M, a.n + 1, a.O, a.OA, a.mode, a.select && a.OA > 0, 0,
-                            kWideLimit).chunk;
   return a.n + 1 == 6 ? front_by_list<6>(a, stream) : front_by_list<0>(a, stream);
 }
 
@@ -1419,15 +1656,9 @@ extern "C" int step_front_smem_bytes(int A, int S, int O, int OA, int M, int n, 
                                      int select) {
   const bool sel = select && OA > 0;
   if (front_is_wide(A, S, O, OA, M, n, mode, sel))
-    return static_cast<int>(sizeof(float)) *
-           front_wide_smem(M, n + 1, O, OA, mode, sel, 0, kWideLimit).floats;
+    return static_cast<int>(sizeof(float)) * front_wide_smem(M, n + 1, O, OA, A / S, sel).floats;
   const int K = sel ? list_len(A / S, OA) : 8;
   return static_cast<int>(sizeof(float)) * front_smem(M, n + 1, OA, mode, K, sel).floats;
-}
-
-// the wide builds' slots staged at once (O + 1: every row at once)
-extern "C" int step_front_chunk(int O, int OA, int M, int n, int mode, int select) {
-  return front_wide_smem(M, n + 1, O, OA, mode, select && OA > 0, 0, kWideLimit).chunk;
 }
 
 // blocks an SM of a stage kernel at `dyn_smem` bytes of dynamic shared

@@ -7,8 +7,9 @@ shared memory with coalesced loads. Each entry has two kinds of build: a
 template build for each K from 1 to 8, one thread per hull, the points
 in registers, and one run-time build for any K, one thread per hull too,
 the points read from the shared stage (every K above 8; and CLSC shapes
-whose template stage passes 48 KB); in 2-D CLSC's run-time build tests
-no tetrahedron (every one fails at its first volume there). See the note
+whose template stage passes 48 KB); the run-time builds test no
+tetrahedron of a flat hull (every one fails at its first volume there):
+the query's per hull, CLSC's in 2-D. See the note
 at the top of the source for the layout and what bounds it:
 
 - `build_clsc_cuda`: the whole CLSC construction (`lsc.build_clsc`, the
@@ -59,6 +60,10 @@ def build(verbose: bool = False) -> ctypes.CDLL:
     lib.clsc_build_launch.argtypes = [P] * 10 + [LL] + [I] * 4 + [P] * 5
     lib.clsc_build_launch.restype = I
     lib.hull_closest_smem.argtypes = [I, P]
+    lib.hull_closest_occupancy.argtypes = [I, P, P]
+    lib.hull_closest_occupancy.restype = I
+    lib.clsc_build_occupancy.argtypes = [LL, I, I, I, P]
+    lib.clsc_build_occupancy.restype = I
     lib.clsc_build_smem.argtypes = [LL, I, I, I, P]
     for f in (lib.hull_closest_smem, lib.clsc_build_smem, lib.hull_max_smem):
         f.restype = LL
@@ -79,6 +84,26 @@ def hull_closest_plan(K: int):
     rt = ctypes.c_int()
     smem = build().hull_closest_smem(K, ctypes.byref(rt))
     return bool(rt.value), smem
+
+
+def hull_closest_occupancy(K: int):
+    """(hulls a block, blocks an SM) of the query's build for K-point
+    hulls (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    hulls, blocks = ctypes.c_int(), ctypes.c_int()
+    rc = build().hull_closest_occupancy(K, ctypes.byref(hulls), ctypes.byref(blocks))
+    if rc:
+        raise RuntimeError(f"hull_closest_occupancy failed: CUDA error {rc}")
+    return hulls.value, blocks.value
+
+
+def clsc_build_occupancy(A: int, O: int, M: int, N: int) -> int:
+    """Blocks an SM of build_clsc's build at (A, O, M, N)
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    blocks = ctypes.c_int()
+    rc = build().clsc_build_occupancy(A, O, M, N, ctypes.byref(blocks))
+    if rc:
+        raise RuntimeError(f"clsc_build_occupancy failed: CUDA error {rc}")
+    return blocks.value
 
 
 def clsc_build_plan(A: int, O: int, M: int, N: int):

@@ -57,8 +57,20 @@ def build(verbose: bool = False) -> ctypes.CDLL:
     lib.sfc_l2_chase_launch.restype = I
     lib.sfc_query_chase_launch.argtypes = [P, I, I, I, I, P, P]
     lib.sfc_query_chase_launch.restype = I
+    lib.sfc_occupancy.argtypes = [I, P]
+    lib.sfc_occupancy.restype = I
     _lib = lib
     return lib
+
+
+def occupancy(kernel: int) -> int:
+    """Blocks an SM of kernel 0, the expansion, or 1, the 'hull' update
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    out = ctypes.c_int(0)
+    rc = build().sfc_occupancy(kernel, ctypes.byref(out))
+    if rc:
+        raise RuntimeError(f"sfc_occupancy failed: CUDA error {rc}")
+    return out.value
 
 
 def reset_launches():

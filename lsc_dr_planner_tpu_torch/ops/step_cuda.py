@@ -18,11 +18,15 @@ prediction, goal and QP-input stages (`csrc/step_stages.cu`).
 The selection and the prediction have narrow builds (OA <= 32, O <= 64,
 every source row staged in shared memory at once: the main path's) and
 wide builds for every other shape (`selection_build`, `front_build`):
-a block-wide radix select of the OA nearest and a bitonic sort of them,
-the slot tables in dynamic shared memory sized by O, the source rows
-staged a chunk of slots at a time. Device memory is the only limit on
-OA < A and O in practice (the wide tables take ~46 B a slot of the 227
-KB of shared memory: O up to ~4,000).
+a block-wide radix select of the OA nearest over distance bits computed
+once into shared memory, and a sort of them; the slot tables in dynamic
+shared memory sized by O, every output a store stream, the shifted rows
+read straight from global memory (a fleet too small to fill the card:
+each agent's predictions over several blocks). Device memory is the
+only limit on
+OA < A and O in practice (the wide tables take ~62 B a slot and the
+selection ~4 B a candidate of the 227 KB of shared memory: O up to
+~3,500, A up to ~55,000).
 
 None had a Pallas original. Each takes CUDA tensors only and raises on
 anything else (stages.py gives them CUDA tensors and CPU tensors to the
@@ -69,12 +73,12 @@ def build(verbose: bool = False) -> ctypes.CDLL:
     lib.neighbor_slots_launch.restype = I
     lib.step_front_smem_bytes.argtypes = [I] * 8
     lib.step_front_build.argtypes = [I] * 8
-    lib.step_front_chunk.argtypes = [I] * 6
+    lib.step_front_parts.argtypes = [I]
     lib.neighbor_slots_smem_bytes.argtypes = [I] * 2
     lib.neighbor_slots_build.argtypes = [I] * 2
     lib.step_stages_occupancy.argtypes = [I, I, I, I, P]
     for fn in (lib.step_front_smem_bytes, lib.step_stages_occupancy, lib.step_front_build,
-               lib.step_front_chunk, lib.neighbor_slots_smem_bytes, lib.neighbor_slots_build):
+               lib.step_front_parts, lib.neighbor_slots_smem_bytes, lib.neighbor_slots_build):
         fn.restype = I
     for fn in (lib.step_front_launch, lib.goal_qp_inputs_launch):
         fn.argtypes = [P, P, P, P]
@@ -283,8 +287,8 @@ def _front(cfg, sc, fleet, inp, order, valid, neighbors, scenarios: int, select:
                              f"0 <= OA < A")
         fb = front_build(A, S, O, OA, M, cfg.n, cfg.mode, select)
         if fb < 0:
-            raise ValueError(f"prediction kernel: O = {O} slots of {M}·{N}·3 floats: the slot "
-                             f"tables and one slot's rows pass shared memory")
+            raise ValueError(f"prediction kernel: O = {O} slots, OA = {OA} of {A // S} agents: "
+                             f"the slot tables and the selection pass shared memory")
         cfg.cache[key] = (fb == 0, (ctypes.c_int * 12)(A, S, O, OA, OD, M, cfg.n, cfg.mode,
                                               int(cfg.size_growth),
                                               int(cfg.velocity_guard is not None), int(select),

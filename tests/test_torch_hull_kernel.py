@@ -7,7 +7,8 @@ hull at a time, the kernel's order of candidates and of operations) is
 held to the plain enumeration bit for bit, on degenerate hulls and on
 hulls sampled from the CLSC inputs of an evolving fleet, for K = 2, 3, 6
 and 8 (the template builds) and 9, 10 and 12 (the run-time build, whose
-loops run in the same order; the hulls from a fleet of degree 8, N = 9);
+loops run in the same order; the hulls from a fleet of degree 8, N = 9;
+its per-hull flat test on a block of mixed flat and 3-D hulls);
 the plain enumeration is held to the JAX package's at 1e-5. The `cuda`
 tests hold the kernel to the plain enumeration on the card, bit for bit,
 for every K from 1 to 16; they import neither jax nor the JAX package, so on the GPU
@@ -117,8 +118,15 @@ def _in_tetra(a, b, c, d):
     return all(v >= -VOL_EPS for v in vs) if v0 > 0 else all(v <= VOL_EPS for v in vs)
 
 
-def twin_hull(points):
-    """The kernel's thread for one hull ([K, 3] float32): (closest [3], dist)."""
+def flat(points):
+    """flat_hull: every point's z is ±0 (a NaN z is not)."""
+    return all(F(row[2]) == 0 for row in points)
+
+
+def twin_hull(points, skip_flat=False):
+    """The kernel's thread for one hull ([K, 3] float32): (closest [3],
+    dist). skip_flat (the run-time build's): no tetrahedron tested where
+    the hull is flat."""
     p = [tuple(F(v) for v in row) for row in points]
     K = len(p)
     best, bd = p[0], _dot3(p[0], p[0])
@@ -138,6 +146,8 @@ def twin_hull(points):
         for j in range(i + 1, K):
             for k in range(j + 1, K):
                 consider(_triangle(p[i], p[j], p[k]))
+    if skip_flat and flat(points):
+        return np.asarray(best, F), np.sqrt(bd)
     for i in range(K):
         for j in range(i + 1, K):
             for k in range(j + 1, K):
@@ -147,10 +157,10 @@ def twin_hull(points):
     return np.asarray(best, F), np.sqrt(bd)
 
 
-def twin(points):
+def twin(points, skip_flat=False):
     """twin_hull over [H, K, 3]: (closest [H, 3], dist [H])."""
     with np.errstate(all="ignore"):  # NaN and infinite hulls
-        out = [twin_hull(h) for h in points]
+        out = [twin_hull(h, skip_flat) for h in points]
     return np.stack([c for c, _ in out]), np.asarray([d for _, d in out], F)
 
 
@@ -292,6 +302,23 @@ def test_twin_equals_plain_on_degenerate_hulls(K):
     assert_equal_by_value(twin(pts), (c, d))
 
 
+def mixed_block(K, H=128, seed=None):
+    """One block of the run-time build (H hulls of K points): flat hulls at
+    z = +0 and at z = −0 (some with both), 3-D hulls, some holding the
+    origin, a flat hull with one NaN z (not flat) and a 3-D hull with one;
+    the flat and 3-D hulls interleaved."""
+    rng = np.random.default_rng(30 + K if seed is None else seed)
+    pts = f32(rng, H, K, 3)
+    pts[0::4, :, 2] = 0.0
+    pts[1::4, :, 2] = -0.0
+    pts[2::8, ::2, 2] = -0.0  # z = +0 and −0 in one hull
+    pts[2::8, 1::2, 2] = 0.0
+    pts[3::8] *= 0.05  # 3-D, tiny: around the origin
+    pts[5::16, 0, 2] = np.nan  # flat but for a NaN z
+    pts[7::16, 1, 2] = np.nan  # 3-D with a NaN z
+    return pts
+
+
 def named_hulls(what):
     """A case of hull_cases(), nonfinite: nonfinite_hulls(), or
     clsc_K<K>: clsc_hulls(K)."""
@@ -300,6 +327,21 @@ def named_hulls(what):
     if what == "nonfinite":
         return nonfinite_hulls()
     return clsc_hulls(int(what.split("K")[1]))
+
+
+@pytest.mark.parametrize("K", RT_KS)
+def test_rt_twin_skips_flat_hulls(K):
+    """The run-time build's per-hull flat test: on a block of mixed flat
+    (z = ±0) and 3-D hulls, with NaN z, the twin that tests no
+    tetrahedron where a hull is flat equals the plain enumeration (and
+    the twin that tests them all) bit for bit."""
+    pts = mixed_block(K)
+    flats = np.array([flat(h) for h in pts])
+    assert 0 < flats.sum() < len(pts) and not flats[5::16].any()
+    want = plain(pts)
+    assert (want[1][~flats] == 0).any() and np.isnan(want[1]).any()
+    assert_equal_by_value(twin(pts, skip_flat=True), want)
+    assert_equal_by_value(twin(pts), want)
 
 
 @pytest.mark.parametrize("K", KS)
@@ -445,6 +487,20 @@ def test_kernel_each_K(cuda_dev, K):
     pts = degenerate_hulls(K, 4096)
     got, want = kernel_vs_plain(pts, cuda_dev)
     assert_equal_by_value(got, want)
+    neg, _ = kernel_vs_plain(-pts, cuda_dev)
+    assert_equal_by_value(neg, (-got[0], got[1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [9, 10, 12, 16])
+def test_rt_kernel_on_mixed_flat_and_3d_hulls(cuda_dev, K):
+    """The run-time build on 32 blocks of mixed flat and 3-D hulls (its
+    per-hull flat test), NaN z among them, equals the plain enumeration
+    (and the twin on the first block), and is odd."""
+    pts = np.concatenate([mixed_block(K, seed=100 * K + b) for b in range(32)])
+    got, want = kernel_vs_plain(pts, cuda_dev)
+    assert_equal_by_value(got, want)
+    assert_equal_by_value((got[0][:128], got[1][:128]), twin(pts[:128], skip_flat=True))
     neg, _ = kernel_vs_plain(-pts, cuda_dev)
     assert_equal_by_value(neg, (-got[0], got[1]))
 

@@ -11,10 +11,10 @@
   its Param in-process).
 - The plain `qp.solve` against the JAX `solve` at dim·K 138 and 246.
 - Python twins of the wide builds of csrc/step_stages.cu (the radix
-  selection of any OA, the prediction with its slot tables sized by O
-  and its source rows staged a chunk of slots at a time) against the
-  plain bodies `stages._neighbor_slots_plain` and `stages._front_plain`,
-  bit for bit.
+  selection of any OA over distance bits computed once, the prediction
+  with its slot tables sized by O and its outputs a store stream, the
+  shifted rows read from the source rows) against the plain bodies
+  `stages._neighbor_slots_plain` and `stages._front_plain`, bit for bit.
 
 The kernels themselves run on the card: tests/test_torch_cuda.py and
 tests/test_torch_step_stages.py (marked `cuda`).
@@ -239,15 +239,33 @@ def bitonic(keys):
     return keys
 
 
+RANK_SORT_MAX = 256  # the kernel's kRankSortMax: a sort by rank up to it, bitonic above
+
+
+def radix_digit(hist, need):
+    """hist_digit: (the digit whose bins hold the need-th key, the key's
+    rank among the digit's, the digit's count)."""
+    below, digit = 0, 0
+    while below + hist[digit] < need:
+        below += hist[digit]
+        digit += 1
+    return digit, need - below, int(hist[digit])
+
+
 def twin_select_wide(pos, S, OA, rng, use_range):
-    """select_wide, a block an agent: the OA-th smallest distance by four
-    radix passes of 8 bits over its bits (a histogram each, the digit whose
-    bins hold the need-th key), the keys below it and the `need` lowest
-    indices at it placed by the tiles' ballot ranks in index order, then
-    the bitonic sort of the sort_len(OA) keys."""
+    """select_wide, a block an agent: each candidate's distance bits once;
+    the OA-th smallest by radix passes of 8 bits over them (a histogram
+    each, the digit whose bins hold the need-th key), stopped where the
+    chosen bin holds exactly the keys still needed or where every
+    candidate of the pass's prefix has one distance (its least and largest
+    bits equal: then that distance); the keys below the threshold and the
+    `need` lowest indices at it placed a tile of THREADS candidates at a
+    time in index order by the tiles' ballot ranks, stopped once all are
+    placed; then sorted by rank (up to RANK_SORT_MAX keys; where the
+    threshold is one distance, only the keys below it) or by the bitonic
+    sort of the sort_len(OA) keys."""
     SA = pos.shape[0]
     A = SA // S
-    P = sort_len(OA)
     order = np.zeros((SA, OA), np.int64)
     valid = np.zeros((SA, OA), bool)
     for agent in range(SA):
@@ -257,37 +275,47 @@ def twin_select_wide(pos, S, OA, rng, use_range):
         d[i] = d[i] + F(1e9)
         if use_range:
             d = np.where(d < rng, d, F(1e9)).astype(F)
-        bits = d.view(np.uint32).astype(np.int64)
+        bits = [int(b) for b in d.view(np.uint32)]
         prefix, mask, need = 0, 0, OA
         for shift in (24, 16, 8, 0):
-            hist = np.bincount((bits[(bits & mask) == prefix] >> shift) & 255, minlength=256)
-            below, digit = 0, 0
-            while below + hist[digit] < need:
-                below += hist[digit]
-                digit += 1
+            inside = [b for b in bits if b & mask == prefix]
+            if min(inside) == max(inside):
+                prefix, mask = inside[0], 0xFFFFFFFF
+                break
+            digit, need, count = radix_digit(
+                np.bincount([(b >> shift) & 255 for b in inside], minlength=256), need)
             prefix |= digit << shift
             mask |= 255 << shift
-            need -= below
-        keys = [FULL] * P
+            if count == need:
+                break
+        keys = [FULL] * OA
         n_less = n_tie = 0
         for t0 in range(0, A, THREADS):
-            tile = np.array([bits[j] if j < A else 0xFFFFFFFF for j in range(t0, t0 + THREADS)])
-            less, tie = tile < prefix, tile == prefix
+            tile = [bits[j] & mask if j < A else None for j in range(t0, t0 + THREADS)]
+            less = [t is not None and t < prefix for t in tile]
+            tie = [t == prefix for t in tile]
             # a thread's ballot rank plus the counts of the warps before it:
             # the tile's keys before it
             less_at = n_less + np.cumsum(less) - less
             tie_at = n_tie + np.cumsum(tie) - tie
             for t in range(THREADS):
-                key = (int(tile[t]) << 32) | (t0 + t)
                 if less[t]:
-                    keys[less_at[t]] = key
+                    keys[less_at[t]] = (bits[t0 + t] << 32) | (t0 + t)
                 elif tie[t] and tie_at[t] < need:
-                    keys[OA - need + tie_at[t]] = key
-            n_less += int(less.sum())
-            n_tie += int(tie.sum())
+                    keys[OA - need + tie_at[t]] = (bits[t0 + t] << 32) | (t0 + t)
+            n_less += sum(less)
+            n_tie += sum(tie)
             if n_less == OA - need and n_tie >= need:
                 break
-        out = bitonic(keys)[:OA]
+        assert FULL not in keys
+        # a threshold of one distance: its ties in place, the keys below it sorted
+        n_sort = OA - need if mask == 0xFFFFFFFF else OA
+        if n_sort <= RANK_SORT_MAX:
+            out = keys[:]
+            for key in keys[:n_sort]:
+                out[sum(k < key for k in keys[:n_sort])] = key
+        else:
+            out = bitonic(keys + [FULL] * (sort_len(OA) - OA))[:OA]
         order[agent] = [(x & 0xFFFFFFFF) + s * A for x in out]
         valid[agent] = [np.uint32(x >> 32).view(F) < F(1e8) for x in out]
     return order, valid
@@ -295,10 +323,13 @@ def twin_select_wide(pos, S, OA, rng, use_range):
 
 @pytest.mark.parametrize("A,S,OA,rng", [(34, 1, 33, 3.0), (120, 1, 33, -1.0), (81, 1, 80, 3.0),
                                          (300, 1, 80, 4.0), (129, 1, 128, -1.0),
-                                         (200, 1, 128, 5.0), (90, 2, 40, 3.0)])
+                                         (200, 1, 128, 5.0), (90, 2, 40, 3.0),
+                                         (300, 1, 257, -1.0), (600, 1, 300, 30.0)])
 def test_wide_selection_twin_equals_plain(A, S, OA, rng):
     """On the tied lattice (its L∞ distances tie exactly: the lower index
-    first), ties at the OA-th distance included."""
+    first), ties at the OA-th distance included; the rank sort and, at OA
+    = 257 and 300 (past it unless the threshold is one distance), the
+    bitonic sort."""
     pos = lattice(A, S)
     order, valid = stages._neighbor_slots_plain(pos, S, OA, rng)
     t_order, t_valid = twin_select_wide(pos.numpy(), S, OA, F(rng), rng > 0)
@@ -315,35 +346,77 @@ def test_bitonic_sorts_every_length():
 
 # ---- the wide prediction, in Python -----------------------------------------
 WIDE_LIMIT = 232448 - 1024  # the kernel's kWideLimit: kMaxSmem less the static arrays
-WIDE_ROW_BYTES = 64 * 1024  # the kernel's kWideRowBytes
+UNROLL = 2  # the kernel's kUnroll: runs of four a thread in flight
+FILL_BLOCKS, MAX_PARTS = 8, 16  # the kernel's kFillBlocks and kMaxParts
+H100_SMS = 132
+
+
+def front_parts(A, sms=H100_SMS):
+    """front_parts: the wide prediction's blocks an agent."""
+    return max(1, min(MAX_PARTS, FILL_BLOCKS * sms // A))
+
+
+def part_range(n, part, parts):
+    """part_range: [first, last) of part `part` of n floats, a multiple of
+    4 apart."""
+    chunk = (-(-n // parts) + 3) & ~3
+    first = min(n, part * chunk)
+    return first, min(n, first + chunk)
 
 
 def r4(f):
     return (f + 3) & ~3
 
 
-def select_wide_floats(OA):
-    return 2 * sort_len(OA) + 256 + 4 * (THREADS // WARP) + 4
+def select_wide_floats(A, OA):
+    """select_wide_layout(A, OA).floats: the distance bits, the keys (the
+    rank sort's output beside them, or the bitonic sort's padding), two
+    histograms, the warps' counts of two tiles, the pass's digit, rank and
+    count, and two (min, max) pairs."""
+    out = r4(A) + 2 * (OA if OA <= RANK_SORT_MAX else sort_len(OA))
+    return r4(r4(out + 2 * OA) + 2 * 256 + 4 * (THREADS // WARP) + 8)
 
 
-def wide_chunk(M, N, O, OA, lsc, select):
-    """front_wide_smem's chunk: the slots whose rows fit in
-    WIDE_ROW_BYTES and the shared memory left by the tables."""
-    u = r4(M * N) + r4(N * N) + r4(2 * O) + r4((O + 3) // 4) + r4(O + 1) + 2 * r4(3 * (O + 1)) \
-        + 2 * r4(O) + r4((O + 3) // 4)
-    if not lsc:
-        return O + 1
-    room = min(WIDE_LIMIT // 4 - u, WIDE_ROW_BYTES // 4)
-    return max(1, min(O + 1, room // (M * N * 3)))
+def wide_smem(M, N, O, OA, A, select):
+    """front_wide_smem(...).floats: the times, the sub-step matrix, the
+    slot tables sized by O and the selection's shared memory."""
+    tables = (r4(M * N) + r4(N * N) + r4(2 * OA) + r4(O + 1) + 2 * r4(3 * (O + 1)) + r4(3 * O)
+              + 3 * r4(O) + 2 * r4((O + 3) // 4))
+    return tables + (select_wide_floats(A, OA) if select and OA > 0 else 0)
 
 
-def twin_front_chunked(cfg, sc, fleet, inp, order, valid, chunk, agents):
-    """step_front_kernel's wide build for `agents`, one at a time (the
-    outputs of the others stay 0): each slot's kind
-    and (position, velocity) and the agent's own (slot O); then per chunk
-    of slots [o0, o1) (slot O the agent's own) the rows of its agent slots
-    staged into a buffer of `chunk` rows, row o at o − o0, the disturbance
-    reset of its slots from there, and its outputs in flat order."""
+def stream_runs(first, last, span, threads=THREADS, unroll=UNROLL):
+    """stream_runs' runs (f, row, r) of [first, last), thread by thread and
+    round by round, as the kernel takes them: f0 = first + 4·tid +
+    4·threads·unroll·k, and its unroll runs f0 + 4·threads·u below
+    `last`, (row, r) advanced by additions (held to f's quotient and
+    remainder by span)."""
+    step = 4 * threads
+    step_rows, step_r = divmod(step, span)
+    for tid in range(threads):
+        row, r = divmod(first + 4 * tid, span)
+        for f0 in range(first + 4 * tid, last, step * unroll):
+            for u in range(unroll):
+                f = f0 + step * u
+                if f < last:
+                    assert (row, r) == divmod(f, span)
+                    yield f, row, r
+                row, r = row + step_rows, r + step_r
+                if r >= span:
+                    row, r = row + 1, r - span
+
+
+def twin_front_stream(cfg, sc, fleet, inp, order, valid, agents, threads=THREADS,
+                      unroll=UNROLL, parts=1):
+    """step_front_wide_kernel for `agents`, one at a time (the outputs of
+    the others stay 0): one pass over the slots (slot O the agent's own)
+    for each slot's kind, (position, velocity) and attributes, an agent
+    slot's disturbance reset from its source row; then the outputs as a
+    stream of runs of four (`stream_runs`, each element written once):
+    the attributes from the tables, and a slot's prediction by `copied`
+    (four floats of the source row: the shift or the last point held, or
+    in the sub-step the segments past the first) or element by element,
+    the predictions split over `parts` blocks (`part_range`)."""
     A, O, OA, M, N = inp.pos.shape[0], cfg.O, cfg.OA, cfg.M, cfg.n + 1
     N3, MN3 = 3 * N, M * 3 * N
     sub = np32(cfg.sub)
@@ -360,9 +433,13 @@ def twin_front_chunked(cfg, sc, fleet, inp, order, valid, chunk, agents):
                initial_ctrl=np.zeros((A, M, N, 3), F))
     zero = np.zeros(3, F)
     for a in agents:
-        kind, P, V = {}, {}, {}
+        kind, P, V = [KIND_CV] * (O + 1), [zero] * (O + 1), [zero] * (O + 1)
+        tables = dict(obs_valid=np.zeros(O, bool), obs_is_agent=np.zeros(O, bool),
+                      obs_radius=np.full(O, F(0.1)), obs_downwash=np.ones(O, F),
+                      obs_max_acc=np.zeros(O, F), obs_pos_now=np.zeros((O, 3), F),
+                      obs_goal=np.zeros((O, 3), F))
+        rows = [(prev[order[a, o]] if o < OA else prev[a]).reshape(-1) for o in range(O + 1)]
         for o in range(O + 1):
-            kind[o], P[o], V[o] = KIND_CV, zero, zero
             if o == O or o < OA:
                 r = order[a, o] if o < O else a
                 P[o] = pos[r]
@@ -373,42 +450,60 @@ def twin_front_chunked(cfg, sc, fleet, inp, order, valid, chunk, agents):
                 else:
                     kind[o] = KIND_ROW
                 if o < O:
-                    out["obs_valid"][a, o], out["obs_is_agent"][a, o] = valid[a, o], True
-                    out["obs_radius"][a, o], out["obs_downwash"][a, o] = radius[r], downwash[r]
-                    out["obs_pos_now"][a, o], out["obs_goal"][a, o] = pos[r], goal[r]
-            else:
-                kind[o] = KIND_PAD
-                out["obs_radius"][a, o], out["obs_downwash"][a, o] = F(0.1), F(1.0)
-        buf = np.zeros((chunk, MN3), F)
-        for o0 in range(0, O + 1, chunk):
-            o1 = min(o0 + chunk, O + 1)
-            for o in range(o0, o1):
-                if o < OA or o == O:
-                    buf[o - o0] = (prev[order[a, o]] if o < OA else prev[a]).reshape(-1)
-            for o in range(o0, min(o1, OA)):
-                if kind[o] == KIND_ROW:
-                    e = [_row_value(buf[o - o0], sub, N, MN3, d, 0, 0, d) - P[o][d]
-                         for d in range(3)]
+                    for name, v in (("obs_valid", valid[a, o]), ("obs_is_agent", True),
+                                    ("obs_radius", radius[r]), ("obs_downwash", downwash[r]),
+                                    ("obs_pos_now", pos[r]), ("obs_goal", goal[r])):
+                        tables[name][o] = v
+                if kind[o] == KIND_ROW and o < OA:
+                    e = [_row_value(rows[o], sub, N, MN3, d, 0, 0, d) - P[o][d] for d in range(3)]
                     if _norm(e) > sc["reset"]:
                         kind[o], V[o] = KIND_CV, zero
+            else:
+                kind[o] = KIND_PAD
 
-            def pred(o, r):
-                m = r // N3
-                i = (r - m * N3) // 3
-                d = r - m * N3 - 3 * i
-                if kind[o] == KIND_ROW:
-                    return _row_value(buf[o - o0], sub, N, MN3, r, m, i, d)
-                if kind[o] == KIND_CV:
-                    return P[o][d] + F(V[o][d] * tt[m * N + i])
-                return F(0)
+        def pred(o, r):
+            m = r // N3
+            i = (r - m * N3) // 3
+            d = r - m * N3 - 3 * i
+            if kind[o] == KIND_ROW:
+                return _row_value(rows[o], sub, N, MN3, r, m, i, d)
+            if kind[o] == KIND_CV:
+                return P[o][d] + F(V[o][d] * tt[m * N + i])
+            return F(0)
 
-            flat = out["obs_pred"][a].reshape(-1)
-            for f in range(o0 * MN3, min(o1, O) * MN3):
-                flat[f] = pred(f // MN3, f % MN3)
-            if o1 == O + 1:
-                flat = out["initial_ctrl"][a].reshape(-1)
-                for f in range(MN3):
-                    flat[f] = pred(O, f)
+        def copied(o, r):
+            if kind[o] != KIND_ROW or (sub is not None and r < N3):
+                return None
+            if sub is not None or r + 4 <= MN3 - N3:
+                at = r if sub is not None else r + N3
+                return rows[o][at:at + 4]
+            if r < MN3 - N3:  # straddles the last segment
+                return None
+            return [rows[o][MN3 - 3 + (r + q) % 3] for q in range(4)]  # its point held
+
+        def stream(flat, span, value, run, runs=unroll, n_parts=1):
+            written = np.zeros(flat.size, int)
+            runs_of = (run for part in range(n_parts)
+                       for run in stream_runs(*part_range(flat.size, part, n_parts), span,
+                                              threads, runs))
+            for f, row, r in runs_of:
+                v = run(row, r) if f + 4 <= flat.size and r + 4 <= span else None
+                if v is None:
+                    v = [value(*divmod(g, span)) for g in range(f, min(f + 4, flat.size))]
+                flat[f:f + len(v)] = v
+                written[f:f + len(v)] += 1
+            assert (written == 1).all()
+
+        for name, t in tables.items():
+            if t.dtype == bool:  # a byte a thread
+                out[name][a] = t
+            else:
+                flat = t.reshape(-1)
+                stream(out[name][a].reshape(-1), flat.size, lambda _, e: flat[e],
+                       lambda *_: None, 1)
+        stream(out["obs_pred"][a].reshape(-1), MN3, pred, copied, n_parts=parts)
+        stream(out["initial_ctrl"][a].reshape(-1), MN3, lambda _, r: pred(O, r),
+               lambda _, r: copied(O, r))
     return out
 
 
@@ -438,13 +533,18 @@ def wide_front_state(O, dim, substep=False, seed=0, device="cpu"):
     return planner, fleet, inp
 
 
-@pytest.mark.parametrize("O,dim,substep,chunks", [(65, 2, False, (0, 7)), (160, 3, False, (0, 33)),
-                                                   (70, 2, True, (0,))])
-def test_wide_front_twin_equals_plain(O, dim, substep, chunks):
-    """The wide prediction, its rows staged `chunk` slots at a time (0:
-    the kernel's own chunk, wide_chunk), equals the plain selection's
-    slots predicted by the plain body; and the fused wide build (the
-    radix selection, then the prediction) equals the plain fused entry."""
+@pytest.mark.parametrize("O,dim,substep,blocks", [
+    (65, 2, False, ((THREADS, UNROLL, front_parts(71)), (THREADS, UNROLL, 1), (7, 3, 5))),
+    (160, 3, False, ((THREADS, UNROLL, front_parts(166)), (THREADS, UNROLL, 1), (32, 1, 3))),
+    (70, 2, True, ((THREADS, UNROLL, front_parts(76)), (THREADS, UNROLL, 1)))])
+def test_wide_front_twin_equals_plain(O, dim, substep, blocks):
+    """The wide prediction, its outputs a stream of runs of four taken by
+    (threads, unroll, blocks an agent) of `blocks` (the first the kernel's
+    at this fleet's O + 6 agents on the H100's 132 SMs, the second the
+    kernel's on a fleet that fills the card; each element written once),
+    equals the plain selection's slots predicted by the plain body; and
+    the fused wide build (the radix selection, then the prediction)
+    equals the plain fused entry."""
     planner, fleet, inp = wide_front_state(O, dim, substep)
     cfg = planner.stage_cfg
     sc = stages.stage_scalars(cfg)
@@ -455,22 +555,28 @@ def test_wide_front_twin_equals_plain(O, dim, substep, chunks):
     np.testing.assert_array_equal(t_valid, valid.numpy())
     # agents with and without a plan, disturbed, moved off their plans
     agents = [0, 3, 5, 9, 10, O // 2, O + 5]
-    for chunk in chunks:
-        n = chunk or wide_chunk(cfg.M, cfg.n + 1, O, cfg.OA, cfg.mode == stages.MODE_LSC, True)
-        got = twin_front_chunked(cfg, sc, fleet, inp, order, valid, n, agents)
+    for threads, unroll, parts in blocks:
+        got = twin_front_stream(cfg, sc, fleet, inp, order, valid, agents, threads, unroll,
+                                parts)
         for field, v in got.items():
             assert_equal_by_value(v[agents], np32(getattr(want, field))[agents],
-                                  f"O={O} chunk {n} {field}")
-    assert chunks[0] == 0 and wide_chunk(cfg.M, cfg.n + 1, O, cfg.OA, True, True) <= O + 1
+                                  f"O={O} {threads}x{unroll}x{parts} {field}")
+    assert blocks[0] == (THREADS, UNROLL, front_parts(O + 6)) and front_parts(O + 6) > 1
 
 
-def test_wide_chunk_stages_160_slots_in_two():
-    """At 160 slots of M = 10, N = 6 (720 B a row) the rows take two
-    chunks of at most WIDE_ROW_BYTES; 80 slots at M = 12 (864 B a row, the
-    wide phase's shape) take one."""
-    assert wide_chunk(10, 6, 160, 160, True, True) == WIDE_ROW_BYTES // 720 == 91
-    assert wide_chunk(12, 6, 80, 80, True, True) == 75
-    assert wide_chunk(12, 6, 80, 80, False, True) == 81
+def test_wide_tables_fit_eight_blocks_an_sm():
+    """The wide prediction's shared memory: 8f's fused launch (1,024
+    agents, O = OA = 80, M = 12, N = 6) takes its tables (~62 B a slot)
+    and its selection (4 B a candidate) in 12,960 B, so 8 blocks an SM
+    fit (1 KB reserved a block: ≤ 28,160 B each) and its 1,024 blocks run
+    in one wave on 132 SMs; at 160 slots of 166 agents (M = 10) 15,728 B;
+    the prediction alone at 80 slots 5,440 B; and 4,000 slots of 5,000
+    agents pass the block's 227 KB (no build takes them)."""
+    assert 4 * wide_smem(12, 6, 80, 80, 1024, True) == 12960
+    assert 8 * (4 * wide_smem(12, 6, 80, 80, 1024, True) + 1024) <= 233472
+    assert 4 * wide_smem(10, 6, 160, 160, 166, True) == 15728
+    assert 4 * wide_smem(12, 6, 80, 80, 1024, False) == 5440
+    assert 4 * wide_smem(10, 6, 4000, 4000, 5000, True) > WIDE_LIMIT
 
 
 # ---- the wide builds on the card ---------------------------------------------
@@ -515,8 +621,8 @@ def test_wide_front_kernels_equal_plain_on_card(O, dim, substep):
     """O slots, every one an agent: the fused entry and the selection alone
     (wide builds: OA > 32), the prediction on its slots and on the
     gathered slots (the multi-device steps' entry; wide above 64 slots),
-    each one launch, equal to their plain bodies; the kernel's chunk of
-    staged slots is wide_chunk's."""
+    each one launch, equal to their plain bodies; the kernel's shared
+    memory a block is wide_smem's."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the stage kernels have no CPU mode")
     planner, fleet, inp = wide_front_state(O, dim, substep, device="cuda")
@@ -539,8 +645,11 @@ def test_wide_front_kernels_equal_plain_on_card(O, dim, substep):
     assert {k: v - before[k] for k, v in step_cuda.wide_launches.items()} == {
         "neighbor_slots": 1, "step_front": 2 * (O > 64), "front_with_neighbors": 1}
     lib = step_cuda.build()
-    assert lib.step_front_chunk(O, cfg.OA, cfg.M, cfg.n, cfg.mode, 1) == wide_chunk(
-        cfg.M, cfg.n + 1, O, cfg.OA, cfg.mode == stages.MODE_LSC, True)
+    A = inp.pos.shape[0]
+    if O > 64:
+        for select in (0, 1):
+            assert lib.step_front_smem_bytes(A, 1, O, cfg.OA, cfg.M, cfg.n, cfg.mode, select) \
+                == 4 * wide_smem(cfg.M, cfg.n + 1, O, cfg.OA, A, select)
 
 
 # ---- Bézier degree 8 on the card ---------------------------------------------
